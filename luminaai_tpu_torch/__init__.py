@@ -1,0 +1,17 @@
+"""PyTorch/CUDA port of luminaai_tpu, grown slice by slice beside it.
+
+This package imports torch, numpy and the standard library only: nothing
+of JAX and nothing of the luminaai_tpu package. Its layout mirrors
+luminaai_tpu so each counterpart is easy to find. Entry points run on the
+card (device=None means "cuda" and raises where no CUDA device exists);
+an explicit device="cpu" runs the plain PyTorch path, as the tests do.
+
+Ported so far: the serving path of the dense model (config, byte
+tokenizer, layers, transformer, slot-paged KV pool, StepwiseDecoder,
+ContinuousScheduler + HTTP server), with the ragged paged decode-attention
+kernel written in CUDA for Hopper (csrc/ragged_paged_attention.cu).
+"""
+
+from luminaai_tpu_torch.config import Config, ConfigPresets, resolve_device
+
+__all__ = ["Config", "ConfigPresets", "resolve_device"]
