@@ -6,17 +6,30 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero):
-  1. build   every CUDA kernel of the serving path from the checkout's
-             sources (one nvcc per source, started together);
-  2. kernels hold each kernel against its plain PyTorch version at the
-             serving slice's shapes, time kernel / plain / library call,
-             and compute the least time the card could take;
+  1. build   every CUDA kernel of the port from the checkout's sources
+             (one nvcc per source, started together);
+  2. kernels hold each kernel against its plain PyTorch version: the
+             decode kernel (B5) at the serving shapes, the flash-attention
+             forward and backward kernels (B1-B3) at the training shapes
+             (causal), a window-512 case, a non-causal case and a GQA
+             group of 1 at head_dim 64; time kernel / plain / library
+             call, and compute the least time the card could take;
   3. serve   the b1-width dense model (16 layers, hidden 2048, seeded
              weights) through the port's ContinuousScheduler +
              StepwiseDecoder behind its HTTP server: first-decode-step
              logits with the kernel vs the plain version, then concurrent
              POST /v1/generate requests; the kernel must have launched
              exactly decode steps x layers times.
+  4. train   the same widths through the port's Trainer (what `python -m
+             luminaai_tpu_torch train --preset b1 --dense --synthetic`
+             runs): batch 16 x 2048, accumulation 8, remat per block,
+             seeded fp32 weights, TRAIN_STEPS optimizer steps on the
+             synthetic batches. The first step's loss and grad norm with
+             the kernels vs the plain attention; every loss and grad norm
+             finite, the loss falling, and the kernels launched exactly
+             B1 = 2 x 16 x 8 per step (forward and its recompute),
+             B2 = B3 = 16 x 8 per step; step time, tokens/s, model-FLOPs
+             share and the card's busy time of one profiled step.
 
 Output: progress lines, the card's `nvidia-smi` name and power limit, one
 {"kernels": [...]} JSON line, and as the last line
@@ -28,8 +41,10 @@ JAX and nothing of the luminaai_tpu package.
 
 from __future__ import annotations
 
+import gc
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -42,6 +57,25 @@ from pathlib import Path
 # Serving slice shapes (the b1 preset: 16 q heads over 4 kv heads,
 # head_dim 128) and the pool the server runs (8 slots, 128-row pages).
 LANES, HQ, HKV, D, PAGE, PAGES = 8, 16, 4, 128, 128, 16
+# Training slice: micro-batch 2 x 2048 tokens at the same heads.
+MICRO, SEQ = 2, 2048
+TRAIN_STEPS = 6
+# Flash kernels vs plain versions, bf16 outputs (O, dQ, dK, dV): within
+# 2e-2 x max|plain|. bf16 keeps 8 significant bits; both sides round P
+# and dS to bf16, but the kernel rounds P against a running 64-column
+# maximum and the plain version against the row's maximum, and the fp32
+# sums run in other orders. lse is fp32 on both sides from the same fp32
+# scores: within 1e-4 absolute.
+FLASH_REL_TOL = 2e-2
+LSE_TOL = 1e-4
+# First optimizer step, flash kernels vs the plain attention (which rounds
+# the scores to bf16 before its fp32 softmax, as the JAX _xla_attention
+# does, where the kernels keep fp32 scores): the mean loss within 1e-2
+# relative (the loss at a random init is ~ln(V) and moves little with the
+# attention's rounding), the pre-clip grad norm within 5e-2 relative (the
+# gradients run back through 16 bf16 layers of that rounding).
+LOSS_RTOL = 1e-2
+GRAD_NORM_RTOL = 5e-2
 # Kernel vs plain version, bf16: bf16 keeps 8 significant bits; the kernel
 # keeps fp32 scores and rounds the unnormalised P to bf16, the plain
 # version rounds the scores and the normalised P, so outputs (|out| <=
@@ -203,6 +237,173 @@ def phase_kernels(dev) -> dict:
                    "page_size": PAGE, "pages": PAGES,
                    "lengths": [int(x) for x in lengths.tolist()]},
     }
+
+
+def _band_pairs(s: int, causal: bool, window: int) -> int:
+    """(q, k) pairs inside the attention band of one (batch, head)."""
+    if not causal:
+        return s * s
+    return sum(q - (max(0, q - window + 1) if window else 0) + 1
+               for q in range(s))
+
+
+def phase_flash_kernels(dev) -> list:
+    """B1-B3 vs their plain versions (bf16) at the training shapes and
+    three variants; timings, library yardstick and bound at the training
+    shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from luminaai_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def inputs(b, s, hq, hkv, d):
+        q, k, v, do = (randn(*shape) for shape in (
+            (b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, hq, d)))
+        g_lse = torch.randn(b, hq, s, generator=gen, device=dev)
+        return q, k, v, do, g_lse
+
+    def rel(got, want):
+        return ((got.float() - want.float()).abs().max()
+                / want.float().abs().max()).item()
+
+    cases = {
+        # name: (B, S, Hq, Hkv, D, causal, window)
+        "train": (MICRO, SEQ, HQ, HKV, D, True, 0),
+        "window512": (MICRO, SEQ, HQ, HKV, D, True, 512),
+        "noncausal": (1, 1024, HQ, HKV, D, False, 0),
+        "group1_d64": (MICRO, 1024, 8, 8, 64, True, 0),
+    }
+    abs_err = {"B1": 0.0, "B2": 0.0, "B3": 0.0}
+    for name, (b, s, hq, hkv, d, causal, window) in cases.items():
+        q, k, v, do, g_lse = inputs(b, s, hq, hkv, d)
+        args = dict(scale=d ** -0.5, causal=causal, window=window)
+        o, lse = fa.flash_fwd(q, k, v, **args)
+        o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, **args)
+        delta = ((do.float() * o_ref.float()).sum(-1).transpose(1, 2)
+                 - g_lse).contiguous()
+        dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, **args)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, **args)
+        dq_ref = fa.flash_bwd_dq_ref(q, k, v, do, lse_ref, delta, **args)
+        dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, do, lse_ref, delta,
+                                              **args)
+        torch.cuda.synchronize()
+        pairs = {"o": (o, o_ref), "dq": (dq, dq_ref), "dk": (dk, dk_ref),
+                 "dv": (dv, dv_ref)}
+        for t, _ in pairs.values():
+            if not torch.isfinite(t.float()).all():
+                raise AssertionError(f"flash kernel output not finite "
+                                     f"({name})")
+        errs = {key: rel(a, b_) for key, (a, b_) in pairs.items()}
+        lse_err = (lse - lse_ref).abs().max().item()
+        for kern, keys in (("B1", ("o",)), ("B2", ("dq",)),
+                           ("B3", ("dk", "dv"))):
+            for key in keys:
+                a, b_ = pairs[key]
+                abs_err[kern] = max(abs_err[kern], (
+                    a.float() - b_.float()).abs().max().item())
+        log(f"flash kernels vs plain [{name}: B{b} S{s} Hq{hq} Hkv{hkv} "
+            f"D{d}{' causal' if causal else ''}"
+            f"{f' window {window}' if window else ''}]: rel err "
+            + ", ".join(f"{key} {e:.3e}" for key, e in errs.items())
+            + f"; lse abs err {lse_err:.3e} (tol {FLASH_REL_TOL} x max, "
+            f"lse {LSE_TOL})")
+        if max(errs.values()) > FLASH_REL_TOL or lse_err > LSE_TOL:
+            raise AssertionError(f"flash kernels disagree with plain "
+                                 f"({name})")
+        del o, o_ref, dq, dq_ref, dk, dk_ref, dv, dv_ref, pairs
+        torch.cuda.empty_cache()
+
+    # Timing at the training shapes (causal, no window).
+    b, s, hq, hkv, d = MICRO, SEQ, HQ, HKV, D
+    q, k, v, do, _ = inputs(b, s, hq, hkv, d)
+    args = dict(scale=d ** -0.5, causal=True, window=0)
+    o, lse = fa.flash_fwd_ref(q, k, v, **args)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    ms = {
+        "B1": cuda_ms(lambda: fa.flash_fwd(q, k, v, **args), 50),
+        "B2": cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta,
+                                              **args), 50),
+        "B3": cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                               **args), 50),
+    }
+    plain_ms = {
+        "B1": cuda_ms(lambda: fa.flash_fwd_ref(q, k, v, **args), 5, 1),
+        "B2": cuda_ms(lambda: fa.flash_bwd_dq_ref(q, k, v, do, lse, delta,
+                                                  **args), 5, 1),
+        "B3": cuda_ms(lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                   **args), 5, 1),
+    }
+    # Library yardstick (never called by the port): SDPA forward, and its
+    # backward (dQ, dK and dV in one call) for B2 and B3 together.
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    with torch.no_grad():
+        lib_fwd = cuda_ms(sdpa, 50)
+    out = sdpa()
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 50)
+    lib_err = (out.detach().transpose(1, 2).float() - o.float()
+               ).abs().max().item()
+    del out, qt, kt, vt, dot
+
+    pairs = b * hq * _band_pairs(s, True, 0)
+    act = b * s * hq * d * 2         # q, o, do or dq, bf16
+    kv = b * s * hkv * d * 2         # k or v, bf16
+    stat = b * hq * s * 4            # lse or delta, fp32
+    work = {  # (flops, bytes): each input read once, each output written once
+        "B1": (4 * d * pairs, act + 2 * kv + act + stat),
+        "B2": (6 * d * pairs, 2 * act + 2 * kv + 2 * stat + act),
+        "B3": (8 * d * pairs, 2 * act + 2 * kv + 2 * stat + 2 * kv),
+    }
+    meta = {
+        "B1": ("flash_fwd", "luminaai_tpu/ops/flash_attention.py:99",
+               "_fwd_kernel", lib_fwd),
+        "B2": ("flash_bwd_dq", "luminaai_tpu/ops/flash_attention.py:205",
+               "_bwd_dq_kernel", lib_bwd),
+        "B3": ("flash_bwd_dkv", "luminaai_tpu/ops/flash_attention.py:248",
+               "_bwd_dkv_kernel", lib_bwd),
+    }
+    entries = []
+    for kern, (name, replaces, tpu_kernel, lib_ms) in meta.items():
+        flops, nbytes = work[kern]
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = flops / H100_BF16_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        log(f"{kern} {name}: kernel {ms[kern]:.4f} ms, plain "
+            f"{plain_ms[kern]:.4f} ms, library (SDPA "
+            f"{'fwd' if kern == 'B1' else 'bwd'}) {lib_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} "
+            f"MB; {100 * bound / ms[kern]:.1f}% of bound)")
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "luminaai_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces,
+            "tpu_kernel": tpu_kernel,
+            "launches": None,  # filled from the training run
+            "max_abs_err": abs_err[kern],
+            "ms": ms[kern],
+            "plain_ms": plain_ms[kern],
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms,
+            "shapes": {"batch": b, "seq": s, "hq": hq, "hkv": hkv,
+                       "head_dim": d, "causal": True},
+        })
+    log(f"SDPA forward vs plain B1 output: max abs diff {lib_err:.3e}")
+    return entries
 
 
 def profile_decode(dec, steps: int = 5) -> None:
@@ -371,6 +572,149 @@ def phase_serve(dev, entry: dict) -> dict:
             "tokens_per_s": tokens / wall, "latency_max_s": lat[-1]}
 
 
+def _model_flops_per_step(cfg, n_params: int) -> float:
+    """Model FLOPs of one optimizer step (no recompute counted): 3 x the
+    forward's 2 x (matmul parameters) per token, with the tied head's
+    V x H counted once for the head and the embedding lookup free, plus
+    3 x 4 x D flops per attended (q, k) pair per layer and q head."""
+    tokens = cfg.batch_size * cfg.seq_length
+    # Norm scales are not matmul parameters: two per layer and the final.
+    matmul_params = n_params - cfg.hidden_size * (2 * cfg.num_layers + 1)
+    pairs = (cfg.batch_size * cfg.num_heads
+             * _band_pairs(cfg.seq_length, True, cfg.attention_window or 0))
+    return 3 * (2 * matmul_params * tokens
+                + 4 * cfg.head_dim() * pairs * cfg.num_layers)
+
+
+def profile_train_step(trainer, batch) -> dict:
+    """Card busy time and top kernels of one optimizer step, from
+    torch.profiler (CUPTI); "not measured" when it records no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.state, _ = trainer.train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [
+        (e.key, e.self_device_time_total / 1e3, e.count)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and e.self_device_time_total > 0
+    ]
+    busy_ms = sum(ms for _, ms, _ in kernels)
+    if busy_ms <= 0:
+        log(f"profiled train step: host wall {wall_ms:.1f} ms; device time "
+            "not measured (the profiler recorded no device events)")
+        return {"profiled_wall_ms": wall_ms, "device_busy_ms": None}
+    kernels.sort(key=lambda r: -r[1])
+    log(f"profiled train step (under the profiler): host wall "
+        f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%), "
+        f"{sum(n for _, _, n in kernels)} kernel launches")
+    for name, ms, n in kernels[:10]:
+        log(f"  {ms:9.3f} ms  x{n:<5d} {name[:90]}")
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "top_kernels": [[name[:90], ms, n]
+                            for name, ms, n in kernels[:10]]}
+
+
+def phase_train(dev, entries: list) -> dict:
+    import torch
+
+    from luminaai_tpu_torch import cli
+    from luminaai_tpu_torch.config import ConfigPresets
+    from luminaai_tpu_torch.ops import flash_attention as fa
+    from luminaai_tpu_torch.ops.fused import global_norm
+    from luminaai_tpu_torch.parallel import train_step as ts
+    from luminaai_tpu_torch.training.trainer import Trainer
+
+    cfg = ConfigPresets.get("b1", use_moe=False, max_steps=TRAIN_STEPS)
+    accum = cfg.gradient_accumulation_steps
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, cli._synthetic_batches(cfg), device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in trainer.state.params)
+    log(f"trainer: b1 dense, {cfg.num_layers} layers, hidden "
+        f"{cfg.hidden_size}, {n_params / 1e6:.1f}M fp32 params, batch "
+        f"{cfg.batch_size} x {cfg.seq_length}, accumulation {accum}, "
+        f"remat {cfg.remat_policy}, built in {time.perf_counter() - t0:.1f}s")
+
+    # The first step's batch through the plain attention (no kernel), for
+    # the comparison with the trainer's first step below.
+    first = trainer._to_device(next(iter(cli._synthetic_batches(cfg)())))
+    cfg.use_flash_attention = False
+    grads, m = ts._accumulate_grads(
+        ts.make_loss_fn(cfg, trainer.model), trainer.state.params, first,
+        None, accum)
+    plain_loss, plain_norm = float(m["loss"]), float(global_norm(grads))
+    cfg.use_flash_attention = True
+    del grads, m
+    torch.cuda.empty_cache()
+
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    summary = trainer.train()
+    launches = {"B1": fa.flash_fwd.launches, "B2": fa.flash_bwd_dq.launches,
+                "B3": fa.flash_bwd_dkv.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    hist = summary["history"]
+    for i, h in enumerate(hist, 1):
+        log(f"  step {i}: loss {h['loss']:.4f} grad_norm "
+            f"{h['grad_norm']:.4f} lr {h['learning_rate']:.3e} "
+            f"{h['step_seconds'] * 1e3:.1f} ms "
+            f"{h['tokens_per_sec']:.0f} tok/s")
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    if len(hist) != TRAIN_STEPS or not all(
+            map(math.isfinite, losses + norms)):
+        raise AssertionError(f"bad training run: {losses} {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    loss_err = abs(hist[0]["loss"] - plain_loss) / abs(plain_loss)
+    norm_err = abs(hist[0]["grad_norm"] - plain_norm) / abs(plain_norm)
+    log(f"first step, kernels vs plain attention: loss {hist[0]['loss']:.5f}"
+        f" vs {plain_loss:.5f} (rel {loss_err:.2e}, tol {LOSS_RTOL}), "
+        f"grad_norm {hist[0]['grad_norm']:.5f} vs {plain_norm:.5f} (rel "
+        f"{norm_err:.2e}, tol {GRAD_NORM_RTOL})")
+    if loss_err > LOSS_RTOL or norm_err > GRAD_NORM_RTOL:
+        raise AssertionError("the kernels' first step disagrees with the "
+                             "plain attention's")
+    per_step = cfg.num_layers * accum
+    want = {"B1": 2 * per_step * TRAIN_STEPS, "B2": per_step * TRAIN_STEPS,
+            "B3": per_step * TRAIN_STEPS}
+    log(f"flash kernel launches during training: {launches} (want {want}: "
+        f"{cfg.num_layers} layers x {accum} micro-batches x {TRAIN_STEPS} "
+        f"steps, B1 twice for the remat recompute)")
+    if launches != want:
+        raise AssertionError("the training path did not run through the "
+                             "flash kernels as expected")
+    for e, kern in zip(entries, ("B1", "B2", "B3")):
+        e["launches"] = launches[kern]
+        e["launches_per_step"] = launches[kern] // TRAIN_STEPS
+
+    steady = [h["step_seconds"] for h in hist[1:]]
+    step_s = statistics.median(steady)
+    tokens = cfg.batch_size * cfg.seq_length
+    flops = _model_flops_per_step(cfg, n_params)
+    mfu = flops / step_s / H100_BF16_FLOPS
+    log(f"train step (steps 2-{TRAIN_STEPS}, median): host wall "
+        f"{step_s * 1e3:.1f} ms, {tokens / step_s:.0f} tokens/s, model "
+        f"FLOPs {flops / 1e12:.1f} TFLOP/step = {100 * mfu:.2f}% of "
+        f"989 TFLOP/s; peak memory allocated {peak_gb:.2f} GB")
+    prof = profile_train_step(trainer, first)
+    return {"steps": TRAIN_STEPS, "losses": losses, "grad_norms": norms,
+            "step_ms_median": step_s * 1e3,
+            "tokens_per_s": tokens / step_s, "mfu": mfu,
+            "peak_memory_gb": peak_gb, "first_step_loss_plain": plain_loss,
+            "first_step_grad_norm_plain": plain_norm, **prof}
+
+
 def main() -> int:
     repo = Path(__file__).resolve().parent
     if not (repo / "luminaai_tpu_torch" / "__init__.py").exists():
@@ -394,8 +738,13 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     entry = phase_kernels(dev)
+    flash_entries = phase_flash_kernels(dev)
     serve = phase_serve(dev, entry)
-    log(f"all phases passed in {time.perf_counter() - t0:.1f}s: {serve}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(dev, flash_entries)
+    log(f"all phases passed in {time.perf_counter() - t0:.1f}s: "
+        f"serve {serve}; train {json.dumps(train)}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -404,7 +753,7 @@ def main() -> int:
     )
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
           else f"nvidia-smi unavailable: {smi.stderr.strip()}")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, *flash_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

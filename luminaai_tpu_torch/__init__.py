@@ -9,7 +9,11 @@ an explicit device="cpu" runs the plain PyTorch path, as the tests do.
 Ported so far: the serving path of the dense model (config, byte
 tokenizer, layers, transformer, slot-paged KV pool, StepwiseDecoder,
 ContinuousScheduler + HTTP server), with the ragged paged decode-attention
-kernel written in CUDA for Hopper (csrc/ragged_paged_attention.cu).
+kernel written in CUDA for Hopper (csrc/ragged_paged_attention.cu); and
+its training path (fused LM-head cross-entropy, AdamW with the JAX
+schedules, the accumulating train step, a trimmed Trainer, `train` on the
+CLI), with the flash-attention forward and backward kernels written in
+CUDA for Hopper (csrc/flash_attention.cu).
 """
 
 from luminaai_tpu_torch.config import Config, ConfigPresets, resolve_device

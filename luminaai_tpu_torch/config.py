@@ -1,11 +1,15 @@
 """Configuration for the PyTorch/CUDA port (trimmed copy of luminaai_tpu/config.py).
 
-The port keeps its own copy of the fields its serving slice reads, with the
-JAX package's defaults and validation, so a `Config` built with the same
-keyword arguments describes the same model on both sides. Fields for
-parallelism, training runtime, monitoring and MoE routing stay in the JAX
+The port keeps its own copy of the fields its serving and training slices
+read, with the JAX package's defaults and validation, so a `Config` built
+with the same keyword arguments describes the same model and the same
+training run on both sides. Fields for parallelism, the training runtime
+(checkpoints, monitoring, orchestration) and MoE routing stay in the JAX
 package until the slices that need them are ported; `use_moe=True` is kept
 as a field (the presets set it) and refused where a model is built.
+Training values the port does not run yet are accepted here, as the JAX
+package accepts them, and refused where a trainer is built
+(parallel/train_step.py `check_trainable`).
 """
 
 from __future__ import annotations
@@ -17,6 +21,10 @@ from typing import Any, List, Optional
 import torch
 
 PRECISIONS = ("auto", "fp32", "bf16", "mixed_bf16", "fp16", "mixed_fp16")
+LR_SCHEDULES = ("cosine", "linear", "constant", "wsd")
+REMAT_POLICY_NAMES = (
+    "nothing_saveable", "save_outs", "save_attn", "dots_saveable", "full",
+)
 
 
 @dataclass
@@ -33,7 +41,14 @@ class Config:
     intermediate_size: Optional[int] = None  # auto: 8/3 * hidden, rounded
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
+    dropout: float = 0.0
     init_std: float = 0.02
+    # Flash attention on the no-cache (training) forward. flash_block_q/kv
+    # only feed the eligibility gate (ops/flash_attention.flash_eligible),
+    # as in the JAX package; the card's kernels use their own tiles.
+    use_flash_attention: bool = True
+    flash_block_q: int = 1024
+    flash_block_kv: int = 1024
     # RoPE rotation math: 'fp32' (exact tables) or 'bf16' (rotation in the
     # compute dtype; only the products round differently).
     rope_dtype: str = "fp32"
@@ -48,8 +63,34 @@ class Config:
     # --- MoE (the presets set it, as the JAX presets do; not ported) ---
     use_moe: bool = False
 
-    # --- Precision ---
+    # --- Training ---
+    batch_size: int = 8  # sequences per optimizer step
+    gradient_accumulation_steps: int = 1
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.01
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip_norm: float = 1.0
+    max_steps: Optional[int] = None
+    warmup_ratio: float = 0.15
+    lr_scheduler: str = "cosine"
+    use_lr_scheduler: bool = True
+    min_lr: float = 1e-6
     precision: str = "auto"  # auto|fp32|bf16|mixed_bf16|fp16|mixed_fp16
+    gradient_checkpointing: bool = True
+    # nothing_saveable = recompute each block in the backward (the port's
+    # torch.utils.checkpoint per block); full = no recomputation. The
+    # other JAX policies are accepted and refused by the trainer.
+    remat_policy: str = "nothing_saveable"
+    adam_mu_dtype: Optional[str] = None  # None = fp32; 'bf16' not ported
+    adam_state_quantization: Optional[str] = None  # 'int8' not ported
+    z_loss_weight: float = 0.0
+    label_smoothing: float = 0.0
+    # LM head fused into the CE loss, chunked over the sequence: [B, S, V]
+    # logits never exist (ops/fused.py).
+    fused_lm_head_ce: bool = True
+    loss_chunk_size: int = 256
 
     # --- Generation ---
     max_new_tokens: int = 512
@@ -87,6 +128,23 @@ class Config:
                 f"attention_window must be positive, got "
                 f"{self.attention_window}"
             )
+        if self.lr_scheduler not in LR_SCHEDULES:
+            raise ValueError(f"invalid lr_scheduler {self.lr_scheduler}")
+        if self.loss_chunk_size <= 0:
+            raise ValueError("loss_chunk_size must be positive")
+        if self.remat_policy not in REMAT_POLICY_NAMES:
+            raise ValueError(f"invalid remat_policy {self.remat_policy}")
+        if self.adam_mu_dtype not in (None, "bf16"):
+            raise ValueError(f"invalid adam_mu_dtype {self.adam_mu_dtype}")
+        if self.adam_state_quantization not in (None, "int8"):
+            raise ValueError(
+                f"invalid adam_state_quantization "
+                f"{self.adam_state_quantization}"
+            )
+        if self.adam_state_quantization and self.adam_mu_dtype:
+            raise ValueError(
+                "adam_state_quantization supersedes adam_mu_dtype; set one"
+            )
 
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
@@ -110,9 +168,9 @@ class Config:
 
 
 class ConfigPresets:
-    """The JAX package's presets that the port's slice serves. Each keeps
-    the JAX preset's architecture fields; pass `use_moe=False` (the CLI's
-    `--dense`) to serve the dense model at the preset's widths."""
+    """The JAX package's presets that the port runs. Each keeps the JAX
+    preset's architecture and training fields; pass `use_moe=False` (the
+    CLI's `--dense`) for the dense model at the preset's widths."""
 
     @staticmethod
     def debug() -> Config:
@@ -124,6 +182,10 @@ class ConfigPresets:
             num_kv_heads=1,
             seq_length=256,
             intermediate_size=256,
+            batch_size=2,
+            gradient_accumulation_steps=2,
+            learning_rate=5e-5,
+            gradient_checkpointing=False,
             use_moe=True,
         )
 
@@ -136,6 +198,7 @@ class ConfigPresets:
             num_heads=4,
             num_kv_heads=2,
             seq_length=1024,
+            batch_size=16,
             use_moe=True,
         )
 
@@ -148,6 +211,12 @@ class ConfigPresets:
             num_heads=16,
             num_kv_heads=4,
             seq_length=2048,
+            # The JAX preset's batch 128 (accumulation 8) runs over
+            # fsdp_parallel_size=8 chips; the port trains on one card, so
+            # it takes one chip's share: 16 sequences, accumulation 8
+            # (micro-batch 2 x 2048 tokens), the same per-chip work.
+            batch_size=16,
+            gradient_accumulation_steps=8,
             use_moe=True,
         )
 

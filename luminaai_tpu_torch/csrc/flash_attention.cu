@@ -1,0 +1,675 @@
+// Flash attention forward and backward for Hopper (sm_90a): B1, B2, B3.
+//
+// Replaces the TPU kernels of luminaai_tpu/ops/flash_attention.py:
+//   B1 `_fwd_kernel`      (pallas_call in `_fwd`)  -> flash_fwd_kernel
+//   B2 `_bwd_dq_kernel`   (pallas_call in `_bwd`)  -> flash_bwd_dq_kernel
+//   B3 `_bwd_dkv_kernel`  (pallas_call in `_bwd`)  -> flash_bwd_dkv_kernel
+// They compute the same functions: GQA attention, causal or not, with an
+// optional sliding-window band; fp32 scores and an online softmax; P
+// rounded to bf16 before P.V and P^T.dO; dS = P*(dP - delta)*scale rounded
+// to bf16 before dS.K and dS^T.Q; a zero row sum gives output 0 (safe_l).
+// lse is written compact, [B, Hq, Sq] fp32 (the TPU's 128-lane replication
+// of the row statistics is a tiling artifact and is not carried over).
+//
+// Layouts (contiguous): q, dq, o, do [B, Sq, Hq, D] bf16; k, v, dk, dv
+// [B, Skv, Hkv, D] bf16; lse, delta [B, Hq, Sq] fp32. delta is
+// rowsum(dO * O) minus the lse cotangent, computed by the caller.
+//
+// Products. Every matrix product is a warp-level mma.sync m16n8k16 (bf16
+// in, fp32 accumulate). Each warp owns 16 rows of its output; the
+// accumulators stay in registers in the instruction's documented fragment
+// layout (thread lane holds rows lane/4 and lane/4 + 8, columns
+// 2*(lane%4) + {0, 1} of each 8-column tile), so the softmax statistics of
+// a row live in the 4 threads of a quad and P / dS go from the score
+// accumulators straight into A fragments without touching shared memory.
+// Tiles are staged in shared memory with 16-byte loads; rows are padded by
+// 8 bf16 so the fragment loads are free of bank conflicts.
+//
+// B1 (forward) and B2 (dQ): one block of 8 warps per (batch, kv head, q
+// tile). The block holds 128 (q head, position) rows: the GQA group's G q
+// heads times 128/G positions, so each K/V tile staged in shared memory
+// serves the whole group (the TPU grid ran one q head per step and
+// fetched each K/V block once per q head). The loop over 64-row K/V tiles
+// inside the block stands in for the TPU's sequential kv grid axis; it
+// starts at the window's band (the TPU's _kv_block_offset) and stops at
+// the diagonal (the TPU's _block_needed), and each element is masked as
+// the TPU's _band_mask does.
+// B3 (dK, dV): one block of 4 warps per (batch, kv head, 64-row kv tile);
+// the block loops over the group's q heads and, from the diagonal on,
+// over the band's 32-row q tiles, accumulating dK and dV in fp32
+// registers, so the GQA group is reduced in the kernel (no [B, Hq, S, D]
+// fp32 buffer, no atomics; the TPU path wrote per-q-head fp32 dK/dV and
+// summed the group afterwards).
+//
+// Bound. At the training shapes (q [2, 2048, 16, 128], k/v [2, 2048, 4,
+// 128], causal) each kernel is bound by operations, not bytes: B1 does
+// 4*B*Hq*D*(S^2/2) flops (~34 GFLOP, ~0.035 ms at 989 TFLOP/s bf16) over
+// ~42 MB (~0.013 ms at 3.35 TB/s); B2 does 6*B*Hq*D*(S^2/2) (~52 GFLOP) and
+// B3 8*B*Hq*D*(S^2/2) (~69 GFLOP). These kernels use mma.sync, which on
+// Hopper reaches well under half of the wgmma peak, and load tiles
+// synchronously (no cp.async/TMA pipeline); wgmma with a TMA-fed ring of
+// tiles and warp specialisation is the later redesign that approaches it.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 8;                // B1, B2
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = kWarps * 16;       // (q head, position) rows per block
+constexpr int kTileKv = 64;              // K/V rows per tile (B1, B2)
+constexpr int kWarps3 = 4;               // B3
+constexpr int kThreads3 = kWarps3 * 32;
+constexpr int kTileKv3 = kWarps3 * 16;   // kv rows per B3 block
+constexpr int kTileQ3 = 32;              // q rows per B3 loop step
+constexpr int kPad = 8;                  // bf16 padding per shared row
+constexpr float kNegInf = -1e30f;        // the TPU kernels' NEG_INF
+
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  __nv_bfloat162 v;
+  v.x = lo;
+  v.y = hi;
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// c += A(16x16, row) * B(16x8, col), bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma(float (&c)[4], uint32_t a0, uint32_t a1,
+                                    uint32_t a2, uint32_t a3, uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// A fragment of the 16 rows at `rows` (row stride ld), k columns
+// [16*kk, 16*kk + 16).
+struct AFrag {
+  uint32_t r[4];
+};
+
+__device__ __forceinline__ AFrag a_rows(const bf16* rows, int ld, int kk, int lane) {
+  const int g = lane >> 2, c = kk * 16 + 2 * (lane & 3);
+  AFrag f;
+  f.r[0] = ld32(rows + g * ld + c);
+  f.r[1] = ld32(rows + (g + 8) * ld + c);
+  f.r[2] = ld32(rows + g * ld + c + 8);
+  f.r[3] = ld32(rows + (g + 8) * ld + c + 8);
+  return f;
+}
+
+// A fragment from fp32 accumulators of two neighbouring 8-column tiles
+// (lo = columns [16j, 16j+8), hi = [16j+8, 16j+16)), rounded to bf16.
+__device__ __forceinline__ AFrag a_acc(const float (&lo)[4], const float (&hi)[4]) {
+  AFrag f;
+  f.r[0] = pack_f32(lo[0], lo[1]);
+  f.r[1] = pack_f32(lo[2], lo[3]);
+  f.r[2] = pack_f32(hi[0], hi[1]);
+  f.r[3] = pack_f32(hi[2], hi[3]);
+  return f;
+}
+
+// B fragment B[k][n] = M[n][k] for M's rows [8*nt, 8*nt + 8) (n) and
+// columns [16*kk, 16*kk + 16) (k): K in Q.K^T, V in dO.V^T.
+__device__ __forceinline__ void b_rows(const bf16* m, int ld, int nt, int kk, int lane,
+                                       uint32_t& b0, uint32_t& b1) {
+  const bf16* p = m + (nt * 8 + (lane >> 2)) * ld + kk * 16 + 2 * (lane & 3);
+  b0 = ld32(p);
+  b1 = ld32(p + 8);
+}
+
+// B fragment B[k][n] = M[k][n] for M's rows [16*kk, 16*kk + 16) (k) and
+// columns [8*nt, 8*nt + 8) (n): V in P.V, K in dS.K.
+__device__ __forceinline__ void b_cols(const bf16* m, int ld, int kk, int nt, int lane,
+                                       uint32_t& b0, uint32_t& b1) {
+  const bf16* p = m + (kk * 16 + 2 * (lane & 3)) * ld + nt * 8 + (lane >> 2);
+  b0 = pack_bf16(p[0], p[ld]);
+  b1 = pack_bf16(p[8 * ld], p[9 * ld]);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ bool in_band(int qpos, int kpos, int causal, int window) {
+  if (!causal) return true;
+  return qpos >= kpos && (window <= 0 || qpos - kpos < window);
+}
+
+// Copy `rows` rows of D bf16 (source row stride src_ld elements) into
+// shared memory rows of stride D + kPad, 16 bytes per thread per step.
+template <int D>
+__device__ __forceinline__ void stage(bf16* dst, const bf16* src, size_t src_ld, int rows,
+                                      int tid, int nthreads) {
+  constexpr int kChunks = D / 8;
+  for (int c = tid; c < rows * kChunks; c += nthreads) {
+    const int r = c / kChunks, cc = c - r * kChunks;
+    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + cc * 8) =
+        *reinterpret_cast<const uint4*>(src + r * src_ld + cc * 8);
+  }
+}
+
+// Stage the block's 128 (q head, position) rows of a [B, Sq, Hq, D] tensor:
+// shared row r holds head hk*G + r / rph at position q0 + r % rph.
+template <int D>
+__device__ __forceinline__ void stage_group(bf16* dst, const bf16* src, int b, int Sq,
+                                            int Hq, int hk, int G, int q0, int tid) {
+  constexpr int kChunks = D / 8;
+  const int rph = kRows / G;
+  for (int c = tid; c < kRows * kChunks; c += kThreads) {
+    const int r = c / kChunks, cc = c - r * kChunks;
+    const int h = hk * G + r / rph, pos = q0 + r % rph;
+    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + cc * 8) =
+        *reinterpret_cast<const uint4*>(src + ((static_cast<size_t>(b) * Sq + pos) * Hq + h) * D +
+                                        cc * 8);
+  }
+}
+
+// Range [begin, end) of K/V rows a q tile [qlo, qhi] needs, begin aligned
+// to the kv tile.
+__device__ __forceinline__ void kv_range(int qlo, int qhi, int Skv, int causal, int window,
+                                         int& begin, int& end) {
+  end = causal ? min(Skv, qhi + 1) : Skv;
+  begin = (causal && window > 0) ? max(0, qlo - window + 1) : 0;
+  begin = (begin / kTileKv) * kTileKv;
+}
+
+// ---------------------------------------------------------------------------
+// B1: forward
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                 int Sq, int Skv, int Hq, int Hkv, int causal, int window, float scale) {
+  constexpr int LD = D + kPad;
+  extern __shared__ uint4 smem_u4[];
+  bf16* q_sm = reinterpret_cast<bf16*>(smem_u4);  // [kRows][LD]
+  bf16* k_sm = q_sm + kRows * LD;                  // [kTileKv][LD]
+  bf16* v_sm = k_sm + kTileKv * LD;                // [kTileKv][LD]
+
+  const int G = Hq / Hkv, rph = kRows / G;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * rph;  // longest causal tiles first
+  const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int warps_per_head = kWarps / G;
+  const int gi = warp / warps_per_head;
+  const int wr = (warp % warps_per_head) * 16;  // first position of the warp
+  const int hq = hk * G + gi;
+  const int qpos[2] = {q0 + wr + g, q0 + wr + g + 8};
+  const bf16* q_w = q_sm + (gi * rph + wr) * LD;
+
+  stage_group<D>(q_sm, q, b, Sq, Hq, hk, G, q0, tid);
+
+  int kv_begin, kv_end;
+  kv_range(q0, q0 + rph - 1, Skv, causal, window, kv_begin, kv_end);
+  const size_t kv_ld = static_cast<size_t>(Hkv) * D;
+  const bf16* k_bh = k + (static_cast<size_t>(b) * Skv * Hkv + hk) * D;
+  const bf16* v_bh = v + (static_cast<size_t>(b) * Skv * Hkv + hk) * D;
+
+  float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += kTileKv) {
+    __syncthreads();  // the previous tile is consumed
+    stage<D>(k_sm, k_bh + kv0 * kv_ld, kv_ld, kTileKv, tid, kThreads);
+    stage<D>(v_sm, v_bh + kv0 * kv_ld, kv_ld, kTileKv, tid, kThreads);
+    __syncthreads();
+
+    // S = Q K^T for the warp's 16 rows x 64 kv columns.
+    float s[kTileKv / 8][4];
+#pragma unroll
+    for (int n = 0; n < kTileKv / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const AFrag a = a_rows(q_w, LD, kk, lane);
+#pragma unroll
+      for (int n = 0; n < kTileKv / 8; ++n) {
+        uint32_t b0, b1;
+        b_rows(k_sm, LD, n, kk, lane, b0, b1);
+        mma(s[n], a.r[0], a.r[1], a.r[2], a.r[3], b0, b1);
+      }
+    }
+
+    // Scale, mask, online softmax update.
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < kTileKv / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = kv0 + n * 8 + 2 * t + (e & 1);
+        float x = s[n][e] * scale;
+        if (!in_band(qpos[e >> 1], kpos, causal, window)) x = kNegInf;
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m_i[r], quad_max(mx[r]));
+      alpha[r] = expf(m_i[r] - m_new);
+      m_i[r] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < kTileKv / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[n][e] - m_i[e >> 1]);
+        s[n][e] = p;
+        sum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_i[r] = l_i[r] * alpha[r] + quad_sum(sum[r]);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+
+    // acc += bf16(P) V.
+#pragma unroll
+    for (int j = 0; j < kTileKv / 16; ++j) {
+      const AFrag a = a_acc(s[2 * j], s[2 * j + 1]);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        uint32_t b0, b1;
+        b_cols(v_sm, LD, j, n, lane, b0, b1);
+        mma(acc[n], a.r[0], a.r[1], a.r[2], a.r[3], b0, b1);
+      }
+    }
+  }
+
+  float safe[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    safe[r] = l_i[r] == 0.f ? 1.f : l_i[r];
+    if (t == 0) {
+      lse[(static_cast<size_t>(b) * Hq + hq) * Sq + qpos[r]] = m_i[r] + logf(safe[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    bf16* row = o + ((static_cast<size_t>(b) * Sq + qpos[r]) * Hq + hq) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(row + n * 8) =
+          __floats2bfloat162_rn(acc[n][2 * r] / safe[r], acc[n][2 * r + 1] / safe[r]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B2: dQ
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv, int causal,
+                    int window, float scale) {
+  constexpr int LD = D + kPad;
+  extern __shared__ uint4 smem_u4[];
+  bf16* q_sm = reinterpret_cast<bf16*>(smem_u4);  // [kRows][LD]
+  bf16* do_sm = q_sm + kRows * LD;                 // [kRows][LD]
+  bf16* k_sm = do_sm + kRows * LD;                 // [kTileKv][LD]
+  bf16* v_sm = k_sm + kTileKv * LD;                // [kTileKv][LD]
+
+  const int G = Hq / Hkv, rph = kRows / G;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * rph;
+  const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int warps_per_head = kWarps / G;
+  const int gi = warp / warps_per_head;
+  const int wr = (warp % warps_per_head) * 16;
+  const int hq = hk * G + gi;
+  const int qpos[2] = {q0 + wr + g, q0 + wr + g + 8};
+  const bf16* q_w = q_sm + (gi * rph + wr) * LD;
+  const bf16* do_w = do_sm + (gi * rph + wr) * LD;
+
+  stage_group<D>(q_sm, q, b, Sq, Hq, hk, G, q0, tid);
+  stage_group<D>(do_sm, dout, b, Sq, Hq, hk, G, q0, tid);
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const size_t i = (static_cast<size_t>(b) * Hq + hq) * Sq + qpos[r];
+    lse_r[r] = lse[i];
+    delta_r[r] = delta[i];
+  }
+
+  int kv_begin, kv_end;
+  kv_range(q0, q0 + rph - 1, Skv, causal, window, kv_begin, kv_end);
+  const size_t kv_ld = static_cast<size_t>(Hkv) * D;
+  const bf16* k_bh = k + (static_cast<size_t>(b) * Skv * Hkv + hk) * D;
+  const bf16* v_bh = v + (static_cast<size_t>(b) * Skv * Hkv + hk) * D;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += kTileKv) {
+    __syncthreads();
+    stage<D>(k_sm, k_bh + kv0 * kv_ld, kv_ld, kTileKv, tid, kThreads);
+    stage<D>(v_sm, v_bh + kv0 * kv_ld, kv_ld, kTileKv, tid, kThreads);
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T.
+    float s[kTileKv / 8][4], dp[kTileKv / 8][4];
+#pragma unroll
+    for (int n = 0; n < kTileKv / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const AFrag aq = a_rows(q_w, LD, kk, lane);
+      const AFrag ado = a_rows(do_w, LD, kk, lane);
+#pragma unroll
+      for (int n = 0; n < kTileKv / 8; ++n) {
+        uint32_t b0, b1;
+        b_rows(k_sm, LD, n, kk, lane, b0, b1);
+        mma(s[n], aq.r[0], aq.r[1], aq.r[2], aq.r[3], b0, b1);
+        b_rows(v_sm, LD, n, kk, lane, b0, b1);
+        mma(dp[n], ado.r[0], ado.r[1], ado.r[2], ado.r[3], b0, b1);
+      }
+    }
+    // dS = P * (dP - delta) * scale, P recomputed from lse.
+#pragma unroll
+    for (int n = 0; n < kTileKv / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int kpos = kv0 + n * 8 + 2 * t + (e & 1);
+        float x = s[n][e] * scale;
+        if (!in_band(qpos[r], kpos, causal, window)) x = kNegInf;
+        const float p = expf(x - lse_r[r]);
+        s[n][e] = p * (dp[n][e] - delta_r[r]) * scale;
+      }
+    // dQ += bf16(dS) K.
+#pragma unroll
+    for (int j = 0; j < kTileKv / 16; ++j) {
+      const AFrag a = a_acc(s[2 * j], s[2 * j + 1]);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        uint32_t b0, b1;
+        b_cols(k_sm, LD, j, n, lane, b0, b1);
+        mma(acc[n], a.r[0], a.r[1], a.r[2], a.r[3], b0, b1);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    bf16* row = dq + ((static_cast<size_t>(b) * Sq + qpos[r]) * Hq + hq) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(row + n * 8) =
+          __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B3: dK, dV
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(kThreads3)
+flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv, int Hq,
+                     int Hkv, int causal, int window, float scale) {
+  constexpr int LD = D + kPad;
+  extern __shared__ uint4 smem_u4[];
+  bf16* k_sm = reinterpret_cast<bf16*>(smem_u4);  // [kTileKv3][LD]
+  bf16* v_sm = k_sm + kTileKv3 * LD;               // [kTileKv3][LD]
+  bf16* q_sm = v_sm + kTileKv3 * LD;               // [kTileQ3][LD]
+  bf16* do_sm = q_sm + kTileQ3 * LD;               // [kTileQ3][LD]
+  float* lse_sm = reinterpret_cast<float*>(do_sm + kTileQ3 * LD);  // [kTileQ3]
+  float* delta_sm = lse_sm + kTileQ3;                                // [kTileQ3]
+
+  const int G = Hq / Hkv;
+  const int kv0 = blockIdx.x * kTileKv3;
+  const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kpos[2] = {kv0 + warp * 16 + g, kv0 + warp * 16 + g + 8};
+
+  const size_t kv_ld = static_cast<size_t>(Hkv) * D;
+  const size_t kv_base = (static_cast<size_t>(b) * Skv + kv0) * kv_ld + static_cast<size_t>(hk) * D;
+  stage<D>(k_sm, k + kv_base, kv_ld, kTileKv3, tid, kThreads3);
+  stage<D>(v_sm, v + kv_base, kv_ld, kTileKv3, tid, kThreads3);
+  const bf16* k_w = k_sm + warp * 16 * LD;
+  const bf16* v_w = v_sm + warp * 16 * LD;
+
+  // q rows that can see this kv tile: from the diagonal on, up to the
+  // window's far edge.
+  int q_begin = 0, q_end = Sq;
+  if (causal) {
+    q_begin = (kv0 / kTileQ3) * kTileQ3;
+    if (window > 0) q_end = min(Sq, kv0 + kTileKv3 - 1 + window);
+  }
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  const size_t q_ld = static_cast<size_t>(Hq) * D;
+  for (int gi = 0; gi < G; ++gi) {
+    const int hq = hk * G + gi;
+    const float* lse_h = lse + (static_cast<size_t>(b) * Hq + hq) * Sq;
+    const float* delta_h = delta + (static_cast<size_t>(b) * Hq + hq) * Sq;
+    for (int q0 = q_begin; q0 < q_end; q0 += kTileQ3) {
+      __syncthreads();  // the previous q tile is consumed (K/V staged first time)
+      const size_t q_base = (static_cast<size_t>(b) * Sq + q0) * q_ld + static_cast<size_t>(hq) * D;
+      stage<D>(q_sm, q + q_base, q_ld, kTileQ3, tid, kThreads3);
+      stage<D>(do_sm, dout + q_base, q_ld, kTileQ3, tid, kThreads3);
+      if (tid < kTileQ3) {
+        lse_sm[tid] = lse_h[q0 + tid];
+        delta_sm[tid] = delta_h[q0 + tid];
+      }
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V dO^T: the warp's 16 kv rows x 32 q columns.
+      float st[kTileQ3 / 8][4], dpt[kTileQ3 / 8][4];
+#pragma unroll
+      for (int n = 0; n < kTileQ3 / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const AFrag ak = a_rows(k_w, LD, kk, lane);
+        const AFrag av = a_rows(v_w, LD, kk, lane);
+#pragma unroll
+        for (int n = 0; n < kTileQ3 / 8; ++n) {
+          uint32_t b0, b1;
+          b_rows(q_sm, LD, n, kk, lane, b0, b1);
+          mma(st[n], ak.r[0], ak.r[1], ak.r[2], ak.r[3], b0, b1);
+          b_rows(do_sm, LD, n, kk, lane, b0, b1);
+          mma(dpt[n], av.r[0], av.r[1], av.r[2], av.r[3], b0, b1);
+        }
+      }
+      // P^T (kept in st) and dS^T (in dpt).
+#pragma unroll
+      for (int n = 0; n < kTileQ3 / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = n * 8 + 2 * t + (e & 1);
+          float x = st[n][e] * scale;
+          if (!in_band(q0 + col, kpos[e >> 1], causal, window)) x = kNegInf;
+          const float p = expf(x - lse_sm[col]);
+          st[n][e] = p;
+          dpt[n][e] = p * (dpt[n][e] - delta_sm[col]) * scale;
+        }
+      // dV += bf16(P^T) dO and dK += bf16(dS^T) Q.
+#pragma unroll
+      for (int j = 0; j < kTileQ3 / 16; ++j) {
+        const AFrag ap = a_acc(st[2 * j], st[2 * j + 1]);
+        const AFrag ads = a_acc(dpt[2 * j], dpt[2 * j + 1]);
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          uint32_t b0, b1;
+          b_cols(do_sm, LD, j, n, lane, b0, b1);
+          mma(dv_acc[n], ap.r[0], ap.r[1], ap.r[2], ap.r[3], b0, b1);
+          b_cols(q_sm, LD, j, n, lane, b0, b1);
+          mma(dk_acc[n], ads.r[0], ads.r[1], ads.r[2], ads.r[3], b0, b1);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const size_t off = (static_cast<size_t>(b) * Skv + kpos[r]) * kv_ld +
+                       static_cast<size_t>(hk) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8) =
+          __floats2bfloat162_rn(dk_acc[n][2 * r], dk_acc[n][2 * r + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8) =
+          __floats2bfloat162_rn(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+    }
+  }
+}
+
+bool shape_ok(int B, int Sq, int Skv, int Hq, int Hkv, int D) {
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || (D != 64 && D != 128)) return false;
+  const int G = Hq / Hkv;
+  if (G != 1 && G != 2 && G != 4 && G != 8) return false;
+  return Sq > 0 && Skv > 0 && Sq % kRows == 0 && Skv % kRows == 0;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                       int Sq, int Skv, int Hq, int Hkv, int causal, int window, float scale,
+                       cudaStream_t stream) {
+  const size_t smem = sizeof(bf16) * (kRows + 2 * kTileKv) * (D + kPad);
+  cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const int G = Hq / Hkv;
+  dim3 grid(Sq / (kRows / G), B * Hkv);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), static_cast<float*>(lse), Sq, Skv, Hq, Hkv, causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse, const void* delta, void* dq, int B, int Sq, int Skv,
+                      int Hq, int Hkv, int causal, int window, float scale,
+                      cudaStream_t stream) {
+  const size_t smem = sizeof(bf16) * (2 * kRows + 2 * kTileKv) * (D + kPad);
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const int G = Hq / Hkv;
+  dim3 grid(Sq / (kRows / G), B * Hkv);
+  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), Sq, Skv, Hq, Hkv, causal,
+      window, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+                       const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
+                       int Skv, int Hq, int Hkv, int causal, int window, float scale,
+                       cudaStream_t stream) {
+  const size_t smem = sizeof(bf16) * (2 * kTileKv3 + 2 * kTileQ3) * (D + kPad) +
+                      sizeof(float) * 2 * kTileQ3;
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(Skv / kTileKv3, B * Hkv);
+  flash_bwd_dkv_kernel<D><<<grid, kThreads3, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq,
+      Skv, Hq, Hkv, causal, window, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each entry launches one kernel on `stream` and returns cudaGetLastError()
+// (the Python wrapper raises on anything but cudaSuccess, 0). Shapes are
+// checked by the wrapper; these re-check only what would make the launch
+// unsafe. window <= 0 means no window.
+
+int lumina_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                     int Sq, int Skv, int Hq, int Hkv, int D, int causal, int window,
+                     float scale, void* stream) {
+  if (!shape_ok(B, Sq, Skv, Hq, Hkv, D)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      D == 64 ? launch_fwd<64>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, causal, window, scale, s)
+              : launch_fwd<128>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, causal, window, scale, s));
+}
+
+int lumina_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                        const void* lse, const void* delta, void* dq, int B, int Sq, int Skv,
+                        int Hq, int Hkv, int D, int causal, int window, float scale,
+                        void* stream) {
+  if (!shape_ok(B, Sq, Skv, Hq, Hkv, D)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      D == 64 ? launch_dq<64>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv, causal,
+                              window, scale, s)
+              : launch_dq<128>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv, causal,
+                               window, scale, s));
+}
+
+int lumina_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                         const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
+                         int Skv, int Hq, int Hkv, int D, int causal, int window, float scale,
+                         void* stream) {
+  if (!shape_ok(B, Sq, Skv, Hq, Hkv, D)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      D == 64 ? launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, Hq, Hkv, causal,
+                               window, scale, s)
+              : launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, Hq, Hkv, causal,
+                                window, scale, s));
+}
+
+}  // extern "C"

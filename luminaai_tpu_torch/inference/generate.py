@@ -4,9 +4,11 @@ the server uses, and StepwiseDecoder with the prefix cache off).
 
 The JAX package jits each piece; here the host drives eager PyTorch on one
 device, and every device call of a decoder comes from the thread that owns
-it (the scheduler's worker). Prefill writes a request's rows straight into
-its pool slot (the JAX decoder prefills a fresh cache and inserts it), and
-decode steps write one row per lane in place before attention reads it.
+it (the scheduler's worker). The decoder's entry points run under
+torch.inference_mode(): the model's forward records gradients otherwise.
+Prefill writes a request's rows straight into its pool slot (the JAX
+decoder prefills a fresh cache and inserts it), and decode steps write one
+row per lane in place before attention reads it.
 
 Sampling uses one torch.Generator per lane, seeded from the request's
 seed: seeded sampling is reproducible within the port, but it does not draw
@@ -284,6 +286,7 @@ class StepwiseDecoder:
             p *= 2
         return min(p, self.pool.pages) * ps
 
+    @torch.inference_mode()
     def step_logits(self, backend: Optional[str] = None) -> torch.Tensor:
         """One decode forward for every lane at its current (token, pos):
         writes each lane's row, attends, returns fp32 logits [slots, V].
@@ -311,6 +314,7 @@ class StepwiseDecoder:
         return logits[:, -1]
 
     # -- scheduler-facing API ----------------------------------------------
+    @torch.inference_mode()
     def prefill_into_slot(
         self,
         slot: int,
@@ -424,6 +428,7 @@ class StepwiseDecoder:
         self._refresh_table()
         st.update(ids=ids, n_chunks=n)
 
+    @torch.inference_mode()
     def advance_prefill(
         self, st: Dict[str, Any]
     ) -> Optional[Dict[str, Any]]:
@@ -447,6 +452,7 @@ class StepwiseDecoder:
             slot, logits, L, st["max_new"], st["sample_key"], st["seed"]
         )
 
+    @torch.inference_mode()
     def decode_step(
         self, sample_key: Optional[Tuple] = None
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

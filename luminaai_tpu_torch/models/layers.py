@@ -1,8 +1,12 @@
 """Core transformer layers (PyTorch counterpart of luminaai_tpu/models/layers.py).
 
 The JAX model keeps fp32 parameters and casts them to the compute dtype at
-each use; the port stores the compute-dtype copies once (the values are
-identical). Norm scales stay fp32, as the JAX RMSNorm applies them.
+each use. A trainable build (`trainable=True`, what the trainer builds)
+does the same: fp32 parameters with gradients, cast at each use, so the
+optimizer updates the real fp32 values. A serving build stores the
+compute-dtype copies once, without gradients (the values are identical,
+and the casts are then no-ops). Norm scales stay fp32 in both, as the JAX
+RMSNorm applies them.
 
 KV caches are updated IN PLACE: the JAX layers return a functionally
 updated cache, the port writes the rows into the caller's tensors (the
@@ -20,7 +24,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from luminaai_tpu_torch.config import Config
+from luminaai_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_eligible,
+)
 from luminaai_tpu_torch.ops.ragged_paged_attention import (
+    NEG_INF,
     LaneMeta,
     implied_page_size,
     paged_attention,
@@ -31,13 +40,13 @@ class RMSNorm(nn.Module):
     """Root-mean-square norm with fp32 math, output in the compute dtype."""
 
     def __init__(self, dim: int, eps: float = 1e-6, dtype=torch.bfloat16,
-                 device=None):
+                 device=None, trainable: bool = False):
         super().__init__()
         self.eps = eps
         self.dtype = dtype
         self.scale = nn.Parameter(
             torch.ones(dim, dtype=torch.float32, device=device),
-            requires_grad=False,
+            requires_grad=trainable,
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -90,20 +99,22 @@ class SwiGLU(nn.Module):
     """down(silu(gate(x)) * up(x)) with the fused [hidden, 2F] gate+up."""
 
     def __init__(self, hidden: int, intermediate_size: int,
-                 dtype=torch.bfloat16, device=None):
+                 dtype=torch.bfloat16, device=None, trainable: bool = False):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        self.dtype = dtype
+        kw = dict(dtype=torch.float32 if trainable else dtype, device=device)
         self.wi = nn.Parameter(
             torch.empty(hidden, 2 * intermediate_size, **kw),
-            requires_grad=False,
+            requires_grad=trainable,
         )
         self.wo = nn.Parameter(
-            torch.empty(intermediate_size, hidden, **kw), requires_grad=False
+            torch.empty(intermediate_size, hidden, **kw),
+            requires_grad=trainable,
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        gate, up = torch.chunk(x @ self.wi, 2, dim=-1)
-        return (F.silu(gate) * up) @ self.wo
+        gate, up = torch.chunk(x @ self.wi.to(self.dtype), 2, dim=-1)
+        return (F.silu(gate) * up) @ self.wo.to(self.dtype)
 
 
 class GQAttention(nn.Module):
@@ -111,6 +122,12 @@ class GQAttention(nn.Module):
 
     Parameters: `wqkv` [H, (nq + 2 nkv) * d], the JAX layer's wq/wk/wv
     concatenated once (its fused projection), and `wo` [nq * d, H].
+
+    Without a cache (training and evaluation) the layer attends over its
+    own rows, causal, banded under config.attention_window: through the
+    flash kernels where `flash_eligible` admits the shape and
+    config.use_flash_attention is set (as the JAX layer decides), else
+    through the plain einsum attention (the JAX `_xla_attention`).
 
     The cache paths are the two per-lane ones the serving slice runs, each
     selected by a [B] `cache_index` (lanes at their own offsets):
@@ -121,18 +138,20 @@ class GQAttention(nn.Module):
     Attention then reads the post-write cache through the ragged dispatch.
     """
 
-    def __init__(self, config: Config, dtype=torch.bfloat16, device=None):
+    def __init__(self, config: Config, dtype=torch.bfloat16, device=None,
+                 trainable: bool = False):
         super().__init__()
         self.config = config
         self.dtype = dtype
         H, d = config.hidden_size, config.head_dim()
         n_q, n_kv = config.num_heads, config.num_kv_heads
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=torch.float32 if trainable else dtype, device=device)
         self.wqkv = nn.Parameter(
-            torch.empty(H, (n_q + 2 * n_kv) * d, **kw), requires_grad=False
+            torch.empty(H, (n_q + 2 * n_kv) * d, **kw),
+            requires_grad=trainable,
         )
         self.wo = nn.Parameter(torch.empty(n_q * d, H, **kw),
-                               requires_grad=False)
+                               requires_grad=trainable)
         self._rope = None  # (max_len, cos, sin), built on first use
 
     def _rope_tables(self, max_len: int, device):
@@ -151,28 +170,45 @@ class GQAttention(nn.Module):
         x: torch.Tensor,
         *,
         positions: Optional[torch.Tensor] = None,
-        kv_cache: Tuple[torch.Tensor, torch.Tensor],
-        cache_index: torch.Tensor,
+        kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        cache_index: Optional[torch.Tensor] = None,
         lane_meta: Optional[LaneMeta] = None,
     ):
         cfg = self.config
         B, S, H = x.shape
         n_q, n_kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim()
-        if kv_cache is None or cache_index is None or cache_index.ndim != 1:
+        if kv_cache is not None and (
+            cache_index is None or cache_index.ndim != 1
+        ):
             raise NotImplementedError(
                 "the port's attention runs the per-lane cache paths only "
-                "(a [B] cache_index); the no-cache forward arrives with the "
-                "training slice"
+                "(a [B] cache_index) and the no-cache forward"
             )
-        qkv = x @ self.wqkv
+        qkv = x @ self.wqkv.to(self.dtype)
         q = qkv[..., : n_q * d].reshape(B, S, n_q, d)
         k = qkv[..., n_q * d: (n_q + n_kv) * d].reshape(B, S, n_kv, d)
         v = qkv[..., (n_q + n_kv) * d:].reshape(B, S, n_kv, d)
+        rope_ct = self.dtype if cfg.rope_dtype == "bf16" else torch.float32
+
+        if kv_cache is None:
+            cos, sin = self._rope_tables(max(cfg.seq_length, S), x.device)
+            q = apply_rope(q, cos, sin, positions, compute_dtype=rope_ct)
+            k = apply_rope(k, cos, sin, positions, compute_dtype=rope_ct)
+            if cfg.use_flash_attention and flash_eligible(
+                S, d, cfg.flash_block_q, cfg.flash_block_kv
+            ):
+                out = flash_attention(
+                    q, k, v.contiguous(), causal=True,
+                    block_q=cfg.flash_block_q, block_kv=cfg.flash_block_kv,
+                    window=cfg.attention_window,
+                )
+            else:
+                out = self._xla_attention(q, k, v)
+            return out.reshape(B, S, n_q * d) @ self.wo.to(self.dtype), None
 
         ck, cv = kv_cache
         C = ck.shape[1]
         cos, sin = self._rope_tables(max(cfg.seq_length, S, C), x.device)
-        rope_ct = self.dtype if cfg.rope_dtype == "bf16" else torch.float32
         q = apply_rope(q, cos, sin, positions, compute_dtype=rope_ct)
         k = apply_rope(k, cos, sin, positions, compute_dtype=rope_ct)
 
@@ -200,8 +236,28 @@ class GQAttention(nn.Module):
         out = self._ragged_attention(
             q, ck, cv, lane_meta, cache_index, positions, backend
         )
-        y = out.reshape(B, S, n_q * d) @ self.wo
+        y = out.reshape(B, S, n_q * d) @ self.wo.to(self.dtype)
         return y, (ck, cv)
+
+    def _xla_attention(self, q, k, v):
+        """Plain no-cache attention (the JAX layer's `_xla_attention`
+        without a cache): grouped einsums in the compute dtype, fp32
+        softmax over the causal (banded) mask, probabilities cast back."""
+        B, Sq, n_q, d = q.shape
+        Skv, n_kv = k.shape[1], k.shape[2]
+        qg = q.reshape(B, Sq, n_kv, n_q // n_kv, d)
+        scale = 1.0 / math.sqrt(d)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() * scale
+        q_pos = torch.arange(Sq, device=q.device)[:, None]
+        k_pos = torch.arange(Skv, device=q.device)[None, :]
+        mask = q_pos >= k_pos
+        w = self.config.attention_window
+        if w is not None:
+            mask = mask & (q_pos - k_pos < w)
+        logits = torch.where(mask, logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+        return out.reshape(B, Sq, n_q, d)
 
     def _ragged_attention(self, q, k, v, meta, cache_index, positions,
                           backend):
@@ -234,21 +290,25 @@ class Embedder(nn.Module):
     head (the JAX presets' tie_word_embeddings=True,
     use_stable_embedding=True; the other settings are not ported).
 
-    The table is kept in fp32 holding compute-dtype values: the lookup
-    casts rows exactly, and the head multiplies those values with fp32
-    accumulation and fp32 output, as the JAX head's
-    preferred_element_type=float32 does; a bf16 GEMM would round the
-    logits to bf16.
+    The table is fp32. The head multiplies the table's compute-dtype
+    values with fp32 accumulation and fp32 output, as the JAX head's
+    preferred_element_type=float32 does (a bf16 GEMM would round the
+    logits to bf16): an fp32 product of bf16 values. A serving build
+    rounds the table to those values once (round_), so the lookup and the
+    head use it as it is; a trainable build keeps the real fp32 values the
+    optimizer updates and casts at each use, as the JAX model does.
     """
 
-    def __init__(self, config: Config, dtype=torch.bfloat16, device=None):
+    def __init__(self, config: Config, dtype=torch.bfloat16, device=None,
+                 trainable: bool = False):
         super().__init__()
         self.config = config
         self.dtype = dtype
+        self.trainable = trainable
         shape = (config.vocab_size, config.hidden_size)
         self.embedding = nn.Parameter(
             torch.empty(shape, dtype=torch.float32, device=device),
-            requires_grad=False,
+            requires_grad=trainable,
         )
         # sqrt(hidden) rounded to the compute dtype once, as the JAX
         # encode casts it before the multiply.
@@ -259,14 +319,24 @@ class Embedder(nn.Module):
     @torch.no_grad()
     def round_(self) -> None:
         """Round the fp32 table to compute-dtype values, the values the
-        JAX model casts it to at each use (call after loading)."""
+        JAX model casts it to at each use (call after loading). A
+        trainable build keeps its fp32 values: the optimizer updates
+        them, and head() casts at each use."""
+        if self.trainable:
+            return
         self.embedding.copy_(self.embedding.to(self.dtype).float())
+
+    def head(self) -> torch.Tensor:
+        """The tied head [V, H]: the table's compute-dtype values, in fp32."""
+        if self.trainable:
+            return self.embedding.to(self.dtype).float()
+        return self.embedding
 
     def encode(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.embedding[tokens].to(self.dtype) * self.scale
 
     def decode(self, x: torch.Tensor) -> torch.Tensor:
-        return x.float() @ self.embedding.t()
+        return x.float() @ self.head().t()
 
 
 def init_std_out(std: float) -> float:

@@ -4,14 +4,22 @@ The dense model: embedding, N pre-norm blocks (RMSNorm -> GQA attention with
 RoPE -> residual; RMSNorm -> SwiGLU -> residual), final norm, tied head with
 fp32 logits. The layer loop is the JAX model's unscanned one. Mixture of
 experts and mixture of depths are not ported yet and are refused here.
+
+Two forwards, as in the JAX model: over per-lane KV caches (serving; its
+callers run it under torch.inference_mode()) and without a cache (training
+and evaluation), where config.gradient_checkpointing with the
+'nothing_saveable' policy recomputes each block in the backward
+(torch.utils.checkpoint per block, the JAX nn.remat) and 'full' keeps every
+activation.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from luminaai_tpu_torch.config import Config, resolve_device
 from luminaai_tpu_torch.models.layers import (
@@ -24,19 +32,26 @@ from luminaai_tpu_torch.ops.ragged_paged_attention import LaneMeta
 
 KVCache = Tuple[torch.Tensor, torch.Tensor]
 
+# The JAX REMAT_POLICIES the port runs: whether each block's forward is
+# recomputed in the backward. The others (save_outs, save_attn,
+# dots_saveable) are refused by the trainer (train_step.check_trainable).
+REMAT_POLICIES = {"nothing_saveable": True, "full": False}
+
 
 class TransformerBlock(nn.Module):
     """Pre-norm block with a dense SwiGLU FFN."""
 
-    def __init__(self, config: Config, dtype, device=None):
+    def __init__(self, config: Config, dtype, device=None,
+                 trainable: bool = False):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=device, trainable=trainable)
         self.attn_norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
         self.attention = GQAttention(config, **kw)
         self.ffn_norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
         self.ffn = SwiGLU(config.hidden_size, config.intermediate_size, **kw)
 
-    def forward(self, x, *, positions, kv_cache, cache_index, lane_meta):
+    def forward(self, x, *, positions=None, kv_cache=None, cache_index=None,
+                lane_meta=None):
         h, kv_cache = self.attention(
             self.attn_norm(x),
             positions=positions,
@@ -55,9 +70,11 @@ class LuminaTransformer(nn.Module):
     device=None means the card (raises where CUDA is absent); tests pass
     device='cpu'. Weights are created uninitialised: fill them with
     `load_params(convert.params_from_flax(...))` or convert.init_params.
+    trainable=True builds the training model: fp32 parameters with
+    gradients, cast to the compute dtype at each use (models/layers.py).
     """
 
-    def __init__(self, config: Config, device=None):
+    def __init__(self, config: Config, device=None, trainable: bool = False):
         super().__init__()
         if config.use_moe:
             raise NotImplementedError(
@@ -68,7 +85,7 @@ class LuminaTransformer(nn.Module):
         self.config = config
         self.device = resolve_device(device)
         self.dtype = config.compute_dtype()
-        kw = dict(dtype=self.dtype, device=self.device)
+        kw = dict(dtype=self.dtype, device=self.device, trainable=trainable)
         self.embedder = Embedder(config, **kw)
         self.layers = nn.ModuleList(
             TransformerBlock(config, **kw) for _ in range(config.num_layers)
@@ -84,20 +101,27 @@ class LuminaTransformer(nn.Module):
         self.embedder.round_()
         return self
 
-    @torch.no_grad()
     def forward(
         self,
         input_ids: torch.Tensor,
         *,
         positions: Optional[torch.Tensor] = None,
-        kv_caches: List[KVCache],
-        cache_index: torch.Tensor,
+        kv_caches: Optional[List[KVCache]] = None,
+        cache_index: Optional[torch.Tensor] = None,
         lane_meta: Optional[LaneMeta] = None,
+        deterministic: bool = True,
         return_hidden: bool = False,
     ):
-        """input_ids [B, S] -> (fp32 logits [B, S, V], kv_caches), or
-        (final-normed hidden [B, S, H], kv_caches) with return_hidden (the
-        caller projects only the rows it needs with embedder.decode)."""
+        """input_ids [B, S] -> with kv_caches: (fp32 logits [B, S, V],
+        kv_caches), or (final-normed hidden [B, S, H], kv_caches) with
+        return_hidden (the caller projects only the rows it needs with
+        embedder.decode). Without kv_caches: (logits or hidden, aux) as the
+        JAX model returns them, aux = {"aux_loss": 0} for the dense model.
+        `deterministic` is the JAX flag; the dense model draws no random
+        numbers (dropout > 0 is refused by the trainer)."""
+        if kv_caches is None:
+            return self._forward_no_cache(input_ids, positions,
+                                          return_hidden)
         x = self.embedder.encode(input_ids)
         for layer, cache in zip(self.layers, kv_caches):
             x, _ = layer(
@@ -111,6 +135,28 @@ class LuminaTransformer(nn.Module):
         if return_hidden:
             return x, kv_caches
         return self.embedder.decode(x), kv_caches
+
+    def _forward_no_cache(self, input_ids, positions, return_hidden):
+        cfg = self.config
+        remat = (
+            cfg.gradient_checkpointing
+            and REMAT_POLICIES.get(cfg.remat_policy, False)
+            and torch.is_grad_enabled()
+        )
+        x = self.embedder.encode(input_ids)
+        for layer in self.layers:
+            if remat:
+                x, _ = checkpoint(layer, x, positions=positions,
+                                  use_reentrant=False)
+            else:
+                x, _ = layer(x, positions=positions)
+        x = self.final_norm(x)
+        aux: Dict[str, torch.Tensor] = {
+            "aux_loss": torch.zeros((), dtype=torch.float32, device=x.device)
+        }
+        if return_hidden:
+            return x, aux
+        return self.embedder.decode(x), aux
 
     def init_cache(self, batch_size: int, max_len: int) -> List[KVCache]:
         """Preallocated per-layer (k, v) caches [B, max_len, Hkv, D] in the

@@ -102,6 +102,9 @@ def test_entry_points_default_to_the_card(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["serve", "--preset", "debug", "--dense", "--seed", "0",
                   "--port", "0"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["train", "--preset", "debug", "--dense", "--synthetic",
+                  "--steps", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
