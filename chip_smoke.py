@@ -9,19 +9,29 @@ Phases (any failure raises and exits non-zero):
   1. build   every CUDA kernel of the port from the checkout's sources
              (one nvcc per source, started together);
   2. kernels hold each kernel against its plain PyTorch version: the
-             decode kernel (B5) at the serving shapes, the flash-attention
-             forward and backward kernels (B1-B3) at the training shapes
-             (causal), a window-512 case, a non-causal case and a GQA
-             group of 1 at head_dim 64; time kernel / plain / library
-             call, and compute the least time the card could take;
+             decode kernel (B5) at the serving shapes and at a group of
+             16 q heads per kv head; the flash-attention forward and
+             backward kernels (B1-B3) at the training shapes (causal), a
+             window-512 case, a non-causal case, a GQA group of 1 at
+             head_dim 64, and the shapes the JAX gate admits that the
+             first kernels refused (head_dim 192, S 200, a group of 3);
+             the grouped matmul (B4a gmm with and without transpose_rhs,
+             B4b tgmm) at the b1 decode and flagship training shapes, with
+             an empty group and a tail that must stay exactly zero; time
+             kernel / plain / library call, and compute the least time the
+             card could take;
   3. serve   the b1-width dense model (16 layers, hidden 2048, seeded
              weights) through the port's ContinuousScheduler +
              StepwiseDecoder behind its HTTP server: first-decode-step
              logits with the kernel vs the plain version, then concurrent
              POST /v1/generate requests; the kernel must have launched
-             exactly decode steps x layers times.
-  4. train   the same widths through the port's Trainer (what `python -m
-             luminaai_tpu_torch train --preset b1 --dense --synthetic`
+             exactly decode steps x layers times;
+  4. serve   b1 with its 8 experts (moe_dispatch="gmm", 4.6B parameters
+     MoE     in bf16): first-decode-step logits with B4a vs the plain gmm,
+             a profiled decode step, 8 concurrent requests with B4a
+             launched exactly 2 x 16 x (decode steps + prefill forwards);
+  5. train   the b1 dense widths through the port's Trainer (what `python
+             -m luminaai_tpu_torch train --preset b1 --dense --synthetic`
              runs): batch 16 x 2048, accumulation 8, remat per block,
              seeded fp32 weights, TRAIN_STEPS optimizer steps on the
              synthetic batches. The first step's loss and grad norm with
@@ -29,7 +39,14 @@ Phases (any failure raises and exits non-zero):
              finite, the loss falling, and the kernels launched exactly
              B1 = 2 x 16 x 8 per step (forward and its recompute),
              B2 = B3 = 16 x 8 per step; step time, tokens/s, model-FLOPs
-             share and the card's busy time of one profiled step.
+             share and the card's busy time of one profiled step;
+  6. train   bench.py's flagship MoE widths (vocab 32768, hidden 1024, 10
+     MoE     layers, 8 experts top-2) with gmm dispatch and bf16 RoPE:
+             TRAIN_STEPS steps through Trainer, the first against the plain
+             gmm (routing noise reseeded identically), exact launches per
+             step B1 20, B2 = B3 10, B4a 60, B4b 20, a falling loss, step
+             time, tokens/s, model-FLOPs share (active parameters), peak
+             memory and the router metrics.
 
 Output: progress lines, the card's `nvidia-smi` name and power limit, one
 {"kernels": [...]} JSON line, and as the last line
@@ -87,8 +104,22 @@ KERNEL_TOL = 3e-2
 # their largest magnitude. Tolerance: 1e-2 x max|logit| (2.56 ulps).
 LOGIT_RTOL = 1e-2
 COPIES = 4  # K/V pools the kernel timing rotates through (past the L2)
+# Flash shapes the JAX gate admits that the first kernels refused:
+# name: (B, S, Hq, Hkv, D, causal, window).
+REPAIRED_FLASH = {
+    "d192_g2_s1024": (2, 1024, 4, 2, 192, True, 0),
+    "s200": (MICRO, 200, HQ, HKV, D, True, 0),
+    "group3": (MICRO, 1024, 12, 4, D, True, 0),
+}
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12    # dense bf16 tensor-core peak
+
+
+def _release() -> None:
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def log(msg: str) -> None:
@@ -173,6 +204,30 @@ def phase_kernels(dev) -> dict:
         if errs[name] > KERNEL_TOL:
             raise AssertionError(f"kernel disagrees with plain ({name})")
 
+    # Any group (repaired in this slice; the JAX gate admits any): 16 q
+    # heads over one kv head, held against the plain version and timed.
+    q16, k16, v16 = randn(LANES, 1, 16, D), randn(LANES, C, 1, D), randn(
+        LANES, C, 1, D)
+    meta16 = cases["identity"]
+    out = rpa.ragged_paged_attention(q16, k16, v16, meta16)
+    want = rpa.ragged_paged_attention_ref(q16, k16, v16, meta16)
+    torch.cuda.synchronize()
+    errs["group16"] = (out.float() - want.float()).abs().max().item()
+    g16 = {
+        "max_abs_err": errs["group16"],
+        "ms": cuda_ms(lambda: rpa.ragged_paged_attention(q16, k16, v16,
+                                                         meta16), 100),
+        "plain_ms": cuda_ms(lambda: rpa.ragged_paged_attention_ref(
+            q16, k16, v16, meta16), 10),
+        "shapes": {"lanes": LANES, "hq": 16, "hkv": 1, "head_dim": D},
+    }
+    log(f"kernel vs plain [group16: Hq 16 over Hkv 1]: max_abs_err="
+        f"{errs['group16']:.3e} (tol {KERNEL_TOL}); kernel {g16['ms']:.4f} "
+        f"ms, plain {g16['plain_ms']:.4f} ms")
+    if not torch.isfinite(out).all() or errs["group16"] > KERNEL_TOL:
+        raise AssertionError("kernel disagrees with plain (group16)")
+    del q16, k16, v16, out, want
+
     # Timing. One K/V pool here is 33.5 MB, under the H100's 50 MB L2, and
     # the serving caller reads each layer's pool once per step, cold: so
     # each timed call reads the next of COPIES pools (134 MB together).
@@ -236,6 +291,7 @@ def phase_kernels(dev) -> dict:
         "shapes": {"lanes": LANES, "hq": HQ, "hkv": HKV, "head_dim": D,
                    "page_size": PAGE, "pages": PAGES,
                    "lengths": [int(x) for x in lengths.tolist()]},
+        "repaired": {"group16": g16},
     }
 
 
@@ -278,8 +334,14 @@ def phase_flash_kernels(dev) -> list:
         "window512": (MICRO, SEQ, HQ, HKV, D, True, 512),
         "noncausal": (1, 1024, HQ, HKV, D, False, 0),
         "group1_d64": (MICRO, 1024, 8, 8, 64, True, 0),
+        # Shapes the JAX gate admits that the first kernels refused
+        # (repaired in this slice, timed below): debug_300m's attention
+        # (head_dim 192, 4 q heads over 2 kv heads, S 1024), a length that
+        # is not a multiple of 128, and a group of 3.
+        **REPAIRED_FLASH,
     }
     abs_err = {"B1": 0.0, "B2": 0.0, "B3": 0.0}
+    repaired = {}
     for name, (b, s, hq, hkv, d, causal, window) in cases.items():
         q, k, v, do, g_lse = inputs(b, s, hq, hkv, d)
         args = dict(scale=d ** -0.5, causal=causal, window=window)
@@ -316,6 +378,18 @@ def phase_flash_kernels(dev) -> list:
         if max(errs.values()) > FLASH_REL_TOL or lse_err > LSE_TOL:
             raise AssertionError(f"flash kernels disagree with plain "
                                  f"({name})")
+        if name in REPAIRED_FLASH:
+            t = {
+                "B1": cuda_ms(lambda: fa.flash_fwd(q, k, v, **args), 20),
+                "B2": cuda_ms(lambda: fa.flash_bwd_dq(
+                    q, k, v, do, lse_ref, delta, **args), 20),
+                "B3": cuda_ms(lambda: fa.flash_bwd_dkv(
+                    q, k, v, do, lse_ref, delta, **args), 20),
+            }
+            repaired[name] = {"ms": t, "rel_err": errs,
+                              "shape": [b, s, hq, hkv, d]}
+            log(f"  repaired shape {name}: B1 {t['B1']:.4f} ms, B2 "
+                f"{t['B2']:.4f} ms, B3 {t['B3']:.4f} ms")
         del o, o_ref, dq, dq_ref, dk, dk_ref, dv, dv_ref, pairs
         torch.cuda.empty_cache()
 
@@ -401,6 +475,8 @@ def phase_flash_kernels(dev) -> list:
             "library_ms": lib_ms,
             "shapes": {"batch": b, "seq": s, "hq": hq, "hkv": hkv,
                        "head_dim": d, "causal": True},
+            "repaired": {name: {"ms": r["ms"][kern], "shape": r["shape"]}
+                         for name, r in repaired.items()},
         })
     log(f"SDPA forward vs plain B1 output: max abs diff {lib_err:.3e}")
     return entries
@@ -455,30 +531,12 @@ def _prompt(n: int, i: int) -> str:
     return text
 
 
-def phase_serve(dev, entry: dict) -> dict:
-    import torch
-
-    from luminaai_tpu_torch.config import ConfigPresets
-    from luminaai_tpu_torch.inference.chat import build_engine
-    from luminaai_tpu_torch.ops import ragged_paged_attention as rpa
-    from luminaai_tpu_torch.serving.server import ChatServer
-
-    cfg = ConfigPresets.get("b1", use_moe=False)
-    t0 = time.perf_counter()
-    engine = build_engine(cfg, device=dev, seed=0)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in engine.model.parameters())
-    log(f"engine: b1 dense, {cfg.num_layers} layers, hidden "
-        f"{cfg.hidden_size}, {n_params / 1e6:.1f}M params, built in "
-        f"{time.perf_counter() - t0:.1f}s")
-
-    # First decode step of the same prompts through a decoder of its own:
-    # kernel attention vs plain attention on the same pool state.
-    tok = engine.tokenizer
-    prompts = [tok.encode_text(_prompt(n, i))
-               for i, n in enumerate(PROMPT_LENGTHS)]
+def _filled_decoder(engine):
+    """A decoder of its own (LANES slots) holding the PROMPT_LENGTHS
+    prompts, each prefilled whole or in chunks as the decoder chooses."""
     dec = engine.make_stepwise(num_slots=LANES, page_size=PAGE)
-    for p in prompts:
+    for i, n in enumerate(PROMPT_LENGTHS):
+        p = engine.tokenizer.encode_text(_prompt(n, i))
         slot = dec.acquire_slot()
         st = dec.start_prefill(slot, p, max_new_tokens=32)
         if st is None:
@@ -486,23 +544,17 @@ def phase_serve(dev, entry: dict) -> dict:
         else:
             while dec.advance_prefill(st) is None:
                 pass
-    lk = dec.step_logits()
-    lp = dec.step_logits("plain")
-    torch.cuda.synchronize()
-    if lk.shape != (LANES, cfg.vocab_size) or not torch.isfinite(lk).all():
-        raise AssertionError(f"bad decode logits {tuple(lk.shape)}")
-    logit_err = (lk - lp).abs().max().item()
-    logit_tol = LOGIT_RTOL * lp.abs().max().item()
-    agree = int((lk.argmax(-1) == lp.argmax(-1)).sum().item())
-    log(f"first decode step logits, kernel vs plain: max_abs_err="
-        f"{logit_err:.3e} (tol {logit_tol:.3e} = {LOGIT_RTOL} x max|logit|"
-        f"), argmax agree {agree}/{LANES}")
-    if logit_err > logit_tol:
-        raise AssertionError("decode logits disagree with the plain version")
-    profile_decode(dec)
-    del dec, lk, lp
-    torch.cuda.empty_cache()
+    return dec
 
+
+def _serve_burst(engine, label: str, health_ok, reset, read):
+    """LANES concurrent greedy POST /v1/generate requests (prompts of
+    PROMPT_LENGTHS characters, 32 new tokens each) through the port's
+    ChatServer. `reset()` sets the launch counters to 0 just before the
+    burst, `read()` reads them just after. -> (launches, summary)."""
+    from luminaai_tpu_torch.serving.server import ChatServer
+
+    cfg = engine.config
     server = ChatServer(engine, num_slots=LANES, page_size=PAGE)
     httpd = server.make_httpd("127.0.0.1", 0)
     host, port = httpd.server_address[:2]
@@ -521,23 +573,23 @@ def phase_serve(dev, entry: dict) -> dict:
     try:
         with urllib.request.urlopen(url + "/health", timeout=60) as r:
             health = json.loads(r.read())
-        if r.status != 200 or health["model"]["hidden_size"] != cfg.hidden_size:
+        if r.status != 200 or not health_ok(health["model"]):
             raise AssertionError(f"bad /health: {health}")
         post({"prompt": "warm up", "max_new_tokens": 2, "temperature": 0})
-
-        sched = server.batcher
-        rpa.ragged_paged_attention.launches = 0
-        steps0, dsec0 = sched.decoder.steps, sched.decode_seconds
-        t0 = time.perf_counter()
+        dec = server.batcher.decoder
+        steps0, pf0 = dec.steps, dec.prefill_forwards
+        dsec0 = server.batcher.decode_seconds
         bodies = [{"prompt": _prompt(n, i), "max_new_tokens": 32,
                    "temperature": 0}
                   for i, n in enumerate(PROMPT_LENGTHS)]
+        reset()
+        t0 = time.perf_counter()
         with ThreadPoolExecutor(len(bodies)) as pool:
             replies = list(pool.map(post, bodies))
         wall = time.perf_counter() - t0
-        launches = rpa.ragged_paged_attention.launches
-        steps = sched.decoder.steps - steps0
-        dsec = sched.decode_seconds - dsec0
+        launches = read()
+        steps, prefills = dec.steps - steps0, dec.prefill_forwards - pf0
+        dsec = server.batcher.decode_seconds - dsec0
         with urllib.request.urlopen(url + "/stats", timeout=60) as r:
             stats = json.loads(r.read())
     finally:
@@ -548,28 +600,77 @@ def phase_serve(dev, entry: dict) -> dict:
     tokens = 0
     for (code, body), n in zip(replies, PROMPT_LENGTHS):
         if code != 200 or not body.get("token_ids"):
-            raise AssertionError(f"bad reply for a {n}-char prompt: {body}")
+            raise AssertionError(f"bad {label} reply for a {n}-char prompt: "
+                                 f"{body}")
         if not all(0 <= t < cfg.vocab_size for t in body["token_ids"]):
             raise AssertionError("token id outside the vocabulary")
         tokens += body["tokens"]
-    log(f"serve: {len(replies)} concurrent requests (prompts "
+    if steps <= 0:
+        raise AssertionError(f"{label}: no decode step ran")
+    lat = sorted(body["latency_s"] for _, body in replies)
+    log(f"{label}: {len(replies)} concurrent requests (prompts "
         f"{min(PROMPT_LENGTHS)}-{max(PROMPT_LENGTHS)} tokens), {tokens} "
         f"tokens in {wall:.3f}s = {tokens / wall:.1f} tok/s; {steps} decode "
-        f"steps, {1e3 * dsec / max(steps, 1):.3f} ms/step; peak lanes "
-        f"{stats['max_batch_seen']}")
-    lat = sorted(body["latency_s"] for _, body in replies)
-    log(f"request latency (n={len(lat)}): median "
-        f"{statistics.median(lat):.3f}s, "
-        f"max {lat[-1]:.3f}s")
-    want = steps * cfg.num_layers
+        f"steps, {1e3 * dsec / steps:.3f} ms/step, {prefills} prefill "
+        f"forwards; peak lanes {stats['max_batch_seen']}; latency median "
+        f"{statistics.median(lat):.3f}s, max {lat[-1]:.3f}s")
+    return launches, {"requests": len(replies), "tokens": tokens,
+                      "wall_s": wall, "decode_steps": steps,
+                      "prefill_forwards": prefills,
+                      "decode_step_ms": 1e3 * dsec / steps,
+                      "tokens_per_s": tokens / wall, "latency_max_s": lat[-1]}
+
+
+def phase_serve(dev, entry: dict) -> dict:
+    import torch
+
+    from luminaai_tpu_torch.config import ConfigPresets
+    from luminaai_tpu_torch.inference.chat import build_engine
+    from luminaai_tpu_torch.ops import ragged_paged_attention as rpa
+
+    cfg = ConfigPresets.get("b1", use_moe=False)
+    t0 = time.perf_counter()
+    engine = build_engine(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    log(f"engine: b1 dense, {cfg.num_layers} layers, hidden "
+        f"{cfg.hidden_size}, {n_params / 1e6:.1f}M params, built in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # First decode step of the same prompts through a decoder of its own:
+    # kernel attention vs plain attention on the same pool state.
+    dec = _filled_decoder(engine)
+    lk = dec.step_logits()
+    lp = dec.step_logits("plain")
+    torch.cuda.synchronize()
+    if lk.shape != (LANES, cfg.vocab_size) or not torch.isfinite(lk).all():
+        raise AssertionError(f"bad decode logits {tuple(lk.shape)}")
+    logit_err = (lk - lp).abs().max().item()
+    logit_tol = LOGIT_RTOL * lp.abs().max().item()
+    agree = int((lk.argmax(-1) == lp.argmax(-1)).sum().item())
+    log(f"first decode step logits, kernel vs plain: max_abs_err="
+        f"{logit_err:.3e} (tol {logit_tol:.3e} = {LOGIT_RTOL} x max|logit|"
+        f"), argmax agree {agree}/{LANES}")
+    if logit_err > logit_tol:
+        raise AssertionError("decode logits disagree with the plain version")
+    profile_decode(dec)
+    del dec, lk, lp
+    torch.cuda.empty_cache()
+
+    def reset():
+        rpa.ragged_paged_attention.launches = 0
+
+    launches, summary = _serve_burst(
+        engine, "serve",
+        lambda model: model["hidden_size"] == cfg.hidden_size, reset,
+        lambda: rpa.ragged_paged_attention.launches)
+    want = summary["decode_steps"] * cfg.num_layers
     log(f"kernel launches during serving: {launches} (decode steps x "
         f"layers = {want})")
-    if steps <= 0 or launches != want:
+    if launches != want:
         raise AssertionError("the decode path did not run through the kernel")
     entry["launches"] = launches
-    return {"requests": len(replies), "tokens": tokens, "wall_s": wall,
-            "decode_steps": steps, "decode_step_ms": 1e3 * dsec / steps,
-            "tokens_per_s": tokens / wall, "latency_max_s": lat[-1]}
+    return summary
 
 
 def _model_flops_per_step(cfg, n_params: int) -> float:
@@ -669,22 +770,8 @@ def phase_train(dev, entries: list) -> dict:
             f"{h['grad_norm']:.4f} lr {h['learning_rate']:.3e} "
             f"{h['step_seconds'] * 1e3:.1f} ms "
             f"{h['tokens_per_sec']:.0f} tok/s")
-    losses = [h["loss"] for h in hist]
-    norms = [h["grad_norm"] for h in hist]
-    if len(hist) != TRAIN_STEPS or not all(
-            map(math.isfinite, losses + norms)):
-        raise AssertionError(f"bad training run: {losses} {norms}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"the loss did not fall: {losses}")
-    loss_err = abs(hist[0]["loss"] - plain_loss) / abs(plain_loss)
-    norm_err = abs(hist[0]["grad_norm"] - plain_norm) / abs(plain_norm)
-    log(f"first step, kernels vs plain attention: loss {hist[0]['loss']:.5f}"
-        f" vs {plain_loss:.5f} (rel {loss_err:.2e}, tol {LOSS_RTOL}), "
-        f"grad_norm {hist[0]['grad_norm']:.5f} vs {plain_norm:.5f} (rel "
-        f"{norm_err:.2e}, tol {GRAD_NORM_RTOL})")
-    if loss_err > LOSS_RTOL or norm_err > GRAD_NORM_RTOL:
-        raise AssertionError("the kernels' first step disagrees with the "
-                             "plain attention's")
+    losses, norms = _check_run(hist, plain_loss, plain_norm,
+                               "plain attention")
     per_step = cfg.num_layers * accum
     want = {"B1": 2 * per_step * TRAIN_STEPS, "B2": per_step * TRAIN_STEPS,
             "B3": per_step * TRAIN_STEPS}
@@ -698,21 +785,471 @@ def phase_train(dev, entries: list) -> dict:
         e["launches"] = launches[kern]
         e["launches_per_step"] = launches[kern] // TRAIN_STEPS
 
-    steady = [h["step_seconds"] for h in hist[1:]]
-    step_s = statistics.median(steady)
+    steady = _steady_step(cfg, hist, n_params, "train step", "")
+    log(f"  peak memory allocated {peak_gb:.2f} GB")
+    prof = profile_train_step(trainer, first)
+    return {"steps": TRAIN_STEPS, "losses": losses, "grad_norms": norms,
+            **steady, "peak_memory_gb": peak_gb,
+            "first_step_loss_plain": plain_loss,
+            "first_step_grad_norm_plain": plain_norm, **prof}
+
+
+def _check_run(hist, plain_loss: float, plain_norm: float, what: str):
+    """TRAIN_STEPS finite losses and grad norms, a falling loss, and the
+    first step within LOSS_RTOL / GRAD_NORM_RTOL of its re-run through
+    `what`. -> (losses, grad norms)."""
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    if len(hist) != TRAIN_STEPS or not all(
+            map(math.isfinite, losses + norms)):
+        raise AssertionError(f"bad training run: {losses} {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    loss_err = abs(hist[0]["loss"] - plain_loss) / abs(plain_loss)
+    norm_err = abs(hist[0]["grad_norm"] - plain_norm) / abs(plain_norm)
+    log(f"first step, kernels vs {what}: loss {hist[0]['loss']:.5f} vs "
+        f"{plain_loss:.5f} (rel {loss_err:.2e}, tol {LOSS_RTOL}), grad_norm "
+        f"{hist[0]['grad_norm']:.5f} vs {plain_norm:.5f} (rel "
+        f"{norm_err:.2e}, tol {GRAD_NORM_RTOL})")
+    if loss_err > LOSS_RTOL or norm_err > GRAD_NORM_RTOL:
+        raise AssertionError(f"the kernels' first step disagrees with the "
+                             f"{what}'s")
+    return losses, norms
+
+
+def _steady_step(cfg, hist, n_params: int, label: str, note: str) -> dict:
+    """Median host wall of steps 2..TRAIN_STEPS, tokens/s and the
+    model-FLOPs share of H100_BF16_FLOPS (n_params: the matmul parameters
+    a token runs through)."""
+    step_s = statistics.median(h["step_seconds"] for h in hist[1:])
     tokens = cfg.batch_size * cfg.seq_length
     flops = _model_flops_per_step(cfg, n_params)
     mfu = flops / step_s / H100_BF16_FLOPS
-    log(f"train step (steps 2-{TRAIN_STEPS}, median): host wall "
+    log(f"{label} (steps 2-{TRAIN_STEPS}, median): host wall "
         f"{step_s * 1e3:.1f} ms, {tokens / step_s:.0f} tokens/s, model "
-        f"FLOPs {flops / 1e12:.1f} TFLOP/step = {100 * mfu:.2f}% of "
-        f"989 TFLOP/s; peak memory allocated {peak_gb:.2f} GB")
+        f"FLOPs{note} {flops / 1e12:.2f} TFLOP/step = {100 * mfu:.2f}% of "
+        f"989 TFLOP/s")
+    return {"step_ms_median": step_s * 1e3, "tokens_per_s": tokens / step_s,
+            "mfu": mfu}
+
+
+# ---------------------------------------------------------------------------
+# The MoE slice: B4 (gmm, tgmm), b1 served with its experts, the bench
+# flagship trained.
+# ---------------------------------------------------------------------------
+# Serving: b1 (hidden 2048, 8 experts of intermediate 5504); a decode step
+# at 8 lanes routes 16 (token, expert) pairs into one 128-row buffer.
+# Training: bench.py's flagship widths (hidden 1024, 8 experts of 2816); a
+# micro-batch of 16 x 2048 tokens is 65,536 pair rows.
+GMM_CASES = {
+    # name: (rows, K, N, group sizes); the decode case leaves one expert
+    # untouched and a 112-row tail, the training case a 436-row tail.
+    "serve_wi": (128, 2048, 2 * 5504, [2, 3, 1, 0, 4, 2, 3, 1]),
+    "serve_wo": (128, 5504, 2048, [2, 3, 1, 0, 4, 2, 3, 1]),
+    "train_wi": (65536, 1024, 2 * 2816,
+                 [9000, 8100, 7900, 8200, 8300, 7700, 8050, 7850]),
+    "train_wo": (65536, 2816, 1024,
+                 [9000, 8100, 7900, 8200, 8300, 7700, 8050, 7850]),
+    "train_empty": (4096, 1024, 2 * 2816,
+                    [1200, 0, 900, 700, 0, 600, 300, 100]),
+}
+# B4 kernel vs plain version, bf16 outputs: within 1e-2 x max|plain|. Both
+# accumulate in fp32 and round once to bf16 (2^-8 relative), the sums in
+# other orders, so an element may land on the neighbouring bf16 value.
+GMM_REL_TOL = 1e-2
+# bench.py:129-146 (_child_config "flagship"), copied literally, and two
+# of flagship_tuned's levers (bench.py:119-128); save_attn remat and bf16
+# Adam moments are not ported (ROADMAP A6, A7), so the remat policy is
+# nothing_saveable and the moments are fp32.
+FLAGSHIP = dict(
+    vocab_size=32768,
+    hidden_size=1024,
+    num_layers=10,
+    num_heads=16,
+    num_kv_heads=8,
+    seq_length=2048,
+    batch_size=16,
+    use_moe=True,
+    num_experts=8,
+    moe_top_k=2,
+    capacity_factor=1.25,
+    load_balancing_weight=0.01,
+    precision="bf16",
+    use_flash_attention=True,
+    gradient_checkpointing=True,
+)
+FLAGSHIP_LEVERS = dict(moe_dispatch="gmm", rope_dtype="bf16")
+
+
+def _plain_gmm(lhs, rhs, group_sizes, out_dtype=None, transpose_rhs=False):
+    """The plain grouped matmul (differentiable by autograd) in place of
+    the kernel, for the re-runs the kernels' steps are held against."""
+    from luminaai_tpu_torch.ops import gmm as tg
+
+    return tg.gmm_ref(lhs, rhs, group_sizes, out_dtype, transpose_rhs)
+
+
+def _grouped_mm(a, b, group_sizes):
+    """One PyTorch call computing B4a (a [M, K], b [E, K, N]) or B4b (a =
+    lhs^T [K, M], b = dout [M, N]) on the same operands:
+    torch._grouped_mm, a yardstick only (the port never calls it). None
+    where this torch lacks it or refuses the operands."""
+    import torch
+
+    offs = torch.cumsum(group_sizes, 0, dtype=torch.int32)
+
+    def call():
+        return torch._grouped_mm(a, b, offs=offs, out_dtype=torch.bfloat16)
+
+    try:
+        call()
+        torch.cuda.synchronize()
+    except (AttributeError, RuntimeError) as exc:
+        log(f"  torch._grouped_mm unavailable: {str(exc).splitlines()[0]}")
+        return None
+    return call
+
+
+def _gmm_bound(kept, touched, k, n, e, rows, tgmm=False):
+    """(bound ms, bound_by, flops, bytes) of one B4 call: each input byte
+    this run's data needs read once (the kept rows; the touched experts'
+    weights), each output byte written once, 2 x kept x K x N flops."""
+    flops = 2 * kept * k * n
+    if tgmm:
+        nbytes = kept * k * 2 + kept * n * 2 + e * k * n * 2 + e * 4
+    else:
+        nbytes = kept * k * 2 + touched * k * n * 2 + rows * n * 2 + e * 4
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_BF16_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", flops, nbytes)
+
+
+def phase_gmm_kernels(dev) -> list:
+    """B4a (gmm, and its transpose_rhs form) and B4b (tgmm) against their
+    plain versions at the serving and training shapes; exact zeros in the
+    tail and in empty groups; kernel / plain / library times and bounds."""
+    import torch
+
+    from luminaai_tpu_torch.ops import gmm as tg
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(torch.bfloat16)
+
+    def rel(got, want):
+        return ((got.float() - want.float()).abs().max()
+                / want.float().abs().max()).item()
+
+    cases, abs_err = {}, {"gmm": 0.0, "tgmm": 0.0}
+    for name, (rows, k, n, sizes) in GMM_CASES.items():
+        e, kept = len(sizes), sum(sizes)
+        touched = sum(1 for x in sizes if x)
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        lhs, dout = randn(rows, k), randn(rows, n)
+        w = randn(e, k, n, scale=0.02)
+        checks = {
+            "gmm": (lambda: tg.gmm(lhs, w, gs),
+                    lambda: tg.gmm_ref(lhs, w, gs)),
+            "gmm_t": (lambda: tg.gmm(dout, w, gs, transpose_rhs=True),
+                      lambda: tg.gmm_ref(dout, w, gs, transpose_rhs=True)),
+            "tgmm": (lambda: tg.tgmm(lhs.t(), dout, gs),
+                     lambda: tg.tgmm_ref(lhs.t(), dout, gs)),
+        }
+        errs = {}
+        for key, (kern, plain) in checks.items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError(f"{key} output not finite ({name})")
+            if key == "tgmm":
+                errs[key] = rel(got, want)
+                zero_ok = all(not got[g].any() for g, x in enumerate(sizes)
+                              if x == 0)
+            else:
+                errs[key] = rel(got[:kept], want[:kept])
+                zero_ok = not got[kept:].any()
+            abs_err["tgmm" if key == "tgmm" else "gmm"] = max(
+                abs_err["tgmm" if key == "tgmm" else "gmm"],
+                (got.float() - want.float()).abs().max().item())
+            if errs[key] > GMM_REL_TOL or not zero_ok:
+                raise AssertionError(f"{key} disagrees with plain ({name}): "
+                                     f"rel {errs[key]:.3e}, zeros {zero_ok}")
+            del got, want
+        case = {"rows": rows, "K": k, "N": n, "group_sizes": sizes,
+                "rel_err": errs,
+                "gmm_ms": cuda_ms(checks["gmm"][0], 20),
+                "gmm_t_ms": cuda_ms(checks["gmm_t"][0], 20),
+                "tgmm_ms": cuda_ms(checks["tgmm"][0], 20)}
+        case["gmm_bound_ms"] = _gmm_bound(kept, touched, k, n, e, rows)[0]
+        case["tgmm_bound_ms"] = _gmm_bound(kept, touched, k, n, e, rows,
+                                           tgmm=True)[0]
+        cases[name] = case
+        log(f"B4 [{name}: rows {rows} K {k} N {n} kept {kept}, {touched}/{e}"
+            f" experts]: rel err " + ", ".join(f"{a} {b:.2e}" for a, b in
+                                               errs.items())
+            + f" (tol {GMM_REL_TOL} x max); gmm {case['gmm_ms']:.4f} ms "
+            f"(bound {case['gmm_bound_ms']:.4f}), gmm^T "
+            f"{case['gmm_t_ms']:.4f} ms, tgmm {case['tgmm_ms']:.4f} ms "
+            f"(bound {case['tgmm_bound_ms']:.4f})")
+        if name == "train_wi":
+            headline = dict(rows=rows, k=k, n=n, e=e, kept=kept,
+                            touched=touched, gs=gs, lhs=lhs, dout=dout, w=w,
+                            sizes=sizes)
+        else:
+            del lhs, dout, w
+        torch.cuda.empty_cache()
+
+    # Headline numbers at the training wi shape: the largest B4 work on
+    # the main path (forward, recompute and grad products).
+    h = headline
+    entries = []
+    for kern in ("gmm", "tgmm"):
+        if kern == "gmm":
+            run = lambda: tg.gmm(h["lhs"], h["w"], h["gs"])  # noqa: E731
+            plain = lambda: tg.gmm_ref(h["lhs"], h["w"], h["gs"])  # noqa
+            lib = _grouped_mm(h["lhs"], h["w"], h["gs"])
+        else:
+            run = lambda: tg.tgmm(h["lhs"].t(), h["dout"], h["gs"])  # noqa
+            plain = lambda: tg.tgmm_ref(h["lhs"].t(), h["dout"],  # noqa
+                                        h["gs"])
+            lib = _grouped_mm(h["lhs"].t(), h["dout"], h["gs"])
+        ms = cuda_ms(run, 20)
+        plain_ms = cuda_ms(plain, 3, 1)
+        lib_ms = cuda_ms(lib, 20) if lib else None
+        bound, bound_by, flops, nbytes = _gmm_bound(
+            h["kept"], h["touched"], h["k"], h["n"], h["e"], h["rows"],
+            tgmm=kern == "tgmm")
+        log(f"B4{'a' if kern == 'gmm' else 'b'} {kern} at the training wi "
+            f"shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"(torch._grouped_mm) {lib_ms} ms, bound {bound:.4f} ms "
+            f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; "
+            f"{100 * bound / ms:.1f}% of bound)")
+        entries.append({
+            "name": kern,
+            "route": "cuda",
+            "source": "luminaai_tpu_torch/csrc/gmm.cu",
+            "replaces": "luminaai_tpu/models/moe.py:806",
+            "tpu_kernel": ("megablox gmm (gmm.py:314)" if kern == "gmm"
+                           else "megablox tgmm (gmm.py:573)"),
+            "launches": None,  # filled from the MoE serving and training
+            "max_abs_err": abs_err[kern],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "library_ms": lib_ms,
+            "library": "torch._grouped_mm",
+            "shapes": {"rows": h["rows"], "K": h["k"], "N": h["n"],
+                       "group_sizes": h["sizes"]},
+            "cases": cases,
+        })
+    del headline, h
+    torch.cuda.empty_cache()
+    return entries
+
+
+def phase_serve_moe(dev, rpa_entry: dict, gmm_entries: list) -> dict:
+    """b1 with its 8 experts (moe_dispatch="gmm", seeded bf16 weights)
+    behind the HTTP server: the first decode step's logits against a
+    re-run through the plain gmm, one profiled decode step, then 8
+    concurrent requests with B4a launched exactly 2 x 16 x (decode steps
+    + prefill forwards) times."""
+    import torch
+
+    from luminaai_tpu_torch.config import ConfigPresets
+    from luminaai_tpu_torch.inference.chat import build_engine
+    from luminaai_tpu_torch.models import moe
+    from luminaai_tpu_torch.ops import gmm as tg
+    from luminaai_tpu_torch.ops import ragged_paged_attention as rpa
+
+    cfg = ConfigPresets.get("b1", moe_dispatch="gmm")
+    t0 = time.perf_counter()
+    engine = build_engine(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    n_moe = cfg.num_moe_layers()
+    log(f"engine: b1 with experts ({cfg.num_experts} x top-"
+        f"{cfg.moe_top_k}, cf {cfg.capacity_factor}, {n_moe} MoE layers, "
+        f"gmm), {n_params / 1e9:.3f}B params "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated), built "
+        f"in {time.perf_counter() - t0:.1f}s")
+
+    dec = _filled_decoder(engine)
+    # Top-2 routing is discontinuous: the kernel and the plain version
+    # round each expert output to bf16 after sums in other orders, so a
+    # near-tied second choice may flip between the two runs and move that
+    # lane's FFN output by O(1). Record each MoE layer's expert choices in
+    # both runs: lanes routed alike in every layer are held to the dense
+    # decode tolerance, lanes with a flip are counted and reported.
+    routes, real_routing = [], moe.sort_routing
+
+    def recording(probs, top_k, capacity):
+        out = real_routing(probs, top_k, capacity)
+        routes.append(torch.sort(out[0] // capacity, dim=-1).values)
+        return out
+
+    n0 = tg.gmm.launches
+    moe.sort_routing = recording
+    try:
+        lk = dec.step_logits()
+        if tg.gmm.launches - n0 != 2 * n_moe:
+            raise AssertionError("a decode step did not run B4a twice per "
+                                 "MoE layer")
+        kernel_routes, routes = routes, []
+        moe.GMM_OVERRIDE = _plain_gmm
+        lp = dec.step_logits()
+    finally:
+        moe.GMM_OVERRIDE = None
+        moe.sort_routing = real_routing
+    torch.cuda.synchronize()
+    if lk.shape != (LANES, cfg.vocab_size) or not torch.isfinite(lk).all():
+        raise AssertionError(f"bad MoE decode logits {tuple(lk.shape)}")
+    same = torch.stack([(a == b).flatten(1).all(1) for a, b in
+                        zip(kernel_routes, routes)]).all(0)  # [lanes]
+    n_same = int(same.sum().item())
+    logit_tol = LOGIT_RTOL * lp.abs().max().item()
+    all_err = (lk - lp).abs().max().item()
+    logit_err = (lk - lp)[same].abs().max().item() if n_same else math.inf
+    agree = int((lk.argmax(-1) == lp.argmax(-1))[same].sum().item())
+    log(f"MoE first decode step logits, B4a vs plain gmm: {n_same}/{LANES} "
+        f"lanes routed alike in all {n_moe} MoE layers; on those max_abs_err"
+        f"={logit_err:.3e} (tol {logit_tol:.3e} = {LOGIT_RTOL} x "
+        f"max|logit|), argmax agree {agree}/{n_same}; all lanes max_abs_err"
+        f"={all_err:.3e}, argmax agree "
+        f"{int((lk.argmax(-1) == lp.argmax(-1)).sum().item())}/{LANES}")
+    if not n_same or logit_err > logit_tol or agree != n_same:
+        raise AssertionError("MoE decode logits disagree with the plain gmm")
+    profile_decode(dec)
+    del dec, lk, lp
+    torch.cuda.empty_cache()
+
+    def reset():
+        tg.reset_launches()
+        rpa.ragged_paged_attention.launches = 0
+
+    launches, summary = _serve_burst(
+        engine, "MoE serve", lambda model: model["moe"], reset,
+        lambda: {"B4a": tg.gmm.launches, "B4b": tg.tgmm.launches,
+                 "B5": rpa.ragged_paged_attention.launches})
+    steps = summary["decode_steps"]
+    want = {"B4a": 2 * n_moe * (steps + summary["prefill_forwards"]),
+            "B4b": 0, "B5": steps * cfg.num_layers}
+    log(f"kernel launches while serving with experts: {launches} (want "
+        f"{want}: B4a 2 x {n_moe} MoE layers x (decode steps + prefill "
+        f"forwards), B5 decode steps x layers)")
+    if launches != want:
+        raise AssertionError("MoE serving did not run through the kernels "
+                             "as expected")
+    gmm_entries[0]["launches"] = (gmm_entries[0]["launches"] or 0) + (
+        launches["B4a"])
+    gmm_entries[0]["launches_serve"] = launches["B4a"]
+    rpa_entry["launches"] = (rpa_entry["launches"] or 0) + launches["B5"]
+    rpa_entry["launches_serve_moe"] = launches["B5"]
+    del engine
+    return {**summary, "first_step_logit_err": logit_err,
+            "first_step_lanes_routed_alike": n_same}
+
+
+def phase_train_moe(dev, flash_entries: list, gmm_entries: list) -> dict:
+    """The bench flagship widths with experts trained TRAIN_STEPS steps
+    through Trainer: the first step against the same step through the
+    plain gmm (routing-noise generator reseeded identically), exact B1-B4
+    launch counts, finite and falling losses, step time, tokens/s,
+    model-FLOPs share (active parameters), peak memory, MoE metrics."""
+    import torch
+
+    from luminaai_tpu_torch import cli
+    from luminaai_tpu_torch.config import Config
+    from luminaai_tpu_torch.models import moe
+    from luminaai_tpu_torch.ops import flash_attention as fa
+    from luminaai_tpu_torch.ops import gmm as tg
+    from luminaai_tpu_torch.ops.fused import global_norm
+    from luminaai_tpu_torch.parallel import train_step as ts
+    from luminaai_tpu_torch.training.trainer import Trainer
+
+    cfg = Config(**FLAGSHIP, **FLAGSHIP_LEVERS, max_steps=TRAIN_STEPS)
+    accum = cfg.gradient_accumulation_steps
+    n_moe = cfg.num_moe_layers()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, cli._synthetic_batches(cfg), device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in trainer.state.params)
+    expert_ffn = 3 * cfg.hidden_size * cfg.intermediate_size
+    n_active = n_params - n_moe * (cfg.num_experts - cfg.moe_top_k) * (
+        expert_ffn)
+    log(f"trainer: flagship MoE (bench.py:129-146 + gmm, bf16 RoPE), "
+        f"{cfg.num_layers} layers, hidden {cfg.hidden_size}, "
+        f"{cfg.num_experts} experts x {cfg.intermediate_size}, "
+        f"{n_params / 1e6:.1f}M params ({n_active / 1e6:.1f}M active), "
+        f"batch {cfg.batch_size} x {cfg.seq_length}, accumulation {accum}, "
+        f"remat {cfg.remat_policy}, built in {time.perf_counter() - t0:.1f}s")
+
+    first = trainer._to_device(next(iter(cli._synthetic_batches(cfg)())))
+    gen_state = trainer.state.generator.get_state()
+    moe.GMM_OVERRIDE = _plain_gmm
+    try:
+        grads, m = ts._accumulate_grads(
+            ts.make_loss_fn(cfg, trainer.model), trainer.state.params,
+            first, trainer.state.generator, accum)
+        plain_loss, plain_norm = float(m["loss"]), float(global_norm(grads))
+    finally:
+        moe.GMM_OVERRIDE = None
+    trainer.state.generator.set_state(gen_state)
+    del grads, m
+    torch.cuda.empty_cache()
+
+    fa.reset_launches()
+    tg.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    summary = trainer.train()
+    launches = {"B1": fa.flash_fwd.launches, "B2": fa.flash_bwd_dq.launches,
+                "B3": fa.flash_bwd_dkv.launches, "B4a": tg.gmm.launches,
+                "B4b": tg.tgmm.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    hist = summary["history"]
+    for i, h in enumerate(hist, 1):
+        log(f"  step {i}: loss {h['loss']:.4f} (aux {h['aux_loss']:.4f}) "
+            f"grad_norm {h['grad_norm']:.4f} lr {h['learning_rate']:.3e} "
+            f"drop {h['moe_drop_rate']:.4f} {h['step_seconds'] * 1e3:.1f} "
+            f"ms {h['tokens_per_sec']:.0f} tok/s")
+    losses, norms = _check_run(hist, plain_loss, plain_norm,
+                               "MoE step through the plain gmm")
+    L, n = cfg.num_layers, accum * TRAIN_STEPS
+    want = {"B1": 2 * L * n, "B2": L * n, "B3": L * n,
+            "B4a": 6 * n_moe * n, "B4b": 2 * n_moe * n}
+    log(f"kernel launches during MoE training: {launches} (want {want}: per "
+        f"layer and micro-batch B1 forward + recompute, B2, B3; per MoE "
+        f"layer B4a 2 forward + 2 recompute + 2 grad_lhs, B4b 2 grad_rhs)")
+    if launches != want:
+        raise AssertionError("MoE training did not run through the kernels "
+                             "as expected")
+    for e, kern in zip(flash_entries, ("B1", "B2", "B3")):
+        e["launches"] = (e["launches"] or 0) + launches[kern]
+        e["launches_per_step_moe"] = launches[kern] // TRAIN_STEPS
+    for e, kern in zip(gmm_entries, ("B4a", "B4b")):
+        e["launches"] = (e["launches"] or 0) + launches[kern]
+        e["launches_train"] = launches[kern]
+        e["launches_per_step"] = launches[kern] // TRAIN_STEPS
+
+    steady = _steady_step(cfg, hist, n_active, "MoE train step",
+                          " (active params)")
+    last = hist[-1]
+    moe_metrics = {k: last[k] for k in last if k.startswith("moe_")
+                   or k == "expert_utilization"}
+    log(f"  peak memory allocated {peak_gb:.2f} GB; last step "
+        f"{json.dumps(moe_metrics)}")
     prof = profile_train_step(trainer, first)
+    del trainer
     return {"steps": TRAIN_STEPS, "losses": losses, "grad_norms": norms,
-            "step_ms_median": step_s * 1e3,
-            "tokens_per_s": tokens / step_s, "mfu": mfu,
-            "peak_memory_gb": peak_gb, "first_step_loss_plain": plain_loss,
-            "first_step_grad_norm_plain": plain_norm, **prof}
+            **steady, "peak_memory_gb": peak_gb,
+            "first_step_loss_plain": plain_loss,
+            "first_step_grad_norm_plain": plain_norm,
+            "params": n_params, "active_params": n_active,
+            "moe_metrics": moe_metrics, **prof}
 
 
 def main() -> int:
@@ -739,12 +1276,17 @@ def main() -> int:
     phase_build()
     entry = phase_kernels(dev)
     flash_entries = phase_flash_kernels(dev)
+    gmm_entries = phase_gmm_kernels(dev)
     serve = phase_serve(dev, entry)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
+    serve_moe = phase_serve_moe(dev, entry, gmm_entries)
+    _release()
     train = phase_train(dev, flash_entries)
+    _release()
+    train_moe = phase_train_moe(dev, flash_entries, gmm_entries)
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s: "
-        f"serve {serve}; train {json.dumps(train)}")
+        f"serve {serve}; serve_moe {serve_moe}; train {json.dumps(train)}; "
+        f"train_moe {json.dumps(train_moe)}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -753,7 +1295,7 @@ def main() -> int:
     )
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
           else f"nvidia-smi unavailable: {smi.stderr.strip()}")
-    print(json.dumps({"kernels": [entry, *flash_entries]}))
+    print(json.dumps({"kernels": [entry, *flash_entries, *gmm_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

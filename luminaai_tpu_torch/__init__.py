@@ -13,7 +13,10 @@ kernel written in CUDA for Hopper (csrc/ragged_paged_attention.cu); and
 its training path (fused LM-head cross-entropy, AdamW with the JAX
 schedules, the accumulating train step, a trimmed Trainer, `train` on the
 CLI), with the flash-attention forward and backward kernels written in
-CUDA for Hopper (csrc/flash_attention.cu).
+CUDA for Hopper (csrc/flash_attention.cu); and the mixture-of-experts
+layer on both paths (top-k routing with per-group capacity, sort and gmm
+dispatch), with the grouped matmul and its transposed form written in CUDA
+for Hopper (csrc/gmm.cu).
 """
 
 from luminaai_tpu_torch.config import Config, ConfigPresets, resolve_device

@@ -1,15 +1,18 @@
 """Command line of the port: `python -m luminaai_tpu_torch serve|train ...`.
 
+  python -m luminaai_tpu_torch serve --preset b1 --moe-dispatch gmm --seed 0
   python -m luminaai_tpu_torch serve --preset b1 --dense --seed 0 --port 5001
-  python -m luminaai_tpu_torch serve --preset debug --dense \\
+  python -m luminaai_tpu_torch serve --preset debug \\
       --weights params.npz --device cpu
+  python -m luminaai_tpu_torch train --preset debug --moe-dispatch gmm \\
+      --synthetic --steps 3 --device cpu
   python -m luminaai_tpu_torch train --preset b1 --dense --synthetic --steps 6
-  python -m luminaai_tpu_torch train --preset debug --dense --synthetic \\
-      --steps 3 --device cpu
 
-The model is built on the card unless --device says otherwise. `train`
-takes the JAX CLI's flags that apply to one card; --synthetic is required
-(real data loading is a later slice).
+The presets are mixture-of-experts models, as in the JAX package; --dense
+builds the preset's widths without experts. The model is built on the card
+unless --device says otherwise. `train` takes the JAX CLI's flags that
+apply to one card; --synthetic is required (real data loading is a later
+slice).
 """
 
 from __future__ import annotations
@@ -24,14 +27,32 @@ import numpy as np
 from luminaai_tpu_torch.config import Config, ConfigPresets
 
 
+def _moe_dispatch_flag(p: argparse.ArgumentParser) -> None:
+    # The JAX train flag's choices (luminaai_tpu/cli.py); gather and einsum
+    # are refused where the model is built (not ported yet).
+    p.add_argument("--moe-dispatch", dest="moe_dispatch",
+                   choices=["sort", "gather", "einsum", "gmm"],
+                   help="MoE dispatch (default: the config's, 'sort'); "
+                        "'gmm' runs the grouped-matmul kernel")
+
+
+def _model_overrides(args) -> Dict[str, object]:
+    overrides: Dict[str, object] = {}
+    if args.dense:
+        overrides["use_moe"] = False
+    if args.moe_dispatch is not None:
+        overrides["moe_dispatch"] = args.moe_dispatch
+    return overrides
+
+
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m luminaai_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
     s = sub.add_parser("serve", help="serve a model over HTTP")
     s.add_argument("--preset", default="b1", choices=ConfigPresets.available())
     s.add_argument("--dense", action="store_true",
-                   help="serve the preset's widths without experts "
-                        "(required: MoE is not ported yet)")
+                   help="serve the preset's widths without experts")
+    _moe_dispatch_flag(s)
     w = s.add_mutually_exclusive_group()
     w.add_argument("--weights", help=".npz of a flax parameter tree "
                                      "('/'-joined keys)")
@@ -48,8 +69,8 @@ def _parser() -> argparse.ArgumentParser:
     t.add_argument("--preset", default="debug",
                    choices=ConfigPresets.available())
     t.add_argument("--dense", action="store_true",
-                   help="train the preset's widths without experts "
-                        "(required: MoE is not ported yet)")
+                   help="train the preset's widths without experts")
+    _moe_dispatch_flag(t)
     t.add_argument("--synthetic", action="store_true",
                    help="train on the synthetic repeating-pattern batches "
                         "(required: real data loading is not ported yet)")
@@ -87,7 +108,7 @@ def _synthetic_batches(cfg: Config, n_batches: int = 200, seed: int = 0):
 
 
 def _train_config(args) -> Config:
-    overrides = {}
+    overrides = _model_overrides(args)
     for flag, field in [
         ("lr", "learning_rate"),
         ("batch_size", "batch_size"),
@@ -99,8 +120,6 @@ def _train_config(args) -> Config:
         val = getattr(args, flag)
         if val is not None:
             overrides[field] = val
-    if args.dense:
-        overrides["use_moe"] = False
     if args.no_flash:
         overrides["use_flash_attention"] = False
     return ConfigPresets.get(args.preset, **overrides)
@@ -133,8 +152,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from luminaai_tpu_torch.inference.chat import build_engine
     from luminaai_tpu_torch.serving.server import ChatServer
 
-    overrides = {"use_moe": False} if args.dense else {}
-    config = ConfigPresets.get(args.preset, **overrides)
+    config = ConfigPresets.get(args.preset, **_model_overrides(args))
     engine = build_engine(
         config, device=args.device, seed=args.seed, weights=args.weights
     )

@@ -3,12 +3,12 @@
 The port keeps its own copy of the fields its serving and training slices
 read, with the JAX package's defaults and validation, so a `Config` built
 with the same keyword arguments describes the same model and the same
-training run on both sides. Fields for parallelism, the training runtime
-(checkpoints, monitoring, orchestration) and MoE routing stay in the JAX
-package until the slices that need them are ported; `use_moe=True` is kept
-as a field (the presets set it) and refused where a model is built.
-Training values the port does not run yet are accepted here, as the JAX
-package accepts them, and refused where a trainer is built
+training run on both sides. Fields for parallelism and the training
+runtime (checkpoints, monitoring, orchestration) stay in the JAX package
+until the slices that need them are ported. Values the port does not run
+yet are accepted here, as the JAX package accepts them, and refused where
+a model is built (MoE dispatch modes other than sort and gmm, mixture of
+depths: models/transformer.py) or a trainer is built
 (parallel/train_step.py `check_trainable`).
 """
 
@@ -25,6 +25,8 @@ LR_SCHEDULES = ("cosine", "linear", "constant", "wsd")
 REMAT_POLICY_NAMES = (
     "nothing_saveable", "save_outs", "save_attn", "dots_saveable", "full",
 )
+MOE_PATTERNS = ("all", "every_3rd", "every_4th", "sandwich", "none")
+MOE_DISPATCHES = ("sort", "gather", "einsum", "gmm", "a2a")
 
 
 @dataclass
@@ -60,8 +62,30 @@ class Config:
     # pool never rolls, so the window is a per-lane band mask.
     attention_window: Optional[int] = None
 
-    # --- MoE (the presets set it, as the JAX presets do; not ported) ---
+    # --- MoE (luminaai_tpu/config.py:113-141) ---
     use_moe: bool = False
+    num_experts: int = 8
+    moe_top_k: int = 2
+    capacity_factor: float = 1.25
+    load_balancing_weight: float = 0.01
+    router_z_loss_weight: float = 1e-3
+    routing_temperature: float = 1.0
+    # Training-time routing noise and whole-expert dropout, drawn from the
+    # train step's torch.Generator (not JAX's numbers).
+    routing_noise_std: float = 0.1
+    expert_dropout_rate: float = 0.0
+    moe_pattern: str = "all"
+    dense_start_layers: int = 2
+    dense_end_layers: int = 2
+    expert_output_scaling: float = 1.0
+    # 'sort' = scatter/gather via flat slot ids into capacity buffers and
+    # dense expert products; 'gmm' = the dropless grouped matmul (kernel
+    # B4). 'gather', 'einsum' and 'a2a' are accepted and refused where the
+    # model is built (not ported yet).
+    moe_dispatch: str = "sort"
+
+    # --- MoD (accepted, refused where the model is built; not ported) ---
+    use_mod: bool = False
 
     # --- Training ---
     batch_size: int = 8  # sequences per optimizer step
@@ -145,9 +169,43 @@ class Config:
             raise ValueError(
                 "adam_state_quantization supersedes adam_mu_dtype; set one"
             )
+        if self.use_moe:
+            # The single-device part of the JAX validation (config.py:658-741).
+            if self.moe_top_k > self.num_experts:
+                raise ValueError("moe_top_k must be <= num_experts")
+            if self.moe_pattern not in MOE_PATTERNS:
+                raise ValueError(f"invalid moe_pattern {self.moe_pattern}")
+            if not self.capacity_factor > 0:
+                raise ValueError("capacity_factor must be positive")
+            if self.moe_dispatch not in MOE_DISPATCHES:
+                raise ValueError(f"invalid moe_dispatch {self.moe_dispatch}")
+            if not 0.0 <= self.expert_dropout_rate <= 0.5:
+                raise ValueError("expert_dropout_rate must be in [0, 0.5]")
 
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+    def num_moe_layers(self) -> int:
+        if not self.use_moe:
+            return 0
+        return sum(1 for i in range(self.num_layers) if self.is_moe_layer(i))
+
+    def is_moe_layer(self, layer_idx: int) -> bool:
+        """MoE layer placement pattern (the JAX Config.is_moe_layer)."""
+        if not self.use_moe or self.moe_pattern == "none":
+            return False
+        if self.moe_pattern == "all":
+            return True
+        if self.moe_pattern == "every_3rd":
+            return layer_idx % 3 == 2
+        if self.moe_pattern == "every_4th":
+            return layer_idx % 4 == 3
+        if self.moe_pattern == "sandwich":
+            return (
+                self.dense_start_layers <= layer_idx
+                < self.num_layers - self.dense_end_layers
+            )
+        return False
 
     def resolve_precision(self) -> str:
         p = self.precision
@@ -169,8 +227,8 @@ class Config:
 
 class ConfigPresets:
     """The JAX package's presets that the port runs. Each keeps the JAX
-    preset's architecture and training fields; pass `use_moe=False` (the
-    CLI's `--dense`) for the dense model at the preset's widths."""
+    preset's architecture, MoE and training fields; pass `use_moe=False`
+    (the CLI's `--dense`) for the dense model at the preset's widths."""
 
     @staticmethod
     def debug() -> Config:
@@ -187,6 +245,10 @@ class ConfigPresets:
             learning_rate=5e-5,
             gradient_checkpointing=False,
             use_moe=True,
+            num_experts=8,
+            moe_top_k=2,
+            capacity_factor=1.1,
+            load_balancing_weight=0.005,
         )
 
     @staticmethod
@@ -200,6 +262,8 @@ class ConfigPresets:
             seq_length=1024,
             batch_size=16,
             use_moe=True,
+            num_experts=8,
+            moe_top_k=2,
         )
 
     @staticmethod
@@ -218,6 +282,8 @@ class ConfigPresets:
             batch_size=16,
             gradient_accumulation_steps=8,
             use_moe=True,
+            num_experts=8,
+            moe_top_k=2,
         )
 
     _PRESETS = ("debug", "debug_300m", "b1")

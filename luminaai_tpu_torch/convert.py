@@ -11,11 +11,14 @@ LuminaTransformer's state_dict:
                                             [H, (nq + 2 nkv) d]
   layer_i/attention/wo [nq, d, H]        -> layers.i.attention.wo [nq d, H]
   layer_i/ffn/wi [H, 2F], wo [F, H]      -> layers.i.ffn.wi, .wo
+  layer_i/moe/router [H, E], wi [E, H, 2F],
+    wo [E, F, H] (MoE layers)            -> layers.i.moe.router, .wi, .wo
   final_norm/scale                       -> final_norm.scale
 
 `init_params` draws the same shapes from a seed with the JAX init's
 standard deviations (init_std; init_std / sqrt(2) for the output
-projections; ones for norm scales). The draws are torch's, not JAX's.
+projections, experts' included; 0.02 for the router; ones for norm
+scales). The draws are torch's, not JAX's.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 
 from luminaai_tpu_torch.config import Config
 from luminaai_tpu_torch.models.layers import init_std_out
+from luminaai_tpu_torch.models.moe import ROUTER_INIT_STD
 
 
 def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -80,8 +84,12 @@ def params_from_flax(tree: Mapping[str, Any], config: Config) -> Dict[str, torch
             dim=1,
         )
         sd[q + "attention.wo"] = t(p + "attention/wo").reshape(n_q * d, H)
-        sd[q + "ffn.wi"] = t(p + "ffn/wi")
-        sd[q + "ffn.wo"] = t(p + "ffn/wo")
+        if config.is_moe_layer(i):
+            for name in ("router", "wi", "wo"):
+                sd[q + "moe." + name] = t(p + "moe/" + name)
+        else:
+            sd[q + "ffn.wi"] = t(p + "ffn/wi")
+            sd[q + "ffn.wo"] = t(p + "ffn/wo")
     return sd
 
 
@@ -98,6 +106,8 @@ def init_params(model: torch.nn.Module, seed: int) -> torch.nn.Module:
             p.fill_(1.0)
             continue
         s = std_out if name.endswith(".wo") else std
+        if name.endswith("moe.router"):
+            s = ROUTER_INIT_STD
         draw = torch.randn(
             p.shape, generator=gen, device=p.device, dtype=torch.float32
         )

@@ -26,20 +26,31 @@
 // 8 bf16 so the fragment loads are free of bank conflicts.
 //
 // B1 (forward) and B2 (dQ): one block of 8 warps per (batch, kv head, q
-// tile). The block holds 128 (q head, position) rows: the GQA group's G q
-// heads times 128/G positions, so each K/V tile staged in shared memory
-// serves the whole group (the TPU grid ran one q head per step and
-// fetched each K/V block once per q head). The loop over 64-row K/V tiles
-// inside the block stands in for the TPU's sequential kv grid axis; it
-// starts at the window's band (the TPU's _kv_block_offset) and stops at
-// the diagonal (the TPU's _block_needed), and each element is masked as
-// the TPU's _band_mask does.
-// B3 (dK, dV): one block of 4 warps per (batch, kv head, 64-row kv tile);
-// the block loops over the group's q heads and, from the diagonal on,
-// over the band's 32-row q tiles, accumulating dK and dV in fp32
-// registers, so the GQA group is reduced in the kernel (no [B, Hq, S, D]
-// fp32 buffer, no atomics; the TPU path wrote per-q-head fp32 dK/dV and
-// summed the group afterwards).
+// tile, head chunk). The block holds 128 (q head, position) rows: HB =
+// min(G, 128) q heads of the GQA group times P = 128 / HB positions (row r
+// is head r / P at position q0 + r % P), so each K/V tile staged in shared
+// memory serves every head of the block (the TPU grid ran one q head per
+// step and fetched each K/V block once per q head). Every row carries its
+// own head and position, so any group size tiles: G = 3 gives 3 x 42 rows
+// and 2 padding rows; rows past the group or past Sq are staged as zeros
+// and never stored. The loop over K/V tiles (64 rows, 32 above head_dim
+// 128 to keep the accumulators in registers) inside the block stands in
+// for the TPU's sequential kv grid axis; it starts at the window's band
+// (the TPU's _kv_block_offset) and stops at the diagonal (the TPU's
+// _block_needed), and each element is masked as the TPU's _band_mask does;
+// a partial last K/V tile is staged with zeros and masked past Skv.
+// B3 (dK, dV): one block of 4 warps per (batch, kv head, 64-row kv tile,
+// column half); the block loops over the group's q heads and, from the
+// diagonal on, over the band's 32-row q tiles, accumulating dK and dV in
+// fp32 registers, so the GQA group is reduced in the kernel (no [B, Hq, S,
+// D] fp32 buffer, no atomics; the TPU path wrote per-q-head fp32 dK/dV and
+// summed the group afterwards). Above head_dim 128 two blocks split the
+// output columns (each recomputes the scores) so the two accumulators fit
+// the register file.
+//
+// Shapes: head_dim 64, 128, 192 or 256; any q heads per kv head; any
+// sequence lengths (partial tiles masked). That covers every shape the JAX
+// gate `flash_eligible` admits up to head_dim 256.
 //
 // Bound. At the training shapes (q [2, 2048, 16, 128], k/v [2, 2048, 4,
 // 128], causal) each kernel is bound by operations, not bytes: B1 does
@@ -61,13 +72,18 @@ using bf16 = __nv_bfloat16;
 constexpr int kWarps = 8;                // B1, B2
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = kWarps * 16;       // (q head, position) rows per block
-constexpr int kTileKv = 64;              // K/V rows per tile (B1, B2)
 constexpr int kWarps3 = 4;               // B3
 constexpr int kThreads3 = kWarps3 * 32;
 constexpr int kTileKv3 = kWarps3 * 16;   // kv rows per B3 block
 constexpr int kTileQ3 = 32;              // q rows per B3 loop step
 constexpr int kPad = 8;                  // bf16 padding per shared row
 constexpr float kNegInf = -1e30f;        // the TPU kernels' NEG_INF
+
+// K/V rows per B1/B2 tile, and output columns per B3 block.
+template <int D>
+__host__ __device__ constexpr int tile_kv() { return D <= 128 ? 64 : 32; }
+template <int D>
+__host__ __device__ constexpr int cols3() { return D <= 128 ? D : D / 2; }
 
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -151,47 +167,75 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-__device__ __forceinline__ bool in_band(int qpos, int kpos, int causal, int window) {
+// Whether key position kpos (< Skv) is inside query position qpos's band.
+__device__ __forceinline__ bool in_band(int qpos, int kpos, int Skv, int causal, int window) {
+  if (kpos >= Skv) return false;
   if (!causal) return true;
   return qpos >= kpos && (window <= 0 || qpos - kpos < window);
 }
 
 // Copy `rows` rows of D bf16 (source row stride src_ld elements) into
-// shared memory rows of stride D + kPad, 16 bytes per thread per step.
+// shared memory rows of stride D + kPad, 16 bytes per thread per step;
+// rows at or past `valid` are written as zeros and never read.
 template <int D>
 __device__ __forceinline__ void stage(bf16* dst, const bf16* src, size_t src_ld, int rows,
-                                      int tid, int nthreads) {
+                                      int valid, int tid, int nthreads) {
   constexpr int kChunks = D / 8;
   for (int c = tid; c < rows * kChunks; c += nthreads) {
     const int r = c / kChunks, cc = c - r * kChunks;
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + cc * 8) =
-        *reinterpret_cast<const uint4*>(src + r * src_ld + cc * 8);
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < valid) val = *reinterpret_cast<const uint4*>(src + r * src_ld + cc * 8);
+    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + cc * 8) = val;
   }
 }
 
-// Stage the block's 128 (q head, position) rows of a [B, Sq, Hq, D] tensor:
-// shared row r holds head hk*G + r / rph at position q0 + r % rph.
+// The (q head, position) rows of a B1/B2 block: row r holds head
+// h0 + r / P at position q0 + r % P; rows past nh * P heads' worth or past
+// Sq are padding.
+struct Rows {
+  int P, nh, h0, q0;
+  __device__ __forceinline__ bool valid(int r, int Sq) const {
+    return r < nh * P && q0 + r % P < Sq;
+  }
+  __device__ __forceinline__ int head(int r) const { return h0 + r / P; }
+  __device__ __forceinline__ int pos(int r) const { return q0 + r % P; }
+};
+
+__device__ __forceinline__ Rows block_rows(int G, int hk) {
+  const int HB = min(G, kRows), P = kRows / HB;
+  Rows rows;
+  rows.P = P;
+  rows.q0 = (gridDim.x - 1 - blockIdx.x) * P;  // longest causal tiles first
+  const int g0 = blockIdx.z * HB;
+  rows.nh = min(HB, G - g0);
+  rows.h0 = hk * G + g0;
+  return rows;
+}
+
+// Stage the block's 128 (q head, position) rows of a [B, Sq, Hq, D] tensor.
 template <int D>
-__device__ __forceinline__ void stage_group(bf16* dst, const bf16* src, int b, int Sq,
-                                            int Hq, int hk, int G, int q0, int tid) {
+__device__ __forceinline__ void stage_group(bf16* dst, const bf16* src, int b, int Sq, int Hq,
+                                            const Rows& rows, int tid) {
   constexpr int kChunks = D / 8;
-  const int rph = kRows / G;
   for (int c = tid; c < kRows * kChunks; c += kThreads) {
     const int r = c / kChunks, cc = c - r * kChunks;
-    const int h = hk * G + r / rph, pos = q0 + r % rph;
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + cc * 8) =
-        *reinterpret_cast<const uint4*>(src + ((static_cast<size_t>(b) * Sq + pos) * Hq + h) * D +
-                                        cc * 8);
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (rows.valid(r, Sq)) {
+      val = *reinterpret_cast<const uint4*>(
+          src + ((static_cast<size_t>(b) * Sq + rows.pos(r)) * Hq + rows.head(r)) * D + cc * 8);
+    }
+    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + cc * 8) = val;
   }
 }
 
 // Range [begin, end) of K/V rows a q tile [qlo, qhi] needs, begin aligned
 // to the kv tile.
+template <int TK>
 __device__ __forceinline__ void kv_range(int qlo, int qhi, int Skv, int causal, int window,
                                          int& begin, int& end) {
   end = causal ? min(Skv, qhi + 1) : Skv;
   begin = (causal && window > 0) ? max(0, qlo - window + 1) : 0;
-  begin = (begin / kTileKv) * kTileKv;
+  begin = (begin / TK) * TK;
 }
 
 // ---------------------------------------------------------------------------
@@ -203,27 +247,25 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                  int Sq, int Skv, int Hq, int Hkv, int causal, int window, float scale) {
   constexpr int LD = D + kPad;
+  constexpr int TK = tile_kv<D>();
   extern __shared__ uint4 smem_u4[];
   bf16* q_sm = reinterpret_cast<bf16*>(smem_u4);  // [kRows][LD]
-  bf16* k_sm = q_sm + kRows * LD;                  // [kTileKv][LD]
-  bf16* v_sm = k_sm + kTileKv * LD;                // [kTileKv][LD]
+  bf16* k_sm = q_sm + kRows * LD;                  // [TK][LD]
+  bf16* v_sm = k_sm + TK * LD;                     // [TK][LD]
 
-  const int G = Hq / Hkv, rph = kRows / G;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * rph;  // longest causal tiles first
   const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
+  const Rows rows = block_rows(Hq / Hkv, hk);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int warps_per_head = kWarps / G;
-  const int gi = warp / warps_per_head;
-  const int wr = (warp % warps_per_head) * 16;  // first position of the warp
-  const int hq = hk * G + gi;
-  const int qpos[2] = {q0 + wr + g, q0 + wr + g + 8};
-  const bf16* q_w = q_sm + (gi * rph + wr) * LD;
+  const int wr = warp * 16;  // first block row of the warp
+  const int row[2] = {wr + g, wr + g + 8};
+  const int qpos[2] = {rows.pos(row[0]), rows.pos(row[1])};
+  const bf16* q_w = q_sm + wr * LD;
 
-  stage_group<D>(q_sm, q, b, Sq, Hq, hk, G, q0, tid);
+  stage_group<D>(q_sm, q, b, Sq, Hq, rows, tid);
 
   int kv_begin, kv_end;
-  kv_range(q0, q0 + rph - 1, Skv, causal, window, kv_begin, kv_end);
+  kv_range<TK>(rows.q0, min(rows.q0 + rows.P, Sq) - 1, Skv, causal, window, kv_begin, kv_end);
   const size_t kv_ld = static_cast<size_t>(Hkv) * D;
   const bf16* k_bh = k + (static_cast<size_t>(b) * Skv * Hkv + hk) * D;
   const bf16* v_bh = v + (static_cast<size_t>(b) * Skv * Hkv + hk) * D;
@@ -235,23 +277,23 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += kTileKv) {
+  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += TK) {
     __syncthreads();  // the previous tile is consumed
-    stage<D>(k_sm, k_bh + kv0 * kv_ld, kv_ld, kTileKv, tid, kThreads);
-    stage<D>(v_sm, v_bh + kv0 * kv_ld, kv_ld, kTileKv, tid, kThreads);
+    stage<D>(k_sm, k_bh + kv0 * kv_ld, kv_ld, TK, Skv - kv0, tid, kThreads);
+    stage<D>(v_sm, v_bh + kv0 * kv_ld, kv_ld, TK, Skv - kv0, tid, kThreads);
     __syncthreads();
 
-    // S = Q K^T for the warp's 16 rows x 64 kv columns.
-    float s[kTileKv / 8][4];
+    // S = Q K^T for the warp's 16 rows x TK kv columns.
+    float s[TK / 8][4];
 #pragma unroll
-    for (int n = 0; n < kTileKv / 8; ++n)
+    for (int n = 0; n < TK / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const AFrag a = a_rows(q_w, LD, kk, lane);
 #pragma unroll
-      for (int n = 0; n < kTileKv / 8; ++n) {
+      for (int n = 0; n < TK / 8; ++n) {
         uint32_t b0, b1;
         b_rows(k_sm, LD, n, kk, lane, b0, b1);
         mma(s[n], a.r[0], a.r[1], a.r[2], a.r[3], b0, b1);
@@ -261,12 +303,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // Scale, mask, online softmax update.
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int n = 0; n < kTileKv / 8; ++n)
+    for (int n = 0; n < TK / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kpos = kv0 + n * 8 + 2 * t + (e & 1);
         float x = s[n][e] * scale;
-        if (!in_band(qpos[e >> 1], kpos, causal, window)) x = kNegInf;
+        if (!in_band(qpos[e >> 1], kpos, Skv, causal, window)) x = kNegInf;
         s[n][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -278,7 +320,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       m_i[r] = m_new;
     }
 #pragma unroll
-    for (int n = 0; n < kTileKv / 8; ++n)
+    for (int n = 0; n < TK / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = expf(s[n][e] - m_i[e >> 1]);
@@ -294,7 +336,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // acc += bf16(P) V.
 #pragma unroll
-    for (int j = 0; j < kTileKv / 16; ++j) {
+    for (int j = 0; j < TK / 16; ++j) {
       const AFrag a = a_acc(s[2 * j], s[2 * j + 1]);
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
@@ -305,21 +347,19 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  float safe[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    safe[r] = l_i[r] == 0.f ? 1.f : l_i[r];
+    if (!rows.valid(row[r], Sq)) continue;
+    const int hq = rows.head(row[r]);
+    const float safe = l_i[r] == 0.f ? 1.f : l_i[r];
     if (t == 0) {
-      lse[(static_cast<size_t>(b) * Hq + hq) * Sq + qpos[r]] = m_i[r] + logf(safe[r]);
+      lse[(static_cast<size_t>(b) * Hq + hq) * Sq + qpos[r]] = m_i[r] + logf(safe);
     }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    bf16* row = o + ((static_cast<size_t>(b) * Sq + qpos[r]) * Hq + hq) * D + 2 * t;
+    bf16* out = o + ((static_cast<size_t>(b) * Sq + qpos[r]) * Hq + hq) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(row + n * 8) =
-          __floats2bfloat162_rn(acc[n][2 * r] / safe[r], acc[n][2 * r + 1] / safe[r]);
+      *reinterpret_cast<__nv_bfloat162*>(out + n * 8) =
+          __floats2bfloat162_rn(acc[n][2 * r] / safe, acc[n][2 * r + 1] / safe);
     }
   }
 }
@@ -335,37 +375,36 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     bf16* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv, int causal,
                     int window, float scale) {
   constexpr int LD = D + kPad;
+  constexpr int TK = tile_kv<D>();
   extern __shared__ uint4 smem_u4[];
   bf16* q_sm = reinterpret_cast<bf16*>(smem_u4);  // [kRows][LD]
   bf16* do_sm = q_sm + kRows * LD;                 // [kRows][LD]
-  bf16* k_sm = do_sm + kRows * LD;                 // [kTileKv][LD]
-  bf16* v_sm = k_sm + kTileKv * LD;                // [kTileKv][LD]
+  bf16* k_sm = do_sm + kRows * LD;                 // [TK][LD]
+  bf16* v_sm = k_sm + TK * LD;                     // [TK][LD]
 
-  const int G = Hq / Hkv, rph = kRows / G;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * rph;
   const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
+  const Rows rows = block_rows(Hq / Hkv, hk);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int warps_per_head = kWarps / G;
-  const int gi = warp / warps_per_head;
-  const int wr = (warp % warps_per_head) * 16;
-  const int hq = hk * G + gi;
-  const int qpos[2] = {q0 + wr + g, q0 + wr + g + 8};
-  const bf16* q_w = q_sm + (gi * rph + wr) * LD;
-  const bf16* do_w = do_sm + (gi * rph + wr) * LD;
+  const int wr = warp * 16;
+  const int row[2] = {wr + g, wr + g + 8};
+  const int qpos[2] = {rows.pos(row[0]), rows.pos(row[1])};
+  const bf16* q_w = q_sm + wr * LD;
+  const bf16* do_w = do_sm + wr * LD;
 
-  stage_group<D>(q_sm, q, b, Sq, Hq, hk, G, q0, tid);
-  stage_group<D>(do_sm, dout, b, Sq, Hq, hk, G, q0, tid);
-  float lse_r[2], delta_r[2];
+  stage_group<D>(q_sm, q, b, Sq, Hq, rows, tid);
+  stage_group<D>(do_sm, dout, b, Sq, Hq, rows, tid);
+  float lse_r[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const size_t i = (static_cast<size_t>(b) * Hq + hq) * Sq + qpos[r];
+    if (!rows.valid(row[r], Sq)) continue;
+    const size_t i = (static_cast<size_t>(b) * Hq + rows.head(row[r])) * Sq + qpos[r];
     lse_r[r] = lse[i];
     delta_r[r] = delta[i];
   }
 
   int kv_begin, kv_end;
-  kv_range(q0, q0 + rph - 1, Skv, causal, window, kv_begin, kv_end);
+  kv_range<TK>(rows.q0, min(rows.q0 + rows.P, Sq) - 1, Skv, causal, window, kv_begin, kv_end);
   const size_t kv_ld = static_cast<size_t>(Hkv) * D;
   const bf16* k_bh = k + (static_cast<size_t>(b) * Skv * Hkv + hk) * D;
   const bf16* v_bh = v + (static_cast<size_t>(b) * Skv * Hkv + hk) * D;
@@ -376,16 +415,16 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += kTileKv) {
+  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += TK) {
     __syncthreads();
-    stage<D>(k_sm, k_bh + kv0 * kv_ld, kv_ld, kTileKv, tid, kThreads);
-    stage<D>(v_sm, v_bh + kv0 * kv_ld, kv_ld, kTileKv, tid, kThreads);
+    stage<D>(k_sm, k_bh + kv0 * kv_ld, kv_ld, TK, Skv - kv0, tid, kThreads);
+    stage<D>(v_sm, v_bh + kv0 * kv_ld, kv_ld, TK, Skv - kv0, tid, kThreads);
     __syncthreads();
 
     // S = Q K^T and dP = dO V^T.
-    float s[kTileKv / 8][4], dp[kTileKv / 8][4];
+    float s[TK / 8][4], dp[TK / 8][4];
 #pragma unroll
-    for (int n = 0; n < kTileKv / 8; ++n)
+    for (int n = 0; n < TK / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
 #pragma unroll
@@ -393,7 +432,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const AFrag aq = a_rows(q_w, LD, kk, lane);
       const AFrag ado = a_rows(do_w, LD, kk, lane);
 #pragma unroll
-      for (int n = 0; n < kTileKv / 8; ++n) {
+      for (int n = 0; n < TK / 8; ++n) {
         uint32_t b0, b1;
         b_rows(k_sm, LD, n, kk, lane, b0, b1);
         mma(s[n], aq.r[0], aq.r[1], aq.r[2], aq.r[3], b0, b1);
@@ -403,19 +442,19 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     // dS = P * (dP - delta) * scale, P recomputed from lse.
 #pragma unroll
-    for (int n = 0; n < kTileKv / 8; ++n)
+    for (int n = 0; n < TK / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
         const int kpos = kv0 + n * 8 + 2 * t + (e & 1);
         float x = s[n][e] * scale;
-        if (!in_band(qpos[r], kpos, causal, window)) x = kNegInf;
+        if (!in_band(qpos[r], kpos, Skv, causal, window)) x = kNegInf;
         const float p = expf(x - lse_r[r]);
         s[n][e] = p * (dp[n][e] - delta_r[r]) * scale;
       }
     // dQ += bf16(dS) K.
 #pragma unroll
-    for (int j = 0; j < kTileKv / 16; ++j) {
+    for (int j = 0; j < TK / 16; ++j) {
       const AFrag a = a_acc(s[2 * j], s[2 * j + 1]);
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
@@ -428,10 +467,11 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    bf16* row = dq + ((static_cast<size_t>(b) * Sq + qpos[r]) * Hq + hq) * D + 2 * t;
+    if (!rows.valid(row[r], Sq)) continue;
+    bf16* out = dq + ((static_cast<size_t>(b) * Sq + qpos[r]) * Hq + rows.head(row[r])) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(row + n * 8) =
+      *reinterpret_cast<__nv_bfloat162*>(out + n * 8) =
           __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
     }
   }
@@ -448,6 +488,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv, int Hq,
                      int Hkv, int causal, int window, float scale) {
   constexpr int LD = D + kPad;
+  constexpr int DN = cols3<D>();  // output columns of this block
   extern __shared__ uint4 smem_u4[];
   bf16* k_sm = reinterpret_cast<bf16*>(smem_u4);  // [kTileKv3][LD]
   bf16* v_sm = k_sm + kTileKv3 * LD;               // [kTileKv3][LD]
@@ -459,14 +500,15 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int G = Hq / Hkv;
   const int kv0 = blockIdx.x * kTileKv3;
   const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
+  const int nt0 = DN == D ? 0 : blockIdx.z * (DN / 8);  // first 8-column output tile
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int kpos[2] = {kv0 + warp * 16 + g, kv0 + warp * 16 + g + 8};
 
   const size_t kv_ld = static_cast<size_t>(Hkv) * D;
   const size_t kv_base = (static_cast<size_t>(b) * Skv + kv0) * kv_ld + static_cast<size_t>(hk) * D;
-  stage<D>(k_sm, k + kv_base, kv_ld, kTileKv3, tid, kThreads3);
-  stage<D>(v_sm, v + kv_base, kv_ld, kTileKv3, tid, kThreads3);
+  stage<D>(k_sm, k + kv_base, kv_ld, kTileKv3, Skv - kv0, tid, kThreads3);
+  stage<D>(v_sm, v + kv_base, kv_ld, kTileKv3, Skv - kv0, tid, kThreads3);
   const bf16* k_w = k_sm + warp * 16 * LD;
   const bf16* v_w = v_sm + warp * 16 * LD;
 
@@ -478,9 +520,9 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (window > 0) q_end = min(Sq, kv0 + kTileKv3 - 1 + window);
   }
 
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  float dk_acc[DN / 8][4], dv_acc[DN / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DN / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
@@ -492,11 +534,12 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int q0 = q_begin; q0 < q_end; q0 += kTileQ3) {
       __syncthreads();  // the previous q tile is consumed (K/V staged first time)
       const size_t q_base = (static_cast<size_t>(b) * Sq + q0) * q_ld + static_cast<size_t>(hq) * D;
-      stage<D>(q_sm, q + q_base, q_ld, kTileQ3, tid, kThreads3);
-      stage<D>(do_sm, dout + q_base, q_ld, kTileQ3, tid, kThreads3);
+      stage<D>(q_sm, q + q_base, q_ld, kTileQ3, Sq - q0, tid, kThreads3);
+      stage<D>(do_sm, dout + q_base, q_ld, kTileQ3, Sq - q0, tid, kThreads3);
       if (tid < kTileQ3) {
-        lse_sm[tid] = lse_h[q0 + tid];
-        delta_sm[tid] = delta_h[q0 + tid];
+        const bool ok = q0 + tid < Sq;
+        lse_sm[tid] = ok ? lse_h[q0 + tid] : 0.f;
+        delta_sm[tid] = ok ? delta_h[q0 + tid] : 0.f;
       }
       __syncthreads();
 
@@ -519,29 +562,34 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           mma(dpt[n], av.r[0], av.r[1], av.r[2], av.r[3], b0, b1);
         }
       }
-      // P^T (kept in st) and dS^T (in dpt).
+      // P^T (kept in st) and dS^T (in dpt); q columns past Sq contribute 0.
+      const bool partial = q0 + kTileQ3 > Sq;
 #pragma unroll
       for (int n = 0; n < kTileQ3 / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = n * 8 + 2 * t + (e & 1);
-          float x = st[n][e] * scale;
-          if (!in_band(q0 + col, kpos[e >> 1], causal, window)) x = kNegInf;
-          const float p = expf(x - lse_sm[col]);
+          float p = 0.f, ds = 0.f;
+          if (!partial || q0 + col < Sq) {
+            float x = st[n][e] * scale;
+            if (!in_band(q0 + col, kpos[e >> 1], Skv, causal, window)) x = kNegInf;
+            p = expf(x - lse_sm[col]);
+            ds = p * (dpt[n][e] - delta_sm[col]) * scale;
+          }
           st[n][e] = p;
-          dpt[n][e] = p * (dpt[n][e] - delta_sm[col]) * scale;
+          dpt[n][e] = ds;
         }
-      // dV += bf16(P^T) dO and dK += bf16(dS^T) Q.
+      // dV += bf16(P^T) dO and dK += bf16(dS^T) Q, this block's columns.
 #pragma unroll
       for (int j = 0; j < kTileQ3 / 16; ++j) {
         const AFrag ap = a_acc(st[2 * j], st[2 * j + 1]);
         const AFrag ads = a_acc(dpt[2 * j], dpt[2 * j + 1]);
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
+        for (int n = 0; n < DN / 8; ++n) {
           uint32_t b0, b1;
-          b_cols(do_sm, LD, j, n, lane, b0, b1);
+          b_cols(do_sm, LD, j, nt0 + n, lane, b0, b1);
           mma(dv_acc[n], ap.r[0], ap.r[1], ap.r[2], ap.r[3], b0, b1);
-          b_cols(q_sm, LD, j, n, lane, b0, b1);
+          b_cols(q_sm, LD, j, nt0 + n, lane, b0, b1);
           mma(dk_acc[n], ads.r[0], ads.r[1], ads.r[2], ads.r[3], b0, b1);
         }
       }
@@ -550,10 +598,11 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
+    if (kpos[r] >= Skv) continue;
     const size_t off = (static_cast<size_t>(b) * Skv + kpos[r]) * kv_ld +
-                       static_cast<size_t>(hk) * D + 2 * t;
+                       static_cast<size_t>(hk) * D + nt0 * 8 + 2 * t;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DN / 8; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8) =
           __floats2bfloat162_rn(dk_acc[n][2 * r], dk_acc[n][2 * r + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8) =
@@ -563,10 +612,9 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 bool shape_ok(int B, int Sq, int Skv, int Hq, int Hkv, int D) {
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || (D != 64 && D != 128)) return false;
-  const int G = Hq / Hkv;
-  if (G != 1 && G != 2 && G != 4 && G != 8) return false;
-  return Sq > 0 && Skv > 0 && Sq % kRows == 0 && Skv % kRows == 0;
+  if (B <= 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0) return false;
+  if (D != 64 && D != 128 && D != 192 && D != 256) return false;
+  return Sq > 0 && Skv > 0;
 }
 
 template <typename Kernel>
@@ -576,16 +624,21 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// B1/B2 grid: (q tiles, batch x kv heads, head chunks of the group).
+dim3 group_grid(int B, int Sq, int Hq, int Hkv) {
+  const int G = Hq / Hkv;
+  const int HB = G < kRows ? G : kRows, P = kRows / HB;
+  return dim3((Sq + P - 1) / P, B * Hkv, (G + HB - 1) / HB);
+}
+
 template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
                        int Sq, int Skv, int Hq, int Hkv, int causal, int window, float scale,
                        cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * (kRows + 2 * kTileKv) * (D + kPad);
+  const size_t smem = sizeof(bf16) * (kRows + 2 * tile_kv<D>()) * (D + kPad);
   cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  const int G = Hq / Hkv;
-  dim3 grid(Sq / (kRows / G), B * Hkv);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<D><<<group_grid(B, Sq, Hq, Hkv), kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), static_cast<float*>(lse), Sq, Skv, Hq, Hkv, causal, window, scale);
   return cudaGetLastError();
@@ -596,12 +649,10 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
                       const void* lse, const void* delta, void* dq, int B, int Sq, int Skv,
                       int Hq, int Hkv, int causal, int window, float scale,
                       cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * (2 * kRows + 2 * kTileKv) * (D + kPad);
+  const size_t smem = sizeof(bf16) * (2 * kRows + 2 * tile_kv<D>()) * (D + kPad);
   cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  const int G = Hq / Hkv;
-  dim3 grid(Sq / (kRows / G), B * Hkv);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dq_kernel<D><<<group_grid(B, Sq, Hq, Hkv), kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dq), Sq, Skv, Hq, Hkv, causal,
@@ -618,7 +669,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                       sizeof(float) * 2 * kTileQ3;
   cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(Skv / kTileKv3, B * Hkv);
+  dim3 grid((Skv + kTileKv3 - 1) / kTileKv3, B * Hkv, D / cols3<D>());
   flash_bwd_dkv_kernel<D><<<grid, kThreads3, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
@@ -626,6 +677,15 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
       Skv, Hq, Hkv, causal, window, scale);
   return cudaGetLastError();
 }
+
+// One switch over the head dims the kernels are instantiated for.
+#define LUMINA_BY_DIM(D, CALL)              \
+  switch (D) {                              \
+    case 64: return static_cast<int>(CALL(64));   \
+    case 128: return static_cast<int>(CALL(128)); \
+    case 192: return static_cast<int>(CALL(192)); \
+    default: return static_cast<int>(CALL(256));  \
+  }
 
 }  // namespace
 
@@ -641,9 +701,9 @@ int lumina_flash_fwd(const void* q, const void* k, const void* v, void* o, void*
                      float scale, void* stream) {
   if (!shape_ok(B, Sq, Skv, Hq, Hkv, D)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      D == 64 ? launch_fwd<64>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, causal, window, scale, s)
-              : launch_fwd<128>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, causal, window, scale, s));
+#define CALL(DD) launch_fwd<DD>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, causal, window, scale, s)
+  LUMINA_BY_DIM(D, CALL)
+#undef CALL
 }
 
 int lumina_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -652,11 +712,11 @@ int lumina_flash_bwd_dq(const void* q, const void* k, const void* v, const void*
                         void* stream) {
   if (!shape_ok(B, Sq, Skv, Hq, Hkv, D)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      D == 64 ? launch_dq<64>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv, causal,
-                              window, scale, s)
-              : launch_dq<128>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv, causal,
-                               window, scale, s));
+#define CALL(DD)                                                                         \
+  launch_dq<DD>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv, causal, window, scale, \
+                s)
+  LUMINA_BY_DIM(D, CALL)
+#undef CALL
 }
 
 int lumina_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
@@ -665,11 +725,11 @@ int lumina_flash_bwd_dkv(const void* q, const void* k, const void* v, const void
                          void* stream) {
   if (!shape_ok(B, Sq, Skv, Hq, Hkv, D)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      D == 64 ? launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, Hq, Hkv, causal,
-                               window, scale, s)
-              : launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, Hq, Hkv, causal,
-                                window, scale, s));
+#define CALL(DD)                                                                       \
+  launch_dkv<DD>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, Hq, Hkv, causal, window, \
+                 scale, s)
+  LUMINA_BY_DIM(D, CALL)
+#undef CALL
 }
 
 }  // extern "C"

@@ -17,10 +17,12 @@
 //   lengths [B] int32                      rows resident per lane
 //   out     [B, Hq, D]
 //
-// Design. One block per (kv head, lane); the block holds the Hq/Hkv query
-// rows of that kv head, so each K/V row is read from device memory once per
-// kv head (the TPU grid ran (lane, q head, page) and fetched each page once
-// per q head). The block walks only the lane's band [start, length) in
+// Design. One block per (kv head, lane, chunk of up to 8 q heads of the
+// group); the block holds those query rows, so each K/V row is read from
+// device memory once per kv head for groups of up to 8 (the TPU grid ran
+// (lane, q head, page) and fetched each page once per q head); a larger
+// group (any size: the JAX gate admits any) splits over grid.z, each chunk
+// reading the K/V rows again. The block walks only the lane's band [start, length) in
 // tiles of TILE rows, resolving each row's page through the table; rows
 // past the length or before the window are never read. A tile of K and V
 // is staged in shared memory with coalesced 16-byte loads (K rows padded by
@@ -43,7 +45,7 @@ namespace {
 
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kTile = 64;      // K/V rows staged per shared-memory tile
-constexpr int kMaxGroup = 8;   // q heads per kv head
+constexpr int kMaxGroup = 8;   // q heads per block (a chunk of the group)
 constexpr int kMaxDim = 512;   // head_dim
 constexpr int kCols = kMaxDim / kThreads;  // output columns per thread
 constexpr float kNegInf = -1e30f;
@@ -60,7 +62,10 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Four blocks per SM as the register budget (128 a thread): without the
+// hint ptxas kept 72 registers and spilled, 33% slower at the b1 decode
+// shape on an H100.
+__global__ void __launch_bounds__(kThreads, 4)
 ragged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
@@ -71,7 +76,8 @@ ragged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                      int n_pages, int window, float scale) {
   const int h = blockIdx.x;  // kv head
   const int b = blockIdx.y;  // lane
-  const int group = Hq / Hkv;
+  const int g0 = blockIdx.z * kMaxGroup;  // first q head of the chunk
+  const int group = min(kMaxGroup, Hq / Hkv - g0);  // q heads of this block
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -93,7 +99,8 @@ ragged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   length = max(0, min(length, P * page_size));
   const int start = window > 0 ? max(length - window, 0) : 0;
 
-  const __nv_bfloat16* q_lane = q + (static_cast<size_t>(b) * Hq + h * group) * D;
+  const int q_head0 = h * (Hq / Hkv) + g0;
+  const __nv_bfloat16* q_lane = q + (static_cast<size_t>(b) * Hq + q_head0) * D;
   for (int i = tid; i < group * D; i += kThreads) q_sm[i] = __bfloat162float(q_lane[i]);
   if (tid < kMaxGroup) {
     m_sm[tid] = kNegInf;
@@ -200,7 +207,7 @@ ragged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();  // the next tile overwrites the staged rows
   }
 
-  __nv_bfloat16* out_lane = out + (static_cast<size_t>(b) * Hq + h * group) * D;
+  __nv_bfloat16* out_lane = out + (static_cast<size_t>(b) * Hq + q_head0) * D;
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
     const int d = tid + c * kThreads;
@@ -233,18 +240,19 @@ int lumina_ragged_paged_attention(const void* q, const void* k, const void* v,
                                   const void* table, const void* lengths, void* out,
                                   int B, int Hq, int Hkv, int D, int page_size, int P,
                                   int n_pages, int window, float scale, void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxGroup || D % 8 != 0 ||
+  if (B <= 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 || D % 8 != 0 ||
       D > kMaxDim || page_size <= 0 || P <= 0 || n_pages <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = shared_bytes(Hq / Hkv, D);
+  const int G = Hq / Hkv;
+  const size_t smem = shared_bytes(G < kMaxGroup ? G : kMaxGroup, D);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         ragged_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  dim3 grid(Hkv, B);
+  dim3 grid(Hkv, B, (G + kMaxGroup - 1) / kMaxGroup);
   ragged_decode_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(table),

@@ -222,6 +222,7 @@ class StepwiseDecoder:
             sorted(engine._stop_set), dtype=torch.int64, device=self.device
         )
         self.steps = 0
+        self.prefill_forwards = 0  # model forwards of prefill rows
         self.prefill_chunk = min(
             engine.config.prefill_chunk_size, self.token_capacity
         )
@@ -262,6 +263,7 @@ class StepwiseDecoder:
         dev = self.device
         pos = start + np.arange(ids.shape[1])
         positions = np.where(pos < length, pos, -1)[None]
+        self.prefill_forwards += 1
         hidden, _ = self.model(
             torch.as_tensor(ids, dtype=torch.int64, device=dev),
             positions=torch.as_tensor(positions, device=dev),

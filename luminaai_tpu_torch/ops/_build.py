@@ -26,7 +26,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_kernels"
 
 # Every kernel source of the port (csrc/<name>.cu).
-SOURCES = ("ragged_paged_attention", "flash_attention")
+SOURCES = ("ragged_paged_attention", "flash_attention", "gmm")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

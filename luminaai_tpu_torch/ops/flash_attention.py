@@ -33,13 +33,11 @@ import torch
 
 NEG_INF = -1e30
 
-# What the kernels take (csrc/flash_attention.cu): sequence lengths a
-# multiple of 128 (one block holds 128 (q head, position) rows; K/V tiles
-# are 64 rows), head_dim 64 or 128, up to 8 q heads per kv head, and a
-# power-of-two group so the block's 8 warps split evenly over its heads.
-KERNEL_SEQ_MULTIPLE = 128
-KERNEL_HEAD_DIMS = (64, 128)
-KERNEL_GROUPS = (1, 2, 4, 8)
+# What the kernels take (csrc/flash_attention.cu): head_dim a multiple of
+# 64 up to 256, any number of q heads per kv head, any sequence lengths
+# (partial tiles are masked in the kernel). That is every shape the JAX gate
+# `flash_eligible` admits up to head_dim 256.
+KERNEL_HEAD_DIMS = (64, 128, 192, 256)
 
 
 def fit_block(seq_len: int, want: int) -> int:
@@ -176,6 +174,19 @@ def _kernel(name: str, n_ptrs: int):
     return fn
 
 
+def kernel_shape_error(B: int, Sq: int, Skv: int, Hq: int, Hkv: int,
+                       D: int) -> Optional[str]:
+    """Why the flash kernels refuse this shape, or None when they take it
+    (a pure function of the shape: the wrappers raise with its message)."""
+    if min(B, Sq, Skv, Hq, Hkv) <= 0:
+        return f"empty shape B={B}, Sq={Sq}, Skv={Skv}, Hq={Hq}, Hkv={Hkv}"
+    if Hq % Hkv:
+        return f"Hq={Hq} is not a multiple of Hkv={Hkv}"
+    if D not in KERNEL_HEAD_DIMS:
+        return f"the flash kernels take head_dim in {KERNEL_HEAD_DIMS}, got {D}"
+    return None
+
+
 def _check(q, k, v, extra=(), stats=()):
     """Refuse what the kernels do not take (raise, never fall back)."""
     B, Sq, Hq, D = q.shape
@@ -183,16 +194,9 @@ def _check(q, k, v, extra=(), stats=()):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
     Skv, Hkv = k.shape[1], k.shape[2]
-    if Hq % Hkv or Hq // Hkv not in KERNEL_GROUPS:
-        raise ValueError(f"the flash kernels take {KERNEL_GROUPS} q heads "
-                         f"per kv head, got Hq={Hq}, Hkv={Hkv}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash kernels take head_dim in "
-                         f"{KERNEL_HEAD_DIMS}, got {D}")
-    if Sq % KERNEL_SEQ_MULTIPLE or Skv % KERNEL_SEQ_MULTIPLE:
-        raise ValueError(f"the flash kernels take sequence lengths that are "
-                         f"multiples of {KERNEL_SEQ_MULTIPLE}, got Sq={Sq}, "
-                         f"Skv={Skv}")
+    err = kernel_shape_error(B, Sq, Skv, Hq, Hkv, D)
+    if err:
+        raise ValueError(err)
     for name, t in (("q", q), ("k", k), ("v", v), *extra):
         if t.dtype != torch.bfloat16 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous bf16, got {t.dtype}"

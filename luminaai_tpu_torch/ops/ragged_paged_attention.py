@@ -101,6 +101,26 @@ def ragged_eligible(page_size: int, head_dim: int, s_q: int) -> bool:
     return s_q == 1 and page_size % 8 == 0 and head_dim % 64 == 0
 
 
+# The kernel's head_dim limit (csrc/ragged_paged_attention.cu kMaxDim): its
+# per-thread accumulators cover 512 columns. Any group size is taken.
+KERNEL_MAX_HEAD_DIM = 512
+
+
+def kernel_shape_error(s_q: int, Hq: int, Hkv: int, D: int,
+                       page_size: int) -> Optional[str]:
+    """Why the decode kernel refuses this shape, or None when it takes it
+    (a pure function of the shape: the wrapper raises with its message)."""
+    if not ragged_eligible(page_size, D, s_q):
+        return (f"no kernel for s_q={s_q}, page_size={page_size}, "
+                f"head_dim={D} (ragged_eligible)")
+    if Hq <= 0 or Hkv <= 0 or Hq % Hkv:
+        return f"Hq={Hq} is not a multiple of Hkv={Hkv}"
+    if D > KERNEL_MAX_HEAD_DIM:
+        return (f"the kernel takes head_dim <= {KERNEL_MAX_HEAD_DIM}, "
+                f"got {D}")
+    return None
+
+
 def implied_page_size(cache_rows: int) -> int:
     """Page size for a LaneMeta derived inside the attention layer: the
     largest 8-aligned power of two dividing the cache extent, capped at
@@ -228,13 +248,10 @@ def ragged_paged_attention(
     ps = meta.page_size
     if Sq != 1:
         raise ValueError("the decode kernel takes one q row per lane")
-    if not ragged_eligible(ps, D, Sq) or C % ps:
-        raise ValueError(f"no kernel for page_size={ps}, head_dim={D}, C={C}")
-    if Hq % Hkv or Hq // Hkv > 8 or D > 512:
-        raise ValueError(
-            f"the kernel takes up to 8 q heads per kv head and head_dim "
-            f"<= 512, got Hq={Hq}, Hkv={Hkv}, D={D}"
-        )
+    err = kernel_shape_error(Sq, Hq, Hkv, D, ps)
+    if err or C % ps:
+        raise ValueError(err or f"pool rows C={C} are not whole pages of "
+                                f"{ps}")
     if meta.lengths is None or meta.lengths.shape != (B,):
         raise ValueError("the decode kernel needs per-lane lengths [B]")
     if not meta.global_pages and T != B:

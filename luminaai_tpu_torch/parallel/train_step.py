@@ -6,7 +6,9 @@ machinery has nothing to do here. What stays is the step's contract:
   - labels are the inputs shifted left by one, with the last position and
     any loss_mask / loss_weights shifted to the predicted token;
   - the loss is the fused LM-head CE (config.fused_lm_head_ce) or CE over
-    full logits, plus the model's aux loss;
+    full logits, plus the model's aux loss (the MoE layers' load-balancing
+    and z losses); the MoE router metrics ride along in the metrics, and
+    the routing noise is drawn from the state's generator;
   - gradients accumulate over `gradient_accumulation_steps` micro-batches
     (rows [i*mb, (i+1)*mb) of the batch) in fp32 as sum(g_i / accum);
     metrics average over micro-batches, except tokens_in_loss, summed;
@@ -39,7 +41,8 @@ Batch = Dict[str, torch.Tensor]
 
 def check_trainable(config: Config) -> None:
     """Refuse training settings the port does not run yet (the JAX package
-    accepts them; use_moe=True is refused where the model is built)."""
+    accepts them; MoE dispatch modes other than sort and gmm, and mixture
+    of depths, are refused where the model is built)."""
     if config.gradient_checkpointing and config.remat_policy not in (
         REMAT_POLICIES
     ):
@@ -117,7 +120,7 @@ def make_loss_fn(config: Config, model) -> Callable:
     def loss_fn(batch: Batch, generator: Optional[torch.Generator] = None):
         model_out, aux = model(
             batch["input_ids"], deterministic=False,
-            return_hidden=config.fused_lm_head_ce,
+            return_hidden=config.fused_lm_head_ce, generator=generator,
         )
         labels, valid = shift_labels(batch)
         mask, weights = _shifted_mask_weights(batch, valid)

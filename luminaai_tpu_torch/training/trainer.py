@@ -6,7 +6,9 @@ the train step, and `train()` runs `max_steps` optimizer steps over the
 batches of `train_data()` (a callable returning an iterator of
 {"input_ids": [batch_size, seq_length]} numpy or torch batches; called
 again for each epoch). Each step is synchronised to log loss, grad_norm,
-learning rate and tokens/s. The summary keeps the JAX keys
+learning rate and tokens/s; the history also carries the MoE metrics
+(aux/z losses, drop rate, router entropy, max expert share, and the
+per-expert utilization as a list). The summary keeps the JAX keys
 (final_step, epochs, elapsed_sec, tokens_seen, tokens_per_sec,
 final_metrics) and adds the per-step history.
 
@@ -99,8 +101,11 @@ class Trainer:
                 n_tok = int(batch["input_ids"].numel())
                 t0 = time.perf_counter()
                 self.state, metrics = self.train_step(self.state, batch)
-                # float() waits for the device: dt is the whole step.
-                scalars = {k: float(v) for k, v in metrics.items()}
+                # Reading the values waits for the device: dt is the
+                # whole step. Vector metrics (expert_utilization) stay
+                # lists.
+                scalars = {k: float(v) if v.ndim == 0 else v.tolist()
+                           for k, v in metrics.items()}
                 dt = time.perf_counter() - t0
                 self.global_step += 1
                 tokens_seen += n_tok

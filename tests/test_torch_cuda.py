@@ -1,16 +1,22 @@
-"""The port's CUDA kernel on the card (marked `cuda`; skips without one).
+"""The port's decode-attention (B5) and grouped-matmul (B4) kernels on the
+card (marked `cuda`; skip without one).
 
-The ragged paged decode-attention kernel has no CPU mode, so these run
-only where torch.cuda.is_available(); chip_smoke.py runs the same checks
-at the b1 serving shapes. This file imports nothing of JAX, so it also
-runs on a machine that has torch and a card only:
+The CUDA kernels have no CPU mode, so these run only where
+torch.cuda.is_available(); chip_smoke.py runs the same checks at the b1
+serving and MoE training shapes. This file imports nothing of JAX, so it
+also runs on a machine that has torch and a card only:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
-Tolerance, kernel vs plain version in bf16: 3e-2 absolute on outputs of
-magnitude <= max|v| ~ 4.5 (bf16 keeps 8 significant bits; the kernel keeps
-fp32 scores and rounds the unnormalised P to bf16, the plain version
-rounds the scores and the normalised P).
+Tolerances, kernel vs plain version in bf16:
+- B5: 3e-2 absolute on outputs of magnitude <= max|v| ~ 4.5 (bf16 keeps 8
+  significant bits; the kernel keeps fp32 scores and rounds the
+  unnormalised P to bf16, the plain version rounds the scores and the
+  normalised P).
+- B4: 1e-2 x max|plain|. Both sides accumulate in fp32 and round once to
+  bf16 (2^-8 relative), the sums in other orders, so an element may round
+  to the neighbouring bf16 value. Rows past sum(group_sizes) and empty
+  groups are exactly zero.
 """
 
 import numpy as np
@@ -19,11 +25,13 @@ import torch
 
 from luminaai_tpu_torch.config import Config
 from luminaai_tpu_torch.inference.chat import build_engine
+from luminaai_tpu_torch.ops import gmm as tg
 from luminaai_tpu_torch.ops import ragged_paged_attention as rpa
 
 pytestmark = pytest.mark.cuda
 
 TOL = 3e-2
+GMM_REL = 1e-2
 
 
 @pytest.fixture
@@ -85,6 +93,18 @@ def test_kernel_small_pages_and_zero_length_lane(dev):
     assert err <= TOL, err
 
 
+def test_kernel_takes_any_group(dev):
+    """16 and 12 q heads per kv head (the JAX gate admits any group): the
+    group splits over chunks of 8 heads, each matching the plain version."""
+    for hq, hkv in ((16, 1), (24, 2)):
+        q, k, v, meta = _case(dev, [3, 100, 256], 2, 128, hq, hkv, 128, seed=7)
+        out = rpa.ragged_paged_attention(q, k, v, meta)
+        want = rpa.ragged_paged_attention_ref(q, k, v, meta)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        assert err <= TOL, (hq, hkv, err)
+
+
 def test_decode_step_runs_the_kernel_once_per_layer(dev):
     """A StepwiseDecoder on the card: one decode step launches the kernel
     once per layer, and its logits match the plain-attention re-run of
@@ -114,3 +134,84 @@ def test_decode_step_runs_the_kernel_once_per_layer(dev):
     assert err <= 1e-2 * want.abs().max().item(), err
     toks, produced, eos = dec.decode_step()
     assert produced.sum() + eos.sum() == 3
+
+
+GMM_CASES = {
+    # name: (M, K, N, group sizes): the b1 decode shape cut narrow (16
+    # pairs over 8 experts in a 128-row buffer), ragged groups with an
+    # empty one and a tail, K and N that are not multiples of the tiles.
+    "decode": (128, 256, 512, [2, 3, 1, 0, 4, 2, 3, 1]),
+    "ragged_tail": (384, 200, 328, [100, 0, 130, 36]),
+    "full": (256, 64, 96, [128, 0, 96, 32]),
+}
+
+
+def _bf16(dev, rng, *shape):
+    return torch.as_tensor(rng.randn(*shape).astype(np.float32)).to(
+        dev, torch.bfloat16)
+
+
+def _gmm_rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("transpose_rhs", [False, True], ids=["nn", "nt"])
+@pytest.mark.parametrize("case", sorted(GMM_CASES))
+def test_gmm_kernels_match_plain(dev, case, transpose_rhs):
+    M, K, N, sizes = GMM_CASES[case]
+    E, kept = len(sizes), sum(sizes)
+    rng = np.random.RandomState(11)
+    lhs = _bf16(dev, rng, M, K)
+    rhs = _bf16(dev, rng, *((E, N, K) if transpose_rhs else (E, K, N)))
+    dout = _bf16(dev, rng, M, N)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    n0 = (tg.gmm.launches, tg.tgmm.launches)
+    out = tg.gmm(lhs, rhs, gs, transpose_rhs=transpose_rhs)
+    drhs = tg.tgmm(lhs.t(), dout, gs)
+    torch.cuda.synchronize()
+    assert (tg.gmm.launches, tg.tgmm.launches) == (n0[0] + 1, n0[1] + 1)
+    want = tg.gmm_ref(lhs, rhs, gs, transpose_rhs=transpose_rhs)
+    want_drhs = tg.tgmm_ref(lhs.t(), dout, gs)
+    assert _gmm_rel(out[:kept], want[:kept]) <= GMM_REL
+    assert not out[kept:].any()
+    assert _gmm_rel(drhs, want_drhs) <= GMM_REL
+    for g, n in enumerate(sizes):
+        if n == 0:
+            assert not drhs[g].any()
+
+
+def test_grouped_matmul_autograd_on_card(dev):
+    """GroupedMatmul's VJP (gmm with transpose_rhs, tgmm) on the card
+    against the same Function through the plain versions on the CPU."""
+    M, K, N, sizes = GMM_CASES["ragged_tail"]
+    rng = np.random.RandomState(12)
+    lhs, rhs = _bf16(dev, rng, M, K), _bf16(dev, rng, len(sizes), K, N)
+    ct = _bf16(dev, rng, M, N)
+    grads = []
+    for where in (dev, torch.device("cpu")):
+        gs = torch.tensor(sizes, dtype=torch.int32, device=where)
+        l = lhs.detach().clone().to(where).requires_grad_()
+        r = rhs.detach().clone().to(where).requires_grad_()
+        (tg.grouped_matmul(l, r, gs).float() * ct.to(where).float()
+         ).sum().backward()
+        grads.append((l.grad.cpu(), r.grad.cpu()))
+    torch.cuda.synchronize()
+    kept = sum(sizes)
+    assert _gmm_rel(grads[0][0][:kept], grads[1][0][:kept]) <= GMM_REL
+    assert not grads[0][0][kept:].any()
+    assert _gmm_rel(grads[0][1], grads[1][1]) <= GMM_REL
+
+
+def test_gmm_wrapper_refuses_what_the_kernels_do_not_take(dev):
+    rng = np.random.RandomState(13)
+    lhs, rhs = _bf16(dev, rng, 128, 64), _bf16(dev, rng, 2, 64, 96)
+    gs = torch.tensor([60, 40], dtype=torch.int32, device=dev)
+    n0 = tg.gmm.launches
+    with pytest.raises(ValueError, match="bf16"):
+        tg.gmm(lhs.float(), rhs.float(), gs)
+    with pytest.raises(ValueError, match="int32"):
+        tg.gmm(lhs, rhs, gs.long())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tg.gmm(_bf16(dev, rng, 128, 60), _bf16(dev, rng, 2, 60, 96), gs)
+    assert tg.gmm.launches == n0

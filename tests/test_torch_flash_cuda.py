@@ -61,6 +61,15 @@ CASES = {
     "window128_g2_d128": (1, 512, 4, 2, 128, True, 128),
     "noncausal_g1_d64": (2, 128, 2, 2, 64, False, 0),
     "noncausal_g2_d128": (1, 256, 4, 2, 128, False, 0),
+    # Shapes the JAX gate admits beyond the first kernels' tiling:
+    # debug_300m's attention (head_dim 192, group 2, S 1024), a length
+    # that is not a multiple of 128, groups of 3 and 16, head_dim 256.
+    "causal_g2_d192_s1024": (1, 1024, 4, 2, 192, True, 0),
+    "causal_g4_d128_s200": (2, 200, 8, 2, 128, True, 0),
+    "causal_g3_d64": (1, 384, 6, 2, 64, True, 0),
+    "window50_g3_d128_s200": (1, 200, 3, 1, 128, True, 50),
+    "noncausal_g3_d192_s200": (1, 200, 6, 2, 192, False, 0),
+    "causal_g16_d256": (1, 256, 16, 1, 256, True, 0),
 }
 
 
@@ -124,15 +133,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="strided"):
         fa.flash_fwd(q, k.transpose(1, 2).contiguous().transpose(1, 2), v,
                      **args)
-    qs, ks, vs, _, _ = _inputs(dev, 1, 192, 4, 2, 128)
-    with pytest.raises(ValueError, match="multiples of 128"):
-        fa.flash_fwd(qs, ks, vs, **args)
-    q3, k3, v3, _, _ = _inputs(dev, 1, 256, 6, 2, 128)
-    with pytest.raises(ValueError, match="q heads per kv head"):
-        fa.flash_fwd(q3, k3, v3, **args)
     q96, k96, v96, _, _ = _inputs(dev, 1, 256, 2, 2, 96)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_fwd(q96, k96, v96, **args)
+    q5, k5, v5, _, _ = _inputs(dev, 1, 256, 2, 2, 320)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd(q5, k5, v5, **args)
     lse = torch.zeros(1, 4, 256, device=dev)
     with pytest.raises(ValueError, match="fp32"):
         fa.flash_bwd_dq(q, k, v, do, lse.half(), lse, **args)

@@ -6,8 +6,9 @@ the same sequence of scheduler calls: a short prompt through
 prefill_into_slot, two longer ones through chunked prefill
 (start_prefill / advance_prefill) with decode steps interleaved between
 chunks, then batched decode steps. Greedy decoding has no randomness, so
-the tokens must be identical: 3 requests x 12 tokens. The JAX side runs
-its 'ragged_xla' backend (the Pallas kernel's parity with the port's
+the tokens must be identical: 3 requests x 12 tokens, for the dense model
+and for an MoE model (sort and gmm dispatch). The JAX side runs its
+'ragged_xla' backend (the Pallas kernel's parity with the port's
 plain version is tests/test_torch_ragged_attention.py's job).
 """
 
@@ -111,6 +112,38 @@ def test_greedy_tokens_identical_to_jax_decoder(decoders):
     for s in range(3):
         tdec.release_slot(s)
         jdec.release_slot(s)
+
+
+@pytest.mark.parametrize("dispatch", ["sort", "gmm"])
+def test_moe_greedy_tokens_identical_to_jax_decoder(dispatch):
+    """An MoE model (4 experts, top-2 in both layers, no routing noise)
+    served through both decoders the same way: the bucketed prefill pads
+    with the same ids to the same bucket (padding positions take capacity
+    in the prompt's routing group, as in the JAX model), chunked prefill
+    routes per chunk, and decode routes each lane as its own group (S = 1,
+    capacity 1). Greedy tokens must be identical."""
+    kw = dict(ARCH, use_moe=True, num_experts=4, moe_top_k=2,
+              routing_noise_std=0.0, moe_dispatch=dispatch)
+    jcfg = JConfig(**kw, use_flash_attention=False,
+                   gradient_checkpointing=False, scan_layers=False,
+                   attention_backend="ragged_xla")
+    jmodel = JModel(jcfg)
+    params = _unbox(jax.jit(jmodel.init)(
+        jax.random.key(2), jnp.ones((1, 8), jnp.int32))["params"])
+    jdec = JEngine(jmodel, params, JTok(), jcfg).make_stepwise(
+        num_slots=3, page_size=16, max_slot_tokens=192)
+    tcfg = TConfig(**kw)
+    tmodel = TModel(tcfg, device="cpu").load_params(
+        params_from_flax(jax.device_get(params), tcfg))
+    tdec = tgen.GenerationEngine(tmodel, TTok(), tcfg).make_stepwise(
+        num_slots=3, page_size=16, max_slot_tokens=192)
+    rng = np.random.RandomState(3)
+    prompts = [list(rng.randint(0, 256, size=n)) for n in (20, 70, 100)]
+    want, jpaths = _serve(jdec, prompts)
+    got, tpaths = _serve(tdec, prompts)
+    assert jpaths == tpaths == ["whole", "chunked", "chunked"]
+    assert got == want
+    assert tdec.steps == jdec.steps
 
 
 def test_samplers_match_jax_filters():

@@ -109,11 +109,35 @@ def test_entry_points_default_to_the_card(no_cuda):
 
 
 def test_cli_refuses_moe_presets():
+    """What the CLI still refuses: MoE dispatch modes the port has not
+    ported (the JAX flag's choices are accepted and refused where the
+    model is built)."""
     from luminaai_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError, match="use_moe"):
-        cli.main(["serve", "--preset", "debug", "--seed", "0",
-                  "--device", "cpu", "--port", "0"])
+    for mode in ("gather", "einsum"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            cli.main(["serve", "--preset", "debug", "--seed", "0",
+                      "--moe-dispatch", mode, "--device", "cpu",
+                      "--port", "0"])
+
+
+def test_cli_serves_moe_presets(monkeypatch):
+    """`serve --preset debug --device cpu` builds the preset's MoE engine
+    (sort dispatch by default, gmm on request); --dense drops the experts."""
+    from luminaai_tpu_torch import cli
+    from luminaai_tpu_torch.serving import server
+
+    built = []
+    monkeypatch.setattr(server.ChatServer, "serve_forever",
+                        lambda self, host, port: built.append(self.engine))
+    for extra, dispatch, moe in (([], "sort", True),
+                                 (["--moe-dispatch", "gmm"], "gmm", True),
+                                 (["--dense"], "sort", False)):
+        assert cli.main(["serve", "--preset", "debug", "--seed", "0",
+                         "--device", "cpu", "--port", "0", *extra]) == 0
+        model = built[-1].model
+        assert model.config.moe_dispatch == dispatch
+        assert [hasattr(b, "moe") for b in model.layers] == [moe] * 2
 
 
 def test_card_tensor_without_kernel_shape_raises_not_falls_back(no_cuda):

@@ -152,6 +152,44 @@ def test_concurrent_requests_mix_both_prefill_paths(served):
     assert stats["kv_pool"]["in_use"] == 0
 
 
+def test_moe_concurrent_requests_get_their_solo_answers():
+    """An MoE engine (4 experts top-2, gmm dispatch) behind the server:
+    the MoE layers route decode lanes as groups of their own and each
+    prefill (whole or chunk) as the request's own group, so concurrent
+    requests still get the solo decoder's greedy tokens (the solo decoder
+    matches the JAX decoder: tests/test_torch_generate.py)."""
+    cfg = Config(**ARCH, use_moe=True, num_experts=4, moe_top_k=2,
+                 moe_dispatch="gmm")
+    engine = build_engine(cfg, device="cpu", seed=1)
+    assert all(hasattr(b, "moe") for b in engine.model.layers)
+    server = ChatServer(engine, num_slots=SLOTS, page_size=PAGE)
+    httpd = server.make_httpd("127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    host, port = httpd.server_address[:2]
+    url = f"http://{host}:{port}"
+    try:
+        code, health = _get(url + "/health")
+        assert code == 200 and health["model"]["moe"] is True
+        prompts = [("abcdefghij" * 9)[:n] for n in (10, 50, 20, 90)]
+        with ThreadPoolExecutor(len(prompts)) as pool:
+            replies = list(pool.map(
+                lambda p: _post(url + "/v1/generate", {
+                    "prompt": p, "max_new_tokens": BUDGET,
+                    "temperature": 0}),
+                prompts,
+            ))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+        thread.join(10)
+    for p, (code, body) in zip(prompts, replies):
+        assert code == 200, body
+        assert body["token_ids"] == _solo_tokens(
+            engine, engine.tokenizer.encode_text(p), BUDGET)
+
+
 def test_request_errors(served):
     _, _, url = served
     assert _post(url + "/v1/generate", {})[0] == 400

@@ -50,9 +50,9 @@ ARCH = dict(vocab_size=1024, hidden_size=128, num_layers=2, num_heads=2,
 TOTAL = 4
 
 
-def _batch(seed):
+def _batch(seed, batch_size=ARCH["batch_size"]):
     rng = np.random.RandomState(seed)
-    shape = (ARCH["batch_size"], ARCH["seq_length"])
+    shape = (batch_size, ARCH["seq_length"])
     return {
         "input_ids": rng.randint(1, ARCH["vocab_size"], shape).astype(
             np.int32),
@@ -63,7 +63,7 @@ def _batch(seed):
 
 
 def _jax_setup(**kw):
-    cfg = JConfig(**ARCH, **kw)
+    cfg = JConfig(**{**ARCH, **kw})
     model = JModel(cfg)
     schedule = jmake_sched(cfg, TOTAL)
     tx = jmake_opt(cfg, TOTAL, schedule)
@@ -75,7 +75,7 @@ def _jax_setup(**kw):
 
 
 def _port_setup(params, **kw):
-    cfg = TConfig(**ARCH, **kw)
+    cfg = TConfig(**{**ARCH, **kw})
     model = TModel(cfg, device="cpu", trainable=True)
     model.load_params(params_from_flax(jax.device_get(params), cfg))
     schedule = make_schedule(cfg, TOTAL)
@@ -138,6 +138,36 @@ def test_flash_step_matches_jax():
     jstate, mj = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()})
     state, mt = step(state, _torch_batch(b))
     _assert_metrics(mt, mj)
+
+
+# The MoE trajectory: 4 experts top-2 in both layers, the dropless gmm
+# dispatch (the JAX side's CPU fallback of _pick_gmm, under its 8-device
+# data-parallel shard_map), no routing noise; batch 16 so each of the 2
+# micro-batches of 8 sequences splits over the 8 devices.
+MOE = dict(use_moe=True, num_experts=4, moe_top_k=2, moe_dispatch="gmm",
+           routing_noise_std=0.0, batch_size=16, use_flash_attention=False)
+MOE_METRICS = ("aux_loss", "moe_aux_loss", "moe_z_loss", "moe_drop_rate",
+               "moe_router_entropy", "moe_max_expert_share",
+               "expert_utilization")
+
+
+def test_moe_three_steps_match_jax():
+    _, jstate, jstep, _ = _jax_setup(**MOE)
+    cfg, model, state, step = _port_setup(jstate.params, **MOE)
+    lr_sum = 0.0
+    for i in range(3):
+        b = _batch(10 + i, batch_size=16)
+        jstate, mj = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()})
+        state, mt = step(state, _torch_batch(b))
+        _assert_metrics(mt, mj)
+        for key in MOE_METRICS:
+            np.testing.assert_allclose(np.asarray(mt[key]),
+                                       np.asarray(mj[key]), atol=1e-4,
+                                       rtol=1e-4, err_msg=key)
+        lr_sum += float(mt["learning_rate"])
+        if i in (0, 2):
+            _assert_params(model, jstate.params, cfg, lr_sum)
+    assert float(mt["moe_aux_loss"]) > 0
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused_ce", "logits"])

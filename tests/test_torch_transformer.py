@@ -160,5 +160,45 @@ def test_seeded_init_is_reproducible_with_jax_init_scales():
 
 
 def test_moe_is_refused():
-    with pytest.raises(NotImplementedError, match="use_moe"):
-        TModel(TConfig(**ARCH, use_moe=True), device="cpu")
+    """What the port still refuses where the model is built: dispatch
+    modes it has not ported, and mixture of depths."""
+    with pytest.raises(NotImplementedError, match="moe_dispatch='gather'"):
+        TModel(TConfig(**ARCH, use_moe=True, moe_dispatch="gather"),
+               device="cpu")
+    with pytest.raises(NotImplementedError, match="use_mod"):
+        TModel(TConfig(**ARCH, use_mod=True), device="cpu")
+
+
+MOE_ARCH = dict(ARCH, use_moe=True, num_experts=4, moe_top_k=2,
+                routing_noise_std=0.0)
+
+
+@pytest.mark.parametrize("dispatch,pattern,layers", [
+    ("gmm", "all", 2), ("sort", "every_3rd", 3), ("gmm", "every_3rd", 3)])
+def test_moe_forward_matches_flax(dispatch, pattern, layers):
+    """The no-cache forward of an MoE model (the training forward): logits,
+    aux_loss (the layers' summed aux and z losses) and the router metrics
+    averaged over MoE layers, as the JAX _reduce_metrics gives them."""
+    kw = dict(MOE_ARCH, moe_dispatch=dispatch, moe_pattern=pattern,
+              num_layers=layers)
+    jcfg = JConfig(**kw, use_flash_attention=False,
+                   gradient_checkpointing=False, scan_layers=False)
+    jmodel = JModel(jcfg)
+    ids = np.random.RandomState(6).randint(0, 384, size=(2, 40))
+    params = _unbox(jax.jit(jmodel.init)(jax.random.key(1),
+                                         jnp.asarray(ids))["params"])
+    jlogits, jaux = jax.jit(lambda p, x: jmodel.apply({"params": p}, x))(
+        params, jnp.asarray(ids))
+    tcfg = TConfig(**kw)
+    tmodel = TModel(tcfg, device="cpu")
+    sd = params_from_flax(jax.device_get(params), tcfg)
+    assert sd.keys() == tmodel.state_dict().keys()
+    tmodel.load_params(sd)
+    tlogits, taux = tmodel(torch.as_tensor(ids))
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), **TOL)
+    assert sorted(taux) == sorted(jaux)
+    for key in jaux:
+        np.testing.assert_allclose(taux[key].numpy(), np.asarray(jaux[key]),
+                                   err_msg=key, **TOL)
+    assert [hasattr(b, "moe") for b in tmodel.layers] == [
+        tcfg.is_moe_layer(i) for i in range(layers)]
