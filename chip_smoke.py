@@ -14,12 +14,13 @@ Phases (any failure raises and exits non-zero):
              backward kernels (B1-B3) at the training shapes (causal), a
              window-512 case, a non-causal case, a GQA group of 1 at
              head_dim 64, and the shapes the JAX gate admits that the
-             first kernels refused (head_dim 192, S 200, a group of 3);
-             the grouped matmul (B4a gmm with and without transpose_rhs,
-             B4b tgmm) at the b1 decode and flagship training shapes, with
-             an empty group and a tail that must stay exactly zero; time
-             kernel / plain / library call, and compute the least time the
-             card could take;
+             first kernels refused (head_dim 192, 320 and 512, S 200, a
+             group of 3); B5 also at head_dim 576; the grouped matmul (B4a
+             gmm with and without transpose_rhs, B4b tgmm) at the b1
+             decode and flagship training shapes, with an empty group and
+             a tail that must stay exactly zero; time kernel / plain /
+             library call at every shape, and compute the least time the
+             card could take and each kernel's share of it;
   3. serve   the b1-width dense model (16 layers, hidden 2048, seeded
              weights) through the port's ContinuousScheduler +
              StepwiseDecoder behind its HTTP server: first-decode-step
@@ -110,7 +111,15 @@ REPAIRED_FLASH = {
     "d192_g2_s1024": (2, 1024, 4, 2, 192, True, 0),
     "s200": (MICRO, 200, HQ, HKV, D, True, 0),
     "group3": (MICRO, 1024, 12, 4, D, True, 0),
+    # Above head_dim 256 (the 64-column slice kernels).
+    "d320_s256": (1, 256, 4, 2, 320, True, 0),
+    "d512_window64": (1, 256, 4, 1, 512, True, 64),
 }
+# B5 above head_dim 512 (512-column output slices): Hq 8 over Hkv 2.
+WIDE_DECODE = (8, 2, 576)
+# Rounds whose median is the library's time where single rounds differ by
+# more than 2x from run to run (SDPA's backward on an H100).
+LIB_ROUNDS = 5
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12    # dense bf16 tensor-core peak
 
@@ -213,20 +222,51 @@ def phase_kernels(dev) -> dict:
     want = rpa.ragged_paged_attention_ref(q16, k16, v16, meta16)
     torch.cuda.synchronize()
     errs["group16"] = (out.float() - want.float()).abs().max().item()
+    lane_mask = (torch.arange(C, device=dev)[None, :]
+                 < lengths[:, None].long())[:, None, None, :]
     g16 = {
         "max_abs_err": errs["group16"],
         "ms": cuda_ms(lambda: rpa.ragged_paged_attention(q16, k16, v16,
                                                          meta16), 100),
         "plain_ms": cuda_ms(lambda: rpa.ragged_paged_attention_ref(
             q16, k16, v16, meta16), 10),
+        # Library yardstick: SDPA over the same K/V with the length mask.
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q16.transpose(1, 2), k16.transpose(1, 2), v16.transpose(1, 2),
+            attn_mask=lane_mask, enable_gqa=True), 50),
         "shapes": {"lanes": LANES, "hq": 16, "hkv": 1, "head_dim": D},
     }
     log(f"kernel vs plain [group16: Hq 16 over Hkv 1]: max_abs_err="
         f"{errs['group16']:.3e} (tol {KERNEL_TOL}); kernel {g16['ms']:.4f} "
-        f"ms, plain {g16['plain_ms']:.4f} ms")
+        f"ms, plain {g16['plain_ms']:.4f} ms, library (SDPA) "
+        f"{g16['library_ms']:.4f} ms")
     if not torch.isfinite(out).all() or errs["group16"] > KERNEL_TOL:
         raise AssertionError("kernel disagrees with plain (group16)")
     del q16, k16, v16, out, want
+
+    # head_dim above 512 (repaired in this slice: the gate admits any
+    # multiple of 64), held against the plain version and timed.
+    hq_w, hkv_w, d_w = WIDE_DECODE
+    qw, kw, vw = (randn(LANES, 1, hq_w, d_w), randn(LANES, C, hkv_w, d_w),
+                  randn(LANES, C, hkv_w, d_w))
+    out = rpa.ragged_paged_attention(qw, kw, vw, meta16)
+    want = rpa.ragged_paged_attention_ref(qw, kw, vw, meta16)
+    torch.cuda.synchronize()
+    errs["d576"] = (out.float() - want.float()).abs().max().item()
+    wide = {
+        "max_abs_err": errs["d576"],
+        "ms": cuda_ms(lambda: rpa.ragged_paged_attention(qw, kw, vw, meta16),
+                      50),
+        "plain_ms": cuda_ms(lambda: rpa.ragged_paged_attention_ref(
+            qw, kw, vw, meta16), 10),
+        "shapes": {"lanes": LANES, "hq": hq_w, "hkv": hkv_w, "head_dim": d_w},
+    }
+    log(f"kernel vs plain [d{d_w}: Hq {hq_w} over Hkv {hkv_w}]: max_abs_err="
+        f"{errs['d576']:.3e} (tol {KERNEL_TOL}); kernel {wide['ms']:.4f} ms, "
+        f"plain {wide['plain_ms']:.4f} ms")
+    if not torch.isfinite(out).all() or errs["d576"] > KERNEL_TOL:
+        raise AssertionError(f"kernel disagrees with plain (d{d_w})")
+    del qw, kw, vw, out, want
 
     # Timing. One K/V pool here is 33.5 MB, under the H100's 50 MB L2, and
     # the serving caller reads each layer's pool once per step, cold: so
@@ -291,7 +331,7 @@ def phase_kernels(dev) -> dict:
         "shapes": {"lanes": LANES, "hq": HQ, "hkv": HKV, "head_dim": D,
                    "page_size": PAGE, "pages": PAGES,
                    "lengths": [int(x) for x in lengths.tolist()]},
-        "repaired": {"group16": g16},
+        "repaired": {"group16": g16, f"d{WIDE_DECODE[2]}": wide},
     }
 
 
@@ -426,8 +466,14 @@ def phase_flash_kernels(dev) -> list:
     with torch.no_grad():
         lib_fwd = cuda_ms(sdpa, 50)
     out = sdpa()
-    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
-        out, (qt, kt, vt), dot, retain_graph=True), 50)
+    # Single rounds of the backward have read 0.29 and 0.79 ms at this
+    # shape: the median of LIB_ROUNDS rounds.
+    lib_bwd_rounds = [cuda_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 20)
+        for _ in range(LIB_ROUNDS)]
+    lib_bwd = statistics.median(lib_bwd_rounds)
+    log(f"SDPA backward, {LIB_ROUNDS} rounds (ms): "
+        + ", ".join(f"{x:.4f}" for x in lib_bwd_rounds))
     lib_err = (out.detach().transpose(1, 2).float() - o.float()
                ).abs().max().item()
     del out, qt, kt, vt, dot
@@ -473,6 +519,7 @@ def phase_flash_kernels(dev) -> list:
             "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms,
+            "library_rounds_ms": None if kern == "B1" else lib_bwd_rounds,
             "shapes": {"batch": b, "seq": s, "hq": hq, "hkv": hkv,
                        "head_dim": d, "causal": True},
             "repaired": {name: {"ms": r["ms"][kern], "shape": r["shape"]}
@@ -480,6 +527,24 @@ def phase_flash_kernels(dev) -> list:
         })
     log(f"SDPA forward vs plain B1 output: max abs diff {lib_err:.3e}")
     return entries
+
+
+# The port's kernels by family, as torch.profiler names them.
+KERNEL_FAMILIES = {"B1-B3": "flash_", "B4": "grouped_kernel",
+                   "B5": "ragged_decode_kernel"}
+
+
+def _families(kernels, busy_ms: float) -> dict:
+    """{family: [ms, share of busy]} over (name, ms, count) rows."""
+    out = {}
+    for fam, key in KERNEL_FAMILIES.items():
+        ms = sum(t for name, t, _ in kernels if key in name)
+        if ms > 0:
+            out[fam] = [ms, ms / busy_ms]
+    log("  port kernels: " + ", ".join(
+        f"{fam} {ms:.3f} ms ({100 * share:.1f}% of busy)"
+        for fam, (ms, share) in out.items()))
+    return out
 
 
 def profile_decode(dec, steps: int = 5) -> None:
@@ -520,6 +585,7 @@ def profile_decode(dec, steps: int = 5) -> None:
         f"{sum(n for _, _, n in kernels)} kernel launches")
     for name, ms, n in kernels[:8]:
         log(f"  {ms:8.4f} ms  x{n:<4d} {name[:90]}")
+    _families(kernels, busy_ms)
 
 
 PROMPT_LENGTHS = (10, 40, 64, 65, 150, 300, 450, 600)
@@ -720,6 +786,7 @@ def profile_train_step(trainer, batch) -> dict:
     for name, ms, n in kernels[:10]:
         log(f"  {ms:9.3f} ms  x{n:<5d} {name[:90]}")
     return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "port_kernels": _families(kernels, busy_ms),
             "top_kernels": [[name[:90], ms, n]
                             for name, ms, n in kernels[:10]]}
 
@@ -978,22 +1045,36 @@ def phase_gmm_kernels(dev) -> list:
                 raise AssertionError(f"{key} disagrees with plain ({name}): "
                                      f"rel {errs[key]:.3e}, zeros {zero_ok}")
             del got, want
+        # Per product: kernel ms, bound, and the library's one call on the
+        # same operands (torch._grouped_mm; None where it refuses them).
+        libs = {"gmm": _grouped_mm(lhs, w, gs),
+                "gmm_t": _grouped_mm(dout, w.transpose(1, 2), gs),
+                "tgmm": _grouped_mm(lhs.t(), dout, gs)}
+        bounds = {"gmm": _gmm_bound(kept, touched, k, n, e, rows)[0],
+                  "gmm_t": _gmm_bound(kept, touched, n, k, e, rows)[0],
+                  "tgmm": _gmm_bound(kept, touched, k, n, e, rows,
+                                     tgmm=True)[0]}
         case = {"rows": rows, "K": k, "N": n, "group_sizes": sizes,
-                "rel_err": errs,
-                "gmm_ms": cuda_ms(checks["gmm"][0], 20),
-                "gmm_t_ms": cuda_ms(checks["gmm_t"][0], 20),
-                "tgmm_ms": cuda_ms(checks["tgmm"][0], 20)}
-        case["gmm_bound_ms"] = _gmm_bound(kept, touched, k, n, e, rows)[0]
-        case["tgmm_bound_ms"] = _gmm_bound(kept, touched, k, n, e, rows,
-                                           tgmm=True)[0]
+                "rel_err": errs}
+        for key, (kern, _) in checks.items():
+            case[f"{key}_ms"] = cuda_ms(kern, 20)
+            case[f"{key}_bound_ms"] = bounds[key]
+            case[f"{key}_bound_share"] = bounds[key] / case[f"{key}_ms"]
+            case[f"{key}_library_ms"] = (cuda_ms(libs[key], 20)
+                                         if libs[key] else None)
         cases[name] = case
         log(f"B4 [{name}: rows {rows} K {k} N {n} kept {kept}, {touched}/{e}"
             f" experts]: rel err " + ", ".join(f"{a} {b:.2e}" for a, b in
                                                errs.items())
-            + f" (tol {GMM_REL_TOL} x max); gmm {case['gmm_ms']:.4f} ms "
-            f"(bound {case['gmm_bound_ms']:.4f}), gmm^T "
-            f"{case['gmm_t_ms']:.4f} ms, tgmm {case['tgmm_ms']:.4f} ms "
-            f"(bound {case['tgmm_bound_ms']:.4f})")
+            + f" (tol {GMM_REL_TOL} x max)")
+        for key in checks:
+            lib_ms = case[f"{key}_library_ms"]
+            log(f"  {key}: kernel {case[key + '_ms']:.4f} ms, bound "
+                f"{case[key + '_bound_ms']:.4f} ms "
+                f"({100 * case[key + '_bound_share']:.1f}% of bound), "
+                f"library (torch._grouped_mm) "
+                + (f"{lib_ms:.4f} ms" if lib_ms else "not measured"))
+        del libs
         if name == "train_wi":
             headline = dict(rows=rows, k=k, n=n, e=e, kept=kept,
                             touched=touched, gs=gs, lhs=lhs, dout=dout, w=w,

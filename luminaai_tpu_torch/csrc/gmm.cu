@@ -4,312 +4,467 @@
 // luminaai_tpu/models/moe.py `_pick_gmm` (jax/experimental/pallas/ops/tpu/
 // megablox/gmm.py: `gmm` :314, `tgmm` :573; the VJP of ops.py `_gmm_bwd`
 // calls gmm with transpose_rhs for grad_lhs and tgmm for grad_rhs):
-//   B4a gmm_kernel:  out[rows of g] = lhs[rows of g] @ rhs[g]   (rhs [E, K, N])
-//                    or  lhs[rows of g] @ rhs[g]^T               (rhs [E, N, K],
-//                    transpose_rhs: the grad_lhs product dout @ w^T, read in
-//                    place through the addressing, never materialised);
-//                    rows at or past sum(group_sizes) are written as zeros.
-//   B4b tgmm_kernel: out[g] = lhs[rows of g]^T @ dout[rows of g]  ([E, K, N]);
-//                    an empty group is written as zeros.
+//   B4a gmm:  out[rows of g] = lhs[rows of g] @ rhs[g]   (rhs [E, K, N])
+//             or  lhs[rows of g] @ rhs[g]^T               (rhs [E, N, K],
+//             transpose_rhs: the grad_lhs product dout @ w^T, read in place
+//             through the addressing, never materialised); rows at or past
+//             sum(group_sizes) are written as zeros.
+//   B4b tgmm: out[g] = lhs[rows of g]^T @ dout[rows of g]  ([E, K, N]); an
+//             empty group is written as zeros.
 // Rows are grouped in order: group g owns the next group_sizes[g] rows.
 // Layouts (contiguous, bf16 unless stated): lhs [M, K], dout [M, N], out
 // [M, N] or [E, K, N]; group_sizes [E] int32 on the device.
 //
-// Design. group_sizes is read on the device only (the JAX path never syncs,
-// and a host read per layer would stall decode): the grid is sized for the
-// worst case and each block finds its work from a prefix sum over the E
-// group sizes, which its first thread computes (E is small: 8 here).
-// B4a tiles each group separately (megablox instead masks rows of tiles
-// that straddle a group boundary): block x enumerates the row tiles of all
-// groups in order, TM = 128 rows from the group's first row, then the zero
-// tiles of the tail; a row tile never mixes two groups' weights. Grid x =
-// ceil(M / TM) + E + 1 covers any group sizes; blocks past the work exit.
-// Each block owns a 128 x 128 output tile and loops over K in 32-column
-// steps: an A tile of lhs rows and a B tile of the group's weights staged in
-// shared memory with 16-byte loads (zeros past the group's rows and past K),
-// then 8 warps of mma.sync m16n8k16 (bf16 in, fp32 accumulate), each warp a
-// 32 x 64 sub-tile in registers, rounded to bf16 once on the way out.
-// B4b runs one block per (128 x 128 tile of [K, N], group); the block walks
-// the group's rows in 32-row steps, staging lhs and dout rows, and
-// accumulates lhs^T dout in registers: the reduction over a group's rows is
-// the loop, so no atomics and no second pass.
+// Bound. The training products (65,536 pair rows at the flagship widths:
+// 2 x 65,100 x 1024 x 5632 = 751 GFLOP for wi) are bound by operations,
+// 0.76 ms at 989 TFLOP/s bf16; only wgmma reaches that rate. Serving decode
+// (16 pair rows over the experts of one 128-row buffer) is bound by bytes:
+// each touched expert's weights read once (b1 wi: 7 x 2048 x 11008 bf16 =
+// 316 MB, 0.094 ms at 3.35 TB/s), which takes some 3 MB of loads in flight
+// across the card.
 //
-// Bound. Serving decode at b1 (8 lanes x top-2 = 16 pair rows over 8
-// experts) reads each touched expert's weights once: wi [8, 2048, 11008]
-// is 360.6 MB (0.108 ms at 3.35 TB/s), wo 180.3 MB; bytes bind it, and
-// this kernel reads each weight tile exactly once per touched group. The
-// training products (65,536 pair rows at the flagship widths, e.g. 756
-// GFLOP for wi) are bound by operations (0.76 ms at 989 TFLOP/s); mma.sync
-// with synchronous tile loads reaches well under half of that peak, and
-// wgmma with a TMA-fed ring of tiles is the later redesign.
+// Design (hopper.cuh holds the barrier, TMA and wgmma helpers). One kernel
+// template serves the three products. Persistent blocks, one or two per SM,
+// walk the output tiles; in each, a producer warpgroup (one thread) keeps a
+// ring of shared-memory stages filled by TMA (cp.async.bulk.tensor, 128-byte
+// swizzle, full/empty mbarrier pairs), running ahead across tile boundaries,
+// and one or two consumer warpgroups run wgmma m64nNk16 (bf16 in, fp32
+// accumulate in registers) on each stage as it lands, keeping one stage's
+// products in flight while the next arrives, then store their rows. A stage
+// holds a 64-deep slice of the reduction:
+//   gmm         A = lhs rows (K-major), B = rhs[g] as [K, N] (N-major, wgmma
+//               trans-b) or, under transpose_rhs, as [N, K] (K-major);
+//   tgmm        A = lhs^T, staged from lhs rows (M-major, trans-a), B = dout
+//               rows (N-major, trans-b); the reduction runs over the group's
+//               rows.
+// Tiles: 128 x 256 for the training products (two consumer warpgroups of 64
+// rows, setmaxnreg moves registers from the producer to them; 3 stages of
+// 48 KB and 64 KB of staging through which whole 64-row slices leave by TMA
+// store, overlapped with the next tile's products); 64 x 128 with 4 stages,
+// stores from registers and two blocks per SM where 128 x 256 tiles could
+// not fill the card (decode, short prefills), so that every SM streams
+// weights.
+// group_sizes is read on the device only (no host sync): each block derives
+// its tiles from a prefix sum over the E sizes.
+// Group boundaries. gmm tiles each group from its first row (a TMA box may
+// start at any row); the A rows of a tile past the group's end belong to the
+// next group and reach only output rows the epilogue never stores (a 64-row
+// slice that crosses the group's end takes stores from registers predicated
+// on the group's rows, never a TMA store); tail tiles store zeros. tgmm's row
+// steps also start at the group's first row; in the last step the rows past
+// the group's end are zeroed in shared memory (both operands) after the load
+// lands, then fence.proxy.async makes the zeros visible to wgmma. K and N
+// need only be multiples of 8: boxes past the tensor's edge are zero-filled
+// by TMA, boxes wholly past it are not loaded (their products reach only
+// columns or rows that are not stored).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "hopper.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+using namespace hopper;
 
-constexpr int kThreads = 256;  // 8 warps: 4 (rows) x 2 (columns) of 32 x 64
-constexpr int kTM = 128;       // output rows per block
-constexpr int kTN = 128;       // output columns per block
-constexpr int kTK = 32;        // reduction step
-constexpr int kPad = 8;        // bf16 padding per shared row
+enum Mode { kNN = 0, kNT = 1, kTN = 2 };  // gmm, gmm transpose_rhs, tgmm
 
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+constexpr int kBK = 64;  // reduction depth of a stage: one swizzled row
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// c += A(16x16, row) * B(16x8, col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment A[i][j] = M[16*mt + i][16*kk + j] (M row-major, stride ld).
-__device__ __forceinline__ void a_rows(const bf16* m, int ld, int mt, int kk, int lane,
-                                       uint32_t (&a)[4]) {
-  const int g = lane >> 2, c = kk * 16 + 2 * (lane & 3);
-  const bf16* p = m + (mt * 16 + g) * ld + c;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// A fragment A[i][j] = M[16*kk + j][16*mt + i]: M holds A transposed (tgmm's
-// lhs rows, whose columns are the output rows).
-__device__ __forceinline__ void a_cols(const bf16* m, int ld, int mt, int kk, int lane,
-                                       uint32_t (&a)[4]) {
-  const int g = lane >> 2, c = 2 * (lane & 3);
-  const bf16* p = m + (kk * 16 + c) * ld + mt * 16 + g;
-  a[0] = pack_bf16(p[0], p[ld]);
-  a[1] = pack_bf16(p[8], p[ld + 8]);
-  a[2] = pack_bf16(p[8 * ld], p[9 * ld]);
-  a[3] = pack_bf16(p[8 * ld + 8], p[9 * ld + 8]);
-}
-
-// B fragment B[k][n] = M[16*kk + k][8*nt + n] (M row-major [k][n]).
-__device__ __forceinline__ void b_cols(const bf16* m, int ld, int kk, int nt, int lane,
-                                       uint32_t& b0, uint32_t& b1) {
-  const bf16* p = m + (kk * 16 + 2 * (lane & 3)) * ld + nt * 8 + (lane >> 2);
-  b0 = pack_bf16(p[0], p[ld]);
-  b1 = pack_bf16(p[8 * ld], p[9 * ld]);
-}
-
-// B fragment B[k][n] = M[8*nt + n][16*kk + k] (M row-major [n][k]).
-__device__ __forceinline__ void b_rows(const bf16* m, int ld, int nt, int kk, int lane,
-                                       uint32_t& b0, uint32_t& b1) {
-  const bf16* p = m + (nt * 8 + (lane >> 2)) * ld + kk * 16 + 2 * (lane & 3);
-  b0 = ld32(p);
-  b1 = ld32(p + 8);
-}
-
-// Copy a [rows x cols] tile (cols a multiple of 8) of a row-major source
-// (row stride src_ld) into shared memory (row stride cols + kPad), 16 bytes
-// per thread per step; rows at or past vrows and columns at or past vcols
-// (a multiple of 8) are written as zeros and never read.
-template <int kRowsT, int kColsT>
-__device__ __forceinline__ void stage(bf16* dst, const bf16* src, size_t src_ld, int vrows,
-                                      int vcols, int tid) {
-  constexpr int kChunks = kColsT / 8;
-  for (int c = tid; c < kRowsT * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c - r * kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < vrows && col < vcols) val = *reinterpret_cast<const uint4*>(src + r * src_ld + col);
-    *reinterpret_cast<uint4*>(dst + r * (kColsT + kPad) + col) = val;
-  }
-}
-
-// The work of B4a block x: rows [row0, row0 + nrows) of group `group`, or a
-// zero tile of the tail (group -1), or nothing (group -2).
-struct Work {
-  int group, row0, nrows;
+template <int BM, int BN, int kMode>
+struct Tiling {
+  static constexpr int kConsumers = BM / 64;  // consumer warpgroups
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kMinBlocks = kConsumers > 1 ? 1 : 2;  // per SM
+  // The 128 x 256 tiles store whole 64-row slices through shared memory
+  // with TMA, overlapped with the next tile's products (the training
+  // products write up to 0.74 GB a call); that staging takes the room of a
+  // fourth stage.
+  static constexpr bool kTmaStore = kConsumers > 1;
+  static constexpr int kStages = kTmaStore ? 3 : 4;
+  static constexpr int kABytes = BM * kBK * 2;
+  static constexpr int kBBytes = BN * kBK * 2;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kStagingBytes = kTmaStore ? kConsumers * 64 * BN * 2 : 0;
+  static constexpr int kSmemBytes =
+      1024 + kStages * kStageBytes + kStagingBytes + 2 * kStages * 8;
+  // Operand majors: trans flags, bytes per 16-deep k step, leading offsets.
+  static constexpr int kTransA = kMode == kTN;
+  static constexpr int kTransB = kMode != kNT;
+  static constexpr uint32_t kStepA = kTransA ? 16 * kSwizzleRowBytes : 32;
+  static constexpr uint32_t kStepB = kTransB ? 16 * kSwizzleRowBytes : 32;
+  static constexpr uint32_t kLboA = kTransA ? kBoxBytes : 16;
+  static constexpr uint32_t kLboB = kTransB ? kBoxBytes : 16;
 };
 
-__device__ __forceinline__ Work find_work(const int* __restrict__ group_sizes, int E, int M) {
-  __shared__ Work work;
-  if (threadIdx.x == 0) {
-    const int t = blockIdx.x;
-    Work w{-2, 0, 0};
-    int start = 0, tiles = 0;
-    for (int g = 0; g < E; ++g) {
-      const int end = min(M, start + max(0, group_sizes[g]));
-      const int n = (end - start + kTM - 1) / kTM;
-      if (w.group == -2 && t < tiles + n) {
-        w.group = g;
-        w.row0 = start + (t - tiles) * kTM;
-        w.nrows = min(kTM, end - w.row0);
-      }
-      tiles += n;
-      start = end;
-    }
-    if (w.group == -2) {  // the zero tiles of rows [start, M)
-      const int row0 = start + (t - tiles) * kTM;
-      if (row0 < M) w = Work{-1, row0, min(kTM, M - row0)};
-    }
-    work = w;
-  }
-  __syncthreads();
-  return work;
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Rows [start, end) of group g: sizes clipped at 0 and at M, in order.
+__device__ __forceinline__ void group_rows(const int* __restrict__ gs, int g, int M, int& start,
+                                           int& end) {
+  start = 0;
+  for (int e = 0; e < g; ++e) start = min(M, start + max(0, __ldg(gs + e)));
+  end = min(M, start + max(0, __ldg(gs + g)));
 }
 
-// Store the fp32 accumulators of a warp's 32 x 64 sub-tile as bf16: rows
-// below nrows of `out` (row stride ld), columns below ncols (relative to
-// the tile; ncols is even, so a column pair is whole or out).
-__device__ __forceinline__ void store_tile(bf16* out, size_t ld, int nrows, int ncols,
-                                           const float (&acc)[2][8][4], int wm, int wn,
-                                           int lane) {
-  const int g = lane >> 2, t = lane & 3;
+// B4a row tiles: each group's rows in tiles of BM from its first row, then
+// the zero tiles of the tail [sum(group_sizes), M).
+struct RowTile {
+  int group, row0, nrows;  // group -1: a zero tile of the tail
+};
+
+template <int BM>
+__device__ int gmm_row_tiles(const int* __restrict__ gs, int E, int M) {
+  int start = 0, tiles = 0;
+  for (int g = 0; g < E; ++g) {
+    const int end = min(M, start + max(0, __ldg(gs + g)));
+    tiles += cdiv(end - start, BM);
+    start = end;
+  }
+  return tiles + cdiv(M - start, BM);
+}
+
+template <int BM>
+__device__ RowTile gmm_row_tile(const int* __restrict__ gs, int E, int M, int t) {
+  int start = 0;
+  for (int g = 0; g < E; ++g) {
+    const int end = min(M, start + max(0, __ldg(gs + g)));
+    const int n = cdiv(end - start, BM);
+    if (t < n) {
+      const int row0 = start + t * BM;
+      return RowTile{g, row0, min(BM, end - row0)};
+    }
+    t -= n;
+    start = end;
+  }
+  const int row0 = start + t * BM;
+  return RowTile{-1, row0, min(BM, M - row0)};
+}
+
+// One output tile: rows [row0, row0 + nrows) of `out`, the product's
+// reduction steps, and (tgmm) the group's rows.
+struct Tile {
+  int group, row0, nrows, n0, steps, start, end;
+};
+
+template <int BM, int BN, int kMode>
+__device__ __forceinline__ Tile tile_of(const int* __restrict__ gs, int t, int M, int K, int N,
+                                        int E) {
+  const int col_tiles = cdiv(N, BN);
+  Tile w;
+  w.n0 = (t % col_tiles) * BN;
+  if constexpr (kMode == kTN) {
+    const int k_tiles = cdiv(K, BM), rest = t / col_tiles;
+    w.group = rest / k_tiles;
+    w.row0 = (rest % k_tiles) * BM;  // rows of out[g]: the K dimension
+    w.nrows = min(BM, K - w.row0);
+    group_rows(gs, w.group, M, w.start, w.end);
+    w.steps = cdiv(w.end - w.start, kBK);
+  } else {
+    const RowTile r = gmm_row_tile<BM>(gs, E, M, t / col_tiles);
+    w.group = r.group;
+    w.row0 = r.row0;
+    w.nrows = r.nrows;
+    w.start = w.end = 0;
+    w.steps = r.group >= 0 ? cdiv(K, kBK) : 0;
+  }
+  return w;
+}
+
+// Zero rows [valid, 64) of `boxes` consecutive 64 x 64 boxes at p.
+__device__ __forceinline__ void zero_rows(uint8_t* p, int boxes, int valid, int tid,
+                                          int nthreads) {
+  const int per_box = (kBK - valid) * (kSwizzleRowBytes / 16);
+  for (int i = tid; i < boxes * per_box; i += nthreads) {
+    const int box = i / per_box, c = i - box * per_box;
+    *reinterpret_cast<uint4*>(p + box * kBoxBytes + valid * kSwizzleRowBytes + c * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// Store a warpgroup's 64 x BN accumulators as bf16: rows below `rows` of
+// dst (row stride ld), columns below `cols` (a multiple of 8).
+template <int BN>
+__device__ __forceinline__ void store_tile(bf16* dst, size_t ld, int rows, int cols,
+                                           const float (&acc)[BN / 2], int tid) {
+  const int r = (tid >> 5) * 16 + ((tid & 31) >> 2), c = 2 * (tid & 3);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int h = 0; h < 2; ++h) {
+    if (r + 8 * h >= rows) continue;
+    bf16* row = dst + static_cast<size_t>(r + 8 * h) * ld + c;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = wm * 32 + i * 16 + g + 8 * h;
-      if (r >= nrows) continue;
+    for (int j = 0; j < BN / 8; ++j) {
+      if (j * 8 < cols) {
+        *reinterpret_cast<__nv_bfloat162*>(row + j * 8) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// Write a warpgroup's 64 x BN accumulators as bf16 into BN / 64 boxes of 64
+// rows x 64 columns at dst, 128-byte swizzled as the output's tensor map
+// expects (16-byte chunk c of row r at chunk c ^ (r % 8)).
+template <int BN>
+__device__ __forceinline__ void stage_tile(uint8_t* dst, const float (&acc)[BN / 2], int tid) {
+  const int r = (tid >> 5) * 16 + ((tid & 31) >> 2), q = tid & 3;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = wn * 64 + j * 8 + 2 * t;
-        if (col < ncols) {
-          *reinterpret_cast<__nv_bfloat162*>(out + r * ld + col) =
-              __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+  for (int h = 0; h < 2; ++h) {
+    const int row = r + 8 * h;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      uint8_t* p = dst + (j / 8) * kBoxBytes + row * kSwizzleRowBytes +
+                   (((j % 8) ^ (row & 7)) * 16) + q * 4;
+      *reinterpret_cast<__nv_bfloat162*>(p) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// The producer: one thread fills the ring, tile after tile.
+template <int BM, int BN, int kMode>
+__device__ __forceinline__ void produce(const CUtensorMap* map_a, const CUtensorMap* map_b,
+                                        const int* __restrict__ gs, uint8_t* smem,
+                                        uint64_t* full, uint64_t* empty, int tiles, int M,
+                                        int K, int N, int E) {
+  using T = Tiling<BM, BN, kMode>;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const Tile w = tile_of<BM, BN, kMode>(gs, t, M, K, N, E);
+    // 64-wide boxes wholly past the tensor's edge are not loaded.
+    const int b_boxes = min(BN / 64, cdiv(N - w.n0, 64));
+    const int a_boxes = kMode == kTN ? min(BM / 64, cdiv(K - w.row0, 64)) : 0;
+    const uint32_t bytes = kMode == kNT   ? T::kStageBytes
+                           : kMode == kNN ? T::kABytes + b_boxes * kBoxBytes
+                                          : (a_boxes + b_boxes) * kBoxBytes;
+    for (int s = 0; s < w.steps; ++s) {
+      mbar_wait(&empty[stage], phase ^ 1);
+      uint8_t* a = smem + stage * T::kStageBytes;
+      uint8_t* b = a + T::kABytes;
+      uint64_t* bar = &full[stage];
+      mbar_arrive_expect_tx(bar, bytes);
+      if constexpr (kMode == kTN) {
+        const int r0 = w.start + s * kBK;
+        for (int i = 0; i < a_boxes; ++i)
+          tma_load_2d(a + i * kBoxBytes, map_a, bar, w.row0 + 64 * i, r0);
+        for (int j = 0; j < b_boxes; ++j)
+          tma_load_2d(b + j * kBoxBytes, map_b, bar, w.n0 + 64 * j, r0);
+      } else {
+        const int k0 = s * kBK;
+        tma_load_2d(a, map_a, bar, k0, w.row0);
+        if constexpr (kMode == kNN) {
+          for (int j = 0; j < b_boxes; ++j)
+            tma_load_3d(b + j * kBoxBytes, map_b, bar, w.n0 + 64 * j, k0, w.group);
+        } else {
+          tma_load_3d(b, map_b, bar, k0, w.n0, w.group);
         }
       }
+      if (++stage == T::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
     }
+  }
 }
 
-// ---------------------------------------------------------------------------
-// B4a: gmm (and its transpose_rhs form)
-// ---------------------------------------------------------------------------
-template <bool kTrans>
-__global__ void __launch_bounds__(kThreads)
-gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
-           const int* __restrict__ group_sizes, bf16* __restrict__ out, int M, int K, int N,
-           int E) {
-  constexpr int LDA = kTK + kPad;
-  constexpr int LDB = kTrans ? kTK + kPad : kTN + kPad;
-  __shared__ __align__(16) bf16 a_sm[kTM * LDA];
-  __shared__ __align__(16) bf16 b_sm[kTrans ? kTN * LDB : kTK * LDB];
-
-  const Work w = find_work(group_sizes, E, M);
-  if (w.group == -2) return;
-  const int n0 = blockIdx.y * kTN;
-  const int ncols = min(kTN, N - n0);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  bf16* out_tile = out + static_cast<size_t>(w.row0) * N + n0;
-
-  float acc[2][8][4];
+// A consumer warpgroup: rows [64 wg, 64 wg + 64) of every tile.
+template <int BM, int BN, int kMode>
+__device__ __forceinline__ void consume(const CUtensorMap* map_out, const int* __restrict__ gs,
+                                        bf16* __restrict__ out, uint8_t* smem, uint64_t* full,
+                                        uint64_t* empty, int tiles, int M, int K, int N,
+                                        int E) {
+  using T = Tiling<BM, BN, kMode>;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  uint8_t* staging = smem + T::kStages * T::kStageBytes + wg * 64 * BN * 2;
+  float acc[BN / 2];
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const Tile w = tile_of<BM, BN, kMode>(gs, t, M, K, N, E);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  if (w.group >= 0) {
-    const bf16* a_src = lhs + static_cast<size_t>(w.row0) * K;
-    const bf16* wg = rhs + static_cast<size_t>(w.group) * K * N;
-    for (int k0 = 0; k0 < K; k0 += kTK) {
-      __syncthreads();  // the previous step's tiles are consumed
-      stage<kTM, kTK>(a_sm, a_src + k0, K, w.nrows, K - k0, tid);
-      if (kTrans) {  // rhs[g] is [N, K]: stage rows n0.. , columns k0..
-        stage<kTN, kTK>(b_sm, wg + static_cast<size_t>(n0) * K + k0, K, ncols, K - k0, tid);
-      } else {       // rhs[g] is [K, N]: stage rows k0.., columns n0..
-        stage<kTK, kTN>(b_sm, wg + static_cast<size_t>(k0) * N + n0, N, K - k0, ncols, tid);
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    fence_regs(acc);
+    int prev = -1;
+    for (int s = 0; s < w.steps; ++s) {
+      mbar_wait(&full[stage], phase);
+      uint8_t* a = smem + stage * T::kStageBytes;
+      if constexpr (kMode == kTN) {
+        // The last step of a group: rows past its end contribute zero.
+        const int valid = w.end - (w.start + s * kBK);
+        if (valid < kBK) {
+          zero_rows(a, (BM + BN) / 64, valid, threadIdx.x, T::kConsumers * 128);
+          fence_proxy_async();
+          named_barrier(1, T::kConsumers * 128);
+        }
       }
-      __syncthreads();
+      const uint64_t da = smem_desc(a + wg * kBoxBytes, T::kLboA, 8 * kSwizzleRowBytes);
+      const uint64_t db = smem_desc(a + T::kABytes, T::kLboB, 8 * kSwizzleRowBytes);
+      wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kTK / 16; ++kk) {
-        uint32_t a[2][4];
-        a_rows(a_sm, LDA, wm * 2, kk, lane, a[0]);
-        a_rows(a_sm, LDA, wm * 2 + 1, kk, lane, a[1]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          uint32_t b0, b1;
-          if (kTrans) {
-            b_rows(b_sm, LDB, wn * 8 + j, kk, lane, b0, b1);
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        wgmma<BN, T::kTransA, T::kTransB>(acc, desc_advance(da, kk * T::kStepA),
+                                          desc_advance(db, kk * T::kStepB));
+      }
+      wgmma_commit();
+      // The previous stage's products are done: hand its buffers back.
+      wgmma_wait<1>();
+      if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
+      prev = stage;
+      if (++stage == T::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
+    fence_regs(acc);
+    // Zero tiles (the gmm tail, an empty tgmm group) store the zeros.
+    const int row0 = w.row0 + wg * 64, my_rows = w.nrows - wg * 64;
+    // Through shared memory and TMA (clipping at the tensor's edges): tgmm's
+    // rows of out[g], a gmm tail tile, or 64 rows that all belong to this
+    // group. A gmm tile's rows past its group (the next group's) take the
+    // predicated stores below instead.
+    const bool whole = (kMode == kTN || w.group < 0) ? my_rows > 0 : my_rows >= 64;
+    if (T::kTmaStore && whole) {
+      if (tid == 0) tma_store_wait_read();  // the previous tile's store
+      named_barrier(2 + wg, 128);
+      stage_tile<BN>(staging, acc, tid);
+      fence_proxy_async();
+      named_barrier(2 + wg, 128);
+      if (tid == 0) {
+        for (int j = 0; j < BN / 64 && w.n0 + 64 * j < N; ++j) {
+          if constexpr (kMode == kTN) {
+            tma_store_3d(map_out, staging + j * kBoxBytes, w.n0 + 64 * j, row0, w.group);
           } else {
-            b_cols(b_sm, LDB, kk, wn * 8 + j, lane, b0, b1);
+            tma_store_2d(map_out, staging + j * kBoxBytes, w.n0 + 64 * j, row0);
           }
-          mma(acc[0][j], a[0], b0, b1);
-          mma(acc[1][j], a[1], b0, b1);
         }
+        tma_store_commit();
       }
+    } else {
+      const size_t first = kMode == kTN ? (static_cast<size_t>(w.group) * K + row0) * N
+                                        : static_cast<size_t>(row0) * N;
+      store_tile<BN>(out + first + w.n0, N, w.nrows - wg * 64, min(BN, N - w.n0), acc, tid);
     }
   }
-  // Tail tiles store the zero accumulators.
-  store_tile(out_tile, N, w.nrows, ncols, acc, wm, wn, lane);
+  if (T::kTmaStore && tid == 0) tma_store_wait();
+}
+
+template <int BM, int BN, int kMode>
+__global__ void __launch_bounds__(Tiling<BM, BN, kMode>::kThreads,
+                                  Tiling<BM, BN, kMode>::kMinBlocks)
+grouped_kernel(const __grid_constant__ CUtensorMap map_a,
+               const __grid_constant__ CUtensorMap map_b,
+               const __grid_constant__ CUtensorMap map_out, const int* __restrict__ gs,
+               bf16* __restrict__ out, int M, int K, int N, int E) {
+  using T = Tiling<BM, BN, kMode>;
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte swizzled boxes want 1024-byte aligned buffers.
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + T::kStages * T::kStageBytes + T::kStagingBytes);
+  uint64_t* empty = full + T::kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], T::kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int col_tiles = cdiv(N, BN);
+  const int tiles = kMode == kTN ? E * cdiv(K, BM) * col_tiles
+                                 : gmm_row_tiles<BM>(gs, E, M) * col_tiles;
+  if (threadIdx.x / 128 == T::kConsumers) {
+    if constexpr (T::kConsumers > 1) regs_dealloc<40>();
+    if (threadIdx.x % 128 == 0) {
+      produce<BM, BN, kMode>(&map_a, &map_b, gs, smem, full, empty, tiles, M, K, N, E);
+    }
+  } else {
+    if constexpr (T::kConsumers > 1) regs_alloc<232>();
+    consume<BM, BN, kMode>(&map_out, gs, out, smem, full, empty, tiles, M, K, N, E);
+  }
 }
 
 // ---------------------------------------------------------------------------
-// B4b: tgmm
+// Host side
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-tgmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ dout,
-            const int* __restrict__ group_sizes, bf16* __restrict__ out, int M, int K, int N) {
-  constexpr int kRM = 32;  // group rows per step (the reduction)
-  constexpr int LD = kTM + kPad;
-  __shared__ __align__(16) bf16 l_sm[kRM * LD];  // [rows][K columns of the tile]
-  __shared__ __align__(16) bf16 d_sm[kRM * LD];  // [rows][N columns of the tile]
-  __shared__ int range[2];
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-  const int g = blockIdx.z;
-  if (threadIdx.x == 0) {
-    int start = 0;
-    for (int e = 0; e < g; ++e) start = min(M, start + max(0, group_sizes[e]));
-    range[0] = start;
-    range[1] = min(M, start + max(0, group_sizes[g]));
+// cuTensorMapEncodeTiled through the runtime's entry-point query, so the
+// library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &status);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+#endif
+    return err == cudaSuccess && status == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor map with 128-byte swizzle and zero fill: dims innermost
+// first, strides (in elements) of dims 1.., box dims.
+bool tensor_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                const uint64_t* strides, const uint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t gdim[3], gstride[2];
+  cuuint32_t bdim[3], estride[3] = {1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    gdim[i] = dims[i];
+    bdim[i] = box[i];
   }
-  __syncthreads();
-  const int start = range[0], end = range[1];
-  const int n0 = blockIdx.x * kTN, k0 = blockIdx.y * kTM;
-  const int ncols = min(kTN, N - n0), krows = min(kTM, K - k0);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;
+  for (int i = 0; i + 1 < rank; ++i) gstride[i] = strides[i] * sizeof(bf16);
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), gdim, gstride,
+            bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
+  return sms;
+}
 
-  for (int m0 = start; m0 < end; m0 += kRM) {
-    __syncthreads();
-    stage<kRM, kTM>(l_sm, lhs + static_cast<size_t>(m0) * K + k0, K, end - m0, krows, tid);
-    stage<kRM, kTN>(d_sm, dout + static_cast<size_t>(m0) * N + n0, N, end - m0, ncols, tid);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kRM / 16; ++kk) {
-      uint32_t a[2][4];
-      a_cols(l_sm, LD, wm * 2, kk, lane, a[0]);
-      a_cols(l_sm, LD, wm * 2 + 1, kk, lane, a[1]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t b0, b1;
-        b_cols(d_sm, LD, kk, wn * 8 + j, lane, b0, b1);
-        mma(acc[0][j], a[0], b0, b1);
-        mma(acc[1][j], a[1], b0, b1);
-      }
-    }
-  }
-  // An empty group stores the zero accumulators.
-  store_tile(out + (static_cast<size_t>(g) * K + k0) * N + n0, N, krows, ncols, acc, wm, wn,
-             lane);
+// map_out: the output ([M, N], or [E, K, N] for tgmm) in 64 x 64 boxes,
+// read only where Tiling::kTmaStore.
+template <int BM, int BN, int kMode>
+cudaError_t launch(const CUtensorMap& a, const CUtensorMap& b, const CUtensorMap& map_out,
+                   const void* gs, void* out, int M, int K, int N, int E, int sms,
+                   cudaStream_t stream) {
+  using T = Tiling<BM, BN, kMode>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      grouped_kernel<BM, BN, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  // Persistent blocks: at most one per tile (the row tiles of gmm are at
+  // most ceil(M / BM) + E + 1 whatever the group sizes).
+  const long long col_tiles = cdiv(N, BN);
+  const long long most = kMode == kTN ? static_cast<long long>(E) * cdiv(K, BM) * col_tiles
+                                      : (static_cast<long long>(cdiv(M, BM)) + E + 1) * col_tiles;
+  const int grid = static_cast<int>(std::min<long long>(most, 1LL * sms * T::kMinBlocks));
+  grouped_kernel<BM, BN, kMode><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
+      a, b, map_out, static_cast<const int*>(gs), static_cast<bf16*>(out), M, K, N, E);
+  return cudaGetLastError();
 }
 
 bool dims_ok(int M, int K, int N, int E) {
@@ -321,35 +476,77 @@ bool dims_ok(int M, int K, int N, int E) {
 extern "C" {
 
 // Each entry launches one kernel on `stream` and returns cudaGetLastError()
-// (the Python wrapper raises on anything but cudaSuccess, 0). Shapes are
-// checked by the wrapper; these re-check only what would make the launch
+// (the Python wrapper raises on anything but cudaSuccess, 0); a tensor map
+// that cuTensorMapEncodeTiled refuses returns cudaErrorInvalidValue. Shapes
+// are checked by the wrapper; these re-check only what would make the launch
 // unsafe.
 
 int lumina_gmm(const void* lhs, const void* rhs, const void* group_sizes, void* out, int M,
                int K, int N, int E, int transpose_rhs, void* stream) {
   if (!dims_ok(M, K, N, E)) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((M + kTM - 1) / kTM + E + 1, (N + kTN - 1) / kTN);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* l = static_cast<const bf16*>(lhs);
-  const bf16* r = static_cast<const bf16*>(rhs);
-  const int* gs = static_cast<const int*>(group_sizes);
-  bf16* o = static_cast<bf16*>(out);
-  if (transpose_rhs) {
-    gmm_kernel<true><<<grid, kThreads, 0, s>>>(l, r, gs, o, M, K, N, E);
-  } else {
-    gmm_kernel<false><<<grid, kThreads, 0, s>>>(l, r, gs, o, M, K, N, E);
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  // 128 x 256 tiles where they fill the card twice over; else 64 x 128.
+  const bool big = 1LL * cdiv(M, 128) * cdiv(N, 256) >= 2LL * sms;
+  const uint32_t bm = big ? 128 : 64, bn = big ? 256 : 128;
+  CUtensorMap a, b, o;
+  const uint64_t a_dims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
+  const uint64_t a_strides[1] = {static_cast<uint64_t>(K)};
+  const uint32_t a_box[2] = {64, bm};
+  const uint64_t o_dims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(M)};
+  const uint64_t o_strides[1] = {static_cast<uint64_t>(N)};
+  const uint32_t o_box[2] = {64, 64};
+  const uint64_t kn = static_cast<uint64_t>(K) * N;
+  bool ok = tensor_map(&a, lhs, 2, a_dims, a_strides, a_box) &&
+            tensor_map(&o, out, 2, o_dims, o_strides, o_box);
+  if (transpose_rhs) {  // rhs[g] is [N, K]: boxes of BN rows x 64 K
+    const uint64_t dims[3] = {static_cast<uint64_t>(K), static_cast<uint64_t>(N),
+                              static_cast<uint64_t>(E)};
+    const uint64_t strides[2] = {static_cast<uint64_t>(K), kn};
+    const uint32_t box[3] = {64, bn, 1};
+    ok = ok && tensor_map(&b, rhs, 3, dims, strides, box);
+  } else {  // rhs[g] is [K, N]: boxes of 64 K x 64 N
+    const uint64_t dims[3] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K),
+                              static_cast<uint64_t>(E)};
+    const uint64_t strides[2] = {static_cast<uint64_t>(N), kn};
+    const uint32_t box[3] = {64, 64, 1};
+    ok = ok && tensor_map(&b, rhs, 3, dims, strides, box);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (transpose_rhs) {
+    err = big ? launch<128, 256, kNT>(a, b, o, group_sizes, out, M, K, N, E, sms, s)
+              : launch<64, 128, kNT>(a, b, o, group_sizes, out, M, K, N, E, sms, s);
+  } else {
+    err = big ? launch<128, 256, kNN>(a, b, o, group_sizes, out, M, K, N, E, sms, s)
+              : launch<64, 128, kNN>(a, b, o, group_sizes, out, M, K, N, E, sms, s);
+  }
+  return static_cast<int>(err);
 }
 
 int lumina_tgmm(const void* lhs, const void* dout, const void* group_sizes, void* out, int M,
                 int K, int N, int E, int /*unused*/, void* stream) {
   if (!dims_ok(M, K, N, E)) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((N + kTN - 1) / kTN, (K + kTM - 1) / kTM, E);
-  tgmm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(lhs), static_cast<const bf16*>(dout),
-      static_cast<const int*>(group_sizes), static_cast<bf16*>(out), M, K, N);
-  return static_cast<int>(cudaGetLastError());
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  // Boxes of 64 rows x 64 columns of lhs (K), of dout (N) and of out[g].
+  CUtensorMap a, b, o;
+  const uint64_t a_dims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
+  const uint64_t a_strides[1] = {static_cast<uint64_t>(K)};
+  const uint64_t b_dims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(M)};
+  const uint64_t b_strides[1] = {static_cast<uint64_t>(N)};
+  const uint64_t o_dims[3] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K),
+                              static_cast<uint64_t>(E)};
+  const uint64_t o_strides[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K) * N};
+  const uint32_t box[3] = {64, 64, 1};
+  if (!tensor_map(&a, lhs, 2, a_dims, a_strides, box) ||
+      !tensor_map(&b, dout, 2, b_dims, b_strides, box) ||
+      !tensor_map(&o, out, 3, o_dims, o_strides, box)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(launch<128, 256, kTN>(a, b, o, group_sizes, out, M, K, N, E, sms,
+                                                static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
 Each `csrc/<name>.cu` compiles into its own shared library with a plain C
-interface, keyed by a hash of the source and the flags, under
+interface, keyed by a hash of the source, the headers beside it
+(`csrc/*.cuh`, which the sources include) and the flags, under
 `luminaai_tpu_torch/_kernels/` (git-ignored). Nothing is built when a
 module is imported: the first launch of a kernel builds its library, and
 `build_all()` builds every source at once with one nvcc process each (the
@@ -53,9 +54,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """The library built from csrc/<name>.cu: its name changes with the
+    source, with any header in csrc/ (the build's include directory) and
+    with the flags, so a stale library is never loaded."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> Optional[Tuple[subprocess.Popen, Path, Path]]:

@@ -34,10 +34,10 @@ import torch
 NEG_INF = -1e30
 
 # What the kernels take (csrc/flash_attention.cu): head_dim a multiple of
-# 64 up to 256, any number of q heads per kv head, any sequence lengths
-# (partial tiles are masked in the kernel). That is every shape the JAX gate
-# `flash_eligible` admits up to head_dim 256.
-KERNEL_HEAD_DIMS = (64, 128, 192, 256)
+# 64 (a template each up to 256, 64-column output slices above), any number
+# of q heads per kv head, any sequence lengths (partial tiles are masked in
+# the kernel). That is every shape the JAX gate `flash_eligible` admits.
+KERNEL_HEAD_DIM_MULTIPLE = 64
 
 
 def fit_block(seq_len: int, want: int) -> int:
@@ -182,8 +182,9 @@ def kernel_shape_error(B: int, Sq: int, Skv: int, Hq: int, Hkv: int,
         return f"empty shape B={B}, Sq={Sq}, Skv={Skv}, Hq={Hq}, Hkv={Hkv}"
     if Hq % Hkv:
         return f"Hq={Hq} is not a multiple of Hkv={Hkv}"
-    if D not in KERNEL_HEAD_DIMS:
-        return f"the flash kernels take head_dim in {KERNEL_HEAD_DIMS}, got {D}"
+    if D <= 0 or D % KERNEL_HEAD_DIM_MULTIPLE:
+        return (f"the flash kernels take head_dim a multiple of "
+                f"{KERNEL_HEAD_DIM_MULTIPLE}, got {D}")
     return None
 
 

@@ -101,23 +101,17 @@ def ragged_eligible(page_size: int, head_dim: int, s_q: int) -> bool:
     return s_q == 1 and page_size % 8 == 0 and head_dim % 64 == 0
 
 
-# The kernel's head_dim limit (csrc/ragged_paged_attention.cu kMaxDim): its
-# per-thread accumulators cover 512 columns. Any group size is taken.
-KERNEL_MAX_HEAD_DIM = 512
-
-
 def kernel_shape_error(s_q: int, Hq: int, Hkv: int, D: int,
                        page_size: int) -> Optional[str]:
     """Why the decode kernel refuses this shape, or None when it takes it
-    (a pure function of the shape: the wrapper raises with its message)."""
+    (a pure function of the shape: the wrapper raises with its message).
+    The kernel takes any group and any head_dim the gate admits (above 512
+    in 512-column output slices)."""
     if not ragged_eligible(page_size, D, s_q):
         return (f"no kernel for s_q={s_q}, page_size={page_size}, "
                 f"head_dim={D} (ragged_eligible)")
     if Hq <= 0 or Hkv <= 0 or Hq % Hkv:
         return f"Hq={Hq} is not a multiple of Hkv={Hkv}"
-    if D > KERNEL_MAX_HEAD_DIM:
-        return (f"the kernel takes head_dim <= {KERNEL_MAX_HEAD_DIM}, "
-                f"got {D}")
     return None
 
 

@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
-"""Time the port's attention kernels from two source trees side by side.
+"""Time the port's kernels from two source trees side by side.
 
     python scripts/bisect_kernels.py --parent DIR [--rounds 2]
+        [--cases b1_decode,b1_train,flagship_train,gmm_train_wi,...]
 
 DIR holds another checkout of the repository (for example the parent
 commit, unpacked with `git archive`). The script builds
-`luminaai_tpu_torch/csrc/{ragged_paged_attention,flash_attention}.cu` from
-DIR and from this checkout with the port's nvcc flags, loads both through
-ctypes (the C interfaces are the same in both trees), and times on one
-card, in turns (parent, this, this, parent, ...), on the same inputs:
+`luminaai_tpu_torch/csrc/{ragged_paged_attention,flash_attention,gmm}.cu`
+from DIR and from this checkout with the port's nvcc flags, loads both
+through ctypes (the C interfaces are the same in both trees), and times on
+one card, in turns (parent, this, this, parent, ...), on the same inputs:
 
 - B5 at the b1 decode shape (8 lanes, Hq 16, Hkv 4, head_dim 128, lengths
   1-2048 in 128-row pages; each call reads the next of 4 K/V pools, past
   the 50 MB L2);
 - B1, B2, B3 at the b1 dense training micro-batch (q [2, 2048, 16, 128],
   k/v [2, 2048, 4, 128], causal) and at the flagship MoE training shape
-  (q [16, 2048, 16, 64], k/v [16, 2048, 8, 64], causal).
+  (q [16, 2048, 16, 64], k/v [16, 2048, 8, 64], causal);
+- B4a (gmm, and with transpose_rhs) and B4b (tgmm) at the flagship MoE
+  wi shape (65,536 rows, 65,100 kept over 8 experts, K 1024, N 5632) and
+  wo shape (K 2816, N 1024), and B4a at the b1 decode wi shape (16 pair rows over 7 of 8 experts in a
+  128-row buffer, K 2048, N 11008).
 
 It prints the card's name and power limit, then one JSON object with the
 CUDA-event ms of every kernel, tree and round. It needs a card and nvcc.
@@ -33,7 +38,12 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-SOURCES = ("ragged_paged_attention", "flash_attention")
+SOURCES = ("ragged_paged_attention", "flash_attention", "gmm")
+# The chip_smoke.py GMM_CASES shapes timed here: (rows, K, N, group sizes).
+GMM_TRAIN_WI = (65536, 1024, 2 * 2816,
+                [9000, 8100, 7900, 8200, 8300, 7700, 8050, 7850])
+GMM_TRAIN_WO = (65536, 2816, 1024, GMM_TRAIN_WI[3])
+GMM_SERVE_WI = (128, 2048, 2 * 5504, [2, 3, 1, 0, 4, 2, 3, 1])
 
 
 def build(tree: Path, tag: str) -> dict:
@@ -65,6 +75,9 @@ def build(tree: Path, tag: str) -> dict:
         f = getattr(libs["flash_attention"], fn)
         f.argtypes = [p] * n_ptrs + [i] * 8 + [ctypes.c_float, p]
         f.restype = i
+    for fn in ("lumina_gmm", "lumina_tgmm"):
+        f = getattr(libs["gmm"], fn)
+        f.argtypes, f.restype = [p] * 4 + [i] * 5 + [p], i
     return libs
 
 
@@ -143,11 +156,46 @@ def flash_calls(dev, stream, b, s, hq, hkv, d):
     }
 
 
+def gmm_calls(dev, stream, rows, k, n, sizes, transposed=True):
+    """{"B4a"|"B4a_t"|"B4b": call(libs)} at one grouped-matmul shape."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    e = len(sizes)
+    lhs = torch.randn(rows, k, generator=gen, device=dev).bfloat16()
+    dout = torch.randn(rows, n, generator=gen, device=dev).bfloat16()
+    w = (torch.randn(e, k, n, generator=gen, device=dev) * 0.02).bfloat16()
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    out, out_t = (torch.empty(rows, c, dtype=torch.bfloat16, device=dev)
+                  for c in (n, k))
+    drhs = torch.empty(e, k, n, dtype=torch.bfloat16, device=dev)
+
+    def call(fn, tensors, dims, flag):
+        def run(libs):
+            err = getattr(libs["gmm"], fn)(
+                *[t.data_ptr() for t in tensors], *dims, flag, stream)
+            assert err == 0, err
+        return run
+
+    calls = {"B4a": call("lumina_gmm", (lhs, w, gs, out),
+                         (rows, k, n, e), 0)}
+    if transposed:
+        # dout [rows, n] @ w[g]^T -> [rows, k]: the reduction runs over n.
+        calls["B4a_t"] = call("lumina_gmm", (dout, w, gs, out_t),
+                              (rows, n, k, e), 1)
+        calls["B4b"] = call("lumina_tgmm", (lhs, dout, gs, drhs),
+                            (rows, k, n, e), 0)
+    return calls
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, type=Path,
                     help="another checkout (e.g. the parent commit)")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--cases", default="b1_decode,b1_train,flagship_train,"
+                    "gmm_train_wi,gmm_train_wo,gmm_serve_wi",
+                    help="comma-separated subset of the cases to time")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import torch
@@ -159,10 +207,19 @@ def main(argv=None) -> int:
              "this": build(ROOT, "this")}
     dev = torch.device("cuda", 0)
     stream = torch.cuda.current_stream().cuda_stream
-    cases = {"b1_decode": (decode_calls(dev, stream), 200),
-             "b1_train": (flash_calls(dev, stream, 2, 2048, 16, 4, 128), 30),
-             "flagship_train": (flash_calls(dev, stream, 16, 2048, 16, 8,
-                                            64), 20)}
+    makers = {
+        "b1_decode": (lambda: decode_calls(dev, stream), 200),
+        "b1_train": (lambda: flash_calls(dev, stream, 2, 2048, 16, 4, 128),
+                     30),
+        "flagship_train": (lambda: flash_calls(dev, stream, 16, 2048, 16, 8,
+                                               64), 20),
+        "gmm_train_wi": (lambda: gmm_calls(dev, stream, *GMM_TRAIN_WI), 20),
+        "gmm_train_wo": (lambda: gmm_calls(dev, stream, *GMM_TRAIN_WO), 20),
+        "gmm_serve_wi": (lambda: gmm_calls(dev, stream, *GMM_SERVE_WI,
+                                           transposed=False), 200),
+    }
+    cases = {name: (makers[name][0](), makers[name][1])
+             for name in args.cases.split(",")}
     # The first launch of each library on these inputs primes it outside
     # the timings; then parent/this alternate, the order flipping by round.
     results = {}

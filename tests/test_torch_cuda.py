@@ -95,14 +95,16 @@ def test_kernel_small_pages_and_zero_length_lane(dev):
 
 def test_kernel_takes_any_group(dev):
     """16 and 12 q heads per kv head (the JAX gate admits any group): the
-    group splits over chunks of 8 heads, each matching the plain version."""
-    for hq, hkv in ((16, 1), (24, 2)):
-        q, k, v, meta = _case(dev, [3, 100, 256], 2, 128, hq, hkv, 128, seed=7)
+    group splits over chunks of 8 heads, each matching the plain version;
+    and head_dim 576 and 1024 (the gate admits any multiple of 64), in
+    512-column output slices."""
+    for hq, hkv, d in ((16, 1, 128), (24, 2, 128), (4, 2, 576), (16, 2, 1024)):
+        q, k, v, meta = _case(dev, [3, 100, 256], 2, 128, hq, hkv, d, seed=7)
         out = rpa.ragged_paged_attention(q, k, v, meta)
         want = rpa.ragged_paged_attention_ref(q, k, v, meta)
         torch.cuda.synchronize()
         err = (out.float() - want.float()).abs().max().item()
-        assert err <= TOL, (hq, hkv, err)
+        assert err <= TOL, (hq, hkv, d, err)
 
 
 def test_decode_step_runs_the_kernel_once_per_layer(dev):
@@ -139,10 +141,18 @@ def test_decode_step_runs_the_kernel_once_per_layer(dev):
 GMM_CASES = {
     # name: (M, K, N, group sizes): the b1 decode shape cut narrow (16
     # pairs over 8 experts in a 128-row buffer), ragged groups with an
-    # empty one and a tail, K and N that are not multiples of the tiles.
+    # empty one and a tail, K and N that are not multiples of the tiles
+    # (64-deep stages, 64 x 128 or 128 x 256 output tiles).
     "decode": (128, 256, 512, [2, 3, 1, 0, 4, 2, 3, 1]),
     "ragged_tail": (384, 200, 328, [100, 0, 130, 36]),
     "full": (256, 64, 96, [128, 0, 96, 32]),
+    # Group starts off every tile multiple, a one-row group, a group that
+    # ends one row into a 128-row tile, M not a multiple of 128.
+    "odd_starts": (1000, 136, 264, [37, 1, 129, 0, 250, 65, 300]),
+    # 128 x 256 tiles many times the SM count (the persistent blocks walk
+    # several tiles each), ragged groups, one ending a row into a tile
+    # (2945 = 23 x 128 + 1), a tail of 311 rows.
+    "many_tiles": (16384, 520, 2056, [3000, 1, 2500, 0, 4127, 2945, 3500]),
 }
 
 

@@ -70,6 +70,11 @@ CASES = {
     "window50_g3_d128_s200": (1, 200, 3, 1, 128, True, 50),
     "noncausal_g3_d192_s200": (1, 200, 6, 2, 192, False, 0),
     "causal_g16_d256": (1, 256, 16, 1, 256, True, 0),
+    # Above head_dim 256 (the 64-column slice kernels): 320 and 512, a
+    # window, a partial tile, a group of 3, non-causal.
+    "causal_g2_d320_s200": (1, 200, 4, 2, 320, True, 0),
+    "window70_g3_d512": (1, 256, 3, 1, 512, True, 70),
+    "noncausal_g1_d384": (1, 128, 2, 2, 384, False, 0),
 }
 
 
@@ -136,9 +141,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q96, k96, v96, _, _ = _inputs(dev, 1, 256, 2, 2, 96)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_fwd(q96, k96, v96, **args)
-    q5, k5, v5, _, _ = _inputs(dev, 1, 256, 2, 2, 320)
+    q32, k32, v32, _, _ = _inputs(dev, 1, 256, 2, 2, 32)
     with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_fwd(q5, k5, v5, **args)
+        fa.flash_fwd(q32, k32, v32, **args)
     lse = torch.zeros(1, 4, 256, device=dev)
     with pytest.raises(ValueError, match="fp32"):
         fa.flash_bwd_dq(q, k, v, do, lse.half(), lse, **args)

@@ -4,10 +4,10 @@ The JAX package routes a shape to its Pallas kernel when its gate admits it:
 `flash_eligible` (B1-B3) and `ragged_eligible` (B5). Wherever a gate
 admits a shape, the port's kernel-shape check (a pure function of the
 shape: `kernel_shape_error`, which the wrappers raise with) must accept it,
-up to the port's stated head_dim limits (256 for flash, 512 for decode);
-above them it must refuse by naming head_dim. Checked on a grid of
-sequence lengths, head dims, q heads and kv heads, under the JAX default
-flash blocks (1024, as config.flash_block_q/kv) and two smaller ones.
+at every head_dim the gate admits (flash above 256 and decode above 512
+included). Checked on a grid of sequence lengths, head dims, q heads and kv
+heads, under the JAX default flash blocks (1024, as config.flash_block_q/kv)
+and two smaller ones.
 """
 
 import itertools
@@ -38,10 +38,7 @@ def test_flash_kernels_take_what_flash_eligible_admits(block, head_dim):
         assert fa.flash_eligible(s, head_dim, block, block)
         admitted += 1
         err = fa.kernel_shape_error(2, s, s, hq, hkv, head_dim)
-        if head_dim <= 256:
-            assert err is None, (s, head_dim, hq, hkv, err)
-        else:
-            assert err is not None and "head_dim" in err
+        assert err is None, (s, head_dim, hq, hkv, err)
     assert admitted or head_dim % 64
 
 
@@ -52,7 +49,7 @@ def test_decode_kernel_takes_what_ragged_eligible_admits(head_dim):
         eligible = jragged_eligible(page_size, head_dim, s_q)
         assert rpa.ragged_eligible(page_size, head_dim, s_q) == eligible
         err = rpa.kernel_shape_error(s_q, hq, hkv, head_dim, page_size)
-        if eligible and head_dim <= rpa.KERNEL_MAX_HEAD_DIM:
+        if eligible:
             assert err is None, (page_size, s_q, hq, hkv, err)
         else:
             assert err is not None
@@ -61,4 +58,5 @@ def test_decode_kernel_takes_what_ragged_eligible_admits(head_dim):
 def test_shape_checks_refuse_malformed_heads():
     assert "multiple" in fa.kernel_shape_error(1, 256, 256, 6, 4, 128)
     assert "empty" in fa.kernel_shape_error(1, 0, 256, 4, 4, 128)
+    assert "head_dim" in fa.kernel_shape_error(1, 256, 256, 4, 4, 96)
     assert "multiple" in rpa.kernel_shape_error(1, 6, 4, 128, 128)
