@@ -15,7 +15,9 @@ Phases (any failure raises and exits non-zero):
              window-512 case, a non-causal case, a GQA group of 1 at
              head_dim 64, and the shapes the JAX gate admits that the
              first kernels refused (head_dim 192, 320 and 512, S 200, a
-             group of 3); B5 also at head_dim 576; the grouped matmul (B4a
+             group of 3), and B1 at the flagship MoE shape (head_dim 64,
+             q [16, 2048, 16, 64]); B5 also at head_dim 576 and at the
+             split-KV kernel's share boundaries; the grouped matmul (B4a
              gmm with and without transpose_rhs, B4b tgmm) at the b1
              decode and flagship training shapes, with an empty group and
              a tail that must stay exactly zero; time kernel / plain /
@@ -115,6 +117,9 @@ REPAIRED_FLASH = {
     "d320_s256": (1, 256, 4, 2, 320, True, 0),
     "d512_window64": (1, 256, 4, 1, 512, True, 64),
 }
+# B1 at the flagship MoE training shape (bench.py's widths: 16 q over 8 kv
+# heads, head_dim 64, micro-batch 16 x 2048): (B, S, Hq, Hkv, D).
+FLAGSHIP_ATTN = (16, 2048, 16, 8, 64)
 # B5 above head_dim 512 (512-column output slices): Hq 8 over Hkv 2.
 WIDE_DECODE = (8, 2, 576)
 # Rounds whose median is the library's time where single rounds differ by
@@ -194,6 +199,12 @@ def phase_kernels(dev) -> dict:
                                  page_size=PAGE),
         "window512": rpa.LaneMeta(lengths=lengths, page_table=ident,
                                   page_size=PAGE, window=512),
+        # Lengths on both sides of a 64-row tile and of the shares of the
+        # split-KV kernel's blocks.
+        "shares": rpa.LaneMeta(
+            lengths=torch.tensor([1, 63, 64, 65, 255, 256, 257, 2048],
+                                 dtype=torch.int32, device=dev),
+            page_table=ident, page_size=PAGE),
         "global": rpa.LaneMeta(
             lengths=lengths,
             page_table=perm.view(LANES, PAGES).to(torch.int32),
@@ -526,7 +537,59 @@ def phase_flash_kernels(dev) -> list:
                          for name, r in repaired.items()},
         })
     log(f"SDPA forward vs plain B1 output: max abs diff {lib_err:.3e}")
+    del q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
+    flagship = entries[0]["flagship_d64"] = _flash_fwd_flagship(inputs, rel)
+    entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"],
+                                    flagship["max_abs_err"])
     return entries
+
+
+def _flash_fwd_flagship(inputs, rel) -> dict:
+    """B1 at the flagship MoE training shape (q [16, 2048, 16, 64], k/v
+    [16, 2048, 8, 64], causal): against its plain version, then kernel /
+    plain / SDPA forward ms and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from luminaai_tpu_torch.ops import flash_attention as fa
+
+    b, s, hq, hkv, d = FLAGSHIP_ATTN
+    q, k, v, _, _ = inputs(b, s, hq, hkv, d)
+    args = dict(scale=d ** -0.5, causal=True, window=0)
+    o, lse = fa.flash_fwd(q, k, v, **args)
+    o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, **args)
+    torch.cuda.synchronize()
+    err, lse_err = rel(o, o_ref), (lse - lse_ref).abs().max().item()
+    abs_err = (o.float() - o_ref.float()).abs().max().item()
+    del o, o_ref, lse, lse_ref
+    torch.cuda.empty_cache()
+    log(f"B1 vs plain [flagship: B{b} S{s} Hq{hq} Hkv{hkv} D{d} causal]: rel "
+        f"err o {err:.3e}, lse abs err {lse_err:.3e} (tol {FLASH_REL_TOL} x "
+        f"max, lse {LSE_TOL})")
+    if not err <= FLASH_REL_TOL or not lse_err <= LSE_TOL:
+        raise AssertionError("B1 disagrees with plain (flagship)")
+    ms = cuda_ms(lambda: fa.flash_fwd(q, k, v, **args), 20)
+    plain_ms = cuda_ms(lambda: fa.flash_fwd_ref(q, k, v, **args), 2, 1)
+    torch.cuda.empty_cache()
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    with torch.no_grad():
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    flops = 4 * d * b * hq * _band_pairs(s, True, 0)
+    nbytes = 2 * b * s * hq * d * 2 + 2 * b * s * hkv * d * 2 + b * hq * s * 4
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_BF16_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    log(f"B1 flash_fwd at the flagship shape: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library (SDPA fwd) {lib_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; "
+        f"{100 * bound / ms:.1f}% of bound)")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "max_abs_err": abs_err, "rel_err": err, "lse_err": lse_err,
+            "shape": [b, s, hq, hkv, d]}
 
 
 # The port's kernels by family, as torch.profiler names them.

@@ -1,7 +1,9 @@
 // Flash attention forward and backward for Hopper (sm_90a): B1, B2, B3.
 //
 // Replaces the TPU kernels of luminaai_tpu/ops/flash_attention.py:
-//   B1 `_fwd_kernel`      (pallas_call in `_fwd`)  -> flash_fwd_kernel
+//   B1 `_fwd_kernel`      (pallas_call in `_fwd`)  -> flash_fwd_wgmma_kernel
+//                                                     (flash_fwd_kernel for
+//                                                     the other shapes)
 //   B2 `_bwd_dq_kernel`   (pallas_call in `_bwd`)  -> flash_bwd_dq_kernel
 //   B3 `_bwd_dkv_kernel`  (pallas_call in `_bwd`)  -> flash_bwd_dkv_kernel
 // They compute the same functions: GQA attention, causal or not, with an
@@ -15,8 +17,15 @@
 // [B, Skv, Hkv, D] bf16; lse, delta [B, Hq, Sq] fp32. delta is
 // rowsum(dO * O) minus the lse cotangent, computed by the caller.
 //
-// Products. Every matrix product is a warp-level mma.sync m16n8k16 (bf16
-// in, fp32 accumulate). Each warp owns 16 rows of its output; the
+// Which shapes take which kernel. B1 at head_dim 64, 128, 192 and 256 with a
+// group whose HB = min(G, 128) heads divide both 128 and G (1, 2, 4, ...,
+// 128 and multiples of 128: every preset) takes flash_fwd_wgmma_kernel
+// (wgmma fed by a TMA ring; its note is at the kernel). Other groups (3, 6,
+// 12, ...) take flash_fwd_kernel, head_dim above 256 flash_fwd_wide_kernel.
+// B2 and B3 are the mma.sync kernels below for every shape.
+//
+// Products of the mma.sync kernels. Every matrix product is a warp-level
+// mma.sync m16n8k16 (bf16 in, fp32 accumulate). Each warp owns 16 rows of its output; the
 // accumulators stay in registers in the instruction's documented fragment
 // layout (thread lane holds rows lane/4 and lane/4 + 8, columns
 // 2*(lane%4) + {0, 1} of each 8-column tile), so the softmax statistics of
@@ -25,8 +34,8 @@
 // Tiles are staged in shared memory with 16-byte loads; rows are padded by
 // 8 bf16 so the fragment loads are free of bank conflicts.
 //
-// B1 (forward) and B2 (dQ): one block of 8 warps per (batch, kv head, q
-// tile, head chunk). The block holds 128 (q head, position) rows: HB =
+// flash_fwd_kernel (B1) and B2 (dQ): one block of 8 warps per (batch, kv
+// head, q tile, head chunk). The block holds 128 (q head, position) rows: HB =
 // min(G, 128) q heads of the GQA group times P = 128 / HB positions (row r
 // is head r / P at position q0 + r % P), so each K/V tile staged in shared
 // memory serves every head of the block (the TPU grid ran one q head per
@@ -57,18 +66,23 @@
 // 128], causal) each kernel is bound by operations, not bytes: B1 does
 // 4*B*Hq*D*(S^2/2) flops (~34 GFLOP, ~0.035 ms at 989 TFLOP/s bf16) over
 // ~42 MB (~0.013 ms at 3.35 TB/s); B2 does 6*B*Hq*D*(S^2/2) (~52 GFLOP) and
-// B3 8*B*Hq*D*(S^2/2) (~69 GFLOP). These kernels use mma.sync, which on
-// Hopper reaches well under half of the wgmma peak, and load tiles
-// synchronously (no cp.async/TMA pipeline); wgmma with a TMA-fed ring of
-// tiles and warp specialisation is the later redesign that approaches it.
+// B3 8*B*Hq*D*(S^2/2) (~69 GFLOP). At the flagship MoE shape (q [16, 2048,
+// 16, 64], k/v [16, 2048, 8, 64]) B1 does ~137.5 GFLOP (~0.139 ms). The
+// mma.sync kernels reach well under half of the wgmma peak and load tiles
+// synchronously: 9-10% of B1's bound (PERF.md); B1's wgmma kernel replaced
+// them on the main path, and B2/B3 await the same redesign.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+using namespace hopper;
 
 constexpr int kWarps = 8;                // B1, B2
 constexpr int kThreads = kWarps * 32;
@@ -85,11 +99,6 @@ template <int D>
 __host__ __device__ constexpr int tile_kv() { return D <= 128 ? 64 : 32; }
 template <int D>
 __host__ __device__ constexpr int cols3() { return D <= 128 ? D : D / 2; }
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
   __nv_bfloat162 v;
@@ -156,16 +165,6 @@ __device__ __forceinline__ void b_cols(const bf16* m, int ld, int kk, int nt, in
   const bf16* p = m + (kk * 16 + 2 * (lane & 3)) * ld + nt * 8 + (lane >> 2);
   b0 = pack_bf16(p[0], p[ld]);
   b1 = pack_bf16(p[8 * ld], p[9 * ld]);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // Whether key position kpos (< Skv) is inside query position qpos's band.
@@ -419,6 +418,257 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < D / 8; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(out + n * 8) =
           __floats2bfloat162_rn(acc[n][2 * r] / safe, acc[n][2 * r + 1] / safe);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B1 on Hopper: wgmma fed by a TMA ring (head_dim 64-256, groups that tile
+// the block's rows)
+// ---------------------------------------------------------------------------
+// Bound: operations (0.0348 ms at the b1 training shape, 0.139 ms at the
+// flagship MoE shape, at 989 TFLOP/s); the softmax's exponentials (16 a
+// clock per SM) come within 5% of the products' time at head_dim 64.
+// One block per (batch, kv head, q tile, head chunk) of kConsumers + 1
+// warpgroups, over 64 x kConsumers (q head, position) rows, position-major:
+// row r is head h0 + r % HB at position q0 + r / HB (HB = min(G, rows)),
+// the order in which a 4-D TMA box (64 columns, HB heads, P positions, 1)
+// of q [B, Sq, Hq, D] lands; positions past Sq arrive as zeros and are
+// never stored, so a partial last q tile needs no staging code. The last
+// warpgroup (one thread) loads Q once and keeps a ring of K/V stages in
+// flight (full/empty mbarriers, setmaxnreg hands its registers to the
+// others); each consumer warpgroup owns 64 rows: S = Q K^T by wgmma from
+// shared memory (both K-major), the online softmax in registers (base 2,
+// the scale folded into one FFMA), P rounded to bf16 in registers as the A
+// operand of O += P V (wgmma RS, V MN-major). The consumers take turns
+// issuing their products (named barriers), so one's softmax runs under
+// another's products. Smem layouts, 128-byte swizzled 64 x 64-element boxes:
+//   Q  [D / 64][rows]              (K-major A; a warpgroup's rows 8 KB in)
+//   K  [D / 64][kTK rows]          (K-major B of Q K^T)
+//   V  [kTK / 64][D / 64]          (MN-major B of P V: LBO one box)
+// Tried and dropped (PERF.md, PR 5): overlapping the softmax of tile t with
+// P V of tile t - 1 inside a warpgroup made ptxas serialize the wgmmas
+// (C7515, C7520) and ran slower at both main-path shapes.
+template <int D>
+struct Fwd {
+  static constexpr int kTK = D <= 128 ? 128 : 64;  // kv rows per stage
+  static constexpr int kStages = D <= 64 ? 4 : D <= 192 ? 3 : 2;
+  static constexpr int kChunks = D / 64;           // 64-column boxes per row
+  // Consumer warpgroups of 64 rows: 3 at head_dim 64 (the softmax's
+  // exponentials and conversions outweigh its products there, so more warps
+  // hide their latency), else 2.
+  static constexpr int kConsumers = D <= 64 ? 3 : 2;
+  static constexpr int kRowsW = 64 * kConsumers;  // (q head, position) rows
+  static constexpr int kQBytes = kRowsW * D * 2;
+  static constexpr int kTileBytes = kTK * D * 2;   // K or V of one stage
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kSmemBytes =
+      1024 + kQBytes + kStages * kStageBytes + (2 * kStages + 1) * 8;
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+};
+
+// O [64 x D] += bf16(P) [64 x TK] V [TK x D] for one consumer warpgroup: P
+// from registers (packed A fragments), V MN-major in 64-row boxes; issued
+// and committed as one wgmma group.
+template <int D, int TK>
+__device__ __forceinline__ void pv_product(float (&acc)[D / 2], const uint32_t (&pa)[TK / 16][4],
+                                           const uint8_t* v_st) {
+  const uint64_t dv = smem_desc(v_st, kBoxBytes, 8 * kSwizzleRowBytes);
+#pragma unroll
+  for (int kk = 0; kk < TK / 16; ++kk) {
+    wgmma_rs<D, 1>(acc, pa[kk],
+                   desc_advance(dv, (kk / 4) * (D / 64) * kBoxBytes +
+                                        (kk % 4) * 16 * kSwizzleRowBytes));
+  }
+  wgmma_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(Fwd<D>::kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o,
+                       float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv, int causal,
+                       int window, float scale) {
+  using F = Fwd<D>;
+  constexpr int TK = F::kTK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = q_sm + F::kQBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + F::kStages * F::kStageBytes);
+  uint64_t* empty = full + F::kStages;
+  uint64_t* q_full = empty + F::kStages;
+
+  constexpr int kRowsW = F::kRowsW, kConsumers = F::kConsumers;
+  const int G = Hq / Hkv, HB = min(G, kRowsW), P = kRowsW / HB;
+  const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * P;  // longest causal tiles first
+  const int h0 = hk * G + blockIdx.z * HB;
+  const int qhi = min(q0 + P, Sq) - 1;
+  int kv_begin, kv_end;
+  kv_range<TK>(q0, qhi, Skv, causal, window, kv_begin, kv_end);
+  const int tiles = (kv_end - kv_begin + TK - 1) / TK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < F::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);  // one arrival per consumer warpgroup
+    }
+    mbar_init(q_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * kConsumers) {
+    // Producer: Q once, then K and V tiles through the ring.
+    regs_dealloc<kConsumers == 2 ? 40 : 24>();
+    if (threadIdx.x == 128 * kConsumers) {
+      mbar_arrive_expect_tx(q_full, F::kQBytes);
+      for (int c = 0; c < F::kChunks; ++c)
+        tma_load_4d(q_sm + c * kRowsW * kSwizzleRowBytes, &map_q, q_full, c * 64, h0, q0, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < tiles; ++t) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        uint8_t* k_st = ring + stage * F::kStageBytes;
+        uint8_t* v_st = k_st + F::kTileBytes;
+        mbar_arrive_expect_tx(&full[stage], F::kStageBytes);
+        const int kv0 = kv_begin + t * TK;
+        for (int rb = 0; rb < TK / 64; ++rb) {
+          for (int c = 0; c < F::kChunks; ++c) {
+            tma_load_4d(k_st + c * TK * kSwizzleRowBytes + rb * kBoxBytes, &map_k, &full[stage],
+                        c * 64, hk, kv0 + rb * 64, b);
+            tma_load_4d(v_st + (rb * F::kChunks + c) * kBoxBytes, &map_v, &full[stage], c * 64,
+                        hk, kv0 + rb * 64, b);
+          }
+        }
+        if (++stage == F::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    regs_alloc<kConsumers == 2 ? 232 : 160>();
+    const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+    const int lane = tid & 31, t4 = lane & 3;
+    int qpos[2], head[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wg * 64 + (tid >> 5) * 16 + (lane >> 2) + 8 * h;
+      qpos[h] = q0 + r / HB;
+      head[h] = h0 + r % HB;
+    }
+    const float c = scale * 1.4426950408889634f;
+    float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    fence_regs(acc);
+    const uint64_t dq = smem_desc(q_sm + wg * 64 * kSwizzleRowBytes, 16, 8 * kSwizzleRowBytes);
+    mbar_wait(q_full, 0);
+
+    // The warpgroups take turns issuing S = Q K^T (warpgroup w waits at
+    // named barrier 1 + w, then lets the next one go), so one's softmax runs
+    // while another's products do.
+    int stage = 0;
+    uint32_t phase = 0;
+    if (wg == kConsumers - 1) named_barrier_arrive(1, 256);  // warpgroup 0 issues first
+    for (int t = 0; t < tiles; ++t) {
+      const int kv0 = kv_begin + t * TK;
+      mbar_wait(&full[stage], phase);
+      named_barrier(1 + wg, 256);  // this warpgroup's turn
+
+      // S = Q K^T for the warpgroup's 64 rows x TK kv columns.
+      float s[TK / 2];
+      const uint64_t dk = smem_desc(ring + stage * F::kStageBytes, 16, 8 * kSwizzleRowBytes);
+      wgmma_fence();
+      wgmma_ss_zero<TK, 0, 0>(s, dq, dk);
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk) {
+        const uint32_t col = (kk % 4) * 32;  // 16 bf16 into the swizzled row
+        wgmma<TK, 0, 0>(s, desc_advance(dq, (kk / 4) * kRowsW * kSwizzleRowBytes + col),
+                        desc_advance(dk, (kk / 4) * TK * kSwizzleRowBytes + col));
+      }
+      wgmma_commit();
+      if (wg + 1 < kConsumers || t + 1 < tiles) {
+        named_barrier_arrive(1 + (wg + 1) % kConsumers, 256);  // the next one's turn
+      }
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      // Online softmax in base 2, the scale folded into one FFMA: rows keep
+      // the raw max m, p = 2^(s c - m c) with c = scale log2(e), and l sums
+      // this thread's columns (the quad's sum is taken once, at the end).
+      // Tiles wholly inside every row's band (the block's lowest position
+      // past the tile, the window's far edge before it) skip the masks.
+      const bool interior =
+          kv0 + TK <= Skv &&
+          (!causal || (kv0 + TK - 1 <= q0 && (window <= 0 || qhi - kv0 < window)));
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int i = 0; i < TK / 2; ++i) {
+        if (!interior) {
+          const int kpos = kv0 + 8 * (i / 4) + 2 * t4 + (i & 1);
+          if (!in_band(qpos[(i >> 1) & 1], kpos, Skv, causal, window)) s[i] = kNegInf;
+        }
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      }
+      float alpha[2], mc[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m_i[r], quad_max(mx[r]));
+        alpha[r] = exp2_approx((m_i[r] - m_new) * c);
+        // A row with no key of its band yet: its masked p must be 0 (an
+        // fma against a rounded -1e30 c would leave a huge exponent).
+        mc[r] = m_new == kNegInf ? 0.f : m_new * c;
+        m_i[r] = m_new;
+        l_i[r] *= alpha[r];
+      }
+      uint32_t pa[TK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int e = 8 * kk + 2 * i, r = i & 1;  // columns e, e + 1 of row r
+          const float p0 = exp2_approx(fmaf(s[e], c, -mc[r]));
+          const float p1 = exp2_approx(fmaf(s[e + 1], c, -mc[r]));
+          l_i[r] += p0 + p1;
+          pa[kk][i] = pack_f32(p0, p1);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+      // O += bf16(P) V, P from registers.
+      fence_regs(acc);
+      wgmma_fence();
+      pv_product<D, TK>(acc, pa, ring + stage * F::kStageBytes + F::kTileBytes);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (tid == 0) mbar_arrive(&empty[stage]);
+      if (++stage == F::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float l = quad_sum(l_i[r]);
+      if (qpos[r] >= Sq) continue;
+      const float safe = l == 0.f ? 1.f : l;
+      if (t4 == 0) {
+        lse[(static_cast<size_t>(b) * Hq + head[r]) * Sq + qpos[r]] =
+            (m_i[r] * c + log2f(safe)) * 0.6931471805599453f;
+      }
+      const float inv = 1.f / safe;
+      bf16* out = o + ((static_cast<size_t>(b) * Sq + qpos[r]) * Hq + head[r]) * D + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+      }
     }
   }
 }
@@ -984,6 +1234,48 @@ dim3 group_grid(int B, int Sq, int Hq, int Hkv) {
   return dim3((Sq + P - 1) / P, B * Hkv, (G + HB - 1) / HB);
 }
 
+// Whether the group tiles the rows of a wgmma block: HB = min(G, rows)
+// heads divide the rows and the group.
+template <int D>
+bool wgmma_rows(int Hq, int Hkv) {
+  constexpr int kRowsW = Fwd<D>::kRowsW;
+  const int G = Hq / Hkv, HB = G < kRowsW ? G : kRowsW;
+  return kRowsW % HB == 0 && G % HB == 0;
+}
+
+template <int D>
+cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* lse,
+                             int B, int Sq, int Skv, int Hq, int Hkv, int causal, int window,
+                             float scale, cudaStream_t stream) {
+  using F = Fwd<D>;
+  const int G = Hq / Hkv, HB = G < F::kRowsW ? G : F::kRowsW, P = F::kRowsW / HB;
+  using u64 = uint64_t;
+  const u64 q_dims[4] = {static_cast<u64>(D), static_cast<u64>(Hq), static_cast<u64>(Sq),
+                         static_cast<u64>(B)};
+  const u64 q_strides[3] = {static_cast<u64>(D), static_cast<u64>(Hq) * D,
+                            static_cast<u64>(Sq) * Hq * D};
+  const uint32_t q_box[4] = {64, static_cast<uint32_t>(HB), static_cast<uint32_t>(P), 1};
+  const u64 kv_dims[4] = {static_cast<u64>(D), static_cast<u64>(Hkv), static_cast<u64>(Skv),
+                          static_cast<u64>(B)};
+  const u64 kv_strides[3] = {static_cast<u64>(D), static_cast<u64>(Hkv) * D,
+                             static_cast<u64>(Skv) * Hkv * D};
+  const uint32_t kv_box[4] = {64, 1, 64, 1};
+  CUtensorMap mq, mk, mv;
+  if (!tensor_map(&mq, q, 4, q_dims, q_strides, q_box) ||
+      !tensor_map(&mk, k, 4, kv_dims, kv_strides, kv_box) ||
+      !tensor_map(&mv, v, 4, kv_dims, kv_strides, kv_box)) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + P - 1) / P, B * Hkv, G / HB);
+  flash_fwd_wgmma_kernel<D><<<grid, F::kThreads, F::kSmemBytes, stream>>>(
+      mq, mk, mv, static_cast<bf16*>(o), static_cast<float*>(lse), Sq, Skv, Hq, Hkv, causal,
+      window, scale);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
                        int Sq, int Skv, int Hq, int Hkv, int causal, int window, float scale,
@@ -1102,6 +1394,16 @@ int lumina_flash_fwd(const void* q, const void* k, const void* v, void* o, void*
                      float scale, void* stream) {
   if (!shape_ok(B, Sq, Skv, Hq, Hkv, D)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CALL(DD) \
+  launch_fwd_wgmma<DD>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, causal, window, scale, s)
+  switch (D) {
+    case 64: if (wgmma_rows<64>(Hq, Hkv)) return static_cast<int>(CALL(64)); break;
+    case 128: if (wgmma_rows<128>(Hq, Hkv)) return static_cast<int>(CALL(128)); break;
+    case 192: if (wgmma_rows<192>(Hq, Hkv)) return static_cast<int>(CALL(192)); break;
+    case 256: if (wgmma_rows<256>(Hq, Hkv)) return static_cast<int>(CALL(256)); break;
+    default: break;
+  }
+#undef CALL
 #define CALL(DD) launch_fwd<DD>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, causal, window, scale, s)
   LUMINA_BY_DIM(D, CALL,
                 launch_fwd_wide(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, causal, window, scale, s))

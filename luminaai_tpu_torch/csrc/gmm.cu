@@ -23,8 +23,8 @@
 // 316 MB, 0.094 ms at 3.35 TB/s), which takes some 3 MB of loads in flight
 // across the card.
 //
-// Design (hopper.cuh holds the barrier, TMA and wgmma helpers). One kernel
-// template serves the three products. Persistent blocks, one or two per SM,
+// Design (hopper.cuh holds the barrier, TMA, wgmma and tensor-map
+// helpers). One kernel template serves the three products. Persistent blocks, one or two per SM,
 // walk the output tiles; in each, a producer warpgroup (one thread) keeps a
 // ring of shared-memory stages filled by TMA (cp.async.bulk.tensor, 128-byte
 // swizzle, full/empty mbarrier pairs), running ahead across tile boundaries,
@@ -396,56 +396,6 @@ grouped_kernel(const __grid_constant__ CUtensorMap map_a,
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's entry-point query, so the
-// library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &status);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    return err == cudaSuccess && status == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A bf16 tensor map with 128-byte swizzle and zero fill: dims innermost
-// first, strides (in elements) of dims 1.., box dims.
-bool tensor_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                const uint64_t* strides, const uint32_t* box) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  cuuint64_t gdim[3], gstride[2];
-  cuuint32_t bdim[3], estride[3] = {1, 1, 1};
-  for (int i = 0; i < rank; ++i) {
-    gdim[i] = dims[i];
-    bdim[i] = box[i];
-  }
-  for (int i = 0; i + 1 < rank; ++i) gstride[i] = strides[i] * sizeof(bf16);
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), gdim, gstride,
-            bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
-  return sms;
-}
-
 // map_out: the output ([M, N], or [E, K, N] for tgmm) in 64 x 64 boxes,
 // read only where Tiling::kTmaStore.
 template <int BM, int BN, int kMode>

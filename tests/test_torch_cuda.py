@@ -107,6 +107,42 @@ def test_kernel_takes_any_group(dev):
         assert err <= TOL, (hq, hkv, d, err)
 
 
+# The split-KV kernel's boundaries: a cluster of up to 8 blocks splits
+# each lane's band in 64-row tiles (32 above head_dim 128, 16 above 256),
+# block `rank` taking tiles [T * rank / n, T * (rank + 1) / n).
+SPLIT_CASES = {
+    # name: (lengths, pages, page size, Hq, Hkv, D, window)
+    # Lengths on both sides of a tile and of the shares of 8 blocks; most
+    # lanes leave some blocks an empty share.
+    "straddle": ([1, 63, 64, 65, 255, 256, 257, 2048], 16, 128, 16, 4, 128, None),
+    # The window's first row inside a share and inside a tile.
+    "window_in_share": ([700, 1500, 2048, 333], 16, 128, 16, 4, 128, 333),
+    # Free lanes (length 0) beside full lanes: zeros, as the TPU kernel.
+    "zero_beside_full": ([0, 2048, 0, 2048], 16, 128, 8, 2, 128, None),
+    # A group of 16 q heads in one block (the A rows of its products).
+    "group16": ([5, 1000, 2048], 16, 128, 16, 1, 128, None),
+    # head_dim 64 (2 column pairs over the warps), 256 (32-row tiles) and
+    # 512 (16-row tiles), small pages.
+    "d64_pages16": ([17, 130, 511], 32, 16, 8, 2, 64, 100),
+    "d256": ([3, 200, 640], 8, 128, 8, 2, 256, None),
+    "d512": ([9, 300, 512], 4, 128, 4, 1, 512, 257),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_kv_boundaries(dev, case):
+    lengths, P, ps, hq, hkv, d, window = SPLIT_CASES[case]
+    q, k, v, meta = _case(dev, lengths, P, ps, hq, hkv, d, window=window,
+                          seed=8)
+    out = rpa.ragged_paged_attention(q, k, v, meta)
+    want = rpa.ragged_paged_attention_ref(q, k, v, meta)
+    torch.cuda.synchronize()
+    live = torch.as_tensor(lengths, device=dev) > 0
+    assert not out[~live].any()
+    err = (out[live].float() - want[live].float()).abs().max().item()
+    assert err <= TOL, err
+
+
 def test_decode_step_runs_the_kernel_once_per_layer(dev):
     """A StepwiseDecoder on the card: one decode step launches the kernel
     once per layer, and its logits match the plain-attention re-run of

@@ -75,6 +75,11 @@ CASES = {
     "causal_g2_d320_s200": (1, 200, 4, 2, 320, True, 0),
     "window70_g3_d512": (1, 256, 3, 1, 512, True, 70),
     "noncausal_g1_d384": (1, 128, 2, 2, 384, False, 0),
+    # The wgmma forward's partial tiles and windows at the main path's
+    # head dims and groups: d64 group 2 (flagship MoE), d128 group 4 (b1).
+    "causal_g2_d64_s200": (1, 200, 4, 2, 64, True, 0),
+    "window64_g2_d64": (2, 512, 4, 2, 64, True, 64),
+    "window64_g4_d128_s200": (2, 200, 8, 2, 128, True, 64),
 }
 
 
