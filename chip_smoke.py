@@ -15,14 +15,16 @@ Phases (any failure raises and exits non-zero):
              window-512 case, a non-causal case, a GQA group of 1 at
              head_dim 64, and the shapes the JAX gate admits that the
              first kernels refused (head_dim 192, 320 and 512, S 200, a
-             group of 3), and B1 at the flagship MoE shape (head_dim 64,
-             q [16, 2048, 16, 64]); B5 also at head_dim 576 and at the
+             group of 3), and B1-B3 at the flagship MoE shape (head_dim
+             64, q [16, 2048, 16, 64]); B5 also at head_dim 576 and at the
              split-KV kernel's share boundaries; the grouped matmul (B4a
              gmm with and without transpose_rhs, B4b tgmm) at the b1
              decode and flagship training shapes, with an empty group and
              a tail that must stay exactly zero; time kernel / plain /
              library call at every shape, and compute the least time the
-             card could take and each kernel's share of it;
+             card could take and each kernel's share of it; log which CUDA
+             kernel each flash call took (torch.profiler) and require the
+             wgmma B2/B3 kernels at both training shapes;
   3. serve   the b1-width dense model (16 layers, hidden 2048, seeded
              weights) through the port's ContinuousScheduler +
              StepwiseDecoder behind its HTTP server: first-decode-step
@@ -153,6 +155,26 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_names(fn) -> list:
+    """The CUDA kernels one call of fn launches, as torch.profiler (CUPTI)
+    names them: [] when the profiler records no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def _short(name: str) -> str:
+    """A kernel's name without its namespace and parameter list."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name.split("(")[0].replace("void ", "").strip()
 
 
 def phase_build() -> None:
@@ -392,7 +414,7 @@ def phase_flash_kernels(dev) -> list:
         **REPAIRED_FLASH,
     }
     abs_err = {"B1": 0.0, "B2": 0.0, "B3": 0.0}
-    repaired = {}
+    repaired, routes = {}, {}
     for name, (b, s, hq, hkv, d, causal, window) in cases.items():
         q, k, v, do, g_lse = inputs(b, s, hq, hkv, d)
         args = dict(scale=d ** -0.5, causal=causal, window=window)
@@ -406,6 +428,16 @@ def phase_flash_kernels(dev) -> list:
         dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, do, lse_ref, delta,
                                               **args)
         torch.cuda.synchronize()
+        taken = {kern: [_short(n) for n in kernel_names(call)] for kern, call
+                 in (("B1", lambda: fa.flash_fwd(q, k, v, **args)),
+                     ("B2", lambda: fa.flash_bwd_dq(
+                         q, k, v, do, lse_ref, delta, **args)),
+                     ("B3", lambda: fa.flash_bwd_dkv(
+                         q, k, v, do, lse_ref, delta, **args)))}
+        routes[name] = taken
+        log(f"  kernels taken [{name}]: " + "; ".join(
+            f"{kern} {', '.join(n) or 'not measured'}"
+            for kern, n in taken.items()))
         pairs = {"o": (o, o_ref), "dq": (dq, dq_ref), "dk": (dk, dk_ref),
                  "dv": (dv, dv_ref)}
         for t, _ in pairs.values():
@@ -535,61 +567,139 @@ def phase_flash_kernels(dev) -> list:
                        "head_dim": d, "causal": True},
             "repaired": {name: {"ms": r["ms"][kern], "shape": r["shape"]}
                          for name, r in repaired.items()},
+            "kernels_taken": {case: r[kern] for case, r in routes.items()},
         })
     log(f"SDPA forward vs plain B1 output: max abs diff {lib_err:.3e}")
     del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
-    flagship = entries[0]["flagship_d64"] = _flash_fwd_flagship(inputs, rel)
-    entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"],
-                                    flagship["max_abs_err"])
+    _require_wgmma_backward(routes["train"], "the b1 training shape")
+    flagship = _flash_flagship(inputs, rel)
+    for e, kern in zip(entries, ("B1", "B2", "B3")):
+        e["flagship_d64"] = flagship[kern]
+        e["max_abs_err"] = max(e["max_abs_err"], flagship[kern]["max_abs_err"])
     return entries
 
 
-def _flash_fwd_flagship(inputs, rel) -> dict:
-    """B1 at the flagship MoE training shape (q [16, 2048, 16, 64], k/v
-    [16, 2048, 8, 64], causal): against its plain version, then kernel /
-    plain / SDPA forward ms and the bound."""
+def _require_wgmma_backward(taken: dict, where: str) -> None:
+    """B2 and B3 took the wgmma kernels (when the profiler saw them)."""
+    for kern, want in (("B2", "flash_bwd_dq_wgmma_kernel"),
+                       ("B3", "flash_bwd_dkv_wgmma_kernel")):
+        if taken[kern] and not all(want in n for n in taken[kern]):
+            raise AssertionError(f"{kern} did not take {want} at {where}: "
+                                 f"{taken[kern]}")
+
+
+def _flash_flagship(inputs, rel) -> dict:
+    """B1-B3 at the flagship MoE training shape (q [16, 2048, 16, 64], k/v
+    [16, 2048, 8, 64], causal): each against its plain version, then
+    kernel / plain / SDPA (forward for B1, backward for B2 and B3, the
+    median of LIB_ROUNDS rounds) ms and the bound. -> {kernel: entry}."""
     import torch
     import torch.nn.functional as F
 
     from luminaai_tpu_torch.ops import flash_attention as fa
 
     b, s, hq, hkv, d = FLAGSHIP_ATTN
-    q, k, v, _, _ = inputs(b, s, hq, hkv, d)
+    q, k, v, do, g_lse = inputs(b, s, hq, hkv, d)
     args = dict(scale=d ** -0.5, causal=True, window=0)
     o, lse = fa.flash_fwd(q, k, v, **args)
     o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, **args)
+    delta = ((do.float() * o_ref.float()).sum(-1).transpose(1, 2)
+             - g_lse).contiguous()
+    got = {"B1": [o], "B2": [fa.flash_bwd_dq(q, k, v, do, lse_ref, delta,
+                                             **args)],
+           "B3": list(fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, **args))}
     torch.cuda.synchronize()
-    err, lse_err = rel(o, o_ref), (lse - lse_ref).abs().max().item()
-    abs_err = (o.float() - o_ref.float()).abs().max().item()
-    del o, o_ref, lse, lse_ref
+    lse_err = (lse - lse_ref).abs().max().item()
+    del o, lse
+    want = {"B1": [o_ref],
+            "B2": [fa.flash_bwd_dq_ref(q, k, v, do, lse_ref, delta, **args)]}
     torch.cuda.empty_cache()
-    log(f"B1 vs plain [flagship: B{b} S{s} Hq{hq} Hkv{hkv} D{d} causal]: rel "
-        f"err o {err:.3e}, lse abs err {lse_err:.3e} (tol {FLASH_REL_TOL} x "
-        f"max, lse {LSE_TOL})")
-    if not err <= FLASH_REL_TOL or not lse_err <= LSE_TOL:
-        raise AssertionError("B1 disagrees with plain (flagship)")
-    ms = cuda_ms(lambda: fa.flash_fwd(q, k, v, **args), 20)
-    plain_ms = cuda_ms(lambda: fa.flash_fwd_ref(q, k, v, **args), 2, 1)
+    want["B3"] = list(fa.flash_bwd_dkv_ref(q, k, v, do, lse_ref, delta,
+                                           **args))
+    torch.cuda.synchronize()
+    errs, abs_err = {}, {}
+    for kern in got:
+        errs[kern] = max(rel(a, w) for a, w in zip(got[kern], want[kern]))
+        abs_err[kern] = max((a.float() - w.float()).abs().max().item()
+                            for a, w in zip(got[kern], want[kern]))
+    del got, want, o_ref
     torch.cuda.empty_cache()
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    log(f"B1-B3 vs plain [flagship: B{b} S{s} Hq{hq} Hkv{hkv} D{d} causal]: "
+        f"rel err " + ", ".join(f"{kern} {e:.3e}" for kern, e in errs.items())
+        + f"; lse abs err {lse_err:.3e} (tol {FLASH_REL_TOL} x max, lse "
+        f"{LSE_TOL})")
+    if max(errs.values()) > FLASH_REL_TOL or not lse_err <= LSE_TOL:
+        raise AssertionError("flash kernels disagree with plain (flagship)")
+    calls = {
+        "B1": (lambda: fa.flash_fwd(q, k, v, **args),
+               lambda: fa.flash_fwd_ref(q, k, v, **args)),
+        "B2": (lambda: fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, **args),
+               lambda: fa.flash_bwd_dq_ref(q, k, v, do, lse_ref, delta,
+                                           **args)),
+        "B3": (lambda: fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, **args),
+               lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse_ref, delta,
+                                            **args)),
+    }
+    taken = {kern: [_short(n) for n in kernel_names(kc)]
+             for kern, (kc, _) in calls.items()}
+    log("  kernels taken [flagship]: " + "; ".join(
+        f"{kern} {', '.join(n) or 'not measured'}" for kern, n in
+        taken.items()))
+    _require_wgmma_backward(taken, "the flagship shape")
+    ms, plain_ms = {}, {}
+    for kern, (kc, pc) in calls.items():
+        ms[kern] = cuda_ms(kc, 20)
+        plain_ms[kern] = cuda_ms(pc, 2, 1)
+        torch.cuda.empty_cache()
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
     with torch.no_grad():
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-    flops = 4 * d * b * hq * _band_pairs(s, True, 0)
-    nbytes = 2 * b * s * hq * d * 2 + 2 * b * s * hkv * d * 2 + b * hq * s * 4
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_BF16_FLOPS * 1e3
-    bound = max(t_bytes, t_ops)
-    log(f"B1 flash_fwd at the flagship shape: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, library (SDPA fwd) {lib_ms:.4f} ms, bound "
-        f"{bound:.4f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; "
-        f"{100 * bound / ms:.1f}% of bound)")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+        lib_fwd = cuda_ms(sdpa, 20)
+    out = sdpa()
+    lib_bwd_rounds = [cuda_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 10)
+        for _ in range(LIB_ROUNDS)]
+    lib_bwd = statistics.median(lib_bwd_rounds)
+    log(f"SDPA backward at the flagship shape, {LIB_ROUNDS} rounds (ms): "
+        + ", ".join(f"{x:.4f}" for x in lib_bwd_rounds))
+    del out, qt, kt, vt, dot
+
+    pairs = b * hq * _band_pairs(s, True, 0)
+    act, kv, stat = b * s * hq * d * 2, b * s * hkv * d * 2, b * hq * s * 4
+    work = {  # (flops, bytes): each input read once, each output written once
+        "B1": (4 * d * pairs, act + 2 * kv + act + stat),
+        "B2": (6 * d * pairs, 2 * act + 2 * kv + 2 * stat + act),
+        "B3": (8 * d * pairs, 2 * act + 2 * kv + 2 * stat + 2 * kv),
+    }
+    out = {}
+    for kern, (flops, nbytes) in work.items():
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = flops / H100_BF16_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        lib_ms = lib_fwd if kern == "B1" else lib_bwd
+        log(f"{kern} at the flagship shape: kernel {ms[kern]:.4f} ms, plain "
+            f"{plain_ms[kern]:.4f} ms, library (SDPA "
+            f"{'fwd' if kern == 'B1' else 'bwd'}) {lib_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; "
+            f"{100 * bound / ms[kern]:.1f}% of bound)")
+        out[kern] = {
+            "ms": ms[kern], "plain_ms": plain_ms[kern], "library_ms": lib_ms,
+            "library_rounds_ms": None if kern == "B1" else lib_bwd_rounds,
             "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "max_abs_err": abs_err, "rel_err": err, "lse_err": lse_err,
-            "shape": [b, s, hq, hkv, d]}
+            "max_abs_err": abs_err[kern], "rel_err": errs[kern],
+            "kernels_taken": taken[kern], "shape": [b, s, hq, hkv, d]}
+    out["B1"]["lse_err"] = lse_err
+    del q, k, v, do, lse_ref, delta
+    torch.cuda.empty_cache()
+    return out
 
 
 # The port's kernels by family, as torch.profiler names them.
@@ -848,8 +958,16 @@ def profile_train_step(trainer, batch) -> dict:
         f"{sum(n for _, _, n in kernels)} kernel launches")
     for name, ms, n in kernels[:10]:
         log(f"  {ms:9.3f} ms  x{n:<5d} {name[:90]}")
+    flash = [[_short(name), ms, n] for name, ms, n in kernels
+             if "flash_" in name]
+    log("  flash kernels taken: " + ", ".join(
+        f"{name} x{n} {ms:.3f} ms" for name, ms, n in flash))
+    _require_wgmma_backward(
+        {"B2": [n for n, _, _ in flash if "bwd_dq" in n],
+         "B3": [n for n, _, _ in flash if "bwd_dkv" in n]}, "a train step")
     return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "port_kernels": _families(kernels, busy_ms),
+            "flash_kernels": flash,
             "top_kernels": [[name[:90], ms, n]
                             for name, ms, n in kernels[:10]]}
 

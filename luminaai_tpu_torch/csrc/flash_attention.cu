@@ -4,8 +4,12 @@
 //   B1 `_fwd_kernel`      (pallas_call in `_fwd`)  -> flash_fwd_wgmma_kernel
 //                                                     (flash_fwd_kernel for
 //                                                     the other shapes)
-//   B2 `_bwd_dq_kernel`   (pallas_call in `_bwd`)  -> flash_bwd_dq_kernel
-//   B3 `_bwd_dkv_kernel`  (pallas_call in `_bwd`)  -> flash_bwd_dkv_kernel
+//   B2 `_bwd_dq_kernel`   (pallas_call in `_bwd`)  -> flash_bwd_dq_wgmma_kernel
+//                                                     (flash_bwd_dq_kernel
+//                                                     for the other shapes)
+//   B3 `_bwd_dkv_kernel`  (pallas_call in `_bwd`)  -> flash_bwd_dkv_wgmma_kernel
+//                                                     (flash_bwd_dkv_kernel
+//                                                     for the other shapes)
 // They compute the same functions: GQA attention, causal or not, with an
 // optional sliding-window band; fp32 scores and an online softmax; P
 // rounded to bf16 before P.V and P^T.dO; dS = P*(dP - delta)*scale rounded
@@ -22,7 +26,14 @@
 // 128 and multiples of 128: every preset) takes flash_fwd_wgmma_kernel
 // (wgmma fed by a TMA ring; its note is at the kernel). Other groups (3, 6,
 // 12, ...) take flash_fwd_kernel, head_dim above 256 flash_fwd_wide_kernel.
-// B2 and B3 are the mma.sync kernels below for every shape.
+// B2 at head_dim 64 and 128 with a group whose min(G, 128) heads divide 128
+// and G takes flash_bwd_dq_wgmma_kernel, B3 at head_dim 64 and 128 (any
+// group) flash_bwd_dkv_wgmma_kernel (wgmma over a TMA ring; their note is
+// at the kernels): both main-path shapes (b1: head_dim 128, group 4;
+// flagship MoE: head_dim 64, group 2). Head_dim 192 and 256, and B2's other
+// groups, take the mma.sync kernels flash_bwd_dq_kernel and
+// flash_bwd_dkv_kernel; head_dim above 256 the 64-column slice kernels.
+// Which kernel runs is decided by the shape alone, in the entry points.
 //
 // Products of the mma.sync kernels. Every matrix product is a warp-level
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate). Each warp owns 16 rows of its output; the
@@ -69,9 +80,10 @@
 // B3 8*B*Hq*D*(S^2/2) (~69 GFLOP). At the flagship MoE shape (q [16, 2048,
 // 16, 64], k/v [16, 2048, 8, 64]) B1 does ~137.5 GFLOP (~0.139 ms). The
 // mma.sync kernels reach well under half of the wgmma peak and load tiles
-// synchronously: 9-10% of B1's bound (PERF.md); B1's wgmma kernel replaced
-// them on the main path, and B2/B3 await the same redesign.
+// synchronously: 8-11% of their bounds (PERF.md); the wgmma kernels replaced
+// them on the main path.
 
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,6 +93,7 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 using namespace hopper;
 
@@ -896,6 +909,540 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// B2 and B3 on Hopper: wgmma fed by a TMA ring (head_dim 64 and 128)
+// ---------------------------------------------------------------------------
+// Bound: operations (B2 6 and B3 8 flops per head_dim per attended (q, k)
+// pair: 0.0521 and 0.0695 ms at the b1 training shape, 0.209 and 0.278 ms
+// at the flagship MoE shape, at 989 TFLOP/s). Each block runs two consumer
+// warpgroups; each runs its two score products by wgmma from shared memory
+// and its gradient product(s) by wgmma with the A operand from registers,
+// and leaves a step's gradient products in flight under its next step's
+// score products. A ring of TMA tiles (full/empty mbarriers) feeds them.
+// - No producer warp: ptxas allocates registers for the launch bound, 168 a
+//   thread at 12 warps (3 a scheduler) with or without setmaxnreg, which
+//   spilled B3's two head_dim-128 fp32 accumulators (64 + 64 a thread) and
+//   serialized the wgmmas once a product stayed in flight. At 8 warps every
+//   thread may hold 255. Thread 0 also issues the loads: at step j it
+//   refills the stage of step j - 2 (released by both warpgroups at step
+//   j - 1) with step j + 2, so one warpgroup may run a step ahead.
+// - Every tile is a 128-byte-swizzled [D / 64][rows] stack of 64 x 64 boxes
+//   (a row's 64-column chunks one rows-tall stack apart). Used K-major (the
+//   reduction over D) a tile is an A or B operand with SBO 1024; the same
+//   bytes used MN-major (the reduction over rows, N over D) are a B operand
+//   with LBO = one stack (rows x 128 bytes) and SBO 1024, a k step 16 rows
+//   (2048 bytes). So one copy serves both products: K in B2 (S = Q K^T,
+//   dQ += dS K), Q and dO in B3 (S^T = K Q^T, dK += dS^T Q).
+// - P = 2^(S c - lse log2 e), c = scale log2 e: one FFMA and ex2 per
+//   element. Tiles wholly inside every row's band skip the masks.
+// B2 (dQ): one block per (batch, kv head, q tile, head chunk) over B1's
+// 128 position-major (q head, position) rows, 64 per warpgroup (one 4-D box
+// per 64 columns brings Q and dO once); K/V tiles of 64 rows (128 at
+// head_dim 64) through the ring, from the window's band to the diagonal.
+// Per tile: S = Q K^T and dP = dO V^T (SS), P while dP runs, dS = P (dP -
+// delta) scale in registers, dQ += bf16(dS) K (RS, K MN-major).
+// B3 (dK, dV): one block (or cluster, below) per (batch, kv head, 128 kv
+// rows), 64 per warpgroup, longest causal band first; K and V are loaded
+// once, and the
+// ring streams Q and dO tiles of 64 rows (128 at head_dim 64; taken 64
+// columns at a time) with their lse and delta (a flat fp32 TMA), for every
+// q head of the group and every q tile of the band (from the diagonal on,
+// to the window's far edge); both warpgroups read each stage. Per step: S^T
+// = K Q^T and dP^T = V dO^T (SS), P^T and dS^T in registers, dV +=
+// bf16(P^T) dO and dK += bf16(dS^T) Q (RS, dO and Q MN-major); q columns
+// past Sq contribute 0. The group is summed in the fp32 accumulators.
+// Filling the card: at the b1 shape B x Hkv x kv tiles is 128 blocks for
+// 132 SMs, and the first kv tile's causal band is 16 times the last one's,
+// so that block sets the kernel's time. While the tiles number fewer than
+// the SMs, a cluster of two blocks shares each tile: rank r takes the r-th
+// half of its (q head, q tile) steps; rank 0 writes dK and rank 1 dV, each
+// the sum of rank 0's fp32 partial and rank 1's: each rank pushes the
+// partial it does not write into the other's shared memory by remote
+// stores between two cluster barriers (one launch, deterministic, no
+// atomics, no scratch). Tried and slower (PERF.md): clusters of 4, a merge
+// that pulled the partials by remote loads, one generic over 2 or 4 ranks,
+// and 64-row tiles whose two warpgroups took alternate steps (each stage
+// then read by one warpgroup: twice the tile traffic).
+template <int D>
+struct BwdDq {
+  static constexpr int kTK = D <= 64 ? 128 : 64;  // kv rows per stage
+  static constexpr int kStages = 4;
+  static constexpr int kChunks = D / 64;
+  static constexpr int kConsumers = 2;
+  static constexpr int kRowsW = 64 * kConsumers;  // (q head, position) rows
+  static constexpr int kQBytes = kRowsW * D * 2;  // Q or dO
+  static constexpr int kTileBytes = kTK * D * 2;  // K or V of one stage
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kSmemBytes =
+      1024 + 2 * kQBytes + kStages * kStageBytes + (2 * kStages + 1) * 8;
+  static constexpr int kThreads = 128 * kConsumers;  // thread 0 also loads
+};
+
+template <int D>
+struct BwdDkv {
+  static constexpr int kTQ = D <= 64 ? 128 : 64;   // q rows per stage
+  static constexpr int kSub = 64;                  // q columns per product
+  static constexpr int kStages = 4;
+  static constexpr int kChunks = D / 64;
+  static constexpr int kConsumers = 2;
+  static constexpr int kRowsKv = 64 * kConsumers;  // kv rows per block
+  static constexpr int kKvBytes = kRowsKv * D * 2;  // K or V
+  static constexpr int kTileBytes = kTQ * D * 2;    // Q or dO of one stage
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kStatBytes = kTQ * 4;        // lse or delta of one stage
+  static constexpr int kSmemBytes = 1024 + 2 * kKvBytes + kStages * kStageBytes +
+                                    kStages * 2 * kStatBytes + (2 * kStages + 1) * 8;
+  static constexpr int kThreads = 128 * kConsumers;  // thread 0 also loads
+  static_assert(kStages * kStageBytes >= kConsumers * 64 * D * 4, "the merge parks over the ring");
+};
+
+template <int D>
+__global__ void __launch_bounds__(BwdDq<D>::kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_do,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv, int causal,
+                          int window, float scale) {
+  using F = BwdDq<D>;
+  constexpr int TK = F::kTK, kRowsW = F::kRowsW, kConsumers = F::kConsumers;
+  constexpr int kStages = F::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* do_sm = q_sm + F::kQBytes;
+  uint8_t* ring = do_sm + F::kQBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * F::kStageBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+
+  const int G = Hq / Hkv, HB = min(G, kRowsW), P = kRowsW / HB;
+  const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * P;  // longest causal tiles first
+  const int h0 = hk * G + blockIdx.z * HB;
+  const int qhi = min(q0 + P, Sq) - 1;
+  int kv_begin, kv_end;
+  kv_range<TK>(q0, qhi, Skv, causal, window, kv_begin, kv_end);
+  const int tiles = kv_end > kv_begin ? (kv_end - kv_begin + TK - 1) / TK : 0;
+
+  const bool producer = threadIdx.x == 0;
+  // K/V tile t into stage t % kStages.
+  auto load_tile = [&](int t) {
+    const int s = t % kStages, kv0 = kv_begin + t * TK;
+    uint8_t* k_st = ring + s * F::kStageBytes;
+    uint8_t* v_st = k_st + F::kTileBytes;
+    mbar_arrive_expect_tx(&full[s], F::kStageBytes);
+    for (int rb = 0; rb < TK / 64; ++rb) {
+      for (int c = 0; c < F::kChunks; ++c) {
+        const int off = c * TK * kSwizzleRowBytes + rb * kBoxBytes;
+        tma_load_4d(k_st + off, &map_k, &full[s], c * 64, hk, kv0 + rb * 64, b);
+        tma_load_4d(v_st + off, &map_v, &full[s], c * 64, hk, kv0 + rb * 64, b);
+      }
+    }
+  };
+  if (producer) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_init(q_full, 1);
+    fence_barrier_init();
+    // Q and dO once, and the first kStages K/V tiles.
+    mbar_arrive_expect_tx(q_full, 2 * F::kQBytes);
+    for (int c = 0; c < F::kChunks; ++c) {
+      tma_load_4d(q_sm + c * kRowsW * kSwizzleRowBytes, &map_q, q_full, c * 64, h0, q0, b);
+      tma_load_4d(do_sm + c * kRowsW * kSwizzleRowBytes, &map_do, q_full, c * 64, h0, q0, b);
+    }
+    for (int t = 0; t < min(tiles, kStages); ++t) load_tile(t);
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int lane = tid & 31, t4 = lane & 3;
+  constexpr float kLog2e = 1.4426950408889634f;
+  int qpos[2], head[2];
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wg * 64 + (tid >> 5) * 16 + (lane >> 2) + 8 * h;
+    qpos[h] = q0 + r / HB;
+    head[h] = h0 + r % HB;
+    const bool ok = qpos[h] < Sq;  // padding rows: Q and dO arrive as zeros
+    const size_t i = (static_cast<size_t>(b) * Hq + head[h]) * Sq + (ok ? qpos[h] : 0);
+    lse2[h] = ok ? lse[i] * kLog2e : 0.f;
+    dlt[h] = ok ? delta[i] : 0.f;
+  }
+  const float c = scale * kLog2e;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  const uint64_t q_a = smem_desc(q_sm + wg * 64 * kSwizzleRowBytes, 16, 8 * kSwizzleRowBytes);
+  const uint64_t do_a = smem_desc(do_sm + wg * 64 * kSwizzleRowBytes, 16, 8 * kSwizzleRowBytes);
+  mbar_wait(q_full, 0);
+
+  // Tile t: S and dP as two wgmma groups; P while dP runs; dS; the dQ
+  // product left in flight under the next tile's S and dP. A warpgroup
+  // releases tile t's stage once its dQ product has completed (at tile
+  // t + 1); the producer thread refills the stage of tile t - 2 with tile
+  // t + 2, so the other warpgroup may run up to a tile behind.
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t % kStages, kv0 = kv_begin + t * TK;
+    mbar_wait(&full[s], (t / kStages) & 1);
+    const uint8_t* k_st = ring + s * F::kStageBytes;
+    const uint64_t k_b = smem_desc(k_st, 16, 8 * kSwizzleRowBytes);
+    const uint64_t v_b = smem_desc(k_st + F::kTileBytes, 16, 8 * kSwizzleRowBytes);
+
+    // S = Q K^T and dP = dO V^T for the warpgroup's 64 rows x TK kv columns.
+    float sc[TK / 2], dp[TK / 2];
+    wgmma_fence();
+    wgmma_ss_zero<TK, 0, 0>(sc, q_a, k_b);
+#pragma unroll
+    for (int kk = 1; kk < D / 16; ++kk) {
+      const uint32_t col = (kk % 4) * 32;  // 16 bf16 into the swizzled row
+      wgmma<TK, 0, 0>(sc, desc_advance(q_a, (kk / 4) * kRowsW * kSwizzleRowBytes + col),
+                      desc_advance(k_b, (kk / 4) * TK * kSwizzleRowBytes + col));
+    }
+    wgmma_commit();
+    wgmma_ss_zero<TK, 0, 0>(dp, do_a, v_b);
+#pragma unroll
+    for (int kk = 1; kk < D / 16; ++kk) {
+      const uint32_t col = (kk % 4) * 32;
+      wgmma<TK, 0, 0>(dp, desc_advance(do_a, (kk / 4) * kRowsW * kSwizzleRowBytes + col),
+                      desc_advance(v_b, (kk / 4) * TK * kSwizzleRowBytes + col));
+    }
+    wgmma_commit();
+    if (producer && t >= 2 && t + 2 < tiles) {
+      mbar_wait(&empty[(t - 2) % kStages], ((t - 2) / kStages) & 1);
+      load_tile(t + 2);
+    }
+    wgmma_wait<1>();  // the previous dQ product and S
+    fence_regs(sc);
+    fence_regs(acc);
+    if (t > 0 && tid == 0) mbar_arrive(&empty[(t - 1) % kStages]);
+
+    // P = 2^(S c - lse log2 e) in place; masked only on tiles that some
+    // row's band cuts or that run past Skv.
+    const bool interior =
+        kv0 + TK <= Skv &&
+        (!causal || (kv0 + TK - 1 <= q0 && (window <= 0 || qhi - kv0 < window)));
+#pragma unroll
+    for (int e = 0; e < TK / 2; ++e) {
+      const int r = (e >> 1) & 1;  // column 8 (e / 4) + 2 t4 + (e & 1) of row r
+      float p = exp2_approx(fmaf(sc[e], c, -lse2[r]));
+      if (!interior) {
+        const int kpos = kv0 + 8 * (e / 4) + 2 * t4 + (e & 1);
+        if (!in_band(qpos[r], kpos, Skv, causal, window)) p = 0.f;
+      }
+      sc[e] = p;
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+    // dS = P (dP - delta) scale, rounded to bf16 as the A operand.
+    uint32_t da[TK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = 8 * kk + 2 * i, r = i & 1;
+        da[kk][i] = pack_f32(sc[e] * (dp[e] - dlt[r]) * scale,
+                             sc[e + 1] * (dp[e + 1] - dlt[r]) * scale);
+      }
+    }
+
+    // dQ += bf16(dS) K: dS from registers, K MN-major (the same bytes).
+    const uint64_t k_m = smem_desc(k_st, TK * kSwizzleRowBytes, 8 * kSwizzleRowBytes);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) {
+      wgmma_rs<D, 1>(acc, da[kk], desc_advance(k_m, kk * 16 * kSwizzleRowBytes));
+    }
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qpos[r] >= Sq) continue;
+    bf16* out = dq + ((static_cast<size_t>(b) * Sq + qpos[r]) * Hq + head[r]) * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// B3's output: a warpgroup's 64 kv rows. park_rows writes the fp32
+// accumulator to shared memory ([element][thread]; local or another
+// rank's); store_rows writes the rows below Skv once in bf16.
+template <int D>
+__device__ __forceinline__ void park_rows(const float (&acc)[D / 2], float* dst) {
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dst[i * 128] = acc[i];
+}
+
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2], bf16* out,
+                                           const int (&kpos)[2], int t4, int b, int Skv,
+                                           int Hkv, int hk) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (kpos[r] >= Skv) continue;
+    bf16* o = out + ((static_cast<size_t>(b) * Skv + kpos[r]) * Hkv + hk) * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// Grid (kv tiles x split, B x Hkv), clusters of (split, 1, 1).
+template <int D>
+__global__ void __launch_bounds__(BwdDkv<D>::kThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_do,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           const __grid_constant__ CUtensorMap map_lse,
+                           const __grid_constant__ CUtensorMap map_delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv, int Hq,
+                           int Hkv, int causal, int window, float scale) {
+  using F = BwdDkv<D>;
+  constexpr int TQ = F::kTQ, kSub = F::kSub, kStages = F::kStages;
+  constexpr int kRowsKv = F::kRowsKv, kConsumers = F::kConsumers;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* k_sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* v_sm = k_sm + F::kKvBytes;
+  uint8_t* ring = v_sm + F::kKvBytes;
+  float* stats = reinterpret_cast<float*>(ring + kStages * F::kStageBytes);  // [stage][lse, delta][TQ]
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + kStages * 2 * TQ);
+  uint64_t* empty = full + kStages;
+  uint64_t* kv_full = empty + kStages;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int G = Hq / Hkv;
+  const int kv0 = (blockIdx.x / split) * kRowsKv;  // longest causal tiles first
+  const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
+
+  // The q tiles that can see these kv rows (from the diagonal on, up to the
+  // window's far edge), the (q head, q tile) steps, and this rank's share.
+  int q_begin = 0, q_end = Sq;
+  if (causal) {
+    q_begin = (kv0 / TQ) * TQ;
+    if (window > 0) q_end = min(Sq, kv0 + kRowsKv - 1 + window);
+  }
+  const int nq = q_end > q_begin ? (q_end - q_begin + TQ - 1) / TQ : 0;
+  const int s_begin = G * nq * rank / split;
+  const int n = G * nq * (rank + 1) / split - s_begin;
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const bool producer = threadIdx.x == 0;
+  // Step j of the share into stage j % kStages: Q, dO, lse and delta.
+  auto load_step = [&](int j) {
+    const int s = j % kStages, i = s_begin + j;
+    const int hq = hk * G + i / nq, q0 = q_begin + (i % nq) * TQ;
+    uint8_t* q_st = ring + s * F::kStageBytes;
+    uint8_t* do_st = q_st + F::kTileBytes;
+    float* st = stats + s * 2 * TQ;
+    mbar_arrive_expect_tx(&full[s], F::kStageBytes + 2 * F::kStatBytes);
+    for (int rb = 0; rb < TQ / 64; ++rb) {
+      for (int c = 0; c < F::kChunks; ++c) {
+        const int off = c * TQ * kSwizzleRowBytes + rb * kBoxBytes;
+        tma_load_4d(q_st + off, &map_q, &full[s], c * 64, hq, q0 + rb * 64, b);
+        tma_load_4d(do_st + off, &map_do, &full[s], c * 64, hq, q0 + rb * 64, b);
+      }
+    }
+    // Rows past Sq bring the next head's values (or zeros): masked.
+    const int row = (b * Hq + hq) * Sq + q0;
+    tma_load_1d(st, &map_lse, &full[s], row);
+    tma_load_1d(st + TQ, &map_delta, &full[s], row);
+  };
+
+  if (producer) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_init(kv_full, 1);
+    fence_barrier_init();
+    // K and V once, and the first kStages steps.
+    mbar_arrive_expect_tx(kv_full, 2 * F::kKvBytes);
+    for (int rb = 0; rb < kRowsKv / 64; ++rb) {
+      for (int c = 0; c < F::kChunks; ++c) {
+        const int off = c * kRowsKv * kSwizzleRowBytes + rb * kBoxBytes;
+        tma_load_4d(k_sm + off, &map_k, kv_full, c * 64, hk, kv0 + rb * 64, b);
+        tma_load_4d(v_sm + off, &map_v, kv_full, c * 64, hk, kv0 + rb * 64, b);
+      }
+    }
+    for (int j = 0; j < min(n, kStages); ++j) load_step(j);
+  }
+  __syncthreads();
+
+  const int lane = tid & 31, t4 = lane & 3;
+  constexpr float kLog2e = 1.4426950408889634f;
+  const int kv_lo = kv0 + wg * 64;
+  int kpos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) kpos[h] = kv_lo + (tid >> 5) * 16 + (lane >> 2) + 8 * h;
+  const float c = scale * kLog2e;
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  fence_regs(dk_acc);
+  fence_regs(dv_acc);
+  const uint64_t k_a = smem_desc(k_sm + wg * 64 * kSwizzleRowBytes, 16, 8 * kSwizzleRowBytes);
+  const uint64_t v_a = smem_desc(v_sm + wg * 64 * kSwizzleRowBytes, 16, 8 * kSwizzleRowBytes);
+  mbar_wait(kv_full, 0);
+
+  // Step j, kSub q columns at a time: S^T and dP^T as two wgmma groups; P^T
+  // while dP^T runs; dS^T; the dV and dK products left in flight under the
+  // next S^T and dP^T. A warpgroup releases step j's stage once the
+  // products that read it have completed (at step j + 1); the producer
+  // thread refills the stage of step j - 2 with step j + 2, so the other
+  // warpgroup may run up to a step behind without stalling it.
+  for (int j = 0; j < n; ++j) {
+    const int s = j % kStages;
+    const int q_tile = q_begin + ((s_begin + j) % nq) * TQ;
+    mbar_wait(&full[s], (j / kStages) & 1);
+    const uint8_t* q_st = ring + s * F::kStageBytes;
+    const uint8_t* do_st = q_st + F::kTileBytes;
+    const float* lse_st = stats + s * 2 * TQ;
+    const float* dl_st = lse_st + TQ;
+#pragma unroll
+    for (int h0 = 0; h0 < TQ; h0 += kSub) {
+      const int q0 = q_tile + h0;
+      const uint64_t q_b = smem_desc(q_st + h0 * kSwizzleRowBytes, 16, 8 * kSwizzleRowBytes);
+      const uint64_t do_b = smem_desc(do_st + h0 * kSwizzleRowBytes, 16, 8 * kSwizzleRowBytes);
+
+      // S^T = K Q^T and dP^T = V dO^T: the warpgroup's 64 kv rows x kSub q columns.
+      float st[kSub / 2], dpt[kSub / 2];
+      wgmma_fence();
+      wgmma_ss_zero<kSub, 0, 0>(st, k_a, q_b);
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk) {
+        const uint32_t col = (kk % 4) * 32;
+        wgmma<kSub, 0, 0>(st, desc_advance(k_a, (kk / 4) * kRowsKv * kSwizzleRowBytes + col),
+                          desc_advance(q_b, (kk / 4) * TQ * kSwizzleRowBytes + col));
+      }
+      wgmma_commit();
+      wgmma_ss_zero<kSub, 0, 0>(dpt, v_a, do_b);
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk) {
+        const uint32_t col = (kk % 4) * 32;
+        wgmma<kSub, 0, 0>(dpt, desc_advance(v_a, (kk / 4) * kRowsKv * kSwizzleRowBytes + col),
+                          desc_advance(do_b, (kk / 4) * TQ * kSwizzleRowBytes + col));
+      }
+      wgmma_commit();
+      if (h0 == 0 && producer && j >= 2 && j + 2 < n) {
+        mbar_wait(&empty[(j - 2) % kStages], ((j - 2) / kStages) & 1);
+        load_step(j + 2);
+      }
+      wgmma_wait<1>();  // the previous dV, dK products and S^T
+      fence_regs(st);
+      fence_regs(dk_acc);
+      fence_regs(dv_acc);
+      if (h0 == 0 && j > 0 && tid == 0) mbar_arrive(&empty[(j - 1) % kStages]);
+
+      // P^T in place; masked only on tiles that some pair's band cuts or
+      // that run past Sq.
+      const bool interior =
+          q0 + kSub <= Sq &&
+          (!causal || (q0 >= kv_lo + 63 && (window <= 0 || q0 + kSub - 1 - kv_lo < window)));
+#pragma unroll
+      for (int e = 0; e < kSub / 2; e += 2) {
+        const int r = (e >> 1) & 1;            // kv row kpos[r]
+        const int col = 8 * (e / 4) + 2 * t4;  // q columns col, col + 1
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_st + h0 + col);
+        const float lq[2] = {l2.x, l2.y};
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          float p = exp2_approx(fmaf(st[e + u], c, -lq[u] * kLog2e));
+          if (!interior) {
+            const int q = q0 + col + u;
+            const bool keep =
+                q < Sq && (!causal || (q >= kpos[r] && (window <= 0 || q - kpos[r] < window)));
+            if (!keep) p = 0.f;
+          }
+          st[e + u] = p;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(dpt);
+      // bf16(P^T) and bf16(dS^T), dS^T = P^T (dP^T - delta) scale, as the A
+      // operands.
+      uint32_t pa[kSub / 16][4], da[kSub / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kSub / 16; ++kk) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int e = 8 * kk + 2 * jj;
+          const int col = 16 * kk + 8 * (jj >> 1) + 2 * t4;
+          const float2 d2 = *reinterpret_cast<const float2*>(dl_st + h0 + col);
+          pa[kk][jj] = pack_f32(st[e], st[e + 1]);
+          da[kk][jj] = pack_f32(st[e] * (dpt[e] - d2.x) * scale,
+                                st[e + 1] * (dpt[e + 1] - d2.y) * scale);
+        }
+      }
+
+      // dV += bf16(P^T) dO and dK += bf16(dS^T) Q: A from registers, dO and
+      // Q MN-major (the same bytes as above).
+      const uint64_t do_m =
+          smem_desc(do_st + h0 * kSwizzleRowBytes, TQ * kSwizzleRowBytes, 8 * kSwizzleRowBytes);
+      const uint64_t q_m =
+          smem_desc(q_st + h0 * kSwizzleRowBytes, TQ * kSwizzleRowBytes, 8 * kSwizzleRowBytes);
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSub / 16; ++kk) {
+        wgmma_rs<D, 1>(dv_acc, pa[kk], desc_advance(do_m, kk * 16 * kSwizzleRowBytes));
+      }
+#pragma unroll
+      for (int kk = 0; kk < kSub / 16; ++kk) {
+        wgmma_rs<D, 1>(dk_acc, da[kk], desc_advance(q_m, kk * 16 * kSwizzleRowBytes));
+      }
+      wgmma_commit();
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(dv_acc);
+  fence_regs(dk_acc);
+
+  if (split == 1) {
+    store_rows<D>(dk_acc, dk, kpos, t4, b, Skv, Hkv, hk);
+    store_rows<D>(dv_acc, dv, kpos, t4, b, Skv, Hkv, hk);
+    return;
+  }
+  // Two ranks: rank 0 writes dK, rank 1 dV, each rank 0's partial plus rank
+  // 1's. Each pushes the partial it does not write into the other's shared
+  // memory (over the ring, [warpgroup][element][thread]): remote stores,
+  // between a barrier that frees the rings and one that lands the stores.
+  float* park = reinterpret_cast<float*>(ring) + wg * 64 * D + tid;
+  cluster.sync();
+  float* peer = cluster.map_shared_rank(park, rank ^ 1);
+  if (rank == 0) {
+    park_rows<D>(dv_acc, peer);
+  } else {
+    park_rows<D>(dk_acc, peer);
+  }
+  cluster.sync();
+  if (rank == 0) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] += park[i * 128];
+    store_rows<D>(dk_acc, dk, kpos, t4, b, Skv, Hkv, hk);
+  } else {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dv_acc[i] = park[i * 128] + dv_acc[i];
+    store_rows<D>(dv_acc, dv, kpos, t4, b, Skv, Hkv, hk);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // head_dim above 256 (any multiple of 64): B1-B3 over 64-column slices
 // ---------------------------------------------------------------------------
 // The kernels above keep whole rows of Q (B1, B2: and dO) or K and V (B3) in
@@ -1234,13 +1781,29 @@ dim3 group_grid(int B, int Sq, int Hq, int Hkv) {
   return dim3((Sq + P - 1) / P, B * Hkv, (G + HB - 1) / HB);
 }
 
-// Whether the group tiles the rows of a wgmma block: HB = min(G, rows)
-// heads divide the rows and the group.
+// Whether the group tiles `rows` (q head, position) rows of a wgmma block:
+// HB = min(G, rows) heads divide the rows and the group.
+bool group_tiles(int rows, int Hq, int Hkv) {
+  const int G = Hq / Hkv, HB = G < rows ? G : rows;
+  return rows % HB == 0 && G % HB == 0;
+}
+
 template <int D>
 bool wgmma_rows(int Hq, int Hkv) {
-  constexpr int kRowsW = Fwd<D>::kRowsW;
-  const int G = Hq / Hkv, HB = G < kRowsW ? G : kRowsW;
-  return kRowsW % HB == 0 && G % HB == 0;
+  return group_tiles(Fwd<D>::kRowsW, Hq, Hkv);
+}
+
+// The tensor map of a [B, S, H, D] bf16 tensor (q, k, v, dO), in boxes of
+// 64 columns x `heads` heads x `rows` positions.
+bool bshd_map(CUtensorMap* map, const void* base, int B, int S, int H, int D, int heads,
+           int rows) {
+  using u64 = uint64_t;
+  const u64 dims[4] = {static_cast<u64>(D), static_cast<u64>(H), static_cast<u64>(S),
+                       static_cast<u64>(B)};
+  const u64 strides[3] = {static_cast<u64>(D), static_cast<u64>(H) * D,
+                          static_cast<u64>(S) * H * D};
+  const uint32_t box[4] = {64, static_cast<uint32_t>(heads), static_cast<uint32_t>(rows), 1};
+  return tensor_map(map, base, 4, dims, strides, box);
 }
 
 template <int D>
@@ -1249,21 +1812,9 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* 
                              float scale, cudaStream_t stream) {
   using F = Fwd<D>;
   const int G = Hq / Hkv, HB = G < F::kRowsW ? G : F::kRowsW, P = F::kRowsW / HB;
-  using u64 = uint64_t;
-  const u64 q_dims[4] = {static_cast<u64>(D), static_cast<u64>(Hq), static_cast<u64>(Sq),
-                         static_cast<u64>(B)};
-  const u64 q_strides[3] = {static_cast<u64>(D), static_cast<u64>(Hq) * D,
-                            static_cast<u64>(Sq) * Hq * D};
-  const uint32_t q_box[4] = {64, static_cast<uint32_t>(HB), static_cast<uint32_t>(P), 1};
-  const u64 kv_dims[4] = {static_cast<u64>(D), static_cast<u64>(Hkv), static_cast<u64>(Skv),
-                          static_cast<u64>(B)};
-  const u64 kv_strides[3] = {static_cast<u64>(D), static_cast<u64>(Hkv) * D,
-                             static_cast<u64>(Skv) * Hkv * D};
-  const uint32_t kv_box[4] = {64, 1, 64, 1};
   CUtensorMap mq, mk, mv;
-  if (!tensor_map(&mq, q, 4, q_dims, q_strides, q_box) ||
-      !tensor_map(&mk, k, 4, kv_dims, kv_strides, kv_box) ||
-      !tensor_map(&mv, v, 4, kv_dims, kv_strides, kv_box)) {
+  if (!bshd_map(&mq, q, B, Sq, Hq, D, HB, P) || !bshd_map(&mk, k, B, Skv, Hkv, D, 1, 64) ||
+      !bshd_map(&mv, v, B, Skv, Hkv, D, 1, 64)) {
     return cudaErrorInvalidValue;
   }
   const cudaError_t err = cudaFuncSetAttribute(
@@ -1321,6 +1872,67 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
       static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq,
       Skv, Hq, Hkv, causal, window, scale);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* delta, void* dq, int B, int Sq,
+                            int Skv, int Hq, int Hkv, int causal, int window, float scale,
+                            cudaStream_t stream) {
+  using F = BwdDq<D>;
+  const int G = Hq / Hkv, HB = G < F::kRowsW ? G : F::kRowsW, P = F::kRowsW / HB;
+  CUtensorMap mq, mdo, mk, mv;
+  if (!bshd_map(&mq, q, B, Sq, Hq, D, HB, P) || !bshd_map(&mdo, dout, B, Sq, Hq, D, HB, P) ||
+      !bshd_map(&mk, k, B, Skv, Hkv, D, 1, 64) || !bshd_map(&mv, v, B, Skv, Hkv, D, 1, 64)) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + P - 1) / P, B * Hkv, G / HB);
+  flash_bwd_dq_wgmma_kernel<D><<<grid, F::kThreads, F::kSmemBytes, stream>>>(
+      mq, mdo, mk, mv, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), Sq, Skv, Hq, Hkv, causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                             const void* lse, const void* delta, void* dk, void* dv, int B,
+                             int Sq, int Skv, int Hq, int Hkv, int causal, int window,
+                             float scale, cudaStream_t stream) {
+  using F = BwdDkv<D>;
+  CUtensorMap mq, mdo, mk, mv, mlse, mdelta;
+  const uint64_t stats = static_cast<uint64_t>(B) * Hq * Sq;
+  if (!bshd_map(&mq, q, B, Sq, Hq, D, 1, 64) || !bshd_map(&mdo, dout, B, Sq, Hq, D, 1, 64) ||
+      !bshd_map(&mk, k, B, Skv, Hkv, D, 1, 64) || !bshd_map(&mv, v, B, Skv, Hkv, D, 1, 64) ||
+      !tensor_map_f32(&mlse, lse, stats, F::kTQ) ||
+      !tensor_map_f32(&mdelta, delta, stats, F::kTQ)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  // Two blocks share each kv tile while the tiles number fewer than the
+  // SMs (from the shapes alone): the b1 shape's 128.
+  const int tiles = (Skv + F::kRowsKv - 1) / F::kRowsKv;
+  const int split = 1LL * tiles * B * Hkv < sm_count() ? 2 : 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * split, B * Hkv, 1);
+  cfg.blockDim = dim3(F::kThreads);
+  cfg.dynamicSmemBytes = F::kSmemBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, flash_bwd_dkv_wgmma_kernel<D>, mq, mdo, mk, mv, mlse, mdelta,
+                           static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv, Hq, Hkv,
+                           causal, window, scale);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // Above head_dim 256: grid.z also walks the 64-column output slices.
@@ -1416,6 +2028,14 @@ int lumina_flash_bwd_dq(const void* q, const void* k, const void* v, const void*
                         void* stream) {
   if (!shape_ok(B, Sq, Skv, Hq, Hkv, D)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // head_dim 64 and 128 with a group that tiles 128 rows: the wgmma kernel.
+  if ((D == 64 || D == 128) && group_tiles(BwdDq<64>::kRowsW, Hq, Hkv)) {
+    return static_cast<int>(
+        D == 64 ? launch_dq_wgmma<64>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv, causal,
+                                      window, scale, s)
+                : launch_dq_wgmma<128>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv,
+                                       causal, window, scale, s));
+  }
 #define CALL(DD)                                                                         \
   launch_dq<DD>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv, causal, window, scale, \
                 s)
@@ -1431,6 +2051,14 @@ int lumina_flash_bwd_dkv(const void* q, const void* k, const void* v, const void
                          void* stream) {
   if (!shape_ok(B, Sq, Skv, Hq, Hkv, D)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // head_dim 64 and 128, any group: the wgmma kernel.
+  if (D == 64 || D == 128) {
+    return static_cast<int>(
+        D == 64 ? launch_dkv_wgmma<64>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, Hq, Hkv,
+                                       causal, window, scale, s)
+                : launch_dkv_wgmma<128>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, Hq, Hkv,
+                                        causal, window, scale, s));
+  }
 #define CALL(DD)                                                                       \
   launch_dkv<DD>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, Hq, Hkv, causal, window, \
                  scale, s)

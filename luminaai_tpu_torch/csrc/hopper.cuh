@@ -105,6 +105,15 @@ __device__ __forceinline__ void named_barrier_arrive(int id, int count) {
 // reports its bytes to `bar`. Coordinates are elements, innermost first;
 // parts of the box outside the tensor are filled with zeros.
 // ---------------------------------------------------------------------------
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1) {
   asm volatile(
@@ -550,6 +559,18 @@ inline bool tensor_map(CUtensorMap* map, const void* base, int rank, const uint6
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), gdim, gstride,
             bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A flat fp32 tensor map of n elements, boxes of `box` elements (box * 4 a
+// multiple of 16), no swizzle; elements past n are filled with zeros.
+inline bool tensor_map_f32(CUtensorMap* map, const void* base, uint64_t n, uint32_t box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t gdim[1] = {n}, gstride[1] = {n * 4};
+  cuuint32_t bdim[1] = {box}, estride[1] = {1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(base), gdim, gstride,
+            bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // Streaming multiprocessors of the current device (0 on an error).

@@ -54,7 +54,7 @@ def _rel_err(got, want):
 
 
 CASES = {
-    # name: (B, Sq, Hq, Hkv, D, causal, window)
+    # name: (B, Sq, Hq, Hkv, D, causal, window[, Skv]); Skv = Sq unless given
     "causal_g4_d128": (2, 256, 8, 2, 128, True, 0),
     "causal_g8_d128": (1, 256, 8, 1, 128, True, 0),
     "window100_g4_d64": (1, 512, 4, 1, 64, True, 100),
@@ -80,13 +80,22 @@ CASES = {
     "causal_g2_d64_s200": (1, 200, 4, 2, 64, True, 0),
     "window64_g2_d64": (2, 512, 4, 2, 64, True, 64),
     "window64_g4_d128_s200": (2, 200, 8, 2, 128, True, 64),
+    # The wgmma backward (B2, B3) at the main path's head dims and groups:
+    # one b1-like sequence (16 kv tiles, the first with 16 times the last
+    # one's causal band), flagship-like group 2 at head_dim 64, a
+    # non-causal partial length, and a window over more kv rows than q rows
+    # (kv tiles that no q row sees: dK = dV = 0 there).
+    "causal_g4_d128_s2048": (1, 2048, 16, 4, 128, True, 0),
+    "causal_g2_d64_s1024": (1, 1024, 16, 8, 64, True, 0),
+    "noncausal_g4_d128_s200": (1, 200, 8, 2, 128, False, 0),
+    "window64_g2_d64_skv512": (1, 256, 4, 2, 64, True, 64, 512),
 }
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_kernels_match_plain(dev, case):
-    B, S, Hq, Hkv, D, causal, window = CASES[case]
-    q, k, v, do, g_lse = _inputs(dev, B, S, Hq, Hkv, D)
+    B, S, Hq, Hkv, D, causal, window, *skv = CASES[case]
+    q, k, v, do, g_lse = _inputs(dev, B, S, Hq, Hkv, D, *skv)
     args = dict(scale=D ** -0.5, causal=causal, window=window)
     n0 = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
           fa.flash_bwd_dkv.launches)
