@@ -52,6 +52,29 @@ Phases (any failure raises and exits non-zero):
              step B1 20, B2 = B3 10, B4a 60, B4b 20, a falling loss, step
              time, tokens/s, model-FLOPs share (active parameters), peak
              memory and the router metrics.
+  7. runtime the training runtime through the port's CLI, in child
+             processes (this script with --runtime-child, which runs the
+             CLI's main and records each step), at the b1 dense widths
+             (batch 8 x 2048, no accumulation): a JSONL text corpus
+             written from a seed and packed through a TokenCache with the
+             native packer; run A `train --data --packed --steps 6`
+             (exit 0); run B the same, SIGTERM once its log shows step 2
+             (exit 75, emergency checkpoint committed at its step
+             boundary); `resume` of B to step 6 (exit 0). Every step's
+             packed batch and loss of B equal A's bitwise, and so do the
+             final parameters (hashes of both checkpoints); B1 == 32 and
+             B2 == B3 == 16 launches per step; the native packer ran;
+             csrc/ holds no atomics. Then `serve --checkpoint A` (the
+             CLI's engine builder): its first decode step's logits equal
+             those of an engine built from run A's final in-memory
+             weights bitwise, and 8 concurrent requests through the
+             server launch B5 decode steps x 16 times. Step time,
+             tokens/s, the goodput split, each save's and restore's
+             seconds and GB, and the disk at the start; the runs and
+             checkpoints are deleted at the end.
+
+Earlier train phases write their checkpoints under chip_smoke_runs/ too,
+and the directory is removed when the script ends.
 
 Output: progress lines, the card's `nvidia-smi` name and power limit, one
 {"kernels": [...]} JSON line, and as the last line
@@ -64,9 +87,13 @@ JAX and nothing of the luminaai_tpu package.
 from __future__ import annotations
 
 import gc
+import hashlib
 import itertools
 import json
 import math
+import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -129,6 +156,8 @@ WIDE_DECODE = (8, 2, 576)
 LIB_ROUNDS = 5
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12    # dense bf16 tensor-core peak
+# Training runs and checkpoints (git-ignored; removed when the script ends).
+RUN_DIR = Path(__file__).resolve().parent / "chip_smoke_runs"
 
 
 def _release() -> None:
@@ -982,7 +1011,8 @@ def phase_train(dev, entries: list) -> dict:
     from luminaai_tpu_torch.parallel import train_step as ts
     from luminaai_tpu_torch.training.trainer import Trainer
 
-    cfg = ConfigPresets.get("b1", use_moe=False, max_steps=TRAIN_STEPS)
+    cfg = ConfigPresets.get("b1", use_moe=False, max_steps=TRAIN_STEPS,
+                            output_dir=str(RUN_DIR / "train_dense"))
     accum = cfg.gradient_accumulation_steps
     t0 = time.perf_counter()
     trainer = Trainer(cfg, cli._synthetic_batches(cfg), device=dev, seed=0)
@@ -1036,6 +1066,7 @@ def phase_train(dev, entries: list) -> dict:
     steady = _steady_step(cfg, hist, n_params, "train step", "")
     log(f"  peak memory allocated {peak_gb:.2f} GB")
     prof = profile_train_step(trainer, first)
+    trainer.close()
     return {"steps": TRAIN_STEPS, "losses": losses, "grad_norms": norms,
             **steady, "peak_memory_gb": peak_gb,
             "first_step_loss_plain": plain_loss,
@@ -1432,7 +1463,8 @@ def phase_train_moe(dev, flash_entries: list, gmm_entries: list) -> dict:
     from luminaai_tpu_torch.parallel import train_step as ts
     from luminaai_tpu_torch.training.trainer import Trainer
 
-    cfg = Config(**FLAGSHIP, **FLAGSHIP_LEVERS, max_steps=TRAIN_STEPS)
+    cfg = Config(**FLAGSHIP, **FLAGSHIP_LEVERS, max_steps=TRAIN_STEPS,
+                 output_dir=str(RUN_DIR / "train_moe"))
     accum = cfg.gradient_accumulation_steps
     n_moe = cfg.num_moe_layers()
     t0 = time.perf_counter()
@@ -1505,6 +1537,7 @@ def phase_train_moe(dev, flash_entries: list, gmm_entries: list) -> dict:
     log(f"  peak memory allocated {peak_gb:.2f} GB; last step "
         f"{json.dumps(moe_metrics)}")
     prof = profile_train_step(trainer, first)
+    trainer.close()
     del trainer
     return {"steps": TRAIN_STEPS, "losses": losses, "grad_norms": norms,
             **steady, "peak_memory_gb": peak_gb,
@@ -1514,7 +1547,366 @@ def phase_train_moe(dev, flash_entries: list, gmm_entries: list) -> dict:
             "moe_metrics": moe_metrics, **prof}
 
 
+# ---------------------------------------------------------------------------
+# The training runtime: train from a data file with checkpoints, preempt,
+# resume exactly, serve the checkpoint.
+# ---------------------------------------------------------------------------
+RUNTIME_STEPS = 6
+RUNTIME_BATCH = 8  # x 2048 tokens, no accumulation
+PREEMPT_AFTER = 2  # SIGTERM once run B's log shows this step
+CORPUS_DOCS = 1500  # ~3 MB of text, ~190 packed batches of 8 x 2048
+
+
+def _write_corpus(path: Path, seed: int = 0) -> int:
+    """A JSONL text corpus drawn from `seed`: documents of 50-700 words
+    over a 2,000-word vocabulary of random lowercase words. Returns its
+    size in bytes."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    vocab = ["".join(rng.choice(letters, rng.randint(2, 11)))
+             for _ in range(2000)]
+    with open(path, "w") as f:
+        for _ in range(CORPUS_DOCS):
+            words = rng.choice(vocab, rng.randint(50, 700))
+            f.write(json.dumps({"text": " ".join(words) + "."}) + "\n")
+    return path.stat().st_size
+
+
+def _tensor_digest(tree: dict) -> str:
+    """sha256 over a flat {name: CPU tensor} tree, names in order."""
+    import torch
+
+    h = hashlib.sha256()
+    for name in sorted(tree):
+        t = tree[name].contiguous()
+        h.update(name.encode() + b"\0" + str(t.dtype).encode())
+        h.update(t.view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def runtime_child(argv: list) -> int:
+    """Run the port's CLI main on `argv` (after `--`), recording for each
+    optimizer step the sha256 of its input_ids, its loss and grad norm and
+    the flash launches it made, and at the end the launch totals, the
+    native data-path counts and the checkpoint saves and restores. With
+    --logits PATH, also save the first decode step's logits of an engine
+    built from the trainer's final in-memory weights."""
+    sep = argv.index("--")
+    opts, cli_argv = argv[:sep], argv[sep + 1:]
+    record_path = Path(opts[0])
+    logits_path = Path(opts[opts.index("--logits") + 1]) if (
+        "--logits" in opts) else None
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import numpy as np
+    import torch
+
+    from luminaai_tpu_torch import cli, native
+    from luminaai_tpu_torch.ops import flash_attention as fa
+    from luminaai_tpu_torch.training import trainer as tr
+
+    out = record_path.open("w")
+    held = {}
+    orig_init = tr.Trainer.__init__
+
+    def launches():
+        return {"B1": fa.flash_fwd.launches, "B2": fa.flash_bwd_dq.launches,
+                "B3": fa.flash_bwd_dkv.launches}
+
+    def init(self, *a, **kw):
+        orig_init(self, *a, **kw)
+        held["trainer"] = self
+        step = self.train_step
+
+        def recording(state, batch):
+            ids = batch["input_ids"].to(torch.int32).cpu().numpy()
+            before = launches()
+            state, metrics = step(state, batch)
+            loss = float(metrics["loss"])
+            after = launches()
+            out.write(json.dumps({
+                "step": state.step,
+                "batch_sha256": hashlib.sha256(
+                    np.ascontiguousarray(ids).tobytes()).hexdigest(),
+                "loss": loss, "grad_norm": float(metrics["grad_norm"]),
+                "launches": {k: after[k] - before[k] for k in after},
+            }) + "\n")
+            out.flush()
+            return state, metrics
+
+        self.train_step = recording
+
+    tr.Trainer.__init__ = init
+    fa.reset_launches()
+    native.reset_path_counts()
+    rc = cli.main(cli_argv)
+    t = held.get("trainer")
+    ck = t.checkpoints if t is not None else None
+    out.write(json.dumps({
+        "exit": rc, "launches": launches(), "native": native.path_counts(),
+        "saves": ck.save_log if ck else [],
+        "restores": ck.restore_log if ck else [],
+    }) + "\n")
+    out.flush()
+    if logits_path is not None and rc == 0:
+        from luminaai_tpu_torch.inference.chat import build_engine
+
+        engine = build_engine(t.config, device=t.device, seed=0)
+        engine.model.load_params(t.model.state_dict())
+        torch.save(_filled_decoder(engine).step_logits().cpu(), logits_path)
+    return rc
+
+
+def _read_records(path: Path):
+    lines = [json.loads(x) for x in path.read_text().splitlines() if x]
+    return [r for r in lines if "batch_sha256" in r], (
+        lines[-1] if lines and "exit" in lines[-1] else None)
+
+
+def _run_child(args: list, log_path: Path, timeout: float = 900,
+               preempt_after: int = 0):
+    """This script as a runtime child; with preempt_after, SIGTERM once
+    the log shows that step. -> (exit code, log text)."""
+    cmd = [sys.executable, "-u", str(Path(__file__).resolve()),
+           "--runtime-child", *args]
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                cwd=str(RUN_DIR))
+        sent = False
+        t0 = time.perf_counter()
+        try:
+            for line in proc.stdout:
+                logf.write(line)
+                m = re.search(r"step (\d+) loss=", line)
+                if (preempt_after and not sent and m
+                        and int(m.group(1)) >= preempt_after):
+                    proc.send_signal(signal.SIGTERM)
+                    sent = True
+                    log(f"  SIGTERM sent after the log showed step "
+                        f"{m.group(1)} ({time.perf_counter() - t0:.1f}s)")
+                if time.perf_counter() - t0 > timeout:
+                    raise TimeoutError(f"runtime child ran past {timeout}s")
+            rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    text = log_path.read_text()
+    if preempt_after and not sent:
+        raise AssertionError("run B never logged step "
+                             f"{preempt_after}:\n{text[-3000:]}")
+    return rc, text
+
+
+# The runtime phase's model: b1's widths without experts; per optimizer
+# step (16 layers, one micro-batch) B1 runs the forward and its remat
+# recompute.
+RUNTIME_MODEL = ("--preset", "b1", "--dense", "--batch-size",
+                 str(RUNTIME_BATCH), "--grad-accum", "1")
+RUNTIME_LAUNCHES = {"B1": 2 * 16, "B2": 16, "B3": 16}
+
+
+def phase_runtime(dev, rpa_entry: dict, flash_entries: list,
+                  model_args=RUNTIME_MODEL, want=RUNTIME_LAUNCHES) -> dict:
+    import torch
+
+    from luminaai_tpu_torch import cli
+    from luminaai_tpu_torch.ops import ragged_paged_attention as rpa
+    from luminaai_tpu_torch.training import checkpoint as ck
+
+    csrc = Path(__file__).resolve().parent / "luminaai_tpu_torch" / "csrc"
+    atomics = [f"{p.name}:{i}" for p in sorted(csrc.iterdir())
+               for i, line in enumerate(p.read_text().splitlines(), 1)
+               if re.search(r"\batomic\w*\s*\(|\bred\.(global|shared)",
+                            line.split("//")[0])]
+    log(f"runtime: atomics in csrc/: {atomics or 'none'}")
+    if atomics:
+        raise AssertionError(f"csrc/ holds atomics: {atomics}")
+
+    disk = shutil.disk_usage(RUN_DIR)
+    log(f"runtime: disk at {RUN_DIR}: {disk.free / 1e9:.1f} GB free of "
+        f"{disk.total / 1e9:.1f} GB ({disk.used / 1e9:.1f} GB used)")
+    corpus = RUN_DIR / "corpus.jsonl"
+    n_bytes = _write_corpus(corpus)
+    log(f"runtime: corpus {corpus.name}: {CORPUS_DOCS} documents, "
+        f"{n_bytes / 1e6:.2f} MB")
+
+    def cli_args(out: str) -> list:
+        return [*model_args, "--data", str(corpus), "--packed", "--steps",
+                str(RUNTIME_STEPS), "--seed", "0", "--output-dir",
+                str(RUN_DIR / out)]
+
+    runs = {}
+    t0 = time.perf_counter()
+    rc, _ = _run_child([str(RUN_DIR / "a.jsonl"), "--logits",
+                        str(RUN_DIR / "a_logits.pt"), "--", "train",
+                        *cli_args("A")], RUN_DIR / "a.log")
+    runs["A"] = (time.perf_counter() - t0, rc)
+    if rc != 0:
+        raise AssertionError(f"run A exited {rc}: "
+                             f"{(RUN_DIR / 'a.log').read_text()[-3000:]}")
+    t0 = time.perf_counter()
+    rc, text = _run_child([str(RUN_DIR / "b.jsonl"), "--", "train",
+                           *cli_args("B")], RUN_DIR / "b.log",
+                          preempt_after=PREEMPT_AFTER)
+    runs["B"] = (time.perf_counter() - t0, rc)
+    if rc != 75:
+        raise AssertionError(f"preempted run B exited {rc}, not 75: "
+                             f"{text[-3000:]}")
+    steps_b, _ = _read_records(RUN_DIR / "b.jsonl")
+    k = len(steps_b)
+    ckpt_b = RUN_DIR / "B" / "checkpoints"
+    if ck.committed_steps(ckpt_b) != [k] or ck.verify_step_dir(
+            ckpt_b / str(k))["status"] != "ok":
+        raise AssertionError(f"run B stopped after step {k} without an "
+                             f"intact emergency checkpoint there: "
+                             f"{ck.committed_steps(ckpt_b)}")
+    log(f"runtime: run B preempted at step {k}, exit 75, emergency "
+        f"checkpoint {ckpt_b.name}/{k} verified")
+    t0 = time.perf_counter()
+    rc, text = _run_child([str(RUN_DIR / "r.jsonl"), "--", "resume",
+                           *cli_args("B")], RUN_DIR / "r.log")
+    runs["resume"] = (time.perf_counter() - t0, rc)
+    if rc != 0:
+        raise AssertionError(f"resume of B exited {rc}: {text[-3000:]}")
+
+    steps_a, end_a = _read_records(RUN_DIR / "a.jsonl")
+    steps_r, end_r = _read_records(RUN_DIR / "r.jsonl")
+    _, end_b = _read_records(RUN_DIR / "b.jsonl")
+    got = steps_b + steps_r
+    for rec in steps_a:
+        log(f"  A step {rec['step']}: loss {rec['loss']!r} grad_norm "
+            f"{rec['grad_norm']!r} batch {rec['batch_sha256'][:12]} "
+            f"launches {rec['launches']}")
+    if len(steps_a) != RUNTIME_STEPS or [r["step"] for r in got] != list(
+            range(1, RUNTIME_STEPS + 1)):
+        raise AssertionError(f"steps: A {len(steps_a)}, B+resume "
+                             f"{[r['step'] for r in got]}")
+    for a, b in zip(steps_a, got):
+        if (a["batch_sha256"], a["loss"], a["grad_norm"]) != (
+                b["batch_sha256"], b["loss"], b["grad_norm"]):
+            raise AssertionError(f"step {a['step']}: run A {a} vs the "
+                                 f"preempted and resumed run {b}")
+    losses = [r["loss"] for r in steps_a]
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"bad losses {losses}")
+    log(f"runtime: the {RUNTIME_STEPS} batches and losses of B (steps "
+        f"1-{k} before the preemption, {k + 1}-{RUNTIME_STEPS} after the "
+        f"resume) equal run A's bitwise")
+
+    bad = [r for r in steps_a + got if r["launches"] != want]
+    if bad:
+        raise AssertionError(f"flash launches per step {bad[0]['launches']}"
+                             f" at step {bad[0]['step']}, want {want}")
+    totals = {kern: sum(e["launches"][kern] for e in (end_a, end_b, end_r))
+              for kern in want}
+    log(f"runtime: flash launches per step {want} in every step of the "
+        f"three runs; totals {totals}")
+    for e, kern in zip(flash_entries, ("B1", "B2", "B3")):
+        e["launches"] = (e["launches"] or 0) + totals[kern]
+        e["launches_runtime"] = totals[kern]
+    for name, end in (("A", end_a), ("B", end_b), ("resume", end_r)):
+        nat = end["native"].get("pack_batch", {})
+        if not nat.get("native") or nat.get("numpy"):
+            raise AssertionError(f"run {name}: the packer did not run "
+                                 f"natively: {end['native']}")
+    log(f"runtime: native data path in all runs: {end_a['native']}")
+
+    tree_a = ck.load_state_file(RUN_DIR / "A" / "checkpoints" /
+                                str(RUNTIME_STEPS))
+    tree_b = ck.load_state_file(ckpt_b / str(RUNTIME_STEPS))
+    digest_a, digest_b = (_tensor_digest(tree_a["params"]),
+                          _tensor_digest(tree_b["params"]))
+    log(f"runtime: final parameters sha256 A {digest_a[:16]}, B "
+        f"{digest_b[:16]}")
+    if digest_a != digest_b:
+        raise AssertionError("the resumed run's final parameters differ "
+                             "from the uninterrupted run's")
+    del tree_a, tree_b
+
+    saves = [dict(s, run=n) for n, e in (("A", end_a), ("B", end_b),
+                                         ("resume", end_r))
+             for s in e["saves"]]
+    restores = [dict(s, run="resume") for s in end_r["restores"]]
+    for s in saves:
+        log(f"  save ({s['run']}) step {s['step']}: {s['seconds']:.2f} s "
+            f"({s['host_copy_seconds']:.2f} s host copy), "
+            f"{s['bytes'] / 1e9:.2f} GB")
+    for s in restores:
+        log(f"  restore ({s['run']}) step {s['step']}: {s['seconds']:.2f} s"
+            f", {s['bytes'] / 1e9:.2f} GB")
+    summary_a = json.loads((RUN_DIR / "A" / "training_summary.json")
+                           .read_text())
+    hist = summary_a["history"]
+    step_s = statistics.median(h["step_seconds"] for h in hist[1:])
+    cfg = json.loads(
+        (RUN_DIR / "A" / "experiment_metadata.json").read_text())["config"]
+    tokens = cfg["batch_size"] * cfg["seq_length"]
+    gp = summary_a["goodput"]["seconds"]
+    gp_r = json.loads((RUN_DIR / "B" / "training_summary.json")
+                      .read_text())["goodput"]["seconds"]
+
+    def split(g):
+        return ", ".join(f"{c} {g[c]:.2f} s" for c in g if g[c] > 0)
+
+    log(f"runtime: run A step (steps 2-{RUNTIME_STEPS}, median) "
+        f"{step_s * 1e3:.1f} ms, {tokens / step_s:.0f} tokens/s; goodput "
+        f"of A: {split(gp)}; of the resume: {split(gp_r)}; wall A "
+        f"{runs['A'][0]:.1f} s, B {runs['B'][0]:.1f} s, resume "
+        f"{runs['resume'][0]:.1f} s")
+
+    # serve --checkpoint: the CLI's engine builder on A's checkpoints.
+    args = cli._parser().parse_args(
+        ["serve", "--checkpoint", str(RUN_DIR / "A" / "checkpoints"),
+         *(["--device", str(dev)] if dev.type != "cuda" else [])])
+    t0 = time.perf_counter()
+    engine = cli.build_serve_engine(args)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    lk = _filled_decoder(engine).step_logits().cpu()
+    mem = torch.load(RUN_DIR / "a_logits.pt")
+    same = torch.equal(lk, mem)
+    log(f"runtime: serve --checkpoint loaded step {RUNTIME_STEPS} in "
+        f"{load_s:.1f} s; first decode step logits vs the engine built "
+        f"from run A's in-memory weights: "
+        f"{'bitwise equal' if same else 'DIFFERENT'} (max abs diff "
+        f"{(lk - mem).abs().max().item():.3e})")
+    if not same:
+        raise AssertionError("the checkpoint's logits differ from the "
+                             "in-memory weights'")
+
+    def reset():
+        rpa.ragged_paged_attention.launches = 0
+
+    b5, serve = _serve_burst(
+        engine, "serve --checkpoint",
+        lambda model: model["hidden_size"] == engine.config.hidden_size,
+        reset, lambda: rpa.ragged_paged_attention.launches)
+    want_b5 = serve["decode_steps"] * engine.config.num_layers
+    log(f"runtime: B5 launches serving the checkpoint {b5} (decode steps x "
+        f"layers = {want_b5})")
+    if b5 != want_b5:
+        raise AssertionError("serving the checkpoint did not run through "
+                             "the decode kernel")
+    rpa_entry["launches"] = (rpa_entry["launches"] or 0) + b5
+    rpa_entry["launches_runtime"] = b5
+    del engine
+    return {"steps": RUNTIME_STEPS, "preempted_at": k, "losses": losses,
+            "step_ms_median": step_s * 1e3, "tokens_per_s": tokens / step_s,
+            "goodput_seconds": gp, "goodput_seconds_resume": gp_r,
+            "saves": saves, "restores": restores,
+            "disk_free_gb": disk.free / 1e9, "corpus_mb": n_bytes / 1e6,
+            "run_wall_s": {n: w for n, (w, _) in runs.items()},
+            "serve_load_s": load_s, "serve": serve,
+            "params_sha256": digest_a}
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--runtime-child"]:
+        return runtime_child(sys.argv[2:])
     repo = Path(__file__).resolve().parent
     if not (repo / "luminaai_tpu_torch" / "__init__.py").exists():
         print("chip_smoke: luminaai_tpu_torch is not beside this script",
@@ -1535,20 +1927,29 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    phase_build()
-    entry = phase_kernels(dev)
-    flash_entries = phase_flash_kernels(dev)
-    gmm_entries = phase_gmm_kernels(dev)
-    serve = phase_serve(dev, entry)
-    _release()
-    serve_moe = phase_serve_moe(dev, entry, gmm_entries)
-    _release()
-    train = phase_train(dev, flash_entries)
-    _release()
-    train_moe = phase_train_moe(dev, flash_entries, gmm_entries)
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    RUN_DIR.mkdir()
+    try:
+        phase_build()
+        entry = phase_kernels(dev)
+        flash_entries = phase_flash_kernels(dev)
+        gmm_entries = phase_gmm_kernels(dev)
+        serve = phase_serve(dev, entry)
+        _release()
+        serve_moe = phase_serve_moe(dev, entry, gmm_entries)
+        _release()
+        train = phase_train(dev, flash_entries)
+        shutil.rmtree(RUN_DIR / "train_dense")
+        _release()
+        train_moe = phase_train_moe(dev, flash_entries, gmm_entries)
+        shutil.rmtree(RUN_DIR / "train_moe")
+        _release()
+        runtime = phase_runtime(dev, entry, flash_entries)
+    finally:
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s: "
         f"serve {serve}; serve_moe {serve_moe}; train {json.dumps(train)}; "
-        f"train_moe {json.dumps(train_moe)}")
+        f"train_moe {json.dumps(train_moe)}; runtime {json.dumps(runtime)}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,11 +1,13 @@
 """Configuration for the PyTorch/CUDA port (trimmed copy of luminaai_tpu/config.py).
 
-The port keeps its own copy of the fields its serving and training slices
-read, with the JAX package's defaults and validation, so a `Config` built
-with the same keyword arguments describes the same model and the same
-training run on both sides. Fields for parallelism and the training
-runtime (checkpoints, monitoring, orchestration) stay in the JAX package
-until the slices that need them are ported. Values the port does not run
+The port keeps its own copy of the fields its serving, training and
+training-runtime slices read (checkpoints, data, monitoring, retry and
+watchdog), with the JAX package's names, defaults and validation, so a
+`Config` built with the same keyword arguments describes the same model
+and the same training run on both sides, and `to_dict()` of both agrees
+on the shared keys. Fields for parallelism, serving extras and the
+adaptive orchestrator stay in the JAX package until the slices that need
+them are ported. Values the port does not run
 yet are accepted here, as the JAX package accepts them, and refused where
 a model is built (MoE dispatch modes other than sort and gmm, mixture of
 depths: models/transformer.py) or a trainer is built
@@ -16,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -115,6 +117,18 @@ class Config:
     # logits never exist (ops/fused.py).
     fused_lm_head_ce: bool = True
     loss_chunk_size: int = 256
+    eval_every_n_batches: int = 500
+    save_every_n_batches: int = 1000
+    assistant_loss_weight: float = 1.5
+
+    # --- Data (luminaai_tpu/config.py:290-299) ---
+    train_data_path: str = "data/train.jsonl"
+    eval_data_path: str = "data/eval.jsonl"
+    tokenizer_name: str = "byte"  # byte|bpe:PATH
+    num_workers: int = 2
+    streaming_threshold_gb: float = 10.0
+    pack_sequences: bool = True
+    use_native_dataloader: bool = True  # C++ packer (native/) when built
 
     # --- Generation ---
     max_new_tokens: int = 512
@@ -123,7 +137,57 @@ class Config:
     top_k: int = 50
     repetition_penalty: float = 1.05
 
+    # --- Production / experiment ---
+    experiment_name: Optional[str] = None
+    output_dir: str = "experiments"
     seed: int = 42
+    log_level: str = "INFO"
+    save_total_limit: int = 5
+    early_stopping_patience: Optional[int] = None
+    auto_resume: bool = True
+    backup_every_n_hours: int = 6
+    max_retries: int = 3
+
+    # --- Monitoring / fault tolerance (luminaai_tpu/config.py:337-420) ---
+    health_check_interval: int = 100
+    loss_spike_threshold: float = 2.0
+    grad_norm_threshold: float = 100.0
+    # Goodput ledger + hang watchdog + step-time anomaly sentinel: the
+    # ledger attributes every second of the run to a cause; the watchdog
+    # heartbeats at the log-window sync and fires when a beat gap exceeds
+    # watchdog_k x (rolling median + MAD), floored at watchdog_floor_s,
+    # armed after the first step.
+    goodput: bool = True
+    watchdog: bool = True
+    watchdog_k: float = 10.0
+    watchdog_floor_s: float = 30.0
+    watchdog_warmup: int = 3
+    watchdog_poll_s: float = 1.0
+    # A confirmed stall exits 75 (resumable) after dumping stacks and the
+    # flight ring.
+    watchdog_abort: bool = False
+    step_anomaly: bool = True
+    step_anomaly_k: float = 4.0
+    # Durable I/O: io_retries total attempts per op, delays io_retry_base_s
+    # doubling up to io_retry_max_s, the op bounded by io_timeout_s.
+    io_retries: int = 4
+    io_retry_base_s: float = 0.05
+    io_retry_max_s: float = 2.0
+    io_timeout_s: Optional[float] = None
+    # Restore verifies each step's sha256 manifest: 'full' hashes every
+    # file, 'sample' a deterministic subset (sizes always), 'off' none.
+    checkpoint_verify: str = "full"
+    # Emergency saves fall back here when the checkpoint dir fails.
+    checkpoint_local_tier: Optional[str] = None
+    # Corrupt records are quarantined (counted, skipped); a quarantine
+    # rate above the fence aborts.
+    data_quarantine: bool = True
+    data_quarantine_max_rate: float = 0.05
+
+    # --- Chinchilla scaling ---
+    use_chinchilla_scaling: bool = False
+    tokens_per_param: float = 20.0
+    convergence_patience: int = 5
 
     def __post_init__(self):
         if self.num_kv_heads is None:
@@ -169,6 +233,31 @@ class Config:
             raise ValueError(
                 "adam_state_quantization supersedes adam_mu_dtype; set one"
             )
+        if self.watchdog_k <= 0:
+            raise ValueError("watchdog_k must be positive")
+        if self.watchdog_floor_s <= 0:
+            raise ValueError("watchdog_floor_s must be positive")
+        if self.watchdog_warmup < 1:
+            raise ValueError("watchdog_warmup must be >= 1")
+        if self.watchdog_poll_s <= 0:
+            raise ValueError("watchdog_poll_s must be positive")
+        if self.step_anomaly_k <= 1:
+            raise ValueError("step_anomaly_k must be > 1")
+        if self.io_retries < 1:
+            raise ValueError("io_retries must be >= 1 (1 = no retry)")
+        if self.io_retry_base_s <= 0:
+            raise ValueError("io_retry_base_s must be positive")
+        if self.io_retry_max_s < self.io_retry_base_s:
+            raise ValueError("io_retry_max_s must be >= io_retry_base_s")
+        if self.io_timeout_s is not None and self.io_timeout_s <= 0:
+            raise ValueError("io_timeout_s must be positive")
+        if self.checkpoint_verify not in ("full", "sample", "off"):
+            raise ValueError(
+                f"invalid checkpoint_verify {self.checkpoint_verify!r} "
+                "(one of full/sample/off)"
+            )
+        if not 0.0 < self.data_quarantine_max_rate <= 1.0:
+            raise ValueError("data_quarantine_max_rate must be in (0, 1]")
         if self.use_moe:
             # The single-device part of the JAX validation (config.py:658-741).
             if self.moe_top_k > self.num_experts:
@@ -184,6 +273,40 @@ class Config:
 
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "Config":
+        """A Config from a to_dict() of either side (a checkpoint's
+        metadata): keys this copy does not know are dropped."""
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+    def estimate_parameters(self) -> int:
+        """Total parameter count (the JAX Config.estimate_parameters; the
+        port ties the LM head to the embedding)."""
+        h, v, L = self.hidden_size, self.vocab_size, self.num_layers
+        inter = self.intermediate_size
+        kv_dim = self.num_kv_heads * self.head_dim()
+        attn = h * h + 2 * h * kv_dim + h * h  # q, k, v, o
+        ffn_dense = 3 * h * inter  # gate, up, down
+        total = v * h + L * (attn + 2 * h) + h  # + norms, final norm
+        moe_layers = self.num_moe_layers()
+        total += (L - moe_layers) * ffn_dense
+        total += moe_layers * (self.num_experts * ffn_dense
+                               + h * self.num_experts)
+        return total
+
+    def estimate_active_parameters(self) -> int:
+        """Per-token parameters: the MoE layers' top-k experts only."""
+        total = self.estimate_parameters()
+        if not self.use_moe:
+            return total
+        ffn_dense = 3 * self.hidden_size * self.intermediate_size
+        return total - self.num_moe_layers() * (
+            self.num_experts - self.moe_top_k) * ffn_dense
 
     def num_moe_layers(self) -> int:
         if not self.use_moe:
@@ -249,6 +372,12 @@ class ConfigPresets:
             moe_top_k=2,
             capacity_factor=1.1,
             load_balancing_weight=0.005,
+            eval_every_n_batches=50,
+            save_every_n_batches=100,
+            experiment_name="debug_run",
+            log_level="DEBUG",
+            health_check_interval=10,
+            save_total_limit=3,
         )
 
     @staticmethod
@@ -264,6 +393,7 @@ class ConfigPresets:
             use_moe=True,
             num_experts=8,
             moe_top_k=2,
+            experiment_name="debug_300m",
         )
 
     @staticmethod
@@ -284,6 +414,7 @@ class ConfigPresets:
             use_moe=True,
             num_experts=8,
             moe_top_k=2,
+            experiment_name="b1",
         )
 
     _PRESETS = ("debug", "debug_300m", "b1")

@@ -15,6 +15,10 @@ LuminaTransformer's state_dict:
     wo [E, F, H] (MoE layers)            -> layers.i.moe.router, .wi, .wo
   final_norm/scale                       -> final_norm.scale
 
+`state_dict_to_flax` is the inverse map, dtype kept (the checkpoints name
+every tensor by its flax path), and `flax_to_state_dict` maps such a flat
+tree of tensors back without a cast.
+
 `init_params` draws the same shapes from a seed with the JAX init's
 standard deviations (init_std; init_std / sqrt(2) for the output
 projections, experts' included; 0.02 for the router; ones for norm
@@ -23,7 +27,7 @@ scales). The draws are torch's, not JAX's.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping
 
 import numpy as np
 import torch
@@ -65,6 +69,58 @@ def params_from_flax(tree: Mapping[str, Any], config: Config) -> Dict[str, torch
             raise KeyError(f"missing parameter {name!r}")
         return torch.from_numpy(np.array(flat[name], dtype=np.float32))
 
+    return _to_state_dict(t, config)
+
+
+def flax_to_state_dict(
+    flat: Mapping[str, torch.Tensor], config: Config
+) -> Dict[str, torch.Tensor]:
+    """A flat {flax path: tensor} tree (state_dict_to_flax's output) ->
+    a state_dict, each tensor keeping its dtype and device."""
+
+    def t(name: str) -> torch.Tensor:
+        if name not in flat:
+            raise KeyError(f"missing parameter {name!r}")
+        return flat[name]
+
+    return _to_state_dict(t, config)
+
+
+def state_dict_to_flax(
+    sd: Mapping[str, torch.Tensor], config: Config
+) -> Dict[str, torch.Tensor]:
+    """LuminaTransformer's state_dict (or any tensors keyed like it, the
+    Adam moments too) -> {flax path: tensor} in the flax shapes, dtype
+    kept: the fused wqkv splits into wq [H, nq, d], wk and wv [H, nkv,
+    d], and wo reshapes to [nq, d, H]. Split tensors are views; callers
+    that store them make them contiguous."""
+    H, d = config.hidden_size, config.head_dim()
+    n_q, n_kv = config.num_heads, config.num_kv_heads
+    out: Dict[str, torch.Tensor] = {
+        "embedder/embedding": sd["embedder.embedding"],
+        "final_norm/scale": sd["final_norm.scale"],
+    }
+    for i in range(config.num_layers):
+        p, q = f"layer_{i}/", f"layers.{i}."
+        out[p + "attn_norm/scale"] = sd[q + "attn_norm.scale"]
+        out[p + "ffn_norm/scale"] = sd[q + "ffn_norm.scale"]
+        wq, wk, wv = sd[q + "attention.wqkv"].split(
+            [n_q * d, n_kv * d, n_kv * d], dim=1)
+        out[p + "attention/wq"] = wq.reshape(H, n_q, d)
+        out[p + "attention/wk"] = wk.reshape(H, n_kv, d)
+        out[p + "attention/wv"] = wv.reshape(H, n_kv, d)
+        out[p + "attention/wo"] = sd[q + "attention.wo"].reshape(n_q, d, H)
+        if config.is_moe_layer(i):
+            for name in ("router", "wi", "wo"):
+                out[p + "moe/" + name] = sd[q + "moe." + name]
+        else:
+            out[p + "ffn/wi"] = sd[q + "ffn.wi"]
+            out[p + "ffn/wo"] = sd[q + "ffn.wo"]
+    return out
+
+
+def _to_state_dict(t: Callable[[str], torch.Tensor],
+                   config: Config) -> Dict[str, torch.Tensor]:
     H, d = config.hidden_size, config.head_dim()
     n_q, n_kv = config.num_heads, config.num_kv_heads
     sd: Dict[str, torch.Tensor] = {

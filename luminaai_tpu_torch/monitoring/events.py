@@ -1,0 +1,418 @@
+"""Wide-event flight recorder: the structured "what happened" trail (the
+port's copy of luminaai_tpu/monitoring/events.py).
+
+The metrics registry (monitoring/telemetry.py) answers "how fast is the
+system" as aggregates; nothing answered "what happened to THIS request /
+THIS step / THIS tenant". This module is that spine: a lock-protected
+ring buffer of typed, timestamped, schema-versioned event records that
+every producer in the stack appends to:
+
+  - serving request lifecycle (serving/server.py ContinuousScheduler):
+    request_received / request_shed / request_admitted / request_prefill
+    / request_first_token / decode_tick / request_evicted /
+    request_completed, each carrying request_id + tenant hash;
+  - training step records (training/trainer.py via
+    monitoring/logger.py): train_step, router_health, recompile, alert,
+    preemption;
+  - checkpoint integrity and storage faults (training/checkpoint.py,
+    utils/retry.py): manifest_mismatch, local_tier_save, io_retry.
+
+Design constraints, in order:
+
+  1. Never on the device path, never blocking: `emit()` is one lock
+     acquire + a deque append. Producers call it with scalars they
+     already have (the trainer piggybacks on the whole-window device
+     sync at log cadence; the scheduler on its step loop).
+  2. Bounded by construction: the ring holds the LAST `capacity`
+     events; older ones fall off (counted in `dropped`). A runaway
+     producer can never grow host memory.
+  3. Durable on demand, not continuously: `dump_to_dir()` writes the
+     buffer as `flightrec-*.jsonl` — the preemption/emergency-save path
+     and the serving drain path call it so a crash or SIGTERM leaves the
+     last N events next to the checkpoints for replay
+     (`read_events`). Dumping must never take down the thing it is recording, so
+     it logs-and-returns-None on any filesystem error.
+
+One process-wide default recorder (`get_recorder()`) mirrors the
+registry's `get_registry()` contract; every producer also accepts an
+explicit recorder for test isolation.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import math
+import os
+import re
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, Iterable, List, Optional
+
+logger = logging.getLogger(__name__)
+
+__all__ = [
+    "EVENT_SCHEMA_VERSION",
+    "FlightRecorder",
+    "get_recorder",
+    "set_recorder",
+    "read_events",
+    "latest_dump",
+    "filter_events",
+    "format_event",
+    "events_stats",
+    "parse_since",
+    "DUMP_PREFIX",
+    "STATS_BY_FIELDS",
+]
+
+# Bump when the envelope (v/seq/ts/type) changes shape; producers adding
+# new FIELDS is not a schema change (readers must tolerate unknown keys).
+EVENT_SCHEMA_VERSION = 1
+
+DUMP_PREFIX = "flightrec-"
+
+_REASON_SAFE = re.compile(r"[^a-z0-9_-]+")
+
+
+def _safe_reason(reason: str) -> str:
+    """Reason string -> filesystem-safe filename fragment."""
+    out = _REASON_SAFE.sub("_", (reason or "dump").lower()).strip("_")
+    return (out or "dump")[:48]
+
+
+class FlightRecorder:
+    """Thread-safe bounded ring of event dicts.
+
+    Every record carries the envelope {v, seq, ts, type} plus the
+    producer's fields. `seq` is monotone for the recorder's lifetime
+    (it keeps counting across ring evictions), so a dump's first seq
+    tells a reader how much history fell off the ring before it.
+    """
+
+    def __init__(self, capacity: int = 4096):
+        self.capacity = max(1, int(capacity))
+        self._lock = threading.Lock()
+        self._buf: "deque[Dict[str, Any]]" = deque(maxlen=self.capacity)
+        self._seq = 0
+        self._dropped = 0  # events evicted from the ring, lifetime
+        self._counts: Dict[str, int] = {}  # by type, lifetime
+
+    def emit(self, type: str, **fields: Any) -> Dict[str, Any]:
+        """Append one event. Returns the stored record (shared, do not
+        mutate). Field values should be JSON-friendly scalars/lists;
+        anything else is stringified at dump time, never here (the hot
+        path does no serialization work)."""
+        ev = {
+            "v": EVENT_SCHEMA_VERSION,
+            "ts": time.time(),
+            "type": str(type),
+            **fields,
+        }
+        with self._lock:
+            self._seq += 1
+            ev["seq"] = self._seq
+            if len(self._buf) == self.capacity:
+                self._dropped += 1
+            self._buf.append(ev)
+            self._counts[ev["type"]] = self._counts.get(ev["type"], 0) + 1
+        return ev
+
+    # -- reads -----------------------------------------------------------
+    def snapshot(
+        self, last: Optional[int] = None, type: Optional[str] = None
+    ) -> List[Dict[str, Any]]:
+        """Copy of the buffered events in emission order, optionally
+        filtered to one type and/or the last N (after filtering)."""
+        with self._lock:
+            events = list(self._buf)
+        if type is not None:
+            events = [e for e in events if e.get("type") == type]
+        if last is not None and last > 0:
+            events = events[-last:]
+        return events
+
+    def counts_by_type(self) -> Dict[str, int]:
+        """Lifetime emission counts by type (survives ring eviction)."""
+        with self._lock:
+            return dict(self._counts)
+
+    @property
+    def dropped(self) -> int:
+        with self._lock:
+            return self._dropped
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._buf)
+
+    def __bool__(self) -> bool:
+        """Always True: a recorder's identity is what matters, never its
+        fill level. Without this, defining __len__ made an EMPTY recorder
+        falsy — so the natural `recorder or get_recorder()` idiom
+        silently swapped a caller's explicit (empty) recorder for the
+        process default. Every producer uses `is None` checks, and this
+        makes the or-idiom safe too (regression-pinned in
+        tests/test_events.py)."""
+        return True
+
+    def clear(self) -> None:
+        """Tests only: empty the ring (seq/counts keep counting)."""
+        with self._lock:
+            self._buf.clear()
+
+    # -- durability ------------------------------------------------------
+    def dump(self, path: str) -> int:
+        """Write the buffered events as JSONL to `path`. Returns the
+        event count written. Non-JSON field values are stringified here
+        (default=str) so a weird payload can never poison the dump."""
+        events = self.snapshot()
+        tmp = f"{path}.tmp"
+        with open(tmp, "w", encoding="utf-8") as fh:
+            for ev in events:
+                fh.write(json.dumps(ev, default=str) + "\n")
+        os.replace(tmp, path)  # readers never see a half-written dump
+        return len(events)
+
+    def dump_to_dir(self, directory: str, reason: str = "") -> Optional[str]:
+        """Dump into `directory` as flightrec-<utc>-<reason>.jsonl.
+
+        This is the crash-forensics entry point (emergency save, drain,
+        forced-signal exit): it must NEVER raise — a failed dump costs a
+        warning, not the shutdown path it rides on. Returns the written
+        path, or None."""
+        try:
+            os.makedirs(directory, exist_ok=True)
+            stamp = time.strftime("%Y%m%dT%H%M%SZ", time.gmtime())
+            base = f"{DUMP_PREFIX}{stamp}-{_safe_reason(reason)}"
+            path = os.path.join(directory, f"{base}.jsonl")
+            i = 0
+            while os.path.exists(path):  # N dumps in one second: never
+                i += 1                   # overwrite an earlier record
+                path = os.path.join(
+                    directory, f"{base}-{os.getpid()}.{i}.jsonl"
+                )
+            n = self.dump(path)
+            logger.info("flight record: %d event(s) -> %s", n, path)
+            return path
+        except Exception as e:
+            logger.warning("flight-record dump failed: %s", e)
+            return None
+
+
+# -- dump readers (lumina events CLI, tests) ------------------------------
+def read_events(path: str) -> List[Dict[str, Any]]:
+    """Load a flightrec JSONL dump. Unparseable lines are skipped (a
+    truncated tail from a hard kill must not make the rest unreadable)."""
+    events: List[Dict[str, Any]] = []
+    with open(path, encoding="utf-8") as fh:
+        for line in fh:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                ev = json.loads(line)
+            except json.JSONDecodeError:
+                continue
+            if isinstance(ev, dict):
+                events.append(ev)
+    return events
+
+
+def latest_dump(directory: str) -> Optional[str]:
+    """Newest flightrec-*.jsonl under `directory`, or None."""
+    try:
+        names = [
+            n for n in os.listdir(directory)
+            if n.startswith(DUMP_PREFIX) and n.endswith(".jsonl")
+        ]
+    except OSError:
+        return None
+    if not names:
+        return None
+    paths = [os.path.join(directory, n) for n in names]
+    return max(paths, key=lambda p: (os.path.getmtime(p), p))
+
+
+def filter_events(
+    events: Iterable[Dict[str, Any]],
+    type: Optional[str] = None,
+    grep: Optional[str] = None,
+    tail: Optional[int] = None,
+    request: Optional[str] = None,
+    since: Optional[float] = None,
+) -> List[Dict[str, Any]]:
+    """Shared query semantics for the CLI and tests: type match, one
+    request's lifecycle (`lumina events --request <id>`: admission →
+    prefix_hit → chunks → completion), regex over the serialized
+    record, time floor (`--since`, epoch seconds — events without a
+    numeric ts are dropped by the filter), then last-N."""
+    out = list(events)
+    if type:
+        out = [e for e in out if e.get("type") == type]
+    if request:
+        out = [e for e in out if e.get("request_id") == request]
+    if since is not None:
+        out = [
+            e for e in out
+            if isinstance(e.get("ts"), (int, float)) and e["ts"] >= since
+        ]
+    if grep:
+        rx = re.compile(grep)
+        out = [
+            e for e in out if rx.search(json.dumps(e, default=str))
+        ]
+    if tail is not None and tail > 0:
+        out = out[-tail:]
+    return out
+
+
+_SINCE_UNITS = {"s": 1.0, "m": 60.0, "h": 3600.0, "d": 86400.0}
+
+
+def parse_since(spec: str, now: Optional[float] = None) -> float:
+    """`lumina events --since <ts|dur>` → an epoch-seconds floor.
+
+    A trailing s/m/h/d makes it a duration ago ("90s", "5m", "2h",
+    "1d"); a bare number is an absolute epoch timestamp (what the
+    records themselves carry). Raises ValueError on anything else —
+    the CLI maps that to exit 2 like a bad --grep regex."""
+    spec = (spec or "").strip()
+    if not spec:
+        raise ValueError("empty --since value")
+    unit = _SINCE_UNITS.get(spec[-1].lower())
+    if unit is not None:
+        dur = float(spec[:-1]) * unit  # ValueError propagates on junk
+        if not math.isfinite(dur) or dur < 0:
+            raise ValueError(f"bad --since duration {spec!r}")
+        return (now if now is not None else time.time()) - dur
+    ts = float(spec)
+    if not math.isfinite(ts):
+        # float() accepts "nan"/"inf"; a NaN floor would silently filter
+        # EVERY event (exit 0, empty output) instead of rejecting the
+        # input — the exit-2 contract must catch it here.
+        raise ValueError(f"non-finite --since timestamp {spec!r}")
+    return ts
+
+
+# `--stats --by <axis>` grouping axes -> the record field they key on.
+STATS_BY_FIELDS = {"tenant": "tenant", "request": "request_id"}
+
+
+def events_stats(
+    events: Iterable[Dict[str, Any]], by: Optional[str] = None
+) -> Dict[str, Any]:
+    """`lumina events --stats`: per-type counts and rates plus the
+    first/last timestamps — a dump or live ring summarized without
+    scrolling it. Rates use the OVERALL observed span (last - first ts)
+    so per-type numbers are comparable on one denominator.
+
+    With `by` ("tenant" | "request"), adds a `groups` breakdown keyed by
+    that identity field (events without it pool under "-"), each group
+    carrying its own count/rate/first/last plus per-type counts — so a
+    forensic dump answers "which tenant was burning the error budget"
+    without jq gymnastics."""
+    if by is not None and by not in STATS_BY_FIELDS:
+        raise ValueError(
+            f"unknown --by axis {by!r} (one of {sorted(STATS_BY_FIELDS)})"
+        )
+    events = list(events)
+    ts = [
+        e["ts"] for e in events if isinstance(e.get("ts"), (int, float))
+    ]
+    first = min(ts) if ts else None
+    last = max(ts) if ts else None
+    span = (last - first) if ts else 0.0
+    by_type: Dict[str, Dict[str, Any]] = {}
+    for e in events:
+        t = str(e.get("type", "?"))
+        rec = by_type.setdefault(
+            t, {"count": 0, "first_ts": None, "last_ts": None}
+        )
+        rec["count"] += 1
+        ets = e.get("ts")
+        if isinstance(ets, (int, float)):
+            if rec["first_ts"] is None or ets < rec["first_ts"]:
+                rec["first_ts"] = ets
+            if rec["last_ts"] is None or ets > rec["last_ts"]:
+                rec["last_ts"] = ets
+    for rec in by_type.values():
+        rec["rate_per_s"] = (
+            round(rec["count"] / span, 4) if span > 0 else None
+        )
+    out = {
+        "total": len(events),
+        "first_ts": first,
+        "last_ts": last,
+        "span_s": round(span, 3) if ts else 0.0,
+        "by_type": dict(sorted(by_type.items())),
+    }
+    if by is not None:
+        field = STATS_BY_FIELDS[by]
+        groups: Dict[str, Dict[str, Any]] = {}
+        for e in events:
+            key = str(e.get(field) or "-")
+            rec = groups.setdefault(
+                key,
+                {
+                    "count": 0, "first_ts": None, "last_ts": None,
+                    "by_type": {},
+                },
+            )
+            rec["count"] += 1
+            t = str(e.get("type", "?"))
+            rec["by_type"][t] = rec["by_type"].get(t, 0) + 1
+            ets = e.get("ts")
+            if isinstance(ets, (int, float)):
+                if rec["first_ts"] is None or ets < rec["first_ts"]:
+                    rec["first_ts"] = ets
+                if rec["last_ts"] is None or ets > rec["last_ts"]:
+                    rec["last_ts"] = ets
+        for rec in groups.values():
+            rec["rate_per_s"] = (
+                round(rec["count"] / span, 4) if span > 0 else None
+            )
+            rec["by_type"] = dict(sorted(rec["by_type"].items()))
+        out["by"] = by
+        # Biggest burners first: the question this axis exists to answer.
+        out["groups"] = dict(
+            sorted(groups.items(), key=lambda kv: (-kv[1]["count"], kv[0]))
+        )
+    return out
+
+
+def format_event(ev: Dict[str, Any]) -> str:
+    """One human-readable line per event for `lumina events`."""
+    ts = ev.get("ts")
+    when = (
+        time.strftime("%H:%M:%S", time.localtime(ts))
+        + f".{int((ts % 1) * 1000):03d}"
+        if isinstance(ts, (int, float))
+        else "?"
+    )
+    skip = {"v", "ts", "type", "seq"}
+    fields = " ".join(
+        f"{k}={ev[k]}" for k in ev if k not in skip
+    )
+    return f"{when} #{ev.get('seq', '?')} {ev.get('type', '?'):<22} {fields}"
+
+
+# -- process-wide default recorder ----------------------------------------
+_default_recorder = FlightRecorder()
+_default_lock = threading.Lock()
+
+
+def get_recorder() -> FlightRecorder:
+    """The process-wide flight recorder: serving, training and bench all
+    default to this one ring, so one dump carries the whole story."""
+    return _default_recorder
+
+
+def set_recorder(recorder: FlightRecorder) -> FlightRecorder:
+    """Swap the process default (tests). Returns the previous recorder."""
+    global _default_recorder
+    with _default_lock:
+        prev = _default_recorder
+        _default_recorder = recorder
+        return prev

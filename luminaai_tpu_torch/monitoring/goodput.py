@@ -1,0 +1,252 @@
+"""Goodput accounting: a wall-clock ledger for the whole run (the port's
+copy of luminaai_tpu/monitoring/goodput.py).
+
+Large training runs are judged by what fraction of reserved wall-clock
+was PRODUCTIVE training ("goodput"). This module is that ledger.
+
+Mechanics: at any instant exactly ONE cause is accruing. `switch()`
+closes the open segment (attributing its elapsed wall time to the old
+cause) and opens a new one, so the per-cause totals partition elapsed
+time BY CONSTRUCTION — `sum(seconds.values()) == elapsed` is an
+identity, not a hope, and the contract test pins it. `region()` is the
+context-manager form that restores the enclosing cause on exit (eval
+inside productive, checkpoint inside productive, ...).
+
+Two special flows cannot be expressed as regions:
+
+  - resume replay: the PrefetchLoader burns time skipping batches the
+    interrupted run already consumed; from the trainer's seat that time
+    accrues inside a `data_wait` pull. The loader counts its own skip
+    seconds and the trainer calls `reattribute("resume_replay", s)`
+    while the data_wait segment is still OPEN — the open segment
+    shrinks, resume_replay grows, the partition holds.
+  - hang: the watchdog (monitoring/watchdog.py) detects a stall while
+    some segment is open and reattributes the stalled seconds to
+    `hang` the same way, from its own thread (the ledger is locked).
+
+Cost: a couple of float ops + a lock per transition, transitions happen
+at loop boundaries (not per device op), and nothing here ever touches a
+device value — zero new host syncs on the step path by construction.
+
+Exports (docs/observability.md "Goodput & sentinels"):
+  - `training_time_seconds_total{cause}` counter — incremented as
+    segments close / reattribute (monotone: attribution only adds).
+  - `training_goodput_fraction` gauge — pull-time callback, weak ref.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from typing import Any, Dict, Optional, Tuple
+
+__all__ = ["CAUSES", "GoodputLedger"]
+
+# The canonical partition of a run's wall clock. Every snapshot carries
+# every key (zeros included) so dashboards and the CI check never probe
+# for optional fields.
+CAUSES = (
+    "productive",     # executing train steps
+    "compile",        # first-step window (kernel loads + first sync)
+    "checkpoint",     # save/restore, incl. blocking emergency saves
+    "data_wait",      # host loop blocked on the (prefetch) loader
+    "resume_replay",  # loader fast-forwarding past already-trained batches
+    "eval",           # eval windows (not train throughput, not idle)
+    "hang",           # stalled time the watchdog attributed to a hang
+    "idle",           # everything else (init, between train() calls)
+)
+
+
+class GoodputLedger:
+    """Wall-clock attribution ledger with a partition-by-construction
+    invariant. Thread-safe: the owning loop switches causes, the
+    watchdog thread may `reattribute` concurrently."""
+
+    def __init__(
+        self,
+        registry=None,
+        clock=time.monotonic,
+        kind: str = "training",
+        enabled: bool = True,
+    ):
+        self.enabled = bool(enabled)
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._totals: Dict[str, float] = {c: 0.0 for c in CAUSES}
+        self._cause: Optional[str] = None  # open segment's cause
+        self._seg_t0: float = 0.0          # open segment's start
+        self._t_start: Optional[float] = None
+        self._t_stop: Optional[float] = None
+        self._m_seconds = None
+        self._m_fraction = None
+        if registry is not None and self.enabled:
+            from luminaai_tpu_torch.monitoring.telemetry import weak_callback
+
+            self._m_seconds = registry.counter(
+                f"{kind}_time_seconds_total",
+                "Run wall-clock attributed per cause (partition of "
+                "elapsed time; docs/observability.md)",
+                labelnames=("cause",),
+            )
+            registry.gauge(
+                f"{kind}_goodput_fraction",
+                "Fraction of elapsed wall-clock spent executing train "
+                "steps (productive / elapsed)",
+            ).set_function(weak_callback(self, lambda l: l.fraction()))
+
+    # -- attribution ------------------------------------------------------
+    def start(self, cause: str = "idle") -> None:
+        """Open the ledger (idempotent). Elapsed counts from here."""
+        if not self.enabled:
+            return
+        with self._lock:
+            if self._t_start is not None and self._t_stop is None:
+                return  # already running
+            now = self._clock()
+            if self._t_start is None:
+                self._t_start = now
+            elif self._t_stop is not None:
+                # Restart after stop(): the stopped gap is still part of
+                # elapsed, so book it as idle or the partition breaks.
+                self._totals["idle"] += max(0.0, now - self._t_stop)
+            self._t_stop = None
+            self._cause = self._check(cause)
+            self._seg_t0 = now
+
+    def switch(self, cause: str) -> str:
+        """Close the open segment and open one for `cause`. Returns the
+        previous cause (so callers can restore it)."""
+        if not self.enabled:
+            return "idle"
+        cause = self._check(cause)
+        with self._lock:
+            prev = self._close_open_segment()
+            self._cause = cause
+            return prev
+
+    @contextlib.contextmanager
+    def region(self, cause: str):
+        """Attribute the enclosed wall time to `cause`, then restore the
+        enclosing cause (regions nest)."""
+        if not self.enabled:
+            yield self
+            return
+        prev = self.switch(cause)
+        try:
+            yield self
+        finally:
+            self.switch(prev)
+
+    def reattribute(self, cause: str, seconds: float) -> float:
+        """Move up to `seconds` of the OPEN segment's accrual to `cause`
+        (resume replay discovered inside a data_wait pull; hang detected
+        by the watchdog mid-stall). Clamped to what the open segment has
+        actually accrued so the partition can never go negative.
+        Returns the seconds actually moved."""
+        if not self.enabled or seconds <= 0:
+            return 0.0
+        cause = self._check(cause)
+        with self._lock:
+            if self._cause is None:
+                return 0.0
+            accrued = max(0.0, self._clock() - self._seg_t0)
+            take = min(float(seconds), accrued)
+            if take <= 0:
+                return 0.0
+            self._totals[cause] += take
+            self._seg_t0 += take  # the open segment accrues that much less
+            if self._m_seconds is not None:
+                self._m_seconds.labels(cause=cause).inc(take)
+            return take
+
+    def stop(self) -> None:
+        """Close the open segment; `start()` reopens (elapsed excludes
+        the stopped gap only if never restarted — the trainer keeps one
+        ledger running for its whole life)."""
+        if not self.enabled:
+            return
+        with self._lock:
+            if self._cause is not None:
+                self._close_open_segment()
+                self._cause = None
+            self._t_stop = self._clock()
+
+    # -- reads ------------------------------------------------------------
+    def _totals_elapsed_locked(self) -> Tuple[Dict[str, float], float]:
+        """One lock section, ONE clock reading for both the per-cause
+        totals (open segment included) and elapsed — a read descheduled
+        between two clock calls must not fake a partition error."""
+        with self._lock:
+            now = self._clock()
+            out = dict(self._totals)
+            if self._cause is not None:
+                out[self._cause] += max(0.0, now - self._seg_t0)
+            if self._t_start is None:
+                el = 0.0
+            else:
+                end = self._t_stop if self._t_stop is not None else now
+                el = max(0.0, end - self._t_start)
+            return out, el
+
+    def elapsed(self) -> float:
+        return self._totals_elapsed_locked()[1]
+
+    def current_cause(self) -> Optional[str]:
+        """The cause accruing right now (None when disabled/stopped) —
+        lets liveness surfaces distinguish 'not advancing because
+        wedged' from 'not advancing because legitimately inside an
+        eval/checkpoint window'."""
+        if not self.enabled:
+            return None
+        with self._lock:
+            return self._cause
+
+    def seconds(self) -> Dict[str, float]:
+        """Per-cause totals INCLUDING the open segment's live accrual,
+        so the partition identity holds at any instant."""
+        return self._totals_elapsed_locked()[0]
+
+    def fraction(self) -> float:
+        """productive / elapsed — the headline goodput number."""
+        secs, el = self._totals_elapsed_locked()
+        if el <= 0:
+            return 0.0
+        return min(1.0, secs["productive"] / el)
+
+    def snapshot(self) -> Dict[str, Any]:
+        """JSON-friendly record for bench artifacts and summaries."""
+        if not self.enabled:
+            return {"available": False, "reason": "goodput ledger disabled"}
+        secs, el = self._totals_elapsed_locked()
+        frac = min(1.0, secs["productive"] / el) if el > 0 else 0.0
+        return {
+            "available": True,
+            "elapsed_s": round(el, 4),
+            "goodput_fraction": round(frac, 4),
+            "seconds": {c: round(secs[c], 4) for c in CAUSES},
+            # |sum - elapsed|: ~0 by construction (same instant for both
+            # sides); the contract test and the CI check read this
+            # instead of re-deriving it.
+            "partition_error_s": round(abs(sum(secs.values()) - el), 6),
+        }
+
+    # -- internals (lock held) -------------------------------------------
+    def _close_open_segment(self) -> str:
+        prev = self._cause or "idle"
+        now = self._clock()
+        if self._cause is not None:
+            dt = max(0.0, now - self._seg_t0)
+            self._totals[self._cause] += dt
+            if self._m_seconds is not None and dt > 0:
+                self._m_seconds.labels(cause=self._cause).inc(dt)
+        self._seg_t0 = now
+        return prev
+
+    @staticmethod
+    def _check(cause: str) -> str:
+        if cause not in CAUSES:
+            raise ValueError(
+                f"unknown goodput cause {cause!r} (one of {CAUSES})"
+            )
+        return cause

@@ -1,0 +1,673 @@
+"""Unified metrics registry: the single telemetry sink for serving AND
+training (the port's copy of luminaai_tpu/monitoring/telemetry.py: the
+same registry operations render the same Prometheus text; build_info
+carries torch/CUDA versions where the JAX package's carries jax/jaxlib).
+
+The reference monitoring stack (monitoring/logger.py) only watches
+training, and only into a jsonl file — the serving path (continuous
+batching over the slot-paged KV pool) ran dark, and the training health
+numbers had no pull-based export. This module gives both the same
+Prometheus-shaped sink: a thread-safe registry of counters, gauges
+(including pull-time callback gauges for things like KV-pool occupancy)
+and fixed-bucket histograms with interpolated p50/p95/p99, rendered as
+Prometheus text exposition (`GET /metrics` in serving/server.py) and
+snapshot-able as plain JSON (bench.py embeds it so perf claims carry
+their own telemetry provenance).
+
+Design constraints, in order:
+
+  1. Never on the device path. Everything here is host-side pure Python
+     consuming scalars the hot loops already have; an `observe()` is one
+     lock acquire + a bisect + three float adds. No torch import.
+  2. Never a hard dependency. `prometheus_client` is not in the image
+     and must not be: exposition is ~40 lines of text formatting, and
+     owning it keeps the serving component stdlib-only.
+  3. One process-wide default registry (`get_registry()`), so serving
+     histograms, KV-pool gauges and training counters flow out the same
+     `/metrics` endpoint — but every constructor takes an explicit
+     registry for test isolation.
+
+Histogram quantiles use Prometheus' own bucket-interpolation rule
+(linear within the bucket that crosses the target rank), which makes
+them monotone in q by construction and exact at bucket boundaries.
+"""
+
+from __future__ import annotations
+
+import bisect
+import math
+import threading
+import time
+import weakref
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+__all__ = [
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "MetricsRegistry",
+    "get_registry",
+    "set_registry",
+    "register_build_info",
+    "BUILD_INFO_SCHEMA_VERSION",
+    "DEFAULT_LATENCY_BUCKETS",
+    "DEFAULT_MAX_LABEL_VALUES",
+    "MAX_LABEL_VALUE_LEN",
+    "OVERFLOW_LABEL",
+]
+
+# Latency buckets in SECONDS, spanning sub-ms token steps on the card up to
+# multi-second prefills/compiles on CPU fallbacks. Overridable per
+# histogram and via the serve CLI (--latency-buckets).
+DEFAULT_LATENCY_BUCKETS: Tuple[float, ...] = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+    0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+)
+
+_RESERVED_SUFFIXES = ("_bucket", "_sum", "_count")
+
+# Label hardening: exposition size is label-cardinality × families, and
+# label VALUES often come from the outside world (tenant hashes, routes).
+# Every labeled family therefore clamps: values longer than
+# MAX_LABEL_VALUE_LEN truncate, and once a label has minted
+# max_label_values distinct values, new ones collapse into the
+# OVERFLOW_LABEL bucket — a hostile client can cost one extra series,
+# never an unbounded /metrics.
+MAX_LABEL_VALUE_LEN = 64
+DEFAULT_MAX_LABEL_VALUES = 100
+OVERFLOW_LABEL = "_overflow"
+
+
+def _fmt(v: float) -> str:
+    """Prometheus sample value formatting: integers without the trailing
+    .0 noise, +Inf spelled the way its parsers expect."""
+    if v == float("inf"):
+        return "+Inf"
+    if v == float("-inf"):
+        return "-Inf"
+    if isinstance(v, float) and v.is_integer() and abs(v) < 1e15:
+        return str(int(v))
+    return repr(float(v))
+
+
+def _escape_label(v: str) -> str:
+    return v.replace("\\", r"\\").replace('"', r"\"").replace("\n", r"\n")
+
+
+def _label_str(labels: Dict[str, str]) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(
+        f'{k}="{_escape_label(str(v))}"' for k, v in sorted(labels.items())
+    )
+    return "{" + inner + "}"
+
+
+class _Child:
+    """One (metric family, label set) sample holder. Families without
+    label names ARE their own single child."""
+
+    __slots__ = ("_lock", "_labels")
+
+    def __init__(self, lock: threading.Lock, labels: Dict[str, str]):
+        self._lock = lock
+        self._labels = labels
+
+
+class Counter(_Child):
+    """Monotone counter. inc() only; negative increments are a bug in
+    the caller and raise rather than silently corrupting rates."""
+
+    __slots__ = ("_value",)
+
+    def __init__(self, lock, labels):
+        super().__init__(lock, labels)
+        self._value = 0.0
+
+    def inc(self, amount: float = 1.0) -> None:
+        if amount < 0:
+            raise ValueError(f"counter increment must be >= 0, got {amount}")
+        with self._lock:
+            self._value += amount
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+
+class Gauge(_Child):
+    """Settable gauge, or a pull-time callback gauge (`set_function`) for
+    state that already lives somewhere authoritative — e.g. KV-pool
+    occupancy, where a push-model gauge would just be a stale copy."""
+
+    __slots__ = ("_value", "_fn")
+
+    def __init__(self, lock, labels):
+        super().__init__(lock, labels)
+        self._value = 0.0
+        self._fn: Optional[Callable[[], float]] = None
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._fn = None
+            self._value = float(value)
+
+    def inc(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self._value += amount
+
+    def dec(self, amount: float = 1.0) -> None:
+        self.inc(-amount)
+
+    def set_function(self, fn: Callable[[], float]) -> None:
+        with self._lock:
+            self._fn = fn
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            fn = self._fn
+            if fn is None:
+                return self._value
+        try:  # called outside the lock: the callback may take its own
+            return float(fn())
+        except Exception:  # telemetry must never take down the server
+            return float("nan")
+
+
+class Histogram(_Child):
+    """Fixed-bucket histogram with Prometheus bucket semantics
+    (cumulative `le` counts + sum + count) and interpolated quantiles.
+
+    quantile(q) follows Prometheus' histogram_quantile: find the first
+    bucket whose cumulative count reaches rank q*N, then interpolate
+    linearly between the bucket's bounds. The +Inf bucket clamps to the
+    highest finite bound (there is nothing to interpolate against), and
+    because ranks are monotone in q over one frozen cumulative
+    distribution, quantiles are monotone in q by construction.
+    """
+
+    __slots__ = ("_bounds", "_counts", "_sum", "_count")
+
+    def __init__(self, lock, labels, bounds: Sequence[float]):
+        super().__init__(lock, labels)
+        b = sorted(float(x) for x in bounds)
+        if not b or any(
+            not math.isfinite(x) for x in b
+        ) or len(set(b)) != len(b):
+            raise ValueError(f"histogram buckets must be unique finite: {bounds}")
+        self._bounds = b  # finite upper bounds; +Inf is implicit
+        self._counts = [0] * (len(b) + 1)
+        self._sum = 0.0
+        self._count = 0
+
+    def observe(self, value: float, count: int = 1) -> None:
+        """Record `value`, optionally `count` times in one lock acquire —
+        the per-token decode latency path observes one step duration once
+        per lane that produced a token."""
+        if count < 1:
+            return
+        v = float(value)
+        idx = bisect.bisect_left(self._bounds, v)
+        with self._lock:
+            self._counts[idx] += count
+            self._sum += v * count
+            self._count += count
+
+    def time(self) -> "_HistogramTimer":
+        return _HistogramTimer(self)
+
+    # -- reads -----------------------------------------------------------
+    def _frozen(self) -> Tuple[List[int], float, int]:
+        with self._lock:
+            return list(self._counts), self._sum, self._count
+
+    @property
+    def count(self) -> int:
+        return self._frozen()[2]
+
+    @property
+    def sum(self) -> float:
+        return self._frozen()[1]
+
+    def quantile(self, q: float) -> Optional[float]:
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"quantile must be in [0, 1], got {q}")
+        counts, _, total = self._frozen()
+        if total == 0:
+            return None
+        rank = q * total
+        cum = 0
+        for i, c in enumerate(counts):
+            cum += c
+            if cum >= rank and c > 0:
+                if i >= len(self._bounds):
+                    # +Inf bucket: clamp to the largest finite bound.
+                    return self._bounds[-1]
+                lo = self._bounds[i - 1] if i > 0 else 0.0
+                hi = self._bounds[i]
+                return lo + (hi - lo) * ((rank - (cum - c)) / c)
+        return self._bounds[-1]  # pragma: no cover - rank <= total always
+
+    def quantiles(self) -> Dict[str, Optional[float]]:
+        return {
+            "p50": self.quantile(0.50),
+            "p95": self.quantile(0.95),
+            "p99": self.quantile(0.99),
+        }
+
+
+class _HistogramTimer:
+    """`with hist.time():` convenience; also usable non-contextually via
+    observe_duration() for paths that start/stop across callbacks."""
+
+    def __init__(self, hist: Histogram):
+        self._hist = hist
+        self._t0 = time.perf_counter()
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self._hist.observe(time.perf_counter() - self._t0)
+        return False
+
+
+_CHILD_TYPES = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}
+
+
+class _Family:
+    """One named metric family: holds children keyed by label values.
+    Unlabeled families proxy child methods directly, so the common case
+    stays `registry.counter("x", "help").inc()`."""
+
+    def __init__(self, name, help_text, typ, labelnames, lock,
+                 max_label_values: Optional[int] = None, **kw):
+        self.name = name
+        self.help = help_text
+        self.type = typ
+        self.labelnames = tuple(labelnames or ())
+        self.max_label_values = int(
+            max_label_values or DEFAULT_MAX_LABEL_VALUES
+        )
+        self._lock = lock
+        self._kw = kw
+        self._children: Dict[Tuple[str, ...], _Child] = {}
+        # Distinct values minted per label name (the cardinality budget).
+        self._label_values: Dict[str, set] = {
+            k: set() for k in self.labelnames
+        }
+        if not self.labelnames:
+            self._children[()] = self._make({})
+
+    def _make(self, labels: Dict[str, str]) -> _Child:
+        cls = _CHILD_TYPES[self.type]
+        if self.type == "histogram":
+            return cls(self._lock, labels, self._kw["buckets"])
+        return cls(self._lock, labels)
+
+    def labels(self, **labels: str):
+        if set(labels) != set(self.labelnames):
+            raise ValueError(
+                f"{self.name} takes labels {self.labelnames}, got "
+                f"{tuple(labels)}"
+            )
+        with self._lock:
+            key = tuple(
+                self._clamp_value(k, str(labels[k]))
+                for k in self.labelnames
+            )
+            child = self._children.get(key)
+            if child is None:
+                child = self._make(dict(zip(self.labelnames, key)))
+                self._children[key] = child
+        return child
+
+    def _clamp_value(self, labelname: str, value: str) -> str:
+        """Bounded-cardinality guard (call under self._lock): length-cap
+        the value, then charge it against the label's distinct-value
+        budget — an exhausted budget routes NEW values into the
+        `_overflow` series instead of minting one. Already-seen values
+        (and `_overflow` itself) always resolve to their live child, so
+        established series keep accumulating."""
+        if len(value) > MAX_LABEL_VALUE_LEN:
+            value = value[:MAX_LABEL_VALUE_LEN]
+        seen = self._label_values[labelname]
+        if value not in seen and value != OVERFLOW_LABEL:
+            if len(seen) >= self.max_label_values:
+                return OVERFLOW_LABEL
+            seen.add(value)
+        return value
+
+    def children(self) -> List[_Child]:
+        with self._lock:
+            return list(self._children.values())
+
+    # Unlabeled families act as their own child.
+    def _sole(self) -> _Child:
+        if self.labelnames:
+            raise ValueError(
+                f"{self.name} is labeled {self.labelnames}; call .labels()"
+            )
+        return self._children[()]
+
+    def inc(self, amount: float = 1.0):
+        return self._sole().inc(amount)
+
+    def dec(self, amount: float = 1.0):
+        return self._sole().dec(amount)
+
+    def set(self, value: float):
+        return self._sole().set(value)
+
+    def set_function(self, fn: Callable[[], float]):
+        return self._sole().set_function(fn)
+
+    def observe(self, value: float, count: int = 1):
+        return self._sole().observe(value, count)
+
+    def time(self):
+        return self._sole().time()
+
+    def quantile(self, q: float):
+        return self._sole().quantile(q)
+
+    def quantiles(self):
+        return self._sole().quantiles()
+
+    @property
+    def value(self):
+        return self._sole().value
+
+    @property
+    def count(self):
+        return self._sole().count
+
+    @property
+    def sum(self):
+        return self._sole().sum
+
+
+class MetricsRegistry:
+    """Thread-safe named-metric store with Prometheus text exposition.
+
+    Creation is get-or-create: asking for an existing name with the same
+    type/labels returns the live family (serving and training both run
+    `__init__`-time registration against the shared process registry, and
+    tests spin several servers per process), while a type or label-name
+    conflict raises — two meanings for one exposition name is how
+    dashboards silently lie.
+    """
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._families: Dict[str, _Family] = {}
+
+    def _get_or_create(self, name, help_text, typ, labelnames,
+                       max_label_values=None, **kw) -> _Family:
+        if not name or not name.replace("_", "a").replace(":", "a").isalnum():
+            raise ValueError(f"bad metric name {name!r}")
+        if typ != "histogram" and name.endswith(_RESERVED_SUFFIXES):
+            raise ValueError(
+                f"{name!r} collides with histogram exposition suffixes"
+            )
+        with self._lock:
+            fam = self._families.get(name)
+            if fam is not None:
+                if fam.type != typ or fam.labelnames != tuple(labelnames or ()):
+                    raise ValueError(
+                        f"metric {name!r} already registered as {fam.type} "
+                        f"with labels {fam.labelnames}"
+                    )
+                if typ == "histogram" and tuple(
+                    sorted(kw["buckets"])
+                ) != tuple(sorted(fam._kw["buckets"])):
+                    # Silently returning the old layout would drop the
+                    # caller's requested resolution into +Inf unnoticed.
+                    raise ValueError(
+                        f"histogram {name!r} already registered with "
+                        f"buckets {fam._kw['buckets']}"
+                    )
+                return fam  # first registration's cardinality cap stands
+            fam = _Family(
+                name, help_text, typ, labelnames, self._lock,
+                max_label_values=max_label_values, **kw,
+            )
+            self._families[name] = fam
+            return fam
+
+    def counter(self, name, help_text="", labelnames=(),
+                max_label_values=None) -> _Family:
+        return self._get_or_create(
+            name, help_text, "counter", labelnames,
+            max_label_values=max_label_values,
+        )
+
+    def gauge(self, name, help_text="", labelnames=(),
+              max_label_values=None) -> _Family:
+        return self._get_or_create(
+            name, help_text, "gauge", labelnames,
+            max_label_values=max_label_values,
+        )
+
+    def histogram(
+        self,
+        name,
+        help_text="",
+        buckets: Sequence[float] = DEFAULT_LATENCY_BUCKETS,
+        labelnames=(),
+        max_label_values=None,
+    ) -> _Family:
+        return self._get_or_create(
+            name, help_text, "histogram", labelnames,
+            max_label_values=max_label_values, buckets=tuple(buckets)
+        )
+
+    def get(self, name: str) -> Optional[_Family]:
+        with self._lock:
+            return self._families.get(name)
+
+    def families(self) -> List[_Family]:
+        with self._lock:
+            return sorted(self._families.values(), key=lambda f: f.name)
+
+    # -- exposition ------------------------------------------------------
+    def render_prometheus(self) -> str:
+        """Prometheus text format 0.0.4. Stable ordering (sorted family
+        names, sorted label sets) so diffs between scrapes are
+        meaningful in tests and incident logs."""
+        out: List[str] = []
+        for fam in self.families():
+            if fam.help:
+                out.append(f"# HELP {fam.name} {fam.help}")
+            out.append(f"# TYPE {fam.name} {fam.type}")
+            children = sorted(
+                fam.children(), key=lambda c: sorted(c._labels.items())
+            )
+            for child in children:
+                labels = child._labels
+                if fam.type == "histogram":
+                    counts, total_sum, total = child._frozen()
+                    cum = 0
+                    for bound, c in zip(
+                        child._bounds + [float("inf")], counts
+                    ):
+                        cum += c
+                        ls = _label_str({**labels, "le": _fmt(bound)})
+                        out.append(f"{fam.name}_bucket{ls} {cum}")
+                    ls = _label_str(labels)
+                    out.append(f"{fam.name}_sum{ls} {_fmt(total_sum)}")
+                    out.append(f"{fam.name}_count{ls} {total}")
+                else:
+                    out.append(
+                        f"{fam.name}{_label_str(labels)} "
+                        f"{_fmt(child.value)}"
+                    )
+        return "\n".join(out) + "\n"
+
+    # -- JSON snapshot (bench provenance) --------------------------------
+    def snapshot(self) -> Dict[str, Any]:
+        """Plain-JSON view of every metric: counters/gauges as values,
+        histograms as {count, sum, p50, p95, p99}. bench.py embeds this
+        in its artifact so a throughput claim ships with the latency
+        distribution and occupancy counters behind it."""
+        snap: Dict[str, Any] = {}
+        for fam in self.families():
+            per_child: Dict[str, Any] = {}
+            for child in fam.children():
+                key = (
+                    ",".join(
+                        f"{k}={v}" for k, v in sorted(child._labels.items())
+                    )
+                    or ""
+                )
+                if fam.type == "histogram":
+                    counts, total_sum, total = child._frozen()
+                    q = child.quantiles()
+                    val = {
+                        "count": total,
+                        "sum": round(total_sum, 6),
+                        "p50": q["p50"],
+                        "p95": q["p95"],
+                        "p99": q["p99"],
+                    }
+                else:
+                    v = child.value
+                    val = None if (isinstance(v, float) and math.isnan(v)) else v
+                per_child[key] = val
+            if tuple(fam.labelnames):
+                snap[fam.name] = per_child
+            else:
+                snap[fam.name] = per_child.get("", None)
+        return snap
+
+
+def weak_callback(
+    obj: Any, read: Callable[[Any], float]
+) -> Callable[[], float]:
+    """Pull-time gauge callback holding only a WEAK reference to `obj`.
+
+    Components register callback gauges against the process-wide
+    registry, which outlives any one server/scheduler; a strong closure
+    would pin a replaced object (and everything it owns — e.g. a KV
+    pool's device arrays) for process lifetime, and keep exporting its
+    stale state as current. With a weak ref, a collected object reads
+    as NaN — rendered as absent data, not a lie. `read` must not itself
+    capture obj (pass it the resolved object instead)."""
+    ref = weakref.ref(obj)
+
+    def call() -> float:
+        o = ref()
+        if o is None:
+            return float("nan")
+        return read(o)
+
+    return call
+
+
+# -- build info (fleet debugging) ----------------------------------------
+# Bump when the exposition/event envelope contracts change together; the
+# build_info gauge carries it so a fleet scrape can spot version skew.
+BUILD_INFO_SCHEMA_VERSION = 1
+
+_git_commit_cache: Optional[str] = None
+
+
+def _git_commit() -> str:
+    """Best-effort short commit id: CI env vars first, then one cached
+    `git rev-parse` (never raises — 'unknown' beats a crashed startup)."""
+    global _git_commit_cache
+    if _git_commit_cache is not None:
+        return _git_commit_cache
+    import os
+
+    commit = os.environ.get("GIT_COMMIT") or os.environ.get("GITHUB_SHA")
+    if not commit:
+        import subprocess
+
+        try:
+            commit = subprocess.run(
+                ["git", "rev-parse", "--short", "HEAD"],
+                capture_output=True, text=True, timeout=5,
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+            ).stdout.strip()
+        except Exception:
+            commit = ""
+    _git_commit_cache = (commit or "unknown")[:12]
+    return _git_commit_cache
+
+
+def config_digest(config: Any) -> str:
+    """Short stable hash of a Config (or any to_dict-able / dict /
+    string) so two processes can be compared for config skew without
+    shipping the whole config through labels."""
+    import hashlib
+    import json as _json
+
+    if config is None:
+        return "none"
+    if hasattr(config, "to_dict"):
+        config = config.to_dict()
+    try:
+        blob = _json.dumps(config, sort_keys=True, default=str)
+    except (TypeError, ValueError):
+        blob = str(config)
+    return hashlib.sha256(blob.encode()).hexdigest()[:12]
+
+
+def register_build_info(registry=None, config=None) -> Dict[str, str]:
+    """Register the `build_info` gauge (value 1, identity in labels):
+    git commit, torch/CUDA versions, config hash, schema version — the
+    standard fleet-debugging series ("which replicas run which build").
+    Called at process start by the trainer, the serving server and the
+    bench children; idempotent per label set. Returns the label dict."""
+    if registry is None:
+        registry = get_registry()
+    try:  # telemetry itself stays importable without torch
+        import torch
+
+        torch_v = getattr(torch, "__version__", "unknown")
+        cuda_v = getattr(torch.version, "cuda", None) or "none"
+    except Exception:
+        torch_v = cuda_v = "unavailable"
+    labels = {
+        "git_commit": _git_commit(),
+        "torch": str(torch_v),
+        "cuda": str(cuda_v),
+        "config_hash": config_digest(config),
+        "schema": str(BUILD_INFO_SCHEMA_VERSION),
+    }
+    registry.gauge(
+        "build_info",
+        "Process build identity (value is always 1; the labels are the "
+        "payload): git commit, torch/CUDA versions, config hash, "
+        "schema version",
+        labelnames=tuple(sorted(labels)),
+        # A process registers a handful of identities (trainer + server
+        # colocated, a few configs in tests) — small bounded budget.
+        max_label_values=16,
+    ).labels(**labels).set(1)
+    return labels
+
+
+# -- process-wide default sink ------------------------------------------
+_default_registry = MetricsRegistry()
+_default_lock = threading.Lock()
+
+
+def get_registry() -> MetricsRegistry:
+    """The process-wide registry: serving endpoints, the KV pool, the
+    trainer and the health monitor all default to this one sink, so a
+    colocated process exports everything from one /metrics scrape."""
+    return _default_registry
+
+
+def set_registry(registry: MetricsRegistry) -> MetricsRegistry:
+    """Swap the process default (tests). Returns the previous registry."""
+    global _default_registry
+    with _default_lock:
+        prev = _default_registry
+        _default_registry = registry
+        return prev

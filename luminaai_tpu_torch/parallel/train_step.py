@@ -174,12 +174,15 @@ def _accumulate_grads(loss_fn, params: List[torch.Tensor], batch: Batch,
 class TrainState:
     """Parameters (the model's tensors, updated in place), optimizer
     state, step count and the step's random generator (the JAX TrainState
-    without sharding; the optimizer itself is not stored, as there)."""
+    without sharding; the optimizer itself is not stored, as there).
+    `names` are the parameters' state_dict keys, in the order of `params`
+    and of the Adam moments (checkpoints store them by name)."""
 
     step: int
     params: List[torch.Tensor]
     opt_state: AdamWState
     generator: torch.Generator
+    names: List[str] = dataclasses.field(default_factory=list)
 
     def apply_gradients(self, grads: List[torch.Tensor], tx: AdamW) -> float:
         lr = tx.apply(self.params, grads, self.opt_state)
@@ -188,13 +191,14 @@ class TrainState:
 
 
 def init_train_state(model, tx: AdamW, seed: int) -> TrainState:
-    params = [p for p in model.parameters() if p.requires_grad]
-    if not params:
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    if not named:
         raise ValueError("the model has no trainable parameters: build it "
                          "with trainable=True")
+    params = [p for _, p in named]
     gen = torch.Generator(device=model.device).manual_seed(int(seed))
     return TrainState(step=0, params=params, opt_state=tx.init(params),
-                      generator=gen)
+                      generator=gen, names=[n for n, _ in named])
 
 
 def make_train_step(

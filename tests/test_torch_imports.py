@@ -64,6 +64,35 @@ def test_no_jax_or_luminaai_tpu_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+# The training runtime's modules (utils, monitoring, native, data,
+# checkpoint, scaler); the checks above and below cover every module the
+# package holds, these included.
+RUNTIME_MODULES = (
+    "luminaai_tpu_torch.utils.retry",
+    "luminaai_tpu_torch.monitoring.telemetry",
+    "luminaai_tpu_torch.monitoring.events",
+    "luminaai_tpu_torch.monitoring.goodput",
+    "luminaai_tpu_torch.monitoring.watchdog",
+    "luminaai_tpu_torch.monitoring.logger",
+    "luminaai_tpu_torch.native",
+    "luminaai_tpu_torch.data.bpe",
+    "luminaai_tpu_torch.data.dataset",
+    "luminaai_tpu_torch.training.checkpoint",
+    "luminaai_tpu_torch.training.scaler",
+)
+
+
+def test_runtime_modules_are_scanned():
+    assert set(RUNTIME_MODULES) <= set(_modules())
+    files = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for m in RUNTIME_MODULES:
+        path = m.replace(".", "/")
+        assert f"{path}.py" in files or f"{path}/__init__.py" in files, m
+    # The native sources are the port's own copies.
+    for src in ("dataloader.cpp", "bpe.cpp"):
+        assert (PACKAGE / "native" / src).is_file()
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, sys\n"
@@ -105,6 +134,9 @@ def test_entry_points_default_to_the_card(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["train", "--preset", "debug", "--dense", "--synthetic",
                   "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["resume", "--preset", "debug", "--dense", "--data",
+                  "missing.jsonl", "--packed", "--steps", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
