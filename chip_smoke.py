@@ -20,7 +20,8 @@ Phases (any failure raises and exits non-zero):
              split-KV kernel's share boundaries; the grouped matmul (B4a
              gmm with and without transpose_rhs, B4b tgmm) at the b1
              decode and flagship training shapes, with an empty group and
-             a tail that must stay exactly zero; time kernel / plain /
+             a tail that must stay exactly zero, and at the flagship shape
+             with 9 experts and with two of 8 groups empty; time kernel / plain /
              library call at every shape, and compute the least time the
              card could take and each kernel's share of it; log which CUDA
              kernel each flash call took (torch.profiler) and require the
@@ -71,7 +72,26 @@ Phases (any failure raises and exits non-zero):
              server launch B5 decode steps x 16 times. Step time,
              tokens/s, the goodput split, each save's and restore's
              seconds and GB, and the disk at the start; the runs and
-             checkpoints are deleted at the end.
+             checkpoints are deleted at the end. (The CLI's `train` runs
+             under the adaptive orchestrator: at b1's health-check
+             interval no decision fires in 6 steps, and the summaries
+             carry `adaptive_decisions` (empty) and `trajectory`.)
+  8. adaptive the flagship MoE of phase 6 trained in-process under
+             AdaptiveTrainingOrchestrator(trainer).run() from phase 7's
+             corpus, packed: one decision of each MoE-path kind injected
+             through the orchestrator's _execute at fixed steps (LR x 0.5,
+             weight decay x 2, clip, temperature, capacity, expert dropout
+             0.1 then 0, curriculum 0.6, add_expert 8 -> 9, prune of the
+             least-loaded expert 9 -> 8, rollback to the prune's forced
+             save, two more steps). Each decision applied, no
+             "intervention ... failed" record, exact B1-B4 launches and a
+             finite loss in every step, the LR override holding; the steps
+             after expert dropout, add, prune and the rollback against the
+             same step through the plain gmm; the optimizer count equal to
+             the step after each evolution; the rolled-back parameters
+             bitwise those of the forced save. Steady and post-
+             intervention step times, E over the run, saves and restore,
+             the goodput split, the decisions.
 
 Earlier train phases write their checkpoints under chip_smoke_runs/ too,
 and the directory is removed when the script ends.
@@ -1131,6 +1151,16 @@ GMM_CASES = {
                  [9000, 8100, 7900, 8200, 8300, 7700, 8050, 7850]),
     "train_empty": (4096, 1024, 2 * 2816,
                     [1200, 0, 900, 700, 0, 600, 300, 100]),
+    # The adaptive phase's expert counts at the flagship training shape:
+    # 9 experts after add_expert, and 8 with two whole experts dropped
+    # (expert dropout empties their groups).
+    "train_e9_wi": (65536, 1024, 2 * 2816,
+                    [7300, 7100, 6900, 7200, 7400, 6800, 7250, 6950, 7000]),
+    "train_e9_wo": (65536, 2816, 1024,
+                    [7300, 7100, 6900, 7200, 7400, 6800, 7250, 6950, 7000]),
+    "train_e8_two_empty": (65536, 1024, 2 * 2816,
+                           [10900, 0, 10800, 10700, 11000, 0, 10600,
+                            10900]),
 }
 # B4 kernel vs plain version, bf16 outputs: within 1e-2 x max|plain|. Both
 # accumulate in fp32 and round once to bf16 (2^-8 relative), the sums in
@@ -1839,14 +1869,25 @@ def phase_runtime(dev, rpa_entry: dict, flash_entries: list,
             f", {s['bytes'] / 1e9:.2f} GB")
     summary_a = json.loads((RUN_DIR / "A" / "training_summary.json")
                            .read_text())
+    summary_b = json.loads((RUN_DIR / "B" / "training_summary.json")
+                           .read_text())
+    for name, summ in (("A", summary_a), ("resume", summary_b)):
+        # The CLI trains under the orchestrator; no decision fires in 6
+        # steps at b1's health-check interval.
+        if summ.get("adaptive_decisions") != [] or "trajectory" not in summ:
+            raise AssertionError(f"run {name}'s summary lacks the "
+                                 f"orchestrator's keys or decided: "
+                                 f"{summ.get('adaptive_decisions')}")
+    log("runtime: runs A and resume trained under the orchestrator "
+        "(adaptive_decisions [], trajectory "
+        f"{summary_a['trajectory']})")
     hist = summary_a["history"]
     step_s = statistics.median(h["step_seconds"] for h in hist[1:])
     cfg = json.loads(
         (RUN_DIR / "A" / "experiment_metadata.json").read_text())["config"]
     tokens = cfg["batch_size"] * cfg["seq_length"]
     gp = summary_a["goodput"]["seconds"]
-    gp_r = json.loads((RUN_DIR / "B" / "training_summary.json")
-                      .read_text())["goodput"]["seconds"]
+    gp_r = summary_b["goodput"]["seconds"]
 
     def split(g):
         return ", ".join(f"{c} {g[c]:.2f} s" for c in g if g[c] > 0)
@@ -1904,6 +1945,337 @@ def phase_runtime(dev, rpa_entry: dict, flash_entries: list,
             "params_sha256": digest_a}
 
 
+# ---------------------------------------------------------------------------
+# Adaptive training: the orchestrator's interventions on the flagship MoE.
+# ---------------------------------------------------------------------------
+ADAPTIVE_STEPS = 14  # global steps; 15 run (the rollback replays one)
+# Executed step after which each scripted decision runs: (kind, params).
+# The weight decay doubles the config's; prune takes the least-loaded
+# expert of the step before; rollback goes to the last healthy step,
+# fenced to the prune's forced save.
+ADAPTIVE_SCRIPT = {
+    3: ("lr_adjust", {"factor": 0.5, "action": "decrease"}),
+    4: ("weight_decay", None),
+    5: ("clip_tighten", {}),
+    6: ("temperature_up", {"new_value": 1.25}),
+    7: ("capacity_up", {"new_value": 1.5}),
+    8: ("expert_dropout", {"rate": 0.1}),
+    9: ("expert_dropout", {"rate": 0.0}),
+    10: ("curriculum", {"difficulty": 0.6}),
+    11: ("add_expert", {}),
+    12: ("prune_expert", None),
+    13: ("rollback", {}),
+}
+# Steps held against the same step through the plain gmm: the one after
+# each of these decisions.
+ADAPTIVE_COMPARE = {8: "expert dropout 0.1", 11: "add_expert",
+                    12: "prune_expert", 13: "rollback"}
+STEADY_STEPS = (2, 3, 15)  # no intervention just before them
+
+
+def _smi() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        )
+    except OSError as exc:
+        return f"nvidia-smi unavailable: {exc}"
+    return (out.stdout.strip().splitlines()[0] if out.stdout.strip()
+            else f"nvidia-smi unavailable: {out.stderr.strip()}")
+
+
+def _param_digest(trainer) -> str:
+    """sha256 over the trainer's parameters by name, copied to the host."""
+    return _tensor_digest({n: p.detach().cpu() for n, p in
+                           zip(trainer.state.names, trainer.state.params)})
+
+
+def phase_adaptive(dev, flash_entries: list, gmm_entries: list,
+                   model: dict = FLAGSHIP, want: dict = None) -> dict:
+    """The flagship MoE trained in-process under
+    AdaptiveTrainingOrchestrator(trainer).run() from phase 7's corpus,
+    packed. The organic health check cannot fire (health_check_interval
+    19 > the steps; the log boundary is every step); one decision of each
+    MoE-path kind is injected through the orchestrator's _execute at
+    fixed steps. After each: the decision applied, exact B1-B4 launches
+    and a finite loss in the next step; after expert dropout, add, prune
+    and the rollback that step against the same step through the plain
+    gmm (the generator reseeded identically); the optimizer count equal
+    to the step after each evolution; the parameters after the rollback
+    bitwise those of the prune's forced save. `model` and `want` (the
+    launches per step) default to the flagship on the card."""
+    import logging
+    import types
+
+    import numpy as np
+    import torch
+
+    from luminaai_tpu_torch import cli
+    from luminaai_tpu_torch.config import Config
+    from luminaai_tpu_torch.models import moe
+    from luminaai_tpu_torch.ops import flash_attention as fa
+    from luminaai_tpu_torch.ops import gmm as tg
+    from luminaai_tpu_torch.ops.fused import global_norm
+    from luminaai_tpu_torch.parallel import train_step as ts
+    from luminaai_tpu_torch.training import orchestrator as orch_mod
+    from luminaai_tpu_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    smi = _smi()
+    corpus = RUN_DIR / "corpus.jsonl"
+    cfg = Config(**model, **FLAGSHIP_LEVERS, max_steps=ADAPTIVE_STEPS,
+                 health_check_interval=19,
+                 output_dir=str(RUN_DIR / "adaptive"))
+    train_fn, _, n_tokens = cli.make_data(
+        cfg, types.SimpleNamespace(data=str(corpus), packed=True))
+    trainer = Trainer(cfg, train_fn, device=dev, seed=0)
+    orch = orch_mod.AdaptiveTrainingOrchestrator(trainer)
+    L, n_moe = cfg.num_layers, cfg.num_moe_layers()
+    if want is None:
+        want = {"B1": 2 * L, "B2": L, "B3": L, "B4a": 6 * n_moe,
+                "B4b": 2 * n_moe}
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+    log(f"adaptive: flagship MoE ({smi}), {cfg.num_experts} experts, "
+        f"batch {cfg.batch_size} x {cfg.seq_length} packed from "
+        f"{corpus.name} ({n_tokens:,} tokens), {ADAPTIVE_STEPS} steps")
+
+    failed = []
+
+    class Failures(logging.Handler):
+        def emit(self, record):
+            if "failed" in record.getMessage():
+                failed.append(record.getMessage())
+
+    handler = Failures(level=logging.ERROR)
+    orch_mod.logger.addHandler(handler)
+
+    def launches():
+        return {"B1": fa.flash_fwd.launches, "B2": fa.flash_bwd_dq.launches,
+                "B3": fa.flash_bwd_dkv.launches, "B4a": tg.gmm.launches,
+                "B4b": tg.tgmm.launches}
+
+    steps, compares, digests = [], {}, {}
+    pending = {"label": None}
+    compare_launches = dict.fromkeys(want, 0)
+    # Whole experts expert dropout leaves out of routing in the real step
+    # (their B4 groups are empty), summed over the MoE layers.
+    real_draw = moe.MoELayer.draw_routing
+    dropped = {"live": False, "n": 0}
+
+    def draw(self, G, S, generator, device):
+        out = real_draw(self, G, S, generator, device)
+        if dropped["live"] and out and "expert_u" in out:
+            rate = self.config.expert_dropout_rate
+            dropped["n"] += int((out["expert_u"] >= 1.0 - rate).sum())
+        return out
+
+    def wrap(real):
+        def step(state, batch):
+            label, pending["label"] = pending["label"], None
+            if label is not None:
+                gen = state.generator.get_state()
+                before = launches()
+                moe.GMM_OVERRIDE = _plain_gmm
+                try:
+                    grads, m = ts._accumulate_grads(
+                        ts.make_loss_fn(trainer.config, trainer.model),
+                        state.params, batch, state.generator,
+                        trainer.config.gradient_accumulation_steps)
+                    plain = (float(m["loss"]), float(global_norm(grads)))
+                finally:
+                    moe.GMM_OVERRIDE = None
+                del grads, m
+                for k, v in launches().items():
+                    compare_launches[k] += v - before[k]
+                state.generator.set_state(gen)
+            sync()
+            before = launches()
+            dropped.update(live=True, n=0)
+            t0 = time.perf_counter()
+            state, metrics = real(state, batch)
+            loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+            ms = (time.perf_counter() - t0) * 1e3
+            dropped["live"] = False
+            steps.append({
+                "n": len(steps) + 1, "step": state.step, "ms": ms,
+                "loss": loss, "grad_norm": norm,
+                "lr": float(metrics["learning_rate"]),
+                "experts": trainer.config.num_experts,
+                "drop_rate": float(metrics["moe_drop_rate"]),
+                "experts_dropped": dropped["n"],
+                "launches": {k: v - before[k]
+                             for k, v in launches().items()},
+            })
+            if label is not None:
+                errs = (abs(loss - plain[0]) / abs(plain[0]),
+                        abs(norm - plain[1]) / abs(plain[1]))
+                compares[label] = {"step": state.step, "loss": loss,
+                                   "loss_plain": plain[0],
+                                   "grad_norm": norm,
+                                   "grad_norm_plain": plain[1],
+                                   "loss_rel": errs[0], "norm_rel": errs[1]}
+                log(f"  step {state.step} after {label}, B4 vs plain gmm: "
+                    f"loss {loss:.5f} vs {plain[0]:.5f} (rel {errs[0]:.2e},"
+                    f" tol {LOSS_RTOL}), grad_norm {norm:.5f} vs "
+                    f"{plain[1]:.5f} (rel {errs[1]:.2e}, tol "
+                    f"{GRAD_NORM_RTOL})")
+                if errs[0] > LOSS_RTOL or errs[1] > GRAD_NORM_RTOL:
+                    raise AssertionError(f"the step after {label} disagrees"
+                                         f" with the plain gmm")
+            return state, metrics
+
+        step.wrapped = True
+        return step
+
+    def scripted(global_step, metrics, observe=orch.on_metrics):
+        observe(global_step, metrics)
+        n = len(steps)
+        rec = steps[-1]
+        if rec["launches"] != want or not (math.isfinite(rec["loss"])
+                                           and math.isfinite(
+                                               rec["grad_norm"])):
+            raise AssertionError(f"step {n}: launches {rec['launches']} "
+                                 f"(want {want}), loss {rec['loss']}")
+        if n in ADAPTIVE_SCRIPT:
+            kind, params = ADAPTIVE_SCRIPT[n]
+            if kind == "weight_decay":
+                params = {"new_value": 2 * cfg.weight_decay}
+            if kind == "prune_expert":
+                util = np.asarray(metrics["expert_utilization"])
+                params = {"expert_idx": int(util.argmin())}
+            decision = orch_mod.AdaptiveDecision(
+                kind=kind, params=params, reason=f"scripted at step {n}",
+                confidence=1.0, step=trainer.global_step)
+            t0 = time.perf_counter()
+            orch._execute(decision)
+            rec["decision"] = kind
+            rec["decision_s"] = time.perf_counter() - t0
+            if not decision.applied or failed:
+                raise AssertionError(f"decision {kind} at step {n} not "
+                                     f"applied: {failed}")
+            if kind in ("add_expert", "prune_expert"):
+                count = trainer.state.opt_state.count
+                if count != trainer.global_step:
+                    raise AssertionError(f"optimizer count {count} after "
+                                         f"{kind} at step "
+                                         f"{trainer.global_step}")
+                if kind == "prune_expert":
+                    digests["saved"] = (trainer.global_step,
+                                        _param_digest(trainer))
+            if kind == "rollback":
+                digests["restored"] = (trainer.global_step,
+                                       _param_digest(trainer))
+            if n in ADAPTIVE_COMPARE:
+                pending["label"] = ADAPTIVE_COMPARE[n]
+        if not getattr(trainer.train_step, "wrapped", False):
+            trainer.train_step = wrap(trainer.train_step)
+
+    orch.on_metrics = scripted
+    trainer.train_step = wrap(trainer.train_step)
+    fa.reset_launches()
+    tg.reset_launches()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    moe.MoELayer.draw_routing = draw
+    try:
+        summary = orch.run()
+    finally:
+        moe.MoELayer.draw_routing = real_draw
+        orch_mod.logger.removeHandler(handler)
+    total = launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    if failed:
+        raise AssertionError(f"intervention failures logged: {failed}")
+
+    for rec in steps:
+        log(f"  step {rec['n']:2d} (global {rec['step']:2d}, E "
+            f"{rec['experts']}): loss {rec['loss']:.4f} grad_norm "
+            f"{rec['grad_norm']:.4f} lr {rec['lr']:.3e} drop "
+            f"{rec['drop_rate']:.4f} {rec['ms']:.1f} ms"
+            + (f"; then {rec['decision']} ({rec['decision_s']:.2f} s)"
+               if "decision" in rec else ""))
+    if len(steps) != ADAPTIVE_STEPS + 1 or summary["final_step"] != (
+            ADAPTIVE_STEPS):
+        raise AssertionError(f"{len(steps)} steps run, final step "
+                             f"{summary['final_step']}")
+    if set(compares) != set(ADAPTIVE_COMPARE.values()):
+        raise AssertionError(f"compared steps {sorted(compares)}")
+    n_drop = [r["experts_dropped"] for r in steps]
+    log(f"adaptive: whole experts left out by expert dropout per step "
+        f"(summed over {n_moe} MoE layers; their B4 groups empty): {n_drop}")
+    if not n_drop[8] or any(n_drop[:8]) or any(n_drop[9:]):
+        raise AssertionError("expert dropout did not empty B4 groups in "
+                             "exactly the step it was on")
+    lr_override = trainer._lr_override
+    if any(abs(r["lr"] - lr_override) > 1e-6 * lr_override
+           for r in steps[3:]):
+        raise AssertionError(f"the LR override {lr_override} did not hold: "
+                             f"{[r['lr'] for r in steps]}")
+    if digests["saved"] != digests["restored"]:
+        raise AssertionError(f"rollback restored {digests['restored']}, the "
+                             f"forced save held {digests['saved']}")
+    log(f"adaptive: rollback to step {digests['restored'][0]} restored the "
+        f"parameters of the prune's forced save bitwise (sha256 "
+        f"{digests['saved'][1][:16]})")
+    experts = [r["experts"] for r in steps]
+    per_step = {k: want[k] * len(steps) for k in want}
+    run = {k: total[k] - compare_launches[k] for k in total}
+    if run != per_step:
+        raise AssertionError(f"launches {run}, want {per_step}")
+    log(f"adaptive: launches per step {want} in all {len(steps)} steps; "
+        f"totals {run} (plus {compare_launches} in the plain re-runs); E "
+        f"over the run {experts}")
+    for e, kern in zip(flash_entries + gmm_entries,
+                       ("B1", "B2", "B3", "B4a", "B4b")):
+        e["launches"] = (e["launches"] or 0) + run[kern]
+        e["launches_adaptive"] = run[kern]
+
+    steady = statistics.median(steps[n - 1]["ms"] for n in STEADY_STEPS)
+    tokens = cfg.batch_size * cfg.seq_length
+    after = {f"{n}:{steps[n - 1]['decision']}": steps[n]["ms"]
+             for n in sorted(ADAPTIVE_SCRIPT)}
+    log(f"adaptive: steady step (median of steps {STEADY_STEPS}) "
+        f"{steady:.1f} ms, {tokens / steady * 1e3:.0f} tokens/s ({smi})")
+    for n in sorted(ADAPTIVE_SCRIPT):
+        r = steps[n]
+        log(f"  step after {steps[n - 1]['decision']}: {r['ms']:.1f} ms "
+            f"({100 * (r['ms'] / steady - 1):+.1f}% of steady)")
+    ck = trainer.checkpoints
+    for s_ in ck.save_log:
+        log(f"  save step {s_['step']}: {s_['seconds']:.2f} s "
+            f"({s_['host_copy_seconds']:.2f} s host copy), "
+            f"{s_['bytes'] / 1e9:.2f} GB")
+    for s_ in ck.restore_log:
+        log(f"  restore step {s_['step']}: {s_['seconds']:.2f} s, "
+            f"{s_['bytes'] / 1e9:.2f} GB")
+    gp = summary["goodput"]["seconds"]
+    decisions = summary["adaptive_decisions"]
+    log("adaptive: goodput " + ", ".join(f"{c} {gp[c]:.2f} s" for c in gp
+                                         if gp[c] > 0)
+        + f"; peak memory {peak_gb:.2f} GB")
+    log(f"adaptive: decisions {json.dumps(decisions)}")
+    if len(decisions) != len(ADAPTIVE_SCRIPT) or not all(
+            d["applied"] for d in decisions):
+        raise AssertionError(f"decisions {decisions}")
+    trainer.close()
+    wall = time.perf_counter() - t_phase
+    log(f"adaptive: phase wall {wall:.1f} s ({smi})")
+    return {"steps": steps, "steady_ms": steady,
+            "tokens_per_s": tokens / steady * 1e3, "after_ms": after,
+            "compares": compares, "experts": experts,
+            "experts_dropped": n_drop,
+            "saves": ck.save_log, "restores": ck.restore_log,
+            "goodput_seconds": gp, "peak_memory_gb": peak_gb,
+            "decisions": decisions, "wall_s": wall, "card": smi}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--runtime-child"]:
         return runtime_child(sys.argv[2:])
@@ -1945,19 +2317,19 @@ def main() -> int:
         shutil.rmtree(RUN_DIR / "train_moe")
         _release()
         runtime = phase_runtime(dev, entry, flash_entries)
+        # Phase 7's runs and checkpoints go; its corpus feeds phase 8.
+        for run in ("A", "B"):
+            shutil.rmtree(RUN_DIR / run)
+        _release()
+        adaptive = phase_adaptive(dev, flash_entries, gmm_entries)
     finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s: "
         f"serve {serve}; serve_moe {serve_moe}; train {json.dumps(train)}; "
-        f"train_moe {json.dumps(train_moe)}; runtime {json.dumps(runtime)}")
+        f"train_moe {json.dumps(train_moe)}; runtime {json.dumps(runtime)}; "
+        f"adaptive {json.dumps(adaptive)}")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi unavailable: {smi.stderr.strip()}")
+    print(_smi())
     print(json.dumps({"kernels": [entry, *flash_entries, *gmm_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

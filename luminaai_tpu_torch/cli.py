@@ -8,12 +8,21 @@
   python -m luminaai_tpu_torch serve --preset b1 --moe-dispatch gmm --seed 0
   python -m luminaai_tpu_torch train --preset debug --moe-dispatch gmm \\
       --synthetic --steps 3 --device cpu --output-dir /tmp/run
+  python -m luminaai_tpu_torch train --config run.json --no-adaptive
 
 The presets are mixture-of-experts models, as in the JAX package; --dense
 builds the preset's widths without experts. The model is built on the card
 unless --device says otherwise.
 
-`train` takes the JAX CLI's flags that apply to one card. --data is a
+`train` takes the JAX CLI's flags that apply to one card. It runs under
+the AdaptiveTrainingOrchestrator (training/orchestrator.py) unless given
+--no-adaptive, as the JAX CLI does: the orchestrator watches the loss,
+grad norm and router metrics at each log boundary and may change the LR,
+weight decay, clip norm, MoE capacity, routing temperature, expert
+dropout, the data curriculum or the number of experts, or roll back; the
+summary then carries its `adaptive_decisions` and loss `trajectory`.
+--config FILE.json (or .yaml) loads a Config saved by either package in
+place of --preset; the other flags override it. --data is a
 jsonl of conversations, or with --packed a jsonl of {"text": ...}
 documents tokenized once into a memmap TokenCache under
 OUTPUT_DIR/cache/ and packed into [batch, seq] rows; without --data it
@@ -30,6 +39,7 @@ config saved in it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import signal
@@ -70,6 +80,12 @@ def _model_overrides(args) -> Dict[str, object]:
 def _train_flags(t: argparse.ArgumentParser) -> None:
     t.add_argument("--preset", default="debug",
                    choices=ConfigPresets.available())
+    t.add_argument("--config",
+                   help="json/yaml config file (in place of --preset)")
+    t.add_argument("--experiment", help="experiment name")
+    t.add_argument("--adaptive", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="run under the adaptive orchestrator")
     t.add_argument("--dense", action="store_true",
                    help="train the preset's widths without experts")
     _moe_dispatch_flag(t)
@@ -246,12 +262,15 @@ def _train_config(args) -> Config:
         ("output_dir", "output_dir"),
         ("grad_accum", "gradient_accumulation_steps"),
         ("tokenizer", "tokenizer_name"),
+        ("experiment", "experiment_name"),
     ]:
         val = getattr(args, flag)
         if val is not None:
             overrides[field] = val
     if args.no_flash:
         overrides["use_flash_attention"] = False
+    if args.config:
+        return dataclasses.replace(Config.load(args.config), **overrides)
     return ConfigPresets.get(args.preset, **overrides)
 
 
@@ -313,6 +332,9 @@ def _install_signal_handlers(trainer) -> None:
 
 
 def train(args) -> int:
+    from luminaai_tpu_torch.training.orchestrator import (
+        AdaptiveTrainingOrchestrator,
+    )
     from luminaai_tpu_torch.training.scaler import ChinchillaScaler
     from luminaai_tpu_torch.training.trainer import Trainer
 
@@ -352,7 +374,10 @@ def train(args) -> int:
     trainer = Trainer(cfg, train_data=train_fn, eval_data=eval_fn,
                       device=args.device, seed=args.seed)
     _install_signal_handlers(trainer)
-    if args.oom_protect:
+    if args.adaptive:
+        orchestrator = AdaptiveTrainingOrchestrator(trainer)
+        summary = orchestrator.run(oom_protect=args.oom_protect)
+    elif args.oom_protect:
         summary = trainer.train_with_oom_protection()
     else:
         summary = trainer.train()

@@ -1,26 +1,38 @@
 """Configuration for the PyTorch/CUDA port (trimmed copy of luminaai_tpu/config.py).
 
-The port keeps its own copy of the fields its serving, training and
-training-runtime slices read (checkpoints, data, monitoring, retry and
-watchdog), with the JAX package's names, defaults and validation, so a
-`Config` built with the same keyword arguments describes the same model
-and the same training run on both sides, and `to_dict()` of both agrees
-on the shared keys. Fields for parallelism, serving extras and the
-adaptive orchestrator stay in the JAX package until the slices that need
-them are ported. Values the port does not run
-yet are accepted here, as the JAX package accepts them, and refused where
-a model is built (MoE dispatch modes other than sort and gmm, mixture of
-depths: models/transformer.py) or a trainer is built
-(parallel/train_step.py `check_trainable`).
+The port keeps its own copy of the fields its serving, training,
+training-runtime and adaptive-training slices read (checkpoints, data,
+monitoring, retry, watchdog and the orchestrator's switches), with the
+JAX package's names, defaults and validation, so a `Config` built with
+the same keyword arguments describes the same model and the same training
+run on both sides, and `to_dict()` of both agrees on the shared keys
+once written as JSON (the port's gives the schedule tuple as a list).
+`save` / `load` write and read it as JSON (YAML where `yaml` imports), as
+the JAX Config does, and `load` drops the keys this copy does not know, so
+a JAX config file loads here. Fields for parallelism and serving extras
+stay in the JAX package until the slices that need them are ported. Values
+the port does not run yet are accepted here, as the JAX package accepts
+them, and refused where a model is built (MoE dispatch modes other than
+sort and gmm, mixture of depths: models/transformer.py) or a trainer is
+built (parallel/train_step.py `check_trainable`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
 import torch
+
+try:  # optional, as in the JAX package: YAML config files where it imports
+    import yaml
+
+    _HAS_YAML = True
+except ImportError:  # pragma: no cover - depends on the environment
+    _HAS_YAML = False
 
 PRECISIONS = ("auto", "fp32", "bf16", "mixed_bf16", "fp16", "mixed_fp16")
 LR_SCHEDULES = ("cosine", "linear", "constant", "wsd")
@@ -88,6 +100,7 @@ class Config:
 
     # --- MoD (accepted, refused where the model is built; not ported) ---
     use_mod: bool = False
+    mod_capacity_factor: float = 0.5
 
     # --- Training ---
     batch_size: int = 8  # sequences per optimizer step
@@ -152,6 +165,7 @@ class Config:
     health_check_interval: int = 100
     loss_spike_threshold: float = 2.0
     grad_norm_threshold: float = 100.0
+    expert_collapse_threshold: float = 0.05
     # Goodput ledger + hang watchdog + step-time anomaly sentinel: the
     # ledger attributes every second of the run to a cause; the watchdog
     # heartbeats at the log-window sync and fires when a beat gap exceeds
@@ -184,12 +198,39 @@ class Config:
     data_quarantine: bool = True
     data_quarantine_max_rate: float = 0.05
 
+    # --- Adaptive control (training/orchestrator.py; JAX config.py:447-474) ---
+    enable_adaptive_lr: bool = True
+    allow_scheduler_override: bool = True
+    min_override_threshold: float = 0.2
+    emergency_override_enabled: bool = True
+    log_lr_decisions: bool = True
+    enable_architecture_evolution: bool = False
+    # Runtime capacity-factor / routing-temperature tuning (each change
+    # rebuilds the step).
+    enable_moe_routing_optimization: bool = True
+    # The orchestrator may raise AdamW weight decay on a slow sustained
+    # loss rise.
+    enable_adaptive_wd: bool = True
+    # Gradient-noise-driven growth of the batch (opt-in).
+    enable_batch_size_optimization: bool = False
+    # Phase-scheduled MoD compute ratio: accepted, but it cannot fire while
+    # use_mod is refused where the model is built.
+    enable_mod_capacity_adaptation: bool = False
+    mod_capacity_schedule: tuple = (0.7, 0.5, 0.3)
+    # Learning-velocity curriculum: the orchestrator forwards the
+    # recommended difficulty to a loader with set_difficulty (PackedDataset
+    # maps it to a doc-length quantile at the next epoch).
+    enable_adaptive_curriculum: bool = False
+    intervention_cooldown_steps: int = 200
+
     # --- Chinchilla scaling ---
     use_chinchilla_scaling: bool = False
     tokens_per_param: float = 20.0
     convergence_patience: int = 5
 
     def __post_init__(self):
+        if isinstance(self.mod_capacity_schedule, list):  # from JSON
+            self.mod_capacity_schedule = tuple(self.mod_capacity_schedule)
         if self.num_kv_heads is None:
             self.num_kv_heads = self.num_heads
         if self.intermediate_size is None:
@@ -275,7 +316,11 @@ class Config:
         return self.hidden_size // self.num_heads
 
     def to_dict(self) -> Dict[str, Any]:
-        return dataclasses.asdict(self)
+        """The fields as JSON types (the schedule tuple as a list), so a
+        checkpoint's metadata reads back equal."""
+        d = dataclasses.asdict(self)
+        d["mod_capacity_schedule"] = list(self.mod_capacity_schedule)
+        return d
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "Config":
@@ -283,6 +328,27 @@ class Config:
         metadata): keys this copy does not know are dropped."""
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
+
+    def save(self, path: str) -> None:
+        """Write to_dict() as JSON (YAML for .yaml/.yml where yaml
+        imports), as the JAX Config.save does."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        d = self.to_dict()
+        with open(path, "w") as f:
+            if path.endswith((".yaml", ".yml")) and _HAS_YAML:
+                yaml.safe_dump(d, f, sort_keys=False)
+            else:
+                json.dump(d, f, indent=2)
+
+    @classmethod
+    def load(cls, path: str) -> "Config":
+        """A Config from a file Config.save (of either side) wrote."""
+        with open(path) as f:
+            if path.endswith((".yaml", ".yml")) and _HAS_YAML:
+                d = yaml.safe_load(f)
+            else:
+                d = json.load(f)
+        return cls.from_dict(d)
 
     def estimate_parameters(self) -> int:
         """Total parameter count (the JAX Config.estimate_parameters; the

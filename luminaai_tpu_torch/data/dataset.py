@@ -548,6 +548,7 @@ class PackedDataset:
         self.process_index = process_index
         self.process_count = process_count
         self.local_batch = batch_size // process_count
+        self.difficulty: Optional[float] = None
         # Exact-resume position: epoch = completed passes, batch_index =
         # batches yielded in the pass currently underway. load_state_dict
         # arms a one-shot fast-forward applied by the next __iter__.
@@ -559,21 +560,47 @@ class PackedDataset:
         per_batch = self.batch_size * self.seq_length
         return max(1, self.cache.n_tokens // per_batch)
 
-    def _global_order(self) -> np.ndarray:
+    def set_difficulty(self, difficulty: float) -> None:
+        """Length-quantile curriculum (the orchestrator's consumer of the
+        AdaptiveCurriculum signal): difficulty d admits documents up to
+        the d-quantile of the doc length distribution, short docs first.
+        Deterministic from shared metadata, so multi-process shards stay
+        disjoint and in lockstep. Applies to the NEXT epoch's iteration:
+        __iter__ snapshots the value once, so the lockstep cap and every
+        wrap re-walk of a running epoch use the same filter."""
+        self.difficulty = float(np.clip(difficulty, 0.0, 1.0))
+
+    # Sentinel: helpers read self.difficulty unless an iterator passes its
+    # epoch snapshot explicitly.
+    _LIVE = object()
+
+    def _global_order(self, difficulty=_LIVE) -> np.ndarray:
         """The one doc order every host derives identically (shared seed),
-        so the per-host strides below are disjoint + exhaustive."""
+        so the per-host strides below are disjoint + exhaustive; with a
+        difficulty below 1, only the docs up to its length quantile."""
+        if difficulty is PackedDataset._LIVE:
+            difficulty = self.difficulty
         n = self.cache.n_docs
         if self.shuffle_seed is not None:
-            return np.asarray(shuffle_indices(n, self.shuffle_seed))
-        return np.arange(n)
+            order = np.asarray(shuffle_indices(n, self.shuffle_seed))
+        else:
+            order = np.arange(n)
+        if difficulty is not None and difficulty < 1.0:
+            doclens = np.diff(self.cache.offsets)
+            cutoff = np.quantile(doclens, max(difficulty, 0.05))
+            keep = doclens[order] <= cutoff
+            if keep.any():  # never filter down to an empty epoch
+                order = order[keep]
+        return order
 
-    def _doc_order(self, host: int, wrap: int = 0) -> np.ndarray:
+    def _doc_order(self, host: int, wrap: int = 0,
+                   difficulty=_LIVE) -> np.ndarray:
         """Doc ids host `host` walks this epoch (its stride of the global
         order). `wrap` permutes the host's OWN shard for a re-walk after
         an early pack-out — never a different global order, so a wrapped
         host still reads only its shard, and the re-walk isn't a
         byte-identical replay."""
-        shard = self._global_order()[host::self.process_count]
+        shard = self._global_order(difficulty)[host::self.process_count]
         if wrap and len(shard) > 1:
             perm = np.asarray(shuffle_indices(
                 len(shard), (self.shuffle_seed or 0) + 7919 * wrap
@@ -581,13 +608,13 @@ class PackedDataset:
             shard = shard[perm]
         return shard
 
-    def _lockstep_batches(self) -> int:
+    def _lockstep_batches(self, difficulty=_LIVE) -> int:
         """Per-epoch batch count every host agrees on, from metadata only:
         min over hosts of (shard tokens // local batch tokens). Computed
         identically everywhere (shared offsets table + shared seed), so
         no communication is needed to stay in lockstep."""
         doclens = np.diff(self.cache.offsets)
-        order = self._global_order()
+        order = self._global_order(difficulty)
         per_batch = self.local_batch * self.seq_length
         return min(
             int(doclens[order[q::self.process_count]].sum()) // per_batch
@@ -597,14 +624,16 @@ class PackedDataset:
     # -- exact-resume state (docs/resilience.md) -------------------------
     def state_dict(self) -> Dict[str, Any]:
         """Checkpointable iteration position. Everything that determines
-        the batch stream is here: the shared shuffle seed and the
-        (epoch, batch_index) cursor. Restoring it and re-iterating yields
-        the exact continuation of the interrupted stream."""
+        the batch stream is here: the shared shuffle seed, the difficulty
+        (the curriculum filter changes the doc order), and the (epoch,
+        batch_index) cursor. Restoring it and re-iterating yields the
+        exact continuation of the interrupted stream."""
         return {
             "kind": "packed",
             "epoch": self._epoch,
             "batch_index": self._batch_index,
             "shuffle_seed": self.shuffle_seed,
+            "difficulty": self.difficulty,
         }
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
@@ -619,6 +648,10 @@ class PackedDataset:
             )
         if "shuffle_seed" in state:
             self.shuffle_seed = state["shuffle_seed"]
+        if state.get("difficulty") is not None:
+            self.set_difficulty(float(state["difficulty"]))
+        else:
+            self.difficulty = None
         self._epoch = int(state.get("epoch", 0))
         self._resume_skip = int(state.get("batch_index", 0))
         self._batch_index = self._resume_skip
@@ -638,7 +671,13 @@ class PackedDataset:
         self._batch_index = 0
 
     def _iter_epoch(self) -> Iterator[Dict[str, np.ndarray]]:
-        if self.process_count == 1 and self.shuffle_seed is None:
+        # Snapshot once: a mid-epoch set_difficulty must not change the
+        # wrap re-walk order after the lockstep cap was computed from the
+        # old one (a host would run short and desync the others).
+        difficulty = self.difficulty
+        filtered = difficulty is not None and difficulty < 1.0
+        if (self.process_count == 1 and self.shuffle_seed is None
+                and not filtered):
             # Fast path: sequential cursor straight over the memmap, no
             # per-doc copies.
             offsets = self.cache.offsets
@@ -662,18 +701,19 @@ class PackedDataset:
             return
         if self.process_count == 1:
             yield from self._iter_docs(
-                self._doc_order(0), self.batch_size
+                self._doc_order(0, difficulty=difficulty), self.batch_size
             )
             return
         # Multi-host: fixed agreed batch count; wrap own shard if it packs
         # short (possible in truncate mode, where row-boundary waste makes
         # the metadata estimate an upper bound).
-        cap = self._lockstep_batches()
+        cap = self._lockstep_batches(difficulty)
         count = 0
         wrap = 0
         while count < cap:
             produced = False
-            order = self._doc_order(self.process_index, wrap)
+            order = self._doc_order(self.process_index, wrap,
+                                    difficulty=difficulty)
             for b in self._iter_docs(order, self.local_batch):
                 produced = True
                 yield b
@@ -774,8 +814,9 @@ class PrefetchLoader:
     ):
         self.batch_fn = batch_fn
         self.prefetch = max(1, prefetch)
-        # The dataset behind batch_fn, whose own state (its shuffle seed)
-        # rides in state_dict.
+        # The dataset behind batch_fn: its own state (shuffle seed,
+        # difficulty) rides in state_dict, and curriculum signals
+        # (set_difficulty) are forwarded to it.
         self.source = source
         self._epoch = 0  # next epoch to hand out
         self._consuming = 0  # epoch the current/most recent iterator serves
@@ -798,6 +839,15 @@ class PrefetchLoader:
         except (TypeError, ValueError):  # builtins / C callables
             self._epoch_aware = False
 
+    def set_difficulty(self, difficulty: float) -> bool:
+        """Forward a curriculum difficulty to the source; False when it
+        has no curriculum."""
+        target = getattr(self.source, "set_difficulty", None)
+        if callable(target):
+            target(difficulty)
+            return True
+        return False
+
     def consume_resume_replay_seconds(self) -> float:
         """Drain the wall clock spent fast-forwarding past resumed
         batches since the last call (0.0 when no resume replay ran).
@@ -808,8 +858,8 @@ class PrefetchLoader:
 
     # -- exact-resume state (docs/resilience.md) -------------------------
     def state_dict(self) -> Dict[str, Any]:
-        """Loader position + the source's own state (the seed for
-        PackedDataset). epoch/batch_index count batches YIELDED to the
+        """Loader position + the source's own state (seed and difficulty
+        for PackedDataset). epoch/batch_index count batches YIELDED to the
         consumer, so a standalone round-trip continues the stream
         exactly. The trainer still overwrites them with its
         trained-batch cursor at save time — its device prefetch consumes

@@ -1,21 +1,28 @@
-"""Chinchilla compute-optimal scaling + convergence detection (the port's
-copy of luminaai_tpu/training/scaler.py).
+"""Chinchilla compute-optimal scaling, convergence detection, the
+adaptive curriculum and compute-efficiency tracking (the port's copy of
+luminaai_tpu/training/scaler.py).
 
 Covers the reference ChinchillaScaler (ref: Src/Main_Scripts/training/
 chinchilla_scaler.py — optimal token budget = tokens_per_param × N, epoch/
-step derivation from dataset size, convergence detector with patience).
-Pure host-side planning: it shapes the step budget the Trainer runs to;
-nothing here touches the device. The adaptive curriculum and the
-compute-efficiency tracker come with the orchestrator that calls them
-(ROADMAP A5).
+step derivation from dataset size, convergence detector with patience,
+learning-velocity curriculum, compute-efficiency tracking). Pure host-side
+planning: nothing here touches the device.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import math
+import time
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
+import numpy as np
+
 from luminaai_tpu_torch.config import Config
+
+# Dense bf16 tensor-core peak of an H100 SXM, FLOP/s (the figure PERF.md
+# and chip_smoke.py divide model FLOPs by).
+H100_BF16_PEAK_FLOPS = 989e12
 
 
 @dataclass
@@ -71,6 +78,43 @@ class ChinchillaScaler:
         return plan.recommended_steps
 
 
+class AdaptiveCurriculum:
+    """Learning-velocity → difficulty signal (ref chinchilla_scaler.py:155
+    AdaptiveCurriculumManager).
+
+    Velocity is the recent mean per-update loss reduction. Difficulty in
+    [0.2, 0.9] rises while the model is learning fast and falls back
+    toward easy data when progress stalls. The orchestrator applies it:
+    PackedDataset's length-quantile curriculum admits documents up to the
+    difficulty quantile of the length distribution at the next epoch.
+    """
+
+    def __init__(self, window: int = 50, recent: int = 10):
+        self.window = window
+        self.recent = recent
+        self._velocity: List[float] = []
+        self._prev_loss: Optional[float] = None
+
+    def update(self, loss: float) -> None:
+        if not math.isfinite(loss):
+            return
+        if self._prev_loss is not None:
+            self._velocity.append(self._prev_loss - loss)
+            if len(self._velocity) > self.window:
+                self._velocity = self._velocity[-self.window:]
+        self._prev_loss = loss
+
+    def difficulty(self) -> float:
+        """Recommended difficulty in [0.2, 0.9]; 0.3 until warmed up. The
+        two branches meet at velocity 0, so the map is continuous."""
+        if len(self._velocity) < self.recent:
+            return 0.3
+        v = float(np.mean(self._velocity[-self.recent:]))
+        if v >= 0.0:
+            return min(0.9, 0.5 + v * 20.0)
+        return max(0.2, 0.5 - abs(v) * 10.0)
+
+
 class ConvergenceDetector:
     """Early-stop signal on flattening eval loss (ref convergence detector).
 
@@ -105,3 +149,42 @@ class ConvergenceDetector:
             return False
         self.stale += 1
         return self.stale >= self.patience
+
+
+@dataclass
+class ComputeEfficiencyTracker:
+    """Achieved vs peak FLOPs (MFU) (ref compute-efficiency tracker).
+
+    Peak defaults to the H100's dense bf16 tensor-core rate (989 TFLOP/s
+    per card); pass `peak_flops` for other parts. Model FLOPs use the
+    standard 6·N·T transformer estimate on ACTIVE params.
+    """
+
+    active_params: int
+    n_chips: int = 1
+    peak_flops: float = H100_BF16_PEAK_FLOPS
+    _samples: List[Dict[str, float]] = field(default_factory=list)
+
+    def record(self, tokens: int, seconds: float) -> Dict[str, float]:
+        model_flops = 6.0 * self.active_params * tokens
+        achieved = model_flops / max(seconds, 1e-9)
+        mfu = achieved / (self.peak_flops * self.n_chips)
+        sample = {
+            "tokens_per_sec": tokens / max(seconds, 1e-9),
+            "tflops_per_sec": achieved / 1e12,
+            "mfu": mfu,
+            "ts": time.time(),
+        }
+        self._samples.append(sample)
+        return sample
+
+    def summary(self) -> Dict[str, float]:
+        if not self._samples:
+            return {}
+        n = len(self._samples)
+        return {
+            "mean_mfu": sum(s["mfu"] for s in self._samples) / n,
+            "mean_tokens_per_sec": sum(s["tokens_per_sec"]
+                                       for s in self._samples) / n,
+            "samples": n,
+        }

@@ -23,6 +23,23 @@ The runtime around the loop, as in the JAX package:
   - the non-finite fence: three non-finite losses in a row roll back to
     the newest checkpoint strictly before the first, or abort with an
     emergency save;
+  - the adaptive hooks the orchestrator (training/orchestrator.py) calls
+    from `step_callback`, which the loop calls at each log boundary with
+    the step's scalars and the `expert_utilization` vector:
+    adjust_learning_rate (a constant schedule, the moments kept),
+    adjust_weight_decay (AdamW rebuilt over the same moments and count),
+    set_grad_clip, adjust_capacity_factor, adjust_routing_temperature,
+    enable_expert_dropout, set_data_difficulty (the loader's
+    curriculum), rollback (to a checkpoint at or after
+    `_min_restorable_step`) and evolve_experts (the model rebuilt with
+    one expert more or fewer, the moments reset, the count kept at the
+    step, older checkpoints fenced off, a forced save). Each rebuilds the
+    steps it changes against `_active_schedule`, so an LR override
+    survives later rebuilds, and records itself in `interventions`;
+  - the router-health export at each log boundary (moe_expert_load
+    {expert}, moe_router_entropy, moe_max_expert_share, moe_drop_rate
+    gauges and a router_health event), from the values the step's sync
+    already brought to the host;
   - `train_with_oom_protection`: on torch.cuda.OutOfMemoryError split the
     micro-batches, then halve the batch;
   - the goodput ledger (compile = the first step until its sync,
@@ -35,10 +52,10 @@ tokens_seen, tokens_per_sec, final_metrics, health, interventions,
 preempted, resumed_exact_data_state, goodput) and adds the per-step
 history.
 
-Not ported (ROADMAP): the adaptive orchestrator's adjust_* hooks,
-evolve_experts, rollback by hand, the router-health export, the SLO
-engine and time-series ring, span tracing and profiling windows; the
-scan-layer compile fallback and compiled-cost export are XLA's own.
+Not ported (ROADMAP): adjust_mod_capacity (mixture of depths is refused
+where the model is built), the SLO engine and time-series ring, span
+tracing and profiling windows; the scan-layer compile fallback and
+compiled-cost export are XLA's own.
 """
 
 from __future__ import annotations
@@ -74,7 +91,11 @@ from luminaai_tpu_torch.parallel.train_step import (
     make_train_step,
 )
 from luminaai_tpu_torch.training.checkpoint import CheckpointManager
-from luminaai_tpu_torch.training.optimizer import make_optimizer, make_schedule
+from luminaai_tpu_torch.training.optimizer import (
+    constant_schedule,
+    make_optimizer,
+    make_schedule,
+)
 from luminaai_tpu_torch.training.precision import PrecisionManager
 from luminaai_tpu_torch.utils.retry import RetryPolicy, set_default_policy
 
@@ -232,6 +253,11 @@ class Trainer:
         self._epochs_without_improvement = 0
         self._consecutive_nonfinite = 0
         self._first_nonfinite_step: Optional[int] = None
+        self._lr_override: Optional[float] = None
+        self._active_schedule = self.schedule  # reflects any LR override
+        # Checkpoints older than this are shape-incompatible (expert
+        # evolution changed the parameters) and must never be restored.
+        self._min_restorable_step = 0
         self._interventions: list = []
         # Exact-resume data cursor, counted per TRAINED batch (the loader
         # prefetches ahead; only the consumer knows what entered a step).
@@ -243,9 +269,14 @@ class Trainer:
         # True while the state, global_step and the data cursor disagree:
         # from the start of a step (the optimizer updates the parameters
         # and moments in place, one tensor at a time) until the cursor has
-        # counted it, and while a rollback copies a checkpoint in. A
-        # forced save must not snapshot the state then.
+        # counted it, and while a rollback copies a checkpoint in or an
+        # expert evolution swaps the model. A forced save must not
+        # snapshot the state then.
         self._state_in_flux = False
+        # Orchestrator hook: called with (step, scalar metrics) at each
+        # log boundary; may call the adaptive hooks below.
+        self.step_callback: Optional[
+            Callable[[int, Dict[str, Any]], None]] = None
 
         if config.auto_resume:
             self.maybe_resume()
@@ -281,7 +312,8 @@ class Trainer:
             # The latest checkpoint is corrupt or partial: count it and
             # walk back to the newest intact older step.
             self.checkpoints._m_fallbacks.inc()
-            older = [s for s in self.checkpoints.all_steps() if s < step]
+            older = [s for s in self.checkpoints.all_steps()
+                     if s < step and s >= self._min_restorable_step]
             if not older:
                 raise
             logger.warning(
@@ -292,6 +324,7 @@ class Trainer:
             with self.goodput.region("checkpoint"):
                 self.state, used, _ = self.checkpoints.restore_with_fallback(
                     self.state, step=max(older),
+                    min_step=self._min_restorable_step,
                 )
         self.global_step = int(self.state.step)
         self._load_data_state(used)
@@ -391,17 +424,189 @@ class Trainer:
         self._dump_flight_record(reason)
         return ok
 
-    def _rebuild_steps(self, reason: str) -> None:
-        """Rebuild the train/eval steps against the (mutated) config; a
-        new step is a new timing regime for the sentinel and watchdog."""
-        self.train_step = make_train_step(self.config, self.model,
-                                          self.schedule, self.tx)
-        self.eval_step = make_eval_step(self.config, self.model)
-        self._m_recompiles.labels(reason=reason).inc()
-        self.recorder.emit("recompile", step=self.global_step, reason=reason)
+    def _count_recompile(self, reason: str) -> None:
+        """Count a step rebuild by cause; a new step is a new timing
+        regime for the sentinel and watchdog."""
+        self._m_recompiles.labels(reason=reason or "config_change").inc()
+        self.recorder.emit("recompile", step=self.global_step,
+                           reason=reason or "config_change")
         self._sentinel.reset()
         if self.watchdog is not None:
             self.watchdog.skip_next()
+
+    def _rebuild_train_step(self, reason: str) -> None:
+        self.train_step = make_train_step(self.config, self.model,
+                                          self._active_schedule, self.tx)
+        self._count_recompile(reason)
+
+    def _rebuild_steps(self, reason: str = "config_change") -> None:
+        """Rebuild the train/eval steps against the (mutated) config and
+        the active schedule (an LR override stays in force)."""
+        self.eval_step = make_eval_step(self.config, self.model)
+        self._rebuild_train_step(reason)
+
+    # -- adaptive hooks (called by the orchestrator) ----------------------
+    def adjust_learning_rate(self, new_lr: float, reason: str = "") -> None:
+        """Override the schedule with a constant LR. The Adam moments and
+        count survive: only the learning-rate factor changes."""
+        logger.warning("LR override -> %.3g (%s)", new_lr, reason)
+        self._lr_override = new_lr
+        self._active_schedule = constant_schedule(new_lr)
+        self.tx = make_optimizer(self.config, self.total_steps,
+                                 self._active_schedule)
+        self._rebuild_train_step("lr_override")
+        self._interventions.append(
+            {"step": self.global_step, "kind": "lr_override", "lr": new_lr,
+             "reason": reason})
+
+    def evolve_experts(self, action: str, expert_idx: Optional[int] = None,
+                       reason: str = "") -> bool:
+        """Add or prune an MoE expert mid-run: parameter surgery
+        (training/evolution.py) into a model rebuilt with num_experts ± 1,
+        the Adam moments reset (the expert axis changed shape) with the
+        count kept at the step, so the schedule does not replay warmup;
+        older checkpoints are fenced off and a forced save banks the new
+        architecture. False when the change is infeasible."""
+        from luminaai_tpu_torch.training.evolution import (
+            evolution_feasible,
+            grow_expert,
+            prune_expert,
+        )
+
+        cfg = self.config
+        new_E = cfg.num_experts + (1 if action == "add_expert" else -1)
+        ok, why = evolution_feasible(cfg, new_E)
+        if not ok:
+            logger.warning("expert evolution skipped: %s", why)
+            return False
+        params = dict(zip(self.state.names, self.state.params))
+        if action == "add_expert":
+            gen = torch.Generator(device=self.device).manual_seed(
+                int(self.seed) + self.global_step)
+            new_params = grow_expert(params, gen)
+        else:
+            if expert_idx is None:
+                raise ValueError("prune requires expert_idx")
+            new_params = prune_expert(params, expert_idx)
+        old = self.state
+        self._state_in_flux = True
+        cfg.num_experts = new_E
+        model = LuminaTransformer(cfg, device=self.device, trainable=True)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(new_params[name])
+        del params, new_params
+        self.model = model
+        self.tx = make_optimizer(cfg, self.total_steps,
+                                 self._active_schedule)
+        state = init_train_state(model, self.tx, self.seed)
+        state.step = state.opt_state.count = old.step  # no warmup replay
+        state.generator = old.generator  # the routing draws go on
+        self.state = state
+        del old
+        self._rebuild_steps("expert_evolution")
+        self._state_in_flux = False
+        logger.warning("%s -> %d experts (%s); optimizer moments reset",
+                       action, new_E, reason)
+        self._interventions.append(
+            {"step": self.global_step, "kind": action, "num_experts": new_E,
+             "reason": reason})
+        # Older checkpoints are now shape-incompatible: fence them off and
+        # bank a restorable post-surgery checkpoint at once.
+        self._min_restorable_step = self.global_step
+        self.save_checkpoint(force=True)
+        return True
+
+    def adjust_capacity_factor(self, new_factor: float,
+                               reason: str = "") -> None:
+        """Change the MoE capacity factor (a shape of the expert buffers;
+        the parameters are untouched)."""
+        cfg = self.config
+        if not cfg.use_moe:
+            logger.warning("cannot adjust capacity factor: MoE not enabled")
+            return
+        old = cfg.capacity_factor
+        cfg.capacity_factor = float(new_factor)
+        self._rebuild_steps("capacity_factor")
+        logger.warning("capacity factor %.2f -> %.2f (%s)", old, new_factor,
+                       reason)
+        self._interventions.append(
+            {"step": self.global_step, "kind": "capacity_factor",
+             "from": old, "to": new_factor, "reason": reason})
+
+    def adjust_routing_temperature(self, new_temp: float,
+                                   reason: str = "") -> None:
+        """Change the MoE routing temperature (higher = more uniform)."""
+        cfg = self.config
+        if not cfg.use_moe:
+            logger.warning("cannot adjust routing temperature: MoE not "
+                           "enabled")
+            return
+        old = cfg.routing_temperature
+        cfg.routing_temperature = float(new_temp)
+        self._rebuild_steps("routing_temperature")
+        logger.warning("routing temperature %.2f -> %.2f (%s)", old,
+                       new_temp, reason)
+        self._interventions.append(
+            {"step": self.global_step, "kind": "routing_temperature",
+             "from": old, "to": new_temp, "reason": reason})
+
+    def enable_expert_dropout(self, rate: float, reason: str = "") -> None:
+        """Whole-expert dropout mid-run to break expert collapse; rate 0
+        disables. The draws come from the step's generator (one uniform
+        per expert, MoELayer.draw_routing)."""
+        cfg = self.config
+        if not cfg.use_moe:
+            logger.warning("cannot enable expert dropout: MoE not enabled")
+            return
+        rate = float(rate)
+        if not 0.0 <= rate <= 0.5:
+            raise ValueError(f"expert_dropout_rate {rate} not in [0, 0.5]")
+        old = cfg.expert_dropout_rate
+        cfg.expert_dropout_rate = rate
+        # Evaluation routes deterministically: only the train step changes.
+        self._rebuild_train_step("expert_dropout")
+        logger.warning("expert dropout %.2f -> %.2f (%s)", old, rate, reason)
+        self._interventions.append(
+            {"step": self.global_step, "kind": "expert_dropout",
+             "from": old, "to": rate, "reason": reason})
+
+    def adjust_weight_decay(self, new_wd: float, reason: str = "") -> None:
+        """Change AdamW weight decay mid-run: AdamW rebuilt against the
+        mutated config; the moments and count carry over untouched."""
+        old = self.config.weight_decay
+        self.config.weight_decay = float(new_wd)
+        self.tx = make_optimizer(self.config, self.total_steps,
+                                 self._active_schedule)
+        self._rebuild_train_step("weight_decay")
+        logger.warning("weight decay %.3g -> %.3g (%s)", old, new_wd, reason)
+        self._interventions.append(
+            {"step": self.global_step, "kind": "weight_decay",
+             "from": old, "to": new_wd, "reason": reason})
+
+    def set_grad_clip(self, norm: float, reason: str = "") -> None:
+        """Change the gradient-clip norm mid-run."""
+        old = self.config.grad_clip_norm
+        self.config.grad_clip_norm = norm
+        self._rebuild_train_step("grad_clip")
+        logger.warning("grad clip %.3g -> %.3g (%s)", old, norm, reason)
+        self._interventions.append(
+            {"step": self.global_step, "kind": "grad_clip", "from": old,
+             "to": norm, "reason": reason})
+
+    def set_data_difficulty(self, difficulty: float,
+                            reason: str = "") -> bool:
+        """Forward the curriculum difficulty to the data loader (its
+        set_difficulty; PackedDataset maps it to a doc-length quantile).
+        Takes effect at the next epoch; nothing is rebuilt."""
+        target = getattr(self.train_data, "set_difficulty", None)
+        applied = bool(callable(target) and target(difficulty) is not False)
+        if applied:
+            logger.info("data difficulty -> %.2f (%s)", difficulty, reason)
+            self._interventions.append(
+                {"step": self.global_step, "kind": "curriculum",
+                 "to": round(float(difficulty), 3), "reason": reason})
+        return applied
 
     # -- OOM ladder -------------------------------------------------------
     def adjust_microbatch(self, factor: int = 2, reason: str = "") -> bool:
@@ -471,10 +676,20 @@ class Trainer:
                 raise
         raise RuntimeError(f"still OOM after {max_attempts} backoff attempts")
 
-    def _rollback(self, to_step: int, reason: str = "") -> bool:
-        """Restore the newest checkpoint at or before `to_step` (the
-        non-finite fence)."""
-        candidates = [s for s in self.checkpoints.all_steps() if s <= to_step]
+    def rollback(self, to_step: Optional[int] = None,
+                 reason: str = "") -> bool:
+        """Restore the newest checkpoint at or before `to_step` and at or
+        after `_min_restorable_step` (saves from before an expert
+        evolution do not fit the model). A save still being written in
+        the background is waited for and counts. The data stream goes
+        on."""
+        with self.goodput.region("checkpoint"), self._wd_pause():
+            self.checkpoints.wait()
+        candidates = [
+            s for s in self.checkpoints.all_steps()
+            if (to_step is None or s <= to_step)
+            and s >= self._min_restorable_step
+        ]
         if not candidates:
             return False  # never fall forward onto a possibly-tainted save
         target = max(candidates)
@@ -635,7 +850,16 @@ class Trainer:
                     self._m_tps.set(logged["tokens_per_sec"])
                     window_t0, window_tokens, window_steps = now, 0, 0
                     self.monitor.log_step(self.global_step, logged)
+                    self._export_router_health(scalars, logged)
                     last_metrics = logged
+                    if self.step_callback is not None:
+                        cb_metrics = dict(logged)
+                        if "expert_utilization" in scalars:
+                            cb_metrics["expert_utilization"] = np.asarray(
+                                scalars["expert_utilization"])
+                        # May roll back or rebuild the model: the loop
+                        # reads global_step, state and train_step anew.
+                        self.step_callback(self.global_step, cb_metrics)
                     if not np.isfinite(logged.get("loss", 0.0)):
                         stop = self._handle_nonfinite()
                         if stop:
@@ -746,6 +970,63 @@ class Trainer:
                     self.global_step, self._preempted)
         return summary
 
+    # -- router health ----------------------------------------------------
+    def _export_router_health(self, metrics, scalars) -> None:
+        """Per-expert load and router telemetry at log cadence, from the
+        values the step's sync already read: gauges moe_expert_load
+        {expert} (share of kept routed tokens, sums to ~1.0),
+        moe_router_entropy, moe_max_expert_share, moe_drop_rate, and one
+        router_health event per log window."""
+        util = metrics.get("expert_utilization")
+        if util is None:
+            return
+        util = np.asarray(util, dtype=np.float64)
+        E = int(util.shape[-1])
+        total = float(util.sum())
+        # expert_utilization is f*E (1.0 == balanced); normalize to the
+        # kept-token share per expert so the loads sum to ~1.0.
+        load = (util / total) if total > 0 else np.full(E, 1.0 / max(E, 1))
+        r = self.registry
+        if E <= 256:  # bounded gauge cardinality, whatever the config
+            g = r.gauge(
+                "moe_expert_load",
+                "Share of kept routed tokens per expert (sums to ~1.0; "
+                "1/E == balanced)",
+                labelnames=("expert",),
+                max_label_values=256,
+            )
+            for i in range(E):
+                g.labels(expert=str(i)).set(float(load[i]))
+        entropy = scalars.get("moe_router_entropy")
+        if entropy is not None:
+            r.gauge(
+                "moe_router_entropy",
+                "Mean per-token routing entropy (ln(num_experts) == "
+                "uniform, 0 == collapsed)",
+            ).set(entropy)
+        max_share = scalars.get("moe_max_expert_share")
+        if max_share is not None:
+            r.gauge(
+                "moe_max_expert_share",
+                "Hottest expert's share of kept routed tokens",
+            ).set(max_share)
+        drop = scalars.get("moe_drop_rate")
+        if drop is not None:
+            r.gauge(
+                "moe_drop_rate",
+                "Fraction of tokens losing >=1 routing slot to capacity "
+                "(capacity dispatch paths)",
+            ).set(drop)
+        self.recorder.emit(
+            "router_health", step=self.global_step,
+            expert_load=[round(float(x), 4) for x in load],
+            entropy=(round(float(entropy), 4)
+                     if entropy is not None else None),
+            max_share=(round(float(max_share), 4)
+                       if max_share is not None else None),
+            drop_rate=round(float(drop), 4) if drop is not None else None,
+        )
+
     # -- crash forensics ---------------------------------------------------
     def _dump_flight_record(self, reason: str) -> Optional[str]:
         """Dump the flight ring next to the checkpoints. Never raises."""
@@ -766,7 +1047,7 @@ class Trainer:
             )
             return False
         safe = self._first_nonfinite_step - 1
-        if self._rollback(to_step=safe, reason="non-finite loss x3"):
+        if self.rollback(to_step=safe, reason="non-finite loss x3"):
             self._consecutive_nonfinite = 0
             self._first_nonfinite_step = None
             return False

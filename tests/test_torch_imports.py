@@ -93,6 +93,23 @@ def test_runtime_modules_are_scanned():
         assert (PACKAGE / "native" / src).is_file()
 
 
+# The adaptive-training slice: the orchestrator and what it drives.
+ADAPTIVE_MODULES = (
+    "luminaai_tpu_torch.training.orchestrator",
+    "luminaai_tpu_torch.training.evolution",
+    "luminaai_tpu_torch.training.scaler",
+    "luminaai_tpu_torch.training.trainer",
+    "luminaai_tpu_torch.data.dataset",
+)
+
+
+@pytest.mark.parametrize("module", ADAPTIVE_MODULES)
+def test_adaptive_modules_are_scanned(module):
+    assert module in _modules()
+    files = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert module.replace(".", "/") + ".py" in files
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, sys\n"
