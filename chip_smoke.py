@@ -92,6 +92,29 @@ Phases (any failure raises and exits non-zero):
              bitwise those of the forced save. Steady and post-
              intervention step times, E over the run, saves and restore,
              the goodput split, the decisions.
+  9. post-   the post-training path through the CLI in runtime children,
+     training from phase 7's run A checkpoint (run before phase 8, with
+             run B deleted first): `data sample` twice and `data blend`
+             (the blend equal to the same blend run in-process);
+             `finetune` (LoRA rank 8, 6 steps, batch 8 x 2048,
+             --merge-out): exact launches per step B1 32, B2 = B3 16 (the
+             remat recompute), the first step's loss and adapter grad norm
+             within LOSS_RTOL / GRAD_NORM_RTOL of the plain attention's,
+             finite losses, the base parameters bitwise unchanged, the
+             adapter's b factors non-zero, the merged checkpoint's
+             manifest verified; `evaluate` of the base and of the merged
+             checkpoint (4 batches, B1 16 per batch, the same tokens and
+             batches; the merged eval_loss within 1e-5 of an in-memory
+             merge evaluated here); `chat --adapter --prompt` (a reply, B5
+             == decode steps x 16, the first decode step's logits through
+             B5 within LOGIT_RTOL of the plain attention, generate_stream
+             == generate at a seed); B5 at one lane timed beside SDPA.
+             After phase 8: `finetune --adapt-experts --steps 3` on its
+             newest flagship MoE checkpoint (exact B1-B4 launches per
+             step, finite losses, the base unchanged). Step ms, tokens/s,
+             adapter parameters, peak memory, evaluate tokens/s, chat
+             prefill ms and decode tokens/s, each with the card's name
+             and power limit.
 
 Earlier train phases write their checkpoints under chip_smoke_runs/ too,
 and the directory is removed when the script ends.
@@ -1622,7 +1645,11 @@ def runtime_child(argv: list) -> int:
     the flash launches it made, and at the end the launch totals, the
     native data-path counts and the checkpoint saves and restores. With
     --logits PATH, also save the first decode step's logits of an engine
-    built from the trainer's final in-memory weights."""
+    built from the trainer's final in-memory weights. The post-training
+    commands are recorded too (_posttrain_hooks): each LoRA step, with
+    --compare the first one also through the plain attention; the
+    evaluation; and with --chat-checks the chat engine's kernel-vs-plain
+    first decode step, stream-vs-generate tokens and timings."""
     sep = argv.index("--")
     opts, cli_argv = argv[:sep], argv[sep + 1:]
     record_path = Path(opts[0])
@@ -1634,6 +1661,8 @@ def runtime_child(argv: list) -> int:
 
     from luminaai_tpu_torch import cli, native
     from luminaai_tpu_torch.ops import flash_attention as fa
+    from luminaai_tpu_torch.ops import gmm as tg
+    from luminaai_tpu_torch.ops import ragged_paged_attention as rpa
     from luminaai_tpu_torch.training import trainer as tr
 
     out = record_path.open("w")
@@ -1642,7 +1671,9 @@ def runtime_child(argv: list) -> int:
 
     def launches():
         return {"B1": fa.flash_fwd.launches, "B2": fa.flash_bwd_dq.launches,
-                "B3": fa.flash_bwd_dkv.launches}
+                "B3": fa.flash_bwd_dkv.launches, "B4a": tg.gmm.launches,
+                "B4b": tg.tgmm.launches,
+                "B5": rpa.ragged_paged_attention.launches}
 
     def init(self, *a, **kw):
         orig_init(self, *a, **kw)
@@ -1660,7 +1691,8 @@ def runtime_child(argv: list) -> int:
                 "batch_sha256": hashlib.sha256(
                     np.ascontiguousarray(ids).tobytes()).hexdigest(),
                 "loss": loss, "grad_norm": float(metrics["grad_norm"]),
-                "launches": {k: after[k] - before[k] for k in after},
+                "launches": {k: after[k] - before[k]
+                             for k in ("B1", "B2", "B3")},
             }) + "\n")
             out.flush()
             return state, metrics
@@ -1668,16 +1700,36 @@ def runtime_child(argv: list) -> int:
         self.train_step = recording
 
     tr.Trainer.__init__ = init
+    _posttrain_hooks(out, held, opts, launches)
     fa.reset_launches()
+    tg.reset_launches()
+    rpa.ragged_paged_attention.launches = 0
     native.reset_path_counts()
     rc = cli.main(cli_argv)
     t = held.get("trainer")
     ck = t.checkpoints if t is not None else None
-    out.write(json.dumps({
+    end = {
         "exit": rc, "launches": launches(), "native": native.path_counts(),
         "saves": ck.save_log if ck else [],
         "restores": ck.restore_log if ck else [],
-    }) + "\n")
+    }
+    if torch.cuda.is_available():
+        end["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if "lora_model" in held:
+        end["base_sha256"] = [held["base_sha256"], _module_digest(
+            held["lora_model"])]
+        end["lora_params"] = held["lora_params"]
+    if "eval" in held:
+        end["eval"] = held["eval"]
+    if "chat" in held:
+        eng = held["chat"].engine
+        end["decode_forwards"] = eng.decode_forwards
+        end["num_layers"] = eng.config.num_layers
+        end["reply"] = (held["chat"].history or [{}])[-1].get("content")
+        end["reply_tokens"] = held["chat"].stats.total_tokens
+        if "--chat-checks" in opts and rc == 0:
+            end["chat"] = _chat_checks(held["chat"], launches)
+    out.write(json.dumps(end) + "\n")
     out.flush()
     if logits_path is not None and rc == 0:
         from luminaai_tpu_torch.inference.chat import build_engine
@@ -1686,6 +1738,166 @@ def runtime_child(argv: list) -> int:
         engine.model.load_params(t.model.state_dict())
         torch.save(_filled_decoder(engine).step_logits().cpu(), logits_path)
     return rc
+
+
+def _module_digest(model) -> str:
+    """sha256 over a module's parameters by name, copied to the host."""
+    return _tensor_digest({n: p.detach().cpu() for n, p in
+                           model.named_parameters()})
+
+
+def _posttrain_hooks(out, held, opts: list, launches) -> None:
+    """Instrument the post-training commands in a runtime child: each
+    LoRA step's loss, adapter grad norm, launches and synchronised wall
+    (with --compare, the first step's loss and grad norm through the plain
+    attention first, the generator restored), the base parameters' digest
+    before the first step, the evaluation's result and seconds, and the
+    chat session."""
+    import torch
+
+    from luminaai_tpu_torch import cli
+    from luminaai_tpu_torch.inference import chat
+    from luminaai_tpu_torch.ops.fused import global_norm
+    from luminaai_tpu_torch.parallel.train_step import make_loss_fn
+    from luminaai_tpu_torch.training import adapters
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    real_make = adapters.make_lora_train_step
+
+    def make(config, model, spec, tx, loss_fn=None):
+        step = real_make(config, model, spec, tx, loss_fn)
+        held["lora_model"] = model
+        held["base_sha256"] = _module_digest(model)
+        n = {"step": 0}
+
+        def recording(carry, batch, gen):
+            n["step"] += 1
+            rec = {"lora_step": n["step"]}
+            if n["step"] == 1:
+                held["lora_params"] = adapters.lora_param_count(carry[0])
+            if n["step"] == 1 and "--compare" in opts:
+                state = gen.get_state()
+                leaves = [t.requires_grad_(True)
+                          for t in adapters.lora_leaves(carry[0])]
+                config.use_flash_attention = False
+                try:
+                    with adapters.installed_weights(
+                            model, adapters.adapted_tensors(
+                                model, config, carry[0], spec)):
+                        loss, _ = make_loss_fn(config, model)(batch, gen)
+                        grads = torch.autograd.grad(loss, leaves)
+                    rec["plain"] = [float(loss), float(global_norm(grads))]
+                finally:
+                    config.use_flash_attention = True
+                del loss, grads
+                gen.set_state(state)
+            sync()
+            before = launches()
+            t0 = time.perf_counter()
+            carry, metrics = step(carry, batch, gen)
+            loss = float(metrics["loss"])
+            sync()
+            rec["ms"] = (time.perf_counter() - t0) * 1e3
+            after = launches()
+            rec.update(loss=loss, grad_norm=float(metrics["grad_norm"]),
+                       launches={k: after[k] - before[k] for k in after},
+                       tokens=int(batch["input_ids"].numel()))
+            out.write(json.dumps(rec) + "\n")
+            out.flush()
+            return carry, metrics
+
+        return recording
+
+    adapters.make_lora_train_step = make
+    real_eval = cli.evaluate_model
+
+    def evaluate_model(model, cfg, data_path, max_batches=0):
+        sync()
+        before = launches()
+        t0 = time.perf_counter()
+        result = real_eval(model, cfg, data_path, max_batches)
+        sync()
+        after = launches()
+        held["eval"] = {
+            "result": result, "seconds": time.perf_counter() - t0,
+            "rows": (result or {}).get("batches", 0) * cfg.batch_size,
+            "seq_length": cfg.seq_length,
+            "launches": {k: after[k] - before[k] for k in after},
+        }
+        return result
+
+    cli.evaluate_model = evaluate_model
+    real_chat_init = chat.ChatInterface.__init__
+
+    def chat_init(self, *a, **kw):
+        real_chat_init(self, *a, **kw)
+        held["chat"] = self
+
+    chat.ChatInterface.__init__ = chat_init
+
+
+CHAT_PROMPT = ("Explain in a few sentences why the sky looks blue at noon "
+               "and red at sunset.")
+CHAT_NEW_TOKENS = 32
+
+
+def _chat_checks(session, launches) -> dict:
+    """On the chat session's engine, after the CLI's reply: the first
+    decode step's logits through the decode kernel vs the plain paged
+    attention (the same cache row rewritten identically), generate_stream
+    against generate at a seed (temperature 0.8), and the timings of a
+    greedy CHAT_NEW_TOKENS-token reply (prefill, decode per token)."""
+    import torch
+
+    eng = session.engine
+    ids = eng.encode_chat([{"role": "user", "content": CHAT_PROMPT}])
+    greedy = eng._resolve_gen_key(CHAT_NEW_TOKENS, 0.0, 1.0, 0, 1.0)
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    with torch.inference_mode():
+        sync()
+        t0 = time.perf_counter()
+        first, caches, _, _, length, _ = eng._prefill_and_sample_first(
+            ids, greedy, 0)
+        sync()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        b5 = launches()["B5"]
+        lk = eng._decode_logits(caches, first, length)
+        compare_b5 = launches()["B5"] - b5
+        lp = eng._decode_logits(caches, first, length, backend="plain")
+        rel = ((lk - lp).abs().max() / lp.abs().max()).item()
+    del caches
+    kw = dict(max_new_tokens=CHAT_NEW_TOKENS, temperature=0.8, top_p=0.9,
+              seed=3)
+    sampled, _ = eng.generate(ids, **kw)
+    *streamed, last = eng.generate_stream(ids, **kw)
+    steps0 = eng.decode_forwards
+    sync()
+    t0 = time.perf_counter()
+    tokens, stats = eng.generate(ids, max_new_tokens=CHAT_NEW_TOKENS,
+                                 temperature=0.0)
+    sync()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    steps = eng.decode_forwards - steps0
+    decode_ms = total_ms - prefill_ms
+    return {
+        "prompt_tokens": length, "logits_rel_err": rel,
+        "logits_finite": bool(torch.isfinite(lk).all()),
+        "compare_b5": compare_b5,
+        "stream_equal": streamed == sampled
+        and last["tokens_generated"] == len(sampled),
+        "sampled_tokens": len(sampled),
+        "prefill_ms": prefill_ms, "greedy_tokens": len(tokens),
+        "decode_steps": steps, "stopped": stats["stopped"],
+        "decode_ms_per_token": decode_ms / max(steps, 1),
+        "decode_tokens_per_s": steps / max(decode_ms, 1e-9) * 1e3,
+    }
 
 
 def _read_records(path: Path):
@@ -1943,6 +2155,403 @@ def phase_runtime(dev, rpa_entry: dict, flash_entries: list,
             "run_wall_s": {n: w for n, (w, _) in runs.items()},
             "serve_load_s": load_s, "serve": serve,
             "params_sha256": digest_a}
+
+
+# ---------------------------------------------------------------------------
+# Post-training: blend, LoRA fine-tune, evaluate and chat from phase 7's run A.
+# ---------------------------------------------------------------------------
+POST_STEPS = 6
+POST_RANK = 8
+POST_EVAL_BATCHES = 4
+# Conversations per shard (`data sample`); the blend of both feeds
+# finetune (batch 8) and evaluate.
+POST_SHARDS = {"a": (0.7, 160), "b": (0.3, 96)}
+# A LoRA step at phase 7's b1 dense config (remat 'nothing_saveable',
+# one micro-batch, 16 layers): B1 runs each layer's forward and its
+# recompute in the backward, B2 and B3 once each (the adapter gradients
+# run back through the attention); no experts, no decode.
+POST_LAUNCHES = {"B1": 2 * 16, "B2": 16, "B3": 16, "B4a": 0, "B4b": 0,
+                 "B5": 0}
+# evaluate: the no-cache forward without gradients, one B1 per layer per
+# batch.
+EVAL_B1_PER_BATCH = 16
+EVAL_REL_TOL = 1e-5
+
+
+def _post_child(what: str, args: list, log_path: Path) -> str:
+    """_run_child that must exit 0 -> its log."""
+    rc, text = _run_child(args, log_path)
+    if rc != 0:
+        raise AssertionError(f"{what} exited {rc}: {text[-3000:]}")
+    return text
+
+
+def _lora_records(path: Path):
+    lines = [json.loads(x) for x in path.read_text().splitlines() if x]
+    return [r for r in lines if "lora_step" in r], lines[-1]
+
+
+def _check_lora_run(steps, end, n_steps: int, want: dict, label: str,
+                    compare: bool) -> None:
+    """n_steps finite LoRA steps with exactly `want` launches each; with
+    `compare`, the first step within LOSS_RTOL / GRAD_NORM_RTOL of its
+    re-run through the plain attention; the base parameters' digest the
+    same before the first step and after the run."""
+    if len(steps) != n_steps:
+        raise AssertionError(f"{label}: {len(steps)} LoRA steps, want "
+                             f"{n_steps}")
+    for r in steps:
+        log(f"  {label} step {r['lora_step']}: loss {r['loss']!r} adapter "
+            f"grad_norm {r['grad_norm']!r} {r['ms']:.1f} ms launches "
+            f"{r['launches']}")
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])):
+            raise AssertionError(f"{label}: non-finite step {r}")
+        if r["launches"] != want:
+            raise AssertionError(f"{label}: launches {r['launches']} at "
+                                 f"step {r['lora_step']}, want {want}")
+    if compare:
+        loss, norm = steps[0]["loss"], steps[0]["grad_norm"]
+        pl, pn = steps[0]["plain"]
+        le, ne = abs(loss - pl) / abs(pl), abs(norm - pn) / abs(pn)
+        log(f"{label}: first step, kernels vs plain attention: loss "
+            f"{loss:.5f} vs {pl:.5f} (rel {le:.2e}, tol {LOSS_RTOL}), "
+            f"adapter grad_norm {norm:.5f} vs {pn:.5f} (rel {ne:.2e}, tol "
+            f"{GRAD_NORM_RTOL})")
+        if le > LOSS_RTOL or ne > GRAD_NORM_RTOL:
+            raise AssertionError(f"{label}: the kernels' first LoRA step "
+                                 "disagrees with the plain attention's")
+    before, after = end["base_sha256"]
+    log(f"{label}: base parameters sha256 before {before[:16]}, after "
+        f"{after[:16]}")
+    if before != after:
+        raise AssertionError(f"{label}: the frozen base changed")
+
+
+def _device_ms(fn, iters: int = 50):
+    """Kernel time on the card per call of fn (torch.profiler's device
+    time summed over the calls' CUDA kernels), apart from the host's
+    time to issue it; None when the profiler records no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total_us / 1e3 / iters if total_us > 0 else None
+
+
+def _one_lane_decode(dev, length: int, rpa_entry: dict) -> None:
+    """B5 at the chat's shape, one lane: q [1, 1, HQ, D] over a
+    [1, 2048, HKV, D] cache holding `length` rows; kernel vs plain, timed
+    beside the plain version and SDPA with the length mask, and its
+    bound. Each call reads the next of 16 caches (one per layer of a
+    decode step, 67 MB together, past the L2)."""
+    import torch
+    import torch.nn.functional as F
+
+    from luminaai_tpu_torch.ops import ragged_paged_attention as rpa
+
+    C = PAGES * PAGE
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    q = randn(1, 1, HQ, D)
+    caches = [(randn(1, C, HKV, D), randn(1, C, HKV, D)) for _ in range(16)]
+    meta = rpa.LaneMeta(lengths=torch.tensor([length], dtype=torch.int32,
+                                             device=dev), page_size=PAGE)
+    k, v = caches[0]
+    err = (rpa.ragged_paged_attention(q, k, v, meta).float()
+           - rpa.ragged_paged_attention_ref(q, k, v, meta).float()
+           ).abs().max().item()
+    if err > KERNEL_TOL:
+        raise AssertionError(f"B5 at one lane disagrees with plain: {err}")
+    turn = itertools.count()
+    mask = (torch.arange(C, device=dev) < length)[None, None, None, :]
+
+    def rot(fn):
+        return lambda: fn(*caches[next(turn) % len(caches)])
+
+    ms = cuda_ms(rot(lambda kk, vv: rpa.ragged_paged_attention(
+        q, kk, vv, meta)), 200)
+    plain_ms = cuda_ms(rot(lambda kk, vv: rpa.ragged_paged_attention_ref(
+        q, kk, vv, meta)), 50)
+    library_ms = cuda_ms(rot(lambda kk, vv: F.scaled_dot_product_attention(
+        q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True)), 100)
+    # At one lane the host's time to issue a call exceeds the kernel's:
+    # the CUDA-event times above are issue bound, so the device time of
+    # the kernel and of SDPA's kernels is read from the profiler too.
+    device_ms = _device_ms(rot(lambda kk, vv: rpa.ragged_paged_attention(
+        q, kk, vv, meta)))
+    library_device_ms = _device_ms(rot(
+        lambda kk, vv: F.scaled_dot_product_attention(
+            q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)))
+    bytes_moved = length * HKV * D * 2 * 2 + 2 * HQ * D * 2 + 4 * 2
+    flops = 4 * length * HQ * D
+    t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_BF16_FLOPS * 1e3
+    rpa_entry["one_lane"] = {
+        "length": length, "max_abs_err": err, "ms": ms,
+        "device_ms": device_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "library_device_ms": library_device_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+    log(f"B5 at one lane ({length} rows, the chat's first decode step): "
+        f"max_abs_err {err:.3e} (tol {KERNEL_TOL}); kernel {ms:.4f} ms "
+        f"(device {device_ms} ms), plain {plain_ms:.4f} ms, library (SDPA "
+        f"+ length mask) {library_ms:.4f} ms (device {library_device_ms} "
+        f"ms), bound {max(t_bytes, t_ops):.4f} ms")
+
+
+def phase_posttrain(dev, rpa_entry: dict, flash_entries: list,
+                    want: dict = POST_LAUNCHES,
+                    eval_b1: int = EVAL_B1_PER_BATCH) -> dict:
+    """Phase 9: the post-training path from phase 7's run A checkpoint,
+    every command through the CLI in a runtime child: `data sample` x 2 +
+    `data blend` (the blend equal to the same blend run here), `finetune`
+    (LoRA rank 8, POST_STEPS steps, --merge-out), `evaluate` of the base
+    and of the merged checkpoint (the merged one equal to an in-memory
+    merge evaluated here), `chat` with the adapter. `want` (the launches
+    per LoRA step) and `eval_b1` default to the b1 dense model on the
+    card; a CPU rehearsal passes zeros."""
+    import torch
+
+    from luminaai_tpu_torch import cli
+    from luminaai_tpu_torch.config import Config
+    from luminaai_tpu_torch.convert import flax_to_state_dict
+    from luminaai_tpu_torch.data.multi_source import MultiSourcePipeline
+    from luminaai_tpu_torch.data.tokenizer import ConversationTokenizer
+    from luminaai_tpu_torch.models.transformer import LuminaTransformer
+    from luminaai_tpu_torch.training import adapters
+    from luminaai_tpu_torch.training import checkpoint as ck
+
+    t_phase = time.perf_counter()
+    smi = _smi()
+    cuda = dev.type == "cuda"
+    dev_args = [] if cuda else ["--device", str(dev)]
+    post = RUN_DIR / "post"
+    post.mkdir(exist_ok=True)
+    ckpt_a = RUN_DIR / "A" / "checkpoints"
+
+    # 1. Data: two shards and their blend, through the CLI.
+    for name, (_, count) in POST_SHARDS.items():
+        _post_child(f"data sample {name}", [
+            str(post / f"data_{name}.jsonl"), "--", "data", "sample",
+            "--out", str(post / name / f"{name}.jsonl"), "--count",
+            str(count)], post / f"data_{name}.log")
+    blend = post / "blend.jsonl"
+    sources = [f"{n}={w}={post / n}/*.jsonl"
+               for n, (w, _) in POST_SHARDS.items()]
+    _post_child("data blend", [
+        str(post / "blend.rec.jsonl"), "--", "data", "blend", "--sources",
+        *sources, "--out", str(blend)], post / "blend.log")
+    it = MultiSourcePipeline(
+        ConversationTokenizer(), {n: w for n, (w, _) in POST_SHARDS.items()}
+    ).iter_blended({n: [str(post / n / f"{n}.jsonl")] for n in POST_SHARDS})
+    mine = [json.dumps(r, ensure_ascii=False) for r in it]
+    if blend.read_text().splitlines() != mine:
+        raise AssertionError("the CLI's blend differs from the same blend "
+                             "run in-process")
+    log(f"posttrain: data blend of {len(mine)} conversations, per source "
+        f"{ {str(k): n for k, n in it.per_source.items()} }, equal to the "
+        "in-process blend")
+
+    # 2. finetune: LoRA on run A's fp32 weights, merged checkpoint out.
+    ft, merged = post / "ft", post / "merged"
+    t0 = time.perf_counter()
+    _post_child("finetune", [
+        str(post / "ft.jsonl"), "--compare", "--", "finetune",
+        "--checkpoint", str(ckpt_a), "--data", str(blend), "--out", str(ft),
+        "--rank", str(POST_RANK), "--steps", str(POST_STEPS),
+        "--batch-size", "8", "--merge-out", str(merged), *dev_args],
+        post / "ft.log")
+    ft_wall = time.perf_counter() - t0
+    steps, ft_end = _lora_records(post / "ft.jsonl")
+    _check_lora_run(steps, ft_end, POST_STEPS, want, "finetune",
+                    compare=True)
+    lora, spec = adapters.load_lora(str(ft / "adapter.npz"))
+    zero_b = [k for k, ab in lora.items() if not ab["b"].abs().max() > 0]
+    if zero_b:
+        raise AssertionError(f"adapter b factors still zero: {zero_b[:4]}")
+    report = ck.verify_step_dir(merged / "0")
+    if report["status"] != "ok":
+        raise AssertionError(f"merged checkpoint: {report}")
+    merged_gb = sum(f.stat().st_size for f in (merged / "0").iterdir()) / 1e9
+    step_ms = statistics.median(r["ms"] for r in steps[1:])
+    tokens = steps[0]["tokens"]
+    peak = ft_end.get("peak_gb", 0.0)
+    log(f"posttrain: finetune ({smi}): {len(lora)} adapted kernels, "
+        f"{ft_end['lora_params'] / 1e6:.2f}M adapter params; step (steps "
+        f"2-{POST_STEPS}, median) {step_ms:.1f} ms, "
+        f"{tokens / step_ms * 1e3:.0f} tokens/s; peak memory {peak:.2f} "
+        f"GB; merged checkpoint verified, {merged_gb:.2f} GB; child wall "
+        f"{ft_wall:.1f} s")
+
+    # 3. evaluate the base and the merged checkpoint.
+    evals = {}
+    for name, ckpt in (("base", ckpt_a), ("merged", merged)):
+        _post_child(f"evaluate {name}", [
+            str(post / f"eval_{name}.jsonl"), "--", "evaluate",
+            "--checkpoint", str(ckpt), "--data", str(blend),
+            "--max-batches", str(POST_EVAL_BATCHES), *dev_args],
+            post / f"eval_{name}.log")
+        ev = json.loads((post / f"eval_{name}.jsonl").read_text()
+                        .splitlines()[-1])["eval"]
+        evals[name] = ev
+        res = ev["result"]
+        tps = ev["rows"] * ev["seq_length"] / ev["seconds"]
+        log(f"posttrain: evaluate {name}: {res}; {ev['seconds']:.2f} s "
+            f"for {ev['rows']} x {ev['seq_length']} tokens = {tps:.0f} "
+            f"tokens/s ({smi}); launches {ev['launches']}")
+        if ev["launches"]["B1"] != eval_b1 * res["batches"] or any(
+                ev["launches"][k] for k in ("B2", "B3", "B4b", "B5")):
+            raise AssertionError(f"evaluate {name}: launches "
+                                 f"{ev['launches']}")
+    rb, rm = evals["base"]["result"], evals["merged"]["result"]
+    if (rb["tokens"], rb["batches"]) != (rm["tokens"], rm["batches"]) or (
+            rm["batches"] != POST_EVAL_BATCHES):
+        raise AssertionError(f"evaluate: base {rb} vs merged {rm}")
+    # The in-memory merge of run A's fp32 weights and the adapter, on the
+    # device the finetune merged on, cast to bf16 as the loader casts.
+    step_dir, meta = ck.find_checkpoint_step(ckpt_a, mode="sample")
+    cfg = Config.from_dict(meta["config"])
+    flat = {k: v.to(dev) for k, v in
+            ck.load_state_file(step_dir)["params"].items()}
+    with torch.no_grad():
+        flat = adapters.merge_lora(flat, {k: {s: t.to(dev) for s, t in
+                                              ab.items()}
+                                          for k, ab in lora.items()}, spec)
+    model = LuminaTransformer(cfg, device=dev).load_params(
+        flax_to_state_dict({k: v.to(torch.bfloat16)
+                            for k, v in flat.items()}, cfg))
+    del flat
+    mem = cli.evaluate_model(model, cfg, str(blend), POST_EVAL_BATCHES)
+    del model
+    if cuda:
+        _release()
+    rel = abs(rm["eval_loss"] - mem["eval_loss"]) / abs(mem["eval_loss"])
+    log(f"posttrain: merged checkpoint eval_loss {rm['eval_loss']} vs the "
+        f"in-memory merge {mem['eval_loss']} (rel {rel:.2e}, tol "
+        f"{EVAL_REL_TOL}); base {rb['eval_loss']}")
+    if rel > EVAL_REL_TOL or mem["tokens"] != rm["tokens"]:
+        raise AssertionError("the merged checkpoint does not evaluate to "
+                             "the in-memory merge")
+
+    # 4. chat with the adapter (the REPL's one-shot --prompt).
+    _post_child("chat", [
+        str(post / "chat.jsonl"), "--chat-checks", "--", "chat",
+        "--checkpoint", str(ckpt_a), "--adapter", str(ft / "adapter.npz"),
+        "--prompt", CHAT_PROMPT, "--temperature", "0", "--max-new-tokens",
+        str(CHAT_NEW_TOKENS), *dev_args], post / "chat.log")
+    end = json.loads((post / "chat.jsonl").read_text().splitlines()[-1])
+    want_b5 = end["decode_forwards"] * end["num_layers"] if cuda else 0
+    c = end["chat"]
+    # Token ids past the byte range decode to no text under the byte
+    # tokenizer, so the reply is counted in tokens.
+    log(f"posttrain: chat reply of {end['reply_tokens']} tokens: "
+        f"{end['reply'][:80]!r}")
+    log(f"posttrain: chat B5 launches {end['launches']['B5']} (decode "
+        f"steps {end['decode_forwards']} x {end['num_layers']} layers = "
+        f"{want_b5}); first decode step logits, kernel vs plain: rel "
+        f"{c['logits_rel_err']:.2e} of max|logit| (tol {LOGIT_RTOL}); "
+        f"generate_stream == generate at seed 3: {c['stream_equal']} "
+        f"({c['sampled_tokens']} tokens)")
+    log(f"posttrain: chat ({smi}): prompt {c['prompt_tokens']} tokens, "
+        f"prefill {c['prefill_ms']:.1f} ms, {c['decode_steps']} decode "
+        f"steps at {c['decode_ms_per_token']:.2f} ms of host wall a token "
+        f"= {c['decode_tokens_per_s']:.1f} tokens/s")
+    if end["reply_tokens"] < 1 or end["decode_forwards"] < 1:
+        raise AssertionError("chat gave no reply")
+    if end["launches"]["B5"] != want_b5 or any(
+            end["launches"][k] for k in ("B2", "B3", "B4b")):
+        raise AssertionError(f"chat launches {end['launches']}, want B5 "
+                             f"{want_b5}")
+    if (not c["logits_finite"] or c["logits_rel_err"] > LOGIT_RTOL
+            or not c["stream_equal"]):
+        raise AssertionError(f"chat checks failed: {c}")
+    if cuda:
+        _one_lane_decode(dev, c["prompt_tokens"] + 1, rpa_entry)
+
+    totals = {k: sum(r["launches"][k] for r in steps)
+              + evals["base"]["launches"][k]
+              + evals["merged"]["launches"][k] + end["launches"][k]
+              for k in ("B1", "B2", "B3", "B5")}
+    for e, kern in zip(flash_entries, ("B1", "B2", "B3")):
+        e["launches"] = (e["launches"] or 0) + totals[kern]
+        e["launches_posttrain"] = totals[kern]
+    rpa_entry["launches"] = (rpa_entry["launches"] or 0) + totals["B5"]
+    rpa_entry["launches_posttrain"] = totals["B5"]
+    wall = time.perf_counter() - t_phase
+    log(f"posttrain: launches {totals}; phase wall {wall:.1f} s ({smi})")
+    return {"finetune_step_ms": step_ms,
+            "finetune_tokens_per_s": tokens / step_ms * 1e3,
+            "adapter_params": ft_end["lora_params"],
+            "finetune_peak_gb": peak, "losses": [r["loss"] for r in steps],
+            "merged_gb": merged_gb,
+            "eval": {n: e["result"] for n, e in evals.items()},
+            "eval_tokens_per_s": {
+                n: e["rows"] * e["seq_length"] / e["seconds"]
+                for n, e in evals.items()},
+            "eval_in_memory": mem, "chat": c, "wall_s": wall, "card": smi}
+
+
+def phase_posttrain_experts(dev, flash_entries: list, gmm_entries: list,
+                            want: dict = None) -> dict:
+    """Phase 9, experts: `finetune --adapt-experts --steps 3` on phase 8's
+    newest flagship MoE checkpoint, from phase 9's blend. Exact B1-B4
+    launches each step (the expert factors' gradients run through tgmm),
+    finite losses, the base bitwise unchanged."""
+    from luminaai_tpu_torch.config import Config
+    from luminaai_tpu_torch.training import adapters
+    from luminaai_tpu_torch.training import checkpoint as ck
+
+    smi = _smi()
+    cuda = dev.type == "cuda"
+    post = RUN_DIR / "post"
+    _, meta = ck.find_checkpoint_step(RUN_DIR / "adaptive", mode="sample")
+    cfg = Config.from_dict(meta["config"])
+    L, n_moe = cfg.num_layers, cfg.num_moe_layers()
+    if want is None:
+        want = {"B1": 2 * L, "B2": L, "B3": L, "B4a": 6 * n_moe,
+                "B4b": 2 * n_moe, "B5": 0}
+    _post_child("finetune --adapt-experts", [
+        str(post / "ft_moe.jsonl"), "--", "finetune", "--checkpoint",
+        str(RUN_DIR / "adaptive"), "--data", str(post / "blend.jsonl"),
+        "--out", str(post / "ft_moe"), "--steps", "3", "--adapt-experts",
+        *([] if cuda else ["--device", str(dev)])], post / "ft_moe.log")
+    steps, end = _lora_records(post / "ft_moe.jsonl")
+    _check_lora_run(steps, end, 3, want, "finetune --adapt-experts",
+                    compare=False)
+    lora, _ = adapters.load_lora(str(post / "ft_moe" / "adapter.npz"))
+    experts = sorted(k for k in lora if "/moe/" in k)
+    if len(experts) != 2 * n_moe:
+        raise AssertionError(f"expert factors for {experts}")
+    step_ms = statistics.median(r["ms"] for r in steps[1:])
+    log(f"posttrain: finetune --adapt-experts on the flagship MoE step "
+        f"{meta['step']} ({cfg.num_experts} experts; {smi}): "
+        f"{end['lora_params'] / 1e6:.2f}M adapter params, {len(experts)} "
+        f"expert kernels; step (steps 2-3, median) {step_ms:.1f} ms, "
+        f"{steps[0]['tokens'] / step_ms * 1e3:.0f} tokens/s; peak memory "
+        f"{end.get('peak_gb', 0.0):.2f} GB")
+    totals = {k: sum(r["launches"][k] for r in steps)
+              for k in ("B1", "B2", "B3", "B4a", "B4b")}
+    for e, kern in zip(flash_entries + gmm_entries,
+                       ("B1", "B2", "B3", "B4a", "B4b")):
+        e["launches"] = (e["launches"] or 0) + totals[kern]
+        e["launches_posttrain_moe"] = totals[kern]
+    return {"step_ms": step_ms, "losses": [r["loss"] for r in steps],
+            "launches": totals, "adapter_params": end["lora_params"],
+            "card": smi}
 
 
 # ---------------------------------------------------------------------------
@@ -2317,17 +2926,24 @@ def main() -> int:
         shutil.rmtree(RUN_DIR / "train_moe")
         _release()
         runtime = phase_runtime(dev, entry, flash_entries)
-        # Phase 7's runs and checkpoints go; its corpus feeds phase 8.
-        for run in ("A", "B"):
-            shutil.rmtree(RUN_DIR / run)
+        # Run B goes; run A's checkpoint feeds phase 9, its corpus phase 8.
+        shutil.rmtree(RUN_DIR / "B")
+        _release()
+        posttrain = phase_posttrain(dev, entry, flash_entries)
+        shutil.rmtree(RUN_DIR / "A")
+        shutil.rmtree(RUN_DIR / "post" / "merged")
         _release()
         adaptive = phase_adaptive(dev, flash_entries, gmm_entries)
+        _release()
+        posttrain_moe = phase_posttrain_experts(dev, flash_entries,
+                                                gmm_entries)
     finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s: "
         f"serve {serve}; serve_moe {serve_moe}; train {json.dumps(train)}; "
         f"train_moe {json.dumps(train_moe)}; runtime {json.dumps(runtime)}; "
-        f"adaptive {json.dumps(adaptive)}")
+        f"posttrain {json.dumps(posttrain)}; adaptive {json.dumps(adaptive)}; "
+        f"posttrain_moe {json.dumps(posttrain_moe)}")
 
     print(_smi())
     print(json.dumps({"kernels": [entry, *flash_entries, *gmm_entries]}))

@@ -1,4 +1,6 @@
-"""Command line of the port: `python -m luminaai_tpu_torch serve|train|resume`.
+"""Command line of the port: `python -m luminaai_tpu_torch` with the
+subcommands serve, train, resume, data, finetune, evaluate, chat,
+verify-checkpoint and presets.
 
   python -m luminaai_tpu_torch train --preset b1 --dense \\
       --data corpus.jsonl --packed --steps 1000 --output-dir runs/b1
@@ -9,6 +11,13 @@
   python -m luminaai_tpu_torch train --preset debug --moe-dispatch gmm \\
       --synthetic --steps 3 --device cpu --output-dir /tmp/run
   python -m luminaai_tpu_torch train --config run.json --no-adaptive
+  python -m luminaai_tpu_torch data blend --sources a=0.7=a/*.jsonl \\
+      b=0.3=b/*.jsonl --out blend.jsonl
+  python -m luminaai_tpu_torch finetune --checkpoint runs/b1 \\
+      --data blend.jsonl --out ft --steps 100 --merge-out merged
+  python -m luminaai_tpu_torch evaluate --checkpoint merged --data eval.jsonl
+  python -m luminaai_tpu_torch chat --checkpoint runs/b1 --adapter \\
+      ft/adapter.npz --prompt "hello"
 
 The presets are mixture-of-experts models, as in the JAX package; --dense
 builds the preset's widths without experts. The model is built on the card
@@ -34,6 +43,19 @@ the next step boundary with a blocking emergency checkpoint and exit 75
 75 at once, saving only when it lands between two steps. `serve --checkpoint DIR` serves the
 newest step under DIR whose sha256 manifest verifies, with the model
 config saved in it.
+
+The post-training subcommands take the JAX CLI's flags. `data` blends,
+samples, converts, validates conversation files and trains a BPE
+vocabulary (host work; `acquire` needs the network and is not ported).
+`finetune` LoRA-tunes a checkpoint's fp32 weights with the base frozen
+(training/adapters.py) and writes the adapter as OUT/adapter.npz + .json
+(the JAX format); --merge-out also writes base + adapter as a params-only
+checkpoint (step 0, with a manifest) that serve --checkpoint, chat and
+evaluate read. `evaluate` prints the JAX CLI's JSON (eval_loss,
+perplexity, tokens, batches) over a conversation file. `chat` answers
+--prompt once or runs the REPL (inference/chat.py), optionally through
+the security layer (--secure). finetune, evaluate and chat run on the
+card unless given --device.
 """
 
 from __future__ import annotations
@@ -151,6 +173,86 @@ def _parser() -> argparse.ArgumentParser:
     r = sub.add_parser("resume", help="resume training from an output dir")
     _train_flags(r)
     r.set_defaults(resume=True)
+
+    c = sub.add_parser("chat", help="interactive chat with a checkpoint")
+    c.add_argument("--checkpoint", help="checkpoint dir (auto-discovers latest)")
+    c.add_argument("--temperature", type=float, default=0.8)
+    c.add_argument("--top-p", dest="top_p", type=float, default=0.9)
+    c.add_argument("--max-new-tokens", dest="max_new_tokens", type=int,
+                   default=256)
+    c.add_argument("--prompt", help="one-shot prompt (non-interactive)")
+    c.add_argument("--verbose", action="store_true")
+    c.add_argument("--secure", action="store_true",
+                   help="require auth; rate-limit and validate inputs")
+    c.add_argument("--user")
+    c.add_argument("--password")
+    c.add_argument("--quantize", choices=["int8", "int4"],
+                   help="weight-only quantization for serving (not ported)")
+    c.add_argument("--kv-cache-dtype", dest="kv_cache_dtype",
+                   choices=["bf16", "int8"],
+                   help="decode KV cache storage (int8 not ported)")
+    c.add_argument("--adapter",
+                   help="LoRA adapter (.npz from finetune) merged at load")
+    c.add_argument("--device", default=None,
+                   help="torch device (default: the card)")
+
+    ft = sub.add_parser(
+        "finetune", help="LoRA fine-tune against a frozen base checkpoint"
+    )
+    ft.add_argument("--checkpoint", required=True, help="base checkpoint dir")
+    ft.add_argument("--data", required=True, help="jsonl conversations")
+    ft.add_argument("--out", required=True, help="adapter output dir")
+    ft.add_argument("--rank", type=int, default=8)
+    ft.add_argument("--alpha", type=float, default=16.0)
+    ft.add_argument("--lr", type=float, default=1e-4)
+    ft.add_argument("--steps", type=int, default=100)
+    ft.add_argument("--batch-size", dest="batch_size", type=int)
+    ft.add_argument("--adapt-experts", action="store_true",
+                    help="also adapt MoE expert kernels (per-expert factors)")
+    ft.add_argument("--merge-out", dest="merge_out",
+                    help="also export base+adapter as a merged checkpoint")
+    ft.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+
+    d = sub.add_parser("data", help="dataset utilities")
+    d.add_argument(
+        "action",
+        choices=["sample", "oasst", "validate", "acquire", "blend",
+                 "train-tokenizer"],
+    )
+    d.add_argument("--sources", nargs="*",
+                   help="blend: name=weight=glob triples")
+    d.add_argument("--in", dest="inp")
+    d.add_argument("--out")
+    d.add_argument("--count", type=int, default=100)
+    d.add_argument("--vocab-size", dest="vocab_size", type=int, default=4096,
+                   help="train-tokenizer: target vocab (incl. 256 bytes)")
+    d.add_argument("--max-per-file", dest="max_per_file", type=int,
+                   default=None, help="acquire (not ported)")
+
+    e = sub.add_parser("evaluate", help="perplexity/loss on a dataset")
+    e.add_argument("--checkpoint", required=True)
+    e.add_argument("--data", required=True, help="jsonl conversations")
+    e.add_argument("--batch-size", dest="batch_size", type=int)
+    e.add_argument("--max-batches", dest="max_batches", type=int, default=0)
+    e.add_argument("--device", default=None,
+                   help="torch device (default: the card)")
+
+    vc = sub.add_parser(
+        "verify-checkpoint",
+        help="verify checkpoint integrity manifests (exit 1 on corruption)",
+    )
+    vc.add_argument("dir", help="checkpoint directory (holds <step>/ dirs)")
+    vc.add_argument("--step", type=int, default=None,
+                    help="verify one step only (default: every step)")
+    vc.add_argument("--mode", choices=("full", "sample"), default="full",
+                    help="full = hash every manifested file; sample = "
+                         "sizes for all, hashes for a deterministic "
+                         "subset")
+    vc.add_argument("--json", action="store_true")
+
+    ps = sub.add_parser("presets", help="list model presets")
+    ps.add_argument("--json", action="store_true")
     return p
 
 
@@ -415,11 +517,417 @@ def build_serve_engine(args):
                         weights=args.weights)
 
 
+def _batch_to(batch: Dict[str, np.ndarray], device) -> Dict[str, Any]:
+    """A numpy batch as tensors on `device` (input_ids as int64)."""
+    import torch
+
+    return {k: torch.as_tensor(v, dtype=torch.int64 if k == "input_ids"
+                               else None, device=device)
+            for k, v in batch.items()}
+
+
+def data(args) -> int:
+    from luminaai_tpu_torch.data.processing import (
+        create_sample_data,
+        process_oasst_data,
+        validate_data_comprehensive,
+    )
+    from luminaai_tpu_torch.data.tokenizer import ConversationTokenizer
+
+    if args.action == "sample":
+        n = create_sample_data(args.out, num_conversations=args.count)
+        print(f"wrote {n} sample conversations to {args.out}")
+    elif args.action == "acquire":
+        raise NotImplementedError(
+            "data acquire (data/acquisition.py, the OASST download) is not "
+            "ported yet (ROADMAP A5); pass local files to oasst/blend")
+    elif args.action == "train-tokenizer":
+        # Offline BPE vocab training; --in takes conversation or
+        # plain-text jsonl; --vocab-size is the target vocab.
+        from luminaai_tpu_torch.data.bpe import train_bpe
+
+        def texts():
+            with open(args.inp) as f:
+                for line in f:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    try:
+                        row = json.loads(line)
+                    except json.JSONDecodeError:
+                        yield line
+                        continue
+                    if isinstance(row, dict) and "messages" in row:
+                        for m in row["messages"]:
+                            yield str(m.get("content", ""))
+                    elif isinstance(row, dict) and "text" in row:
+                        yield str(row["text"])
+                    else:
+                        yield line
+
+        tok = train_bpe(texts(), vocab_size=args.vocab_size)
+        tok.save(args.out)
+        sample = "The quick brown fox jumps over the lazy dog."
+        n_bpe = len(tok.encode(sample))
+        print(
+            f"trained {tok.n_vocab}-token BPE -> {args.out} "
+            f"(sample compression {len(sample.encode()) / max(n_bpe, 1):.2f} "
+            "bytes/token; use with --tokenizer "
+            f"bpe:{args.out})"
+        )
+    elif args.action == "oasst":
+        n = process_oasst_data(args.inp, args.out)
+        print(f"converted {n} conversations -> {args.out}")
+    elif args.action == "validate":
+        report = validate_data_comprehensive(
+            args.inp, ConversationTokenizer()
+        )
+        print(json.dumps(_jsonable(report), indent=2))
+    elif args.action == "blend":
+        # Weighted multi-source blend -> one jsonl; --sources takes
+        # name=weight=glob triples.
+        import glob as globlib
+
+        from luminaai_tpu_torch.data.multi_source import MultiSourcePipeline
+
+        if not args.sources:
+            print(
+                "blend requires --sources name=weight=glob [...]",
+                file=sys.stderr,
+            )
+            return 2
+        weights: Dict[str, float] = {}
+        shards: Dict[str, List[str]] = {}
+        for spec in args.sources:
+            try:
+                name, weight, pattern = spec.split("=", 2)
+                weights[name] = float(weight)
+            except ValueError:
+                print(f"bad --sources entry {spec!r}", file=sys.stderr)
+                return 2
+            shards[name] = sorted(globlib.glob(pattern))
+            if not shards[name]:
+                print(f"no files match {pattern!r}", file=sys.stderr)
+                return 2
+        if sum(weights.values()) <= 0:
+            print("--sources weights must sum to > 0", file=sys.stderr)
+            return 2
+        pipeline = MultiSourcePipeline(ConversationTokenizer(), weights)
+        out_path = args.out or "blended.jsonl"
+        n = 0
+        with open(out_path, "w", encoding="utf-8") as f:
+            for rec in pipeline.iter_blended(shards):
+                f.write(json.dumps(rec, ensure_ascii=False) + "\n")
+                n += 1
+        print(f"blended {n} documents from {len(shards)} sources -> {out_path}")
+    return 0
+
+
+def finetune(args) -> int:
+    """LoRA fine-tuning against a frozen base checkpoint: optimizer state
+    exists only for the adapter (training/adapters.py)."""
+    import torch
+
+    from luminaai_tpu_torch.convert import state_dict_to_flax
+    from luminaai_tpu_torch.data.dataset import (
+        ConversationDataset,
+        conversation_batches,
+    )
+    from luminaai_tpu_torch.data.tokenizer import ConversationTokenizer
+    from luminaai_tpu_torch.inference.chat import load_model_for_inference
+    from luminaai_tpu_torch.training import adapters
+    from luminaai_tpu_torch.training.checkpoint import save_params_checkpoint
+
+    dev = resolve_device(args.device)
+    # keep_master_dtype: train against (and maybe re-export) the fp32
+    # masters; a bf16 round would swallow small deltas at merge time.
+    model, cfg = load_model_for_inference(
+        args.checkpoint, keep_master_dtype=True, device=dev)
+    if args.batch_size:
+        cfg.batch_size = args.batch_size
+    patterns = [r"attention/", r"ffn/"]
+    if args.adapt_experts:
+        patterns.append(r"moe/")
+    spec = adapters.LoRASpec(
+        rank=args.rank, alpha=args.alpha, target_patterns=tuple(patterns)
+    )
+    base = state_dict_to_flax(dict(model.named_parameters()), cfg)
+    lora = adapters.init_lora_params(base, spec, cfg.seed)
+    n_lora = adapters.lora_param_count(lora)
+    base_n = cfg.estimate_parameters()
+    print(
+        f"adapter: rank {spec.rank}, {n_lora / 1e6:.2f}M "
+        f"params ({n_lora / max(base_n, 1):.3%} of base, "
+        f"{len(lora)} kernels)"
+    )
+
+    tx = adapters.adam(args.lr)
+    step = adapters.make_lora_train_step(cfg, model, spec, tx)
+    carry = (lora, tx.init(adapters.lora_leaves(lora)))
+
+    tokenizer = ConversationTokenizer(
+        assistant_loss_weight=cfg.assistant_loss_weight
+    )
+    ds = ConversationDataset(args.data, tokenizer, cfg, split="train")
+    # The step's draws (MoE routing noise) per step index, as the JAX
+    # CLI folds the step into its key.
+    gen = torch.Generator(device=dev)
+    done = 0
+    last = float("nan")
+    while done < args.steps:
+        made_progress = False
+        for batch in conversation_batches(ds, cfg.batch_size, seed=done):
+            if done >= args.steps:
+                break
+            made_progress = True
+            gen.manual_seed(cfg.seed * 1_000_003 + done)
+            carry, metrics = step(carry, _batch_to(batch, dev), gen)
+            done += 1
+            if done % max(1, args.steps // 10) == 0 or done == 1:
+                last = float(metrics["loss"])
+                print(f"step {done}/{args.steps} loss {last:.4f}")
+        if not made_progress:
+            print(
+                f"no batches: dataset has fewer than batch_size="
+                f"{cfg.batch_size} usable samples (pass --batch-size)",
+                file=sys.stderr,
+            )
+            return 1
+
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    adapters.save_lora(str(out / "adapter"), carry[0], spec)
+    print(f"adapter saved: {out / 'adapter'}.npz (final loss {last:.4f})")
+
+    if args.merge_out:
+        with torch.no_grad():
+            merged = adapters.merge_lora(base, carry[0], spec)
+        mout = save_params_checkpoint(
+            args.merge_out, 0, merged,
+            {"config": cfg.to_dict(), "adapter": str(out / "adapter")},
+        ).parent
+        print(f"merged checkpoint: {mout}")
+    return 0
+
+
+def evaluate_model(model, cfg: Config, data_path: str,
+                   max_batches: int = 0) -> Optional[Dict[str, Any]]:
+    """Token-weighted CE over a conversation file's eval batches
+    (batch cfg.batch_size, seed 0, drop_last=False): the no-cache
+    forward and the fused LM-head CE, as the JAX `cmd_evaluate` body.
+    None when no token is in the loss."""
+    import torch
+
+    from luminaai_tpu_torch.data.dataset import (
+        ConversationDataset,
+        conversation_batches,
+    )
+    from luminaai_tpu_torch.data.tokenizer import ConversationTokenizer
+    from luminaai_tpu_torch.ops.fused import fused_lm_head_cross_entropy
+    from luminaai_tpu_torch.parallel.train_step import (
+        _shifted_mask_weights,
+        shift_labels,
+    )
+
+    tokenizer = ConversationTokenizer(
+        assistant_loss_weight=cfg.assistant_loss_weight
+    )
+    ds = ConversationDataset(data_path, tokenizer, cfg, split="eval")
+    total_nll = total_tokens = 0.0
+    n_batches = 0
+    with torch.no_grad():
+        for batch in conversation_batches(
+            ds, cfg.batch_size, seed=0, drop_last=False
+        ):
+            if max_batches and n_batches >= max_batches:
+                break
+            batch = _batch_to(batch, model.device)
+            hidden, _ = model(batch["input_ids"], deterministic=True,
+                              return_hidden=True)
+            labels, valid = shift_labels(batch)
+            mask, weights = _shifted_mask_weights(batch, valid)
+            _, m = fused_lm_head_cross_entropy(
+                hidden, model.embedder.embedding, labels,
+                loss_mask=mask, loss_weights=weights,
+            )
+            ntok = float(m["tokens_in_loss"])
+            total_nll += float(m["ce_loss"]) * ntok
+            total_tokens += ntok
+            n_batches += 1
+    if total_tokens == 0:
+        return None
+    loss = total_nll / total_tokens
+    return {
+        "eval_loss": round(loss, 4),
+        "perplexity": round(float(np.exp(min(loss, 20.0))), 2),
+        "tokens": int(total_tokens),
+        "batches": n_batches,
+    }
+
+
+def evaluate(args) -> int:
+    """Standalone perplexity/loss of a checkpoint (its bf16 serving
+    weights) on a jsonl conversation file."""
+    from luminaai_tpu_torch.inference.chat import load_model_for_inference
+
+    resolve_device(args.device)
+    model, cfg = load_model_for_inference(args.checkpoint,
+                                          device=args.device)
+    if args.batch_size:
+        cfg.batch_size = args.batch_size
+    result = evaluate_model(model, cfg, args.data, args.max_batches)
+    if result is None:
+        print("no evaluable tokens found", file=sys.stderr)
+        return 1
+    print(json.dumps(result, indent=2))
+    return 0
+
+
+def chat(args) -> int:
+    from luminaai_tpu_torch.inference.chat import ChatInterface
+
+    resolve_device(args.device)
+    session = ChatInterface(
+        checkpoint_dir=args.checkpoint,
+        quantize=args.quantize,
+        adapter=args.adapter,
+        kv_cache_dtype=args.kv_cache_dtype,
+        device=args.device,
+    )
+    # Generation defaults live on the engine's config; the flags
+    # override them for the session.
+    session.engine.config.temperature = args.temperature
+    session.engine.config.top_p = args.top_p
+    session.engine.config.max_new_tokens = args.max_new_tokens
+
+    if args.secure:
+        # Authenticated, rate-limited, input-validated path.
+        from luminaai_tpu_torch.security import SecureChatSession
+
+        secure = SecureChatSession(session.respond)
+        user = args.user or "operator"
+        password = args.password
+        if password is None:
+            import getpass
+
+            password = getpass.getpass(f"password for {user}: ")
+        if user not in secure.security.users:
+            if not secure.create_user(user, password):
+                print("could not create user (weak password?)", file=sys.stderr)
+                return 2
+        token = secure.authenticate(user, password)
+        if token is None:
+            print("authentication failed", file=sys.stderr)
+            return 2
+        if args.prompt:
+            out = secure.secure_respond(args.prompt, token)
+            if not out["ok"]:
+                print(f"rejected: {out['error']}", file=sys.stderr)
+                return 1
+            print(out["reply"])
+            return 0
+        print("secure chat — 'quit' to exit")
+        while True:  # pragma: no cover - interactive
+            try:
+                line = input("> ")
+            except (EOFError, KeyboardInterrupt):
+                break
+            if line.strip().lower() in ("quit", "exit"):
+                break
+            out = secure.secure_respond(line, token)
+            print(out["reply"] if out["ok"] else f"[{out['error']}]")
+        return 0
+
+    if args.prompt:
+        reply, stats = session.respond(args.prompt)
+        print(reply)
+        if args.verbose:
+            print(json.dumps(stats, indent=2), file=sys.stderr)
+        return 0
+    session.run()
+    return 0
+
+
+def verify_checkpoint(args) -> int:
+    """Per-step manifest report of a checkpoint directory. Exit 0 when
+    every verified step is intact (unmanifested steps are reported, not
+    failed), 1 on any corruption, 2 when the directory or step does not
+    exist."""
+    from luminaai_tpu_torch.training.checkpoint import verify_checkpoint_dir
+
+    try:
+        report = verify_checkpoint_dir(
+            args.dir, step=args.step, mode=args.mode
+        )
+    except FileNotFoundError as e:
+        print(str(e), file=sys.stderr)
+        return 2
+    if args.json:
+        print(json.dumps(report, default=str))
+    else:
+        header = f"{'step':>8}  {'status':<14}{'files':>7}{'hashed':>8}  detail"
+        print(f"checkpoint manifests under {report['root']} "
+              f"(mode={report['mode']})")
+        print(header)
+        print("-" * len(header))
+        for s, rep in sorted(report["steps"].items()):
+            detail = ""
+            if rep["mismatches"]:
+                m = rep["mismatches"][0]
+                detail = f"{m['file']}: {m['reason']}"
+                if len(rep["mismatches"]) > 1:
+                    detail += f" (+{len(rep['mismatches']) - 1} more)"
+            print(
+                f"{s:>8}  {rep['status']:<14}{rep['files']:>7}"
+                f"{rep['hashed']:>8}  {detail}"
+            )
+        print(
+            f"{len(report['ok'])} ok, {len(report['corrupt'])} corrupt, "
+            f"{len(report['unmanifested'])} unmanifested"
+        )
+    if not report["steps"]:
+        print(f"no checkpoint steps under {args.dir}", file=sys.stderr)
+        return 2
+    return 1 if report["corrupt"] else 0
+
+
+def presets(args) -> int:
+    info = ConfigPresets.get_preset_info()
+    if args.json:
+        print(json.dumps(info, indent=2))
+        return 0
+    header = (
+        f"{'preset':<16}{'hidden':>8}{'layers':>8}{'params':>12}"
+        f"{'active':>12}{'experts':>8}{'seq':>8}"
+    )
+    print(header)
+    print("-" * len(header))
+    for name, d in info.items():
+        print(
+            f"{name:<16}{d['hidden_size']:>8}{d['num_layers']:>8}"
+            f"{d['total_params'] / 1e6:>10.0f}M{d['active_params'] / 1e6:>10.0f}M"
+            f"{d['num_experts']:>8}{d['seq_length']:>8}"
+        )
+    return 0
+
+
+COMMANDS = {
+    "data": data,
+    "finetune": finetune,
+    "evaluate": evaluate,
+    "chat": chat,
+    "verify-checkpoint": verify_checkpoint,
+    "presets": presets,
+}
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = _parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     if args.command in ("train", "resume"):
         return train(args)
+    if args.command != "serve":
+        return COMMANDS[args.command](args)
     from luminaai_tpu_torch.serving.server import ChatServer
 
     engine = build_serve_engine(args)

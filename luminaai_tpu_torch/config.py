@@ -374,6 +374,28 @@ class Config:
         return total - self.num_moe_layers() * (
             self.num_experts - self.moe_top_k) * ffn_dense
 
+    def memory_estimate_gb(self) -> Dict[str, float]:
+        """Rough device-memory estimate (the JAX Config's): parameters in
+        the compute width, fp32 masters + Adam moments, activations of
+        one micro-batch (batch_size / gradient_accumulation_steps)."""
+        params = self.estimate_parameters()
+        bytes_per = 2 if "bf16" in self.resolve_precision() else 4
+        param_gb = params * bytes_per / 1e9
+        opt_gb = params * (4 + 8) / 1e9
+        micro = max(1, self.batch_size
+                    // max(1, self.gradient_accumulation_steps))
+        act_gb = (
+            micro * self.seq_length * self.hidden_size * self.num_layers
+            * bytes_per * (2 if not self.gradient_checkpointing else 0.25)
+        ) / 1e9
+        total = param_gb + opt_gb + act_gb
+        return {
+            "parameters_gb": round(param_gb, 3),
+            "optimizer_gb": round(opt_gb, 3),
+            "activations_gb": round(act_gb, 3),
+            "total_gb": round(total, 3),
+        }
+
     def num_moe_layers(self) -> int:
         if not self.use_moe:
             return 0
@@ -488,6 +510,26 @@ class ConfigPresets:
     @classmethod
     def available(cls) -> List[str]:
         return list(cls._PRESETS)
+
+    @classmethod
+    def get_preset_info(cls) -> Dict[str, Dict[str, Any]]:
+        """Comparison table across the port's presets (the JAX table's
+        keys)."""
+        info = {}
+        for name in cls._PRESETS:
+            c = cls.get(name)
+            info[name] = {
+                "hidden_size": c.hidden_size,
+                "num_layers": c.num_layers,
+                "total_params": c.estimate_parameters(),
+                "active_params": c.estimate_active_parameters(),
+                "use_moe": c.use_moe,
+                "num_experts": c.num_experts if c.use_moe else 0,
+                "use_mod": c.use_mod,
+                "seq_length": c.seq_length,
+                "memory_gb": c.memory_estimate_gb()["total_gb"],
+            }
+        return info
 
     @classmethod
     def get(cls, name: str, **overrides: Any) -> Config:

@@ -1,25 +1,39 @@
-"""Step-wise generation over the slot-paged KV pool (PyTorch counterpart of
-luminaai_tpu/inference/generate.py: samplers, the parts of GenerationEngine
-the server uses, and StepwiseDecoder with the prefix cache off).
+"""Generation over a KV cache (PyTorch counterpart of
+luminaai_tpu/inference/generate.py: samplers, GenerationEngine's
+single-request path, and StepwiseDecoder with the prefix cache off).
 
 The JAX package jits each piece; here the host drives eager PyTorch on one
-device, and every device call of a decoder comes from the thread that owns
-it (the scheduler's worker). The decoder's entry points run under
-torch.inference_mode(): the model's forward records gradients otherwise.
-Prefill writes a request's rows straight into its pool slot (the JAX
-decoder prefills a fresh cache and inserts it), and decode steps write one
-row per lane in place before attention reads it.
+device. Entry points run under torch.inference_mode(): the model's
+forward records gradients otherwise.
 
-Sampling uses one torch.Generator per lane, seeded from the request's
-seed: seeded sampling is reproducible within the port, but it does not draw
-JAX's numbers. Greedy decoding involves no randomness and matches the JAX
-decoder token for token (tests/test_torch_generate.py).
+Single request (`generate`, `generate_stream`, `chat_response`): the
+prompt is prefilled in chunks of config.prefill_chunk_size rows into a
+fresh per-request cache [1, max_context, Hkv, D] (the JAX
+`_prefill_chunked`, with its re-anchor of a final chunk that would
+overhang the cache; without chunking, one power-of-two bucket), then a
+Python loop decodes one row per step at cache_index [start + i]. Prefill
+rows take the plain paged attention; each decode row goes through the
+ragged decode kernel (B5) on the card, the pages being the cache's
+identity layout. The JAX loop is a lax.while_loop that splits its key
+once per token; here one torch.Generator seeded from the request's seed
+draws once per sampled token, so `generate_stream` yields exactly the
+tokens `generate` returns at the same seed.
+
+Step-wise (`StepwiseDecoder`, continuous batching): prefill writes a
+request's rows straight into its pool slot (the JAX decoder prefills a
+fresh cache and inserts it), and decode steps write one row per lane in
+place before attention reads it.
+
+Sampling draws from torch.Generators: seeded sampling is reproducible
+within the port, but it does not draw JAX's numbers. Greedy decoding
+involves no randomness and matches the JAX decoder token for token
+(tests/test_torch_generate.py, tests/test_torch_chat.py).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -103,15 +117,17 @@ def _bucket_len(n: int, minimum: int = 64) -> int:
 
 
 class GenerationEngine:
-    """A model + tokenizer + config: the request plumbing the server and
-    the step-wise decoder share. The model holds its weights on its
-    device."""
+    """A model + tokenizer + config: single-request generation, and the
+    request plumbing the server and the step-wise decoder share. The
+    model holds its weights on its device."""
 
-    def __init__(self, model, tokenizer, config: Config):
+    def __init__(self, model, tokenizer, config: Config,
+                 max_context: Optional[int] = None):
         self.model = model
         self.tokenizer = tokenizer
         self.config = config
-        self.max_context = config.seq_length
+        self.max_context = max_context or config.seq_length
+        self.decode_forwards = 0  # single-request decode steps run
 
     @property
     def _stop_set(self):
@@ -145,6 +161,179 @@ class GenerationEngine:
         p = list(prompt)
         return p[-max_prompt:] if len(p) > max_prompt else p
 
+    # -- single-request prefill ------------------------------------------
+    def _prefill_chunk_len(self) -> int:
+        """Chunk length for chunked prefill; 0 when disabled or under
+        attention_window (the JAX engine keeps the bucket there)."""
+        chunk = int(getattr(self.config, "prefill_chunk_size", 0) or 0)
+        if chunk <= 0 or self.config.attention_window is not None:
+            return 0
+        return min(chunk, self.max_context)
+
+    def _prefill_rows(self, caches, ids: np.ndarray, start: int,
+                      length: int) -> torch.Tensor:
+        """Feed prompt rows ids[0] at positions start.. (rows at or past
+        `length` are padding, position -1, not written) into `caches`;
+        return the fp32 logits [1, V] of the prompt's last row within
+        them (clamped to the chunk, as the JAX chunk clips it)."""
+        dev = self.model.device
+        S = ids.shape[1]
+        pos = start + np.arange(S)
+        positions = np.where(pos < length, pos, -1)[None]
+        hidden, _ = self.model(
+            torch.as_tensor(ids, dtype=torch.int64, device=dev),
+            positions=torch.as_tensor(positions, device=dev),
+            kv_caches=caches,
+            cache_index=torch.tensor([start], device=dev),
+            return_hidden=True,
+        )
+        last = min(max(length - 1 - start, 0), S - 1)
+        return self.model.embedder.decode(hidden[:, last])
+
+    def _prefill_chunked(self, prompt: List[int], chunk: int):
+        """ceil(L / chunk) chunks into a fresh cache -> (logits of the
+        last prompt row [1, V], caches). An empty prompt still runs one
+        all-padding chunk."""
+        L = len(prompt)
+        n = max(1, -(-L // chunk))
+        ids = np.zeros((1, n * chunk), dtype=np.int64)
+        ids[0, :L] = prompt
+        caches = self.model.init_cache(1, self.max_context)
+        logits = None
+        for c in range(n):
+            start = c * chunk
+            if start + chunk > self.max_context:
+                # The chunk grid overhangs a cache whose extent is not
+                # chunk aligned: the JAX engine re-anchors the chunk to
+                # end at the cache edge (XLA would clamp its write there),
+                # re-feeding overlap rows that rewrite identical K/V. The
+                # port writes rows by position, so either window fills
+                # the same rows; it re-anchors alike to run the same
+                # chunks.
+                start = self.max_context - chunk
+            logits = self._prefill_rows(
+                caches, ids[:, start:start + chunk], start, L)
+        return logits, caches
+
+    def _prefill_and_sample_first(self, prompt_tokens, gen_key, seed):
+        """Trim, prefill (chunked, or one power-of-two bucket), sample
+        token #1. Returns (first_token, caches, counts [1, V], generator,
+        prompt_len, first_is_stop)."""
+        prompt = self._trim_prompt(prompt_tokens, gen_key[0])
+        length = len(prompt)
+        chunk = self._prefill_chunk_len()
+        if chunk:
+            logits, caches = self._prefill_chunked(prompt, chunk)
+        else:
+            bucket = min(_bucket_len(length), self.max_context)
+            ids = np.zeros((1, bucket), dtype=np.int64)
+            ids[0, :length] = prompt
+            caches = self.model.init_cache(1, self.max_context)
+            logits = self._prefill_rows(caches, ids, 0, length)
+        counts = torch.zeros_like(logits, dtype=torch.int32)
+        gen = torch.Generator(device=self.model.device).manual_seed(
+            seed if seed is not None else (time.time_ns() & 0xFFFFFFFF)
+        )
+        first = int(self._sample(logits, counts, gen, gen_key))
+        return (first, caches, counts, gen, length,
+                first in self._stop_set)
+
+    def _sample(self, logits, counts, gen, gen_key) -> int:
+        return int(sample_token(
+            logits, counts, [gen],
+            temperature=gen_key[1], top_k=gen_key[2], top_p=gen_key[3],
+            repetition_penalty=gen_key[4],
+        )[0])
+
+    def _decode_logits(self, caches, token: int, pos: int,
+                       backend: Optional[str] = None) -> torch.Tensor:
+        """One decode row: `token` at position `pos` written into the
+        cache at cache_index [pos], attending rows 0..pos -> fp32 logits
+        [1, V]. backend: None (the decode kernel on the card) or
+        'plain' (the oracle re-run)."""
+        dev = self.model.device
+        self.decode_forwards += 1
+        logits, _ = self.model(
+            torch.tensor([[token]], device=dev),
+            positions=torch.tensor([[pos]], device=dev),
+            kv_caches=caches,
+            cache_index=torch.tensor([pos], device=dev),
+            lane_meta=LaneMeta(backend=backend),
+        )
+        return logits[:, -1]
+
+    @torch.inference_mode()
+    def _stream(self, prompt_tokens, gen_key, seed) -> Iterator[Any]:
+        """Yield each generated token id, then the stats dict (the JAX
+        generate's schema). The loop decodes up to max_new - 1 rows after
+        the first token; a stop token ends it and is dropped."""
+        max_new = gen_key[0]
+        t0 = time.time()
+        first, caches, counts, gen, length, first_is_stop = (
+            self._prefill_and_sample_first(prompt_tokens, gen_key, seed)
+        )
+        produced = 0
+        stopped = "eos" if first_is_stop else "length"
+        if not first_is_stop:
+            yield first
+            produced = 1
+            counts[0, first] += 1
+            token = first
+            for i in range(max_new - 1):
+                nxt = self._sample(self._decode_logits(
+                    caches, token, length + i), counts, gen, gen_key)
+                counts[0, nxt] += 1
+                if nxt in self._stop_set:
+                    stopped = "eos"
+                    break
+                yield nxt
+                produced += 1
+                token = nxt
+        dt = time.time() - t0
+        yield {
+            "tokens_generated": produced,
+            "seconds": round(dt, 3),
+            "tokens_per_second": round(produced / max(dt, 1e-9), 1),
+            "prompt_tokens": length,
+            "stopped": stopped,
+        }
+
+    # -- public API --------------------------------------------------------
+    def generate(
+        self,
+        prompt_tokens: Sequence[int],
+        max_new_tokens: Optional[int] = None,
+        temperature: Optional[float] = None,
+        top_p: Optional[float] = None,
+        top_k: Optional[int] = None,
+        repetition_penalty: Optional[float] = None,
+        seed: Optional[int] = None,
+    ) -> Tuple[List[int], Dict[str, Any]]:
+        """Returns (generated_token_ids, stats)."""
+        *tokens, stats = self.generate_stream(
+            prompt_tokens, max_new_tokens, temperature, top_p, top_k,
+            repetition_penalty, seed,
+        )
+        return tokens, stats
+
+    def generate_stream(
+        self,
+        prompt_tokens: Sequence[int],
+        max_new_tokens: Optional[int] = None,
+        temperature: Optional[float] = None,
+        top_p: Optional[float] = None,
+        top_k: Optional[int] = None,
+        repetition_penalty: Optional[float] = None,
+        seed: Optional[int] = None,
+    ) -> Iterator[Any]:
+        """Yield generated token ids as they decode, then a stats dict
+        (generate's schema; every other yield is an int). The same loop
+        as generate: the same tokens and `stopped` at the same seed."""
+        gen_key = self._resolve_gen_key(
+            max_new_tokens, temperature, top_p, top_k, repetition_penalty
+        )
+        return self._stream(prompt_tokens, gen_key, seed)
+
     def encode_chat(self, messages: List[Dict[str, str]]) -> List[int]:
         """Conversation -> prompt ids, with an open assistant turn."""
         tok = self.tokenizer
@@ -155,6 +344,13 @@ class GenerationEngine:
                        tok.im_end]
         prompt += [tok.im_start, tok.get_role_token("assistant")]
         return prompt
+
+    def chat_response(
+        self, messages: List[Dict[str, str]], **kw
+    ) -> Tuple[str, Dict[str, Any]]:
+        """Encode a conversation, generate, decode assistant text."""
+        tokens, stats = self.generate(self.encode_chat(messages), **kw)
+        return self.tokenizer.decode(tokens), stats
 
     def make_stepwise(
         self,

@@ -9,8 +9,8 @@ the library cannot be built or when the caller asks for it; the packer's
 two paths are bit-identical. Each entry point logs, once, which path it
 took, and `path_counts()` counts the calls per path (chip_smoke.py reads
 it to prove the native packer ran). See dataloader.cpp for the packer
-contract; its FNV-1a content hash gets its binding with the multi-source
-blender that calls it.
+contract; `content_hashes` binds its FNV-1a routine for the multi-source
+blender's dedup (data/multi_source.py).
 """
 
 from __future__ import annotations
@@ -104,6 +104,11 @@ def _build() -> Optional[ctypes.CDLL]:
     lib.lumina_index_lines.argtypes = [
         ctypes.c_char_p, ctypes.c_long,
         ctypes.POINTER(ctypes.c_int64), ctypes.c_long,
+    ]
+    lib.lumina_fnv1a64_batch.restype = None
+    lib.lumina_fnv1a64_batch.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_long, ctypes.POINTER(ctypes.c_uint64),
     ]
     lib.bpe_train.restype = ctypes.c_int32
     lib.bpe_train.argtypes = [
@@ -266,6 +271,34 @@ def index_lines(data, use_native: bool = True) -> np.ndarray:
     if starts[-1] >= n_bytes:  # trailing newline: no final line start
         starts = starts[:-1]
     return starts.astype(np.int64)
+
+
+def content_hashes(
+    docs: "list[bytes]", use_native: bool = True
+) -> np.ndarray:
+    """FNV-1a 64-bit hash per document (dedup keys for the multi-source
+    blender). Native path hashes one concatenated buffer off the GIL; the
+    plain version is the JAX module's byte loop."""
+    n = len(docs)
+    out = np.empty(n, dtype=np.uint64)
+    lib = get_lib() if use_native else None
+    if lib is not None and n:
+        buf = b"".join(docs)
+        offsets = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum([len(d) for d in docs], out=offsets[1:])
+        lib.lumina_fnv1a64_batch(
+            buf, _as_c(offsets, ctypes.c_int64), n,
+            _as_c(out, ctypes.c_uint64),
+        )
+        _took("content_hashes", True)
+        return out
+    _took("content_hashes", False)
+    for i, d in enumerate(docs):
+        h = 14695981039346656037
+        for b in d:
+            h = ((h ^ b) * 1099511628211) & 0xFFFFFFFFFFFFFFFF
+        out[i] = h
+    return out
 
 
 def bpe_train_native(

@@ -25,6 +25,10 @@ and keeps the manager's contract:
     mismatch); `restore_with_fallback` walks back past corrupt or partial
     steps; `emergency_save` blocks until the commit has landed and falls
     back to `config.checkpoint_local_tier` when the primary dir fails.
+  - `save_params_checkpoint` writes a step with the parameters only (no
+    moments; `finetune --merge-out`), committed the same way;
+    `verify_checkpoint_dir` reports every step's manifest
+    (`verify-checkpoint`).
 
 The restore copies into the live state (parameters, moments, count,
 step, generator) in place, bit for bit.
@@ -216,6 +220,94 @@ def committed_steps(root) -> List[int]:
     )
 
 
+def commit_step(root: Path, step: int, tree: Dict[str, Any],
+                meta: Dict[str, Any]) -> int:
+    """Write one step into a tmp directory under `root` (state,
+    metadata, manifest, each fsynced) and rename it into place. Returns
+    the bytes written. A failed attempt commits nothing; when it rewrites
+    a committed step (a forced save), that step stays whole until the
+    new one is renamed into its place."""
+    root = Path(root)
+    tmp = root / f"{step}.tmp-{os.getpid()}"
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+    state_path = tmp / STATE_NAME
+    with state_path.open("wb") as fh:
+        torch.save(tree, fh)
+        fh.flush()
+        os.fsync(fh.fileno())
+    _fsync_write(tmp / METADATA_NAME,
+                 json.dumps(meta, indent=1, default=str).encode())
+    write_manifest(tmp)
+    final = root / str(step)
+    aside = root / f"{step}{ASIDE}{os.getpid()}"
+    if final.exists():
+        if aside.exists():
+            shutil.rmtree(aside)
+        os.replace(final, aside)
+    try:
+        os.replace(tmp, final)
+    except BaseException:
+        if aside.exists() and not final.exists():
+            os.replace(aside, final)
+        raise
+    fd = os.open(root, os.O_RDONLY)
+    try:
+        os.fsync(fd)  # the rename itself is durable
+    finally:
+        os.close(fd)
+    if aside.exists():
+        shutil.rmtree(aside, ignore_errors=True)
+    return sum(f.stat().st_size for f in final.iterdir())
+
+
+def save_params_checkpoint(root, step: int, params: Dict[str, torch.Tensor],
+                           meta: Dict[str, Any]) -> Path:
+    """A params-only checkpoint (no optimizer state) in this format:
+    <root>/<step>/ with {flax path: tensor} parameters, `meta` (it must
+    hold the config) and a manifest. Serving, chat and evaluate load it;
+    training cannot resume from it. Returns the step directory."""
+    root = Path(root).absolute()
+    root.mkdir(parents=True, exist_ok=True)
+    tree = {"format": FORMAT,
+            "params": {k: v.detach().to("cpu").contiguous()
+                       for k, v in params.items()},
+            "step": int(step)}
+    commit_step(root, step, tree, {"step": int(step), **meta})
+    return root / str(step)
+
+
+def verify_checkpoint_dir(
+    root, step: Optional[int] = None, mode: str = "full"
+) -> Dict[str, Any]:
+    """Verify the manifest of every step (or one step) under `root`:
+    {"root", "mode", "steps": {step: verify_step_dir report}, "ok",
+    "corrupt", "unmanifested"} with the step lists sorted. Raises
+    FileNotFoundError when `root` or the step does not exist."""
+    root = Path(root)
+    if not root.is_dir():
+        raise FileNotFoundError(f"no checkpoint directory {root}")
+    steps = committed_steps(root)
+    if step is not None:
+        if step not in steps:
+            raise FileNotFoundError(f"no step {step} under {root}")
+        steps = [step]
+    out: Dict[str, Any] = {
+        "root": str(root),
+        "mode": mode,
+        "steps": {},
+        "ok": [],
+        "corrupt": [],
+        "unmanifested": [],
+    }
+    for s in steps:
+        report = verify_step_dir(root / str(s), mode=mode)
+        out["steps"][s] = report
+        out[report["status"]].append(s)
+    return out
+
+
 def load_state_file(step_dir, mmap: bool = True) -> Dict[str, Any]:
     """The tensors of a step's state.pt on the CPU (memory-mapped: only
     what is read is paged in)."""
@@ -403,43 +495,7 @@ class CheckpointManager:
 
     def _commit(self, tree: Dict[str, Any], meta: Dict[str, Any],
                 step: int) -> int:
-        """Write one step into a tmp directory (state, metadata, manifest,
-        each fsynced) and rename it into place. Returns the bytes
-        written. A failed attempt commits nothing; when it rewrites a
-        committed step (a forced save), that step stays whole until the
-        new one is renamed into its place."""
-        tmp = self.dir / f"{step}.tmp-{os.getpid()}"
-        if tmp.exists():
-            shutil.rmtree(tmp)
-        tmp.mkdir(parents=True)
-        state_path = tmp / STATE_NAME
-        with state_path.open("wb") as fh:
-            torch.save(tree, fh)
-            fh.flush()
-            os.fsync(fh.fileno())
-        _fsync_write(tmp / METADATA_NAME,
-                     json.dumps(meta, indent=1, default=str).encode())
-        write_manifest(tmp)
-        final = self.dir / str(step)
-        aside = self.dir / f"{step}{ASIDE}{os.getpid()}"
-        if final.exists():
-            if aside.exists():
-                shutil.rmtree(aside)
-            os.replace(final, aside)
-        try:
-            os.replace(tmp, final)
-        except BaseException:
-            if aside.exists() and not final.exists():
-                os.replace(aside, final)
-            raise
-        fd = os.open(self.dir, os.O_RDONLY)
-        try:
-            os.fsync(fd)  # the rename itself is durable
-        finally:
-            os.close(fd)
-        if aside.exists():
-            shutil.rmtree(aside, ignore_errors=True)
-        return sum(f.stat().st_size for f in final.iterdir())
+        return commit_step(self.dir, step, tree, meta)
 
     def _recover_aside(self) -> None:
         """A kill between a forced save's two renames leaves the old step

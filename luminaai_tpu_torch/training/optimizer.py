@@ -7,7 +7,7 @@ first update of a warmup schedule has lr 0.
 
 `AdamW` is optax.adamw written out over tensors: Adam moments in fp32
 (b1 * mu + (1 - b1) * g, b2 * nu + (1 - b2) * g^2), bias correction with
-the incremented count, update mu_hat / (sqrt(nu_hat) + eps), plus
+the incremented count (1 - decay**count in fp32, as optax computes it), update mu_hat / (sqrt(nu_hat) + eps), plus
 weight_decay * param on the parameters the decay mask selects (ndim >= 2),
 times -lr. It updates the parameters and moments in place (the JAX
 TrainState is replaced functionally; here in place saves a copy of both).
@@ -19,6 +19,7 @@ import dataclasses
 import math
 from typing import Callable, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from luminaai_tpu_torch.config import Config
@@ -145,8 +146,11 @@ class AdamW:
         rate it used, schedule(count)."""
         lr = self.learning_rate(state.count)
         count = state.count + 1
-        bc1 = 1 - self.b1 ** count
-        bc2 = 1 - self.b2 ** count
+        # optax computes 1 - decay**count in fp32 (its count is an int32
+        # array): at b2 = 0.999 that is 1.3e-5 off the exact value, which
+        # moves every update by ~6e-6; compute it as optax does.
+        bc1 = float(1 - np.float32(self.b1) ** np.float32(count))
+        bc2 = float(1 - np.float32(self.b2) ** np.float32(count))
         for p, g, mu, nu in zip(params, grads, state.mu, state.nu):
             g = g.float()
             mu.mul_(self.b1).add_((1 - self.b1) * g)

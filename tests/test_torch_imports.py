@@ -110,6 +110,28 @@ def test_adaptive_modules_are_scanned(module):
     assert module.replace(".", "/") + ".py" in files
 
 
+# The post-training slice: adapters, chat, data blending, security.
+POSTTRAIN_MODULES = (
+    "luminaai_tpu_torch.training.adapters",
+    "luminaai_tpu_torch.inference.chat",
+    "luminaai_tpu_torch.inference.generate",
+    "luminaai_tpu_torch.data.multi_source",
+    "luminaai_tpu_torch.data.processing",
+    "luminaai_tpu_torch.security",
+    "luminaai_tpu_torch.security.auth",
+    "luminaai_tpu_torch.security.input_validator",
+    "luminaai_tpu_torch.security.rate_limiter",
+)
+
+
+@pytest.mark.parametrize("module", POSTTRAIN_MODULES)
+def test_posttrain_modules_are_scanned(module):
+    assert module in _modules()
+    files = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    path = module.replace(".", "/")
+    assert f"{path}.py" in files or f"{path}/__init__.py" in files
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, sys\n"
@@ -155,6 +177,21 @@ def test_entry_points_default_to_the_card(no_cuda):
         cli.main(["resume", "--preset", "debug", "--dense", "--data",
                   "missing.jsonl", "--packed", "--steps", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("argv", [
+    ["finetune", "--checkpoint", "missing", "--data", "x.jsonl", "--out",
+     "ft"],
+    ["evaluate", "--checkpoint", "missing", "--data", "x.jsonl"],
+    ["chat", "--checkpoint", "missing", "--prompt", "hi"],
+], ids=["finetune", "evaluate", "chat"])
+def test_posttrain_entry_points_default_to_the_card(no_cuda, argv):
+    """Without --device the post-training commands mean the card: they
+    raise before reading anything where CUDA is absent."""
+    from luminaai_tpu_torch import cli
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(argv)
 
 
 def test_cli_refuses_moe_presets():
