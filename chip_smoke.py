@@ -56,20 +56,21 @@ Phases (any failure raises and exits non-zero):
   7. runtime the training runtime through the port's CLI, in child
              processes (this script with --runtime-child, which runs the
              CLI's main and records each step), at the b1 dense widths
-             (batch 8 x 2048, no accumulation): a JSONL text corpus
+             and 8 of its 16 layers (`train --config`; batch 8 x 2048, no
+             accumulation): a JSONL text corpus
              written from a seed and packed through a TokenCache with the
              native packer; run A `train --data --packed --steps 6`
              (exit 0); run B the same, SIGTERM once its log shows step 2
              (exit 75, emergency checkpoint committed at its step
              boundary); `resume` of B to step 6 (exit 0). Every step's
              packed batch and loss of B equal A's bitwise, and so do the
-             final parameters (hashes of both checkpoints); B1 == 32 and
-             B2 == B3 == 16 launches per step; the native packer ran;
+             final parameters (hashes of both checkpoints); B1 == 16 and
+             B2 == B3 == 8 launches per step; the native packer ran;
              csrc/ holds no atomics. Then `serve --checkpoint A` (the
              CLI's engine builder): its first decode step's logits equal
              those of an engine built from run A's final in-memory
              weights bitwise, and 8 concurrent requests through the
-             server launch B5 decode steps x 16 times. Step time,
+             server launch B5 decode steps x 8 times. Step time,
              tokens/s, the goodput split, each save's and restore's
              seconds and GB, and the disk at the start; the runs and
              checkpoints are deleted at the end. (The CLI's `train` runs
@@ -97,16 +98,16 @@ Phases (any failure raises and exits non-zero):
              run B deleted first): `data sample` twice and `data blend`
              (the blend equal to the same blend run in-process);
              `finetune` (LoRA rank 8, 6 steps, batch 8 x 2048,
-             --merge-out): exact launches per step B1 32, B2 = B3 16 (the
+             --merge-out): exact launches per step B1 16, B2 = B3 8 (the
              remat recompute), the first step's loss and adapter grad norm
              within LOSS_RTOL / GRAD_NORM_RTOL of the plain attention's,
              finite losses, the base parameters bitwise unchanged, the
              adapter's b factors non-zero, the merged checkpoint's
              manifest verified; `evaluate` of the base and of the merged
-             checkpoint (4 batches, B1 16 per batch, the same tokens and
+             checkpoint (4 batches, B1 8 per batch, the same tokens and
              batches; the merged eval_loss within 1e-5 of an in-memory
              merge evaluated here); `chat --adapter --prompt` (a reply, B5
-             == decode steps x 16, the first decode step's logits through
+             == decode steps x 8, the first decode step's logits through
              B5 within LOGIT_RTOL of the plain attention, generate_stream
              == generate at a seed); B5 at one lane timed beside SDPA.
              After phase 8: `finetune --adapt-experts --steps 3` on its
@@ -115,6 +116,42 @@ Phases (any failure raises and exits non-zero):
              adapter parameters, peak memory, evaluate tokens/s, chat
              prefill ms and decode tokens/s, each with the card's name
              and power limit.
+ 10. serving the serving plane, run after phase 3 on its engine: in
+     plane   process, a prefix-cache hit's first decode step against the
+             same request decoded cold (1e-2 x max|logit|) and B5's global
+             page table against its plain version, timed at that shape;
+             then `python -m luminaai_tpu_torch serve --preset b1 --dense
+             --seed 0` in three child processes (this script with
+             --serve-child, which runs the CLI's main and answers the
+             kernels' launch counters on a control port), each with 8
+             slots x 2048 rows in 128-row pages, --secure, a tenant bucket
+             (20/s, burst 16) and a queue depth of 8: the full server with
+             --prefix-cache-pages 64, the same with --no-telemetry
+             --no-slo --no-watchdog, and one with the cache off. On the
+             full one: /healthz 503 then 200; 401 without a token; a 429
+             from a second account's bucket; 503 + Retry-After with 8
+             lanes busy and 8 queued; 504 past a deadline; 16 chat
+             requests sharing a 1536-character system prompt (12 full
+             pages), the first alone, then 8 and 7 at once, streamed:
+             prefix hits 15 x 12 pages exactly, B5 decode steps x 16, all
+             through the global table; the same traffic on the bare
+             server in turns (two rounds, another system prompt in the
+             second) and on the cache-off server (TTFT); SSE equal to
+             JSON; a speculative request against greedy (equal up to a
+             near-tie); /metrics parsed with the JAX server's serving
+             families, /slo, /metrics/history and `top --url`; SIGTERM
+             with 4 requests in flight (all 200, exit 0, a flight record).
+             In process, --no-continuous (MicroBatcher, one batch of 8)
+             against the continuous server, up to a near-tie. With
+             phase 4's experts: 8 requests through a server with the
+             prefix cache, B4a launched exactly 2 x 16 x (decode steps +
+             prefill forwards). TTFT p50/p95 with and without the cache,
+             host ms a decode tick (the step and its bookkeeping) of the
+             full and the bare server, tokens/s.
+
+`--only serve,plane,serve_moe` (development runs) runs the build, the
+kernel checks and the named phases only; its last line then says
+"partial".
 
 Earlier train phases write their checkpoints under chip_smoke_runs/ too,
 and the directory is removed when the script ends.
@@ -865,7 +902,6 @@ def _serve_burst(engine, label: str, health_ok, reset, read):
     burst, `read()` reads them just after. -> (launches, summary)."""
     from luminaai_tpu_torch.serving.server import ChatServer
 
-    cfg = engine.config
     server = ChatServer(engine, num_slots=LANES, page_size=PAGE)
     httpd = server.make_httpd("127.0.0.1", 0)
     host, port = httpd.server_address[:2]
@@ -910,11 +946,12 @@ def _serve_burst(engine, label: str, health_ok, reset, read):
 
     tokens = 0
     for (code, body), n in zip(replies, PROMPT_LENGTHS):
-        if code != 200 or not body.get("token_ids"):
+        if code != 200 or not isinstance(body.get("text"), str) or not (
+                1 <= body.get("tokens", 0) <= 32):
             raise AssertionError(f"bad {label} reply for a {n}-char prompt: "
                                  f"{body}")
-        if not all(0 <= t < cfg.vocab_size for t in body["token_ids"]):
-            raise AssertionError("token id outside the vocabulary")
+        if body["tokens"] < 32 and body["stopped"] != "eos":
+            raise AssertionError(f"{label}: a reply stopped short: {body}")
         tokens += body["tokens"]
     if steps <= 0:
         raise AssertionError(f"{label}: no decode step ran")
@@ -981,7 +1018,900 @@ def phase_serve(dev, entry: dict) -> dict:
     if launches != want:
         raise AssertionError("the decode path did not run through the kernel")
     entry["launches"] = launches
+    if "plane" in PHASES:
+        summary["plane"] = phase_serving_plane(dev, engine, entry)
     return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the serving plane, `serve` in a child process
+# ---------------------------------------------------------------------------
+PLANE_USER, PLANE_PASSWORD = "smoke", "Chip-Smoke-Pa55word"
+# A second account (its own tenant bucket) drives the 429 check.
+PLANE_FLOOD_USER = "flood"
+# 1536 system characters + the chat template's 5 tokens before the user
+# turn: the shared encoded prefix spans 12 full 128-row pages.
+PLANE_SYSTEM_CHARS, PLANE_SHARED_PAGES = 1536, 12
+PLANE_REQUESTS, PLANE_NEW_TOKENS, PLANE_ARENA_PAGES = 16, 32, 64
+# The tenant bucket holds a flood of 8 lanes + 8 queued; past 8 queued
+# requests the server sheds. (The secure gate's sliding window allows 60
+# requests a minute per user: each user stays under it.)
+PLANE_RATE, PLANE_BURST, PLANE_QUEUE_DEPTH = 20.0, 16, 8
+PLANE_READY_S = 300.0  # /healthz must answer 200 this soon after the start
+PLANE_TURN_CHARS = (32, 257)  # user turns: 32-256 characters
+PLANE_LONG_TOKENS = 96  # the shed and drain requests' budgets
+# The served model: the weights of phase 3's engine (build_engine(b1
+# dense, seed 0)). A CPU rehearsal points these at a small preset.
+PLANE_MODEL = ["--preset", "b1", "--dense", "--seed", "0"]
+SPEC_PROMPT = "one two three four five six seven eight nine ten " * 12
+# The JAX server's serving metric families, all of which the port's
+# /metrics must carry.
+SERVING_METRICS = (
+    "serve_queue_wait_seconds", "serve_prefill_seconds",
+    "serve_ttft_seconds", "serve_decode_step_seconds",
+    "serve_token_latency_seconds", "serve_admissions_total",
+    "serve_evictions_total", "serve_generations_total",
+    "serve_decode_steps_total", "serving_requests_timed_out_total",
+    "serving_prefill_chunks_total", "tenant_ttft_seconds",
+    "tenant_requests_timed_out_total", "serve_active_lanes",
+    "serve_queue_depth", "kv_pool_slots_in_use", "kv_pool_pages_in_use",
+    "kv_pool_fragmentation_rows", "serve_prefix_cache_hits_total",
+    "serve_prefix_cache_misses_total", "serve_prefill_tokens_saved_total",
+    "serve_prefix_remote_hits_total", "prefix_cache_pages_cached",
+    "prefix_cache_page_refs", "prefix_cache_evictions",
+    "prefix_cache_pages_budget", "serve_http_requests_total",
+    "serve_request_seconds", "serve_stream_duration_seconds",
+    "serve_tokens_out_total", "serving_overload_rejections_total",
+    "tenant_requests_total", "tenant_tokens_in_total",
+    "tenant_tokens_out_total", "tenant_requests_shed_total", "serve_ready",
+    "serve_draining", "serve_decode_step_seconds_median",
+)
+_METRIC_LINE = re.compile(
+    r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? "
+    r"([-+]?[0-9.]+([eE][-+]?[0-9]+)?|NaN|[-+]Inf)$")
+
+
+def _plane_texts(seed: int = 0):
+    """The shared system prompt (PLANE_SYSTEM_CHARS characters of words
+    drawn from a seed) and PLANE_REQUESTS user turns of 32-256
+    characters, each starting "Request NN: " so every turn leaves the
+    shared prefix inside page 12."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    words = ("the quick brown fox jumps over a lazy dog while the server "
+             "splices cached pages of one shared system prompt").split()
+
+    def text(n):
+        out = ""
+        while len(out) < n:
+            out += words[rng.randint(len(words))] + " "
+        return out[:n]
+
+    system = text(PLANE_SYSTEM_CHARS)
+    turns = []
+    for i in range(PLANE_REQUESTS):
+        head = f"Request {i:02d}: "
+        turns.append(head + text(int(rng.randint(*PLANE_TURN_CHARS))
+                                 - len(head)))
+    return system, turns
+
+
+def _chat_body(system: str, user: str, **kw) -> dict:
+    body = {"messages": [{"role": "system", "content": system},
+                         {"role": "user", "content": user}],
+            "max_new_tokens": PLANE_NEW_TOKENS, "temperature": 0}
+    body.update(kw)
+    return body
+
+
+def _call(url: str, path: str, body=None, token=None, timeout=600.0,
+          headers=None):
+    """One HTTP request -> (status, headers, JSON payload or text)."""
+    import urllib.error
+
+    h = {"Content-Type": "application/json", **(headers or {})}
+    if token:
+        h["Authorization"] = f"Bearer {token}"
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url + path, data=data, headers=h)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            code, hdr, raw = r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        code, hdr, raw = e.code, dict(e.headers), e.read()
+    try:
+        payload = json.loads(raw)
+    except ValueError:
+        payload = raw.decode(errors="replace")
+    return code, hdr, payload
+
+
+def _stream(url: str, path: str, body: dict, token=None,
+            timeout: float = 600.0) -> dict:
+    """One {"stream": true} request: the token ids of its frames, its done
+    frame, the client-side time to the first token frame and the wall."""
+    h = {"Content-Type": "application/json"}
+    if token:
+        h["Authorization"] = f"Bearer {token}"
+    req = urllib.request.Request(
+        url + path, data=json.dumps({**body, "stream": True}).encode(),
+        headers=h)
+    t0 = time.perf_counter()
+    ids, done, ttft, errors = [], None, None, []
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        code = r.status
+        for line in r:
+            line = line.strip()
+            if not line.startswith(b"data: ") or line == b"data: [DONE]":
+                continue
+            ev = json.loads(line[6:])
+            if "token" in ev:
+                if ttft is None:
+                    ttft = time.perf_counter() - t0
+                ids.append(int(ev["token"]))
+            elif ev.get("done"):
+                done = ev
+            elif "error" in ev:
+                errors.append(ev["error"])
+    return {"code": code, "ids": ids, "done": done, "errors": errors,
+            "ttft_s": ttft, "wall_s": time.perf_counter() - t0}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def serve_child(argv: list) -> int:
+    """`--serve-child CTRL_PORT -- <cli argv>`: run the port's CLI main
+    (`serve ...`) and answer the kernels' launch counters on a control
+    port: GET returns them (and the /healthz status the server answered
+    as its warmup began), POST sets them to 0."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    sep = argv.index("--")
+    ctrl_port, cli_argv = int(argv[0]), argv[sep + 1:]
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from luminaai_tpu_torch import cli
+    from luminaai_tpu_torch.ops import gmm as tg
+    from luminaai_tpu_torch.ops import ragged_paged_attention as rpa
+    from luminaai_tpu_torch.serving import server as srv
+
+    held = {}
+    real_warmup = srv.ChatServer._warmup
+
+    def warmup(self):
+        # What /healthz answers as the warmup begins (its readiness gate;
+        # __init__ is still running, so not through handle()).
+        held["warmup_healthz"] = 200 if self._ready.is_set() else 503
+        return real_warmup(self)
+
+    srv.ChatServer._warmup = warmup
+
+    def counts():
+        k = rpa.ragged_paged_attention
+        return {"B5": k.launches, "B5_global": k.launches_global,
+                "B4a": tg.gmm.launches, "B4b": tg.tgmm.launches,
+                "warmup_healthz": held.get("warmup_healthz")}
+
+    class Control(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def _send(self):
+            data = json.dumps(counts()).encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def do_GET(self):
+            self._send()
+
+        def do_POST(self):
+            rpa.ragged_paged_attention.launches = 0
+            rpa.ragged_paged_attention.launches_global = 0
+            tg.reset_launches()
+            self._send()
+
+    ctrl = ThreadingHTTPServer(("127.0.0.1", ctrl_port), Control)
+    threading.Thread(target=ctrl.serve_forever, daemon=True).start()
+    return cli.main(cli_argv)
+
+
+class _ServeChild:
+    """`python -m luminaai_tpu_torch serve ARGV` in a child process (this
+    script with --serve-child), its log in CWD/NAME.log."""
+
+    def __init__(self, name: str, argv: list, cwd: Path):
+        cwd.mkdir(parents=True, exist_ok=True)
+        self.name, self.port, self.ctrl = name, _free_port(), _free_port()
+        self.url = f"http://127.0.0.1:{self.port}"
+        self.log_path = cwd / f"{name}.log"
+        self._log = open(self.log_path, "w")
+        cmd = [sys.executable, "-u", str(Path(__file__).resolve()),
+               "--serve-child", str(self.ctrl), "--", "serve", *argv,
+               "--port", str(self.port)]
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, stdout=self._log,
+                                     stderr=subprocess.STDOUT, cwd=str(cwd))
+
+    def _ctrl(self, post: bool = False) -> dict:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{self.ctrl}/", data=b"" if post else None)
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return json.loads(r.read())
+
+    def counts(self) -> dict:
+        return self._ctrl()
+
+    def reset(self) -> dict:
+        return self._ctrl(post=True)
+
+    def wait_ready(self) -> dict:
+        """Poll /healthz until it answers 200: the statuses seen over HTTP
+        (in order, deduplicated), the one the server gave as its warmup
+        began, and the seconds since the start."""
+        seen = []
+        while True:
+            if self.proc.poll() is not None:
+                raise AssertionError(
+                    f"{self.name}: serve exited {self.proc.returncode}:\n"
+                    f"{self.log_path.read_text()[-3000:]}")
+            if time.perf_counter() - self.t0 > PLANE_READY_S:
+                raise AssertionError(f"{self.name}: /healthz not 200 after "
+                                     f"{PLANE_READY_S}s (saw {seen})")
+            try:
+                code, _, body = _call(self.url, "/healthz", timeout=5)
+            except OSError:
+                time.sleep(0.02)
+                continue
+            if not seen or seen[-1][0] != code:
+                seen.append((code, body.get("status")))
+            if code == 200:
+                return {"http": seen,
+                        "warmup": self.counts()["warmup_healthz"],
+                        "ready_s": time.perf_counter() - self.t0}
+            time.sleep(0.02)
+
+    def stats(self) -> dict:
+        return _call(self.url, "/stats")[2]
+
+    def tail(self, chars: int = 4000) -> str:
+        """The end of the child's log, without the /healthz probes."""
+        self._log.flush()
+        lines = [x for x in self.log_path.read_text().splitlines()
+                 if "GET /healthz" not in x]
+        return "\n".join(lines)[-chars:]
+
+    def stop(self, timeout: float = 120.0) -> int:
+        """SIGTERM (drain), then the exit code."""
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            return self.proc.wait(timeout=timeout)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            self._log.close()
+
+
+def _auth(url: str, user: str = PLANE_USER) -> str:
+    code, _, body = _call(url, "/v1/auth",
+                          {"user": user, "password": PLANE_PASSWORD})
+    if code != 200 or not body.get("token"):
+        raise AssertionError(f"/v1/auth: {code} {body}")
+    return body["token"]
+
+
+def _quantiles(xs):
+    xs = sorted(xs)
+    return {"p50": statistics.median(xs),
+            "p95": xs[min(len(xs) - 1, math.ceil(0.95 * len(xs)) - 1)]}
+
+
+def _plane_burst(child: "_ServeChild", token: str, system: str, turns,
+                 label: str, want_hits: bool, layers: int) -> dict:
+    """The shared-prefix traffic: PLANE_REQUESTS streamed chat requests,
+    the first alone (it fills the cache), then 8 and 7 at a time, with a
+    pause before each group that refills the tenant bucket. Launch
+    counters set to 0 just before, read just after; /stats around it. B5
+    must launch decode steps x `layers` times (0 on a CPU rehearsal)."""
+    deadline = time.perf_counter() + 120
+    while True:  # nothing else in flight
+        st = child.stats()
+        if not st["active_lanes"] and not st["queue_depth"]:
+            break
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{label}: server never went idle: {st}")
+        time.sleep(0.05)
+    before = child.stats()
+    child.reset()
+    results = [None] * PLANE_REQUESTS
+
+    def one(i):
+        results[i] = _stream(child.url, "/v1/chat",
+                             _chat_body(system, turns[i]), token)
+
+    t0 = time.perf_counter()
+    one(0)
+    groups = []
+    for group in (range(1, 9), range(9, PLANE_REQUESTS)):
+        time.sleep(PLANE_BURST / PLANE_RATE)
+        tg0 = time.perf_counter()
+        with ThreadPoolExecutor(len(group)) as pool:
+            list(pool.map(one, group))
+        groups.append((sum(len(results[i]["ids"]) for i in group),
+                       time.perf_counter() - tg0))
+    wall = time.perf_counter() - t0
+    launches = child.counts()
+    after = child.stats()
+    for i, r in enumerate(results):
+        if r["code"] != 200 or r["errors"] or r["done"] is None or (
+                len(r["ids"]) < PLANE_NEW_TOKENS
+                and r["done"]["stopped"] != "eos"):
+            raise AssertionError(f"{label}: request {i} failed: {r}")
+    steps = after["decode_steps"] - before["decode_steps"]
+    # The whole decode tick (the step and its bookkeeping: telemetry,
+    # events, emits, finishes) is what the full server adds to; the step
+    # alone is kept beside it.
+    tsec = after["tick_seconds"] - before["tick_seconds"]
+    dsec = after["decode_seconds"] - before["decode_seconds"]
+    pc0, pc1 = before.get("prefix_cache", {}), after.get("prefix_cache", {})
+    hits = pc1.get("hits", 0) - pc0.get("hits", 0)
+    spliced = pc1.get("pages_spliced", 0) - pc0.get("pages_spliced", 0)
+    ttft_all = [r["ttft_s"] for r in results]
+    tokens = sum(len(r["ids"]) for r in results)
+    out = {
+        "requests": len(results), "tokens": tokens, "decode_steps": steps,
+        "host_ms_per_step": 1e3 * tsec / max(steps, 1),
+        "step_ms_per_step": 1e3 * dsec / max(steps, 1),
+        "tokens_per_s_8way": groups[0][0] / groups[0][1],
+        "tokens_per_s_all": tokens / wall,
+        "ttft_s": _quantiles(ttft_all),
+        "ttft_hits_s": _quantiles(ttft_all[1:]),
+        "ttft_first_s": ttft_all[0], "prefix_hits": hits,
+        "pages_spliced": spliced, "launches": launches,
+        "results": results,
+    }
+    log(f"{label}: {len(results)} requests ({tokens} tokens, {steps} "
+        f"decode steps), host {out['host_ms_per_step']:.2f} ms a decode "
+        f"tick ({out['step_ms_per_step']:.2f} in the step), {out['tokens_per_s_8way']:.1f} tokens/s over 8 at once; "
+        f"TTFT p50 {out['ttft_s']['p50'] * 1e3:.1f} ms, p95 "
+        f"{out['ttft_s']['p95'] * 1e3:.1f} ms (the 15 after the first: "
+        f"p50 {out['ttft_hits_s']['p50'] * 1e3:.1f}, p95 "
+        f"{out['ttft_hits_s']['p95'] * 1e3:.1f}; first "
+        f"{ttft_all[0] * 1e3:.1f}); prefix hits {hits}, pages spliced "
+        f"{spliced}; launches {launches}")
+    want = steps * layers
+    if steps <= 0 or launches["B5"] != want:
+        raise AssertionError(f"{label}: B5 launched {launches['B5']} times, "
+                             f"decode steps x {layers} = {want}")
+    if want_hits:
+        if launches["B5_global"] != launches["B5"]:
+            raise AssertionError(f"{label}: not every decode step took the "
+                                 f"global table: {launches}")
+        if hits != PLANE_REQUESTS - 1 or spliced != (
+                (PLANE_REQUESTS - 1) * PLANE_SHARED_PAGES):
+            raise AssertionError(
+                f"{label}: prefix hits {hits}, pages spliced {spliced}; want "
+                f"{PLANE_REQUESTS - 1} and {PLANE_REQUESTS - 1} x "
+                f"{PLANE_SHARED_PAGES}")
+    elif launches["B5_global"]:
+        raise AssertionError(f"{label}: global-table launches with the "
+                             "cache off")
+    return out
+
+
+def _next_logits(engine, ids):
+    """The single-request path's fp32 logits [V] after `ids`."""
+    import torch
+
+    with torch.inference_mode():
+        logits, _ = engine._prefill_chunked(list(ids),
+                                            engine._prefill_chunk_len())
+    return logits[0]
+
+
+def _near_tie_check(engine, prompt_ids, want, got, label: str) -> dict:
+    """`got` must equal `want` (greedy's tokens) up to a position where
+    greedy's top two logits are within LOGIT_RTOL x max|logit|: the first
+    tokens equal, and at the first divergence the in-process engine's
+    logits after the prompt and want[:i] show a near-tie."""
+    if not want or not got or want[0] != got[0]:
+        raise AssertionError(f"{label}: first tokens differ: {want[:4]} vs "
+                             f"{got[:4]}")
+    n = min(len(want), len(got))
+    i = next((j for j in range(n) if want[j] != got[j]), None)
+    if i is None:
+        if len(want) != len(got):
+            raise AssertionError(f"{label}: lengths {len(want)} vs "
+                                 f"{len(got)}")
+        return {"equal": True}
+    logits = _next_logits(engine, list(prompt_ids) + list(want[:i]))
+    top = logits.topk(2).values
+    gap = (top[0] - top[1]).item()
+    tol = LOGIT_RTOL * logits.abs().max().item()
+    log(f"{label}: diverge at token {i} of {n}: greedy's top-two gap "
+        f"{gap:.3e} (near-tie tolerance {tol:.3e})")
+    if gap > tol:
+        raise AssertionError(f"{label}: divergence at {i} is not a near-tie")
+    return {"equal": False, "diverge_at": i, "gap": gap, "tol": tol}
+
+
+def _plane_in_process(dev, engine, rpa_entry: dict, system: str,
+                      turns) -> dict:
+    """The prefix-cache path in this process: a hit's first decode step
+    against the same request decoded cold (1e-2 x max|logit|), B5's
+    global-table launches against the plain version on the lanes' shared
+    arena pages, and B5 timed at that shape."""
+    import torch
+
+    from luminaai_tpu_torch.ops import ragged_paged_attention as rpa
+
+    def admit(dec, turn):
+        ids = engine.encode_chat([{"role": "system", "content": system},
+                                  {"role": "user", "content": turn}])
+        slot = dec.acquire_slot()
+        st = dec.start_prefill(slot, ids, max_new_tokens=PLANE_NEW_TOKENS)
+        info = None
+        while info is None:
+            info = dec.advance_prefill(st)
+        dec.flush_harvests()
+        return slot, info
+
+    warm = engine.make_stepwise(num_slots=LANES, page_size=PAGE,
+                                prefix_cache_pages=PLANE_ARENA_PAGES)
+    cold = engine.make_stepwise(num_slots=LANES, page_size=PAGE)
+    s0, first = admit(warm, turns[0])
+    warm.release_slot(s0)
+    slots = [admit(warm, turns[i]) for i in range(1, LANES + 1)]
+    hits = [info["prefix"]["hit_pages"] for _, info in slots]
+    if hits != [PLANE_SHARED_PAGES] * LANES or first["prefix"]["hit_pages"]:
+        raise AssertionError(f"in-process prefix hits {hits}")
+    c_slot, _ = admit(cold, turns[1])
+    lw = warm.step_logits()
+    lw_plain = warm.step_logits("plain")
+    lc = cold.step_logits()
+    w, c = lw[slots[0][0]], lc[c_slot]
+    tol = LOGIT_RTOL * c.abs().max().item()
+    hit_err = (w - c).abs().max().item()
+    plain_err = (lw - lw_plain).abs().max().item()
+    plain_tol = LOGIT_RTOL * lw_plain.abs().max().item()
+    log(f"prefix hit vs cold, first decode step: max_abs_err {hit_err:.3e} "
+        f"(tol {tol:.3e} = {LOGIT_RTOL} x max|logit|), argmax "
+        f"{int(w.argmax())} vs {int(c.argmax())}; B5 global table vs plain "
+        f"(8 lanes on {PLANE_SHARED_PAGES} shared arena pages): "
+        f"{plain_err:.3e} (tol {plain_tol:.3e})")
+    if not torch.isfinite(lw).all() or hit_err > tol or plain_err > plain_tol:
+        raise AssertionError("a prefix hit's decode disagrees")
+
+    # B5 alone at this shape: one layer's pool, the decoder's global table.
+    lengths = torch.as_tensor(
+        [int(warm._pos[s]) + 1 for s in range(LANES)], dtype=torch.int32,
+        device=dev)
+    meta = rpa.LaneMeta(lengths=lengths, page_table=warm._table,
+                        page_size=PAGE, identity_pages=False,
+                        global_pages=True)
+    k, v = warm._flat[0]
+    cfg = engine.config
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn(LANES, 1, hq, d, generator=gen, device=dev).to(k.dtype)
+    out = rpa.ragged_paged_attention(q, k, v, meta)
+    ref = rpa.ragged_paged_attention_ref(q, k, v, meta)
+    err = (out.float() - ref.float()).abs().max().item()
+    ms = plain_ms = None
+    if dev.type == "cuda":
+        ms = cuda_ms(lambda: rpa.ragged_paged_attention(q, k, v, meta), 200)
+        plain_ms = cuda_ms(
+            lambda: rpa.ragged_paged_attention_ref(q, k, v, meta), 20)
+    resident = int(lengths.sum().item())
+    shared_rows = PLANE_SHARED_PAGES * PAGE
+    # Bytes: each K/V row the lanes attend, read once (a shared arena page
+    # counts once, however many lanes read it); operations: every lane's
+    # own band.
+    rows_of_page = {}
+    table = warm._table.cpu().tolist()
+    for lane, n in enumerate(lengths.tolist()):
+        for j in range(-(-n // PAGE)):
+            pid = table[lane][j]
+            rows_of_page[pid] = max(rows_of_page.get(pid, 0),
+                                    min(PAGE, n - j * PAGE))
+    unique_rows = sum(rows_of_page.values())
+    bytes_moved = (unique_rows * hkv * d * 2 * 2 + 2 * LANES * hq * d * 2
+                   + LANES * warm.pool.pages * 4 + LANES * 4)
+    flops = 4 * resident * hq * d
+    t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_BF16_FLOPS * 1e3
+    glob = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "lengths": [int(x) for x in lengths.tolist()],
+            "shared_rows_per_lane": shared_rows, "unique_rows": unique_rows}
+    log(f"B5 global table at the phase-10 shape (8 lanes, "
+        f"{resident} resident rows, {shared_rows} of each lane's on shared "
+        f"arena pages, {unique_rows} distinct): {ms} ms, plain {plain_ms} "
+        f"ms, bound "
+        f"{glob['bound_ms']:.4f} ms, max_abs_err {err:.3e} (tol "
+        f"{KERNEL_TOL})")
+    if err > KERNEL_TOL:
+        raise AssertionError("B5 (global table) disagrees with plain")
+    rpa_entry["global_form"] = glob
+    return {"hit_vs_cold_err": hit_err, "hit_vs_cold_tol": tol,
+            "global_vs_plain_err": plain_err}
+
+
+def _no_continuous_check(engine) -> dict:
+    """`--no-continuous` (MicroBatcher -> generate_batch) against the
+    continuous server, in process over the same engine: 8 greedy requests
+    at once to each; the MicroBatcher's replies are generate_batch's
+    (decoded alike), and each matches the continuous server's tokens up to
+    a near-tie (_near_tie_check). The window is 200 ms so the 8 requests
+    form one batch."""
+    from luminaai_tpu_torch.ops import ragged_paged_attention as rpa
+    from luminaai_tpu_torch.serving.server import ChatServer
+
+    kern = rpa.ragged_paged_attention
+    prompts = [_prompt(n, i) for i, n in enumerate((10, 20, 30, 40, 50, 60,
+                                                    63, 64))]
+    ids = [engine.tokenizer.backend.encode(p) for p in prompts]
+    out = {}
+    for name, kw in (("micro", {"continuous": False, "max_batch": LANES,
+                                "batch_window_ms": 200.0}),
+                     ("continuous", {})):
+        server = ChatServer(engine, num_slots=LANES, page_size=PAGE,
+                            slo=False, watchdog=None, **kw)
+        httpd = server.make_httpd("127.0.0.1", 0)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        bodies = [{"prompt": p, "max_new_tokens": PLANE_NEW_TOKENS,
+                   "temperature": 0} for p in prompts]
+        try:
+            fwd0 = engine.decode_forwards
+            kern.launches = kern.launches_global = 0
+            with ThreadPoolExecutor(LANES) as pool:
+                if name == "micro":
+                    out[name] = list(pool.map(
+                        lambda b: _call(url, "/v1/generate", b), bodies))
+                else:
+                    out[name] = list(pool.map(
+                        lambda b: _stream(url, "/v1/generate", b), bodies))
+            launched = (kern.launches, kern.launches_global)
+            fwds = engine.decode_forwards - fwd0
+            batches = server.batcher.max_batch_seen
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            server.close()
+        if name == "micro":
+            # generate_batch's decode: one B5 launch a layer for each of
+            # its batched decode forwards, all in the local-table form.
+            cuda = engine.model.device.type == "cuda"
+            want = fwds * engine.config.num_layers if cuda else 0
+            log(f"--no-continuous: B5 launches {launched[0]} (decode "
+                f"forwards {fwds} x layers = {want}), global-table "
+                f"launches {launched[1]}")
+            if batches != LANES:
+                raise AssertionError(
+                    f"the MicroBatcher ran batches of {batches}")
+            if fwds < 1 or launched != (want, 0):
+                raise AssertionError("generate_batch's decode did not run "
+                                     "through the kernel")
+            out["launches"] = {"B5": launched[0], "B5_global": launched[1],
+                               "decode_forwards": fwds}
+    direct = engine.generate_batch(ids, max_new_tokens=PLANE_NEW_TOKENS,
+                                   temperature=0.0)
+    checks = []
+    for i, ((code, _, body), (toks, _), cont) in enumerate(
+            zip(out["micro"], direct, out["continuous"])):
+        if code != 200 or body["text"] != engine.tokenizer.decode(toks) or (
+                body["tokens"] != len(toks)):
+            raise AssertionError(f"MicroBatcher reply {i} is not "
+                                 f"generate_batch's: {body}")
+        checks.append(_near_tie_check(engine, ids[i], cont["ids"], toks,
+                                      f"no-continuous request {i}"))
+    n_equal = sum(c["equal"] for c in checks)
+    log(f"--no-continuous: one batch of {LANES} (generate_batch); replies "
+        f"equal the continuous server's in {n_equal}/{LANES}, the others "
+        f"diverge at a near-tie")
+    return {"equal": n_equal, "requests": LANES, **out["launches"]}
+
+
+def phase_serving_plane(dev, engine, rpa_entry: dict) -> dict:
+    """Phase 10: the serving plane. In process: a prefix hit's first decode
+    step against the cold request, B5's global table against its plain
+    version and timed. Then `serve --preset b1 --dense --seed 0` (the
+    weights of `engine`) in three children started together, all with a
+    secure gate, a tenant bucket and a queue depth of 8: the full server
+    with the prefix cache (64 pages), the same without telemetry, SLOs and
+    watchdog ("bare"), and the full server with the cache off. On the full
+    one: readiness, 401, /v1/auth, 429, 503 + Retry-After, a 504 deadline;
+    the shared-prefix traffic (launches, hits), against the bare one in
+    turns (full, bare, full, bare; the second round on another system
+    prompt) for the host ms a decode step; SSE against JSON, speculative
+    against greedy, /metrics, /slo, /metrics/history and `top`, and
+    SIGTERM with 4 requests in flight. The cache-off server takes the
+    first round's traffic (TTFT). Then --no-continuous in process."""
+    t_phase = time.perf_counter()
+    # B5 launches a decode step (none where a CPU rehearsal runs this).
+    layers = engine.config.num_layers if dev.type == "cuda" else 0
+    system, turns = _plane_texts()
+    a, b = (engine.encode_chat([{"role": "system", "content": system},
+                                {"role": "user", "content": t}])
+            for t in turns[:2])
+    shared = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+    if shared // PAGE != PLANE_SHARED_PAGES:
+        raise AssertionError(f"the shared prefix ({shared} tokens) does not "
+                             f"span {PLANE_SHARED_PAGES} full pages")
+    inproc = _plane_in_process(dev, engine, rpa_entry, system, turns)
+    _release()
+
+    base = [*PLANE_MODEL, "--num-slots",
+            str(LANES), "--page-size", str(PAGE), "--secure", "--user",
+            PLANE_USER, "--password", PLANE_PASSWORD, "--tenant-rate",
+            str(PLANE_RATE), "--tenant-burst", str(PLANE_BURST),
+            "--max-queue-depth", str(PLANE_QUEUE_DEPTH)]
+    root = RUN_DIR / "plane"
+    flight = root / "flight"
+    from luminaai_tpu_torch.security.auth import SecurityManager
+
+    (root / "main").mkdir(parents=True)
+    if not SecurityManager(persist_path=str(root / "main" / "users.json")
+                           ).create_user(PLANE_FLOOD_USER, PLANE_PASSWORD):
+        raise AssertionError("could not create the second account")
+    child = _ServeChild("serve", base + [
+        "--prefix-cache-pages", str(PLANE_ARENA_PAGES),
+        "--flight-dir", str(flight)], root / "main")
+    others = {
+        "bare": _ServeChild("serve_bare", base + [
+            "--prefix-cache-pages", str(PLANE_ARENA_PAGES),
+            "--no-telemetry", "--no-slo", "--no-watchdog"], root / "bare"),
+        "cache_off": _ServeChild("serve_cache_off", base + [
+            "--prefix-cache-pages", "0"], root / "cache_off"),
+    }
+    out = {"in_process": inproc}
+    try:
+        ready = child.wait_ready()
+        log(f"serve child: /healthz {ready['warmup']} as its warmup began, "
+            f"over HTTP {ready['http']}, 200 after {ready['ready_s']:.1f}s")
+        if ready["warmup"] != 503 or ready["http"][-1][0] != 200:
+            raise AssertionError("/healthz did not go 503 -> 200")
+        out["ready_s"] = ready["ready_s"]
+        url = child.url
+        # Auth and limits.
+        code, _, body = _call(url, "/v1/chat", _chat_body(system, turns[0]))
+        if code != 401:
+            raise AssertionError(f"no token: {code} {body}")
+        token = _auth(url)
+        # The second user's bucket: empty inputs (charged, then refused 400
+        # by the validator, no model work) until a 429.
+        flood = _auth(url, PLANE_FLOOD_USER)
+        refused = None
+        for n in range(2 * PLANE_BURST):
+            code, hdr, body = _call(url, "/v1/generate", {"prompt": " "},
+                                    flood)
+            if code == 429:
+                refused = (n, body, hdr.get("Retry-After"))
+                break
+            if code != 400:
+                raise AssertionError(f"unexpected {code} {body}")
+        if refused is None or "tenant rate limit" not in refused[1][
+                "error"] or refused[1].get("retry_after", 0) < 1:
+            raise AssertionError(f"no 429 from the tenant bucket: {refused}")
+        # Shedding: 8 lanes busy and PLANE_QUEUE_DEPTH requests queued,
+        # the next one shed with 503 + Retry-After before the gate.
+        long_body = {"prompt": "shed me", "temperature": 0,
+                     "max_new_tokens": PLANE_LONG_TOKENS}
+        pool = ThreadPoolExecutor(LANES + PLANE_QUEUE_DEPTH)
+        futs = [pool.submit(_call, url, "/v1/generate", long_body, token)
+                for _ in range(LANES)]
+        _wait_for(child, lambda st: st["active_lanes"] == LANES, "8 lanes",
+                  futs=futs)
+        futs += [pool.submit(_call, url, "/v1/generate", long_body, token)
+                 for _ in range(PLANE_QUEUE_DEPTH)]
+        _wait_for(child, lambda st: st["queue_depth"] >= PLANE_QUEUE_DEPTH,
+                  f"{PLANE_QUEUE_DEPTH} queued requests", futs=futs)
+        shed = _call(url, "/v1/generate", long_body, token)
+        bad = [f.result()[::2] for f in futs if f.result()[0] != 200]
+        pool.shutdown()
+        if shed[0] != 503 or int(shed[1].get("Retry-After", 0)) < 1:
+            raise AssertionError(f"no 503 + Retry-After: {shed}")
+        if bad:
+            raise AssertionError(f"admitted requests failed: {bad[:2]}")
+        time.sleep(PLANE_BURST / PLANE_RATE + 0.2)
+        # A deadline that passes in the queue: 504, as the JAX server.
+        code, _, body = _call(url, "/v1/generate",
+                              {"prompt": "late", "timeout_s": 1e-4}, token)
+        if code != 504 or "deadline exceeded" not in body.get("error", ""):
+            raise AssertionError(f"deadline: {code} {body}")
+        log(f"gate: 401 without a token; 429 after {refused[0]} charged "
+            f"requests (Retry-After {refused[2]}); 503 + Retry-After "
+            f"{shed[1].get('Retry-After')} past queue depth "
+            f"{PLANE_QUEUE_DEPTH}; 504 past a deadline")
+        time.sleep(PLANE_BURST / PLANE_RATE)
+        for other in others.values():
+            other.wait_ready()
+        tokens = {"bare": _auth(others["bare"].url),
+                  "cache_off": _auth(others["cache_off"].url)}
+        # The full and the bare server in turns, on two system prompts.
+        rounds = []
+        for r, (sys_r, turns_r) in enumerate((
+                (system, turns), _plane_texts(seed=1))):
+            pair = {}
+            for key, target, tok in (("full", child, token),
+                                     ("bare", others["bare"],
+                                      tokens["bare"])):
+                burst = _plane_burst(target, tok, sys_r, turns_r,
+                                     f"serve {key}, round {r + 1}",
+                                     want_hits=True, layers=layers)
+                pair[key] = {k: v for k, v in burst.items()
+                             if k != "results"}
+                if key == "full":
+                    launches = burst["launches"]
+                    rpa_entry["launches"] = (rpa_entry["launches"] or 0) + (
+                        launches["B5"])
+                    rpa_entry["launches_plane"] = rpa_entry.get(
+                        "launches_plane", 0) + launches["B5"]
+                    glob = rpa_entry.setdefault("global_form", {})
+                    glob["launches"] = glob.get("launches", 0) + (
+                        launches["B5_global"])
+            rounds.append(pair)
+        out["cache_on"] = rounds[0]["full"]
+        out["rounds"] = rounds
+        off = others.pop("cache_off")
+        burst = _plane_burst(off, tokens["cache_off"], system, turns,
+                             "serve, cache off", want_hits=False,
+                             layers=layers)
+        off.stop()
+        out["cache_off"] = {k: v for k, v in burst.items() if k != "results"}
+        bare = others.pop("bare")
+        bare.stop()
+        # SSE against JSON: the same request, after one that caches all of
+        # its full pages, so both splice the same chain.
+        time.sleep(PLANE_BURST / PLANE_RATE)
+        body = _chat_body(system, turns[3] + " again", max_new_tokens=24)
+        _call(url, "/v1/chat", body, token)
+        code, _, as_json = _call(url, "/v1/chat", body, token)
+        streamed = _stream(url, "/v1/chat", body, token)
+        if code != 200 or streamed["done"] is None or (
+                as_json["reply"] != streamed["done"]["reply"]
+                or as_json["tokens"] != len(streamed["ids"])
+                or engine.tokenizer.decode(streamed["ids"])
+                != as_json["reply"]):
+            raise AssertionError(f"SSE differs from JSON: {as_json} vs "
+                                 f"{streamed}")
+        log(f"SSE: {len(streamed['ids'])} tokens, equal to the JSON reply")
+        # Speculative against greedy.
+        spec_body = {"prompt": SPEC_PROMPT, "max_new_tokens": 32,
+                     "temperature": 0, "repetition_penalty": 1.0}
+        child.reset()
+        code, _, spec = _call(url, "/v1/generate",
+                              {**spec_body, "speculative": True}, token)
+        spec_ids = _stream(url, "/v1/generate",
+                           {**spec_body, "speculative": True}, token)
+        # Its prefill chunks and its k-row verify forwards all take the
+        # plain paged attention (Sq > 1), by design: B5 never launches.
+        spec_launches = child.counts()
+        if spec_launches["B5"] or spec_launches["B5_global"]:
+            raise AssertionError(f"B5 ran in a speculative request: "
+                                 f"{spec_launches}")
+        greedy = _stream(url, "/v1/generate", spec_body, token)
+        if code != 200 or "speculative" not in spec or (
+                spec_ids["done"].get("speculative") is None):
+            raise AssertionError(f"speculative reply: {spec}")
+        prompt_ids = engine.tokenizer.backend.encode(SPEC_PROMPT)
+        tie = _near_tie_check(engine, prompt_ids, greedy["ids"],
+                              spec_ids["ids"], "speculative")
+        out["speculative"] = {**spec["speculative"], **tie,
+                              "B5": spec_launches["B5"],
+                              "B5_global": spec_launches["B5_global"]}
+        log(f"speculative: B5 launches {spec_launches['B5']} (global "
+            f"{spec_launches['B5_global']}), {spec['tokens']} tokens, "
+            f"{spec['speculative']['verify_calls']} verify calls, "
+            f"{spec['speculative']['tokens_per_verify']} tokens a verify; "
+            f"{'equal to greedy' if tie['equal'] else 'near-tie divergence'}")
+        # Observability.
+        code, hdr, text = _call(url, "/metrics")
+        lines = [x for x in text.splitlines() if x and not x.startswith("#")]
+        bad = [x for x in lines if not _METRIC_LINE.match(x)]
+        names = {x.split()[2] for x in text.splitlines()
+                 if x.startswith("# TYPE ")}
+        missing = [m for m in SERVING_METRICS if m not in names]
+        values = {x.split()[0]: float(x.split()[1]) for x in lines
+                  if "{" not in x}
+        if code != 200 or bad or missing or values[
+                "serve_prefix_cache_hits_total"] < PLANE_REQUESTS - 1 or (
+                values["serving_overload_rejections_total"] < 1) or (
+                values["serving_requests_timed_out_total"] < 1):
+            raise AssertionError(f"/metrics: {code}, unparsed {bad[:3]}, "
+                                 f"missing {missing}")
+        code_slo, _, slo = _call(url, "/slo")
+        code_h, _, hist = _call(url, "/metrics/history?max_points=20")
+        if code_slo != 200 or "serve_ttft_p95" not in slo.get(
+                "objectives", {}) or code_h != 200 or not hist.get("series"):
+            raise AssertionError(f"/slo {code_slo}, /metrics/history "
+                                 f"{code_h}")
+        top = subprocess.run(
+            [sys.executable, "-m", "luminaai_tpu_torch", "top", "--url", url,
+             "--once"], cwd=str(Path(__file__).resolve().parent),
+            capture_output=True, text=True, timeout=120)
+        if top.returncode != 0 or "lumina top" not in top.stdout:
+            raise AssertionError(f"top: {top.returncode} {top.stderr[-500:]}")
+        log(f"/metrics: {len(lines)} samples parsed, all "
+            f"{len(SERVING_METRICS)} serving families; /slo "
+            f"{sorted(slo['objectives'])}; /metrics/history "
+            f"{len(hist['series'])} series; top rendered "
+            f"{len(top.stdout.splitlines())} lines")
+        # Drain: SIGTERM with 4 requests in flight.
+        time.sleep(PLANE_BURST / PLANE_RATE)
+        pool = ThreadPoolExecutor(4)
+        futs = [pool.submit(_call, url, "/v1/generate",
+                            {"prompt": f"drain {i}", "temperature": 0,
+                             "max_new_tokens": PLANE_LONG_TOKENS}, token)
+                for i in range(4)]
+        _wait_for(child, lambda st: st["active_lanes"] == 4, "4 lanes",
+                  futs=futs)
+        t_sig = time.perf_counter()
+        rc = child.stop()
+        drained = [f.result() for f in futs]
+        pool.shutdown()
+        dumps = sorted(flight.glob("flightrec-*-drain.jsonl"))
+        log(f"drain: exit {rc} {time.perf_counter() - t_sig:.1f}s after "
+            f"SIGTERM; in-flight replies {[d[0] for d in drained]} "
+            f"({[d[2].get('tokens') for d in drained]} tokens); flight "
+            f"record {[d.name for d in dumps]}")
+        if rc != 0 or any(d[0] != 200 for d in drained) or not dumps:
+            raise AssertionError("drain did not finish the in-flight work")
+    except BaseException:
+        for c in (child, *others.values()):
+            log(f"{c.name} child log (tail):\n{c.tail()}")
+        raise
+    finally:
+        for c in (child, *others.values()):
+            c.stop()
+    _release()
+    on, off = out["cache_on"], out["cache_off"]
+    full = [r["full"]["host_ms_per_step"] for r in out["rounds"]]
+    bare = [r["bare"]["host_ms_per_step"] for r in out["rounds"]]
+    full_step = [r["full"]["step_ms_per_step"] for r in out["rounds"]]
+    bare_step = [r["bare"]["step_ms_per_step"] for r in out["rounds"]]
+    out["overhead_ms_per_step"] = statistics.mean(full) - statistics.mean(
+        bare)
+    out["step_overhead_ms_per_step"] = (statistics.mean(full_step)
+                                        - statistics.mean(bare_step))
+    log(f"TTFT p50/p95 cache on {on['ttft_s']['p50'] * 1e3:.1f}/"
+        f"{on['ttft_s']['p95'] * 1e3:.1f} ms, off "
+        f"{off['ttft_s']['p50'] * 1e3:.1f}/{off['ttft_s']['p95'] * 1e3:.1f} "
+        f"ms; host ms a decode tick (step and bookkeeping), full server "
+        f"{', '.join(f'{x:.2f}' for x in full)}, bare "
+        f"{', '.join(f'{x:.2f}' for x in bare)} (in turns; mean difference "
+        f"{out['overhead_ms_per_step']:+.2f} ms; in the step alone "
+        f"{out['step_overhead_ms_per_step']:+.2f} ms)")
+    out["no_continuous"] = _no_continuous_check(engine)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"serving plane: phase wall {out['wall_s']:.1f} s ({_smi()})")
+    return out
+
+
+def _wait_for(child: "_ServeChild", cond, what: str, timeout=120.0,
+              futs=()):
+    """Poll /stats until cond holds (failing early if a request of `futs`
+    already came back)."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        st = child.stats()
+        if cond(st):
+            return st
+        back = [f.result()[:3:2] for f in futs if f.done()]
+        if back or time.perf_counter() > deadline:
+            raise AssertionError(f"never saw {what}: {st}; replies {back}")
+        time.sleep(0.01)
 
 
 def _model_flops_per_step(cfg, n_params: int) -> float:
@@ -1475,6 +2405,7 @@ def phase_serve_moe(dev, rpa_entry: dict, gmm_entries: list) -> dict:
     def reset():
         tg.reset_launches()
         rpa.ragged_paged_attention.launches = 0
+        rpa.ragged_paged_attention.launches_global = 0
 
     launches, summary = _serve_burst(
         engine, "MoE serve", lambda model: model["moe"], reset,
@@ -1494,9 +2425,69 @@ def phase_serve_moe(dev, rpa_entry: dict, gmm_entries: list) -> dict:
     gmm_entries[0]["launches_serve"] = launches["B4a"]
     rpa_entry["launches"] = (rpa_entry["launches"] or 0) + launches["B5"]
     rpa_entry["launches_serve_moe"] = launches["B5"]
+    cached = _moe_prefix_burst(engine, n_moe, reset, lambda: {
+        "B4a": tg.gmm.launches, "B4b": tg.tgmm.launches,
+        "B5": rpa.ragged_paged_attention.launches,
+        "B5_global": rpa.ragged_paged_attention.launches_global})
+    gmm_entries[0]["launches"] += cached["launches"]["B4a"]
+    rpa_entry["launches"] += cached["launches"]["B5"]
     del engine
     return {**summary, "first_step_logit_err": logit_err,
-            "first_step_lanes_routed_alike": n_same}
+            "first_step_lanes_routed_alike": n_same,
+            "prefix_cache": cached}
+
+
+def _moe_prefix_burst(engine, n_moe: int, reset, read) -> dict:
+    """Phase 10 with experts: LANES chat requests sharing the phase's
+    system prompt through a ChatServer with the prefix cache on, the first
+    alone, then the rest at once; B4a launched exactly 2 x MoE layers x
+    (decode steps + prefill forwards), B5 decode steps x layers, every one
+    with the global table, and LANES - 1 prefix hits."""
+    from luminaai_tpu_torch.serving.server import ChatServer
+
+    system, turns = _plane_texts()
+    server = ChatServer(engine, num_slots=LANES, page_size=PAGE,
+                        prefix_cache_pages=PLANE_ARENA_PAGES, slo=False,
+                        watchdog=None)
+    httpd = server.make_httpd("127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    dec = server.batcher.decoder
+    try:
+        if _call(url, "/v1/generate", {"prompt": "warm up",
+                                       "max_new_tokens": 2})[0] != 200:
+            raise AssertionError("MoE prefix-cache server: warm-up failed")
+        steps0, pf0 = dec.steps, dec.prefill_forwards
+        reset()
+        t0 = time.perf_counter()
+        replies = [_call(url, "/v1/chat", _chat_body(system, turns[0]))]
+        with ThreadPoolExecutor(LANES - 1) as pool:
+            replies += list(pool.map(
+                lambda t: _call(url, "/v1/chat", _chat_body(system, t)),
+                turns[1:LANES]))
+        wall = time.perf_counter() - t0
+        launches = read()
+        steps, prefills = dec.steps - steps0, dec.prefill_forwards - pf0
+        hits = dec.prefix_cache.stats()["hits"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+    if any(code != 200 for code, _, _ in replies):
+        raise AssertionError(f"MoE prefix-cache replies: {replies[:2]}")
+    want = {"B4a": 2 * n_moe * (steps + prefills), "B4b": 0,
+            "B5": steps * engine.config.num_layers,
+            "B5_global": steps * engine.config.num_layers}
+    tokens = sum(body["tokens"] for _, _, body in replies)
+    log(f"MoE serve, prefix cache on: {LANES} requests, {tokens} tokens in "
+        f"{wall:.2f}s, {steps} decode steps, {prefills} prefill forwards, "
+        f"prefix hits {hits}; launches {launches} (want {want})")
+    if launches != want or hits != LANES - 1:
+        raise AssertionError("MoE serving with the prefix cache did not run "
+                             "through the kernels as expected")
+    return {"launches": launches, "decode_steps": steps,
+            "prefill_forwards": prefills, "prefix_hits": hits,
+            "tokens": tokens, "wall_s": wall}
 
 
 def phase_train_moe(dev, flash_entries: list, gmm_entries: list) -> dict:
@@ -1942,16 +2933,30 @@ def _run_child(args: list, log_path: Path, timeout: float = 900,
     return rc, text
 
 
-# The runtime phase's model: b1's widths without experts; per optimizer
-# step (16 layers, one micro-batch) B1 runs the forward and its remat
-# recompute.
-RUNTIME_MODEL = ("--preset", "b1", "--dense", "--batch-size",
-                 str(RUNTIME_BATCH), "--grad-accum", "1")
-RUNTIME_LAUNCHES = {"B1": 2 * 16, "B2": 16, "B3": 16}
+# The runtime phase's model: b1's widths without experts at half its
+# depth (8 of 16 layers: phases 7 and 9 write, hash and load its
+# checkpoints several times, and the script must finish within its time
+# budget), through `train --config`; per optimizer step (one
+# micro-batch) B1 runs each layer's forward and its remat recompute.
+RUNTIME_LAYERS = 8
+RUNTIME_LAUNCHES = {"B1": 2 * RUNTIME_LAYERS, "B2": RUNTIME_LAYERS,
+                    "B3": RUNTIME_LAYERS}
+
+
+def _runtime_model() -> tuple:
+    """train's model flags for phase 7: a saved b1 dense config at
+    RUNTIME_LAYERS layers."""
+    from luminaai_tpu_torch.config import ConfigPresets
+
+    path = RUN_DIR / "runtime_config.json"
+    ConfigPresets.get("b1", use_moe=False,
+                      num_layers=RUNTIME_LAYERS).save(str(path))
+    return ("--config", str(path), "--batch-size", str(RUNTIME_BATCH),
+            "--grad-accum", "1")
 
 
 def phase_runtime(dev, rpa_entry: dict, flash_entries: list,
-                  model_args=RUNTIME_MODEL, want=RUNTIME_LAUNCHES) -> dict:
+                  model_args=None, want=RUNTIME_LAUNCHES) -> dict:
     import torch
 
     from luminaai_tpu_torch import cli
@@ -1967,6 +2972,7 @@ def phase_runtime(dev, rpa_entry: dict, flash_entries: list,
     if atomics:
         raise AssertionError(f"csrc/ holds atomics: {atomics}")
 
+    model_args = model_args or _runtime_model()
     disk = shutil.disk_usage(RUN_DIR)
     log(f"runtime: disk at {RUN_DIR}: {disk.free / 1e9:.1f} GB free of "
         f"{disk.total / 1e9:.1f} GB ({disk.used / 1e9:.1f} GB used)")
@@ -2167,14 +3173,14 @@ POST_EVAL_BATCHES = 4
 # finetune (batch 8) and evaluate.
 POST_SHARDS = {"a": (0.7, 160), "b": (0.3, 96)}
 # A LoRA step at phase 7's b1 dense config (remat 'nothing_saveable',
-# one micro-batch, 16 layers): B1 runs each layer's forward and its
-# recompute in the backward, B2 and B3 once each (the adapter gradients
-# run back through the attention); no experts, no decode.
-POST_LAUNCHES = {"B1": 2 * 16, "B2": 16, "B3": 16, "B4a": 0, "B4b": 0,
-                 "B5": 0}
+# one micro-batch, RUNTIME_LAYERS layers): B1 runs each layer's forward
+# and its recompute in the backward, B2 and B3 once each (the adapter
+# gradients run back through the attention); no experts, no decode.
+POST_LAUNCHES = {"B1": 2 * RUNTIME_LAYERS, "B2": RUNTIME_LAYERS,
+                 "B3": RUNTIME_LAYERS, "B4a": 0, "B4b": 0, "B5": 0}
 # evaluate: the no-cache forward without gradients, one B1 per layer per
 # batch.
-EVAL_B1_PER_BATCH = 16
+EVAL_B1_PER_BATCH = RUNTIME_LAYERS
 EVAL_REL_TOL = 1e-5
 
 
@@ -2885,9 +3891,20 @@ def phase_adaptive(dev, flash_entries: list, gmm_entries: list,
             "decisions": decisions, "wall_s": wall, "card": smi}
 
 
+ALL_PHASES = ("serve", "plane", "serve_moe", "train", "train_moe",
+              "runtime", "posttrain", "adaptive", "posttrain_moe")
+PHASES = set(ALL_PHASES)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--runtime-child"]:
         return runtime_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--serve-child"]:
+        return serve_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--only"]:
+        # Development runs: the build and kernel phases and the named ones
+        # (comma-separated, of ALL_PHASES); the result line says "partial".
+        PHASES.intersection_update(sys.argv[2].split(","))
     repo = Path(__file__).resolve().parent
     if not (repo / "luminaai_tpu_torch" / "__init__.py").exists():
         print("chip_smoke: luminaai_tpu_torch is not beside this script",
@@ -2910,43 +3927,59 @@ def main() -> int:
     t0 = time.perf_counter()
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     RUN_DIR.mkdir()
+    partial = PHASES != set(ALL_PHASES)
+    done = {}
     try:
         phase_build()
         entry = phase_kernels(dev)
-        flash_entries = phase_flash_kernels(dev)
-        gmm_entries = phase_gmm_kernels(dev)
-        serve = phase_serve(dev, entry)
-        _release()
-        serve_moe = phase_serve_moe(dev, entry, gmm_entries)
-        _release()
-        train = phase_train(dev, flash_entries)
-        shutil.rmtree(RUN_DIR / "train_dense")
-        _release()
-        train_moe = phase_train_moe(dev, flash_entries, gmm_entries)
-        shutil.rmtree(RUN_DIR / "train_moe")
-        _release()
-        runtime = phase_runtime(dev, entry, flash_entries)
-        # Run B goes; run A's checkpoint feeds phase 9, its corpus phase 8.
-        shutil.rmtree(RUN_DIR / "B")
-        _release()
-        posttrain = phase_posttrain(dev, entry, flash_entries)
-        shutil.rmtree(RUN_DIR / "A")
-        shutil.rmtree(RUN_DIR / "post" / "merged")
-        _release()
-        adaptive = phase_adaptive(dev, flash_entries, gmm_entries)
-        _release()
-        posttrain_moe = phase_posttrain_experts(dev, flash_entries,
+        flash_entries = phase_flash_kernels(dev) if not partial or (
+            PHASES - {"serve", "plane", "serve_moe"}) else []
+        gmm_entries = phase_gmm_kernels(dev) if not partial or (
+            PHASES - {"serve", "plane", "train", "runtime",
+                      "posttrain"}) else []
+        if "serve" in PHASES:  # phase 3, and phase 10 ("plane") after it
+            done["serve"] = phase_serve(dev, entry)
+            _release()
+        if "serve_moe" in PHASES:
+            done["serve_moe"] = phase_serve_moe(dev, entry, gmm_entries)
+            _release()
+        if "train" in PHASES:
+            done["train"] = phase_train(dev, flash_entries)
+            shutil.rmtree(RUN_DIR / "train_dense")
+            _release()
+        if "train_moe" in PHASES:
+            done["train_moe"] = phase_train_moe(dev, flash_entries,
                                                 gmm_entries)
+            shutil.rmtree(RUN_DIR / "train_moe")
+            _release()
+        if "runtime" in PHASES:
+            done["runtime"] = phase_runtime(dev, entry, flash_entries)
+            # Run B goes; run A's checkpoint feeds phase 9, its corpus
+            # phase 8.
+            shutil.rmtree(RUN_DIR / "B")
+            _release()
+        if "posttrain" in PHASES:
+            done["posttrain"] = phase_posttrain(dev, entry, flash_entries)
+            shutil.rmtree(RUN_DIR / "A")
+            shutil.rmtree(RUN_DIR / "post" / "merged")
+            _release()
+        if "adaptive" in PHASES:
+            done["adaptive"] = phase_adaptive(dev, flash_entries, gmm_entries)
+            _release()
+        if "posttrain_moe" in PHASES:
+            done["posttrain_moe"] = phase_posttrain_experts(
+                dev, flash_entries, gmm_entries)
     finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s: "
-        f"serve {serve}; serve_moe {serve_moe}; train {json.dumps(train)}; "
-        f"train_moe {json.dumps(train_moe)}; runtime {json.dumps(runtime)}; "
-        f"posttrain {json.dumps(posttrain)}; adaptive {json.dumps(adaptive)}; "
-        f"posttrain_moe {json.dumps(posttrain_moe)}")
+        + "; ".join(f"{k} {json.dumps(v, default=str)}"
+                    for k, v in done.items()))
 
     print(_smi())
     print(json.dumps({"kernels": [entry, *flash_entries, *gmm_entries]}))
+    if partial:
+        print(json.dumps({"ok": False, "partial": sorted(PHASES)}))
+        return 0
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """Command line of the port: `python -m luminaai_tpu_torch` with the
-subcommands serve, train, resume, data, finetune, evaluate, chat,
+subcommands serve, top, train, resume, data, finetune, evaluate, chat,
 verify-checkpoint and presets.
 
   python -m luminaai_tpu_torch train --preset b1 --dense \\
@@ -8,6 +8,9 @@ verify-checkpoint and presets.
       --data corpus.jsonl --packed --steps 1000 --output-dir runs/b1
   python -m luminaai_tpu_torch serve --checkpoint runs/b1/checkpoints
   python -m luminaai_tpu_torch serve --preset b1 --moe-dispatch gmm --seed 0
+  python -m luminaai_tpu_torch serve --preset b1 --dense --seed 0 \\
+      --prefix-cache-pages 64 --secure --user U --password P
+  python -m luminaai_tpu_torch top --url http://127.0.0.1:5001 --once
   python -m luminaai_tpu_torch train --preset debug --moe-dispatch gmm \\
       --synthetic --steps 3 --device cpu --output-dir /tmp/run
   python -m luminaai_tpu_torch train --config run.json --no-adaptive
@@ -56,6 +59,19 @@ perplexity, tokens, batches) over a conversation file. `chat` answers
 --prompt once or runs the REPL (inference/chat.py), optionally through
 the security layer (--secure). finetune, evaluate and chat run on the
 card unless given --device.
+
+`serve` takes the JAX CLI's serving flags but the fleet's (--replicas,
+--page-share*), the quantizer's (--quantize, --kv-cache-dtype) and
+--trace-jax (serving/server.py): continuous batching (or --no-continuous
+micro-batching over generate_batch), the radix prefix cache
+(--prefix-cache-pages), telemetry and spans, SLOs, the hang watchdog,
+deadlines, queue-depth shedding, tenant token buckets, --secure auth,
+SIGTERM drain with a flight record in --flight-dir; --adapter merges a
+LoRA adapter into --checkpoint's weights at load. Bad --latency-buckets,
+a non-positive --healthz-stale-after, and --secure with neither
+--user/--password nor a users.json exit 2 before any model load. `top`
+renders a server's /metrics/history and /slo (--url), a tshist dump, or
+the live ring.
 """
 
 from __future__ import annotations
@@ -97,6 +113,132 @@ def _model_overrides(args) -> Dict[str, object]:
     if args.moe_dispatch is not None:
         overrides["moe_dispatch"] = args.moe_dispatch
     return overrides
+
+
+def _serve_flags(sv: argparse.ArgumentParser) -> None:
+    """`serve`'s flags: the JAX CLI's (luminaai_tpu/cli.py serve) without
+    the fleet's (--replicas, --page-share*), the quantizer's (--quantize,
+    --kv-cache-dtype) and --trace-jax, plus the port's own model flags
+    (--preset, --dense, --moe-dispatch, --weights, --seed, --device)."""
+    sv.add_argument("--preset", default="b1",
+                    choices=ConfigPresets.available())
+    sv.add_argument("--dense", action="store_true",
+                    help="serve the preset's widths without experts")
+    _moe_dispatch_flag(sv)
+    w = sv.add_mutually_exclusive_group()
+    w.add_argument("--checkpoint",
+                   help="training checkpoint dir (or its output dir): the "
+                        "newest step whose manifest verifies, with its "
+                        "saved config")
+    w.add_argument("--weights", help=".npz of a flax parameter tree "
+                                     "('/'-joined keys)")
+    w.add_argument("--seed", type=int, default=None,
+                   help="random weights from this seed (default: config "
+                        "seed)")
+    sv.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=5001)
+    sv.add_argument("--secure", action="store_true",
+                    help="token auth + rate limit + input validation")
+    sv.add_argument("--user", help="bootstrap user (secure mode)")
+    sv.add_argument("--password", help="bootstrap password (secure mode)")
+    sv.add_argument("--adapter",
+                    help="LoRA adapter (.npz from finetune) merged at load "
+                         "(needs --checkpoint)")
+    sv.add_argument("--num-slots", dest="num_slots", type=int, default=8,
+                    help="continuous-batching KV pool slots "
+                         "(concurrent decode lanes)")
+    sv.add_argument("--page-size", dest="page_size", type=int, default=128,
+                    help="KV pool page granularity in tokens")
+    sv.add_argument("--prefill-chunk", dest="prefill_chunk_tokens",
+                    type=int, default=None,
+                    help="chunked-prefill chunk size in tokens (default: "
+                         "the config's prefill_chunk_size; 0 disables)")
+    sv.add_argument("--admission-window-ms", dest="admission_window_ms",
+                    type=float, default=0.0,
+                    help="wait this long for same-key peers before a "
+                         "generation's first decode step")
+    sv.add_argument("--no-continuous", dest="no_continuous",
+                    action="store_true",
+                    help="legacy run-to-completion micro-batching "
+                         "(generate_batch)")
+    sv.add_argument("--no-telemetry", dest="no_telemetry",
+                    action="store_true",
+                    help="skip hot-path metric recording (/metrics stays "
+                         "up but latency histograms stay empty)")
+    sv.add_argument("--trace-jsonl", dest="trace_jsonl",
+                    help="write request/prefill/stream spans to this "
+                         "JSONL file (tracing is off without it)")
+    sv.add_argument("--latency-buckets", dest="latency_buckets",
+                    help="comma-separated histogram bucket bounds in "
+                         "seconds (default spans 0.5ms..30s)")
+    sv.add_argument("--request-timeout", dest="request_timeout_s",
+                    type=float, default=None,
+                    help="per-request deadline in seconds: overdue lanes "
+                         "are evicted (504 / SSE error). A request's own "
+                         "timeout_s can only shorten it. Default: none")
+    sv.add_argument("--max-queue-depth", dest="max_queue_depth",
+                    type=int, default=128,
+                    help="admission queue cap: beyond it, generation "
+                         "requests get 503 + Retry-After instead of "
+                         "queuing unboundedly (0 disables shedding)")
+    sv.add_argument("--drain-grace", dest="drain_grace_s", type=float,
+                    default=30.0,
+                    help="seconds SIGTERM waits for in-flight generations "
+                         "to finish before shutdown")
+    sv.add_argument("--flight-dir", dest="flight_dir",
+                    help="where drain dumps the wide-event flight record "
+                         "(flightrec-*.jsonl; default: the checkpoint "
+                         "dir, else the working dir)")
+    sv.add_argument("--prefix-cache-pages", dest="prefix_cache_pages",
+                    type=int, default=None,
+                    help="radix prefix cache budget in KV pool pages: "
+                         "admissions splice cached shared-prefix pages "
+                         "instead of re-prefilling them; LRU-evicted "
+                         "beyond the budget (default: the config's "
+                         "prefix_cache_pages; 0 disables)")
+    sv.add_argument("--prefix-cache-tenant-quota",
+                    dest="prefix_cache_tenant_quota", type=int,
+                    default=None,
+                    help="max cached pages one tenant may own (0 = "
+                         "unbounded)")
+    sv.add_argument("--tenant-rate", dest="tenant_rate_per_s",
+                    type=float, default=None,
+                    help="per-tenant token-bucket admission rate "
+                         "(requests/sec refill; unset disables the "
+                         "bucket gate)")
+    sv.add_argument("--tenant-burst", dest="tenant_burst", type=int,
+                    default=None,
+                    help="per-tenant token-bucket burst capacity "
+                         "(default: ~1s of --tenant-rate)")
+    sv.add_argument("--no-watchdog", dest="no_watchdog",
+                    action="store_true",
+                    help="disable the decode-loop hang watchdog")
+    sv.add_argument("--watchdog-abort", dest="watchdog_abort",
+                    action="store_true",
+                    help="exit 75 (resumable) after a confirmed decode "
+                         "hang is dumped")
+    sv.add_argument("--watchdog-k", dest="watchdog_k", type=float,
+                    default=None,
+                    help="robust threshold multiplier over the rolling "
+                         "median decode step (default 10)")
+    sv.add_argument("--watchdog-floor", dest="watchdog_floor", type=float,
+                    default=None,
+                    help="minimum stall seconds before the serving "
+                         "watchdog can fire (default 30)")
+    sv.add_argument("--no-slo", dest="no_slo", action="store_true",
+                    help="disable the history ring + SLO burn-rate "
+                         "engine (GET /slo and /metrics/history then "
+                         "answer 404)")
+    sv.add_argument("--slo-config", dest="slo_config",
+                    help="JSON file REPLACING the default serve "
+                         "objectives")
+    sv.add_argument("--healthz-stale-after", dest="healthz_stale_after",
+                    type=float, default=None,
+                    help="seconds since the last decode tick (while "
+                         "busy) after which /healthz reports "
+                         "status=degraded (still 200)")
 
 
 def _train_flags(t: argparse.ArgumentParser) -> None:
@@ -145,26 +287,34 @@ def _train_flags(t: argparse.ArgumentParser) -> None:
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m luminaai_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
-    s = sub.add_parser("serve", help="serve a model over HTTP")
-    s.add_argument("--preset", default="b1", choices=ConfigPresets.available())
-    s.add_argument("--dense", action="store_true",
-                   help="serve the preset's widths without experts")
-    _moe_dispatch_flag(s)
-    w = s.add_mutually_exclusive_group()
-    w.add_argument("--checkpoint",
-                   help="training checkpoint dir (or its output dir): the "
-                        "newest step whose manifest verifies, with its "
-                        "saved config")
-    w.add_argument("--weights", help=".npz of a flax parameter tree "
-                                     "('/'-joined keys)")
-    w.add_argument("--seed", type=int, default=None,
-                   help="random weights from this seed (default: config seed)")
-    s.add_argument("--host", default="127.0.0.1")
-    s.add_argument("--port", type=int, default=5001)
-    s.add_argument("--num-slots", type=int, default=8)
-    s.add_argument("--page-size", type=int, default=128)
-    s.add_argument("--device", default=None,
-                   help="torch device (default: the card)")
+    s = sub.add_parser("serve", help="HTTP chat/completion server")
+    _serve_flags(s)
+
+    tp = sub.add_parser(
+        "top",
+        help="live operator dashboard over the time-series ring "
+             "(sparklines + SLO burn-rate table)",
+    )
+    tp.add_argument(
+        "source", nargs="?",
+        help="tshist-*.json history dump, or a directory holding them "
+             "(e.g. a flight dir); default: this process's live ring",
+    )
+    tp.add_argument("--url",
+                    help="attach to a serving process instead: polls "
+                         "GET /metrics/history + /slo (e.g. "
+                         "http://127.0.0.1:5001)")
+    tp.add_argument("--once", action="store_true",
+                    help="render one frame and exit (scripts, tests)")
+    tp.add_argument("--json", action="store_true",
+                    help="machine form of the frame (implies --once)")
+    tp.add_argument("--interval", type=float, default=2.0,
+                    help="refresh seconds for the live view (default 2)")
+    tp.add_argument("--window", type=float, default=None,
+                    help="restrict rows/tenant sums to the last N "
+                         "seconds (default: everything retained)")
+    tp.add_argument("--top-k", dest="top_k", type=int, default=4,
+                    help="tenants shown in the top-K table (default 4)")
 
     t = sub.add_parser("train", help="train a model")
     _train_flags(t)
@@ -505,9 +655,25 @@ def train(args) -> int:
 
 def build_serve_engine(args):
     """The engine `serve` runs: from --checkpoint (its saved config, the
-    moe-dispatch flag applied), --weights or --seed."""
+    moe-dispatch flag applied; with --adapter, cast to bf16 and the LoRA
+    adapter merged, as `chat --adapter` loads), --weights or --seed."""
     from luminaai_tpu_torch.inference.chat import build_engine
 
+    if getattr(args, "adapter", None) is not None:
+        from luminaai_tpu_torch.data.tokenizer import ConversationTokenizer
+        from luminaai_tpu_torch.inference.chat import (
+            load_model_for_inference,
+        )
+        from luminaai_tpu_torch.inference.generate import GenerationEngine
+
+        model, config = load_model_for_inference(
+            args.checkpoint, adapter=args.adapter, device=args.device,
+            overrides=_model_overrides(args),
+        )
+        return GenerationEngine(
+            model, ConversationTokenizer(model_name=config.tokenizer_name),
+            config,
+        )
     if args.checkpoint is not None:
         return build_engine(None, device=args.device,
                             checkpoint=args.checkpoint,
@@ -911,7 +1077,220 @@ def presets(args) -> int:
     return 0
 
 
+
+
+def _serve_checks(args):
+    """`serve`'s exit-2 checks (the JAX cmd_serve's, before any model
+    load): --secure needs a bootstrap user or a users.json, a positive
+    --healthz-stale-after, unique positive --latency-buckets; --adapter
+    needs --checkpoint. Returns (error message | None, bootstrap,
+    buckets)."""
+    import math
+
+    bootstrap = None
+    if args.secure:
+        if bool(args.user) != bool(args.password):
+            return ("--secure bootstrap needs BOTH --user and --password",
+                    None, None)
+        if args.user:
+            bootstrap = (args.user, args.password)
+        elif not Path("users.json").exists():
+            return ("--secure with no --user/--password and no existing "
+                    "users.json: nobody could authenticate", None, None)
+    if args.healthz_stale_after is not None and args.healthz_stale_after <= 0:
+        return (f"--healthz-stale-after needs a positive number of "
+                f"seconds, got {args.healthz_stale_after!r}", None, None)
+    buckets = None
+    if args.latency_buckets:
+        try:
+            buckets = sorted(
+                float(b) for b in args.latency_buckets.split(",")
+                if b.strip()
+            )
+            if (
+                not buckets
+                or any(not math.isfinite(b) or b <= 0 for b in buckets)
+                or len(set(buckets)) != len(buckets)
+            ):
+                raise ValueError(args.latency_buckets)
+        except ValueError:
+            return (f"--latency-buckets needs unique positive "
+                    f"comma-separated seconds, got "
+                    f"{args.latency_buckets!r}", None, None)
+    if args.adapter is not None and args.checkpoint is None:
+        return "--adapter needs --checkpoint (the base it adapts)", None, None
+    return None, bootstrap, buckets
+
+
+def serve(args) -> int:
+    """HTTP chat/completion server over the port (serving/server.py)."""
+    from luminaai_tpu_torch.serving.server import serve as run_server
+
+    err, bootstrap, buckets = _serve_checks(args)
+    if err is not None:
+        print(err, file=sys.stderr)
+        return 2
+    engine = build_serve_engine(args)
+    run_server(
+        engine,
+        checkpoint=args.checkpoint,
+        host=args.host,
+        port=args.port,
+        secure=args.secure,
+        bootstrap_user=bootstrap,
+        num_slots=args.num_slots,
+        page_size=args.page_size,
+        continuous=False if args.no_continuous else "auto",
+        admission_window_ms=args.admission_window_ms,
+        telemetry=not args.no_telemetry,
+        trace_jsonl=args.trace_jsonl,
+        latency_buckets=buckets,
+        request_timeout_s=args.request_timeout_s,
+        max_queue_depth=args.max_queue_depth,
+        drain_grace_s=args.drain_grace_s,
+        flight_dir=args.flight_dir,
+        prefill_chunk_tokens=args.prefill_chunk_tokens,
+        prefix_cache_pages=args.prefix_cache_pages,
+        prefix_cache_tenant_quota=args.prefix_cache_tenant_quota,
+        tenant_rate_per_s=args.tenant_rate_per_s,
+        tenant_burst=args.tenant_burst,
+        watchdog=not args.no_watchdog,
+        watchdog_abort=args.watchdog_abort,
+        watchdog_k=args.watchdog_k,
+        watchdog_floor_s=args.watchdog_floor,
+        slo=not args.no_slo,
+        slo_config=args.slo_config,
+        healthz_stale_after_s=args.healthz_stale_after,
+    )
+    return 0
+
+
+def _top_sources(args):
+    """Resolve `top`'s data source into (fetch_fn, source_label) (the JAX
+    CLI's but the router's /fleet, which waits for the fleet slice):
+    fetch_fn() -> (history, slo or None). Exit-2 errors raise SystemExit."""
+    import os
+    import urllib.error
+    import urllib.request
+
+    from luminaai_tpu_torch.monitoring.timeseries import (
+        get_history,
+        latest_history_dump,
+        load_history,
+    )
+
+    if args.url:
+        base = args.url.rstrip("/")
+
+        def fetch_url():
+            def _get(route):
+                try:
+                    with urllib.request.urlopen(
+                        f"{base}{route}", timeout=10
+                    ) as r:
+                        return json.loads(r.read())
+                except urllib.error.HTTPError:
+                    return None
+
+            history = _get("/metrics/history")
+            slo = _get("/slo")
+            if history is None:
+                print(f"{base} does not answer /metrics/history",
+                      file=sys.stderr)
+                raise SystemExit(2)
+            return history, slo
+
+        return fetch_url, base
+    if args.source:
+        resolved = args.source
+        if os.path.isdir(resolved):
+            resolved = latest_history_dump(resolved)
+            if resolved is None:
+                print(f"no tshist-*.json dumps under {args.source}",
+                      file=sys.stderr)
+                raise SystemExit(2)
+        if not os.path.exists(resolved):
+            print(f"no such history dump: {resolved}", file=sys.stderr)
+            raise SystemExit(2)
+
+        def fetch_file(resolved=resolved):
+            try:
+                doc = load_history(resolved)
+            except (ValueError, json.JSONDecodeError) as e:
+                print(f"bad history dump {resolved}: {e}", file=sys.stderr)
+                raise SystemExit(2)
+            return doc, doc.get("slo")
+
+        return fetch_file, resolved
+
+    def fetch_live():
+        ring = get_history()
+        if ring is None:
+            print(
+                "no live history ring in this process (start a server "
+                "with SLO on, or pass a dump path / --url)",
+                file=sys.stderr,
+            )
+            raise SystemExit(2)
+        # Read-only attach: the engine advertised on the ring supplies the
+        # verdict table from its cached last evaluation.
+        engine = getattr(ring, "slo", None)
+        return (ring.snapshot(),
+                engine.verdicts() if engine is not None else None)
+
+    return fetch_live, "<live ring>"
+
+
+def top(args) -> int:
+    """Operator dashboard over the time-series ring (the JAX `top`):
+    sparklines for throughput, latency and occupancy, per-tenant top-K,
+    and the SLO burn-rate table, from --url (a server's /metrics/history
+    and /slo), a tshist-*.json dump, or this process's live ring. --once
+    renders one frame; --json prints the machine form."""
+    from luminaai_tpu_torch.monitoring.top import render_top, top_payload
+
+    try:
+        fetch, source = _top_sources(args)
+    except SystemExit as e:
+        return int(e.code or 2)
+
+    def frame():
+        try:
+            history, slo = fetch()
+        except SystemExit:
+            raise
+        except Exception as e:
+            print(f"fetch failed: {e}", file=sys.stderr)
+            raise SystemExit(2)
+        if args.json:
+            return json.dumps(
+                top_payload(history, slo, window_s=args.window,
+                            top_k=args.top_k),
+                default=str,
+            )
+        return render_top(history, slo, source=source,
+                          window_s=args.window, top_k=args.top_k)
+
+    try:
+        if args.once or args.json:
+            print(frame())
+            return 0
+        import time as _time
+
+        while True:  # refresh loop; ^C exits
+            out = frame()
+            sys.stdout.write("\x1b[2J\x1b[H" + out)
+            sys.stdout.flush()
+            _time.sleep(max(0.2, float(args.interval)))
+    except KeyboardInterrupt:
+        return 0
+    except SystemExit as e:
+        return int(e.code or 2)
+
+
 COMMANDS = {
+    "serve": serve,
+    "top": top,
     "data": data,
     "finetune": finetune,
     "evaluate": evaluate,
@@ -926,12 +1305,4 @@ def main(argv: Optional[List[str]] = None) -> int:
     logging.basicConfig(level=logging.INFO)
     if args.command in ("train", "resume"):
         return train(args)
-    if args.command != "serve":
-        return COMMANDS[args.command](args)
-    from luminaai_tpu_torch.serving.server import ChatServer
-
-    engine = build_serve_engine(args)
-    ChatServer(
-        engine, num_slots=args.num_slots, page_size=args.page_size
-    ).serve_forever(args.host, args.port)
-    return 0
+    return COMMANDS[args.command](args)

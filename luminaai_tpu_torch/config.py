@@ -10,7 +10,8 @@ once written as JSON (the port's gives the schedule tuple as a list).
 `save` / `load` write and read it as JSON (YAML where `yaml` imports), as
 the JAX Config does, and `load` drops the keys this copy does not know, so
 a JAX config file loads here. Fields for parallelism and serving extras
-stay in the JAX package until the slices that need them are ported. Values
+stay in the JAX package until the slices that need them are ported
+(the serving plane's prefix cache and SLO fields are here). Values
 the port does not run yet are accepted here, as the JAX package accepts
 them, and refused where a model is built (MoE dispatch modes other than
 sort and gmm, mixture of depths: models/transformer.py) or a trainer is
@@ -41,6 +42,10 @@ REMAT_POLICY_NAMES = (
 )
 MOE_PATTERNS = ("all", "every_3rd", "every_4th", "sandwich", "none")
 MOE_DISPATCHES = ("sort", "gather", "einsum", "gmm", "a2a")
+ATTENTION_BACKENDS = ("ragged",)
+# The JAX package's XLA attention backends: a JAX config file carrying one
+# serves on the port's 'ragged' dispatch (the kernel on the card).
+JAX_ONLY_BACKENDS = ("dense", "ragged_xla")
 
 
 @dataclass
@@ -75,6 +80,22 @@ class Config:
     # Sliding-window attention width (None = full causal). The slot-paged
     # pool never rolls, so the window is a per-lane band mask.
     attention_window: Optional[int] = None
+    # Serving attention backend for the length-aware decode paths
+    # (ops/ragged_paged_attention.paged_attention): 'ragged' only, the
+    # decode kernel (B5) for eligible decode shapes on the card and the
+    # plain version on the CPU. The JAX package's values ('dense',
+    # 'ragged_xla': its XLA references) read as 'ragged' when a JAX config
+    # file is loaded (from_dict); the plain oracle is a per-call argument.
+    attention_backend: str = "ragged"
+    # Radix prefix cache over the serving KV pool (inference/
+    # prefix_cache.py): budget of content-hash-keyed arena pages shared
+    # across lanes; admissions splice the longest cached prompt-prefix page
+    # chain into their global page table and prefill only the uncached
+    # suffix. 0 disables. Needs chunked prefill.
+    prefix_cache_pages: int = 0
+    # Max arena pages one tenant may own (0 = unbounded): a hot tenant at
+    # quota evicts its OWN pages, never everyone else's.
+    prefix_cache_tenant_quota: int = 0
 
     # --- MoE (luminaai_tpu/config.py:113-141) ---
     use_moe: bool = False
@@ -182,6 +203,26 @@ class Config:
     watchdog_abort: bool = False
     step_anomaly: bool = True
     step_anomaly_k: float = 4.0
+    # SLO engine (monitoring/slo.py; JAX config.py:372-391): a background
+    # sampler keeps windowed history of the registry in a fixed-memory ring
+    # and the engine judges objectives over fast/slow windows with
+    # burn-rate rules; slo_config names a JSON file REPLACING the default
+    # objectives. All host side: no device work on the step path.
+    slo: bool = True
+    slo_sample_interval_s: float = 5.0
+    slo_ring_points: int = 720
+    slo_max_series: int = 256
+    slo_fast_window_s: float = 60.0
+    slo_slow_window_s: float = 600.0
+    slo_fast_burn: float = 10.0
+    slo_slow_burn: float = 2.0
+    slo_budget: float = 0.1
+    slo_ttft_p95_s: float = 2.0
+    slo_decode_p50_s: float = 0.5
+    slo_error_rate: float = 0.05
+    slo_goodput_fraction: float = 0.5
+    slo_step_time_factor: float = 2.0
+    slo_config: Optional[str] = None
     # Durable I/O: io_retries total attempts per op, delays io_retry_base_s
     # doubling up to io_retry_max_s, the op bounded by io_timeout_s.
     io_retries: int = 4
@@ -252,6 +293,18 @@ class Config:
             raise ValueError(
                 "prefill_chunk_size must be >= 0 (0 disables chunked prefill)"
             )
+        if self.attention_backend not in ATTENTION_BACKENDS:
+            raise ValueError(
+                f"invalid attention_backend {self.attention_backend}"
+            )
+        if self.prefix_cache_pages < 0:
+            raise ValueError(
+                "prefix_cache_pages must be >= 0 (0 disables the prefix cache)"
+            )
+        if self.prefix_cache_tenant_quota < 0:
+            raise ValueError(
+                "prefix_cache_tenant_quota must be >= 0 (0 = unbounded)"
+            )
         if self.attention_window is not None and self.attention_window <= 0:
             raise ValueError(
                 f"attention_window must be positive, got "
@@ -284,6 +337,30 @@ class Config:
             raise ValueError("watchdog_poll_s must be positive")
         if self.step_anomaly_k <= 1:
             raise ValueError("step_anomaly_k must be > 1")
+        if self.slo_sample_interval_s <= 0:
+            raise ValueError("slo_sample_interval_s must be positive")
+        if self.slo_ring_points < 2:
+            raise ValueError("slo_ring_points must be >= 2")
+        if self.slo_max_series < 1:
+            raise ValueError("slo_max_series must be >= 1")
+        if not 0 < self.slo_fast_window_s < self.slo_slow_window_s:
+            raise ValueError("slo windows must satisfy 0 < fast < slow")
+        if self.slo_fast_burn < 1:
+            raise ValueError("slo_fast_burn must be >= 1")
+        if self.slo_slow_burn < 1:
+            raise ValueError("slo_slow_burn must be >= 1")
+        if not 0 < self.slo_budget <= 1:
+            raise ValueError("slo_budget must be in (0, 1]")
+        if self.slo_ttft_p95_s <= 0:
+            raise ValueError("slo_ttft_p95_s must be positive")
+        if self.slo_decode_p50_s <= 0:
+            raise ValueError("slo_decode_p50_s must be positive")
+        if not 0 < self.slo_error_rate <= 1:
+            raise ValueError("slo_error_rate must be in (0, 1]")
+        if not 0 < self.slo_goodput_fraction <= 1:
+            raise ValueError("slo_goodput_fraction must be in (0, 1]")
+        if self.slo_step_time_factor <= 1:
+            raise ValueError("slo_step_time_factor must be > 1")
         if self.io_retries < 1:
             raise ValueError("io_retries must be >= 1 (1 = no retry)")
         if self.io_retry_base_s <= 0:
@@ -327,7 +404,10 @@ class Config:
         """A Config from a to_dict() of either side (a checkpoint's
         metadata): keys this copy does not know are dropped."""
         known = {f.name for f in dataclasses.fields(cls)}
-        return cls(**{k: v for k, v in d.items() if k in known})
+        kw = {k: v for k, v in d.items() if k in known}
+        if kw.get("attention_backend") in JAX_ONLY_BACKENDS:
+            kw["attention_backend"] = "ragged"
+        return cls(**kw)
 
     def save(self, path: str) -> None:
         """Write to_dict() as JSON (YAML for .yaml/.yml where yaml

@@ -139,12 +139,14 @@ def load_model_for_inference(
     keep_master_dtype: bool = False,
     adapter: Optional[str] = None,
     device=None,
+    overrides: Optional[Dict[str, Any]] = None,
 ) -> Tuple[LuminaTransformer, Config]:
     """(model on `device`, config) from a checkpoint. The parameters are
     cast to bf16 first unless keep_master_dtype (fine-tuning keeps the
     fp32 masters and gets the trainable model: fp32 parameters cast at
-    each use); `adapter` (a LoRA .npz) merges after the cast."""
-    flat, config, _ = load_checkpoint_flax(checkpoint_dir, config)
+    each use); `adapter` (a LoRA .npz) merges after the cast. `overrides`
+    apply to the checkpoint's config (serve's --dense/--moe-dispatch)."""
+    flat, config, _ = load_checkpoint_flax(checkpoint_dir, config, overrides)
     if not keep_master_dtype:
         flat = {k: v.to(torch.bfloat16) for k, v in flat.items()}
     if adapter is not None:

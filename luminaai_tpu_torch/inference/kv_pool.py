@@ -9,8 +9,11 @@ The device tensors are updated in place by the attention layers, through
 the flat `[num_slots, pages * page_size, kv_heads, head_dim]` views that
 `to_flat` returns (views of the same storage, never copies).
 
-The JAX pool's LPG1 page export/import (cross-replica page sharing) is not
-ported in this slice.
+With the prefix cache on, the decoder allocates the tensors with arena
+slots PAST the lane range (total slots = num_slots + arena slots): the pool
+accounts for the lanes only, and the arena's pages are reached through the
+decoder's global page table. The JAX pool's LPG1 page export/import
+(cross-replica page sharing) waits for the fleet slice.
 """
 
 from __future__ import annotations
@@ -88,6 +91,9 @@ class PagedKVPool:
         """Token capacity of one slot (pages * page_size rows)."""
         return self.pages * self.page_size
 
+    def free_count(self) -> int:
+        return len(self._free)
+
     def has_free(self) -> bool:
         return bool(self._free)
 
@@ -118,10 +124,20 @@ class PagedKVPool:
             self.page_tables[slot] = np.arange(self.pages, dtype=np.int32)
             self._free.append(slot)
 
+    def allocated_slots(self) -> List[int]:
+        with self._lock:
+            return sorted(self._allocated)
+
     def page_table_array(self) -> np.ndarray:
         """[num_slots, pages] int32 snapshot of the page tables."""
         with self._lock:
             return self.page_tables.copy()
+
+    def lengths_array(self) -> np.ndarray:
+        """[num_slots] int32 snapshot of rows resident per slot (0 for free
+        slots): the `lengths` operand of the decode kernel."""
+        with self._lock:
+            return self.lengths.astype(np.int32)
 
     def pages_in_use(self) -> int:
         """Pages holding live rows (each allocated slot's length rounded up
@@ -131,6 +147,24 @@ class PagedKVPool:
                 -(-int(self.lengths[s]) // self.page_size)
                 for s in self._allocated
             )
+
+    def fragmentation_rows(self) -> int:
+        """Rows allocated by page rounding but not holding KV."""
+        with self._lock:
+            live = int(sum(int(self.lengths[s]) for s in self._allocated))
+            return self.pages_in_use() * self.page_size - live
+
+    def _length_summary(self) -> dict:
+        """Min/mean/max live length over allocated slots (0s when idle)."""
+        with self._lock:
+            vals = [int(self.lengths[s]) for s in self._allocated]
+        if not vals:
+            return {"min": 0, "mean": 0.0, "max": 0}
+        return {
+            "min": min(vals),
+            "mean": round(sum(vals) / len(vals), 1),
+            "max": max(vals),
+        }
 
     def stats(self) -> dict:
         with self._lock:
@@ -144,4 +178,6 @@ class PagedKVPool:
                 "reuses": self.reuses,
                 "pages_in_use": self.pages_in_use(),
                 "pages_total": self.num_slots * self.pages,
+                "fragmentation_rows": self.fragmentation_rows(),
+                "lengths": self._length_summary(),
             }

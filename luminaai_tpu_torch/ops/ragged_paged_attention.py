@@ -10,7 +10,9 @@ Counterpart of luminaai_tpu/ops/ragged_paged_attention.py. Three pieces:
 - `ragged_paged_attention`: the wrapper of the Hopper kernel
   (csrc/ragged_paged_attention.cu, which replaces the TPU kernel
   `_decode_kernel`). On a CUDA tensor it launches the kernel, counting the
-  launch in `ragged_paged_attention.launches`; on a CPU tensor it runs the
+  launch in `ragged_paged_attention.launches`, and a launch with a global
+  page table (the prefix cache's aliased arena pages) also in
+  `ragged_paged_attention.launches_global`; on a CPU tensor it runs the
   plain version. It never falls back from the card.
 - `paged_attention`: the backend dispatcher. 'ragged' takes the kernel for
   eligible decode shapes; prefill chunks take the plain version (the JAX
@@ -275,10 +277,13 @@ def ragged_paged_attention(
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention launch failed: CUDA error {err}")
     ragged_paged_attention.launches += 1
+    if meta.global_pages:
+        ragged_paged_attention.launches_global += 1
     return out
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.launches_global = 0
 
 
 def paged_attention(

@@ -132,6 +132,27 @@ def test_posttrain_modules_are_scanned(module):
     assert f"{path}.py" in files or f"{path}/__init__.py" in files
 
 
+# The serving plane: the radix prefix cache, the server and its chat
+# page, the SLO engine, time-series ring, span tracer and `top`.
+SERVING_MODULES = (
+    "luminaai_tpu_torch.inference.prefix_cache",
+    "luminaai_tpu_torch.inference.kv_pool",
+    "luminaai_tpu_torch.serving.server",
+    "luminaai_tpu_torch.serving.webui",
+    "luminaai_tpu_torch.monitoring.slo",
+    "luminaai_tpu_torch.monitoring.timeseries",
+    "luminaai_tpu_torch.monitoring.tracing",
+    "luminaai_tpu_torch.monitoring.top",
+)
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES)
+def test_serving_modules_are_scanned(module):
+    assert module in _modules()
+    files = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert module.replace(".", "/") + ".py" in files
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, sys\n"

@@ -2,12 +2,14 @@
 
 A two-layer model (hidden 64, seeded weights, fp32) behind the port's
 ThreadingHTTPServer on 127.0.0.1 with an OS-picked port: /health, /stats,
-/v1/generate and /v1/chat answer, request errors map to 400/404, and the
-tokens a greedy request returns are exactly the tokens the port's own
-StepwiseDecoder produces for that prompt outside the server (so the
-scheduler adds nothing and drops nothing). Concurrent requests mix whole
-and chunked prefill and each still gets its solo answer: lanes of one
-decode batch are independent.
+/v1/generate and /v1/chat answer with the JAX ChatServer's payloads,
+request errors map to 400/404, and the tokens a greedy request returns are
+exactly the tokens the port's own StepwiseDecoder produces for that prompt
+outside the server (so the scheduler adds nothing and drops nothing): the
+JSON reply carries the decoded text and the count, as the JAX reply does,
+and a {"stream": true} request of the same body carries the token ids in
+its SSE frames. Concurrent requests mix whole and chunked prefill and each
+still gets its solo answer: lanes of one decode batch are independent.
 """
 
 import json
@@ -60,6 +62,26 @@ def _post(url, body, raw=None):
         return e.code, json.loads(e.read())
 
 
+def _stream_ids(url, body):
+    """The token ids of the same request streamed ({"stream": true}): one
+    SSE frame per token, then the done frame."""
+    req = urllib.request.Request(
+        url, data=json.dumps({**body, "stream": True}).encode(),
+        headers={"Content-Type": "application/json"},
+    )
+    ids, done = [], None
+    with urllib.request.urlopen(req, timeout=120) as r:
+        for line in r.read().decode().split("\n\n"):
+            if not line.startswith("data: ") or line == "data: [DONE]":
+                continue
+            ev = json.loads(line[len("data: "):])
+            if ev.get("done"):
+                done = ev
+            elif "token" in ev:
+                ids.append(ev["token"])
+    return ids, done
+
+
 def _solo_tokens(engine, prompt_ids, budget):
     """The greedy answer of one request on a decoder of its own: the
     first token from prefill, then decode steps until a stop token or the
@@ -90,7 +112,7 @@ def test_health_and_stats(served):
     assert code == 200 and health["status"] == "ok"
     assert health["model"] == {"hidden_size": 64, "num_layers": 2,
                                "vocab_size": 384, "moe": False}
-    assert health["device"] == "cpu"
+    assert health["secure"] is False
     code, stats = _get(url + "/stats")
     assert code == 200 and stats["scheduler"] == "continuous"
     assert stats["kv_pool"]["num_slots"] == SLOTS
@@ -100,29 +122,27 @@ def test_health_and_stats(served):
 def test_generate_returns_the_decoders_greedy_tokens(served):
     engine, _, url = served
     prompt = "the quick brown fox"
-    code, body = _post(url + "/v1/generate", {
-        "prompt": prompt, "max_new_tokens": BUDGET, "temperature": 0,
-    })
+    req = {"prompt": prompt, "max_new_tokens": BUDGET, "temperature": 0}
+    code, body = _post(url + "/v1/generate", req)
     assert code == 200, body
     want = _solo_tokens(engine, engine.tokenizer.encode_text(prompt), BUDGET)
-    assert body["token_ids"] == want
     assert body["tokens"] == len(want)
-    assert body["prompt_tokens"] == len(prompt)
     assert body["stopped"] in ("length", "eos")
     assert body["text"] == engine.tokenizer.decode(want)
+    ids, done = _stream_ids(url + "/v1/generate", req)
+    assert ids == want
+    assert done["text"] == body["text"] and done["tokens"] == len(want)
 
 
 def test_chat_round_trip(served):
     engine, _, url = served
     messages = [{"role": "user", "content": "hello there"}]
-    code, body = _post(url + "/v1/chat", {
-        "messages": messages, "max_new_tokens": BUDGET, "temperature": 0,
-    })
+    req = {"messages": messages, "max_new_tokens": BUDGET, "temperature": 0}
+    code, body = _post(url + "/v1/chat", req)
     assert code == 200, body
-    assert "reply" in body
-    assert body["token_ids"] == _solo_tokens(
-        engine, engine.encode_chat(messages), BUDGET
-    )
+    want = _solo_tokens(engine, engine.encode_chat(messages), BUDGET)
+    assert body["reply"] == engine.tokenizer.decode(want)
+    assert _stream_ids(url + "/v1/chat", req)[0] == want
     code, body = _post(url + "/v1/chat", {"message": "hi", "max_new_tokens": 2,
                                           "temperature": 0})
     assert code == 200 and body["tokens"] <= 2
@@ -143,9 +163,9 @@ def test_concurrent_requests_mix_both_prefill_paths(served):
         ))
     for p, (code, body) in zip(prompts, replies):
         assert code == 200, body
-        assert body["token_ids"] == _solo_tokens(
-            engine, engine.tokenizer.encode_text(p), BUDGET
-        )
+        want = _solo_tokens(engine, engine.tokenizer.encode_text(p), BUDGET)
+        assert body["text"] == engine.tokenizer.decode(want)
+        assert body["tokens"] == len(want)
     assert server.batcher.decoder.steps > steps0
     _, stats = _get(url + "/stats")
     assert stats["queue_depth"] == 0 and stats["active_lanes"] == 0
@@ -186,8 +206,9 @@ def test_moe_concurrent_requests_get_their_solo_answers():
         thread.join(10)
     for p, (code, body) in zip(prompts, replies):
         assert code == 200, body
-        assert body["token_ids"] == _solo_tokens(
-            engine, engine.tokenizer.encode_text(p), BUDGET)
+        want = _solo_tokens(engine, engine.tokenizer.encode_text(p), BUDGET)
+        assert body["text"] == engine.tokenizer.decode(want)
+        assert body["tokens"] == len(want)
 
 
 def test_request_errors(served):
