@@ -16,7 +16,8 @@ Phases (any failure raises and exits non-zero):
              head_dim 64, and the shapes the JAX gate admits that the
              first kernels refused (head_dim 192, 320 and 512, S 200, a
              group of 3), and B1-B3 at the flagship MoE shape (head_dim
-             64, q [16, 2048, 16, 64]); B5 also at head_dim 576 and at the
+             64, q [16, 2048, 16, 64]) and at debug_200m's (q [8, 2048,
+             12, 64] over 4 kv heads: B2 on the mma.sync kernel); B5 also at head_dim 576 and at the
              split-KV kernel's share boundaries; the grouped matmul (B4a
              gmm with and without transpose_rhs, B4b tgmm) at the b1
              decode and flagship training shapes, with an empty group and
@@ -148,6 +149,24 @@ Phases (any failure raises and exits non-zero):
              prefill forwards). TTFT p50/p95 with and without the cache,
              host ms a decode tick (the step and its bookkeeping) of the
              full and the bare server, tokens/s.
+ 11. train_  bench.py's flagship_tuned (phase 6's widths with the
+     tuned   save_attn remat policy and bf16 Adam mu) through Trainer, 6
+             steps: the first against the plain attention and gmm, B1
+             exactly once a layer a step (phase 6: twice), B2 = B3 once,
+             B4a 6 and B4b 2 a MoE layer; step time, peak memory and the
+             optimizer's bytes by dtype beside phase 6's; then 3 steps
+             with int8 Adam moments.
+ 12. mod     `train --preset debug_200m --synthetic` in process (mixture
+             of depths at capacity 0.5), 6 steps: the first against the
+             plain attention, B1 2 x 12 x 4 and B2 = B3 12 x 4 a step,
+             the kernels the profiler names, mod_compute_ratio 0.5; one
+             mod_capacity decision (0.5 -> 0.3) through the
+             orchestrator's _execute and the step after it against the
+             plain attention; 3 steps of the hybrid MoE+MoD model (8
+             experts top-2 gmm on every third layer) with exact B4a/B4b
+             launches; `serve --preset debug_200m` in process, 8
+             requests, B5 = decode steps x 12, the first decode step
+             against the plain attention.
 
 `--only serve,plane,serve_moe` (development runs) runs the build, the
 kernel checks and the named phases only; its last line then says
@@ -229,6 +248,18 @@ REPAIRED_FLASH = {
 # B1 at the flagship MoE training shape (bench.py's widths: 16 q over 8 kv
 # heads, head_dim 64, micro-batch 16 x 2048): (B, S, Hq, Hkv, D).
 FLAGSHIP_ATTN = (16, 2048, 16, 8, 64)
+# debug_200m's attention (12 q over 4 kv heads, a group of 3, head_dim 64,
+# micro-batch 8 x 2048). The dispatch rule of csrc/flash_attention.cu sends
+# B2 to the mma.sync flash_bwd_dq_kernel (128 rows are no multiple of 3)
+# and B1 to the wgmma kernel (its 192 rows at head_dim 64 are).
+DEBUG200M_ATTN = (8, 2048, 12, 4, 64)
+# The CUDA kernels B1-B3 must take, as the profiler names them: the wgmma
+# backward at every shape but debug_200m's, and debug_200m's three.
+WGMMA_BACKWARD = {"B2": "flash_bwd_dq_wgmma_kernel",
+                  "B3": "flash_bwd_dkv_wgmma_kernel"}
+DEBUG200M_KERNELS = {"B1": "flash_fwd_wgmma_kernel",
+                     "B2": "flash_bwd_dq_kernel<",
+                     "B3": "flash_bwd_dkv_wgmma_kernel"}
 # B5 above head_dim 512 (512-column output slices): Hq 8 over Hkv 2.
 WIDE_DECODE = (8, 2, 576)
 # Rounds whose median is the library's time where single rounds differ by
@@ -681,34 +712,39 @@ def phase_flash_kernels(dev) -> list:
     log(f"SDPA forward vs plain B1 output: max abs diff {lib_err:.3e}")
     del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
-    _require_wgmma_backward(routes["train"], "the b1 training shape")
-    flagship = _flash_flagship(inputs, rel)
-    for e, kern in zip(entries, ("B1", "B2", "B3")):
-        e["flagship_d64"] = flagship[kern]
-        e["max_abs_err"] = max(e["max_abs_err"], flagship[kern]["max_abs_err"])
+    _require_kernels(routes["train"], "the b1 training shape")
+    for label, shape, expect in (
+            ("flagship_d64", FLAGSHIP_ATTN, WGMMA_BACKWARD),
+            ("debug_200m_d64", DEBUG200M_ATTN, DEBUG200M_KERNELS)):
+        at = _flash_at(inputs, rel, shape, label, expect)
+        for e, kern in zip(entries, ("B1", "B2", "B3")):
+            e[label] = at[kern]
+            e["max_abs_err"] = max(e["max_abs_err"], at[kern]["max_abs_err"])
     return entries
 
 
-def _require_wgmma_backward(taken: dict, where: str) -> None:
-    """B2 and B3 took the wgmma kernels (when the profiler saw them)."""
-    for kern, want in (("B2", "flash_bwd_dq_wgmma_kernel"),
-                       ("B3", "flash_bwd_dkv_wgmma_kernel")):
-        if taken[kern] and not all(want in n for n in taken[kern]):
-            raise AssertionError(f"{kern} did not take {want} at {where}: "
-                                 f"{taken[kern]}")
+def _require_kernels(taken: dict, where: str,
+                     want: dict = WGMMA_BACKWARD) -> None:
+    """The profiler named each kernel of `want` ({kernel: CUDA kernel
+    name}) at least once, and under that name only."""
+    for kern, name in want.items():
+        if not taken[kern] or not all(name in n for n in taken[kern]):
+            raise AssertionError(f"{kern} did not take {name} at {where}: "
+                                 f"the profiler named {taken[kern]}")
 
 
-def _flash_flagship(inputs, rel) -> dict:
-    """B1-B3 at the flagship MoE training shape (q [16, 2048, 16, 64], k/v
-    [16, 2048, 8, 64], causal): each against its plain version, then
-    kernel / plain / SDPA (forward for B1, backward for B2 and B3, the
-    median of LIB_ROUNDS rounds) ms and the bound. -> {kernel: entry}."""
+def _flash_at(inputs, rel, shape, label, expect: dict) -> dict:
+    """B1-B3 at a training shape (B, S, Hq, Hkv, D), causal: each against
+    its plain version, the CUDA kernel the profiler names (those of
+    `expect`, see _require_kernels), then kernel /
+    plain / SDPA (forward for B1, backward for B2 and B3, the median of
+    LIB_ROUNDS rounds) ms and the bound. -> {kernel: entry}."""
     import torch
     import torch.nn.functional as F
 
     from luminaai_tpu_torch.ops import flash_attention as fa
 
-    b, s, hq, hkv, d = FLAGSHIP_ATTN
+    b, s, hq, hkv, d = shape
     q, k, v, do, g_lse = inputs(b, s, hq, hkv, d)
     args = dict(scale=d ** -0.5, causal=True, window=0)
     o, lse = fa.flash_fwd(q, k, v, **args)
@@ -734,12 +770,12 @@ def _flash_flagship(inputs, rel) -> dict:
                             for a, w in zip(got[kern], want[kern]))
     del got, want, o_ref
     torch.cuda.empty_cache()
-    log(f"B1-B3 vs plain [flagship: B{b} S{s} Hq{hq} Hkv{hkv} D{d} causal]: "
+    log(f"B1-B3 vs plain [{label}: B{b} S{s} Hq{hq} Hkv{hkv} D{d} causal]: "
         f"rel err " + ", ".join(f"{kern} {e:.3e}" for kern, e in errs.items())
         + f"; lse abs err {lse_err:.3e} (tol {FLASH_REL_TOL} x max, lse "
         f"{LSE_TOL})")
     if max(errs.values()) > FLASH_REL_TOL or not lse_err <= LSE_TOL:
-        raise AssertionError("flash kernels disagree with plain (flagship)")
+        raise AssertionError(f"flash kernels disagree with plain ({label})")
     calls = {
         "B1": (lambda: fa.flash_fwd(q, k, v, **args),
                lambda: fa.flash_fwd_ref(q, k, v, **args)),
@@ -752,10 +788,10 @@ def _flash_flagship(inputs, rel) -> dict:
     }
     taken = {kern: [_short(n) for n in kernel_names(kc)]
              for kern, (kc, _) in calls.items()}
-    log("  kernels taken [flagship]: " + "; ".join(
+    log(f"  kernels taken [{label}]: " + "; ".join(
         f"{kern} {', '.join(n) or 'not measured'}" for kern, n in
         taken.items()))
-    _require_wgmma_backward(taken, "the flagship shape")
+    _require_kernels(taken, label, expect)
     ms, plain_ms = {}, {}
     for kern, (kc, pc) in calls.items():
         ms[kern] = cuda_ms(kc, 20)
@@ -776,7 +812,7 @@ def _flash_flagship(inputs, rel) -> dict:
         out, (qt, kt, vt), dot, retain_graph=True), 10)
         for _ in range(LIB_ROUNDS)]
     lib_bwd = statistics.median(lib_bwd_rounds)
-    log(f"SDPA backward at the flagship shape, {LIB_ROUNDS} rounds (ms): "
+    log(f"SDPA backward at the {label} shape, {LIB_ROUNDS} rounds (ms): "
         + ", ".join(f"{x:.4f}" for x in lib_bwd_rounds))
     del out, qt, kt, vt, dot
 
@@ -793,7 +829,7 @@ def _flash_flagship(inputs, rel) -> dict:
         t_ops = flops / H100_BF16_FLOPS * 1e3
         bound = max(t_bytes, t_ops)
         lib_ms = lib_fwd if kern == "B1" else lib_bwd
-        log(f"{kern} at the flagship shape: kernel {ms[kern]:.4f} ms, plain "
+        log(f"{kern} at the {label} shape: kernel {ms[kern]:.4f} ms, plain "
             f"{plain_ms[kern]:.4f} ms, library (SDPA "
             f"{'fwd' if kern == 'B1' else 'bwd'}) {lib_ms:.4f} ms, bound "
             f"{bound:.4f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; "
@@ -1928,10 +1964,11 @@ def _model_flops_per_step(cfg, n_params: int) -> float:
                 + 4 * cfg.head_dim() * pairs * cfg.num_layers)
 
 
-def profile_train_step(trainer, batch) -> dict:
+def profile_train_step(trainer, batch, want: dict = WGMMA_BACKWARD) -> dict:
     """Card busy time and top kernels of one optimizer step, from
-    torch.profiler (CUPTI); "not measured" when it records no device
-    time."""
+    torch.profiler (CUPTI). The flash kernels it names must be those of
+    `want` (see _require_kernels): a profiler that records no device time
+    fails the check."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1950,9 +1987,8 @@ def profile_train_step(trainer, batch) -> dict:
     ]
     busy_ms = sum(ms for _, ms, _ in kernels)
     if busy_ms <= 0:
-        log(f"profiled train step: host wall {wall_ms:.1f} ms; device time "
-            "not measured (the profiler recorded no device events)")
-        return {"profiled_wall_ms": wall_ms, "device_busy_ms": None}
+        raise AssertionError("profiled train step: the profiler recorded no "
+                             "device events, so it names no kernel")
     kernels.sort(key=lambda r: -r[1])
     log(f"profiled train step (under the profiler): host wall "
         f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
@@ -1964,9 +2000,10 @@ def profile_train_step(trainer, batch) -> dict:
              if "flash_" in name]
     log("  flash kernels taken: " + ", ".join(
         f"{name} x{n} {ms:.3f} ms" for name, ms, n in flash))
-    _require_wgmma_backward(
-        {"B2": [n for n, _, _ in flash if "bwd_dq" in n],
-         "B3": [n for n, _, _ in flash if "bwd_dkv" in n]}, "a train step")
+    taken = {"B1": [n for n, _, _ in flash if "fwd" in n],
+             "B2": [n for n, _, _ in flash if "bwd_dq" in n],
+             "B3": [n for n, _, _ in flash if "bwd_dkv" in n]}
+    _require_kernels(taken, "a train step", want)
     return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "port_kernels": _families(kernels, busy_ms),
             "flash_kernels": flash,
@@ -2046,17 +2083,13 @@ def phase_train(dev, entries: list) -> dict:
             "first_step_grad_norm_plain": plain_norm, **prof}
 
 
-def _check_run(hist, plain_loss: float, plain_norm: float, what: str):
-    """TRAIN_STEPS finite losses and grad norms, a falling loss, and the
-    first step within LOSS_RTOL / GRAD_NORM_RTOL of its re-run through
-    `what`. -> (losses, grad norms)."""
-    losses = [h["loss"] for h in hist]
+def _check_run(hist, plain_loss: float, plain_norm: float, what: str,
+               steps: int = TRAIN_STEPS):
+    """`steps` finite losses and grad norms, a falling loss (_short_run),
+    and the first step within LOSS_RTOL / GRAD_NORM_RTOL of its re-run
+    through `what`. -> (losses, grad norms)."""
+    losses = _short_run(hist, steps, "training")
     norms = [h["grad_norm"] for h in hist]
-    if len(hist) != TRAIN_STEPS or not all(
-            map(math.isfinite, losses + norms)):
-        raise AssertionError(f"bad training run: {losses} {norms}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"the loss did not fall: {losses}")
     loss_err = abs(hist[0]["loss"] - plain_loss) / abs(plain_loss)
     norm_err = abs(hist[0]["grad_norm"] - plain_norm) / abs(plain_norm)
     log(f"first step, kernels vs {what}: loss {hist[0]['loss']:.5f} vs "
@@ -2092,7 +2125,9 @@ def _steady_step(cfg, hist, n_params: int, label: str, note: str) -> dict:
 # Serving: b1 (hidden 2048, 8 experts of intermediate 5504); a decode step
 # at 8 lanes routes 16 (token, expert) pairs into one 128-row buffer.
 # Training: bench.py's flagship widths (hidden 1024, 8 experts of 2816); a
-# micro-batch of 16 x 2048 tokens is 65,536 pair rows.
+# micro-batch of 16 x 2048 tokens is 65,536 pair rows. The hybrid MoE+MoD
+# model of phase 12: debug_200m's widths (hidden 768, 8 experts of 2048); a
+# micro-batch of 8 x 2048 tokens is 32,768 pair rows.
 GMM_CASES = {
     # name: (rows, K, N, group sizes); the decode case leaves one expert
     # untouched and a 112-row tail, the training case a 436-row tail.
@@ -2114,15 +2149,22 @@ GMM_CASES = {
     "train_e8_two_empty": (65536, 1024, 2 * 2816,
                            [10900, 0, 10800, 10700, 11000, 0, 10600,
                             10900]),
+    # A 218-row tail.
+    "debug200m_hybrid_wi": (32768, 768, 2 * 2048,
+                            [4500, 4050, 3950, 4100, 4150, 3850, 4025,
+                             3925]),
+    "debug200m_hybrid_wo": (32768, 2048, 768,
+                            [4500, 4050, 3950, 4100, 4150, 3850, 4025,
+                             3925]),
 }
 # B4 kernel vs plain version, bf16 outputs: within 1e-2 x max|plain|. Both
 # accumulate in fp32 and round once to bf16 (2^-8 relative), the sums in
 # other orders, so an element may land on the neighbouring bf16 value.
 GMM_REL_TOL = 1e-2
 # bench.py:129-146 (_child_config "flagship"), copied literally, and two
-# of flagship_tuned's levers (bench.py:119-128); save_attn remat and bf16
-# Adam moments are not ported (ROADMAP A6, A7), so the remat policy is
-# nothing_saveable and the moments are fp32.
+# of flagship_tuned's levers (bench.py:119-128). Phase 6 keeps the
+# nothing_saveable policy and fp32 moments; phase 11 adds the other two
+# levers (TUNED_LEVERS: save_attn remat and bf16 Adam mu).
 FLAGSHIP = dict(
     vocab_size=32768,
     hidden_size=1024,
@@ -3891,8 +3933,356 @@ def phase_adaptive(dev, flash_entries: list, gmm_entries: list,
             "decisions": decisions, "wall_s": wall, "card": smi}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: bench.py's flagship_tuned levers; phase 12: mixture of depths.
+# ---------------------------------------------------------------------------
+# flagship_tuned (bench.py:119-128): the flagship widths with gmm, bf16
+# RoPE, the save_attn remat policy and bf16 Adam first moments.
+TUNED_LEVERS = dict(remat_policy="save_attn", adam_mu_dtype="bf16")
+INT8_STEPS = 3
+HYBRID_STEPS = 3
+# The hybrid MoE+MoD model at debug_200m's widths: experts on every third
+# layer (2, 5, 8, 11), MoD on the others.
+HYBRID = dict(use_moe=True, num_experts=8, moe_top_k=2, moe_dispatch="gmm",
+              moe_pattern="every_3rd")
+
+
+def _first_step_plain(trainer, cfg, batch, plain_gmm: bool):
+    """(loss, grad norm) of `batch` through the plain attention (and the
+    plain gmm), the step's generator state restored after."""
+    import torch
+
+    from luminaai_tpu_torch.models import moe
+    from luminaai_tpu_torch.ops.fused import global_norm
+    from luminaai_tpu_torch.parallel import train_step as ts
+
+    gen_state = trainer.state.generator.get_state()
+    cfg.use_flash_attention = False
+    if plain_gmm:
+        moe.GMM_OVERRIDE = _plain_gmm
+    try:
+        grads, m = ts._accumulate_grads(
+            ts.make_loss_fn(cfg, trainer.model), trainer.state.params, batch,
+            trainer.state.generator, cfg.gradient_accumulation_steps)
+        out = float(m["loss"]), float(global_norm(grads))
+    finally:
+        cfg.use_flash_attention = True
+        moe.GMM_OVERRIDE = None
+    trainer.state.generator.set_state(gen_state)
+    del grads, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def _launch_counts():
+    from luminaai_tpu_torch.ops import flash_attention as fa
+    from luminaai_tpu_torch.ops import gmm as tg
+
+    return {"B1": fa.flash_fwd.launches, "B2": fa.flash_bwd_dq.launches,
+            "B3": fa.flash_bwd_dkv.launches, "B4a": tg.gmm.launches,
+            "B4b": tg.tgmm.launches}
+
+
+def _reset_counts() -> None:
+    from luminaai_tpu_torch.ops import flash_attention as fa
+    from luminaai_tpu_torch.ops import gmm as tg
+
+    fa.reset_launches()
+    tg.reset_launches()
+
+
+def _add_launches(entries: dict, launches: dict, key: str) -> None:
+    for kern, e in entries.items():
+        if launches.get(kern):
+            e["launches"] = (e["launches"] or 0) + launches[kern]
+            e[key] = launches[kern]
+
+
+def _short_run(hist, steps: int, what: str) -> list:
+    """`steps` finite losses and grad norms, the last loss below the
+    first."""
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    if len(hist) != steps or not all(map(math.isfinite, losses + norms)):
+        raise AssertionError(f"bad {what} run: {losses} {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: the loss did not fall: {losses}")
+    return losses
+
+
+def phase_train_tuned(dev, entries: dict, moe_run) -> dict:
+    """Phase 11: bench.py's flagship_tuned (the flagship widths, gmm, bf16
+    RoPE, save_attn, bf16 Adam mu) trained TRAIN_STEPS steps through
+    Trainer; then INT8_STEPS steps with int8 Adam moments.
+
+    Launches per step (one micro-batch of 16 x 2048): B1 once per layer,
+    10, where phase 6's nothing_saveable re-runs it in the recompute (20):
+    save_attn keeps B1's (O, lse) by name, as the JAX policy keeps
+    "flash_out" and "flash_lse". B2 = B3 = 10. The JAX policy keeps the
+    FFN branch's output ("ffn_out") but not its inside, so the backward of
+    each MoE layer recomputes its two expert products: B4a 2 forward + 2
+    recompute + 2 grad_lhs = 6 a layer, 60; B4b 2 a layer, 20 (phase 6's
+    counts)."""
+    import torch
+
+    from luminaai_tpu_torch import cli
+    from luminaai_tpu_torch.config import Config
+    from luminaai_tpu_torch.training.optimizer import (
+        describe_optimizer_memory,
+    )
+    from luminaai_tpu_torch.training.trainer import Trainer
+
+    smi = _smi()
+    t_phase = time.perf_counter()
+    cfg = Config(**FLAGSHIP, **FLAGSHIP_LEVERS, **TUNED_LEVERS,
+                 max_steps=TRAIN_STEPS, output_dir=str(RUN_DIR / "tuned"))
+    trainer = Trainer(cfg, cli._synthetic_batches(cfg), device=dev, seed=0)
+    n_moe, L = cfg.num_moe_layers(), cfg.num_layers
+    n_params = sum(p.numel() for p in trainer.state.params)
+    n_active = n_params - n_moe * (cfg.num_experts - cfg.moe_top_k) * (
+        3 * cfg.hidden_size * cfg.intermediate_size)
+    log(f"trainer: flagship_tuned (bench.py:119-128: gmm, bf16 RoPE, "
+        f"{cfg.remat_policy}, bf16 Adam mu), {n_params / 1e6:.1f}M params, "
+        f"batch {cfg.batch_size} x {cfg.seq_length}")
+    first = trainer._to_device(next(iter(cli._synthetic_batches(cfg)())))
+    plain_loss, plain_norm = _first_step_plain(trainer, cfg, first, True)
+
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    summary = trainer.train()
+    launches = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = summary["history"]
+    for i, h in enumerate(hist, 1):
+        log(f"  step {i}: loss {h['loss']:.4f} grad_norm "
+            f"{h['grad_norm']:.4f} {h['step_seconds'] * 1e3:.1f} ms")
+    losses, norms = _check_run(hist, plain_loss, plain_norm,
+                               "step through the plain attention and gmm")
+    n = cfg.gradient_accumulation_steps * TRAIN_STEPS
+    want = {"B1": L * n, "B2": L * n, "B3": L * n, "B4a": 6 * n_moe * n,
+            "B4b": 2 * n_moe * n}
+    log(f"kernel launches under save_attn: {launches} (want {want}: per "
+        f"layer B1 once (phase 6: twice), B2, B3; per MoE layer B4a 6, "
+        f"B4b 2)")
+    if launches != want:
+        raise AssertionError("flagship_tuned did not run through the "
+                             "kernels as expected")
+    _add_launches(entries, launches, "launches_tuned")
+    steady = _steady_step(cfg, hist, n_active, "flagship_tuned step",
+                          " (active params)")
+    mem = describe_optimizer_memory(trainer.state.opt_state)
+    base = moe_run or {}
+    log(f"  vs phase 6 (nothing_saveable, fp32 moments): step "
+        f"{steady['step_ms_median']:.1f} ms vs "
+        f"{base.get('step_ms_median', float('nan')):.1f} ms, peak "
+        f"{peak_gb:.2f} GB vs {base.get('peak_memory_gb', float('nan')):.2f}"
+        f" GB; optimizer state {json.dumps(mem)} ({smi})")
+    prof = profile_train_step(trainer, first)
+    trainer.close()
+    del trainer, first
+    _release()
+
+    cfg8 = Config(**FLAGSHIP, **FLAGSHIP_LEVERS, remat_policy="save_attn",
+                  adam_state_quantization="int8", max_steps=INT8_STEPS,
+                  output_dir=str(RUN_DIR / "tuned_int8"))
+    trainer = Trainer(cfg8, cli._synthetic_batches(cfg8), device=dev,
+                      seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    summary8 = trainer.train()
+    peak8 = torch.cuda.max_memory_allocated() / 1e9
+    losses8 = _short_run(summary8["history"], INT8_STEPS, "int8 moments")
+    mem8 = describe_optimizer_memory(trainer.state.opt_state)
+    ms8 = [h["step_seconds"] * 1e3 for h in summary8["history"]]
+    log(f"int8 Adam moments: losses {losses8}, step ms {ms8}, peak "
+        f"{peak8:.2f} GB, optimizer state {json.dumps(mem8)}")
+    trainer.close()
+    del trainer
+    wall = time.perf_counter() - t_phase
+    log(f"train_tuned: phase wall {wall:.1f} s ({smi})")
+    return {"steps": TRAIN_STEPS, "losses": losses, "grad_norms": norms,
+            **steady, "peak_memory_gb": peak_gb, "optimizer_memory": mem,
+            "first_step_loss_plain": plain_loss,
+            "first_step_grad_norm_plain": plain_norm,
+            "launches": launches, "int8_losses": losses8,
+            "int8_step_ms": ms8, "int8_peak_memory_gb": peak8,
+            "int8_optimizer_memory": mem8, "wall_s": wall, **prof}
+
+
+def phase_mod(dev, entries: dict, rpa_entry: dict) -> dict:
+    """Phase 12: `train --preset debug_200m --synthetic` in process (MoD at
+    capacity 0.5: 1024 of 2048 tokens a sequence get the FFN), TRAIN_STEPS
+    steps; one mod_capacity decision (0.5 -> 0.3) through the
+    orchestrator's _execute and the step after it against the plain
+    attention; HYBRID_STEPS steps of the hybrid MoE+MoD model at the same
+    widths, its first step against the plain attention and gmm; then `serve --preset debug_200m` in process, 8 requests.
+
+    Launches per step (accumulation 4 of 8 x 2048, 12 layers, remat per
+    block): B1 2 x 12 x 4 = 96 (forward + recompute), B2 = B3 = 48; the
+    hybrid's 4 MoE layers add B4a 6 x 4 x 4 = 96 and B4b 2 x 4 x 4 = 32.
+    The profiler must name DEBUG200M_KERNELS (B2 the mma.sync kernel)."""
+    import torch
+
+    from luminaai_tpu_torch import cli
+    from luminaai_tpu_torch.config import ConfigPresets
+    from luminaai_tpu_torch.inference.chat import build_engine
+    from luminaai_tpu_torch.ops import ragged_paged_attention as rpa
+    from luminaai_tpu_torch.training import orchestrator as orch_mod
+    from luminaai_tpu_torch.training.trainer import Trainer
+
+    smi = _smi()
+    t_phase = time.perf_counter()
+    cfg = ConfigPresets.get("debug_200m", max_steps=TRAIN_STEPS,
+                            output_dir=str(RUN_DIR / "mod"))
+    accum, L = cfg.gradient_accumulation_steps, cfg.num_layers
+    trainer = Trainer(cfg, cli._synthetic_batches(cfg), device=dev, seed=0)
+    n_params = sum(p.numel() for p in trainer.state.params)
+    log(f"trainer: debug_200m (MoD capacity {cfg.mod_capacity_factor}), "
+        f"{n_params / 1e6:.1f}M params (JAX estimate "
+        f"{cfg.estimate_parameters() / 1e6:.1f}M), batch {cfg.batch_size} x "
+        f"{cfg.seq_length}, accumulation {accum}")
+    batches = iter(cli._synthetic_batches(cfg)())
+    first = trainer._to_device(next(batches))
+    plain_loss, plain_norm = _first_step_plain(trainer, cfg, first, False)
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    summary = trainer.train()
+    launches = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = summary["history"]
+    for i, h in enumerate(hist, 1):
+        log(f"  step {i}: loss {h['loss']:.4f} (mod aux "
+            f"{h['mod_aux_loss']:.4f}) grad_norm {h['grad_norm']:.4f} "
+            f"compute ratio {h['mod_compute_ratio']:.4f} "
+            f"{h['step_seconds'] * 1e3:.1f} ms")
+    losses, norms = _check_run(hist, plain_loss, plain_norm,
+                               "plain attention")
+    ratios = {h["mod_compute_ratio"] for h in hist}
+    if ratios != {0.5}:
+        raise AssertionError(f"mod_compute_ratio {ratios}, want 0.5")
+    n = accum * TRAIN_STEPS
+    want = {"B1": 2 * L * n, "B2": L * n, "B3": L * n, "B4a": 0, "B4b": 0}
+    log(f"kernel launches, debug_200m: {launches} (want {want})")
+    if launches != want:
+        raise AssertionError("debug_200m did not run through the flash "
+                             "kernels as expected")
+    _add_launches(entries, launches, "launches_mod")
+    steady = _steady_step(cfg, hist, n_params, "debug_200m step",
+                          " (dense FFN counted)")
+    prof = profile_train_step(trainer, first, DEBUG200M_KERNELS)
+
+    # One mod_capacity decision, then the step after it against the plain
+    # attention on the same batch.
+    o = orch_mod.AdaptiveTrainingOrchestrator(trainer)
+    decision = orch_mod.AdaptiveDecision(
+        kind="mod_capacity", params={"new_value": 0.3},
+        reason="chip_smoke: injected", confidence=1.0,
+        step=trainer.global_step)
+    o._execute(decision)
+    if not decision.applied or cfg.mod_capacity_factor != 0.3:
+        raise AssertionError(f"mod_capacity decision not applied: "
+                             f"{decision.to_dict()}")
+    batch = trainer._to_device(next(batches))
+    p_loss, p_norm = _first_step_plain(trainer, cfg, batch, False)
+    _reset_counts()
+    t0 = time.perf_counter()
+    trainer.state, m = trainer.train_step(trainer.state, batch)
+    after = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+             "mod_compute_ratio": float(m["mod_compute_ratio"]),
+             "ms": (time.perf_counter() - t0) * 1e3}
+    step_launches = _launch_counts()
+    err = (abs(after["loss"] - p_loss) / abs(p_loss),
+           abs(after["grad_norm"] - p_norm) / abs(p_norm))
+    ratio = int(cfg.seq_length * 0.3) / cfg.seq_length
+    log(f"after mod_capacity 0.5 -> 0.3: compute ratio "
+        f"{after['mod_compute_ratio']:.4f} (want {ratio:.4f}), loss "
+        f"{after['loss']:.5f} vs plain {p_loss:.5f} (rel {err[0]:.2e}), "
+        f"grad_norm {after['grad_norm']:.5f} vs {p_norm:.5f} (rel "
+        f"{err[1]:.2e}), {after['ms']:.1f} ms, launches {step_launches}")
+    step_want = {"B1": 2 * L * accum, "B2": L * accum, "B3": L * accum,
+                 "B4a": 0, "B4b": 0}
+    if (after["mod_compute_ratio"] != ratio or err[0] > LOSS_RTOL
+            or err[1] > GRAD_NORM_RTOL or step_launches != step_want):
+        raise AssertionError("the step after the mod_capacity decision "
+                             "disagrees")
+    _add_launches(entries, step_launches, "launches_mod_decision")
+    stats = trainer.mod_statistics()
+    trainer.close()
+    del trainer, first, batch
+    _release()
+
+    hcfg = ConfigPresets.get("debug_200m", **HYBRID, max_steps=HYBRID_STEPS,
+                             output_dir=str(RUN_DIR / "hybrid"))
+    trainer = Trainer(hcfg, cli._synthetic_batches(hcfg), device=dev, seed=0)
+    n_moe = hcfg.num_moe_layers()
+    first = trainer._to_device(next(iter(cli._synthetic_batches(hcfg)())))
+    h_loss, h_norm = _first_step_plain(trainer, hcfg, first, True)
+    _reset_counts()
+    hsum = trainer.train()
+    hl = _launch_counts()
+    hlosses, _ = _check_run(hsum["history"], h_loss, h_norm,
+                            "hybrid step through the plain attention and "
+                            "gmm", HYBRID_STEPS)
+    n = accum * HYBRID_STEPS
+    hwant = {"B1": 2 * L * n, "B2": L * n, "B3": L * n,
+             "B4a": 6 * n_moe * n, "B4b": 2 * n_moe * n}
+    hms = [h["step_seconds"] * 1e3 for h in hsum["history"]]
+    log(f"hybrid MoE+MoD ({n_moe} MoE layers, MoD on {L - n_moe}): losses "
+        f"{hlosses}, step ms {hms}, launches {hl} (want {hwant})")
+    if hl != hwant:
+        raise AssertionError("the hybrid model did not run through the "
+                             "kernels as expected")
+    _add_launches(entries, hl, "launches_hybrid")
+    trainer.close()
+    del trainer, first
+    _release()
+
+    scfg = ConfigPresets.get("debug_200m")
+    engine = build_engine(scfg, device=dev, seed=0)
+    dec = _filled_decoder(engine)
+    lk = dec.step_logits()
+    lp = dec.step_logits("plain")
+    torch.cuda.synchronize()
+    if lk.shape != (LANES, scfg.vocab_size) or not torch.isfinite(lk).all():
+        raise AssertionError(f"bad debug_200m decode logits {lk.shape}")
+    logit_err = (lk - lp).abs().max().item()
+    logit_tol = LOGIT_RTOL * lp.abs().max().item()
+    log(f"debug_200m first decode step, kernel vs plain: max_abs_err "
+        f"{logit_err:.3e} (tol {logit_tol:.3e})")
+    if logit_err > logit_tol:
+        raise AssertionError("debug_200m decode logits disagree with the "
+                             "plain attention")
+    del dec, lk, lp
+
+    def reset():
+        rpa.ragged_paged_attention.launches = 0
+
+    b5, served = _serve_burst(
+        engine, "debug_200m serve",
+        lambda model: model["hidden_size"] == scfg.hidden_size, reset,
+        lambda: rpa.ragged_paged_attention.launches)
+    if b5 != served["decode_steps"] * scfg.num_layers:
+        raise AssertionError(f"B5 {b5}, want decode steps x "
+                             f"{scfg.num_layers}")
+    rpa_entry["launches"] = (rpa_entry["launches"] or 0) + b5
+    rpa_entry["launches_mod_serve"] = b5
+    del engine
+    wall = time.perf_counter() - t_phase
+    log(f"mod: phase wall {wall:.1f} s ({smi})")
+    return {"steps": TRAIN_STEPS, "losses": losses, "grad_norms": norms,
+            **steady, "peak_memory_gb": peak_gb, "launches": launches,
+            "first_step_loss_plain": plain_loss,
+            "first_step_grad_norm_plain": plain_norm,
+            "after_decision": after, "mod_statistics": stats,
+            "hybrid_losses": hlosses, "hybrid_step_ms": hms,
+            "hybrid_first_step_loss_plain": h_loss,
+            "hybrid_first_step_grad_norm_plain": h_norm,
+            "hybrid_launches": hl, "serve": served,
+            "first_decode_logit_err": logit_err, "wall_s": wall, **prof}
+
+
 ALL_PHASES = ("serve", "plane", "serve_moe", "train", "train_moe",
-              "runtime", "posttrain", "adaptive", "posttrain_moe")
+              "runtime", "posttrain", "adaptive", "posttrain_moe",
+              "train_tuned", "mod")
 PHASES = set(ALL_PHASES)
 
 
@@ -3969,6 +4359,17 @@ def main() -> int:
         if "posttrain_moe" in PHASES:
             done["posttrain_moe"] = phase_posttrain_experts(
                 dev, flash_entries, gmm_entries)
+            _release()
+        by_kernel = dict(zip(("B1", "B2", "B3", "B4a", "B4b"),
+                             flash_entries + gmm_entries))
+        if "train_tuned" in PHASES:
+            done["train_tuned"] = phase_train_tuned(
+                dev, by_kernel, done.get("train_moe"))
+            shutil.rmtree(RUN_DIR / "tuned", ignore_errors=True)
+            shutil.rmtree(RUN_DIR / "tuned_int8", ignore_errors=True)
+            _release()
+        if "mod" in PHASES:
+            done["mod"] = phase_mod(dev, by_kernel, entry)
     finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s: "

@@ -98,8 +98,7 @@ RESUMABLE_EXIT = 75
 
 
 def _moe_dispatch_flag(p: argparse.ArgumentParser) -> None:
-    # The JAX train flag's choices (luminaai_tpu/cli.py); gather and einsum
-    # are refused where the model is built (not ported yet).
+    # The JAX train flag's choices (luminaai_tpu/cli.py).
     p.add_argument("--moe-dispatch", dest="moe_dispatch",
                    choices=["sort", "gather", "einsum", "gmm"],
                    help="MoE dispatch (default: the config's, 'sort'); "
@@ -827,7 +826,7 @@ def finetune(args) -> int:
         f"{len(lora)} kernels)"
     )
 
-    tx = adapters.adam(args.lr)
+    tx = adapters.adam(args.lr, cfg)
     step = adapters.make_lora_train_step(cfg, model, spec, tx)
     carry = (lora, tx.init(adapters.lora_leaves(lora)))
 
@@ -913,7 +912,7 @@ def evaluate_model(model, cfg: Config, data_path: str,
             labels, valid = shift_labels(batch)
             mask, weights = _shifted_mask_weights(batch, valid)
             _, m = fused_lm_head_cross_entropy(
-                hidden, model.embedder.embedding, labels,
+                hidden, model.embedder.head_weight(), labels,
                 loss_mask=mask, loss_weights=weights,
             )
             ntok = float(m["tokens_in_loss"])

@@ -12,10 +12,11 @@ the JAX Config does, and `load` drops the keys this copy does not know, so
 a JAX config file loads here. Fields for parallelism and serving extras
 stay in the JAX package until the slices that need them are ported
 (the serving plane's prefix cache and SLO fields are here). Values
-the port does not run yet are accepted here, as the JAX package accepts
-them, and refused where a model is built (MoE dispatch modes other than
-sort and gmm, mixture of depths: models/transformer.py) or a trainer is
-built (parallel/train_step.py `check_trainable`).
+the port does not run on one card are accepted here, as the JAX package
+accepts them, and refused where a model is built (the 'a2a' MoE dispatch,
+which needs an expert mesh: models/moe.py). The port's model loops over
+its layers; a JAX scan_layers config loads without that field, and
+convert.py reads and writes the scanned parameter trees it names.
 """
 
 from __future__ import annotations
@@ -62,8 +63,11 @@ class Config:
     intermediate_size: Optional[int] = None  # auto: 8/3 * hidden, rounded
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
+    # Accepted and read by no layer, as in the JAX package.
     dropout: float = 0.0
     init_std: float = 0.02
+    tie_word_embeddings: bool = True
+    use_stable_embedding: bool = True
     # Flash attention on the no-cache (training) forward. flash_block_q/kv
     # only feed the eligibility gate (ops/flash_attention.flash_eligible),
     # as in the JAX package; the card's kernels use their own tiles.
@@ -113,15 +117,17 @@ class Config:
     dense_start_layers: int = 2
     dense_end_layers: int = 2
     expert_output_scaling: float = 1.0
-    # 'sort' = scatter/gather via flat slot ids into capacity buffers and
-    # dense expert products; 'gmm' = the dropless grouped matmul (kernel
-    # B4). 'gather', 'einsum' and 'a2a' are accepted and refused where the
-    # model is built (not ported yet).
+    # 'sort' = scatter into capacity buffers by flat slot ids and dense
+    # expert products; 'gather' = the same buffers filled by a row gather
+    # (gather-only backward); 'einsum' = one-hot dispatch/combine
+    # products; 'gmm' = the dropless grouped matmul (kernel B4). 'a2a'
+    # needs an expert mesh and is refused where the model is built.
     moe_dispatch: str = "sort"
 
-    # --- MoD (accepted, refused where the model is built; not ported) ---
+    # --- MoD (models/mod.py; JAX config.py:172-174) ---
     use_mod: bool = False
     mod_capacity_factor: float = 0.5
+    mod_routing_temperature: float = 1.0
 
     # --- Training ---
     batch_size: int = 8  # sequences per optimizer step
@@ -139,12 +145,13 @@ class Config:
     min_lr: float = 1e-6
     precision: str = "auto"  # auto|fp32|bf16|mixed_bf16|fp16|mixed_fp16
     gradient_checkpointing: bool = True
-    # nothing_saveable = recompute each block in the backward (the port's
-    # torch.utils.checkpoint per block); full = no recomputation. The
-    # other JAX policies are accepted and refused by the trainer.
+    # The JAX REMAT_POLICIES (models/transformer.py): nothing_saveable =
+    # recompute each block; save_outs = keep each block's two branch
+    # outputs; save_attn = save_outs + the flash forward's (out, lse);
+    # dots_saveable = keep the matmul outputs; full = no recomputation.
     remat_policy: str = "nothing_saveable"
-    adam_mu_dtype: Optional[str] = None  # None = fp32; 'bf16' not ported
-    adam_state_quantization: Optional[str] = None  # 'int8' not ported
+    adam_mu_dtype: Optional[str] = None  # None = fp32; 'bf16'
+    adam_state_quantization: Optional[str] = None  # None or 'int8'
     z_loss_weight: float = 0.0
     label_smoothing: float = 0.0
     # LM head fused into the CE loss, chunked over the sequence: [B, S, V]
@@ -254,8 +261,7 @@ class Config:
     enable_adaptive_wd: bool = True
     # Gradient-noise-driven growth of the batch (opt-in).
     enable_batch_size_optimization: bool = False
-    # Phase-scheduled MoD compute ratio: accepted, but it cannot fire while
-    # use_mod is refused where the model is built.
+    # Phase-scheduled MoD compute ratio (Trainer.adjust_mod_capacity).
     enable_mod_capacity_adaptation: bool = False
     mod_capacity_schedule: tuple = (0.7, 0.5, 0.3)
     # Learning-velocity curriculum: the orchestrator forwards the
@@ -388,6 +394,14 @@ class Config:
                 raise ValueError(f"invalid moe_dispatch {self.moe_dispatch}")
             if not 0.0 <= self.expert_dropout_rate <= 0.5:
                 raise ValueError("expert_dropout_rate must be in [0, 0.5]")
+        if self.use_mod:
+            if not 0.0 < self.mod_capacity_factor <= 1.0:
+                raise ValueError("mod_capacity_factor must be in (0, 1]")
+            if not self.mod_capacity_schedule or not all(
+                    0.0 < c <= 1.0 for c in self.mod_capacity_schedule):
+                raise ValueError(
+                    f"mod_capacity_schedule entries must be in (0, 1] "
+                    f"(got {self.mod_capacity_schedule})")
 
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
@@ -431,18 +445,20 @@ class Config:
         return cls.from_dict(d)
 
     def estimate_parameters(self) -> int:
-        """Total parameter count (the JAX Config.estimate_parameters; the
-        port ties the LM head to the embedding)."""
+        """Total parameter count (the JAX Config.estimate_parameters)."""
         h, v, L = self.hidden_size, self.vocab_size, self.num_layers
         inter = self.intermediate_size
         kv_dim = self.num_kv_heads * self.head_dim()
+        embed = v * h if self.tie_word_embeddings else 2 * v * h
         attn = h * h + 2 * h * kv_dim + h * h  # q, k, v, o
         ffn_dense = 3 * h * inter  # gate, up, down
-        total = v * h + L * (attn + 2 * h) + h  # + norms, final norm
+        total = embed + L * (attn + 2 * h) + h  # + norms, final norm
         moe_layers = self.num_moe_layers()
         total += (L - moe_layers) * ffn_dense
         total += moe_layers * (self.num_experts * ffn_dense
                                + h * self.num_experts)
+        if self.use_mod:
+            total += L * h  # MoD routers
         return total
 
     def estimate_active_parameters(self) -> int:
@@ -549,6 +565,23 @@ class ConfigPresets:
         )
 
     @staticmethod
+    def debug_200m() -> Config:
+        return Config(
+            vocab_size=50304,
+            hidden_size=768,
+            num_layers=12,
+            num_heads=12,
+            num_kv_heads=4,
+            seq_length=2048,
+            batch_size=32,
+            gradient_accumulation_steps=4,
+            use_moe=False,
+            use_mod=True,
+            mod_capacity_factor=0.5,
+            experiment_name="debug_200m",
+        )
+
+    @staticmethod
     def debug_300m() -> Config:
         return Config(
             vocab_size=50304,
@@ -585,7 +618,7 @@ class ConfigPresets:
             experiment_name="b1",
         )
 
-    _PRESETS = ("debug", "debug_300m", "b1")
+    _PRESETS = ("debug", "debug_200m", "debug_300m", "b1")
 
     @classmethod
     def available(cls) -> List[str]:

@@ -1,10 +1,14 @@
 """Weights for the port: from a flax parameter tree, or a seeded random init.
 
-`params_from_flax` maps the JAX model's per-layer tree (numpy leaves; the
-caller runs `jax.device_get`, so the port never imports JAX) onto
-LuminaTransformer's state_dict:
+`params_from_flax` maps the JAX model's tree (numpy leaves; the caller
+runs `jax.device_get`, so the port never imports JAX) onto
+LuminaTransformer's state_dict. A scanned tree (scan_layers: 'scan_s/
+block_j/...' with a leading repetition axis, JAX scan_segments) is
+unstacked to the per-layer one first (`unstack_scanned`, a copy of JAX
+unstack_params_from_scan); the per-layer names map as
 
-  embedder/embedding [V, H]              -> embedder.embedding (tied head)
+  embedder/embedding [V, H]              -> embedder.embedding
+  embedder/lm_head [V, H] (untied head)  -> embedder.lm_head
   layer_i/attn_norm/scale, ffn_norm/scale -> layers.i.{attn,ffn}_norm.scale
   layer_i/attention/wq [H, nq, d],
     wk, wv [H, nkv, d]                   -> layers.i.attention.wqkv
@@ -13,27 +17,31 @@ LuminaTransformer's state_dict:
   layer_i/ffn/wi [H, 2F], wo [F, H]      -> layers.i.ffn.wi, .wo
   layer_i/moe/router [H, E], wi [E, H, 2F],
     wo [E, F, H] (MoE layers)            -> layers.i.moe.router, .wi, .wo
+  layer_i/mod_router/router [H, 1],
+    bias [1] (MoD layers)                -> layers.i.mod_router.router, .bias
   final_norm/scale                       -> final_norm.scale
 
 `state_dict_to_flax` is the inverse map, dtype kept (the checkpoints name
-every tensor by its flax path), and `flax_to_state_dict` maps such a flat
-tree of tensors back without a cast.
+every tensor by its flax path), per-layer or, with scanned=True, in the
+scanned layout; `flax_to_state_dict` maps either back without a cast.
 
 `init_params` draws the same shapes from a seed with the JAX init's
-standard deviations (init_std; init_std / sqrt(2) for the output
-projections, experts' included; 0.02 for the router; ones for norm
-scales). The draws are torch's, not JAX's.
+standard deviations (init_std, the untied head's too; init_std / sqrt(2)
+for the output projections, experts' included; 0.02 for the MoE router,
+0.01 for the MoD router; zeros for its bias; ones for norm scales). The
+draws are torch's, not JAX's.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping
+from typing import Any, Callable, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from luminaai_tpu_torch.config import Config
 from luminaai_tpu_torch.models.layers import init_std_out
+from luminaai_tpu_torch.models.mod import MOD_ROUTER_INIT_STD
 from luminaai_tpu_torch.models.moe import ROUTER_INIT_STD
 
 
@@ -50,19 +58,86 @@ def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndar
     return out
 
 
+def scan_segments(config: Config) -> List[Tuple[int, Tuple[int, ...], int]]:
+    """The JAX scan_segments (models/transformer.py): the layer stack as
+    [(start_layer, unit_layer_offsets, count)], `count` repetitions of a
+    unit of consecutive layers from start_layer. every_3rd/every_4th MoE
+    patterns give one unit per period (the tail as count-1 segments);
+    otherwise runs of equal layer kinds give units of one layer."""
+    L = config.num_layers
+    kinds = [config.is_moe_layer(i) for i in range(L)]
+    segments: List[Tuple[int, Tuple[int, ...], int]] = []
+    period = {"every_3rd": 3, "every_4th": 4}.get(
+        config.moe_pattern if config.use_moe else "", 0)
+    if period and L >= period:
+        body = (L // period) * period
+        segments.append((0, tuple(range(period)), L // period))
+        for i in range(body, L):
+            segments.append((i, (0,), 1))
+        return segments
+    i = 0
+    while i < L:
+        j = i
+        while j < L and kinds[j] == kinds[i]:
+            j += 1
+        segments.append((i, (0,), j - i))
+        i = j
+    return segments
+
+
+def _split_path(name: str):
+    head, _, rest = name.partition("/")
+    return head, rest
+
+
+def unstack_scanned(flat: Mapping[str, Any], config: Config
+                    ) -> Dict[str, Any]:
+    """A flat scanned tree ('scan_s/block_j/...', leading repetition axis)
+    -> the per-layer one ('layer_i/...'); other keys pass through. Leaves
+    are indexed (numpy arrays or tensors alike; tensors come back as
+    views). The JAX unstack_params_from_scan on a flat tree."""
+    out = {k: v for k, v in flat.items() if not k.startswith("scan_")}
+    for s, (start, offsets, count) in enumerate(scan_segments(config)):
+        u = len(offsets)
+        for name, v in flat.items():
+            head, rest = _split_path(name)
+            if head != f"scan_{s}":
+                continue
+            block, leaf = _split_path(rest)
+            j = int(block[len("block_"):])
+            for k in range(count):
+                out[f"layer_{start + k * u + offsets[j]}/{leaf}"] = v[k]
+    return out
+
+
+def stack_scanned(flat: Mapping[str, torch.Tensor], config: Config
+                  ) -> Dict[str, torch.Tensor]:
+    """The inverse of unstack_scanned over tensors (the JAX
+    stack_params_for_scan on a flat tree)."""
+    out = {k: v for k, v in flat.items() if not k.startswith("layer_")}
+    for s, (start, offsets, count) in enumerate(scan_segments(config)):
+        u = len(offsets)
+        for j, off in enumerate(offsets):
+            prefix = f"layer_{start + off}/"
+            for name in flat:
+                if not name.startswith(prefix):
+                    continue
+                leaf = name[len(prefix):]
+                out[f"scan_{s}/block_{j}/{leaf}"] = torch.stack([
+                    flat[f"layer_{start + k * u + off}/{leaf}"]
+                    for k in range(count)])
+    return out
+
+
 def params_from_flax(tree: Mapping[str, Any], config: Config) -> Dict[str, torch.Tensor]:
     """A flax parameter tree (nested dicts or flat 'a/b' keys of numpy
-    arrays, unscanned layout) -> a CPU fp32 state_dict for
+    arrays, per-layer or scanned layout) -> a CPU fp32 state_dict for
     LuminaTransformer; load_state_dict casts to the model's dtypes."""
     flat = flatten_tree(tree) if any(
         isinstance(v, Mapping) for v in tree.values()
     ) else {k: np.asarray(v) for k, v in tree.items()}
     if any(k.startswith("scan_") for k in flat):
-        raise ValueError("scanned parameter trees are not supported; "
-                         "unstack them first (unstack_params_from_scan)")
-    if "embedder/lm_head" in flat:
-        raise ValueError("untied LM heads are not ported (the JAX presets "
-                         "tie the head to the embedding)")
+        flat = unstack_scanned(flat, config)
 
     def t(name: str) -> torch.Tensor:
         if name not in flat:
@@ -75,8 +150,11 @@ def params_from_flax(tree: Mapping[str, Any], config: Config) -> Dict[str, torch
 def flax_to_state_dict(
     flat: Mapping[str, torch.Tensor], config: Config
 ) -> Dict[str, torch.Tensor]:
-    """A flat {flax path: tensor} tree (state_dict_to_flax's output) ->
-    a state_dict, each tensor keeping its dtype and device."""
+    """A flat {flax path: tensor} tree (state_dict_to_flax's output,
+    either layout) -> a state_dict, each tensor keeping its dtype and
+    device."""
+    if any(k.startswith("scan_") for k in flat):
+        flat = unstack_scanned(flat, config)
 
     def t(name: str) -> torch.Tensor:
         if name not in flat:
@@ -87,19 +165,22 @@ def flax_to_state_dict(
 
 
 def state_dict_to_flax(
-    sd: Mapping[str, torch.Tensor], config: Config
+    sd: Mapping[str, torch.Tensor], config: Config, scanned: bool = False
 ) -> Dict[str, torch.Tensor]:
     """LuminaTransformer's state_dict (or any tensors keyed like it, the
     Adam moments too) -> {flax path: tensor} in the flax shapes, dtype
     kept: the fused wqkv splits into wq [H, nq, d], wk and wv [H, nkv,
     d], and wo reshapes to [nq, d, H]. Split tensors are views; callers
-    that store them make them contiguous."""
+    that store them make them contiguous. scanned=True gives the scanned
+    layout (JAX scan_layers), stacked copies."""
     H, d = config.hidden_size, config.head_dim()
     n_q, n_kv = config.num_heads, config.num_kv_heads
     out: Dict[str, torch.Tensor] = {
         "embedder/embedding": sd["embedder.embedding"],
         "final_norm/scale": sd["final_norm.scale"],
     }
+    if not config.tie_word_embeddings:
+        out["embedder/lm_head"] = sd["embedder.lm_head"]
     for i in range(config.num_layers):
         p, q = f"layer_{i}/", f"layers.{i}."
         out[p + "attn_norm/scale"] = sd[q + "attn_norm.scale"]
@@ -116,7 +197,11 @@ def state_dict_to_flax(
         else:
             out[p + "ffn/wi"] = sd[q + "ffn.wi"]
             out[p + "ffn/wo"] = sd[q + "ffn.wo"]
-    return out
+            if config.use_mod:
+                for name in ("router", "bias"):
+                    out[p + "mod_router/" + name] = sd[
+                        q + "mod_router." + name]
+    return stack_scanned(out, config) if scanned else out
 
 
 def _to_state_dict(t: Callable[[str], torch.Tensor],
@@ -127,6 +212,8 @@ def _to_state_dict(t: Callable[[str], torch.Tensor],
         "embedder.embedding": t("embedder/embedding"),
         "final_norm.scale": t("final_norm/scale"),
     }
+    if not config.tie_word_embeddings:
+        sd["embedder.lm_head"] = t("embedder/lm_head")
     for i in range(config.num_layers):
         p, q = f"layer_{i}/", f"layers.{i}."
         sd[q + "attn_norm.scale"] = t(p + "attn_norm/scale")
@@ -146,6 +233,10 @@ def _to_state_dict(t: Callable[[str], torch.Tensor],
         else:
             sd[q + "ffn.wi"] = t(p + "ffn/wi")
             sd[q + "ffn.wo"] = t(p + "ffn/wo")
+            if config.use_mod:
+                for name in ("router", "bias"):
+                    sd[q + "mod_router." + name] = t(
+                        p + "mod_router/" + name)
     return sd
 
 
@@ -161,9 +252,14 @@ def init_params(model: torch.nn.Module, seed: int) -> torch.nn.Module:
         if name.endswith("norm.scale"):
             p.fill_(1.0)
             continue
+        if name.endswith("mod_router.bias"):
+            p.zero_()
+            continue
         s = std_out if name.endswith(".wo") else std
         if name.endswith("moe.router"):
             s = ROUTER_INIT_STD
+        elif name.endswith("mod_router.router"):
+            s = MOD_ROUTER_INIT_STD
         draw = torch.randn(
             p.shape, generator=gen, device=p.device, dtype=torch.float32
         )

@@ -286,17 +286,19 @@ class GQAttention(nn.Module):
 
 
 class Embedder(nn.Module):
-    """Token embedding with stable scaling (x * sqrt(hidden)) and the tied
-    head (the JAX presets' tie_word_embeddings=True,
-    use_stable_embedding=True; the other settings are not ported).
+    """Token embedding, scaled by sqrt(hidden) under
+    config.use_stable_embedding, and the LM head: the embedding itself
+    (config.tie_word_embeddings, the JAX presets' setting) or a separate
+    `lm_head` [V, H] (the JAX Embedder's untied head).
 
-    The table is fp32. The head multiplies the table's compute-dtype
+    The tables are fp32. The head multiplies the table's compute-dtype
     values with fp32 accumulation and fp32 output, as the JAX head's
     preferred_element_type=float32 does (a bf16 GEMM would round the
     logits to bf16): an fp32 product of bf16 values. A serving build
-    rounds the table to those values once (round_), so the lookup and the
-    head use it as it is; a trainable build keeps the real fp32 values the
-    optimizer updates and casts at each use, as the JAX model does.
+    rounds the tables to those values once (round_), so the lookup and the
+    head use them as they are; a trainable build keeps the real fp32
+    values the optimizer updates and casts at each use, as the JAX model
+    does.
     """
 
     def __init__(self, config: Config, dtype=torch.bfloat16, device=None,
@@ -310,30 +312,45 @@ class Embedder(nn.Module):
             torch.empty(shape, dtype=torch.float32, device=device),
             requires_grad=trainable,
         )
+        if not config.tie_word_embeddings:
+            self.lm_head = nn.Parameter(
+                torch.empty(shape, dtype=torch.float32, device=device),
+                requires_grad=trainable,
+            )
         # sqrt(hidden) rounded to the compute dtype once, as the JAX
         # encode casts it before the multiply.
         self.scale = float(
             torch.tensor(float(config.hidden_size)).sqrt().to(dtype)
-        )
+        ) if config.use_stable_embedding else None
 
     @torch.no_grad()
     def round_(self) -> None:
-        """Round the fp32 table to compute-dtype values, the values the
-        JAX model casts it to at each use (call after loading). A
+        """Round the fp32 tables to compute-dtype values, the values the
+        JAX model casts them to at each use (call after loading). A
         trainable build keeps its fp32 values: the optimizer updates
         them, and head() casts at each use."""
         if self.trainable:
             return
         self.embedding.copy_(self.embedding.to(self.dtype).float())
+        if not self.config.tie_word_embeddings:
+            self.lm_head.copy_(self.lm_head.to(self.dtype).float())
+
+    def head_weight(self) -> torch.Tensor:
+        """The head's fp32 parameter [V, H]: the embedding when tied, else
+        lm_head (what the fused CE takes)."""
+        if self.config.tie_word_embeddings:
+            return self.embedding
+        return self.lm_head
 
     def head(self) -> torch.Tensor:
-        """The tied head [V, H]: the table's compute-dtype values, in fp32."""
+        """The head [V, H]: its compute-dtype values, in fp32."""
         if self.trainable:
-            return self.embedding.to(self.dtype).float()
-        return self.embedding
+            return self.head_weight().to(self.dtype).float()
+        return self.head_weight()
 
     def encode(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embedding[tokens].to(self.dtype) * self.scale
+        x = self.embedding[tokens].to(self.dtype)
+        return x * self.scale if self.scale is not None else x
 
     def decode(self, x: torch.Tensor) -> torch.Tensor:
         return x.float() @ self.head().t()

@@ -15,15 +15,22 @@ choices); pairs past capacity are dropped and their gate is 0.
   (:95).
 - Dispatch 'sort' (:335-384, :453-463): a scatter into [E, G, C, H]
   capacity buffers, dense expert products, a gather back by slot.
+- Dispatch 'gather' (:347-371): the same buffers filled by a row gather
+  through the inverted slot->token table, with the gather-only backward
+  of `_dispatch_gather` (:114-170, `DispatchGather`).
+- Dispatch 'einsum' (:385-395): `top_k_routing` (`_top_k_routing`,
+  :172), one-hot [G, S, E, C] dispatch and combine products.
 - Dispatch 'gmm' (`gmm_local`, :837-929): the pairs sorted by expert into
   one buffer padded up to 128 rows, the two expert products through the
   grouped matmul (ops/gmm.py, kernel B4 on the card), with the JAX
   `row_kept` operand masks kept though the port's kernel writes zeros.
 - The load-balancing and z losses and the router-health metrics (:468-507).
 
-'gather', 'einsum' and 'a2a' dispatch, int8 experts and the multi-device
-branches (the JAX `_gmm_path` under shard_map, `_a2a_path`) are not ported
-(ROADMAP queue A); they are refused where the layer is built.
+The expert products of 'sort', 'gather' and 'einsum' are the dense
+[E, G, C, .] torch matmuls (XLA's in JAX). 'a2a' dispatch (an expert
+mesh), int8 experts and the multi-device branches (the JAX `_gmm_path`
+under shard_map, `_a2a_path`) are not ported (ROADMAP queue A); 'a2a' is
+refused where the layer is built.
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ from luminaai_tpu_torch.ops.gmm import grouped_matmul
 # The megablox m tile: the sorted row buffer is padded up to it (the JAX
 # _GMM_ROW_TILE); pad rows sit past sum(group_sizes).
 GMM_ROW_TILE = 128
-PORTED_DISPATCH = ("sort", "gmm")
+PORTED_DISPATCH = ("sort", "gather", "einsum", "gmm")
 # The router's init std (the JAX layer's default_init(0.02), not init_std).
 ROUTER_INIT_STD = 0.02
 # Hook, as the JAX package's _GMM_OVERRIDE: a grouped-matmul function with
@@ -102,6 +109,66 @@ def slot_rows(buf_egch: torch.Tensor, slot: torch.Tensor, capacity: int):
     return rows, kept
 
 
+class DispatchGather(torch.autograd.Function):
+    """expert_in[e, g, c] = x[g, inv_egc[e, g, c]], zero where the slot is
+    unfilled (inv == S), with the JAX `_dispatch_gather` adjoint: the
+    table is a bijection on kept slots and token t's kept slots are
+    slot[g, t, :], so d_x is a row gather too (slot_rows), summed over the
+    token's k choices; no H-wide scatter."""
+
+    @staticmethod
+    def forward(ctx, x, inv_egc, slot, capacity):
+        G, S, _ = x.shape
+        filled = (inv_egc < S)[..., None].to(x.dtype)
+        groups = torch.arange(G, device=x.device)[None, :, None]
+        ctx.save_for_backward(slot)
+        ctx.capacity = capacity
+        return x[groups, torch.clamp(inv_egc, max=S - 1)] * filled
+
+    @staticmethod
+    def backward(ctx, g):
+        (slot,) = ctx.saved_tensors
+        rows, kept = slot_rows(g, slot, ctx.capacity)
+        return (rows * kept).sum(dim=2), None, None, None
+
+
+def top_k_routing(probs: torch.Tensor, top_k: int, capacity: int):
+    """Greedy top-k assignment with per-expert capacity (the JAX
+    `_top_k_routing`): k rounds of argmax (ties to the lower expert), each
+    token's position in its expert's buffer counted in sequence order
+    after the earlier rounds' kept pairs. Returns (dispatch, combine)
+    [G, S, E, C] in probs' dtype (combine carries the renormalised top-k
+    gate) and dropped [G, S]."""
+    G, S, E = probs.shape
+    dispatch = probs.new_zeros((G, S, E, capacity))
+    combine = probs.new_zeros((G, S, E, capacity))
+    denom = torch.topk(probs, top_k, dim=-1).values.sum(-1) + 1e-9
+    expert_count = torch.zeros((G, E), dtype=torch.int32,
+                               device=probs.device)
+    cap = torch.arange(capacity, device=probs.device)
+    masked = probs
+    drops = probs.new_zeros((G, S))
+    for _ in range(top_k):
+        choice = torch.argmax(masked, dim=-1)  # [G, S]
+        onehot = F.one_hot(choice, E).to(probs.dtype)
+        pos_in_expert = (torch.cumsum(onehot, dim=1) - onehot
+                         + expert_count[:, None, :])
+        pos = (pos_in_expert * onehot).sum(-1)
+        within = (pos < capacity).to(probs.dtype)
+        gate = torch.gather(probs, -1, choice[..., None])[..., 0] / denom
+        # jax.nn.one_hot of a position past the buffer is all zeros.
+        slot = (pos.long()[..., None] == cap).to(probs.dtype)
+        contrib = onehot[..., None] * slot[:, :, None, :] * (
+            within[..., None, None])
+        dispatch = dispatch + contrib
+        combine = combine + contrib * gate[..., None, None]
+        drops = drops + (1.0 - within)
+        expert_count = expert_count + torch.einsum(
+            "gse,gs->ge", onehot, within).to(torch.int32)
+        masked = masked * (1.0 - onehot)
+    return dispatch, combine, drops.clamp(0.0, 1.0)
+
+
 def gmm_local(x: torch.Tensor, probs: torch.Tensor, wi: torch.Tensor,
               wo: torch.Tensor, *, top_k: int, capacity: int, dtype,
               gmm_fn=grouped_matmul):
@@ -155,8 +222,9 @@ class MoELayer(nn.Module):
         super().__init__()
         if config.moe_dispatch not in PORTED_DISPATCH:
             raise NotImplementedError(
-                f"moe_dispatch={config.moe_dispatch!r} is not ported yet "
-                f"(ROADMAP queue A); the port runs {PORTED_DISPATCH}"
+                f"moe_dispatch={config.moe_dispatch!r} needs an expert mesh "
+                f"and is not ported yet (ROADMAP queue A6); the port runs "
+                f"{PORTED_DISPATCH}"
             )
         self.config = config
         self.dtype = dtype
@@ -220,32 +288,59 @@ class MoELayer(nn.Module):
         C = expert_capacity(cfg, S)
         logits, probs = self.route(x, draws)
 
-        if cfg.moe_dispatch == "gmm":
+        mode = cfg.moe_dispatch
+        if mode == "gmm":
             out, tokens_per_expert, dropped = gmm_local(
                 x, probs, self.wi, self.wo, top_k=k, capacity=C,
                 dtype=self.dtype, gmm_fn=GMM_OVERRIDE or grouped_matmul,
             )
-        else:  # sort
-            slot, gate, dropped, counts = sort_routing(probs, k, C)
-            gate = gate.to(self.dtype)
-            tok = torch.arange(S, device=x.device)[:, None].expand(S, k)
-            tok = tok.reshape(-1)
-            # Spill row E*C absorbs the dropped pairs and is sliced off.
-            buf = torch.zeros(G, E * C + 1, H, dtype=self.dtype,
-                              device=x.device)
-            groups = torch.arange(G, device=x.device)[:, None]
-            buf = buf.index_put((groups, slot.reshape(G, S * k)),
-                                x.to(self.dtype)[:, tok])
-            expert_in = buf[:, : E * C].reshape(G, E, C, H).transpose(0, 1)
+        else:
+            if mode == "einsum":
+                dispatch, combine_w, dropped = top_k_routing(probs, k, C)
+                dispatch = dispatch.to(self.dtype)
+                combine_w = combine_w.to(self.dtype)
+                expert_in = torch.einsum("gsec,gsh->egch", dispatch,
+                                         x.to(self.dtype))
+                tokens_per_expert = dispatch.float().sum(dim=(0, 1, 3))
+            else:  # sort, gather
+                slot, gate, dropped, counts = sort_routing(probs, k, C)
+                gate = gate.to(self.dtype)
+                tok = torch.arange(S, device=x.device)[:, None].expand(S, k)
+                tok = tok.reshape(-1)
+                groups = torch.arange(G, device=x.device)[:, None]
+                if mode == "gather":
+                    # slot -> token table (S where unfilled; the spill
+                    # column E*C takes the dropped pairs), then a row
+                    # gather straight into the [E, G, C, H] layout.
+                    inv = torch.full((G, E * C + 1), S, dtype=torch.long,
+                                     device=x.device)
+                    inv = inv.index_put((groups, slot.reshape(G, S * k)),
+                                        tok.expand(G, S * k))
+                    inv_egc = inv[:, : E * C].reshape(G, E, C).transpose(
+                        0, 1)
+                    expert_in = DispatchGather.apply(
+                        x.to(self.dtype), inv_egc, slot, C)
+                else:
+                    # Spill row E*C absorbs the dropped pairs and is
+                    # sliced off.
+                    buf = torch.zeros(G, E * C + 1, H, dtype=self.dtype,
+                                      device=x.device)
+                    buf = buf.index_put((groups, slot.reshape(G, S * k)),
+                                        x.to(self.dtype)[:, tok])
+                    expert_in = buf[:, : E * C].reshape(G, E, C, H)
+                    expert_in = expert_in.transpose(0, 1)
+                tokens_per_expert = counts.to(torch.float32).sum(0)
             fused = torch.einsum("egch,ehf->egcf", expert_in,
                                  self.wi.to(self.dtype))
             gate_act, up = torch.chunk(fused, 2, dim=-1)
             act = F.silu(gate_act) * up
             expert_out = torch.einsum("egcf,efh->egch", act,
                                       self.wo.to(self.dtype))
-            y, _ = slot_rows(expert_out, slot, C)
-            out = torch.einsum("gskh,gsk->gsh", y, gate)
-            tokens_per_expert = counts.to(torch.float32).sum(0)
+            if mode == "einsum":
+                out = torch.einsum("gsec,egch->gsh", combine_w, expert_out)
+            else:
+                y, _ = slot_rows(expert_out, slot, C)
+                out = torch.einsum("gskh,gsk->gsh", y, gate)
         if cfg.expert_output_scaling != 1.0:
             out = out * cfg.expert_output_scaling
 

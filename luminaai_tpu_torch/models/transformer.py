@@ -1,18 +1,20 @@
 """Decoder-only transformer (PyTorch counterpart of luminaai_tpu/models/transformer.py).
 
 Embedding, N pre-norm blocks (RMSNorm -> GQA attention with RoPE ->
-residual; RMSNorm -> SwiGLU, or the MoE layer where config.is_moe_layer
-says, -> residual), final norm, tied head with fp32 logits. The layer loop
-is the JAX model's unscanned one. The MoE layers' aux losses and router
-metrics reduce over layers as the JAX `_reduce_metrics` does. Mixture of
-depths is not ported yet and is refused here.
+residual; RMSNorm -> FFN -> residual), final norm, the head with fp32
+logits. The FFN is the dense SwiGLU, the MoE layer where
+config.is_moe_layer says, or, in a use_mod model, the SwiGLU wrapped in
+mixture-of-depths routing (models/mod.py) on its dense layers (the
+hybrid MoE+MoD model when use_moe is on too). The layer loop is the JAX
+model's unscanned one (convert.py maps scanned trees onto it). The aux
+losses and router metrics reduce over layers as the JAX `_reduce_metrics`
+does.
 
 Two forwards, as in the JAX model: over per-lane KV caches (serving; its
-callers run it under torch.inference_mode()) and without a cache (training
-and evaluation), where config.gradient_checkpointing with the
-'nothing_saveable' policy recomputes each block in the backward
-(torch.utils.checkpoint per block, the JAX nn.remat) and 'full' keeps every
-activation.
+callers run it under torch.inference_mode(), and MoD layers run their
+plain SwiGLU there, as the JAX decoder does) and without a cache
+(training and evaluation), where config.gradient_checkpointing applies
+the JAX remat policy (REMAT_POLICIES) with torch.utils.checkpoint.
 """
 
 from __future__ import annotations
@@ -21,7 +23,12 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from luminaai_tpu_torch.config import Config, resolve_device
 from luminaai_tpu_torch.models.layers import (
@@ -30,20 +37,61 @@ from luminaai_tpu_torch.models.layers import (
     RMSNorm,
     SwiGLU,
 )
+from luminaai_tpu_torch.models.mod import MoDRouter, apply_mod
 from luminaai_tpu_torch.models.moe import MoELayer
+# Importing the flash module registers torch.ops.lumina.flash_fwd.
+from luminaai_tpu_torch.ops import flash_attention  # noqa: F401
 from luminaai_tpu_torch.ops.ragged_paged_attention import LaneMeta
 
 KVCache = Tuple[torch.Tensor, torch.Tensor]
 
-# The JAX REMAT_POLICIES the port runs: whether each block's forward is
-# recomputed in the backward. The others (save_outs, save_attn,
-# dots_saveable) are refused by the trainer (train_step.check_trainable).
-REMAT_POLICIES = {"nothing_saveable": True, "full": False}
+_aten = torch.ops.aten
+# The plain matrix products (what torch's matmul and einsum dispatch to):
+# the JAX dots_saveable keeps dot_general outputs. B1 and B4a are not
+# products there (Pallas calls), nor here.
+_DOTS = {_aten.mm.default, _aten.bmm.default, _aten.addmm.default,
+         _aten.baddbmm.default}
+
+
+def _keep(ops):
+    """A checkpoint context_fn that keeps the outputs of `ops` and
+    recomputes the rest."""
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in ops
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return lambda: create_selective_checkpoint_contexts(policy)
+
+
+# The JAX REMAT_POLICIES (luminaai_tpu/models/transformer.py:28-49), each
+# as (what is checkpointed, what a checkpoint keeps):
+#   nothing_saveable  each block, nothing (the block recomputes);
+#   save_outs         each branch (attention, FFN) on its own, so the
+#                     block's two branch outputs are kept and the backward
+#                     recomputes only the branch it differentiates;
+#   save_attn         save_outs, and the attention branch keeps B1's
+#                     (O, lse): B1 does not re-run in the backward;
+#   dots_saveable     each block, keeping the plain matrix products;
+#   full              nothing checkpointed (no recomputation).
+REMAT_POLICIES = {
+    "nothing_saveable": ("block", noop_context_fn),
+    "save_outs": ("branch", noop_context_fn),
+    "save_attn": ("branch", _keep({torch.ops.lumina.flash_fwd.default})),
+    "dots_saveable": ("block", _keep(_DOTS)),
+    "full": (None, noop_context_fn),
+}
+
+
+def _ckpt(fn, *args, context_fn=noop_context_fn, **kwargs):
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn,
+                      **kwargs)
 
 
 class TransformerBlock(nn.Module):
-    """Pre-norm block; its FFN is the dense SwiGLU (`ffn`) or, where
-    config.is_moe_layer(layer_idx), the MoE layer (`moe`)."""
+    """Pre-norm block; its FFN is the dense SwiGLU (`ffn`), the MoE layer
+    (`moe`) where config.is_moe_layer(layer_idx), or, in a use_mod model,
+    the SwiGLU behind a MoDRouter (`mod_router`) on the dense layers."""
 
     def __init__(self, config: Config, layer_idx: int, dtype, device=None,
                  trainable: bool = False):
@@ -57,11 +105,38 @@ class TransformerBlock(nn.Module):
         else:
             self.ffn = SwiGLU(config.hidden_size, config.intermediate_size,
                               **kw)
+            if config.use_mod:
+                self.mod_router = MoDRouter(config, **kw)
+
+    def attention_branch(self, x, positions=None):
+        """attn(attn_norm(x)) without a cache (the JAX "attn_out")."""
+        return self.attention(self.attn_norm(x), positions=positions)[0]
+
+    def ffn_branch(self, x, routing=None, cached: bool = False):
+        """(ffn(ffn_norm(x)) (the JAX "ffn_out"), metrics)."""
+        y = self.ffn_norm(x)
+        if hasattr(self, "moe"):
+            return self.moe(y, routing)
+        if hasattr(self, "mod_router") and not cached:
+            return apply_mod(self.mod_router, self.ffn, y)
+        return self.ffn(y), {}
 
     def forward(self, x, *, positions=None, kv_cache=None, cache_index=None,
-                lane_meta=None, routing=None):
+                lane_meta=None, routing=None, remat: Optional[str] = None):
         """-> (x, kv_cache, metrics); `routing` are the MoE layer's
-        training-time draws (MoELayer.draw_routing)."""
+        training-time draws (MoELayer.draw_routing). `remat` names a
+        REMAT_POLICIES entry whose checkpoints sit inside the block
+        (save_outs, save_attn): no-cache forward only."""
+        if kv_cache is None:
+            if remat is None:
+                x = x + self.attention_branch(x, positions)
+                y, metrics = self.ffn_branch(x, routing)
+            else:
+                context_fn = REMAT_POLICIES[remat][1]
+                x = x + _ckpt(self.attention_branch, x, positions,
+                              context_fn=context_fn)
+                y, metrics = _ckpt(self.ffn_branch, x, routing)
+            return x + y, None, metrics
         h, kv_cache = self.attention(
             self.attn_norm(x),
             positions=positions,
@@ -70,12 +145,7 @@ class TransformerBlock(nn.Module):
             lane_meta=lane_meta,
         )
         x = x + h
-        y = self.ffn_norm(x)
-        metrics: Dict[str, torch.Tensor] = {}
-        if hasattr(self, "moe"):
-            y, metrics = self.moe(y, routing)
-        else:
-            y = self.ffn(y)
+        y, metrics = self.ffn_branch(x, routing, cached=True)
         return x + y, kv_cache, metrics
 
 
@@ -110,11 +180,6 @@ class LuminaTransformer(nn.Module):
 
     def __init__(self, config: Config, device=None, trainable: bool = False):
         super().__init__()
-        if config.use_mod:
-            raise NotImplementedError(
-                "use_mod=True (mixture of depths, models/mod.py) is not "
-                "ported yet (ROADMAP queue A)"
-            )
         self.config = config
         self.device = resolve_device(device)
         self.dtype = config.compute_dtype()
@@ -154,8 +219,7 @@ class LuminaTransformer(nn.Module):
         Without kv_caches: (logits or hidden, aux) as the JAX model returns
         them, aux = {"aux_loss": summed MoE losses, the MoE metrics}
         (reduce_metrics). `deterministic` is the JAX flag: False draws the
-        MoE routing noise and expert dropout from `generator` (dropout > 0
-        is refused by the trainer)."""
+        MoE routing noise and expert dropout from `generator`."""
         if kv_caches is None:
             return self._forward_no_cache(input_ids, positions,
                                           return_hidden, deterministic,
@@ -177,27 +241,26 @@ class LuminaTransformer(nn.Module):
     def _forward_no_cache(self, input_ids, positions, return_hidden,
                           deterministic, generator):
         cfg = self.config
-        remat = (
-            cfg.gradient_checkpointing
-            and REMAT_POLICIES.get(cfg.remat_policy, False)
-            and torch.is_grad_enabled()
-        )
+        scope, context_fn = (None, None)
+        if cfg.gradient_checkpointing and torch.is_grad_enabled():
+            scope, context_fn = REMAT_POLICIES[cfg.remat_policy]
         B, S = input_ids.shape
         x = self.embedder.encode(input_ids)
         all_metrics = []
         for layer in self.layers:
-            # Random draws happen here, outside the checkpointed block, so
-            # its recompute in the backward routes as its forward did.
+            # Random draws happen here, outside the checkpoints, so a
+            # recompute in the backward routes as its forward did.
             routing = None
             if not deterministic and hasattr(layer, "moe"):
                 routing = layer.moe.draw_routing(B, S, generator, x.device)
-            if remat:
-                x, _, metrics = checkpoint(
-                    layer, x, positions=positions, routing=routing,
-                    use_reentrant=False)
+            if scope == "block":
+                x, _, metrics = _ckpt(layer, x, positions=positions,
+                                      routing=routing,
+                                      context_fn=context_fn)
             else:
-                x, _, metrics = layer(x, positions=positions,
-                                      routing=routing)
+                x, _, metrics = layer(
+                    x, positions=positions, routing=routing,
+                    remat=cfg.remat_policy if scope == "branch" else None)
             if metrics:
                 all_metrics.append(metrics)
         x = self.final_norm(x)

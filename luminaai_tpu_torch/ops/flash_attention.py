@@ -18,9 +18,12 @@ Counterpart of luminaai_tpu/ops/flash_attention.py. Layout as there: q
   its kernel and counts the launch in `<wrapper>.launches`, or raises on a
   shape, type or layout the kernel does not take; on a CPU tensor it runs
   its plain version. It never falls back from the card.
-- `FlashAttention`, the autograd.Function in place of the JAX custom VJP:
-  both outputs are differentiable; the lse cotangent folds into delta
-  (delta = rowsum(dO * O) - g_lse), as the JAX `_bwd` does.
+- `flash_fwd_op`, the operator `torch.ops.lumina.flash_fwd` in place of
+  the JAX custom VJP: both outputs are differentiable (B2 and B3 in its
+  backward); the lse cotangent folds into delta (delta = rowsum(dO * O) -
+  g_lse), as the JAX `_bwd` does. Being a dispatched operator, its
+  outputs are what the save_attn remat policy keeps
+  (models/transformer.py).
 """
 
 from __future__ import annotations
@@ -286,30 +289,49 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 # Autograd
 # ---------------------------------------------------------------------------
-class FlashAttention(torch.autograd.Function):
-    """(O, lse) with both outputs differentiable (the JAX `_flash_lse`
-    custom VJP)."""
+@torch.library.custom_op("lumina::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: float, causal: bool, window: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B1 as a dispatched operator, `torch.ops.lumina.flash_fwd`: a
+    selective-checkpoint policy can keep its (O, lse) by name (the JAX
+    checkpoint_name tags "flash_out" and "flash_lse"), which it cannot do
+    for a Python autograd.Function."""
+    return flash_fwd(q, k, v, scale=scale, causal=causal, window=window)
 
-    @staticmethod
-    def forward(ctx, q, k, v, scale, causal, window):
-        o, lse = flash_fwd(q, k, v, scale=scale, causal=causal, window=window)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.args = dict(scale=scale, causal=causal, window=window)
-        return o, lse
 
-    @staticmethod
-    def backward(ctx, g_o, g_lse):
-        q, k, v, o, lse = ctx.saved_tensors
-        do = g_o.to(q.dtype).contiguous()
-        delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2)
-        if g_lse is not None:
-            # dlse/ds = p, so ds = p*(dp - delta + g_lse): the lse
-            # cotangent folds into delta and the kernels stay unchanged.
-            delta = delta - g_lse.float()
-        delta = delta.contiguous()
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, **ctx.args)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **ctx.args)
-        return dq, dk, dv, None, None, None
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, scale, causal, window):
+    B, Sq, Hq, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((B, Hq, Sq), dtype=torch.float32))
+
+
+def _flash_setup_context(ctx, inputs, output):
+    q, k, v, scale, causal, window = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.args = dict(scale=scale, causal=causal, window=window)
+
+
+def _flash_backward(ctx, g_o, g_lse):
+    """The JAX `_flash_lse` VJP: both outputs differentiable; the lse
+    cotangent folds into delta (delta = rowsum(dO * O) - g_lse)."""
+    q, k, v, o, lse = ctx.saved_tensors
+    do = g_o.to(q.dtype).contiguous()
+    delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2)
+    if g_lse is not None:
+        # dlse/ds = p, so ds = p*(dp - delta + g_lse): the lse cotangent
+        # folds into delta and the kernels stay unchanged.
+        delta = delta - g_lse.float()
+    delta = delta.contiguous()
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, **ctx.args)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **ctx.args)
+    return dq, dk, dv, None, None, None
+
+
+flash_fwd_op.register_autograd(_flash_backward,
+                               setup_context=_flash_setup_context)
 
 
 def flash_attention_with_lse(
@@ -345,8 +367,8 @@ def flash_attention_with_lse(
             raise ValueError("sliding window requires causal attention")
         if window <= 0:
             raise ValueError(f"window must be positive, got {window}")
-    return FlashAttention.apply(q, k, v, float(scale), bool(causal),
-                                int(window or 0))
+    return flash_fwd_op(q, k, v, float(scale), bool(causal),
+                        int(window or 0))
 
 
 def flash_attention(

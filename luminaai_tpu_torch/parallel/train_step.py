@@ -12,8 +12,12 @@ machinery has nothing to do here. What stays is the step's contract:
   - gradients accumulate over `gradient_accumulation_steps` micro-batches
     (rows [i*mb, (i+1)*mb) of the batch) in fp32 as sum(g_i / accum);
     metrics average over micro-batches, except tokens_in_loss, summed;
-  - then clip by global norm (reporting the pre-clip norm), apply AdamW,
-    and report grad_norm and the learning rate of this update.
+  - then clip by global norm (reporting the pre-clip norm), apply AdamW
+    in the config's moment form (fp32, bf16 mu or int8), and report
+    grad_norm and the learning rate of this update.
+
+config.dropout is accepted and read by no layer, as in the JAX package
+(its layers never apply it).
 
 The parameters and optimizer state are updated in place (TrainState holds
 the model's parameter tensors).
@@ -22,44 +26,27 @@ the model's parameter tensors).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from luminaai_tpu_torch.config import Config
-from luminaai_tpu_torch.models.transformer import REMAT_POLICIES
 from luminaai_tpu_torch.ops.fused import (
     clip_by_global_norm,
     cross_entropy_loss,
     fused_lm_head_cross_entropy,
     global_norm,
 )
-from luminaai_tpu_torch.training.optimizer import AdamW, AdamWState, Schedule
+from luminaai_tpu_torch.training.optimizer import AdamW, Schedule
 
 Batch = Dict[str, torch.Tensor]
 
 
 def check_trainable(config: Config) -> None:
-    """Refuse training settings the port does not run yet (the JAX package
-    accepts them; MoE dispatch modes other than sort and gmm, and mixture
-    of depths, are refused where the model is built)."""
-    if config.gradient_checkpointing and config.remat_policy not in (
-        REMAT_POLICIES
-    ):
-        raise NotImplementedError(
-            f"remat_policy={config.remat_policy!r} is not ported yet; the "
-            f"port runs {sorted(REMAT_POLICIES)}"
-        )
-    if config.adam_mu_dtype == "bf16" or config.adam_state_quantization:
-        raise NotImplementedError(
-            "bf16 or int8 Adam moments are not ported yet; train with fp32 "
-            "moments (adam_mu_dtype=None, adam_state_quantization=None)"
-        )
-    if config.dropout > 0:
-        raise NotImplementedError(
-            "dropout > 0 is not ported yet (the dense model trains without "
-            "dropout)"
-        )
+    """Refuse training settings the port does not run on one card: the
+    batch must split into the accumulation's micro-batches ('a2a' MoE
+    dispatch, which needs an expert mesh, is refused where the model is
+    built)."""
     if config.batch_size % max(1, config.gradient_accumulation_steps):
         raise ValueError(
             f"batch_size {config.batch_size} is not a multiple of "
@@ -103,7 +90,7 @@ def _ce(config: Config, model, model_out, labels, mask, weights,
     as config.fused_lm_head_ce says."""
     if config.fused_lm_head_ce:
         return fused_lm_head_cross_entropy(
-            model_out, model.embedder.embedding, labels,
+            model_out, model.embedder.head_weight(), labels,
             loss_mask=mask, loss_weights=weights,
             z_loss_weight=z_loss_weight, label_smoothing=label_smoothing,
             chunk_size=config.loss_chunk_size,
@@ -180,7 +167,7 @@ class TrainState:
 
     step: int
     params: List[torch.Tensor]
-    opt_state: AdamWState
+    opt_state: Any  # optimizer.AdamWState or AdamInt8State
     generator: torch.Generator
     names: List[str] = dataclasses.field(default_factory=list)
 
@@ -197,8 +184,10 @@ def init_train_state(model, tx: AdamW, seed: int) -> TrainState:
                          "with trainable=True")
     params = [p for _, p in named]
     gen = torch.Generator(device=model.device).manual_seed(int(seed))
-    return TrainState(step=0, params=params, opt_state=tx.init(params),
-                      generator=gen, names=[n for n, _ in named])
+    names = [n for n, _ in named]
+    return TrainState(step=0, params=params,
+                      opt_state=tx.init(params, names), generator=gen,
+                      names=names)
 
 
 def make_train_step(

@@ -18,7 +18,9 @@ flax tree maps onto the model's tensors through convert's own map
 Training (`make_lora_train_step`) keeps the base frozen: the model's
 parameters have requires_grad=False and no optimizer moments; only the
 factors get gradients and an Adam state (optax.adam(lr), i.e. the port's
-optax-exact AdamW with weight decay 0). Each step merges the factors into
+optax-exact AdamW with weight decay 0, its moments in the config's form:
+fp32, bf16 mu or int8; the JAX CLI's finetune keeps fp32 moments
+whatever the config, so the two agree at the default form). Each step merges the factors into
 the kernels, installs the merged tensors in the model in place of its
 parameters for the forward AND the backward (the remat recompute reads
 them again), and runs the train step's loss function
@@ -43,7 +45,12 @@ import torch
 from luminaai_tpu_torch.config import Config
 from luminaai_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
 from luminaai_tpu_torch.ops.fused import global_norm
-from luminaai_tpu_torch.training.optimizer import AdamW, constant_schedule
+from luminaai_tpu_torch.training.optimizer import (
+    AdamW,
+    constant_schedule,
+    make_adam,
+    moment_form,
+)
 
 _TARGET_NAMES = ("wq", "wk", "wv", "wo", "wi")
 
@@ -224,10 +231,13 @@ def lora_leaves(lora: Lora):
     return [ab[sub] for ab in lora.values() for sub in ("a", "b")]
 
 
-def adam(learning_rate: float) -> AdamW:
+def adam(learning_rate: float, config: Optional[Config] = None) -> AdamW:
     """optax.adam(learning_rate) with optax's defaults (b1 0.9, b2 0.999,
-    eps 1e-8): the port's AdamW without weight decay."""
-    return AdamW(constant_schedule(learning_rate), 0.9, 0.999, 1e-8, 0.0)
+    eps 1e-8): the port's AdamW without weight decay, its moments in
+    `config`'s form (optimizer.moment_form; fp32 without a config)."""
+    form = moment_form(config) if config is not None else "fp32"
+    return make_adam(form, constant_schedule(learning_rate), 0.9, 0.999,
+                     1e-8, 0.0)
 
 
 def save_lora(path: str, lora: Lora, spec: LoRASpec) -> None:

@@ -5,7 +5,11 @@ and keeps the manager's contract:
 
   - Layout: <dir>/<step>/state.pt (one `torch.save` file of CPU tensors:
     the parameters and the AdamW moments, each named by its flax path as
-    convert.state_dict_to_flax names it, the optimizer count, the step
+    convert.state_dict_to_flax names it (fp32 moments; with bf16 mu the
+    same names with "form": "bf16"; int8 moments as "mu_codes" /
+    "nu_codes" by flax path and their row scales "mu_scales" /
+    "nu_scales" by state_dict name, "form": "int8"), the optimizer count,
+    the step
     and the train step's torch.Generator state, which the MoE routing
     noise draws from), <dir>/<step>/metadata.json (config, metrics,
     data_state, as the JAX metadata) and <dir>/<step>/manifest.sha256.json
@@ -31,7 +35,9 @@ and keeps the manager's contract:
     (`verify-checkpoint`).
 
 The restore copies into the live state (parameters, moments, count,
-step, generator) in place, bit for bit.
+step, generator) in place, bit for bit. A step whose moments are of
+another form than the live state's (the config's) is refused with a
+message naming both; it is never reinitialised.
 """
 
 from __future__ import annotations
@@ -60,6 +66,11 @@ logger = logging.getLogger(__name__)
 STATE_NAME = "state.pt"
 METADATA_NAME = "metadata.json"
 FORMAT = "luminaai_tpu_torch.checkpoint/1"
+
+
+class MomentFormError(ValueError):
+    """A step's Adam moments are of another form than the config's: no
+    fallback walks past it, and nothing is reinitialised."""
 # A committed step renamed aside while a forced save replaces it:
 # "<step>.old-<pid>".
 ASIDE = ".old-"
@@ -343,11 +354,26 @@ def _host_tree(state, config: Config) -> Dict[str, Any]:
         raise ValueError("TrainState.names is empty: build the state with "
                          "parallel.train_step.init_train_state")
     opt = state.opt_state
+    if opt.form == "int8":
+        opt_tree = {
+            "form": "int8",
+            "count": int(opt.count),
+            "mu_codes": named(opt.mu_codes),
+            "nu_codes": named(opt.nu_codes),
+            "mu_scales": {n: t.detach().to("cpu", copy=True)
+                          for n, t in zip(state.names, opt.mu_scales)},
+            "nu_scales": {n: t.detach().to("cpu", copy=True)
+                          for n, t in zip(state.names, opt.nu_scales)},
+        }
+    else:
+        opt_tree = {"count": int(opt.count), "mu": named(opt.mu),
+                    "nu": named(opt.nu)}
+        if opt.form != "fp32":
+            opt_tree["form"] = opt.form
     return {
         "format": FORMAT,
         "params": named(state.params),
-        "opt_state": {"count": int(opt.count), "mu": named(opt.mu),
-                      "nu": named(opt.nu)},
+        "opt_state": opt_tree,
         "step": int(state.step),
         "generator": state.generator.get_state().clone(),
     }
@@ -616,21 +642,36 @@ class CheckpointManager:
                                  f"the model (missing {missing[:4]})")
             return sd
 
-        params, mu, nu = (by_name(tree["params"]),
-                          by_name(tree["opt_state"]["mu"]),
-                          by_name(tree["opt_state"]["nu"]))
+        saved = tree["opt_state"]
+        opt = state.opt_state
+        form = saved.get("form", "fp32")
+        if form != opt.form:
+            raise MomentFormError(
+                f"checkpoint step {step} holds {form} Adam moments; the "
+                f"config asks for {opt.form} moments (adam_mu_dtype="
+                f"{self.config.adam_mu_dtype!r}, adam_state_quantization="
+                f"{self.config.adam_state_quantization!r}): train on with "
+                f"the saved form or start a new run")
+        pairs = [(state.params, by_name(tree["params"]))]
+        if form == "int8":
+            pairs += [(opt.mu_codes, by_name(saved["mu_codes"])),
+                      (opt.nu_codes, by_name(saved["nu_codes"])),
+                      (opt.mu_scales, saved["mu_scales"]),
+                      (opt.nu_scales, saved["nu_scales"])]
+        else:
+            pairs += [(opt.mu, by_name(saved["mu"])),
+                      (opt.nu, by_name(saved["nu"]))]
         with torch.no_grad():
-            for name, p, m, v in zip(state.names, state.params,
-                                     state.opt_state.mu, state.opt_state.nu):
-                for dst, src in ((p, params[name]), (m, mu[name]),
-                                 (v, nu[name])):
+            for live, src_by_name in pairs:
+                for name, dst in zip(state.names, live):
+                    src = src_by_name[name]
                     if dst.shape != src.shape or dst.dtype != src.dtype:
                         raise ValueError(
                             f"checkpoint step {step}: {name} is "
                             f"{tuple(src.shape)} {src.dtype}, the model's "
                             f"{tuple(dst.shape)} {dst.dtype}")
                     dst.copy_(src)
-        state.opt_state.count = int(tree["opt_state"]["count"])
+        opt.count = int(saved["count"])
         state.step = int(tree["step"])
         state.generator.set_state(tree["generator"])
         if state.params and state.params[0].is_cuda:
@@ -671,6 +712,8 @@ class CheckpointManager:
                         "newer checkpoint(s)", s, i,
                     )
                 return restored, s, i
+            except MomentFormError:
+                raise
             except Exception as e:
                 last_exc = e
                 self._m_fallbacks.inc()

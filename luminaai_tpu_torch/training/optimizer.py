@@ -5,19 +5,39 @@ The schedules reproduce optax's `linear_schedule`, `cosine_decay_schedule`
 count: the learning rate of update t (t = 0, 1, ...) is schedule(t), so the
 first update of a warmup schedule has lr 0.
 
-`AdamW` is optax.adamw written out over tensors: Adam moments in fp32
+`AdamW` is optax.adamw written out over tensors: Adam moments
 (b1 * mu + (1 - b1) * g, b2 * nu + (1 - b2) * g^2), bias correction with
-the incremented count (1 - decay**count in fp32, as optax computes it), update mu_hat / (sqrt(nu_hat) + eps), plus
-weight_decay * param on the parameters the decay mask selects (ndim >= 2),
-times -lr. It updates the parameters and moments in place (the JAX
-TrainState is replaced functionally; here in place saves a copy of both).
+the incremented count (1 - decay**count in fp32, as optax computes it),
+update mu_hat / (sqrt(nu_hat) + eps), plus weight_decay * param on the
+parameters the decay mask selects (ndim >= 2), times -lr. It updates the
+parameters and moments in place (the JAX TrainState is replaced
+functionally; here in place saves a copy of both). The moments take one
+of three forms (`moment_form`, from the config as the JAX make_optimizer
+reads it):
+
+  - 'fp32': both moments fp32 (optax.adamw);
+  - 'bf16': the first moment stored in bf16 (optax.adamw with
+    mu_dtype=bfloat16). As optax's scale_by_adam: b1 * mu is a bf16
+    product (the decay rounded to bf16 first, as JAX's weak-typed scalar
+    is), promoted to fp32 for the sum with (1 - b1) * g; the update uses
+    that fp32 moment, which is then rounded to bf16 (nearest even) to be
+    stored. That is the program optax traces, bit for bit; XLA's CPU
+    compiler, under jit, skips the product's bf16 rounding;
+  - 'int8': JAX `scale_by_adam_int8`, `AdamWInt8`: both moments stored
+    as int8 codes with fp32 absmax scales per row (the JAX parameter's
+    last dimension: head_dim for the port's fused wqkv, whose JAX wq, wk
+    and wv end in d), mu quantised linearly, nu in the sqrt domain; then
+    the same decayed weights and learning rate as AdamW.
+
+`describe_optimizer_memory` gives the resident bytes by dtype, as JAX's
+does over the optax state.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -115,29 +135,90 @@ def _decay_mask(param: torch.Tensor) -> bool:
     return param.ndim >= 2
 
 
+def moment_form(config: Config) -> str:
+    """The form of the Adam moments the config asks for: 'fp32', 'bf16'
+    or 'int8'."""
+    if config.adam_state_quantization == "int8":
+        return "int8"
+    return "bf16" if config.adam_mu_dtype == "bf16" else "fp32"
+
+
 @dataclasses.dataclass
 class AdamWState:
     count: int
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
 
+    @property
+    def form(self) -> str:
+        return ("bf16" if self.mu and self.mu[0].dtype == torch.bfloat16
+                else "fp32")
+
+    def tensors(self) -> List[torch.Tensor]:
+        return [*self.mu, *self.nu]
+
+
+@dataclasses.dataclass
+class AdamInt8State:
+    """JAX ScaleByAdamInt8State: int8 codes shaped like each parameter and
+    fp32 scales, one per row of `rows[i]` elements along its last
+    dimension ([*shape[:-1]] when the row is the whole last dimension,
+    else [*shape[:-1], shape[-1] // row])."""
+
+    count: int
+    mu_codes: List[torch.Tensor]
+    mu_scales: List[torch.Tensor]
+    nu_codes: List[torch.Tensor]
+    nu_scales: List[torch.Tensor]
+    rows: List[int]
+    form = "int8"
+
+    def tensors(self) -> List[torch.Tensor]:
+        return [*self.mu_codes, *self.mu_scales, *self.nu_codes,
+                *self.nu_scales]
+
+
+def _bias_corrections(b1: float, b2: float, count: int):
+    """1 - decay**count in fp32 (optax's count is an int32 array): at b2 =
+    0.999 that is 1.3e-5 off the exact value, which moves every update by
+    ~6e-6; computed as optax computes it."""
+    return (float(1 - np.float32(b1) ** np.float32(count)),
+            float(1 - np.float32(b2) ** np.float32(count)))
+
 
 class AdamW:
-    """optax.adamw over a list of parameters, applied in place."""
+    """optax.adamw over a list of parameters, applied in place; mu_dtype
+    torch.bfloat16 stores the first moment in bf16."""
+
+    form = "fp32"
 
     def __init__(self, learning_rate: Schedule, b1: float, b2: float,
                  eps: float, weight_decay: float,
-                 mask: Callable[[torch.Tensor], bool] = _decay_mask):
+                 mask: Callable[[torch.Tensor], bool] = _decay_mask,
+                 mu_dtype: Optional[torch.dtype] = None):
         self.learning_rate = learning_rate
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.mask = mask
+        self.mu_dtype = mu_dtype or torch.float32
+        if self.mu_dtype == torch.bfloat16:
+            self.form = "bf16"
+            # JAX's weak-typed decay meets a bf16 moment as a bf16 value.
+            self._b1_mu = torch.tensor(b1, dtype=torch.bfloat16)
 
-    def init(self, params: Sequence[torch.Tensor]) -> AdamWState:
-        def zeros():
-            return [torch.zeros_like(p, dtype=torch.float32) for p in params]
+    def init(self, params: Sequence[torch.Tensor],
+             names: Optional[Sequence[str]] = None) -> AdamWState:
+        return AdamWState(
+            count=0,
+            mu=[torch.zeros_like(p, dtype=self.mu_dtype) for p in params],
+            nu=[torch.zeros_like(p, dtype=torch.float32) for p in params])
 
-        return AdamWState(count=0, mu=zeros(), nu=zeros())
+    def _finish(self, p: torch.Tensor, update: torch.Tensor,
+                lr: float) -> None:
+        """Decayed weights, then -lr, into the parameter in place."""
+        if self.weight_decay and self.mask(p):
+            update = update + self.weight_decay * p.float()
+        p.add_(update.mul_(-lr).to(p.dtype))
 
     @torch.no_grad()
     def apply(self, params: Sequence[torch.Tensor],
@@ -146,21 +227,127 @@ class AdamW:
         rate it used, schedule(count)."""
         lr = self.learning_rate(state.count)
         count = state.count + 1
-        # optax computes 1 - decay**count in fp32 (its count is an int32
-        # array): at b2 = 0.999 that is 1.3e-5 off the exact value, which
-        # moves every update by ~6e-6; compute it as optax does.
-        bc1 = float(1 - np.float32(self.b1) ** np.float32(count))
-        bc2 = float(1 - np.float32(self.b2) ** np.float32(count))
-        for p, g, mu, nu in zip(params, grads, state.mu, state.nu):
+        bc1, bc2 = _bias_corrections(self.b1, self.b2, count)
+        for i, (p, g) in enumerate(zip(params, grads)):
             g = g.float()
-            mu.mul_(self.b1).add_((1 - self.b1) * g)
+            mu, nu = state.mu[i], state.nu[i]
+            if mu.dtype == torch.float32:
+                mu.mul_(self.b1).add_((1 - self.b1) * g)
+                m32 = mu
+            else:
+                m32 = (1 - self.b1) * g + mu * self._b1_mu.to(mu.device)
             nu.mul_(self.b2).add_(torch.square(g).mul_(1 - self.b2))
-            update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            if self.weight_decay and self.mask(p):
-                update = update + self.weight_decay * p.float()
-            p.add_(update.mul_(-lr).to(p.dtype))
+            update = (m32 / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            if m32 is not mu:
+                mu.copy_(m32)  # rounded to bf16, nearest even
+            self._finish(p, update, lr)
         state.count = count
         return lr
+
+
+def _q8(x: torch.Tensor, row: int):
+    """Row-wise absmax int8 codes and fp32 scales (JAX `_q8`) over rows of
+    `row` elements along the last dimension; round half to even as
+    jnp.round."""
+    shape = x.shape
+    xr = x.reshape(*shape[:-1], shape[-1] // row, row)
+    scale = xr.abs().amax(dim=-1) / 127.0
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    codes = torch.clamp(torch.round(xr / safe[..., None]), -127, 127)
+    if row == shape[-1]:
+        scale = scale.reshape(shape[:-1])
+    return codes.to(torch.int8).reshape(shape), scale
+
+
+def _dq8(codes: torch.Tensor, scale: torch.Tensor, row: int):
+    shape = codes.shape
+    c = codes.reshape(*shape[:-1], shape[-1] // row, row).float()
+    s = scale.reshape(*shape[:-1], shape[-1] // row)
+    return (c * s[..., None]).reshape(shape)
+
+
+class AdamWInt8(AdamW):
+    """JAX scale_by_adam_int8 chained with add_decayed_weights (the decay
+    mask) and the learning rate, as its make_optimizer chains them.
+    `row_of(name, param)` gives a parameter's quantisation row (default:
+    its last dimension)."""
+
+    form = "int8"
+
+    def __init__(self, *args, row_of: Optional[
+            Callable[[Optional[str], torch.Tensor], int]] = None, **kw):
+        super().__init__(*args, **kw)
+        self.row_of = row_of or (lambda name, p: p.shape[-1])
+
+    def init(self, params: Sequence[torch.Tensor],
+             names: Optional[Sequence[str]] = None) -> AdamInt8State:
+        names = list(names) if names is not None else [None] * len(params)
+        rows = [int(self.row_of(n, p)) for n, p in zip(names, params)]
+
+        def codes():
+            return [torch.zeros_like(p, dtype=torch.int8) for p in params]
+
+        def scales():
+            return [_q8(torch.zeros_like(p, dtype=torch.float32), r)[1]
+                    for p, r in zip(params, rows)]
+
+        return AdamInt8State(count=0, mu_codes=codes(), mu_scales=scales(),
+                             nu_codes=codes(), nu_scales=scales(), rows=rows)
+
+    @torch.no_grad()
+    def apply(self, params: Sequence[torch.Tensor],
+              grads: Sequence[torch.Tensor], state: AdamInt8State) -> float:
+        lr = self.learning_rate(state.count)
+        count = state.count + 1
+        bc1, bc2 = _bias_corrections(self.b1, self.b2, count)
+        b1, b2 = self.b1, self.b2
+        for i, (p, g) in enumerate(zip(params, grads)):
+            row = state.rows[i]
+            g = g.float()
+            mu = b1 * _dq8(state.mu_codes[i], state.mu_scales[i], row) + (
+                (1.0 - b1) * g)
+            nu_sqrt = _dq8(state.nu_codes[i], state.nu_scales[i], row)
+            nu = b2 * nu_sqrt * nu_sqrt + (1.0 - b2) * g * g
+            update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            for codes, scales, x in (
+                    (state.mu_codes[i], state.mu_scales[i], mu),
+                    (state.nu_codes[i], state.nu_scales[i], torch.sqrt(nu))):
+                c, s_ = _q8(x, row)
+                codes.copy_(c)
+                scales.copy_(s_)
+            self._finish(p, update, lr)
+        state.count = count
+        return lr
+
+
+# optax keeps two int32 counters beside the moments: scale_by_adam's (or
+# scale_by_adam_int8's) count and the schedule's.
+_OPTAX_COUNTERS = {"int32": 8}
+
+
+def describe_optimizer_memory(opt_state) -> Dict[str, object]:
+    """Resident bytes of the optimizer state by dtype (JAX
+    describe_optimizer_memory over the optax state: the moments in their
+    stored widths, int8 codes and their fp32 scales, and optax's two int32
+    counters), largest first."""
+    by_dtype: Dict[str, int] = dict(_OPTAX_COUNTERS)
+    for t in opt_state.tensors():
+        key = str(t.dtype).removeprefix("torch.")  # JAX's dtype names
+        by_dtype[key] = by_dtype.get(key, 0) + t.numel() * t.element_size()
+    return {
+        "total_bytes": sum(by_dtype.values()),
+        "by_dtype": dict(sorted(by_dtype.items(), key=lambda kv: -kv[1])),
+    }
+
+
+def make_adam(form: str, schedule: Schedule, b1: float, b2: float,
+              eps: float, weight_decay: float,
+              row_of=None) -> AdamW:
+    """The Adam of a moment form (moment_form)."""
+    if form == "int8":
+        return AdamWInt8(schedule, b1, b2, eps, weight_decay, row_of=row_of)
+    return AdamW(schedule, b1, b2, eps, weight_decay,
+                 mu_dtype=torch.bfloat16 if form == "bf16" else None)
 
 
 def make_optimizer(
@@ -168,19 +355,18 @@ def make_optimizer(
     total_steps: int,
     schedule: Optional[Schedule] = None,
 ) -> AdamW:
-    """AdamW with the config's schedule. Gradient clipping lives in the
-    train step (it reports the pre-clip norm)."""
-    if config.adam_state_quantization == "int8":
-        raise NotImplementedError(
-            "adam_state_quantization='int8' (scale_by_adam_int8) is not "
-            "ported yet; train with fp32 Adam moments"
-        )
-    if config.adam_mu_dtype == "bf16":
-        raise NotImplementedError(
-            "adam_mu_dtype='bf16' is not ported yet; train with fp32 Adam "
-            "moments"
-        )
+    """AdamW with the config's schedule and moment form. Gradient clipping
+    lives in the train step (it reports the pre-clip norm)."""
     if schedule is None:
         schedule = make_schedule(config, total_steps)
-    return AdamW(schedule, config.beta1, config.beta2, config.eps,
-                 config.weight_decay)
+    d = config.head_dim()
+
+    def row_of(name: Optional[str], p: torch.Tensor) -> int:
+        # The fused wqkv [H, (nq + 2 nkv) d] is JAX's wq/wk/wv [H, n, d].
+        if name is not None and name.endswith("attention.wqkv"):
+            return d
+        return p.shape[-1]
+
+    return make_adam(moment_form(config), schedule, config.beta1,
+                     config.beta2, config.eps, config.weight_decay,
+                     row_of=row_of)

@@ -12,8 +12,6 @@ All decisions are host-side numpy on scalars the train step already
 produced, the same code as the JAX module's, so the same metric stream
 gives the same decisions on both sides. Every intervention carries a
 reason + confidence and respects a cooldown (intervention_cooldown_steps).
-The `mod_capacity` branch cannot fire while mixture of depths is refused
-where the model is built.
 """
 
 from __future__ import annotations

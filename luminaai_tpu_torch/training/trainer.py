@@ -29,7 +29,8 @@ The runtime around the loop, as in the JAX package:
     adjust_learning_rate (a constant schedule, the moments kept),
     adjust_weight_decay (AdamW rebuilt over the same moments and count),
     set_grad_clip, adjust_capacity_factor, adjust_routing_temperature,
-    enable_expert_dropout, set_data_difficulty (the loader's
+    enable_expert_dropout, adjust_mod_capacity (the MoD compute ratio;
+    mod_statistics reads it back), set_data_difficulty (the loader's
     curriculum), rollback (to a checkpoint at or after
     `_min_restorable_step`) and evolve_experts (the model rebuilt with
     one expert more or fewer, the moments reset, the count kept at the
@@ -52,10 +53,9 @@ tokens_seen, tokens_per_sec, final_metrics, health, interventions,
 preempted, resumed_exact_data_state, goodput) and adds the per-step
 history.
 
-Not ported (ROADMAP): adjust_mod_capacity (mixture of depths is refused
-where the model is built), the SLO engine and time-series ring, span
-tracing and profiling windows; the scan-layer compile fallback and
-compiled-cost export are XLA's own.
+Not ported (ROADMAP): the SLO engine and time-series ring, span tracing
+and profiling windows; the scan-layer compile fallback and compiled-cost
+export are XLA's own.
 """
 
 from __future__ import annotations
@@ -90,7 +90,10 @@ from luminaai_tpu_torch.parallel.train_step import (
     make_eval_step,
     make_train_step,
 )
-from luminaai_tpu_torch.training.checkpoint import CheckpointManager
+from luminaai_tpu_torch.training.checkpoint import (
+    CheckpointManager,
+    MomentFormError,
+)
 from luminaai_tpu_torch.training.optimizer import (
     constant_schedule,
     make_optimizer,
@@ -308,6 +311,8 @@ class Trainer:
         try:
             with self.goodput.region("checkpoint"):
                 self.state = self.checkpoints.restore(self.state, step)
+        except MomentFormError:
+            raise
         except Exception as e:
             # The latest checkpoint is corrupt or partial: count it and
             # walk back to the newest intact older step.
@@ -550,6 +555,44 @@ class Trainer:
         self._interventions.append(
             {"step": self.global_step, "kind": "routing_temperature",
              "from": old, "to": new_temp, "reason": reason})
+
+    def mod_statistics(self) -> Dict[str, Any]:
+        """MoD routing efficiency: the configured capacity, the observed
+        compute ratio (the health monitor's mod_compute_ratio series) and
+        the implied dense-FFN compute savings."""
+        if not self.config.use_mod:
+            return {"error": "MoD not enabled"}
+        summary = self.monitor.collector.get_metric_summary(
+            "mod_compute_ratio")
+        ratio = summary.get("current", self.config.mod_capacity_factor)
+        return {
+            "configured_capacity": self.config.mod_capacity_factor,
+            "observed_compute_ratio": ratio,
+            "compute_savings_vs_dense_ffn": round(1.0 - ratio, 4),
+            "recent": summary,
+        }
+
+    def adjust_mod_capacity(self, new_capacity: float,
+                            reason: str = "") -> None:
+        """Change the MoD compute ratio (the share of tokens that get the
+        full FFN). It is a shape of the routed buffers, so the steps are
+        rebuilt; the parameters are untouched."""
+        cfg = self.config
+        if not cfg.use_mod:
+            logger.warning("cannot adjust MoD capacity: MoD not enabled")
+            return
+        new_capacity = float(new_capacity)
+        if not 0.0 < new_capacity <= 1.0:
+            raise ValueError(
+                f"mod_capacity_factor {new_capacity} not in (0, 1]")
+        old = cfg.mod_capacity_factor
+        cfg.mod_capacity_factor = new_capacity
+        self._rebuild_steps("mod_capacity")
+        logger.warning("MoD capacity %.2f -> %.2f (%s)", old, new_capacity,
+                       reason)
+        self._interventions.append(
+            {"step": self.global_step, "kind": "mod_capacity",
+             "from": old, "to": new_capacity, "reason": reason})
 
     def enable_expert_dropout(self, rate: float, reason: str = "") -> None:
         """Whole-expert dropout mid-run to break expert collapse; rate 0

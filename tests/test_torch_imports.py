@@ -110,6 +110,30 @@ def test_adaptive_modules_are_scanned(module):
     assert module.replace(".", "/") + ".py" in files
 
 
+# The model and optimizer configurations slice: mixture of depths, the
+# remat policies, the moment forms, gather/einsum dispatch, scanned trees
+# and untied heads.
+CONFIG_SLICE_MODULES = (
+    "luminaai_tpu_torch.models.mod",
+    "luminaai_tpu_torch.models.transformer",
+    "luminaai_tpu_torch.models.moe",
+    "luminaai_tpu_torch.models.layers",
+    "luminaai_tpu_torch.ops.flash_attention",
+    "luminaai_tpu_torch.training.optimizer",
+    "luminaai_tpu_torch.training.checkpoint",
+    "luminaai_tpu_torch.parallel.train_step",
+    "luminaai_tpu_torch.convert",
+    "luminaai_tpu_torch.config",
+)
+
+
+@pytest.mark.parametrize("module", CONFIG_SLICE_MODULES)
+def test_config_slice_modules_are_scanned(module):
+    assert module in _modules()
+    files = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert module.replace(".", "/") + ".py" in files
+
+
 # The post-training slice: adapters, chat, data blending, security.
 POSTTRAIN_MODULES = (
     "luminaai_tpu_torch.training.adapters",
@@ -215,17 +239,19 @@ def test_posttrain_entry_points_default_to_the_card(no_cuda, argv):
         cli.main(argv)
 
 
-def test_cli_refuses_moe_presets():
-    """What the CLI still refuses: MoE dispatch modes the port has not
-    ported (the JAX flag's choices are accepted and refused where the
-    model is built)."""
+def test_cli_refuses_moe_presets(tmp_path):
+    """What the CLI still refuses: a config carrying the 'a2a' MoE
+    dispatch (an expert mesh), where the model is built. Every flag choice
+    of --moe-dispatch is ported."""
     from luminaai_tpu_torch import cli
+    from luminaai_tpu_torch.config import ConfigPresets
 
-    for mode in ("gather", "einsum"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            cli.main(["serve", "--preset", "debug", "--seed", "0",
-                      "--moe-dispatch", mode, "--device", "cpu",
-                      "--port", "0"])
+    path = str(tmp_path / "a2a.json")
+    ConfigPresets.get("debug", moe_dispatch="a2a").save(path)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        cli.main(["train", "--config", path, "--synthetic", "--steps",
+                  "1", "--no-adaptive", "--device", "cpu", "--output-dir",
+                  str(tmp_path / "run")])
 
 
 def test_cli_serves_moe_presets(monkeypatch):

@@ -171,7 +171,7 @@ def test_routing_draws_change_assignment_and_are_reproducible():
     assert quiet.draw_routing(2, 16, None, "cpu") is None
 
 
-@pytest.mark.parametrize("mode", ["gather", "einsum", "a2a"])
+@pytest.mark.parametrize("mode", ["a2a"])
 def test_unported_dispatch_is_refused(mode):
     cfg = TConfig(**dict(ARCH, moe_dispatch=mode))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

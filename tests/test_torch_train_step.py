@@ -194,12 +194,15 @@ def test_remat_policies_give_the_same_gradients(fused):
 
 
 def test_untrainable_settings_are_refused():
-    for kw, match in [(dict(adam_mu_dtype="bf16"), "Adam moments"),
-                      (dict(adam_state_quantization="int8"), "Adam moments"),
-                      (dict(remat_policy="save_attn"), "remat_policy"),
-                      (dict(dropout=0.1), "dropout")]:
-        with pytest.raises(NotImplementedError, match=match):
-            ts.check_trainable(TConfig(**{**ARCH, **kw}))
+    """Only a batch that does not split into the accumulation's
+    micro-batches is refused now: the moment forms, every remat policy and
+    dropout (read by no layer, as in JAX) train."""
+    for kw in [dict(adam_mu_dtype="bf16"),
+               dict(adam_state_quantization="int8"),
+               dict(remat_policy="save_attn"),
+               dict(remat_policy="dots_saveable"),
+               dict(dropout=0.1)]:
+        ts.check_trainable(TConfig(**{**ARCH, **kw}))
     with pytest.raises(ValueError, match="multiple"):
         ts.check_trainable(TConfig(**{**ARCH, "batch_size": 6,
                                       "gradient_accumulation_steps": 4}))

@@ -160,13 +160,15 @@ def test_seeded_init_is_reproducible_with_jax_init_scales():
 
 
 def test_moe_is_refused():
-    """What the port still refuses where the model is built: dispatch
-    modes it has not ported, and mixture of depths."""
-    with pytest.raises(NotImplementedError, match="moe_dispatch='gather'"):
-        TModel(TConfig(**ARCH, use_moe=True, moe_dispatch="gather"),
+    """What the port still refuses where the model is built: the 'a2a'
+    dispatch (an expert mesh). Mixture of depths and the other dispatch
+    modes build."""
+    with pytest.raises(NotImplementedError, match="moe_dispatch='a2a'"):
+        TModel(TConfig(**ARCH, use_moe=True, moe_dispatch="a2a"),
                device="cpu")
-    with pytest.raises(NotImplementedError, match="use_mod"):
-        TModel(TConfig(**ARCH, use_mod=True), device="cpu")
+    for kw in (dict(use_mod=True), dict(use_moe=True, moe_dispatch="gather"),
+               dict(use_moe=True, moe_dispatch="einsum")):
+        TModel(TConfig(**ARCH, **kw), device="cpu")
 
 
 MOE_ARCH = dict(ARCH, use_moe=True, num_experts=4, moe_top_k=2,
