@@ -167,6 +167,28 @@ Phases (any failure raises and exits non-zero):
              launches; `serve --preset debug_200m` in process, 8
              requests, B5 = decode steps x 12, the first decode step
              against the plain attention.
+ 13. fleet   two `serve --preset b1 --dense --seed 0 --prefix-cache-pages
+             64 --page-share ROUTER` replicas (--serve-child, B5's
+             counters readable) behind a `route` child over both: the
+             router's /healthz 200 and /fleet over both, `top --url
+             ROUTER` renders the fleet table; a chat request sharing a
+             1536-character system prompt prefills cold on its affine
+             replica A through the router, A's flush reports the chain's
+             12 keys to the router's page index; the same request on B
+             pulls those 12 pages from A (LPG1, 4 MiB each), decodes A's
+             tokens, B's GET /pages/<key> bytes equal A's, and a repeat
+             on B is a local hit; the longest token gap of a stream B
+             decodes while it pulls another chain of A's (the pull
+             holds the scheduler's worker); B5 decode steps x 16 on each
+             replica,
+             all global; A SIGKILLed with 8 non-stream requests in
+             flight through the router: its breaker open within one
+             probe round, every request 200, /healthz degraded, no
+             lookup naming A; `serve --replicas 2` as one command
+             answers through its router and exits 0 on SIGTERM with both
+             replicas gone. TTFT of B's remote-hit admission against a
+             cold prompt of the same length, the pull's ms and MiB/s,
+             export and import ms a page (in process).
 
 `--only serve,plane,serve_moe` (development runs) runs the build, the
 kernel checks and the named phases only; its last line then says
@@ -1164,9 +1186,11 @@ def _call(url: str, path: str, body=None, token=None, timeout=600.0,
 
 
 def _stream(url: str, path: str, body: dict, token=None,
-            timeout: float = 600.0) -> dict:
+            timeout: float = 600.0, times=None) -> dict:
     """One {"stream": true} request: the token ids of its frames, its done
-    frame, the client-side time to the first token frame and the wall."""
+    frame, the client-side time to the first token frame and the wall.
+    `times`, when given, gets each token frame's arrival (perf_counter)
+    as it comes."""
     h = {"Content-Type": "application/json"}
     if token:
         h["Authorization"] = f"Bearer {token}"
@@ -1185,6 +1209,8 @@ def _stream(url: str, path: str, body: dict, token=None,
             if "token" in ev:
                 if ttft is None:
                     ttft = time.perf_counter() - t0
+                if times is not None:
+                    times.append(time.perf_counter())
                 ids.append(int(ev["token"]))
             elif ev.get("done"):
                 done = ev
@@ -1259,22 +1285,54 @@ def serve_child(argv: list) -> int:
     return cli.main(cli_argv)
 
 
-class _ServeChild:
+class _Proc:
+    """A child process CMD run in CWD (default LOG_DIR), its output in
+    LOG_DIR/NAME.log."""
+
+    def __init__(self, name: str, cmd: list, log_dir: Path, cwd=None):
+        log_dir.mkdir(parents=True, exist_ok=True)
+        self.name = name
+        self.log_path = log_dir / f"{name}.log"
+        self._log = open(self.log_path, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, stdout=self._log,
+                                     stderr=subprocess.STDOUT,
+                                     cwd=str(cwd or log_dir))
+
+    def tail(self, chars: int = 4000) -> str:
+        """The end of the child's log, without the /healthz and /slo
+        probes."""
+        self._log.flush()
+        lines = [x for x in self.log_path.read_text().splitlines()
+                 if "GET /healthz" not in x and "GET /slo" not in x]
+        return "\n".join(lines)[-chars:]
+
+    def stop(self, timeout: float = 120.0) -> int:
+        """SIGTERM (drain), then the exit code."""
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            return self.proc.wait(timeout=timeout)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            self._log.close()
+
+
+class _ServeChild(_Proc):
     """`python -m luminaai_tpu_torch serve ARGV` in a child process (this
     script with --serve-child), its log in CWD/NAME.log."""
 
-    def __init__(self, name: str, argv: list, cwd: Path):
-        cwd.mkdir(parents=True, exist_ok=True)
-        self.name, self.port, self.ctrl = name, _free_port(), _free_port()
+    def __init__(self, name: str, argv: list, cwd: Path,
+                 port: int = 0):
+        self.ctrl = _free_port()
+        self.port = port or _free_port()
         self.url = f"http://127.0.0.1:{self.port}"
-        self.log_path = cwd / f"{name}.log"
-        self._log = open(self.log_path, "w")
-        cmd = [sys.executable, "-u", str(Path(__file__).resolve()),
-               "--serve-child", str(self.ctrl), "--", "serve", *argv,
-               "--port", str(self.port)]
-        self.t0 = time.perf_counter()
-        self.proc = subprocess.Popen(cmd, stdout=self._log,
-                                     stderr=subprocess.STDOUT, cwd=str(cwd))
+        super().__init__(name, [
+            sys.executable, "-u", str(Path(__file__).resolve()),
+            "--serve-child", str(self.ctrl), "--", "serve", *argv,
+            "--port", str(self.port)], cwd)
 
     def _ctrl(self, post: bool = False) -> dict:
         req = urllib.request.Request(
@@ -1316,25 +1374,6 @@ class _ServeChild:
 
     def stats(self) -> dict:
         return _call(self.url, "/stats")[2]
-
-    def tail(self, chars: int = 4000) -> str:
-        """The end of the child's log, without the /healthz probes."""
-        self._log.flush()
-        lines = [x for x in self.log_path.read_text().splitlines()
-                 if "GET /healthz" not in x]
-        return "\n".join(lines)[-chars:]
-
-    def stop(self, timeout: float = 120.0) -> int:
-        """SIGTERM (drain), then the exit code."""
-        if self.proc.poll() is None:
-            self.proc.send_signal(signal.SIGTERM)
-        try:
-            return self.proc.wait(timeout=timeout)
-        finally:
-            if self.proc.poll() is None:
-                self.proc.kill()
-                self.proc.wait()
-            self._log.close()
 
 
 def _auth(url: str, user: str = PLANE_USER) -> str:
@@ -1565,15 +1604,52 @@ def _plane_in_process(dev, engine, rpa_entry: dict, system: str,
     flops = 4 * resident * hq * d
     t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_BF16_FLOPS * 1e3
+    # Library yardstick (never called by the port): SDPA with the length
+    # mask over each lane's pages gathered through the global table, timed
+    # with the gather (the same function from the pool) and without it
+    # (over K/V gathered beforehand). It gathers only the pages the
+    # longest lane reaches, through an index cast once, outside the
+    # timing.
+    import torch.nn.functional as F
+
+    kp, vp = warm.pool.caches[0]
+    n_pages = -(-int(lengths.max()) // PAGE)
+    idx = warm._table[:, :n_pages].long().contiguous()
+
+    def gather(t):
+        flat = t.view(-1, *t.shape[2:])  # [slots * pages, PAGE, hkv, d]
+        return flat[idx].reshape(
+            LANES, n_pages * PAGE, hkv, d).transpose(1, 2)
+
+    qs = q.transpose(1, 2)
+    mask = (torch.arange(n_pages * PAGE, device=dev)[None, :]
+            < lengths[:, None].long())[:, None, None, :]
+
+    def sdpa(kk, vv):
+        return F.scaled_dot_product_attention(qs, kk, vv, attn_mask=mask,
+                                              enable_gqa=True)
+
+    kg, vg = gather(kp), gather(vp)
+    lib_err = (sdpa(kg, vg).transpose(1, 2).float()
+               - ref.float()).abs().max().item()
+    lib_ms = lib_sdpa_ms = None
+    if dev.type == "cuda":
+        lib_ms = cuda_ms(lambda: sdpa(gather(kp), gather(vp)), 50)
+        lib_sdpa_ms = cuda_ms(lambda: sdpa(kg, vg), 50)
+    del kg, vg
     glob = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms, "library_sdpa_only_ms": lib_sdpa_ms,
+            "library_max_abs_err": lib_err,
             "lengths": [int(x) for x in lengths.tolist()],
             "shared_rows_per_lane": shared_rows, "unique_rows": unique_rows}
     log(f"B5 global table at the phase-10 shape (8 lanes, "
         f"{resident} resident rows, {shared_rows} of each lane's on shared "
         f"arena pages, {unique_rows} distinct): {ms} ms, plain {plain_ms} "
-        f"ms, bound "
+        f"ms, library (gather through the table + SDPA with the length "
+        f"mask) {lib_ms} ms, SDPA alone {lib_sdpa_ms} ms (max diff to "
+        f"plain {lib_err:.3e}), bound "
         f"{glob['bound_ms']:.4f} ms, max_abs_err {err:.3e} (tol "
         f"{KERNEL_TOL})")
     if err > KERNEL_TOL:
@@ -4280,9 +4356,523 @@ def phase_mod(dev, entries: dict, rpa_entry: dict) -> dict:
             "first_decode_logit_err": logit_err, "wall_s": wall, **prof}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the fleet, `serve --page-share` replicas behind `route`
+# ---------------------------------------------------------------------------
+# User turns short enough that a chat prompt spans exactly the system
+# prompt's PLANE_SHARED_PAGES full pages (its tail page is never keyed).
+FLEET_TURN_CHARS = 64
+FLEET_NEW_TOKENS = 32
+FLEET_KILL_REQUESTS = 8  # non-stream requests in flight when A is killed
+FLEET_LIVE_TOKENS = 192  # the stream B decodes while it pulls
+FLEET_LAYERS = 16  # B5 launches a decode step (0 on a CPU rehearsal)
+# The one-command fleet's replicas (`serve --replicas 2`).
+FLEET_CMD_MODEL = PLANE_MODEL
+
+
+def _fleet_prompt(tok, system: str, user: str) -> list:
+    """The prompt ids a replica's chat route builds (encode_chat)."""
+    from types import SimpleNamespace
+
+    from luminaai_tpu_torch.inference.generate import GenerationEngine
+
+    return GenerationEngine.encode_chat(
+        SimpleNamespace(tokenizer=tok),
+        [{"role": "system", "content": system},
+         {"role": "user", "content": user}])
+
+
+def _free_port_run(n: int, avoid=()) -> int:
+    """A port p with p..p+n-1 free on loopback now and none in `avoid`."""
+    import socket
+
+    for _ in range(100):
+        base = _free_port()
+        run = range(base, base + n)
+        if base + n > 65535 or set(run) & set(avoid):
+            continue
+        socks = []
+        try:
+            for port in run:
+                sock = socket.socket()
+                socks.append(sock)
+                sock.bind(("127.0.0.1", port))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sock in socks:
+                sock.close()
+    raise AssertionError(f"no run of {n} free ports")
+
+
+def _argv_value(argv: list, flag: str, default=None):
+    return argv[argv.index(flag) + 1] if flag in argv else default
+
+
+def _device_args(model_argv: list) -> list:
+    """`--device X` of a replica's argv, for the router and top (a CPU
+    rehearsal runs everything with --device cpu)."""
+    if "--device" in model_argv:
+        i = model_argv.index("--device")
+        return model_argv[i:i + 2]
+    return []
+
+
+def _metric_value(text: str, name: str) -> float:
+    for line in text.splitlines():
+        if line.startswith(name + " ") or line.startswith(name + "{}"):
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def _cli_proc(name: str, argv: list, log_dir: Path) -> _Proc:
+    """`python -m luminaai_tpu_torch ARGV` run from the repo root."""
+    return _Proc(name, [sys.executable, "-u", "-m", "luminaai_tpu_torch",
+                        *argv], log_dir, cwd=Path(__file__).resolve().parent)
+
+
+def _wait_http(url: str, what: str, procs, ok=lambda code, body: code == 200,
+               timeout: float = PLANE_READY_S):
+    """Poll GET url until ok(code, body); fail early if a child died."""
+    t0 = time.perf_counter()
+    while True:
+        for p in procs:
+            if p.proc.poll() is not None:
+                raise AssertionError(f"{what}: a child exited "
+                                     f"{p.proc.returncode}:\n{p.tail()}")
+        try:
+            code, _, body = _call(url, "", timeout=5)
+            if ok(code, body):
+                return body, time.perf_counter() - t0
+        except OSError:
+            pass
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{what}: not ready after {timeout}s")
+        time.sleep(0.05)
+
+
+def phase_fleet(dev, rpa_entry: dict) -> dict:
+    """Phase 13: two `serve --preset b1 --dense --seed 0` replicas (this
+    script's --serve-child, so B5's counters can be read), each with
+    --prefix-cache-pages 64 and --page-share pointing at a `route` child
+    over both. A chat request through the router prefills cold on its
+    affine replica A, whose flush reports the chain's 12 keys; the same
+    request on B pulls those 12 pages from A (LPG1 bytes, 4 MiB each),
+    decodes A's tokens, and B's GET /pages/<key> bytes equal A's; a repeat
+    on B is a local hit. A stream decoding on B while B pulls another of
+    A's chains gives the pull's stall (its longest token gap). B5 launches decode steps x 16 on each replica,
+    all through the global table. A is SIGKILLed with requests in flight
+    through the router: its breaker opens within a probe round, every
+    request answers 200, /healthz reads degraded and no lookup names A.
+    Then `serve --replicas 2` as one command: a request through its
+    router, SIGTERM, exit 0 and both replicas gone. Export and import ms
+    a page are timed in this process on a pool of the replicas'
+    geometry."""
+    import os
+
+    import torch
+
+    from luminaai_tpu_torch.config import Config, ConfigPresets
+    from luminaai_tpu_torch.data.tokenizer import ConversationTokenizer
+    from luminaai_tpu_torch.inference.kv_pool import (
+        PagedKVPool,
+        parse_page_payload,
+    )
+    from luminaai_tpu_torch.inference.prefix_cache import page_chain_keys
+    from luminaai_tpu_torch.serving.router import Router
+
+    t_phase = time.perf_counter()
+    knobs = Config()
+    preset = ConfigPresets.get(_argv_value(PLANE_MODEL, "--preset", "b1"))
+    tok = ConversationTokenizer(model_name=preset.tokenizer_name)
+    root = RUN_DIR / "fleet"
+    root.mkdir(parents=True)
+    rport, aport, bport = (_free_port() for _ in range(3))
+    fport = _free_port_run(3, avoid=(rport, aport, bport))
+    router_url = f"http://127.0.0.1:{rport}"
+    urls = [f"http://127.0.0.1:{p}" for p in (aport, bport)]
+    base = [*PLANE_MODEL, "--num-slots", str(LANES), "--page-size",
+            str(PAGE), "--prefix-cache-pages", str(PLANE_ARENA_PAGES),
+            "--page-share", router_url]
+    reps = [_ServeChild(f"fleet_r{i}", base + ["--page-share-self", u],
+                        root / f"r{i}", port=p)
+            for i, (u, p) in enumerate(zip(urls, (aport, bport)))]
+    dev_args = _device_args(PLANE_MODEL)
+    router = _cli_proc("router", ["route", "--replica", urls[0],
+                                  "--replica", urls[1], "--port", str(rport),
+                                  *dev_args], root)
+    # The one-command fleet starts now too (its replicas warm up while
+    # the checks below run), on fport + 1 and fport + 2.
+    fleet_cmd = _cli_proc("fleet_cmd", [
+        "serve", "--replicas", "2", *FLEET_CMD_MODEL, "--num-slots",
+        str(LANES), "--page-size", str(PAGE), "--prefix-cache-pages",
+        str(PLANE_ARENA_PAGES), "--port", str(fport), "--flight-dir",
+        str(root / "fleet_cmd")], root)
+    # The rendezvous order `route` computes (replicas r0, r1 by --replica
+    # order), with no traffic: which replica a body is affine to.
+    order = Router([("r0", urls[0]), ("r1", urls[1])])
+
+    def affine(body, path="/v1/chat"):
+        return urls.index(order._ordered(order._affinity_key(path, body))[0]
+                          .url)
+
+    # Texts: a system prompt for the shared chain; a user turn short
+    # enough that the prompt's full pages are the system prompt's 12.
+    texts = {}
+    for name, seed in (("shared", 2), ("cold", 3), ("a_only", 4),
+                       ("stall", 5), ("live", 6)):
+        system, turns = _plane_texts(seed)
+        texts[name] = (system, [t[:FLEET_TURN_CHARS] for t in turns])
+    sys_s, turns_s = texts["shared"]
+    body = _chat_body(sys_s, turns_s[0], max_new_tokens=FLEET_NEW_TOKENS)
+    ids = _fleet_prompt(tok, sys_s, turns_s[0])
+    npages = (len(ids) - 1) // PAGE
+    if npages != PLANE_SHARED_PAGES:
+        raise AssertionError(f"the fleet prompt spans {npages} full pages")
+    keys = page_chain_keys(ids, PAGE, npages)
+    a = affine(body)
+    b = 1 - a
+    A, B = reps[a], reps[b]
+    out = {"affine": f"r{a}"}
+    try:
+        # 1. The router comes up over both replicas; top renders it.
+        for r in reps:
+            ready = r.wait_ready()
+            log(f"{r.name}: /healthz 200 after {ready['ready_s']:.1f}s")
+        fleet, up_s = _wait_http(
+            router_url + "/fleet", "router", [router],
+            ok=lambda c, d: c == 200 and isinstance(d, dict) and all(
+                x["status"] == "ok" and x["breaker"] == "closed"
+                for x in d.get("replicas", [])) and len(d["replicas"]) == 2)
+        code, _, health = _call(router_url, "/healthz")
+        if code != 200 or health.get("status") != "ok":
+            raise AssertionError(f"router /healthz: {code} {health}")
+        top = subprocess.run(
+            [sys.executable, "-m", "luminaai_tpu_torch", "top", "--url",
+             router_url, "--once", *dev_args],
+            cwd=str(Path(__file__).resolve().parent), capture_output=True,
+            text=True, timeout=120)
+        if top.returncode != 0 or "fleet — ok (2/2 available" not in (
+                top.stdout):
+            raise AssertionError(f"top over the router: {top.returncode} "
+                                 f"{top.stdout[-800:]} {top.stderr[-800:]}")
+        names = [x["replica"] for x in fleet["replicas"]]
+        log(f"router: /healthz ok, /fleet {names} closed and ok after "
+            f"{up_s:.1f}s; top rendered the fleet table")
+        for r in reps:
+            r.reset()
+        st0 = [r.stats() for r in reps]
+
+        # 2. Cold on A through the router; A reports the chain's 12 keys.
+        cold_a = _stream(router_url, "/v1/chat", body)
+        cnt_b = B.counts()
+        if cold_a["code"] != 200 or cold_a["done"] is None or cnt_b["B5"]:
+            raise AssertionError(f"cold request via the router: {cold_a} "
+                                 f"(B5 on B {cnt_b['B5']})")
+        fleet, _ = _wait_http(
+            router_url + "/fleet", "A's report", [router],
+            ok=lambda c, d: c == 200
+            and d["replicas"][a]["shared_pages"] == npages, timeout=30)
+        code, _, look = _call(router_url, "/pages/lookup", {"keys": keys})
+        if (fleet["replicas"][a]["page_reports"] != npages
+                or look.get("owner") != A.url or look.get("keys") != keys):
+            raise AssertionError(f"A's report: {fleet['replicas'][a]}, "
+                                 f"lookup {look}")
+        log(f"cold on {A.name} via the router: TTFT "
+            f"{cold_a['ttft_s'] * 1e3:.1f} ms; A reported {npages} keys, the "
+            f"router's index names A for all of them")
+
+        # 3. A cold prompt of the same length on B (another system prompt),
+        # then the shared one: B's lookup names A, B pulls 12 pages.
+        sys_c, turns_c = texts["cold"]
+        cold_b = _stream(B.url, "/v1/chat", _chat_body(
+            sys_c, turns_c[0], max_new_tokens=FLEET_NEW_TOKENS))
+        _, _, m0 = _call(B.url, "/metrics")
+        pull_b = _stream(B.url, "/v1/chat", body)
+        _, _, m1 = _call(B.url, "/metrics")
+
+        def delta(name):
+            return _metric_value(m1, name) - _metric_value(m0, name)
+
+        pulled = delta("serve_prefix_remote_pulls_total")
+        hits = _metric_value(m1, "serve_prefix_remote_hits_total")
+        failures = delta("serve_prefix_remote_pull_failures_total")
+        nbytes = delta("serve_page_transfer_bytes_total")
+        pull_s = delta("serve_page_pull_seconds_sum")
+        payloads, export_ms = {}, []
+        for k in keys:
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(f"{A.url}/pages/{k}",
+                                        timeout=60) as r:
+                payloads[k] = r.read()
+            export_ms.append((time.perf_counter() - t0) * 1e3)
+        page_bytes = len(payloads[keys[0]])
+        same = 0
+        for k in keys:
+            with urllib.request.urlopen(f"{B.url}/pages/{k}",
+                                        timeout=60) as r:
+                same += r.read() == payloads[k]
+        log(f"pull on {B.name}: {pulled:.0f} pages, {nbytes / 2**20:.1f} MiB "
+            f"({page_bytes} B a page), {failures:.0f} failures, remote hits "
+            f"{hits:.0f}; fetch time {pull_s * 1e3:.1f} ms "
+            f"({nbytes / 2**20 / max(pull_s, 1e-9):.1f} MiB/s); TTFT remote "
+            f"hit {pull_b['ttft_s'] * 1e3:.1f} ms vs cold prompt of the same "
+            f"length {cold_b['ttft_s'] * 1e3:.1f} ms; pages byte-identical "
+            f"on B and A: {same}/{npages}; GET /pages on A "
+            f"{statistics.median(export_ms):.2f} ms a page (median)")
+        if (pulled != npages or hits != 1 or failures or same != npages
+                or nbytes != npages * page_bytes):
+            raise AssertionError("B did not pull A's 12 pages byte for byte")
+        if pull_b["ids"] != cold_a["ids"]:
+            raise AssertionError(f"B's tokens differ from A's: "
+                                 f"{pull_b['ids'][:8]} vs {cold_a['ids'][:8]}")
+        if any(r["code"] != 200 or r["errors"] for r in (cold_b, pull_b)):
+            raise AssertionError(f"B's requests: {cold_b} {pull_b}")
+
+        # 4. The same prompt again on B: a local hit, no second pull.
+        pc0 = B.stats().get("prefix_cache", {})
+        again = _stream(B.url, "/v1/chat", _chat_body(
+            sys_s, turns_s[1], max_new_tokens=FLEET_NEW_TOKENS))
+        _, _, m2 = _call(B.url, "/metrics")
+        pc1 = B.stats().get("prefix_cache", {})
+        if again["code"] != 200 or _metric_value(
+                m2, "serve_prefix_remote_pulls_total") != _metric_value(
+                m1, "serve_prefix_remote_pulls_total") or _metric_value(
+                m2, "serve_prefix_remote_hits_total") != 1 or (
+                pc1.get("hits", 0) - pc0.get("hits", 0) != 1):
+            raise AssertionError(f"repeat on B: not one local hit ({pc0} -> "
+                                 f"{pc1})")
+        log(f"repeat on {B.name}: a local hit of "
+            f"{pc1.get('pages_spliced', 0) - pc0.get('pages_spliced', 0)} "
+            f"pages, no pull; TTFT {again['ttft_s'] * 1e3:.1f} ms")
+
+        def a_owns(texts_name):
+            """Send a chain to A directly and wait until the router's
+            index names A for all its keys: (A's status, the lookup)."""
+            system, turns = texts[texts_name]
+            c_ids = _fleet_prompt(tok, system, turns[0])
+            c_keys = page_chain_keys(c_ids, PAGE, (len(c_ids) - 1) // PAGE)
+            code = _call(A.url, "/v1/chat", _chat_body(
+                system, turns[0], max_new_tokens=4))[0]
+            deadline = time.perf_counter() + 30
+            while True:
+                look = _call(router_url, "/pages/lookup", {"keys": c_keys})[2]
+                if look.get("owner") == A.url or (
+                        time.perf_counter() > deadline):
+                    break
+                time.sleep(0.05)
+            if code != 200 or look.get("owner") != A.url or (
+                    look.get("keys") != c_keys):
+                raise AssertionError(f"A's chain {texts_name}: {code} {look}")
+            return c_keys
+
+        # 4b. What a pull costs the streams B is already decoding. The pull
+        # runs inside the admission on the scheduler's one worker (as in
+        # the JAX package), so a live stream gets no token until it ends:
+        # the longest token gap of a stream decoding on B across a pull of
+        # another chain of A's, beside its median gap.
+        a_owns("stall")
+        sys_t, turns_t = texts["stall"]
+        sys_l, turns_l = texts["live"]
+        live, times = {}, []
+        live_t = threading.Thread(target=lambda: live.update(_stream(
+            B.url, "/v1/chat", _chat_body(
+                sys_l, turns_l[0], max_new_tokens=FLEET_LIVE_TOKENS),
+            times=times)), daemon=True)
+        live_t.start()
+        while len(times) < 8 and live_t.is_alive():
+            time.sleep(0.01)
+        _, _, m3 = _call(B.url, "/metrics")
+        t_pull0 = time.perf_counter()
+        stall = _stream(B.url, "/v1/chat", _chat_body(
+            sys_t, turns_t[0], max_new_tokens=4))
+        t_pull1 = time.perf_counter()
+        _, _, m4 = _call(B.url, "/metrics")
+        live_t.join(timeout=300)
+        pulled_t = _metric_value(m4, "serve_prefix_remote_pulls_total") - (
+            _metric_value(m3, "serve_prefix_remote_pulls_total"))
+        gaps = [(t0, t1 - t0) for t0, t1 in zip(times, times[1:])]
+        across = [g for t0, g in gaps if t0 < t_pull1 and t0 + g > t_pull0]
+        apart = [g for t0, g in gaps if not (t0 < t_pull1
+                                            and t0 + g > t_pull0)]
+        out["pull_stall"] = {
+            "pulled_pages": pulled_t,
+            "request_ms": (t_pull1 - t_pull0) * 1e3,
+            "longest_gap_ms": max(across) * 1e3 if across else None,
+            "median_gap_ms": (statistics.median(apart) * 1e3
+                              if apart else None),
+            "live_tokens": len(times)}
+        if stall["code"] != 200 or live.get("code") != 200 or any(
+                r["errors"] for r in (stall, live)):
+            raise AssertionError(f"the stall check's requests: {stall} "
+                                 f"{live.get('code')}")
+        if across:
+            log(f"decode on {B.name} during a pull of {pulled_t:.0f} pages: "
+                f"a live stream's longest token gap "
+                f"{out['pull_stall']['longest_gap_ms']:.1f} ms (median gap "
+                f"otherwise {out['pull_stall']['median_gap_ms']:.1f} ms); "
+                f"the pulling request took "
+                f"{out['pull_stall']['request_ms']:.1f} ms")
+        else:
+            log(f"decode stall on {B.name} during a pull: not measured (the "
+                f"live stream's {len(times)} tokens did not span the pull)")
+
+        # A chain only A holds (sent to A directly), for the lookup after
+        # the kill.
+        x_keys = a_owns("a_only")
+
+        # 5. B5 on each replica: decode steps x 16, all global.
+        launches = {}
+        for i, r in enumerate(reps):
+            c, st = r.counts(), r.stats()
+            steps = st["decode_steps"] - st0[i]["decode_steps"]
+            launches[r.name] = {"B5": c["B5"], "B5_global": c["B5_global"],
+                                "decode_steps": steps}
+            if steps <= 0 or c["B5"] != steps * FLEET_LAYERS or (
+                    c["B5_global"] != c["B5"]):
+                raise AssertionError(f"{r.name}: B5 {c}, decode steps "
+                                     f"{steps} x {FLEET_LAYERS}")
+            rpa_entry["launches"] = (rpa_entry["launches"] or 0) + c["B5"]
+            glob = rpa_entry.setdefault("global_form", {})
+            glob["launches"] = glob.get("launches", 0) + c["B5_global"]
+        rpa_entry["launches_fleet"] = sum(x["B5"] for x in launches.values())
+        log(f"B5 launches: {launches} (decode steps x {FLEET_LAYERS}, all "
+            "through the global table)")
+
+        # 6. SIGKILL A with non-stream requests in flight via the router.
+        b_req0 = B.stats()["requests"]
+        kill_bodies = []
+        for i in range(64):
+            kb = {"prompt": f"fleet failover request {i} " * 4,
+                  "max_new_tokens": PLANE_LONG_TOKENS, "temperature": 0}
+            if affine(kb, "/v1/generate") == a:
+                kill_bodies.append(kb)
+            if len(kill_bodies) == FLEET_KILL_REQUESTS:
+                break
+        pool = ThreadPoolExecutor(FLEET_KILL_REQUESTS)
+        futs = [pool.submit(_call, router_url, "/v1/generate", kb)
+                for kb in kill_bodies]
+        _wait_for(A, lambda st: st["active_lanes"] >= 1, "A busy",
+                  futs=futs)
+        t_kill = time.perf_counter()
+        os.kill(A.proc.pid, signal.SIGKILL)
+        _, open_s = _wait_http(
+            router_url + "/fleet", "A's breaker", [router],
+            ok=lambda c, d: isinstance(d, dict)
+            and d["replicas"][a]["breaker"] == "open", timeout=60)
+        open_s = time.perf_counter() - t_kill
+        inflight = [f.result() for f in futs]
+        pool.shutdown()
+        after = [_call(router_url, "/v1/generate",
+                       {"prompt": kb["prompt"] + " again",
+                        "max_new_tokens": 8, "temperature": 0})
+                 for kb in kill_bodies[:4]]
+        after += [_call(router_url, "/v1/chat", _chat_body(
+            sys_s, turns_s[2 + i], max_new_tokens=8)) for i in range(2)]
+        code_h, _, health = _call(router_url, "/healthz")
+        look_x = _call(router_url, "/pages/lookup", {"keys": x_keys})[2]
+        served_b = B.stats()["requests"] - b_req0
+        bad = [(c, p) for c, _, p in inflight + after if c != 200]
+        bound = knobs.router_probe_interval_s + 2.0  # + the probe timeout
+        log(f"failover: A SIGKILLed with {FLEET_KILL_REQUESTS} requests in "
+            f"flight; breaker open {open_s:.2f}s later (one probe round: "
+            f"<= {bound:.1f}s); {len(inflight)} in-flight and {len(after)} "
+            f"later requests: {len(bad)} non-200; B served {served_b}; "
+            f"router /healthz {code_h} {health.get('status')}; lookup of "
+            f"A's own chain -> {look_x.get('owner')}")
+        if bad or open_s > bound or code_h != 200 or (
+                health.get("status") != "degraded") or look_x.get("owner"):
+            raise AssertionError(f"failover: {bad[:2]}")
+        if served_b < len(inflight) + len(after):
+            raise AssertionError(f"B served {served_b} requests")
+
+        # 7. The one-command fleet: one request through its router, SIGTERM.
+        f_url = f"http://127.0.0.1:{fport}"
+        _, f_ready = _wait_http(f_url + "/healthz", "serve --replicas",
+                                [fleet_cmd])
+        code, _, reply = _call(f_url, "/v1/generate",
+                               {"prompt": "one command fleet",
+                                "max_new_tokens": 8, "temperature": 0})
+        _, _, ffleet = _call(f_url, "/fleet")
+        t_sig = time.perf_counter()
+        rc_fleet = fleet_cmd.stop()
+        gone = 0
+        for p in (fport + 1, fport + 2):
+            try:
+                _call(f"http://127.0.0.1:{p}", "/healthz", timeout=5)
+            except OSError:
+                gone += 1
+        log(f"serve --replicas 2: ready {f_ready:.1f}s after the checks "
+            f"above began waiting, reply {code} ({reply.get('tokens')} "
+            f"tokens), /fleet {[x['replica'] for x in ffleet['replicas']]}; "
+            f"SIGTERM -> exit {rc_fleet} in "
+            f"{time.perf_counter() - t_sig:.1f}s, replicas gone {gone}/2")
+        if code != 200 or rc_fleet != 0 or gone != 2 or len(
+                ffleet["replicas"]) != 2:
+            raise AssertionError("the one-command fleet did not answer and "
+                                 "stop cleanly")
+        rc_router = router.stop()
+        rc_b = B.stop()
+        if rc_router != 0 or rc_b != 0:
+            raise AssertionError(f"router exit {rc_router}, B exit {rc_b}")
+    except BaseException:
+        for c in (*reps, router, fleet_cmd):
+            log(f"{c.name} log (tail):\n{c.tail()}")
+        raise
+    finally:
+        for c in (*reps, router, fleet_cmd):
+            c.stop(timeout=30)
+
+    # Export and import a page in this process, on a pool of the
+    # replicas' geometry (the payload's leaves; 8 lanes + 4 arena slots of
+    # 16 pages): the bytes B pulled, imported and exported again byte for
+    # byte.
+    leaves = parse_page_payload(payloads[keys[0]])
+    pages_per_slot = 2048 // PAGE
+    slots = LANES + -(-PLANE_ARENA_PAGES // pages_per_slot)
+    pool = PagedKVPool(
+        [tuple(torch.zeros((slots, pages_per_slot, *leaf.shape),
+                           dtype=leaf.dtype, device=dev)
+               for leaf in leaves[i:i + 2])
+         for i in range(0, len(leaves), 2)], LANES, pages_per_slot, PAGE)
+    gids = [LANES * pages_per_slot + j for j in range(npages)]
+    imp, exp = [], []
+    for gid, k in zip(gids, keys):
+        t0 = time.perf_counter()
+        pool.import_page(gid, payloads[k])
+        imp.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        again_bytes = pool.export_page(gid)
+        exp.append((time.perf_counter() - t0) * 1e3)
+        if again_bytes != payloads[k]:
+            raise AssertionError("a page changed through import -> export")
+    del pool
+    _release()
+    out.update({
+        "pages_pulled": pulled, "page_bytes": page_bytes,
+        "pull_bytes": nbytes, "pull_fetch_ms": pull_s * 1e3,
+        "pull_mib_per_s": nbytes / 2**20 / max(pull_s, 1e-9),
+        "ttft_remote_hit_ms": pull_b["ttft_s"] * 1e3,
+        "ttft_cold_ms": cold_b["ttft_s"] * 1e3,
+        "ttft_cold_on_a_ms": cold_a["ttft_s"] * 1e3,
+        "ttft_local_hit_ms": again["ttft_s"] * 1e3,
+        "get_page_ms": statistics.median(export_ms),
+        "export_ms_per_page": statistics.median(exp),
+        "import_ms_per_page": statistics.median(imp),
+        "breaker_open_s": open_s, "launches": launches,
+        "failover_non_200": len(bad), "wall_s": time.perf_counter() - t_phase,
+    })
+    log(f"export {out['export_ms_per_page']:.2f} ms, import "
+        f"{out['import_ms_per_page']:.2f} ms a page (median of {npages}, in "
+        f"process, host wall); fleet: phase wall {out['wall_s']:.1f} s "
+        f"({_smi()})")
+    return out
+
+
 ALL_PHASES = ("serve", "plane", "serve_moe", "train", "train_moe",
               "runtime", "posttrain", "adaptive", "posttrain_moe",
-              "train_tuned", "mod")
+              "train_tuned", "mod", "fleet")
 PHASES = set(ALL_PHASES)
 
 
@@ -4323,10 +4913,10 @@ def main() -> int:
         phase_build()
         entry = phase_kernels(dev)
         flash_entries = phase_flash_kernels(dev) if not partial or (
-            PHASES - {"serve", "plane", "serve_moe"}) else []
+            PHASES - {"serve", "plane", "serve_moe", "fleet"}) else []
         gmm_entries = phase_gmm_kernels(dev) if not partial or (
             PHASES - {"serve", "plane", "train", "runtime",
-                      "posttrain"}) else []
+                      "posttrain", "fleet"}) else []
         if "serve" in PHASES:  # phase 3, and phase 10 ("plane") after it
             done["serve"] = phase_serve(dev, entry)
             _release()
@@ -4370,6 +4960,9 @@ def main() -> int:
             _release()
         if "mod" in PHASES:
             done["mod"] = phase_mod(dev, by_kernel, entry)
+            _release()
+        if "fleet" in PHASES:
+            done["fleet"] = phase_fleet(dev, entry)
     finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s: "

@@ -1,6 +1,6 @@
 """Command line of the port: `python -m luminaai_tpu_torch` with the
-subcommands serve, top, train, resume, data, finetune, evaluate, chat,
-verify-checkpoint and presets.
+subcommands serve, route, top, train, resume, data, finetune, evaluate,
+chat, verify-checkpoint and presets.
 
   python -m luminaai_tpu_torch train --preset b1 --dense \\
       --data corpus.jsonl --packed --steps 1000 --output-dir runs/b1
@@ -11,6 +11,10 @@ verify-checkpoint and presets.
   python -m luminaai_tpu_torch serve --preset b1 --dense --seed 0 \\
       --prefix-cache-pages 64 --secure --user U --password P
   python -m luminaai_tpu_torch top --url http://127.0.0.1:5001 --once
+  python -m luminaai_tpu_torch serve --preset b1 --dense --replicas 2 \\
+      --prefix-cache-pages 64
+  python -m luminaai_tpu_torch route --replica http://127.0.0.1:5002 \\
+      --replica http://127.0.0.1:5003 --port 5001
   python -m luminaai_tpu_torch train --preset debug --moe-dispatch gmm \\
       --synthetic --steps 3 --device cpu --output-dir /tmp/run
   python -m luminaai_tpu_torch train --config run.json --no-adaptive
@@ -60,18 +64,26 @@ perplexity, tokens, batches) over a conversation file. `chat` answers
 the security layer (--secure). finetune, evaluate and chat run on the
 card unless given --device.
 
-`serve` takes the JAX CLI's serving flags but the fleet's (--replicas,
---page-share*), the quantizer's (--quantize, --kv-cache-dtype) and
---trace-jax (serving/server.py): continuous batching (or --no-continuous
-micro-batching over generate_batch), the radix prefix cache
+`serve` takes the JAX CLI's serving flags but the quantizer's
+(--quantize, --kv-cache-dtype) and --trace-jax (serving/server.py):
+continuous batching (or --no-continuous micro-batching over
+generate_batch), the radix prefix cache
 (--prefix-cache-pages), telemetry and spans, SLOs, the hang watchdog,
 deadlines, queue-depth shedding, tenant token buckets, --secure auth,
 SIGTERM drain with a flight record in --flight-dir; --adapter merges a
-LoRA adapter into --checkpoint's weights at load. Bad --latency-buckets,
+LoRA adapter into --checkpoint's weights at load. --page-share ROUTER
+joins a fleet's page sharing (serving/page_share.py): the replica reports
+its cached prefix pages to the router and pulls a cold chain's pages from
+the sibling that owns them. --replicas N runs the one-command fleet: N
+`python -m luminaai_tpu_torch serve` children on port+1..port+N, wired to
+share pages, behind the replica router (serving/router.py) on --port;
+SIGTERM stops the router and drains the children. `route` runs that
+router alone over --replica URLs. Both run on the card unless given
+--device cpu (the children inherit it). Bad --latency-buckets,
 a non-positive --healthz-stale-after, and --secure with neither
 --user/--password nor a users.json exit 2 before any model load. `top`
-renders a server's /metrics/history and /slo (--url), a tshist dump, or
-the live ring.
+renders a server's /metrics/history and /slo or a router's /fleet table
+(--url), a tshist dump, or the live ring.
 """
 
 from __future__ import annotations
@@ -116,9 +128,9 @@ def _model_overrides(args) -> Dict[str, object]:
 
 def _serve_flags(sv: argparse.ArgumentParser) -> None:
     """`serve`'s flags: the JAX CLI's (luminaai_tpu/cli.py serve) without
-    the fleet's (--replicas, --page-share*), the quantizer's (--quantize,
-    --kv-cache-dtype) and --trace-jax, plus the port's own model flags
-    (--preset, --dense, --moe-dispatch, --weights, --seed, --device)."""
+    the quantizer's (--quantize, --kv-cache-dtype) and --trace-jax, plus
+    the port's own model flags (--preset, --dense, --moe-dispatch,
+    --weights, --seed, --device)."""
     sv.add_argument("--preset", default="b1",
                     choices=ConfigPresets.available())
     sv.add_argument("--dense", action="store_true",
@@ -238,6 +250,83 @@ def _serve_flags(sv: argparse.ArgumentParser) -> None:
                     help="seconds since the last decode tick (while "
                          "busy) after which /healthz reports "
                          "status=degraded (still 200)")
+    sv.add_argument("--replicas", type=int, default=1,
+                    help="spawn N replica serve processes (ports "
+                         "port+1..port+N) fronted by the replica "
+                         "router on --port")
+    sv.add_argument("--page-share", dest="page_share", default=None,
+                    help="router URL for cross-replica KV page sharing: "
+                         "report cached prefix-chain keys there and "
+                         "pull indexed pages from sibling replicas on "
+                         "cold admissions (--replicas wires this)")
+    sv.add_argument("--page-share-self", dest="page_share_self",
+                    default=None,
+                    help="this replica's own base URL, as siblings "
+                         "should reach it for GET /pages/<key> "
+                         "(default: http://HOST:PORT; --replicas sets it)")
+    sv.add_argument("--page-pull-timeout", dest="page_pull_timeout",
+                    type=float, default=None,
+                    help="seconds one whole remote page pull may take "
+                         "(lookup + transfers) before the admission "
+                         "prefills locally (default: config "
+                         "page_pull_timeout_s)")
+    sv.add_argument("--page-share-max-inflight",
+                    dest="page_share_max_inflight", type=int,
+                    default=None,
+                    help="max concurrent remote page pulls per replica "
+                         "(default: config page_share_max_inflight); "
+                         "further cold admissions prefill locally")
+
+
+def _route_flags(rt: argparse.ArgumentParser) -> None:
+    """`route`'s flags: the JAX CLI's (luminaai_tpu/cli.py route), plus
+    --device (the router is host code, but the entry point runs where the
+    port's entry points run: on the card unless told otherwise)."""
+    rt.add_argument("--replica", dest="replicas", action="append",
+                    required=True,
+                    help="replica base URL (repeat per replica)")
+    rt.add_argument("--host", default="127.0.0.1")
+    rt.add_argument("--port", type=int, default=8000)
+    rt.add_argument("--probe-interval", dest="probe_interval_s",
+                    type=float, default=None,
+                    help="seconds between /healthz+/slo probe rounds "
+                         "(default: config router_probe_interval_s)")
+    rt.add_argument("--breaker-failures", dest="breaker_failures",
+                    type=int, default=None,
+                    help="consecutive failures opening a replica's "
+                         "circuit breaker (default: config)")
+    rt.add_argument("--breaker-cooldown", dest="breaker_cooldown_s",
+                    type=float, default=None,
+                    help="seconds an open breaker waits before its "
+                         "half-open probe (default: config)")
+    rt.add_argument("--max-failovers", dest="max_failovers", type=int,
+                    default=None,
+                    help="extra candidates a failed dispatch may try "
+                         "(capped at replicas-1; default: config)")
+    rt.add_argument("--request-timeout", dest="request_timeout_s",
+                    type=float, default=None,
+                    help="per-attempt replica timeout in seconds")
+    rt.add_argument("--hedge", action="store_true",
+                    help="hedged dispatch: fire a second replica for "
+                         "short non-stream requests after a p95-based "
+                         "delay; first answer wins, loser cancelled")
+    rt.add_argument("--hedge-delay", dest="hedge_delay_s", type=float,
+                    default=None,
+                    help="fixed hedge delay in seconds (default: the "
+                         "fleet's observed p95)")
+    rt.add_argument("--hedge-budget", dest="hedge_budget", type=float,
+                    default=None,
+                    help="max hedged fraction of non-stream traffic "
+                         "(default: config router_hedge_budget)")
+    rt.add_argument("--hedge-max-tokens", dest="hedge_max_tokens",
+                    type=int, default=None,
+                    help="only hedge requests asking for at most this "
+                         "many new tokens (default: config)")
+    rt.add_argument("--flight-dir", dest="flight_dir",
+                    help="dump the router's wide-event flight record "
+                         "here on exit (flightrec-*.jsonl)")
+    rt.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
 
 
 def _train_flags(t: argparse.ArgumentParser) -> None:
@@ -288,6 +377,13 @@ def _parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="command", required=True)
     s = sub.add_parser("serve", help="HTTP chat/completion server")
     _serve_flags(s)
+    rt = sub.add_parser(
+        "route",
+        help="data-plane router fronting N serve replicas: health "
+             "probing, circuit breakers, affine dispatch + failover, "
+             "hedged retries",
+    )
+    _route_flags(rt)
 
     tp = sub.add_parser(
         "top",
@@ -314,6 +410,9 @@ def _parser() -> argparse.ArgumentParser:
                          "seconds (default: everything retained)")
     tp.add_argument("--top-k", dest="top_k", type=int, default=4,
                     help="tenants shown in the top-K table (default 4)")
+    tp.add_argument("--device", default=None,
+                    help="torch device a router's fleet table is read "
+                         "for (default: the card)")
 
     t = sub.add_parser("train", help="train a model")
     _train_flags(t)
@@ -1121,14 +1220,120 @@ def _serve_checks(args):
     return None, bootstrap, buckets
 
 
+def _fleet_child_argv(argv: List[str], port: int) -> List[str]:
+    """A replica's serve argv from the parent's: the same flags, its own
+    port, no --replicas (a replica must not recurse), and no page-share
+    wiring (the fleet parent re-issues it, pointing at its own router)."""
+    drop = ("--replicas", "--port", "--page-share", "--page-share-self")
+    out: List[str] = []
+    skip = False
+    for a in argv:
+        if skip:
+            skip = False
+            continue
+        if a in drop:
+            skip = True
+            continue
+        if any(a.startswith(d + "=") for d in drop):
+            continue
+        out.append(a)
+    return out + ["--port", str(port)]
+
+
+def _fleet_ready(procs, urls: List[str], timeout_s: float) -> Optional[str]:
+    """Wait until every replica answers /healthz 200; the error (None when
+    ready). A child that exits first fails the wait at once, not at the
+    deadline."""
+    import time
+
+    from luminaai_tpu_torch.serving.router import wait_ready
+
+    deadline = time.monotonic() + timeout_s
+    while True:
+        dead = [i for i, p in enumerate(procs) if p.poll() is not None]
+        if dead:
+            return (f"replica(s) {dead} exited with "
+                    f"{[procs[i].returncode for i in dead]} before ready")
+        try:
+            wait_ready(urls, timeout_s=2.0)
+            return None
+        except TimeoutError as e:
+            if time.monotonic() > deadline:
+                return str(e)
+
+
+def _serve_fleet(args) -> int:
+    """`serve --replicas N`: N replica `python -m luminaai_tpu_torch serve`
+    processes on port+1..port+N, each reporting its cached pages to the
+    router and pulling from its siblings, and the replica router on
+    --port once all of them answer /healthz. SIGTERM or ^C stops the
+    router; the children then get SIGTERM and drain."""
+    import subprocess
+
+    from luminaai_tpu_torch.serving.router import Router
+
+    resolve_device(args.device)  # the card, or raise before any child
+    cfg = Config()
+    n = args.replicas
+    ports = [args.port + 1 + i for i in range(n)]
+    urls = [f"http://{args.host}:{p}" for p in ports]
+    router_url = f"http://{args.host}:{args.port}"
+    argv = getattr(args, "argv", None)
+    if argv is None:
+        argv = sys.argv[1:]
+    procs = []
+    try:
+        for p in ports:
+            child = _fleet_child_argv(list(argv), p) + [
+                "--page-share", router_url,
+                "--page-share-self", f"http://{args.host}:{p}",
+            ]
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "luminaai_tpu_torch"] + child
+            ))
+        print(f"fleet: {n} replica(s) on ports {ports}; waiting for "
+              "warmup...", file=sys.stderr)
+        err = _fleet_ready(procs, urls, timeout_s=600.0)
+        if err is not None:
+            print(f"fleet: {err}", file=sys.stderr)
+            return 1
+        router = Router(
+            list(zip([f"r{i}" for i in range(n)], urls)),
+            probe_interval_s=cfg.router_probe_interval_s,
+            breaker_failures=cfg.router_breaker_failures,
+            breaker_cooldown_s=cfg.router_breaker_cooldown_s,
+            max_failovers=min(cfg.router_max_failovers, n - 1),
+            hedge_budget=cfg.router_hedge_budget,
+            hedge_max_tokens=cfg.router_hedge_max_tokens,
+            flight_dir=args.flight_dir,
+        )
+        router.probe_all()
+        router.start_probing()
+        router.serve_forever(args.host, args.port)
+        return 0
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for proc in procs:
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
 def serve(args) -> int:
-    """HTTP chat/completion server over the port (serving/server.py)."""
+    """HTTP chat/completion server over the port (serving/server.py);
+    with --replicas N > 1, the one-command fleet (_serve_fleet)."""
     from luminaai_tpu_torch.serving.server import serve as run_server
 
     err, bootstrap, buckets = _serve_checks(args)
     if err is not None:
         print(err, file=sys.stderr)
         return 2
+    if args.replicas > 1:
+        return _serve_fleet(args)
     engine = build_serve_engine(args)
     run_server(
         engine,
@@ -1160,14 +1365,66 @@ def serve(args) -> int:
         slo=not args.no_slo,
         slo_config=args.slo_config,
         healthz_stale_after_s=args.healthz_stale_after,
+        page_share=args.page_share,
+        page_share_self_url=args.page_share_self,
+        page_pull_timeout_s=args.page_pull_timeout,
+        page_share_max_inflight=args.page_share_max_inflight,
+    )
+    return 0
+
+
+def route(args) -> int:
+    """Health-aware data-plane router over N serve replicas
+    (serving/router.py): /healthz + /slo probing, per-replica circuit
+    breakers, prefix-affine dispatch with bounded failover, shedding as
+    a routing signal, optional hedging, and the fleet page index. Flag
+    defaults come from the Config's router_* knobs."""
+    from luminaai_tpu_torch.serving.router import run_router
+
+    cfg = Config()
+
+    def knob(name, default):
+        v = getattr(args, name, None)
+        return default if v is None else v
+
+    urls = []
+    for u in args.replicas:
+        if "://" not in u:
+            u = "http://" + u
+        urls.append(u.rstrip("/"))
+    if len(urls) != len(set(urls)):
+        print("duplicate --replica urls", file=sys.stderr)
+        return 2
+    resolve_device(args.device)  # the card, or raise
+    run_router(
+        urls,
+        host=args.host,
+        port=args.port,
+        probe_interval_s=knob("probe_interval_s",
+                              cfg.router_probe_interval_s),
+        breaker_failures=knob("breaker_failures",
+                              cfg.router_breaker_failures),
+        breaker_cooldown_s=knob("breaker_cooldown_s",
+                                cfg.router_breaker_cooldown_s),
+        max_failovers=min(knob("max_failovers", cfg.router_max_failovers),
+                          len(urls) - 1),
+        request_timeout_s=args.request_timeout_s,
+        hedge=args.hedge,
+        hedge_delay_s=args.hedge_delay_s,
+        hedge_budget=knob("hedge_budget", cfg.router_hedge_budget),
+        hedge_max_tokens=knob("hedge_max_tokens",
+                              cfg.router_hedge_max_tokens),
+        flight_dir=args.flight_dir,
     )
     return 0
 
 
 def _top_sources(args):
-    """Resolve `top`'s data source into (fetch_fn, source_label) (the JAX
-    CLI's but the router's /fleet, which waits for the fleet slice):
-    fetch_fn() -> (history, slo or None). Exit-2 errors raise SystemExit."""
+    """Resolve `top`'s data source into (fetch_fn, source_label), as the
+    JAX CLI does: fetch_fn() -> (history, slo or None, fleet or None).
+    --url probes a replica's /metrics/history and /slo and a router's
+    /fleet; a router's table is read on the card unless --device says
+    otherwise. Exit-2 errors raise SystemExit."""
     import os
     import urllib.error
     import urllib.request
@@ -1191,13 +1448,19 @@ def _top_sources(args):
                 except urllib.error.HTTPError:
                     return None
 
+            # --url points at a replica (history + slo) or a router
+            # (fleet table): a missing route 404s, which just means the
+            # other kind of process.
             history = _get("/metrics/history")
             slo = _get("/slo")
-            if history is None:
-                print(f"{base} does not answer /metrics/history",
-                      file=sys.stderr)
+            fleet = _get("/fleet")
+            if history is None and fleet is None:
+                print(
+                    f"{base} answers neither /metrics/history (replica) "
+                    "nor /fleet (router)", file=sys.stderr,
+                )
                 raise SystemExit(2)
-            return history, slo
+            return history or {"series": {}}, slo, fleet
 
         return fetch_url, base
     if args.source:
@@ -1218,7 +1481,7 @@ def _top_sources(args):
             except (ValueError, json.JSONDecodeError) as e:
                 print(f"bad history dump {resolved}: {e}", file=sys.stderr)
                 raise SystemExit(2)
-            return doc, doc.get("slo")
+            return doc, doc.get("slo"), None
 
         return fetch_file, resolved
 
@@ -1235,7 +1498,7 @@ def _top_sources(args):
         # verdict table from its cached last evaluation.
         engine = getattr(ring, "slo", None)
         return (ring.snapshot(),
-                engine.verdicts() if engine is not None else None)
+                engine.verdicts() if engine is not None else None, None)
 
     return fetch_live, "<live ring>"
 
@@ -1244,8 +1507,9 @@ def top(args) -> int:
     """Operator dashboard over the time-series ring (the JAX `top`):
     sparklines for throughput, latency and occupancy, per-tenant top-K,
     and the SLO burn-rate table, from --url (a server's /metrics/history
-    and /slo), a tshist-*.json dump, or this process's live ring. --once
-    renders one frame; --json prints the machine form."""
+    and /slo, or a router's /fleet table), a tshist-*.json dump, or this
+    process's live ring. --once renders one frame; --json prints the
+    machine form."""
     from luminaai_tpu_torch.monitoring.top import render_top, top_payload
 
     try:
@@ -1255,20 +1519,23 @@ def top(args) -> int:
 
     def frame():
         try:
-            history, slo = fetch()
+            history, slo, fleet = fetch()
         except SystemExit:
             raise
         except Exception as e:
             print(f"fetch failed: {e}", file=sys.stderr)
             raise SystemExit(2)
+        if fleet is not None:
+            resolve_device(args.device)  # a router: the card, or raise
         if args.json:
             return json.dumps(
                 top_payload(history, slo, window_s=args.window,
-                            top_k=args.top_k),
+                            top_k=args.top_k, fleet=fleet),
                 default=str,
             )
         return render_top(history, slo, source=source,
-                          window_s=args.window, top_k=args.top_k)
+                          window_s=args.window, top_k=args.top_k,
+                          fleet=fleet)
 
     try:
         if args.once or args.json:
@@ -1289,6 +1556,7 @@ def top(args) -> int:
 
 COMMANDS = {
     "serve": serve,
+    "route": route,
     "top": top,
     "data": data,
     "finetune": finetune,
@@ -1301,6 +1569,8 @@ COMMANDS = {
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = _parser().parse_args(argv)
+    # The argv a `serve --replicas` parent rebuilds its children's from.
+    args.argv = list(sys.argv[1:] if argv is None else argv)
     logging.basicConfig(level=logging.INFO)
     if args.command in ("train", "resume"):
         return train(args)

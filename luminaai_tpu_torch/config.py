@@ -100,6 +100,28 @@ class Config:
     # Max arena pages one tenant may own (0 = unbounded): a hot tenant at
     # quota evicts its OWN pages, never everyone else's.
     prefix_cache_tenant_quota: int = 0
+    # Replica router (serving/router.py; luminaai_tpu/config.py:428-433):
+    # probes every router_probe_interval_s; a replica's breaker opens after
+    # router_breaker_failures consecutive failures and probes half-open
+    # after router_breaker_cooldown_s; a failed dispatch retries on up to
+    # router_max_failovers other replicas; hedging (route --hedge) fires a
+    # second replica for requests of at most router_hedge_max_tokens new
+    # tokens, capped at router_hedge_budget of non-stream traffic.
+    router_probe_interval_s: float = 2.0
+    router_breaker_failures: int = 3
+    router_breaker_cooldown_s: float = 5.0
+    router_max_failovers: int = 2
+    router_hedge_budget: float = 0.1
+    router_hedge_max_tokens: int = 32
+    # Cross-replica KV page sharing (serving/page_share.py; :443-444):
+    # page_pull_timeout_s bounds one whole pull (lookup + transfers)
+    # before the admission prefills locally; page_share_max_inflight caps
+    # concurrent pulls per replica. ChatServer reads both from the
+    # engine's Config unless serve passes a flag. The router URL
+    # (serve --page-share) switches sharing on, so JAX's unread
+    # `page_share` bool is not copied here.
+    page_pull_timeout_s: float = 2.0
+    page_share_max_inflight: int = 2
 
     # --- MoE (luminaai_tpu/config.py:113-141) ---
     use_moe: bool = False
@@ -311,6 +333,18 @@ class Config:
             raise ValueError(
                 "prefix_cache_tenant_quota must be >= 0 (0 = unbounded)"
             )
+        for name, ok in (
+            ("router_probe_interval_s", self.router_probe_interval_s > 0),
+            ("router_breaker_failures", self.router_breaker_failures >= 1),
+            ("router_breaker_cooldown_s", self.router_breaker_cooldown_s > 0),
+            ("router_max_failovers", self.router_max_failovers >= 0),
+            ("router_hedge_budget", 0.0 <= self.router_hedge_budget <= 1.0),
+            ("router_hedge_max_tokens", self.router_hedge_max_tokens >= 1),
+            ("page_pull_timeout_s", self.page_pull_timeout_s > 0),
+            ("page_share_max_inflight", self.page_share_max_inflight >= 1),
+        ):
+            if not ok:
+                raise ValueError(f"invalid {name} {getattr(self, name)!r}")
         if self.attention_window is not None and self.attention_window <= 0:
             raise ValueError(
                 f"attention_window must be positive, got "

@@ -832,11 +832,22 @@ class StepwiseDecoder:
         # Chain keys each mid-prefill lane claimed as their harvester.
         self._pending_claims: Dict[int, List[str]] = {}
         # Deferred harvest copies (src global id, dst arena id); one bulk
-        # copy per flush_harvests(). Queued dst pages are refcount-pinned.
+        # copy per flush_harvests(). Queued dst pages are refcount-pinned,
+        # and the cache marks them landed only after the copy.
         self._harvest_queue: List[Tuple[int, int]] = []
-        self._queued_dst: set = set()
         self.harvest_copy_calls = 0
         self.harvest_flushes = 0
+        # Cross-replica page plane: the scheduler injects a
+        # serving/page_share.PageShareClient here; start_prefill then asks
+        # the fleet index for chains resident on another replica and
+        # imports their pages before the local acquire. _landed_keys holds
+        # chain keys whose BYTES are arena-resident (flushed harvest or
+        # completed pull), drained by the scheduler into ownership
+        # reports; a key is never reported while its copy is queued.
+        self.page_share = None
+        self._landed_keys: List[str] = []
+        self.remote_hits = 0
+        self.remote_pull_failures = 0
         self._refresh_table()
 
     def _refresh_table(self) -> None:
@@ -1115,6 +1126,16 @@ class StepwiseDecoder:
                 st["wait_ticks"] = 0
                 self._park_lane(slot, 0)
                 return st
+            if len(peek_keys) < len(chain) and self.page_share is not None:
+                # A cold (or partly cold) chain: pull the pages another
+                # replica already computed BEFORE the acquire, turning
+                # this admission into a local hit; any failure leaves it
+                # exactly the miss it was.
+                if self._try_remote_pull(slot, prompt, chain,
+                                         len(peek_keys), st):
+                    peek_keys, _ = self.prefix_cache.lookup(
+                        prompt, keys=chain
+                    )
             if L <= chunk and not peek_keys:
                 return None
         elif L <= chunk:
@@ -1123,6 +1144,98 @@ class StepwiseDecoder:
             return None
         self._arm_prefill(st)
         return st
+
+    def _try_remote_pull(
+        self,
+        slot: int,
+        prompt: Sequence[int],
+        chain: List[str],
+        have: int,
+        st: Dict[str, Any],
+    ) -> int:
+        """Pull this chain's non-resident pages from their fleet owner into
+        the local arena. Returns the pages imported; 0 means "proceed as
+        the plain miss you were".
+
+        Fleet lookup, then a pull slot (bounded, non-blocking), then a
+        pending claim on the keys (concurrent same-chain admissions park
+        behind it as behind a local harvest, so N arrivals cost one pull),
+        then arena pages through the cache's insert(), then each page
+        fetched and imported IN CHAIN ORDER under one deadline. The import
+        is synchronous inside the admission (one scheduler worker), so no
+        acquire can splice a page whose bytes have not landed; each page
+        is marked landed as its import returns, so the export route
+        (pin_key) refuses it until then. On a
+        failure mid-chain the imported prefix stays (a valid shorter
+        chain) and the unwritten tail is released and forgotten."""
+        client = self.page_share
+        cache = self.prefix_cache
+        ps = self.pool.page_size
+        try:
+            owner, owned = client.lookup(chain, have=have)
+        except Exception:  # a sick router never blocks admission
+            logger.debug("page-share lookup failed", exc_info=True)
+            return 0
+        if owner is None or len(owned) <= have:
+            return 0
+        if not client.try_begin_pull():
+            return 0
+        deadline = time.monotonic() + client.timeout_s
+        claimed = cache.claim_pending(owned, owner=slot)
+        imported: List[int] = []
+        imported_keys: List[str] = []
+        nbytes = 0
+        failed = False
+        try:
+            assignments = cache.insert(
+                list(prompt[: len(owned) * ps]), from_page=have,
+                tenant=st.get("tenant", "anon"),
+            )
+            if not assignments:
+                return 0
+            cache.pin_pages([pid for _, pid in assignments])
+            try:
+                for j, pid in assignments:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        raise OSError("page pull deadline exceeded")
+                    payload = client.fetch_page(
+                        owner, chain[j], timeout_s=remaining
+                    )
+                    nbytes += self.pool.import_page(pid, payload)
+                    cache.mark_landed([pid])
+                    imported.append(pid)
+                    imported_keys.append(chain[j])
+            except Exception as e:
+                failed = True
+                self.remote_pull_failures += 1
+                logger.warning(
+                    "page pull from %s failed after %d/%d page(s): %s",
+                    owner, len(imported), len(assignments), e,
+                )
+                tail = [
+                    pid for _, pid in assignments if pid not in imported
+                ]
+                cache.release(tail)
+                cache.forget(tail)
+            cache.release(imported)
+            if imported:
+                # The pulled pages are arena-resident here too now:
+                # advertise them so the next replica may pull from here.
+                self._landed_keys.extend(imported_keys)
+            st["remote"] = {
+                "owner": owner,
+                "pulled": len(imported),
+                "tokens": len(imported) * ps,
+                "bytes": nbytes,
+                "failed": failed,
+            }
+            if imported:
+                self.remote_hits += 1
+            return len(imported)
+        finally:
+            cache.release_pending(claimed)
+            client.end_pull()
 
     def _park_lane(self, slot: int, rows: int) -> None:
         """Interleaved decode steps still write one (garbage) row per lane:
@@ -1220,6 +1333,10 @@ class StepwiseDecoder:
                 "pages_harvested": harvested,
                 "tenant": st.get("tenant", "anon"),
                 "dedup_wait_ticks": int(st.get("wait_ticks", 0)),
+                # The cross-replica pull's accounting (None for a purely
+                # local admission): the scheduler books remote hits and
+                # prefix_remote_hit events from it.
+                "remote": st.get("remote"),
             }
         return info
 
@@ -1237,7 +1354,6 @@ class StepwiseDecoder:
             return 0
         P = self.pool.pages
         self.prefix_cache.pin_pages([pid for _, pid in assignments])
-        self._queued_dst.update(pid for _, pid in assignments)
         self._harvest_queue.extend(
             (slot * P + j, pid) for j, pid in assignments
         )
@@ -1266,11 +1382,22 @@ class StepwiseDecoder:
             )
             self.prefix_cache.release(dst_ids)
             self.prefix_cache.forget(dst_ids)
-            self._queued_dst.difference_update(dst_ids)
             return 0
         self.prefix_cache.release(dst_ids)
-        self._queued_dst.difference_update(dst_ids)
+        # The copy is enqueued on the current stream, ahead of anything an
+        # export enqueues later: only now may the export route serve
+        # these pages.
+        self.prefix_cache.mark_landed(dst_ids)
+        if self.page_share is not None:
+            self._landed_keys.extend(self.prefix_cache.keys_for_pages(dst_ids))
         return len(pairs)
+
+    def drain_landed_keys(self) -> List[str]:
+        """Chain keys whose page bytes became arena-resident since the last
+        drain (harvest flushes and completed remote pulls), for the
+        scheduler's ownership reports to the router's fleet index."""
+        out, self._landed_keys = self._landed_keys, []
+        return out
 
     @torch.inference_mode()
     def _copy_pages(self, src: List[int], dst: List[int]) -> None:

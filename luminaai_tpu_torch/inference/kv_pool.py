@@ -12,12 +12,15 @@ the flat `[num_slots, pages * page_size, kv_heads, head_dim]` views that
 With the prefix cache on, the decoder allocates the tensors with arena
 slots PAST the lane range (total slots = num_slots + arena slots): the pool
 accounts for the lanes only, and the arena's pages are reached through the
-decoder's global page table. The JAX pool's LPG1 page export/import
-(cross-replica page sharing) waits for the fleet slice.
+decoder's global page table; those arena pages are what the fleet's
+page sharing exports and imports (export_page / import_page, in the JAX
+pool's LPG1 wire format, byte for byte).
 """
 
 from __future__ import annotations
 
+import json
+import math
 import threading
 from typing import List, Optional, Sequence, Tuple
 
@@ -25,6 +28,64 @@ import numpy as np
 import torch
 
 KVPair = Tuple[torch.Tensor, torch.Tensor]
+
+# Wire format for one serialized KV page (cross-replica page pulls), the
+# JAX pool's: magic, 4-byte big-endian header length, JSON header
+# {"page_size": int, "leaves": [{"shape": [...], "dtype": "..."}]}, then
+# each leaf's C-order bytes in layer order (layer 0 k, layer 0 v, layer 1
+# k, ...), each leaf [page_size, kv_heads, head_dim] after any leading axes.
+PAGE_WIRE_MAGIC = b"LPG1"
+
+# The numpy dtype names the JAX pool writes for the cache dtypes the port
+# holds, and the torch dtypes they frame. bfloat16 is numpy's name under
+# ml_dtypes; here it maps straight to torch.bfloat16, whose bytes are the
+# same. (int8 caches, codes and scales, wait for the quantized slice.)
+_WIRE_DTYPES = {
+    "float32": torch.float32,
+    "float16": torch.float16,
+    "bfloat16": torch.bfloat16,
+}
+_WIRE_NAMES = {v: k for k, v in _WIRE_DTYPES.items()}
+
+
+def parse_page_payload(payload: bytes) -> List[torch.Tensor]:
+    """Decode a PAGE_WIRE_MAGIC-framed payload into per-leaf CPU tensors
+    (layer order), views of one copy of the payload. Raises ValueError on
+    any framing mismatch: truncated, trailing or mislabeled bytes never
+    reach the arena."""
+    if payload[:4] != PAGE_WIRE_MAGIC:
+        raise ValueError("bad page payload magic")
+    if len(payload) < 8:
+        raise ValueError("truncated page payload header")
+    hlen = int.from_bytes(payload[4:8], "big")
+    try:
+        header = json.loads(bytes(payload[8:8 + hlen]).decode("utf-8"))
+    except (UnicodeDecodeError, json.JSONDecodeError) as e:
+        raise ValueError(f"bad page payload header: {e}") from e
+    if not isinstance(header, dict):
+        raise ValueError("bad page payload header: not an object")
+    data = bytearray(payload)
+    off = 8 + hlen
+    out: List[torch.Tensor] = []
+    for meta in header.get("leaves", []):
+        try:
+            dt = _WIRE_DTYPES[str(meta["dtype"])]
+            shape = tuple(int(d) for d in meta["shape"])
+        except (KeyError, TypeError, ValueError) as e:
+            raise ValueError(f"bad page payload leaf {meta!r}") from e
+        if any(d < 0 for d in shape):
+            raise ValueError(f"bad page payload leaf shape {shape}")
+        count = math.prod(shape)
+        n = count * dt.itemsize
+        if off + n > len(data):
+            raise ValueError("truncated page payload body")
+        leaf = (torch.frombuffer(data, dtype=dt, count=count, offset=off)
+                if count else torch.empty((0,), dtype=dt))
+        out.append(leaf.view(shape))
+        off += n
+    if off != len(payload):
+        raise ValueError("trailing bytes after page payload")
+    return out
 
 
 def to_paged(caches: Sequence[KVPair], pages: int, page_size: int) -> List[KVPair]:
@@ -90,6 +151,74 @@ class PagedKVPool:
     def slot_tokens(self) -> int:
         """Token capacity of one slot (pages * page_size rows)."""
         return self.pages * self.page_size
+
+    # -- cross-replica page transfer (the fleet's page sharing) -----------
+    def _leaves(self) -> List[torch.Tensor]:
+        if self.caches is None:
+            raise RuntimeError("accounting-only pool has no cache tensors")
+        return [t for kv in self.caches for t in kv]
+
+    def _locate(self, gid: int) -> Tuple[int, int]:
+        """Global page id -> physical (slot, page), bounds-checked against
+        the tensors' PHYSICAL slot axis: the prefix-cache arena lives in
+        slots past num_slots, and arena pages are what the fleet moves."""
+        slot, page = divmod(int(gid), self.pages)
+        physical = self._leaves()[0].shape[-5]
+        if not (0 <= slot < physical):
+            raise ValueError(
+                f"page id {gid} outside pool "
+                f"({physical} physical slots x {self.pages} pages)"
+            )
+        return slot, page
+
+    def export_page(self, gid: int) -> bytes:
+        """Serialize ONE physical page (global id = slot * pages + page):
+        every layer's k and v [page_size, heads, dim] slice, copied to the
+        host on the current stream (ordered after every copy enqueued
+        before it, the harvest flush included)."""
+        slot, page = self._locate(gid)
+        metas, blobs = [], []
+        for leaf in self._leaves():
+            host = leaf[..., slot, page, :, :, :].contiguous().cpu()
+            metas.append({"shape": list(host.shape),
+                          "dtype": _WIRE_NAMES[host.dtype]})
+            blobs.append(host.view(-1).view(torch.uint8).numpy().tobytes())
+        header = json.dumps(
+            {"page_size": self.page_size, "leaves": metas}
+        ).encode("utf-8")
+        return b"".join(
+            [PAGE_WIRE_MAGIC, len(header).to_bytes(4, "big"), header]
+            + blobs
+        )
+
+    def import_page(self, gid: int, payload: bytes) -> int:
+        """Write a pulled page's bytes into physical page `gid`, in place.
+        Every leaf is checked against this pool's layout BEFORE any tensor
+        is written (a payload of another geometry or dtype raises); then
+        each leaf goes host -> card through one staging copy into
+        t[..., slot, page], synchronously. Returns the payload size."""
+        slot, page = self._locate(gid)
+        arrs = parse_page_payload(payload)
+        leaves = self._leaves()
+        if len(arrs) != len(leaves):
+            raise ValueError(
+                f"page payload has {len(arrs)} leaves, pool has "
+                f"{len(leaves)}"
+            )
+        for arr, leaf in zip(arrs, leaves):
+            want = tuple(leaf.shape[:-5]) + tuple(leaf.shape[-3:])
+            if tuple(arr.shape) != want or arr.dtype != leaf.dtype:
+                raise ValueError(
+                    f"page leaf mismatch: got {tuple(arr.shape)}/"
+                    f"{_WIRE_NAMES[arr.dtype]}, pool wants {want}/"
+                    f"{_WIRE_NAMES.get(leaf.dtype, leaf.dtype)}"
+                )
+        with torch.inference_mode():
+            for arr, leaf in zip(arrs, leaves):
+                leaf[..., slot, page, :, :, :].copy_(arr)
+        if leaves[0].is_cuda:
+            torch.cuda.current_stream(leaves[0].device).synchronize()
+        return len(payload)
 
     def free_count(self) -> int:
         return len(self._free)

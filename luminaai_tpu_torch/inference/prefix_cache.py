@@ -84,6 +84,9 @@ class _CachedPage:
     children: int = 0
     last_use: int = 0
     hits: int = 0
+    # False from insert() until the decoder has written the page's bytes
+    # (mark_landed): pin_key() never hands an unwritten page to an export.
+    landed: bool = False
 
     def to_dict(self) -> Dict[str, Any]:
         return dict(self.__dict__)
@@ -221,6 +224,46 @@ class RadixPrefixCache:
                 ent = self._index.get(key) if key is not None else None
                 if ent is not None:
                     ent.refs += 1
+
+    def pin_key(self, key: str) -> Optional[int]:
+        """Refcount-pin ONE cached page by chain key, returning its arena
+        page id (None when not resident, or inserted but its bytes not yet
+        written: a queued harvest copy or a remote pull still running).
+        The page export route (GET /pages/<key>) pins across the copy to
+        the host, so eviction cannot reassign the arena page
+        mid-serialization; release([page_id]) unpins. Insert and this
+        check share the lock, so no export sees a page between its insert
+        and its write."""
+        with self._lock:
+            ent = self._index.get(key)
+            if ent is None or not ent.landed:
+                return None
+            ent.refs += 1
+            self._clock += 1
+            ent.last_use = self._clock
+            return ent.page_id
+
+    def mark_landed(self, page_ids: Sequence[int]) -> None:
+        """These arena pages' bytes are written (a flushed harvest copy,
+        an imported remote page): pin_key() may now serve them."""
+        with self._lock:
+            for pid in page_ids:
+                key = self._by_page.get(int(pid))
+                ent = self._index.get(key) if key is not None else None
+                if ent is not None:
+                    ent.landed = True
+
+    def keys_for_pages(self, page_ids: Sequence[int]) -> List[str]:
+        """Chain keys currently backing these arena page ids (unknown ids
+        are skipped): a flushed harvest's dst pages mapped back to the
+        keys the replica reports to the fleet index."""
+        with self._lock:
+            out: List[str] = []
+            for pid in page_ids:
+                key = self._by_page.get(int(pid))
+                if key is not None and key in self._index:
+                    out.append(key)
+            return out
 
     # -- insert / evict ----------------------------------------------------
     def _evictable(self, tenant: Optional[str] = None) -> List[_CachedPage]:

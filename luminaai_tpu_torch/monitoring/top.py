@@ -1,6 +1,5 @@
 """(The port's copy of luminaai_tpu/monitoring/top.py: the same
-history and verdicts render the same frame. The router's fleet table
-waits for the fleet slice.)
+history, verdicts and router fleet table render the same frame.)
 
 `lumina top`: a live terminal view over the time-series ring.
 
@@ -108,6 +107,7 @@ def top_payload(
     slo: Optional[Dict[str, Any]] = None,
     window_s: Optional[float] = None,
     top_k: int = 4,
+    fleet: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, Any]:
     """The machine form behind both `--json` and the drawn frame."""
     rows: Dict[str, Dict[str, Any]] = {}
@@ -144,6 +144,7 @@ def top_payload(
         "rows": rows,
         "tenants": tenants[: max(0, int(top_k))],
         "slo": slo,
+        "fleet": fleet,
     }
 
 
@@ -154,10 +155,12 @@ def render_top(
     window_s: Optional[float] = None,
     top_k: int = 4,
     spark_width: int = 32,
+    fleet: Optional[Dict[str, Any]] = None,
 ) -> str:
     """One drawn frame. Pure: everything comes from the payloads
-    (history + slo from a replica)."""
-    pay = top_payload(history, slo, window_s=window_s, top_k=top_k)
+    (history + slo from a replica, or a router's /fleet table)."""
+    pay = top_payload(history, slo, window_s=window_s, top_k=top_k,
+                      fleet=fleet)
     out: List[str] = []
     out.append(
         f"lumina top — {source} — samples={pay['samples']} "
@@ -178,7 +181,7 @@ def render_top(
                 f"{_fmt(row['last']):>8}  "
                 f"[{_fmt(row['min'])} .. {_fmt(row['max'])}]"
             )
-    else:
+    elif not fleet:
         out.append("(no series in window — is telemetry/history on?)")
     if pay["tenants"]:
         out.append("")
@@ -210,4 +213,36 @@ def render_top(
         alerting = slo.get("alerting") or []
         if alerting:
             out.append(f"  ALERTING: {', '.join(alerting)}")
+    if fleet and fleet.get("replicas"):
+        reps = fleet["replicas"]
+        out.append("")
+        out.append(
+            f"fleet — {fleet.get('status', '?')} "
+            f"({fleet.get('available', '?')}/{len(reps)} available, "
+            f"{fleet.get('breakers_open', 0)} breaker(s) open):"
+        )
+        out.append(
+            f"  {'replica':<10}{'status':<10}{'breaker':<11}"
+            f"{'infl':>5}{'reqs':>7}{'fails':>7}{'p95 s':>8}  slo"
+        )
+        for r in reps:
+            slo_cell = "-"
+            if r.get("slo"):
+                alerting = r["slo"].get("alerting") or []
+                slo_cell = (
+                    "ALERT:" + ",".join(alerting) if alerting else "ok"
+                )
+            shed = r.get("shed_for_s") or 0
+            status = r.get("status", "?") + (
+                f"+shed{shed:g}s" if shed else ""
+            )
+            mark = " " if r.get("breaker") == "closed" else "!"
+            out.append(
+                f"{mark:<2}{r.get('replica', '?'):<10}{status:<10}"
+                f"{r.get('breaker', '?'):<11}"
+                f"{_fmt(r.get('inflight')):>5}"
+                f"{_fmt(r.get('requests')):>7}"
+                f"{_fmt(r.get('failures')):>7}"
+                f"{_fmt(r.get('p95_s')):>8}  {slo_cell}"
+            )
     return "\n".join(out) + "\n"

@@ -44,8 +44,13 @@ at 503 (the JAX server opens the gate anyway), since a card whose kernels
 did not run must not take traffic; /stats carries the scheduler's
 `decode_seconds` (host wall inside decode steps) and `tick_seconds` (host
 wall of each decode tick: the step and its bookkeeping, i.e. telemetry,
-events, token emits and finishes). The page-share routes
-(`/pages/<key>`) and the replica fleet wait for the fleet slice.
+events, token emits and finishes).
+
+Fleet hooks (serving/router.py, serving/page_share.py): with
+`page_share=<router url>` a replica reports the chain keys of its flushed
+harvests to the router's page index, pulls pages of a cold chain from the
+sibling that owns them, and serves its own cached pages raw at
+`GET /pages/<key>` (the LPG1 frame of inference/kv_pool.py).
 """
 
 from __future__ import annotations
@@ -89,6 +94,10 @@ MAX_BODY_BYTES = 1 << 20  # 1MB request cap (input_validator also re-checks)
 # Shape an inbound X-Request-Id must match to be honored (router-minted
 # ids are 12 hex chars; anything else sane is fine, garbage is not).
 REQUEST_ID_RX = re.compile(r"[A-Za-z0-9_-]{1,64}")
+
+# A prefix-cache chain key (sha256 hex): the only shape GET /pages/<key>
+# accepts.
+PAGE_KEY_RX = re.compile(r"[0-9a-f]{64}")
 
 
 def _device_index(dev) -> Optional[int]:
@@ -330,6 +339,7 @@ class ContinuousScheduler:
         prefix_cache_tenant_quota: Optional[int] = None,
         tenant_weights: Optional[Dict[str, int]] = None,
         watchdog: Optional[HangWatchdog] = None,
+        page_share=None,
     ):
         self.engine = engine
         # Hang watchdog (monitoring/watchdog.py): armed per generation,
@@ -350,6 +360,14 @@ class ContinuousScheduler:
                 prefix_cache_tenant_quota=prefix_cache_tenant_quota,
             )
         self.decoder = decoder
+        # Cross-replica page plane (serving/page_share.py): the client goes
+        # into the decoder so cold admissions consult the fleet index; only
+        # where the decoder has a prefix cache to land pulled pages in.
+        self.page_share = page_share
+        if page_share is not None and (
+            getattr(decoder, "prefix_cache", None) is not None
+        ):
+            decoder.page_share = page_share
         # Fair-share admission (tenant QoS): queued requests park in
         # per-tenant FIFOs and are dequeued WEIGHTED ROUND-ROBIN across
         # tenants, so one hot tenant flooding the intake cannot starve
@@ -544,8 +562,6 @@ class ContinuousScheduler:
             "Prompt tokens whose prefill was skipped via cached prefix "
             "pages",
         )
-        # Registered as the JAX server registers it; it stays 0 until the
-        # fleet slice pulls pages from other replicas.
         self._m_prefix_remote_hits = r.counter(
             "serve_prefix_remote_hits_total",
             "Admissions whose prefix hit rode pages pulled from another "
@@ -999,6 +1015,18 @@ class ContinuousScheduler:
                     pages=int(prefix["hit_pages"]),
                     tokens_saved=int(prefix.get("tokens_saved", 0)),
                 )
+            remote = prefix.get("remote")
+            if isinstance(remote, dict) and remote.get("pulled"):
+                if self.telemetry:
+                    self._m_prefix_remote_hits.inc()
+                self._event(
+                    "prefix_remote_hit", req, slot=slot,
+                    owner=remote.get("owner"),
+                    pages=int(remote.get("pulled", 0)),
+                    tokens=int(remote.get("tokens", 0)),
+                    bytes=int(remote.get("bytes", 0)),
+                    degraded=bool(remote.get("failed")),
+                )
         req.slot = slot
         req.prompt_tokens = int(info.get("prompt_tokens", 0))
         req.admitted_step = int(getattr(self.decoder, "steps", 0))
@@ -1036,10 +1064,18 @@ class ContinuousScheduler:
         """One bulk page copy for every harvest queued this tick
         (StepwiseDecoder.flush_harvests; no-op without a prefix cache or
         an empty queue), on the worker's stream, before the next decode
-        step reads."""
+        step reads. With page sharing on, the chain keys whose bytes just
+        landed (this flush or a remote pull) are reported to the router's
+        fleet index off the worker thread."""
         flush = getattr(self.decoder, "flush_harvests", None)
         if flush is not None:
             flush()
+        if self.page_share is not None:
+            drain = getattr(self.decoder, "drain_landed_keys", None)
+            if drain is not None:
+                keys = drain()
+                if keys:
+                    self.page_share.report_async(keys)
 
     def _advance_prefills(self, active: dict) -> None:
         """Advance ONE chunk of ONE mid-prefill admission (round-robin
@@ -1378,6 +1414,10 @@ class ChatServer:
         slo: bool = True,
         slo_config: Optional[str] = None,
         healthz_stale_after_s: Optional[float] = None,
+        page_share: Optional[str] = None,
+        page_share_self_url: Optional[str] = None,
+        page_pull_timeout_s: Optional[float] = None,
+        page_share_max_inflight: Optional[int] = None,
     ):
         self.engine = engine
         self.telemetry = bool(telemetry)
@@ -1443,6 +1483,31 @@ class ChatServer:
                 (k if k == ANON_TENANT else tenant_hash(str(k))): v
                 for k, v in (tenant_weights or {}).items()
             }
+            # Cross-replica page sharing: `page_share` is the ROUTER url;
+            # the client reports flushed chain keys there and pulls indexed
+            # pages replica to replica. self_url is how peers reach THIS
+            # replica: serve() fills it from host and port; tests binding
+            # port 0 set client.self_url once the listener exists. The
+            # pull deadline and slot count default to the engine's Config.
+            self.page_share = None
+            if page_share:
+                from luminaai_tpu_torch.serving.page_share import (
+                    PageShareClient,
+                )
+
+                cfg = engine.config
+                self.page_share = PageShareClient(
+                    router_url=str(page_share),
+                    self_url=page_share_self_url or "",
+                    timeout_s=(cfg.page_pull_timeout_s
+                               if page_pull_timeout_s is None
+                               else page_pull_timeout_s),
+                    max_inflight=(cfg.page_share_max_inflight
+                                  if page_share_max_inflight is None
+                                  else page_share_max_inflight),
+                    registry=self.registry if telemetry else None,
+                    recorder=self.recorder if telemetry else None,
+                )
             self.batcher = ContinuousScheduler(
                 engine,
                 num_slots=num_slots,
@@ -1460,9 +1525,11 @@ class ChatServer:
                 prefix_cache_tenant_quota=prefix_cache_tenant_quota,
                 tenant_weights=weights,
                 watchdog=self.watchdog,
+                page_share=self.page_share,
             )
         else:
             self.watchdog = None
+            self.page_share = None
             self.batcher = MicroBatcher(
                 engine, max_batch=max_batch, window_ms=batch_window_ms,
                 recorder=self.recorder, telemetry=telemetry,
@@ -2453,6 +2520,36 @@ class ChatServer:
                 close()  # continuous: flags the lane cancelled
 
     # -- socket layer ------------------------------------------------------
+    def export_page_by_key(self, key: str) -> Optional[bytes]:
+        """One cached page's LPG1 bytes for a remote puller (GET
+        /pages/<key>). None = not servable now (not resident, its bytes not
+        yet written by a harvest copy or a remote pull, or no prefix
+        cache): the puller books a failure and prefills locally, so
+        refusing is always safe. The page is refcount-pinned across the
+        copy to the host, so eviction cannot reassign its arena page
+        mid-serialization. The handler thread makes the model's card
+        current first (by index): the copy then runs on that card's
+        stream, after the worker's harvest copies."""
+        batcher = getattr(self, "batcher", None)
+        decoder = getattr(batcher, "decoder", None)
+        cache = getattr(decoder, "prefix_cache", None)
+        pool = getattr(decoder, "pool", None)
+        if cache is None or pool is None or pool.caches is None:
+            return None
+        # pin_key refuses a page inserted but not yet written: its arena
+        # bytes are still the previous occupant's.
+        pid = cache.pin_key(key)
+        if pid is None:
+            return None
+        try:
+            _set_device(getattr(batcher, "_device", None))
+            return pool.export_page(pid)
+        except Exception:
+            logger.exception("page export failed for %s", key[:16])
+            return None
+        finally:
+            cache.release([pid])
+
     def make_handler(self):
         server = self
 
@@ -2463,7 +2560,7 @@ class ChatServer:
             _KNOWN_ROUTES = (
                 "/", "/chat", "/health", "/healthz", "/metrics",
                 "/metrics/history", "/slo", "/stats",
-                "/v1/generate", "/v1/chat", "/v1/auth",
+                "/v1/generate", "/v1/chat", "/v1/auth", "/pages",
             )
 
             def _count(self, code: int) -> None:
@@ -2472,7 +2569,10 @@ class ChatServer:
                     # scanner probing random routes must not be able to
                     # mint unbounded label cardinality.
                     route = self.path.split("?", 1)[0]
-                    if route not in self._KNOWN_ROUTES:
+                    if route.startswith("/pages/"):
+                        # One label for every per-key page fetch.
+                        route = "/pages"
+                    elif route not in self._KNOWN_ROUTES:
                         route = "<other>"
                     server._m_http.labels(
                         route=route, code=str(code)
@@ -2562,6 +2662,26 @@ class ChatServer:
                     self.send_header("Content-Length", str(len(data)))
                     self.end_headers()
                     self.wfile.write(data)
+                    return
+                if path.startswith("/pages/"):
+                    # Cross-replica page export: raw LPG1 bytes, not JSON
+                    # (the puller's parser validates the frame itself).
+                    key = path[len("/pages/"):]
+                    if not PAGE_KEY_RX.fullmatch(key):
+                        self._reply(404, {"error": "bad page key"})
+                        return
+                    payload = server.export_page_by_key(key)
+                    if payload is None:
+                        self._reply(404, {"error": "page not available"})
+                        return
+                    self._count(200)
+                    self.send_response(200)
+                    self.send_header(
+                        "Content-Type", "application/octet-stream"
+                    )
+                    self.send_header("Content-Length", str(len(payload)))
+                    self.end_headers()
+                    self.wfile.write(payload)
                     return
                 code, payload = server.handle(
                     "GET", path, {}, self._token()
@@ -2748,11 +2868,19 @@ def serve(
     slo: bool = True,
     slo_config: Optional[str] = None,
     healthz_stale_after_s: Optional[float] = None,
+    page_share: Optional[str] = None,
+    page_share_self_url: Optional[str] = None,
+    page_pull_timeout_s: Optional[float] = None,
+    page_share_max_inflight: Optional[int] = None,
 ):
     """Serve an engine (CLI `serve`; the CLI builds the engine from
     --checkpoint, --weights or --seed, with --adapter merged). The JAX
-    serve() builds its engine here from a checkpoint; its fleet, quantizer
-    and --trace-jax arguments wait for later slices."""
+    serve() builds its engine here from a checkpoint; its quantizer and
+    --trace-jax arguments wait for later slices."""
+    if page_share and not page_share_self_url:
+        # Peers reach this replica at the address it serves on; an
+        # explicit --page-share-self overrides (NAT, name-based balancers).
+        page_share_self_url = f"http://{host}:{port}"
     tracer = NULL_TRACER
     if trace_jsonl:
         tracer = SpanTracer(jsonl_path=trace_jsonl)
@@ -2781,6 +2909,11 @@ def serve(
         slo=slo,
         slo_config=slo_config,
         healthz_stale_after_s=healthz_stale_after_s,
+        # Cross-replica page sharing (--page-share <router url>).
+        page_share=page_share,
+        page_share_self_url=page_share_self_url,
+        page_pull_timeout_s=page_pull_timeout_s,
+        page_share_max_inflight=page_share_max_inflight,
         latency_buckets=(
             tuple(latency_buckets)
             if latency_buckets

@@ -177,6 +177,28 @@ def test_serving_modules_are_scanned(module):
     assert module.replace(".", "/") + ".py" in files
 
 
+# The fleet: the replica router, page sharing, and the pool, cache,
+# decoder, server, config, top and CLI hooks they ride on.
+FLEET_MODULES = (
+    "luminaai_tpu_torch.serving.router",
+    "luminaai_tpu_torch.serving.page_share",
+    "luminaai_tpu_torch.inference.kv_pool",
+    "luminaai_tpu_torch.inference.prefix_cache",
+    "luminaai_tpu_torch.inference.generate",
+    "luminaai_tpu_torch.serving.server",
+    "luminaai_tpu_torch.monitoring.top",
+    "luminaai_tpu_torch.config",
+    "luminaai_tpu_torch.cli",
+)
+
+
+@pytest.mark.parametrize("module", FLEET_MODULES)
+def test_fleet_modules_are_scanned(module):
+    assert module in _modules()
+    files = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert module.replace(".", "/") + ".py" in files
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, sys\n"

@@ -132,9 +132,9 @@ def test_prefix_cache_decode_matches_jax(engines):
     want, jpre = _serve(jdec, prompts)
     got, tpre = _serve(tdec, prompts)
     assert got == want
-    # JAX's "remote" (a page pull from another replica) is None without a
-    # fleet; the port leaves the fleet to the fleet slice.
-    assert all(p.pop("remote") is None for p in jpre)
+    # "remote" (a page pull from another replica) is None without a fleet,
+    # on both sides.
+    assert all(p["remote"] is None for p in jpre)
     assert tpre == jpre
     js, ts = jdec.prefix_cache.stats(), tdec.prefix_cache.stats()
     assert {k: ts[k] for k in CACHE_KEYS} == {k: js[k] for k in CACHE_KEYS}

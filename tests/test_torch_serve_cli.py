@@ -1,16 +1,16 @@
 """`python -m luminaai_tpu_torch serve` against the JAX CLI's `serve`.
 
-- The flag set is the JAX parser's but the fleet's (--replicas,
-  --page-share*), the quantizer's (--quantize, --kv-cache-dtype) and
-  --trace-jax, plus the port's own model flags; every shared flag has the
-  JAX default.
+- The flag set is the JAX parser's but the quantizer's (--quantize,
+  --kv-cache-dtype) and --trace-jax, plus the port's own model flags;
+  `route` and `top` take the JAX CLI's flags plus --device; every shared
+  flag has the JAX default.
 - The exit-2 checks exit 2 before any model load, where the JAX cmd_serve
   does: bad --latency-buckets, --healthz-stale-after <= 0, --secure with
   neither --user/--password nor a users.json (and --adapter without
   --checkpoint, which the port adds).
 - Every flag reaches the server: a `serve` run on the CPU with
   serve_forever stubbed builds a ChatServer whose settings are the flags'.
-- `top` takes the JAX CLI's flags.
+- The page-share flags reach the server's PageShareClient.
 """
 
 import argparse
@@ -20,9 +20,7 @@ import pytest
 from luminaai_tpu import cli as jcli
 from luminaai_tpu_torch import cli as tcli
 
-LEFT_OUT = {"--replicas", "--page-share", "--page-share-self",
-            "--page-pull-timeout", "--page-share-max-inflight",
-            "--quantize", "--kv-cache-dtype", "--trace-jax"}
+LEFT_OUT = {"--quantize", "--kv-cache-dtype", "--trace-jax"}
 PORT_ONLY = {"--preset", "--dense", "--moe-dispatch", "--weights", "--seed",
              "--device"}
 
@@ -39,13 +37,13 @@ def _flags(sub):
             if opt.startswith("--") and opt != "--help"}
 
 
-@pytest.mark.parametrize("name", ["serve", "top"])
+@pytest.mark.parametrize("name", ["serve", "top", "route"])
 def test_flag_set_matches_jax(name):
     jsub = _sub(jcli.build_parser(), name)
     tsub = _sub(tcli._parser(), name)
     jf, tf = _flags(jsub), _flags(tsub)
     left_out = LEFT_OUT if name == "serve" else set()
-    port_only = PORT_ONLY if name == "serve" else set()
+    port_only = PORT_ONLY if name == "serve" else {"--device"}
     assert set(tf) == (set(jf) - left_out) | port_only
     for opt in set(jf) & set(tf):
         ja, ta = jf[opt], tf[opt]
@@ -122,6 +120,8 @@ def test_every_flag_reaches_the_server(monkeypatch, tmp_path, fresh_registry):
         "--secure", "--user", "ops", "--password", "Corr3ct-Horse-Battery",
         "--admission-window-ms", "4",
         "--trace-jsonl", str(tmp_path / "spans.jsonl"),
+        "--page-share", "http://127.0.0.9:8000",
+        "--page-pull-timeout", "0.7", "--page-share-max-inflight", "3",
     ]
     monkeypatch.chdir(tmp_path)
     assert tcli.main(argv) == 0
@@ -142,6 +142,12 @@ def test_every_flag_reaches_the_server(monkeypatch, tmp_path, fresh_registry):
     assert kwargs[-1]["latency_buckets"] == (0.01, 0.5, 2.0)
     assert kwargs[-1]["warmup"] is True
     assert srv.tracer.jsonl_path == str(tmp_path / "spans.jsonl")
+    share = srv.page_share
+    assert dec.page_share is share
+    assert share.router_url == "http://127.0.0.9:8000"
+    assert share.self_url == "http://127.0.0.2:0"  # serve's own address
+    assert share.timeout_s == 0.7
+    assert kwargs[-1]["page_share_max_inflight"] == 3
     srv.close()
     fresh_registry.set_registry(fresh_registry.MetricsRegistry())
     # --no-continuous, --no-telemetry and --no-slo.

@@ -185,10 +185,9 @@ def test_top_renders_the_same_frame():
     for window in (None, 30.0):
         assert (ttop.render_top(hist, slo, source="s", window_s=window)
                 == jtop.render_top(hist, slo, source="s", window_s=window))
-        # The JAX payload's "fleet" (a router's table) is None for a
-        # replica; the port's top leaves the fleet to the fleet slice.
+        # "fleet" (a router's table) is None for a replica on both sides.
         jpay = jtop.top_payload(hist, slo, window_s=window, top_k=2)
-        assert jpay.pop("fleet") is None
+        assert jpay["fleet"] is None
         assert ttop.top_payload(hist, slo, window_s=window, top_k=2) == jpay
     assert ttop.sparkline([1, 5, 2, 8]) == jtop.sparkline([1, 5, 2, 8])
 
