@@ -57,7 +57,7 @@ Phases (any failure raises and exits non-zero):
   7. runtime the training runtime through the port's CLI, in child
              processes (this script with --runtime-child, which runs the
              CLI's main and records each step), at the b1 dense widths
-             and 8 of its 16 layers (`train --config`; batch 8 x 2048, no
+             and 4 of its 16 layers (`train --config`; batch 8 x 2048, no
              accumulation): a JSONL text corpus
              written from a seed and packed through a TokenCache with the
              native packer; run A `train --data --packed --steps 6`
@@ -65,13 +65,13 @@ Phases (any failure raises and exits non-zero):
              (exit 75, emergency checkpoint committed at its step
              boundary); `resume` of B to step 6 (exit 0). Every step's
              packed batch and loss of B equal A's bitwise, and so do the
-             final parameters (hashes of both checkpoints); B1 == 16 and
-             B2 == B3 == 8 launches per step; the native packer ran;
+             final parameters (hashes of both checkpoints); B1 == 8 and
+             B2 == B3 == 4 launches per step; the native packer ran;
              csrc/ holds no atomics. Then `serve --checkpoint A` (the
              CLI's engine builder): its first decode step's logits equal
              those of an engine built from run A's final in-memory
              weights bitwise, and 8 concurrent requests through the
-             server launch B5 decode steps x 8 times. Step time,
+             server launch B5 decode steps x 4 times. Step time,
              tokens/s, the goodput split, each save's and restore's
              seconds and GB, and the disk at the start; the runs and
              checkpoints are deleted at the end. (The CLI's `train` runs
@@ -99,16 +99,16 @@ Phases (any failure raises and exits non-zero):
              run B deleted first): `data sample` twice and `data blend`
              (the blend equal to the same blend run in-process);
              `finetune` (LoRA rank 8, 6 steps, batch 8 x 2048,
-             --merge-out): exact launches per step B1 16, B2 = B3 8 (the
+             --merge-out): exact launches per step B1 8, B2 = B3 4 (the
              remat recompute), the first step's loss and adapter grad norm
              within LOSS_RTOL / GRAD_NORM_RTOL of the plain attention's,
              finite losses, the base parameters bitwise unchanged, the
              adapter's b factors non-zero, the merged checkpoint's
              manifest verified; `evaluate` of the base and of the merged
-             checkpoint (4 batches, B1 8 per batch, the same tokens and
+             checkpoint (4 batches, B1 4 per batch, the same tokens and
              batches; the merged eval_loss within 1e-5 of an in-memory
              merge evaluated here); `chat --adapter --prompt` (a reply, B5
-             == decode steps x 8, the first decode step's logits through
+             == decode steps x 4, the first decode step's logits through
              B5 within LOGIT_RTOL of the plain attention, generate_stream
              == generate at a seed); B5 at one lane timed beside SDPA.
              After phase 8: `finetune --adapt-experts --steps 3` on its
@@ -190,6 +190,26 @@ Phases (any failure raises and exits non-zero):
              cold prompt of the same length, the pull's ms and MiB/s,
              export and import ms a page (in process).
 
+ 14. quant   quantized serving, b1 dense at 16 layers: `serve --preset b1
+             --dense --quantize int8 --kv-cache-dtype int8
+             --prefix-cache-pages 64` (the CLI's engine builder, served
+             in process): the engine's weight and KV pool bytes against
+             phase 1's bf16 engine (same seed), the first decode step
+             through B5-int8 against the plain version (LOGIT_RTOL) and
+             its top-1 agreement with bf16; 8 concurrent requests of
+             phase 1's shape, then 8 chat requests sharing phase 10's
+             system prompt: B5-int8 exactly decode steps x 16, all through
+             the global table, no bf16 B5 launch; /stats names the int8
+             compute quantization and the int8 KV; one int8 arena page
+             exported and imported (LPG1) with equal bytes; `--quantize
+             int4` answering one request; b1's 8 experts at 8 of 16
+             layers under int8 (gather dispatch: no B4a launch); `convert
+             --to int8` of phase 7's run A checkpoint and `chat --prompt`
+             from the export. Tokens/s and ms a decode step beside phase
+             1's, and a profiled W8A8 decode step. Phase 2 also holds B5-int8 against its plain version at
+             phase 2's local shapes, the phase-10 global-table shape and
+             head_dim 576, and times it.
+
 `--only serve,plane,serve_moe` (development runs) runs the build, the
 kernel checks and the named phases only; its last line then says
 "partial".
@@ -256,6 +276,17 @@ KERNEL_TOL = 3e-2
 # residual stream, so logits move by a few bf16 ulps (2^-8 relative) of
 # their largest magnitude. Tolerance: 1e-2 x max|logit| (2.56 ulps).
 LOGIT_RTOL = 1e-2
+# First-decode-step logits, kernel vs plain, of the W8A8 model (int8
+# weights, activations quantized per row at every product): the
+# attention difference behind LOGIT_RTOL flips activation codes that sit
+# within it of a .5 boundary, each flip moving a product by one code step
+# (1/127 of its row's max), over 4 products a layer through 16 layers.
+# Measured 1.53e-2 x max|logit| with B5-int8 on an H100 80GB HBM3 at 700
+# W, where the bf16 model sat at 0.48e-2 in the same run. The same weights
+# over a bf16 pool (bf16 B5 vs plain) are held to the same bound, so what
+# it admits is the W8A8 products' amplification, not the int8 kernel;
+# B5-int8 itself is held to LOGIT_RTOL under bf16 weights.
+W8A8_LOGIT_RTOL = 5e-2
 COPIES = 4  # K/V pools the kernel timing rotates through (past the L2)
 # Flash shapes the JAX gate admits that the first kernels refused:
 # name: (B, S, Hq, Hkv, D, causal, window).
@@ -527,6 +558,184 @@ def phase_kernels(dev) -> dict:
                    "page_size": PAGE, "pages": PAGES,
                    "lengths": [int(x) for x in lengths.tolist()]},
         "repaired": {"group16": g16, f"d{WIDE_DECODE[2]}": wide},
+    }
+
+
+def _int8_pool(side):
+    """A bf16 pool side quantized per row and kv head over head_dim (the
+    cache's insert): (codes int8, scales fp32 [.., 1])."""
+    from luminaai_tpu_torch.ops.quantized import quantize_act
+
+    return quantize_act(side)
+
+
+def phase_kernels_int8(dev) -> dict:
+    """B5-int8 against its plain version (the int8 sides dequantized where
+    read, then the reference): phase 2's local shapes, the phase-10
+    global-table shape (8 lanes, each on the same 12 arena pages then 1-2
+    private ones), and head_dim 576 (the bf16 wide kernel over a
+    dequantized scratch of the pages the lanes reach); times kernel,
+    plain and library (dequantize + SDPA with the length mask) at the
+    local shape and the global one."""
+    import torch
+    import torch.nn.functional as F
+
+    from luminaai_tpu_torch.ops import ragged_paged_attention as rpa
+
+    C = PAGES * PAGE
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    q = randn(LANES, 1, HQ, D)
+    k, v = _int8_pool(randn(LANES, C, HKV, D)), _int8_pool(
+        randn(LANES, C, HKV, D))
+    lengths = torch.tensor([1, 127, 128, 129, 700, 1500, 2047, 2048],
+                           dtype=torch.int32, device=dev)
+    ident = torch.arange(PAGES, dtype=torch.int32, device=dev).expand(
+        LANES, PAGES).contiguous()
+    perm = torch.randperm(LANES * PAGES, generator=gen, device=dev)
+    # The phase-10 shape: every lane's first 12 pages are the same arena
+    # pages (lane 7's slot), then its own private pages.
+    shared = PLANE_SHARED_PAGES
+    gtable = (torch.arange(LANES, device=dev)[:, None] * PAGES
+              + torch.arange(PAGES, device=dev)[None, :]).to(torch.int32)
+    gtable[:, :shared] = gtable[LANES - 1, :shared]
+    glens = torch.tensor([1603, 1610, 1618, 1625, 1633, 1641, 1649, 1656],
+                         dtype=torch.int32, device=dev)
+    cases = {
+        "identity": rpa.LaneMeta(lengths=lengths, page_table=ident,
+                                 page_size=PAGE),
+        "window512": rpa.LaneMeta(lengths=lengths, page_table=ident,
+                                  page_size=PAGE, window=512),
+        "shares": rpa.LaneMeta(
+            lengths=torch.tensor([1, 63, 64, 65, 255, 256, 257, 2048],
+                                 dtype=torch.int32, device=dev),
+            page_table=ident, page_size=PAGE),
+        "global": rpa.LaneMeta(
+            lengths=lengths, page_table=perm.view(LANES, PAGES).to(
+                torch.int32), page_size=PAGE, identity_pages=False,
+            global_pages=True),
+        "global_shared": rpa.LaneMeta(
+            lengths=glens, page_table=gtable, page_size=PAGE,
+            identity_pages=False, global_pages=True),
+    }
+    errs = {}
+    n0 = rpa.ragged_paged_attention.launches
+    for name, meta in cases.items():
+        out = rpa.ragged_paged_attention(q, k, v, meta)
+        want = rpa.ragged_paged_attention_plain(q, k, v, meta)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"B5-int8 output not finite ({name})")
+        errs[name] = (out.float() - want.float()).abs().max().item()
+        log(f"B5-int8 vs plain [{name}]: max_abs_err={errs[name]:.3e} "
+            f"(tol {KERNEL_TOL})")
+        if errs[name] > KERNEL_TOL:
+            raise AssertionError(f"B5-int8 disagrees with plain ({name})")
+    if rpa.ragged_paged_attention.launches != n0:
+        raise AssertionError("an int8 call launched the bf16 kernel")
+
+    # head_dim above 512: the pages the lanes reach, dequantized into a
+    # bf16 scratch, through the wide bf16 kernel (counted as int8).
+    hq_w, hkv_w, d_w = WIDE_DECODE
+    qw = randn(LANES, 1, hq_w, d_w)
+    kw_, vw = (_int8_pool(randn(LANES, C, hkv_w, d_w)),
+               _int8_pool(randn(LANES, C, hkv_w, d_w)))
+    out = rpa.ragged_paged_attention(qw, kw_, vw, cases["identity"])
+    want = rpa.ragged_paged_attention_plain(qw, kw_, vw, cases["identity"])
+    torch.cuda.synchronize()
+    errs[f"d{d_w}"] = (out.float() - want.float()).abs().max().item()
+    log(f"B5-int8 vs plain [d{d_w}, bf16 scratch + wide kernel]: "
+        f"max_abs_err={errs[f'd{d_w}']:.3e} (tol {KERNEL_TOL})")
+    if not torch.isfinite(out).all() or errs[f"d{d_w}"] > KERNEL_TOL:
+        raise AssertionError(f"B5-int8 disagrees with plain (d{d_w})")
+    del qw, kw_, vw, out, want
+
+    def measure(meta, lens, unique_rows):
+        """(kernel, plain, library ms, bound ms, bound_by) over COPIES
+        pools (past the L2), bytes counting each distinct row once."""
+        pools = [(k, v)] + [(tuple(t.clone() for t in k),
+                             tuple(t.clone() for t in v))
+                            for _ in range(COPIES - 1)]
+        turn = itertools.count()
+
+        def rotating(fn):
+            return lambda: fn(*pools[next(turn) % COPIES])
+
+        ms = cuda_ms(rotating(lambda kk, vv: rpa.ragged_paged_attention(
+            q, kk, vv, meta)), 200)
+        plain = cuda_ms(rotating(
+            lambda kk, vv: rpa.ragged_paged_attention_plain(
+                q, kk, vv, meta)), 20)
+        # Library yardstick (never called by the port): the pages each
+        # lane reaches gathered through its table and dequantized, then
+        # SDPA with the length mask.
+        table = meta.kernel_table(PAGES).long()
+        n = -(-int(lens.max()) // PAGE)
+        idx = table[:, :n].contiguous()
+        mask = (torch.arange(n * PAGE, device=dev)[None, :]
+                < lens[:, None].long())[:, None, None, :]
+        qs = q.transpose(1, 2)
+
+        def library(kk, vv):
+            def g(side):
+                return rpa.dequantize_kv(tuple(
+                    t.view(-1, PAGE, *t.shape[2:])[idx].reshape(
+                        LANES, n * PAGE, *t.shape[2:]) for t in side),
+                    torch.bfloat16).transpose(1, 2)
+
+            return F.scaled_dot_product_attention(
+                qs, g(kk), g(vv), attn_mask=mask, enable_gqa=True)
+
+        lib = cuda_ms(rotating(library), 50)
+        lib_err = (library(k, v).transpose(1, 2).float()
+                   - rpa.ragged_paged_attention_plain(q, k, v, meta).float()
+                   ).abs().max().item()
+        del pools
+        resident = int(lens.sum().item())
+        bytes_moved = (unique_rows * HKV * (D + 4) * 2  # codes + scales
+                       + 2 * LANES * HQ * D * 2 + LANES * PAGES * 4
+                       + LANES * 4)
+        flops = 4 * resident * HQ * D
+        t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
+        t_ops = flops / H100_BF16_FLOPS * 1e3
+        return (ms, plain, lib, lib_err, max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    local = measure(cases["identity"], lengths, int(lengths.sum().item()))
+    shared_rows = shared * PAGE
+    uniq = shared_rows + int((glens - shared_rows).sum().item())
+    glob = measure(cases["global_shared"], glens, uniq)
+    for label, m in (("local", local), ("global (phase-10 shape)", glob)):
+        log(f"B5-int8 {label}: kernel {m[0]:.4f} ms, plain {m[1]:.4f} ms, "
+            f"library (dequantize + SDPA) {m[2]:.4f} ms (max diff to plain "
+            f"{m[3]:.3e}), bound {m[4]:.4f} ms ({m[5]}), share "
+            f"{100 * m[4] / m[0]:.1f}%")
+    return {
+        "name": "ragged_paged_attention_int8",
+        "route": "cuda",
+        "source": "luminaai_tpu_torch/csrc/ragged_paged_attention.cu",
+        "replaces": "luminaai_tpu/ops/ragged_paged_attention.py:227",
+        "tpu_kernel": "_decode_kernel (int8 cache dequantized by "
+                      "luminaai_tpu/models/layers.py:400-431)",
+        "launches": None,  # filled from phase 14
+        "max_abs_err": max(errs.values()),
+        "ms": local[0],
+        "plain_ms": local[1],
+        "bound_ms": local[4],
+        "bound_by": local[5],
+        "library_ms": local[2],
+        "shapes": {"lanes": LANES, "hq": HQ, "hkv": HKV, "head_dim": D,
+                   "page_size": PAGE, "pages": PAGES,
+                   "lengths": [int(x) for x in lengths.tolist()]},
+        "global_form": {"ms": glob[0], "plain_ms": glob[1],
+                        "library_ms": glob[2], "bound_ms": glob[4],
+                        "bound_by": glob[5],
+                        "lengths": [int(x) for x in glens.tolist()],
+                        "shared_pages": shared, "unique_rows": uniq},
     }
 
 
@@ -3051,12 +3260,12 @@ def _run_child(args: list, log_path: Path, timeout: float = 900,
     return rc, text
 
 
-# The runtime phase's model: b1's widths without experts at half its
-# depth (8 of 16 layers: phases 7 and 9 write, hash and load its
-# checkpoints several times, and the script must finish within its time
-# budget), through `train --config`; per optimizer step (one
-# micro-batch) B1 runs each layer's forward and its remat recompute.
-RUNTIME_LAYERS = 8
+# The runtime phase's model: b1's widths without experts at a quarter of
+# its depth (4 of 16 layers: phases 7, 9 and 14 write, hash, load and
+# convert its checkpoints several times, and the script must finish
+# within its time budget), through `train --config`; per optimizer step
+# (one micro-batch) B1 runs each layer's forward and its remat recompute.
+RUNTIME_LAYERS = 4
 RUNTIME_LAUNCHES = {"B1": 2 * RUNTIME_LAYERS, "B2": RUNTIME_LAYERS,
                     "B3": RUNTIME_LAYERS}
 
@@ -4870,9 +5079,313 @@ def phase_fleet(dev, rpa_entry: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: quantized serving
+# ---------------------------------------------------------------------------
+QUANT_ARENA_PAGES = 64
+QUANT_MOE_LAYERS = 8  # b1's experts at 8 of its 16 layers (the budget)
+
+
+def _state_bytes(model) -> int:
+    """Bytes of a model's weights as it holds them (parameters, and the
+    codes and scales of its quantized weights)."""
+    return sum(t.numel() * t.element_size()
+               for t in model.state_dict().values())
+
+
+def _pool_bytes(dec) -> int:
+    from luminaai_tpu_torch.inference.kv_pool import cache_leaves
+
+    return sum(t.numel() * t.element_size()
+               for t in cache_leaves(dec.pool.caches))
+
+
+def _serve_argv(*extra) -> list:
+    from luminaai_tpu_torch import cli
+
+    return cli._parser().parse_args(
+        ["serve", "--preset", "b1", "--dense", "--seed", "0", *extra])
+
+
+def _quant_server(engine, label, reset, read, system, turns):
+    """Phase 1's 8 concurrent /v1/generate requests, then 8 chat requests
+    sharing phase 10's system prompt, through a ChatServer with the
+    prefix cache (what `serve --prefix-cache-pages 64` runs). `reset()`
+    zeroes the launch counters just before, `read()` reads them just
+    after. -> (launches, summary, server)."""
+    from luminaai_tpu_torch.serving.server import ChatServer
+
+    server = ChatServer(engine, num_slots=LANES, page_size=PAGE,
+                        prefix_cache_pages=QUANT_ARENA_PAGES)
+    httpd = server.make_httpd("127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        code, _, _ = _call(url, "/v1/generate", {
+            "prompt": "warm up", "max_new_tokens": 2, "temperature": 0})
+        if code != 200:
+            raise AssertionError(f"{label}: warmup answered {code}")
+        dec = server.batcher.decoder
+        steps0, dsec0 = dec.steps, server.batcher.decode_seconds
+        gen = [("/v1/generate", {"prompt": _prompt(n, i),
+                                 "max_new_tokens": 32, "temperature": 0})
+               for i, n in enumerate(PROMPT_LENGTHS)]
+        chat = [("/v1/chat", _chat_body(system, turns[i]))
+                for i in range(LANES)]
+        reset()
+        t0 = time.perf_counter()
+        replies = []
+        for wave in (gen, chat):
+            with ThreadPoolExecutor(len(wave)) as pool:
+                replies += list(pool.map(
+                    lambda pb: _call(url, pb[0], pb[1]), wave))
+        wall = time.perf_counter() - t0
+        launches = read()
+        steps = dec.steps - steps0
+        dsec = server.batcher.decode_seconds - dsec0
+        _, _, stats = _call(url, "/stats")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    bad = [(c, b) for c, _, b in replies if c != 200]
+    if bad or steps <= 0:
+        raise AssertionError(f"{label}: {len(bad)} failed replies {bad[:2]}, "
+                             f"{steps} decode steps")
+    tokens = sum(b.get("tokens", 0) for _, _, b in replies)
+    summary = {"requests": len(replies), "tokens": tokens,
+               "burst_wall_s": wall,
+               "decode_steps": steps, "decode_step_ms": 1e3 * dsec / steps,
+               "tokens_per_s": tokens / wall, "stats": stats}
+    log(f"{label}: {len(replies)} requests (8 generate, 8 chat on a shared "
+        f"{PLANE_SYSTEM_CHARS}-character system prompt), {tokens} tokens in "
+        f"{wall:.3f}s = {tokens / wall:.1f} tok/s; {steps} decode steps, "
+        f"{summary['decode_step_ms']:.3f} ms/step; prefix hits "
+        f"{stats.get('prefix_cache', {}).get('hits')}")
+    return launches, summary, server
+
+
+def phase_quant(dev, rpa_int8_entry: dict, gmm_entries: list,
+                serve_summary) -> dict:
+    """Phase 14: quantized serving on b1 dense at 16 layers (`serve
+    --preset b1 --dense --quantize int8 --kv-cache-dtype int8
+    --prefix-cache-pages 64`, its engine built by the CLI's builder and
+    served in process), then int4, b1's experts under int8, and `convert
+    --to int8` of phase 7's checkpoint with `chat` from the export."""
+    import torch
+
+    from luminaai_tpu_torch import cli
+    from luminaai_tpu_torch.config import ConfigPresets
+    from luminaai_tpu_torch.inference.chat import build_engine
+    from luminaai_tpu_torch.ops import gmm as tg
+    from luminaai_tpu_torch.ops import ragged_paged_attention as rpa
+    from luminaai_tpu_torch.ops.quantized import QuantizedTensor
+
+    t_phase = time.perf_counter()
+    fn = rpa.ragged_paged_attention
+
+    def first_step(dec, kind):
+        """The first decode step through the kernel and through the plain
+        version: (kernel logits, max abs difference, its LOGIT_RTOL
+        bound); the step launches `kind` exactly once a layer."""
+        n0 = (fn.launches, fn.launches_int8)
+        lk = dec.step_logits()
+        lp = dec.step_logits("plain")
+        torch.cuda.synchronize()
+        got = (fn.launches - n0[0], fn.launches_int8 - n0[1])
+        want = {"bf16": (cfg_layers, 0), "int8": (0, cfg_layers)}[kind]
+        if got != want or not torch.isfinite(lk).all():
+            raise AssertionError(f"{kind} decode step launched {got}")
+        return (lk, (lk - lp).abs().max().item(),
+                LOGIT_RTOL * lp.abs().max().item())
+
+    # Phase 1's bf16 engine (the same seed): its bytes and first step;
+    # then the same weights over an int8 pool, B5-int8 against the plain
+    # version within LOGIT_RTOL, as phase 1 holds B5.
+    base = build_engine(ConfigPresets.get("b1", use_moe=False), device=dev,
+                        seed=0)
+    cfg_layers = base.config.num_layers
+    dec = _filled_decoder(base)
+    l_bf16, _, _ = first_step(dec, "bf16")
+    bytes_bf16, pool_bf16 = _state_bytes(base.model), _pool_bytes(dec)
+    del dec
+    base.configure(kv_cache_dtype="int8")
+    _, kv_err, kv_tol = first_step(_filled_decoder(base), "int8")
+    log(f"quant: bf16 weights over an int8 KV pool, first decode step "
+        f"B5-int8 vs plain max_abs_err {kv_err:.3e} (tol {kv_tol:.3e} = "
+        f"{LOGIT_RTOL} x max|logit|)")
+    if kv_err > kv_tol:
+        raise AssertionError("int8-KV decode logits disagree with plain")
+    del base
+    _release()
+
+    engine = cli.build_serve_engine(_serve_argv(
+        "--quantize", "int8", "--kv-cache-dtype", "int8",
+        "--prefix-cache-pages", str(QUANT_ARENA_PAGES)))
+    info = engine.quantization_info
+    cfg = engine.config
+    if info.get("mode") != "int8_compute" or cfg.kv_cache_dtype != "int8":
+        raise AssertionError(f"engine not quantized: {info}")
+    n_qt = sum(isinstance(m, QuantizedTensor) for m in engine.model.modules())
+    bytes_int8 = _state_bytes(engine.model)
+    dec = _filled_decoder(engine)
+    pool_int8 = _pool_bytes(dec)
+    lk, err, tol = first_step(dec, "int8")
+    agree = int((lk.argmax(-1) == l_bf16.argmax(-1)).sum().item())
+    log("quant: where a W8A8 + int8-KV decode step's time goes:")
+    profile_decode(dec)
+    del dec
+    # The same W8A8 weights over a bf16 pool: bf16 B5 against plain, the
+    # yardstick of what the int8 products make of an attention difference.
+    engine.configure(kv_cache_dtype="bf16")
+    _, bf_err, _ = first_step(_filled_decoder(engine), "bf16")
+    engine.configure(kv_cache_dtype="int8")
+    w8_tol = W8A8_LOGIT_RTOL / LOGIT_RTOL * tol
+    log(f"quant: int8 engine ({n_qt} int8 weights, {info['quantized_leaves']}"
+        f"/{info['total_leaves']} leaves): weights {bytes_int8 / 1e9:.3f} GB "
+        f"vs bf16 {bytes_bf16 / 1e9:.3f} GB ({bytes_bf16 / bytes_int8:.3f}x);"
+        f" KV pool {pool_int8 / 1e6:.1f} MB vs {pool_bf16 / 1e6:.1f} MB "
+        f"({pool_int8 / pool_bf16:.4f}x); first decode step, W8A8 weights: "
+        f"B5-int8 vs plain max_abs_err {err:.3e}, bf16 B5 vs plain "
+        f"{bf_err:.3e} (tol {w8_tol:.3e} = {W8A8_LOGIT_RTOL} x max|logit|);"
+        f" top-1 agreement with bf16 {agree}/{LANES}")
+    if max(err, bf_err) > w8_tol:
+        raise AssertionError("W8A8 decode logits disagree with plain")
+    del lk, l_bf16
+    _release()
+
+    def reset():
+        fn.launches = fn.launches_int8 = fn.launches_global = 0
+
+    system, turns = _plane_texts(1)
+    launches, summary, server = _quant_server(
+        engine, "quant serve", reset,
+        lambda: {"bf16": fn.launches, "int8": fn.launches_int8,
+                 "global": fn.launches_global}, system, turns)
+    want = summary["decode_steps"] * cfg.num_layers
+    log(f"quant: B5 launches {launches} (decode steps x layers = {want})")
+    if launches != {"bf16": 0, "int8": want, "global": want}:
+        raise AssertionError("the int8 decode path did not run B5-int8 "
+                             "through the global table exactly")
+    stats = summary.pop("stats")
+    if stats.get("kv_cache_dtype") != "int8" or stats.get(
+            "quantization", {}).get("mode") != "int8_compute":
+        raise AssertionError(f"/stats: {stats.get('quantization')}")
+    rpa_int8_entry["launches"] = launches["int8"]
+
+    # One int8 arena page out and back in (LPG1): its size and bytes.
+    pool = server.batcher.decoder.pool
+    arena0 = LANES * pool.pages
+    last = (server.batcher.decoder.total_slots * pool.pages) - 1
+    t0 = time.perf_counter()
+    page = pool.export_page(arena0)
+    export_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    pool.import_page(last, page)
+    import_ms = 1e3 * (time.perf_counter() - t0)
+    leaf_bytes = cfg.num_layers * 2 * PAGE * cfg.num_kv_heads * (
+        cfg.head_dim() + 4)
+    if pool.export_page(last) != page or len(page) < leaf_bytes:
+        raise AssertionError("int8 page export/import is not byte exact")
+    log(f"quant: one int8 page {len(page)} B ({leaf_bytes} B of leaves + "
+        f"{len(page) - leaf_bytes} B header), export {export_ms:.2f} ms, "
+        f"import {import_ms:.2f} ms, bytes equal after the round trip")
+    server.close()
+    del server, engine, pool
+    _release()
+
+    # --quantize int4: packed storage, dequantized once at load; one
+    # request through its server.
+    from luminaai_tpu_torch.serving.server import ChatServer
+
+    engine4 = cli.build_serve_engine(_serve_argv("--quantize", "int4"))
+    q4 = engine4.quantization_info
+    server4 = ChatServer(engine4, num_slots=LANES, page_size=PAGE)
+    httpd = server4.make_httpd("127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        code, _, reply = _call(f"http://127.0.0.1:{httpd.server_address[1]}",
+                               "/v1/generate", {"prompt": _prompt(64, 1),
+                                                "max_new_tokens": 8,
+                                                "temperature": 0})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server4.close()
+    if q4.get("bits") != 4 or code != 200:
+        raise AssertionError(f"int4 engine: {q4}, {code} {reply}")
+    log(f"quant: int4 engine ({q4['quantized_leaves']} leaves, "
+        f"{q4['compression']:.2f}x at rest) answered 200 with "
+        f"{reply.get('tokens')} tokens")
+    del engine4, server4
+    _release()
+
+    # b1's experts under int8: gather dispatch, no B4a launch.
+    moe_cfg = ConfigPresets.get("b1", num_layers=QUANT_MOE_LAYERS,
+                                moe_dispatch="gmm",
+                                quantization_method="int8")
+    moe = build_engine(moe_cfg, device=dev, seed=0)
+    g0 = tg.gmm.launches
+    toks, st = moe.generate(moe.tokenizer.encode_text(_prompt(300, 2)),
+                            max_new_tokens=8, temperature=0.0)
+    torch.cuda.synchronize()
+    b4a = tg.gmm.launches - g0
+    n_experts = sum(hasattr(b, "moe") and isinstance(b.moe.wi,
+                                                     QuantizedTensor)
+                    for b in moe.model.layers)
+    log(f"quant: b1 MoE at {QUANT_MOE_LAYERS} layers, int8 experts on "
+        f"{n_experts} layers: {st['tokens_generated']} tokens, B4a launches "
+        f"{b4a} (gather dispatch)")
+    if b4a or n_experts != moe_cfg.num_moe_layers():
+        raise AssertionError("int8 experts did not run gather dispatch")
+    del moe
+    _release()
+
+    # convert --to int8 of phase 7's checkpoint, then chat from it.
+    conv = {}
+    src = RUN_DIR / "A"
+    if src.exists():
+        out = RUN_DIR / "A_int8"
+        t0 = time.perf_counter()
+        rc = cli.main(["convert", "--checkpoint", str(src), "--to", "int8",
+                       "--out", str(out)])
+        conv["convert_s"] = time.perf_counter() - t0
+        rc_chat = cli.main(["chat", "--checkpoint", str(out), "--prompt",
+                            "hello there", "--max-new-tokens", "8",
+                            "--temperature", "0"])
+        conv["export_mb"] = sum(f.stat().st_size for f in out.rglob("*")
+                                if f.is_file()) / 1e6
+        log(f"quant: convert --to int8 of phase 7's checkpoint rc {rc} in "
+            f"{conv['convert_s']:.1f}s ({conv['export_mb']:.1f} MB), chat "
+            f"from the export rc {rc_chat}")
+        if rc or rc_chat:
+            raise AssertionError("convert --to int8 / chat failed")
+        shutil.rmtree(out)
+    out = {
+        "weight_bytes": {"bf16": bytes_bf16, "int8": bytes_int8,
+                         "ratio": bytes_bf16 / bytes_int8},
+        "pool_bytes": {"bf16": pool_bf16, "int8": pool_int8,
+                       "ratio": pool_int8 / pool_bf16},
+        "first_step_err": err, "first_step_bf16_kv_err": bf_err,
+        "first_step_w8a8_tol": w8_tol, "first_step_kv_only_err": kv_err,
+        "first_step_kv_only_tol": kv_tol,
+        "top1_agree": agree, "launches": launches, **summary,
+        "page_bytes": len(page), "page_export_ms": export_ms,
+        "page_import_ms": import_ms, "int4": q4, "moe_b4a": b4a,
+        "convert": conv, "wall_s": time.perf_counter() - t_phase,
+    }
+    if serve_summary:
+        out["bf16_serve"] = {k: serve_summary[k] for k in (
+            "tokens_per_s", "decode_step_ms")}
+    log(f"quant: {summary['tokens_per_s']:.1f} tok/s, "
+        f"{summary['decode_step_ms']:.3f} ms a decode step (phase 1: "
+        f"{out.get('bf16_serve')}); phase wall {out['wall_s']:.1f} s "
+        f"({_smi()})")
+    return out
+
+
 ALL_PHASES = ("serve", "plane", "serve_moe", "train", "train_moe",
               "runtime", "posttrain", "adaptive", "posttrain_moe",
-              "train_tuned", "mod", "fleet")
+              "train_tuned", "mod", "fleet", "quant")
 PHASES = set(ALL_PHASES)
 
 
@@ -4912,11 +5425,12 @@ def main() -> int:
     try:
         phase_build()
         entry = phase_kernels(dev)
+        entry_int8 = phase_kernels_int8(dev)
         flash_entries = phase_flash_kernels(dev) if not partial or (
-            PHASES - {"serve", "plane", "serve_moe", "fleet"}) else []
+            PHASES - {"serve", "plane", "serve_moe", "fleet", "quant"}) else []
         gmm_entries = phase_gmm_kernels(dev) if not partial or (
             PHASES - {"serve", "plane", "train", "runtime",
-                      "posttrain", "fleet"}) else []
+                      "posttrain", "fleet", "quant"}) else []
         if "serve" in PHASES:  # phase 3, and phase 10 ("plane") after it
             done["serve"] = phase_serve(dev, entry)
             _release()
@@ -4940,9 +5454,13 @@ def main() -> int:
             _release()
         if "posttrain" in PHASES:
             done["posttrain"] = phase_posttrain(dev, entry, flash_entries)
-            shutil.rmtree(RUN_DIR / "A")
             shutil.rmtree(RUN_DIR / "post" / "merged")
             _release()
+        if "quant" in PHASES:  # converts phase 7's run A checkpoint
+            done["quant"] = phase_quant(dev, entry_int8, gmm_entries,
+                                        done.get("serve"))
+            _release()
+        shutil.rmtree(RUN_DIR / "A", ignore_errors=True)
         if "adaptive" in PHASES:
             done["adaptive"] = phase_adaptive(dev, flash_entries, gmm_entries)
             _release()
@@ -4970,7 +5488,8 @@ def main() -> int:
                     for k, v in done.items()))
 
     print(_smi())
-    print(json.dumps({"kernels": [entry, *flash_entries, *gmm_entries]}))
+    print(json.dumps({"kernels": [entry, entry_int8, *flash_entries,
+                                  *gmm_entries]}))
     if partial:
         print(json.dumps({"ok": False, "partial": sorted(PHASES)}))
         return 0

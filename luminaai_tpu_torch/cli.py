@@ -1,6 +1,6 @@
 """Command line of the port: `python -m luminaai_tpu_torch` with the
 subcommands serve, route, top, train, resume, data, finetune, evaluate,
-chat, verify-checkpoint and presets.
+chat, convert, verify-checkpoint and presets.
 
   python -m luminaai_tpu_torch train --preset b1 --dense \\
       --data corpus.jsonl --packed --steps 1000 --output-dir runs/b1
@@ -25,6 +25,10 @@ chat, verify-checkpoint and presets.
   python -m luminaai_tpu_torch evaluate --checkpoint merged --data eval.jsonl
   python -m luminaai_tpu_torch chat --checkpoint runs/b1 --adapter \\
       ft/adapter.npz --prompt "hello"
+  python -m luminaai_tpu_torch serve --preset b1 --dense --quantize int8 \\
+      --kv-cache-dtype int8
+  python -m luminaai_tpu_torch convert --checkpoint runs/b1 --to int8 \\
+      --out runs/b1-int8
 
 The presets are mixture-of-experts models, as in the JAX package; --dense
 builds the preset's widths without experts. The model is built on the card
@@ -64,8 +68,17 @@ perplexity, tokens, batches) over a conversation file. `chat` answers
 the security layer (--secure). finetune, evaluate and chat run on the
 card unless given --device.
 
-`serve` takes the JAX CLI's serving flags but the quantizer's
-(--quantize, --kv-cache-dtype) and --trace-jax (serving/server.py):
+`serve` and `chat` take --quantize int8|int4 (int8: W8A8 products over
+int8 weights; int4: packed storage dequantized at load) and
+--kv-cache-dtype int8 (int8 KV codes and per-row scales, read by the
+decode kernel), as the JAX CLI does. `convert --to scan|plain|int8`
+rewrites a checkpoint's parameter layout (scanned or per-layer) or
+exports it as an int8 serving checkpoint, which serve and chat load
+as saved and finetune, evaluate and convert refuse; it quantizes on the
+card unless given --device.
+
+`serve` takes the JAX CLI's serving flags but --trace-jax
+(serving/server.py):
 continuous batching (or --no-continuous micro-batching over
 generate_batch), the radix prefix cache
 (--prefix-cache-pages), telemetry and spans, SLOs, the hang watchdog,
@@ -78,8 +91,9 @@ the sibling that owns them. --replicas N runs the one-command fleet: N
 `python -m luminaai_tpu_torch serve` children on port+1..port+N, wired to
 share pages, behind the replica router (serving/router.py) on --port;
 SIGTERM stops the router and drains the children. `route` runs that
-router alone over --replica URLs. Both run on the card unless given
---device cpu (the children inherit it). Bad --latency-buckets,
+router alone over --replica URLs. `serve --replicas` runs on the card
+unless given --device cpu (the children inherit it); `route` and `top`
+are host code and take no device. Bad --latency-buckets,
 a non-positive --healthz-stale-after, and --secure with neither
 --user/--password nor a users.json exit 2 before any model load. `top`
 renders a server's /metrics/history and /slo or a router's /fleet table
@@ -123,14 +137,29 @@ def _model_overrides(args) -> Dict[str, object]:
         overrides["use_moe"] = False
     if args.moe_dispatch is not None:
         overrides["moe_dispatch"] = args.moe_dispatch
+    # serve's quantizer flags (the engine applies them from the config).
+    if getattr(args, "quantize", None) is not None:
+        overrides["quantization_method"] = args.quantize
+    if getattr(args, "kv_cache_dtype", None) is not None:
+        overrides["kv_cache_dtype"] = args.kv_cache_dtype
     return overrides
+
+
+def _quantizer_flags(p: argparse.ArgumentParser) -> None:
+    # The JAX CLI's serve/chat flags (luminaai_tpu/cli.py).
+    p.add_argument("--quantize", choices=["int8", "int4"],
+                   help="serve int8 (W8A8 products) or int4 (packed "
+                        "storage, dequantized at load) weights")
+    p.add_argument("--kv-cache-dtype", dest="kv_cache_dtype",
+                   choices=["bf16", "int8"],
+                   help="decode KV cache storage (int8: codes + per-row "
+                        "scales, about half the pool's bytes)")
 
 
 def _serve_flags(sv: argparse.ArgumentParser) -> None:
     """`serve`'s flags: the JAX CLI's (luminaai_tpu/cli.py serve) without
-    the quantizer's (--quantize, --kv-cache-dtype) and --trace-jax, plus
-    the port's own model flags (--preset, --dense, --moe-dispatch,
-    --weights, --seed, --device)."""
+    --trace-jax, plus the port's own model flags (--preset, --dense,
+    --moe-dispatch, --weights, --seed, --device)."""
     sv.add_argument("--preset", default="b1",
                     choices=ConfigPresets.available())
     sv.add_argument("--dense", action="store_true",
@@ -157,6 +186,7 @@ def _serve_flags(sv: argparse.ArgumentParser) -> None:
     sv.add_argument("--adapter",
                     help="LoRA adapter (.npz from finetune) merged at load "
                          "(needs --checkpoint)")
+    _quantizer_flags(sv)
     sv.add_argument("--num-slots", dest="num_slots", type=int, default=8,
                     help="continuous-batching KV pool slots "
                          "(concurrent decode lanes)")
@@ -279,9 +309,8 @@ def _serve_flags(sv: argparse.ArgumentParser) -> None:
 
 
 def _route_flags(rt: argparse.ArgumentParser) -> None:
-    """`route`'s flags: the JAX CLI's (luminaai_tpu/cli.py route), plus
-    --device (the router is host code, but the entry point runs where the
-    port's entry points run: on the card unless told otherwise)."""
+    """`route`'s flags: the JAX CLI's (luminaai_tpu/cli.py route). The
+    router is host code: no device flag."""
     rt.add_argument("--replica", dest="replicas", action="append",
                     required=True,
                     help="replica base URL (repeat per replica)")
@@ -325,8 +354,6 @@ def _route_flags(rt: argparse.ArgumentParser) -> None:
     rt.add_argument("--flight-dir", dest="flight_dir",
                     help="dump the router's wide-event flight record "
                          "here on exit (flightrec-*.jsonl)")
-    rt.add_argument("--device", default=None,
-                    help="torch device (default: the card)")
 
 
 def _train_flags(t: argparse.ArgumentParser) -> None:
@@ -410,9 +437,6 @@ def _parser() -> argparse.ArgumentParser:
                          "seconds (default: everything retained)")
     tp.add_argument("--top-k", dest="top_k", type=int, default=4,
                     help="tenants shown in the top-K table (default 4)")
-    tp.add_argument("--device", default=None,
-                    help="torch device a router's fleet table is read "
-                         "for (default: the card)")
 
     t = sub.add_parser("train", help="train a model")
     _train_flags(t)
@@ -434,11 +458,7 @@ def _parser() -> argparse.ArgumentParser:
                    help="require auth; rate-limit and validate inputs")
     c.add_argument("--user")
     c.add_argument("--password")
-    c.add_argument("--quantize", choices=["int8", "int4"],
-                   help="weight-only quantization for serving (not ported)")
-    c.add_argument("--kv-cache-dtype", dest="kv_cache_dtype",
-                   choices=["bf16", "int8"],
-                   help="decode KV cache storage (int8 not ported)")
+    _quantizer_flags(c)
     c.add_argument("--adapter",
                    help="LoRA adapter (.npz from finetune) merged at load")
     c.add_argument("--device", default=None,
@@ -477,6 +497,18 @@ def _parser() -> argparse.ArgumentParser:
                    help="train-tokenizer: target vocab (incl. 256 bytes)")
     d.add_argument("--max-per-file", dest="max_per_file", type=int,
                    default=None, help="acquire (not ported)")
+
+    cv = sub.add_parser(
+        "convert",
+        help="convert checkpoint layout (scan <-> plain) or export an "
+             "int8-quantized serving checkpoint",
+    )
+    cv.add_argument("--checkpoint", required=True)
+    cv.add_argument("--to", choices=["scan", "plain", "int8"], required=True)
+    cv.add_argument("--out", required=True)
+    cv.add_argument("--device", default=None,
+                    help="torch device the weights are converted on "
+                         "(default: the card)")
 
     e = sub.add_parser("evaluate", help="perplexity/loss on a dataset")
     e.add_argument("--checkpoint", required=True)
@@ -905,8 +937,12 @@ def finetune(args) -> int:
     dev = resolve_device(args.device)
     # keep_master_dtype: train against (and maybe re-export) the fp32
     # masters; a bf16 round would swallow small deltas at merge time.
-    model, cfg = load_model_for_inference(
-        args.checkpoint, keep_master_dtype=True, device=dev)
+    try:
+        model, cfg = load_model_for_inference(
+            args.checkpoint, keep_master_dtype=True, device=dev)
+    except ValueError as e:  # an int8 serving export: no fp32 masters
+        print(str(e), file=sys.stderr)
+        return 1
     if args.batch_size:
         cfg.batch_size = args.batch_size
     patterns = [r"attention/", r"ffn/"]
@@ -1035,8 +1071,12 @@ def evaluate(args) -> int:
     from luminaai_tpu_torch.inference.chat import load_model_for_inference
 
     resolve_device(args.device)
-    model, cfg = load_model_for_inference(args.checkpoint,
-                                          device=args.device)
+    try:
+        model, cfg = load_model_for_inference(args.checkpoint,
+                                              device=args.device)
+    except ValueError as e:  # an int8 serving export
+        print(str(e), file=sys.stderr)
+        return 1
     if args.batch_size:
         cfg.batch_size = args.batch_size
     result = evaluate_model(model, cfg, args.data, args.max_batches)
@@ -1058,6 +1098,22 @@ def chat(args) -> int:
         kv_cache_dtype=args.kv_cache_dtype,
         device=args.device,
     )
+    q = session.engine.quantization_info
+    if q:
+        if q.get("mode") == "int8_compute":
+            print(
+                f"serving with int8 COMPUTE quantization: "
+                f"{q['quantized_leaves']} tensors run int8 products "
+                f"(W8A8), {q['compression']:.2f}x smaller resident",
+                file=sys.stderr,
+            )
+        else:
+            print(
+                f"serving with int{q['bits']} weight round-trip: "
+                f"{q['quantized_leaves']} tensors, {q['compression']:.2f}x "
+                "smaller at rest (the resident serving copy stays in the "
+                "compute dtype)", file=sys.stderr,
+            )
     # Generation defaults live on the engine's config; the flags
     # override them for the session.
     session.engine.config.temperature = args.temperature
@@ -1109,6 +1165,71 @@ def chat(args) -> int:
             print(json.dumps(stats, indent=2), file=sys.stderr)
         return 0
     session.run()
+    return 0
+
+
+def convert(args) -> int:
+    """Rewrite a checkpoint's parameter layout, per-layer <-> scanned (the
+    same weights; convert.stack_scanned / unstack_scanned), or export it
+    as an int8 serving checkpoint (quantize_for_serving: codes and scales
+    in the compute layout, the manifest in its metadata; chat and serve
+    load it with no re-quantization). As the JAX `convert`, the weights
+    are read as the loader serves them (bf16), and an int8 export is
+    refused as input. Writes step 0 of --out with a manifest."""
+    import torch
+
+    from luminaai_tpu_torch.convert import stack_scanned, unstack_scanned
+    from luminaai_tpu_torch.inference.chat import load_checkpoint_flax
+    from luminaai_tpu_torch.training.checkpoint import save_params_checkpoint
+
+    dev = resolve_device(args.device)
+    try:
+        flat, cfg, _ = load_checkpoint_flax(args.checkpoint)
+    except ValueError as e:
+        # Quantizing quantized codes would write a silently wrong
+        # checkpoint.
+        print(str(e), file=sys.stderr)
+        return 1
+    params = {k: v.to(dev, torch.bfloat16) for k, v in flat.items()}
+    is_scanned = any(k.startswith("scan_") for k in params)
+    out = Path(args.out).absolute()
+    meta = {"converted_from": str(args.checkpoint)}
+    if args.to == "int8":
+        from luminaai_tpu_torch.training.quantization import (
+            export_quantized_tree,
+            quantize_for_serving,
+        )
+
+        if is_scanned:
+            print("convert --to plain first (int8 export needs the "
+                  "per-layer layout)", file=sys.stderr)
+            return 1
+        qtree, info = quantize_for_serving(params)
+        plain, manifest = export_quantized_tree(qtree)
+        new_cfg = dataclasses.replace(cfg, quantization_method=None)
+        save_params_checkpoint(out, 0, plain, {
+            **meta, "config": new_cfg.to_dict(),
+            "quantization": {"manifest": manifest, "info": info}})
+        print(f"int8 serving export: {info['quantized_leaves']}/"
+              f"{info['total_leaves']} tensors quantized, "
+              f"{info['compression']:.2f}x smaller -> {out}")
+        return 0
+    if args.to == "scan" and is_scanned:
+        print("checkpoint is already in scanned layout", file=sys.stderr)
+        return 1
+    if args.to == "plain" and not is_scanned:
+        print("checkpoint is already in per-layer layout", file=sys.stderr)
+        return 1
+    if args.to == "scan":
+        new_cfg = dataclasses.replace(cfg, scan_layers=True)
+        new_params = stack_scanned(params, new_cfg)
+    else:
+        new_cfg = dataclasses.replace(cfg, scan_layers=False)
+        new_params = unstack_scanned(params, cfg)
+    save_params_checkpoint(out, 0, new_params,
+                           {**meta, "config": new_cfg.to_dict()})
+    n = sum(t.numel() for t in new_params.values())
+    print(f"converted to {args.to} layout: {n / 1e6:.1f}M params -> {out}")
     return 0
 
 
@@ -1395,7 +1516,6 @@ def route(args) -> int:
     if len(urls) != len(set(urls)):
         print("duplicate --replica urls", file=sys.stderr)
         return 2
-    resolve_device(args.device)  # the card, or raise
     run_router(
         urls,
         host=args.host,
@@ -1423,8 +1543,7 @@ def _top_sources(args):
     """Resolve `top`'s data source into (fetch_fn, source_label), as the
     JAX CLI does: fetch_fn() -> (history, slo or None, fleet or None).
     --url probes a replica's /metrics/history and /slo and a router's
-    /fleet; a router's table is read on the card unless --device says
-    otherwise. Exit-2 errors raise SystemExit."""
+    /fleet. Exit-2 errors raise SystemExit."""
     import os
     import urllib.error
     import urllib.request
@@ -1525,8 +1644,6 @@ def top(args) -> int:
         except Exception as e:
             print(f"fetch failed: {e}", file=sys.stderr)
             raise SystemExit(2)
-        if fleet is not None:
-            resolve_device(args.device)  # a router: the card, or raise
         if args.json:
             return json.dumps(
                 top_payload(history, slo, window_s=args.window,
@@ -1562,6 +1679,7 @@ COMMANDS = {
     "finetune": finetune,
     "evaluate": evaluate,
     "chat": chat,
+    "convert": convert,
     "verify-checkpoint": verify_checkpoint,
     "presets": presets,
 }

@@ -11,12 +11,16 @@ once written as JSON (the port's gives the schedule tuple as a list).
 the JAX Config does, and `load` drops the keys this copy does not know, so
 a JAX config file loads here. Fields for parallelism and serving extras
 stay in the JAX package until the slices that need them are ported
-(the serving plane's prefix cache and SLO fields are here). Values
+(the serving plane's prefix cache and SLO fields are here, and the
+quantized serving fields: kv_cache_dtype, quantization_method,
+quantization_bits). Values
 the port does not run on one card are accepted here, as the JAX package
 accepts them, and refused where a model is built (the 'a2a' MoE dispatch,
 which needs an expert mesh: models/moe.py). The port's model loops over
-its layers; a JAX scan_layers config loads without that field, and
-convert.py reads and writes the scanned parameter trees it names.
+its layers whatever `scan_layers` says: the field names the layout of a
+checkpoint's parameter tree (convert.py reads and writes the scanned
+trees), and, as in the JAX package, sends int8 serving of such a model
+down the storage-only path (training/quantization.py).
 """
 
 from __future__ import annotations
@@ -91,6 +95,10 @@ class Config:
     # 'ragged_xla': its XLA references) read as 'ragged' when a JAX config
     # file is loaded (from_dict); the plain oracle is a per-call argument.
     attention_backend: str = "ragged"
+    # Decode KV cache storage: 'bf16' (the compute dtype) or 'int8' (codes
+    # [.., C, Hkv, D] plus fp32 per-row scales [.., C, Hkv, 1], quantized
+    # at insert; B5 reads both on the card): about half the pool's bytes.
+    kv_cache_dtype: str = "bf16"
     # Radix prefix cache over the serving KV pool (inference/
     # prefix_cache.py): budget of content-hash-keyed arena pages shared
     # across lanes; admissions splice the longest cached prompt-prefix page
@@ -166,6 +174,14 @@ class Config:
     use_lr_scheduler: bool = True
     min_lr: float = 1e-6
     precision: str = "auto"  # auto|fp32|bf16|mixed_bf16|fp16|mixed_fp16
+    # Weight quantization for serving (training/quantization.py): None |
+    # 'int8' (W8A8 products) | 'int4' (packed storage, dequantized at
+    # load); the engine applies it (JAX config.py:196-197).
+    quantization_method: Optional[str] = None
+    quantization_bits: int = 8
+    # The parameter tree's layout in checkpoints (JAX scan_layers); the
+    # port's model loops over its layers either way.
+    scan_layers: bool = False
     gradient_checkpointing: bool = True
     # The JAX REMAT_POLICIES (models/transformer.py): nothing_saveable =
     # recompute each block; save_outs = keep each block's two branch
@@ -321,6 +337,8 @@ class Config:
             raise ValueError(
                 "prefill_chunk_size must be >= 0 (0 disables chunked prefill)"
             )
+        if self.kv_cache_dtype not in ("bf16", "int8"):
+            raise ValueError(f"invalid kv_cache_dtype {self.kv_cache_dtype}")
         if self.attention_backend not in ATTENTION_BACKENDS:
             raise ValueError(
                 f"invalid attention_backend {self.attention_backend}"

@@ -25,6 +25,15 @@ unstack_params_from_scan); the per-layer names map as
 every tensor by its flax path), per-layer or, with scanned=True, in the
 scanned layout; `flax_to_state_dict` maps either back without a cast.
 
+Quantized weights (training/quantization.py) travel through the same
+maps as QuantizedTensor leaves in the compute layouts: the fused wqkv
+(codes [H, (nq + 2 nkv) d], one scale a column, contraction axis 0)
+splits into JAX's wq, wk and wv over axis 0 and concatenates back; wo
+(axis 0 of [nq d, H]) is JAX's axes (0, 1) of [nq, d, H]. Where JAX's
+per-leaf min_size quantized only some of wq, wk and wv, the port keeps
+the three blocks apart (a tuple; models/layers.QKVParts). `model_tree`
+gives a model's weights with any QuantizedTensor in its place.
+
 `init_params` draws the same shapes from a seed with the JAX init's
 standard deviations (init_std, the untied head's too; init_std / sqrt(2)
 for the output projections, experts' included; 0.02 for the MoE router,
@@ -34,7 +43,7 @@ draws are torch's, not JAX's.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Mapping, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +52,7 @@ from luminaai_tpu_torch.config import Config
 from luminaai_tpu_torch.models.layers import init_std_out
 from luminaai_tpu_torch.models.mod import MOD_ROUTER_INIT_STD
 from luminaai_tpu_torch.models.moe import ROUTER_INIT_STD
+from luminaai_tpu_torch.ops.quantized import QuantizedTensor
 
 
 def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -129,15 +139,40 @@ def stack_scanned(flat: Mapping[str, torch.Tensor], config: Config
     return out
 
 
-def params_from_flax(tree: Mapping[str, Any], config: Config) -> Dict[str, torch.Tensor]:
+def params_from_flax(tree: Mapping[str, Any], config: Config,
+                     manifest: Optional[Mapping[str, Any]] = None
+                     ) -> Dict[str, Any]:
     """A flax parameter tree (nested dicts or flat 'a/b' keys of numpy
     arrays, per-layer or scanned layout) -> a CPU fp32 state_dict for
-    LuminaTransformer; load_state_dict casts to the model's dtypes."""
+    LuminaTransformer; load_params casts to the model's dtypes. With the
+    `manifest` of a JAX int8 export (export_quantized_tree: {'q', 'scale'}
+    leaves), the quantized leaves arrive as QuantizedTensor entries (int8
+    codes and fp32 scales as saved) in the port's fused layouts."""
     flat = flatten_tree(tree) if any(
         isinstance(v, Mapping) for v in tree.values()
     ) else {k: np.asarray(v) for k, v in tree.items()}
     if any(k.startswith("scan_") for k in flat):
         flat = unstack_scanned(flat, config)
+    if manifest:
+        from luminaai_tpu_torch.training.quantization import (
+            import_quantized_tree,
+        )
+
+        quantized = {k.rpartition("/")[0] for k in flat
+                     if k.rpartition("/")[0] in manifest}
+        tensors = {
+            k: torch.from_numpy(np.array(
+                v, dtype=v.dtype if k.rpartition("/")[0] in quantized
+                else np.float32))
+            for k, v in flat.items()}
+        leaves = import_quantized_tree(tensors, manifest)
+
+        def t(name: str):
+            if name not in leaves:
+                raise KeyError(f"missing parameter {name!r}")
+            return leaves[name]
+
+        return _to_state_dict(t, config)
 
     def t(name: str) -> torch.Tensor:
         if name not in flat:
@@ -185,12 +220,12 @@ def state_dict_to_flax(
         p, q = f"layer_{i}/", f"layers.{i}."
         out[p + "attn_norm/scale"] = sd[q + "attn_norm.scale"]
         out[p + "ffn_norm/scale"] = sd[q + "ffn_norm.scale"]
-        wq, wk, wv = sd[q + "attention.wqkv"].split(
-            [n_q * d, n_kv * d, n_kv * d], dim=1)
-        out[p + "attention/wq"] = wq.reshape(H, n_q, d)
-        out[p + "attention/wk"] = wk.reshape(H, n_kv, d)
-        out[p + "attention/wv"] = wv.reshape(H, n_kv, d)
-        out[p + "attention/wo"] = sd[q + "attention.wo"].reshape(n_q, d, H)
+        shapes = ((H, n_q, d), (H, n_kv, d), (H, n_kv, d))
+        for name, w in zip(("wq", "wk", "wv"),
+                           _split_qkv(sd[q + "attention.wqkv"], shapes)):
+            out[p + "attention/" + name] = w
+        out[p + "attention/wo"] = _reshape_wo(sd[q + "attention.wo"],
+                                              (n_q, d, H))
         if config.is_moe_layer(i):
             for name in ("router", "wi", "wo"):
                 out[p + "moe/" + name] = sd[q + "moe." + name]
@@ -202,6 +237,95 @@ def state_dict_to_flax(
                     out[p + "mod_router/" + name] = sd[
                         q + "mod_router." + name]
     return stack_scanned(out, config) if scanned else out
+
+
+def _qt(q, scale, axis, shape) -> QuantizedTensor:
+    return QuantizedTensor(q, scale, 8, axis, shape)
+
+
+def _check_compute(w: QuantizedTensor, axis, what: str) -> None:
+    if w.bits != 8 or w.axis != axis:
+        raise ValueError(
+            f"{what}: int{w.bits} codes over axes {w.axis}, the int8 "
+            f"products contract {axis} — re-quantize with "
+            "quantize_for_serving")
+
+
+def _split_qkv(w, shapes):
+    """The fused wqkv (a tensor, an int8 QuantizedTensor over axis 0, or
+    the three blocks of a partly quantized projection) -> wq, wk, wv in
+    the JAX shapes."""
+    sizes = [a * b for _, a, b in shapes]
+    if isinstance(w, tuple):
+        return [_split_qkv(part, [shape])[0]
+                for part, shape in zip(w, shapes)]
+    if isinstance(w, QuantizedTensor):
+        _check_compute(w, (0,), "attention.wqkv")
+        return [_qt(qq.reshape(shape), ss.reshape((1,) + shape[1:]), (0,),
+                    shape)
+                for qq, ss, shape in zip(w.q.split(sizes, 1),
+                                         w.scale.split(sizes, 1), shapes)]
+    return [part.reshape(shape)
+            for part, shape in zip(w.split(sizes, dim=1), shapes)]
+
+
+def _fuse_qkv(parts, H: int):
+    """wq, wk, wv in the JAX shapes -> the port's fused wqkv: one tensor,
+    one QuantizedTensor when all three are int8 over axis 0, else the
+    three [H, n d] blocks as a tuple."""
+    flat = []
+    for w in parts:
+        if isinstance(w, QuantizedTensor):
+            _check_compute(w, (0,), "attention wq/wk/wv")
+            n = w.q[0].numel()
+            w = _qt(w.q.reshape(H, n), w.scale.reshape(1, n), (0,), (H, n))
+        else:
+            w = w.reshape(H, -1)
+        flat.append(w)
+    quantized = [isinstance(w, QuantizedTensor) for w in flat]
+    if not any(quantized):
+        return torch.cat(flat, dim=1)
+    if not all(quantized):
+        return tuple(flat)
+    cols = sum(w.q.shape[1] for w in flat)
+    return _qt(torch.cat([w.q for w in flat], 1),
+               torch.cat([w.scale for w in flat], 1), (0,), (H, cols))
+
+
+def _reshape_wo(w, shape):
+    """The attention wo between [nq d, H] (port, axis 0) and [nq, d, H]
+    (JAX, axes (0, 1))."""
+    if not isinstance(w, QuantizedTensor):
+        return w.reshape(shape)
+    if len(shape) == 3:
+        _check_compute(w, (0,), "attention.wo")
+        return _qt(w.q.reshape(shape), w.scale.reshape(1, 1, shape[2]),
+                   (0, 1), shape)
+    _check_compute(w, (0, 1), "attention/wo")
+    return _qt(w.q.reshape(shape), w.scale.reshape(1, shape[1]), (0,),
+               shape)
+
+
+def model_tree(model: torch.nn.Module) -> Dict[str, Any]:
+    """A model's weights by state_dict name: each parameter, or the
+    QuantizedTensor (or partly quantized QKVParts, as a tuple) installed
+    in a weight's place."""
+    from luminaai_tpu_torch.models.layers import QKVParts
+
+    out: Dict[str, Any] = {}
+    held = []
+    for name, mod in model.named_modules():
+        if any(name.startswith(h + ".") for h in held):
+            continue
+        if isinstance(mod, QKVParts):
+            out[name] = mod.parts()
+            held.append(name)
+        elif isinstance(mod, QuantizedTensor):
+            out[name] = mod
+    for name, p in model.named_parameters():
+        if not any(name.startswith(h + ".") for h in held):
+            out[name] = p
+    return out
 
 
 def _to_state_dict(t: Callable[[str], torch.Tensor],
@@ -218,15 +342,10 @@ def _to_state_dict(t: Callable[[str], torch.Tensor],
         p, q = f"layer_{i}/", f"layers.{i}."
         sd[q + "attn_norm.scale"] = t(p + "attn_norm/scale")
         sd[q + "ffn_norm.scale"] = t(p + "ffn_norm/scale")
-        sd[q + "attention.wqkv"] = torch.cat(
-            [
-                t(p + "attention/wq").reshape(H, n_q * d),
-                t(p + "attention/wk").reshape(H, n_kv * d),
-                t(p + "attention/wv").reshape(H, n_kv * d),
-            ],
-            dim=1,
-        )
-        sd[q + "attention.wo"] = t(p + "attention/wo").reshape(n_q * d, H)
+        sd[q + "attention.wqkv"] = _fuse_qkv(
+            [t(p + "attention/" + name) for name in ("wq", "wk", "wv")], H)
+        sd[q + "attention.wo"] = _reshape_wo(t(p + "attention/wo"),
+                                             (n_q * d, H))
         if config.is_moe_layer(i):
             for name in ("router", "wi", "wo"):
                 sd[q + "moe." + name] = t(p + "moe/" + name)

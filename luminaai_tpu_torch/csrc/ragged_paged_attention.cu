@@ -48,6 +48,20 @@
 //   group's output columns; a second barrier keeps the shared memory alive
 //   until all reads are done. One launch, no device scratch.
 //
+// int8 KV (B5-int8, `lumina_ragged_paged_attention_int8`): the pool holds
+// int8 codes [n_pages, page_size, Hkv, D] and fp32 per-row scales
+// [n_pages, page_size, Hkv, 1] (quantized at insert over head_dim, the JAX
+// int8 cache). The split kernel's template flag kInt8 swaps its loads: the
+// code rows (half a bf16 tile's bytes) and the tile's R scales per side go
+// through the same page table by cp.async into a 3-stage ring, and each
+// tile is dequantized in shared memory, bf16(float(code) * scale) rounded
+// to nearest even (what the plain version's `.to(bfloat16)` computes), into
+// the bf16 K/V tile the ldmatrix / mma.sync products read; nothing after
+// that changes. Bound: sum(lengths) * Hkv * (D + 4) * 2 bytes a layer
+// (about 52% of the bf16 bound at head_dim 128). Head dims above 512 reach
+// no int8 kernel: the wrapper dequantizes only the pages the lanes reach
+// into a bf16 scratch and launches the wide kernel below.
+//
 // Head dims above 512 (any multiple of 8 the gate admits) take
 // ragged_decode_kernel_wide, the first kernel's design: one block per (kv
 // head, lane, chunk of 8 q heads, 512-column output slice), the scores
@@ -82,11 +96,23 @@ constexpr int kPad = 8;        // bf16 per shared row: conflict-free ldmatrix
 // K/V rows per tile for a head_dim.
 int split_rows(int D) { return D <= 128 ? 64 : D <= 256 ? 32 : 16; }
 
-size_t split_smem(int R, int D) {
+// Shared memory of the split kernel. bf16: q rows, then the ring of bf16
+// K/V tiles (the final fp32 state reuses it). int8: q rows, one bf16 K/V
+// tile, the ring of int8 code tiles (the final state reuses it), the
+// ring's fp32 scales. Both end with the merge's (max, sum, weights).
+size_t split_smem(int R, int D, bool int8) {
   const size_t ld = D + kPad;
-  const size_t ring = kStages * 2 * R * ld * sizeof(bf16);
-  const size_t state = kHeads * D * sizeof(float);  // reuses the ring
-  return kHeads * ld * sizeof(bf16) + (ring > state ? ring : state) +
+  const size_t state = kHeads * D * sizeof(float);
+  size_t body;
+  if (int8) {
+    const size_t ring = kStages * 2 * R * D;
+    body = 2 * R * ld * sizeof(bf16) + (ring > state ? ring : state) +
+           kStages * 2 * R * sizeof(float);
+  } else {
+    const size_t ring = kStages * 2 * R * ld * sizeof(bf16);
+    body = ring > state ? ring : state;
+  }
+  return kHeads * ld * sizeof(bf16) + body +
          sizeof(float) * (2 * kHeads + kHeads * kMaxSplit);
 }
 
@@ -94,6 +120,28 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(bytes)
                : "memory");
+}
+
+// 4 bytes (one fp32 scale); bytes 0 zero-fills.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// Eight int8 codes times one scale -> eight bf16, round to nearest even.
+__device__ __forceinline__ uint4 dequant8(uint2 codes, float scale) {
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t src = j < 2 ? codes.x : codes.y;
+    const int sh = 16 * (j & 1);
+    const float lo = static_cast<float>(static_cast<int8_t>((src >> sh) & 0xffu)) * scale;
+    const float hi = static_cast<float>(static_cast<int8_t>((src >> (sh + 8)) & 0xffu)) * scale;
+    const __nv_bfloat162 pr = __floats2bfloat162_rn(lo, hi);
+    w[j] = *reinterpret_cast<const uint32_t*>(&pr);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -130,11 +178,13 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Grid (split, Hkv x head chunks, B), clusters of (split, 1, 1).
-template <int R>
+// Grid (split, Hkv x head chunks, B), clusters of (split, 1, 1). k and v
+// are bf16 rows, or int8 code rows with k_scale / v_scale under kInt8.
+template <int R, bool kInt8>
 __global__ void __launch_bounds__(kThreads, 2)
-ragged_decode_kernel_split(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, const int* __restrict__ table,
+ragged_decode_kernel_split(const bf16* __restrict__ q, const void* __restrict__ k,
+                           const void* __restrict__ v, const float* __restrict__ k_scale,
+                           const float* __restrict__ v_scale, const int* __restrict__ table,
                            const int* __restrict__ lengths, bf16* __restrict__ out, int Hq,
                            int Hkv, int D, int page_size, int P, int n_pages, int window,
                            float scale) {
@@ -152,11 +202,28 @@ ragged_decode_kernel_split(const bf16* __restrict__ q, const bf16* __restrict__ 
 
   extern __shared__ uint4 smem_u4[];
   bf16* q_sm = reinterpret_cast<bf16*>(smem_u4);  // [kHeads][ld]
-  bf16* ring = q_sm + kHeads * ld;                 // kStages x (K [R][ld], V [R][ld])
-  const size_t ring_elems = static_cast<size_t>(kStages) * 2 * R * ld;
-  const size_t state_elems = static_cast<size_t>(kHeads) * D * 2;  // fp32 [kHeads][D]
-  float* m_sm = reinterpret_cast<float*>(ring + (ring_elems > state_elems ? ring_elems
-                                                                           : state_elems));
+  // bf16: ring = kStages x (K [R][ld], V [R][ld]). int8: ring = the one
+  // dequantized K/V tile, then the int8 code ring kStages x (K [R][D],
+  // V [R][D]) and its scales kStages x (K [R], V [R]).
+  bf16* ring = q_sm + kHeads * ld;
+  const size_t state_bytes = static_cast<size_t>(kHeads) * D * sizeof(float);
+  int8_t* codes = nullptr;
+  float* scales = nullptr;
+  float* o_sm;  // fp32 [kHeads][D]: the block's final state
+  float* m_sm;
+  if constexpr (kInt8) {
+    codes = reinterpret_cast<int8_t*>(ring + 2 * R * ld);
+    const size_t ring_bytes = static_cast<size_t>(kStages) * 2 * R * D;
+    scales = reinterpret_cast<float*>(codes + (ring_bytes > state_bytes ? ring_bytes
+                                                                         : state_bytes));
+    o_sm = reinterpret_cast<float*>(codes);
+    m_sm = scales + kStages * 2 * R;
+  } else {
+    const size_t ring_bytes = static_cast<size_t>(kStages) * 2 * R * ld * sizeof(bf16);
+    o_sm = reinterpret_cast<float*>(ring);
+    m_sm = reinterpret_cast<float*>(reinterpret_cast<char*>(ring) +
+                                    (ring_bytes > state_bytes ? ring_bytes : state_bytes));
+  }
   float* l_sm = m_sm + kHeads;
   float* w_sm = l_sm + kHeads;  // [kHeads][kMaxSplit]: each rank's weight
 
@@ -177,23 +244,52 @@ ragged_decode_kernel_split(const bf16* __restrict__ q, const bf16* __restrict__ 
     *reinterpret_cast<uint4*>(q_sm + hh * ld + c * 8) = val;
   }
 
-  // cp.async the K and V rows of band tile `t` into ring slot `st`.
+  // The pool row (page-table resolved) of band row kp, or 0 past the band.
+  auto pool_row = [&](int kp) -> size_t {
+    if (kp >= length) return 0;
+    int phys = lane_table[kp / page_size];
+    phys = min(max(phys, 0), n_pages - 1);
+    return (static_cast<size_t>(phys) * page_size + kp % page_size) * Hkv + h;
+  };
+
+  // cp.async the K and V rows of band tile `t` into ring slot `st` (rows
+  // past the band zero-filled: int8 codes and scales 0 dequantize to 0).
   auto load = [&](int t, int st) {
-    bf16* k_st = ring + static_cast<size_t>(st) * 2 * R * ld;
-    bf16* v_st = k_st + R * ld;
     const int row0 = start + t * R;
-    for (int c = tid; c < R * (D / 8); c += kThreads) {
-      const int r = c / (D / 8), cc = c - r * (D / 8);
-      const int kp = row0 + r;
-      size_t off = 0;
-      if (kp < length) {
-        int phys = lane_table[kp / page_size];
-        phys = min(max(phys, 0), n_pages - 1);
-        off = ((static_cast<size_t>(phys) * page_size + kp % page_size) * Hkv + h) * D + cc * 8;
+    if constexpr (kInt8) {
+      int8_t* k_st = codes + static_cast<size_t>(st) * 2 * R * D;
+      int8_t* v_st = k_st + R * D;
+      const int8_t* kc = static_cast<const int8_t*>(k);
+      const int8_t* vc = static_cast<const int8_t*>(v);
+      for (int c = tid; c < R * (D / 16); c += kThreads) {
+        const int r = c / (D / 16), cc = c - r * (D / 16);
+        const int kp = row0 + r;
+        const size_t off = pool_row(kp) * D + cc * 16;
+        const int bytes = kp < length ? 16 : 0;
+        cp_async16(k_st + r * D + cc * 16, kc + off, bytes);
+        cp_async16(v_st + r * D + cc * 16, vc + off, bytes);
       }
-      const int bytes = kp < length ? 16 : 0;  // zero-fill rows past the band
-      cp_async16(k_st + r * ld + cc * 8, k + off, bytes);
-      cp_async16(v_st + r * ld + cc * 8, v + off, bytes);
+      float* ks_st = scales + static_cast<size_t>(st) * 2 * R;
+      for (int r = tid; r < R; r += kThreads) {
+        const int kp = row0 + r;
+        const size_t row = pool_row(kp);
+        const int bytes = kp < length ? 4 : 0;
+        cp_async4(ks_st + r, k_scale + row, bytes);
+        cp_async4(ks_st + R + r, v_scale + row, bytes);
+      }
+    } else {
+      bf16* k_st = ring + static_cast<size_t>(st) * 2 * R * ld;
+      bf16* v_st = k_st + R * ld;
+      const bf16* kb = static_cast<const bf16*>(k);
+      const bf16* vb = static_cast<const bf16*>(v);
+      for (int c = tid; c < R * (D / 8); c += kThreads) {
+        const int r = c / (D / 8), cc = c - r * (D / 8);
+        const int kp = row0 + r;
+        const size_t off = pool_row(kp) * D + cc * 8;
+        const int bytes = kp < length ? 16 : 0;  // zero-fill rows past the band
+        cp_async16(k_st + r * ld + cc * 8, kb + off, bytes);
+        cp_async16(v_st + r * ld + cc * 8, vb + off, bytes);
+      }
     }
   };
 
@@ -219,7 +315,22 @@ ragged_decode_kernel_split(const bf16* __restrict__ q, const bf16* __restrict__ 
     if (i + kStages - 1 < n_t) load(t_begin + i + kStages - 1, (i + kStages - 1) % kStages);
     cp_async_commit();
 
-    const bf16* k_st = ring + static_cast<size_t>(i % kStages) * 2 * R * ld;
+    const bf16* k_st;
+    if constexpr (kInt8) {
+      // Dequantize tile i into the bf16 tile (every warp finished reading
+      // it for tile i - 1 before the barrier above).
+      const int8_t* kc = codes + static_cast<size_t>(i % kStages) * 2 * R * D;
+      const float* ks = scales + static_cast<size_t>(i % kStages) * 2 * R;
+      for (int c = tid; c < 2 * R * (D / 8); c += kThreads) {
+        const int r = c / (D / 8), cc = c - r * (D / 8);  // r < R: K; else V
+        const uint2 raw = *reinterpret_cast<const uint2*>(kc + r * D + cc * 8);
+        *reinterpret_cast<uint4*>(ring + r * ld + cc * 8) = dequant8(raw, ks[r]);
+      }
+      __syncthreads();
+      k_st = ring;
+    } else {
+      k_st = ring + static_cast<size_t>(i % kStages) * 2 * R * ld;
+    }
     const bf16* v_st = k_st + R * ld;
     const int rows = min(R, length - (start + (t_begin + i) * R));
 
@@ -300,7 +411,6 @@ ragged_decode_kernel_split(const bf16* __restrict__ q, const bf16* __restrict__ 
   __syncthreads();  // the ring is free: it holds this block's state next
 
   // This block's state: fp32 O [kHeads][D], max and sum per head.
-  float* o_sm = reinterpret_cast<float*>(ring);
 #pragma unroll
   for (int n = 0; n < 2 * kPairs; ++n) {
     if (n < 2 * pairs) {
@@ -558,13 +668,13 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int R>
-cudaError_t launch_split(const void* q, const void* k, const void* v, const void* table,
-                         const void* lengths, void* out, int B, int Hq, int Hkv, int D,
-                         int page_size, int P, int n_pages, int window, float scale,
-                         cudaStream_t stream) {
-  const size_t smem = split_smem(R, D);
-  cudaError_t err = allow_smem(ragged_decode_kernel_split<R>, smem);
+template <int R, bool kInt8>
+cudaError_t launch_split(const void* q, const void* k, const void* v, const void* k_scale,
+                         const void* v_scale, const void* table, const void* lengths,
+                         void* out, int B, int Hq, int Hkv, int D, int page_size, int P,
+                         int n_pages, int window, float scale, cudaStream_t stream) {
+  const size_t smem = split_smem(R, D, kInt8);
+  cudaError_t err = allow_smem(ragged_decode_kernel_split<R, kInt8>, smem);
   if (err != cudaSuccess) return err;
   // Blocks per (kv head, lane, head chunk): about two blocks per SM, from
   // the shapes alone (the lengths stay on the device).
@@ -585,8 +695,9 @@ cudaError_t launch_split(const void* q, const void* k, const void* v, const void
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, ragged_decode_kernel_split<R>, static_cast<const bf16*>(q),
-                           static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+  err = cudaLaunchKernelEx(&cfg, ragged_decode_kernel_split<R, kInt8>,
+                           static_cast<const bf16*>(q), k, v,
+                           static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
                            static_cast<const int*>(table), static_cast<const int*>(lengths),
                            static_cast<bf16*>(out), Hq, Hkv, D, page_size, P, n_pages, window,
                            scale);
@@ -611,6 +722,31 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, const void*
   return cudaGetLastError();
 }
 
+// The split kernel at the tile rows of head_dim D (D a multiple of 64, at
+// most 512).
+template <bool kInt8>
+cudaError_t dispatch_split(const void* q, const void* k, const void* v, const void* k_scale,
+                           const void* v_scale, const void* table, const void* lengths,
+                           void* out, int B, int Hq, int Hkv, int D, int page_size, int P,
+                           int n_pages, int window, float scale, cudaStream_t s) {
+  switch (split_rows(D)) {
+    case 64:
+      return launch_split<64, kInt8>(q, k, v, k_scale, v_scale, table, lengths, out, B, Hq, Hkv,
+                                     D, page_size, P, n_pages, window, scale, s);
+    case 32:
+      return launch_split<32, kInt8>(q, k, v, k_scale, v_scale, table, lengths, out, B, Hq, Hkv,
+                                     D, page_size, P, n_pages, window, scale, s);
+    default:
+      return launch_split<16, kInt8>(q, k, v, k_scale, v_scale, table, lengths, out, B, Hq, Hkv,
+                                     D, page_size, P, n_pages, window, scale, s);
+  }
+}
+
+bool bad_shape(int B, int Hq, int Hkv, int D, int page_size, int P, int n_pages) {
+  return B <= 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 || D <= 0 || D % 8 != 0 ||
+         page_size <= 0 || P <= 0 || n_pages <= 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -622,8 +758,7 @@ int lumina_ragged_paged_attention(const void* q, const void* k, const void* v,
                                   const void* table, const void* lengths, void* out,
                                   int B, int Hq, int Hkv, int D, int page_size, int P,
                                   int n_pages, int window, float scale, void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 || D <= 0 || D % 8 != 0 ||
-      page_size <= 0 || P <= 0 || n_pages <= 0) {
+  if (bad_shape(B, Hq, Hkv, D, page_size, P, n_pages)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -634,22 +769,27 @@ int lumina_ragged_paged_attention(const void* q, const void* k, const void* v,
   } else if (D % 64 != 0) {
     err = cudaErrorInvalidValue;  // the split kernel's warps own 16-column pairs
   } else {
-    switch (split_rows(D)) {
-      case 64:
-        err = launch_split<64>(q, k, v, table, lengths, out, B, Hq, Hkv, D, page_size, P,
-                               n_pages, window, scale, s);
-        break;
-      case 32:
-        err = launch_split<32>(q, k, v, table, lengths, out, B, Hq, Hkv, D, page_size, P,
-                               n_pages, window, scale, s);
-        break;
-      default:
-        err = launch_split<16>(q, k, v, table, lengths, out, B, Hq, Hkv, D, page_size, P,
-                               n_pages, window, scale, s);
-        break;
-    }
+    err = dispatch_split<false>(q, k, v, nullptr, nullptr, table, lengths, out, B, Hq, Hkv, D,
+                                page_size, P, n_pages, window, scale, s);
   }
   return static_cast<int>(err);
+}
+
+// B5-int8: k_codes / v_codes int8 [n_pages, page_size, Hkv, D], k_scales /
+// v_scales fp32 [n_pages, page_size, Hkv, 1]; head_dim a multiple of 64 up
+// to 512 (the wrapper takes wider heads through a bf16 scratch).
+int lumina_ragged_paged_attention_int8(const void* q, const void* k_codes, const void* k_scales,
+                                       const void* v_codes, const void* v_scales,
+                                       const void* table, const void* lengths, void* out, int B,
+                                       int Hq, int Hkv, int D, int page_size, int P, int n_pages,
+                                       int window, float scale, void* stream) {
+  if (bad_shape(B, Hq, Hkv, D, page_size, P, n_pages) || D > kSplitDim || D % 64 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(dispatch_split<true>(q, k_codes, v_codes, k_scales, v_scales, table,
+                                               lengths, out, B, Hq, Hkv, D, page_size, P,
+                                               n_pages, window, scale,
+                                               static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

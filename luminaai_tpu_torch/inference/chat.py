@@ -12,6 +12,12 @@ convert.params_from_flax), or from a seed (convert.init_params).
 parameters are cast to bf16 (the serving precision; the JAX default
 inference_precision 'auto') unless keep_master_dtype, and a LoRA adapter
 merges AFTER that cast, so both packages round the merged weights alike.
+An int8 serving export (`convert --to int8`: codes, scales and the
+`quantization` manifest in its metadata) loads as QuantizedTensor
+weights with no re-quantization where allow_quantized (chat, serve), and
+is refused with the JAX loader's message elsewhere (finetune, evaluate,
+convert). `quantize` / `kv_cache_dtype` set the config the engine
+quantizes from (the JAX ChatInterface's).
 
 ChatInterface is the JAX REPL: session stats, generation modes, the
 /help /stats /mode /system /clear /save /config /quit commands, and a
@@ -101,12 +107,14 @@ def load_checkpoint_flax(
     config: Optional[Config] = None,
     overrides: Optional[Dict[str, Any]] = None,
     mode: str = "full",
-) -> Tuple[Dict[str, torch.Tensor], Config, Dict[str, Any]]:
+    allow_quantized: bool = False,
+) -> Tuple[Dict[str, Any], Config, Dict[str, Any]]:
     """({flax path: saved tensor on the CPU}, config, metadata) of the
     newest intact step under `checkpoint` (a training checkpoint or a
     params-only one, such as `finetune --merge-out` writes). The config
     is the one in the checkpoint's metadata (with `overrides` applied)
-    unless one is given."""
+    unless one is given. An int8 serving export gives QuantizedTensor
+    leaves where allow_quantized, and raises ValueError otherwise."""
     from luminaai_tpu_torch.training.checkpoint import (
         find_checkpoint_step,
         load_state_file,
@@ -117,7 +125,24 @@ def load_checkpoint_flax(
         config = Config.from_dict({**meta["config"], **(overrides or {})})
     tree = load_state_file(step_dir)
     logger.info("loading checkpoint %s (step %s)", step_dir, meta.get("step"))
-    return tree["params"], config, meta
+    params = tree["params"]
+    if "quantization" in meta:
+        if not allow_quantized:
+            raise ValueError(
+                f"{checkpoint} is an int8 SERVING checkpoint "
+                "(convert --to int8); chat/serve load it, but this "
+                "operation needs full-precision weights — use the "
+                "source checkpoint instead"
+            )
+        from luminaai_tpu_torch.training.quantization import (
+            import_quantized_tree,
+        )
+
+        manifest = meta["quantization"]["manifest"]
+        params = import_quantized_tree(params, manifest)
+        logger.info("loaded int8 serving checkpoint (%d quantized tensors)",
+                    len(manifest))
+    return params, config, meta
 
 
 def load_checkpoint_params(
@@ -125,11 +150,13 @@ def load_checkpoint_params(
     config: Optional[Config] = None,
     overrides: Optional[Dict[str, Any]] = None,
     mode: str = "full",
-) -> Tuple[Dict[str, torch.Tensor], Config, int]:
-    """(state_dict of the saved fp32 parameters on the CPU, config, step)
-    of the newest intact step under `checkpoint`."""
+    allow_quantized: bool = False,
+) -> Tuple[Dict[str, Any], Config, int]:
+    """(state_dict of the saved parameters on the CPU, config, step) of
+    the newest intact step under `checkpoint`."""
     flat, config, meta = load_checkpoint_flax(checkpoint, config,
-                                              overrides, mode)
+                                              overrides, mode,
+                                              allow_quantized)
     return flax_to_state_dict(flat, config), config, meta["step"]
 
 
@@ -140,18 +167,28 @@ def load_model_for_inference(
     adapter: Optional[str] = None,
     device=None,
     overrides: Optional[Dict[str, Any]] = None,
+    allow_quantized: bool = False,
 ) -> Tuple[LuminaTransformer, Config]:
     """(model on `device`, config) from a checkpoint. The parameters are
     cast to bf16 first unless keep_master_dtype (fine-tuning keeps the
     fp32 masters and gets the trainable model: fp32 parameters cast at
     each use); `adapter` (a LoRA .npz) merges after the cast. `overrides`
-    apply to the checkpoint's config (serve's --dense/--moe-dispatch)."""
-    flat, config, _ = load_checkpoint_flax(checkpoint_dir, config, overrides)
+    apply to the checkpoint's config (serve's --dense/--moe-dispatch).
+    An int8 serving export loads only where allow_quantized."""
+    from luminaai_tpu_torch.ops.quantized import QuantizedTensor
+
+    flat, config, _ = load_checkpoint_flax(
+        checkpoint_dir, config, overrides, allow_quantized=allow_quantized)
     if not keep_master_dtype:
-        flat = {k: v.to(torch.bfloat16) for k, v in flat.items()}
+        flat = {k: v if isinstance(v, QuantizedTensor)
+                else v.to(torch.bfloat16) for k, v in flat.items()}
     if adapter is not None:
         from luminaai_tpu_torch.training.adapters import load_lora, merge_lora
 
+        if any(isinstance(v, QuantizedTensor) for v in flat.values()):
+            raise ValueError(
+                f"{checkpoint_dir} holds int8 weights: merge the adapter "
+                "into the source checkpoint, then convert --to int8")
         lora, spec = load_lora(adapter)
         flat = merge_lora(flat, lora, spec)
         logger.info("merged LoRA adapter %s (rank %d, %d kernels)",
@@ -173,13 +210,14 @@ def build_engine(
 ) -> GenerationEngine:
     """A GenerationEngine with its model on `device` (None = the card;
     raises where CUDA is absent). Weights: the checkpoint at `checkpoint`
-    (config None = the checkpoint's, with `overrides` applied), else the
-    .npz at `weights`, else a random init from `seed` (config.seed when
-    None)."""
+    (config None = the checkpoint's, with `overrides` applied; an int8
+    serving export loads as it was saved), else the .npz at `weights`,
+    else a random init from `seed` (config.seed when None). The engine
+    applies the config's quantization_method and kv_cache_dtype."""
     state_dict = None
     if checkpoint is not None:
         state_dict, config, _ = load_checkpoint_params(
-            checkpoint, config, overrides)
+            checkpoint, config, overrides, allow_quantized=True)
     model = LuminaTransformer(config, device=device)
     if state_dict is not None:
         model.load_params(state_dict)
@@ -208,14 +246,6 @@ class ChatInterface:
         kv_cache_dtype: Optional[str] = None,
         device=None,
     ):
-        if quantize is not None:
-            raise NotImplementedError(
-                f"quantize={quantize!r}: weight quantization for serving "
-                "(ops/quantized.py) is not ported yet (ROADMAP A9)")
-        if kv_cache_dtype not in (None, "bf16"):
-            raise NotImplementedError(
-                f"kv_cache_dtype={kv_cache_dtype!r}: int8 KV codes are not "
-                "ported yet (ROADMAP A6); the cache is bf16")
         if engine is not None:
             self.engine = engine
             self.config = engine.config
@@ -230,8 +260,14 @@ class ChatInterface:
                 logger.info("auto-discovered checkpoint: %s", checkpoint_dir)
             model, config = load_model_for_inference(
                 checkpoint_dir, config=config, adapter=adapter,
-                device=device,
+                device=device, allow_quantized=True,
             )
+            if quantize is not None:
+                # Serve int8/int4: the engine quantizes from its config.
+                config.quantization_method = quantize
+            if kv_cache_dtype is not None:
+                # int8 decode KV cache: about half the pool's bytes.
+                config.kv_cache_dtype = kv_cache_dtype
             self.config = config
             # The checkpoint's tokenizer_name travels in its config.
             tokenizer = tokenizer or ConversationTokenizer(

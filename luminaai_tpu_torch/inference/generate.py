@@ -42,6 +42,13 @@ arena (`index_copy_` on each layer's pool tensors, on the stream the next
 decode step reads from). Decode then hands B5 the global table: lanes
 read the shared arena pages in place.
 
+Quantized serving (the JAX engine's, generate.py:189-201): the engine
+applies its config's quantization_method to the model in place
+(training/quantization.quantize_model) and keeps `quantization_info`;
+every cache it allocates takes its config's kv_cache_dtype (int8: codes
+and per-row scales, each side a pair), and the splice, harvest and page
+copies move every leaf.
+
 Sampling draws from torch.Generators: seeded sampling is reproducible
 within the port, but it does not draw JAX's numbers. Greedy decoding
 involves no randomness and matches the JAX decoder token for token
@@ -59,7 +66,13 @@ import numpy as np
 import torch
 
 from luminaai_tpu_torch.config import Config
-from luminaai_tpu_torch.inference.kv_pool import PagedKVPool, to_flat, to_paged
+from luminaai_tpu_torch.inference.kv_pool import (
+    PagedKVPool,
+    cache_leaves,
+    map_sides,
+    to_flat,
+    to_paged,
+)
 from luminaai_tpu_torch.ops.ragged_paged_attention import LaneMeta
 
 logger = logging.getLogger(__name__)
@@ -207,7 +220,9 @@ class _NgramIndex:
 class GenerationEngine:
     """A model + tokenizer + config: single-request generation, and the
     request plumbing the server and the step-wise decoder share. The
-    model holds its weights on its device."""
+    model holds its weights on its device; config.quantization_method
+    ('int8' | 'int4') quantizes them in place here, as the JAX engine
+    quantizes its params."""
 
     def __init__(self, model, tokenizer, config: Config,
                  max_context: Optional[int] = None):
@@ -217,6 +232,27 @@ class GenerationEngine:
         self.max_context = max_context or config.seq_length
         self.decode_forwards = 0  # single-request and batched decode steps
         self.verify_forwards = 0  # speculative verify forwards
+        self.quantization_info: Dict[str, Any] = {}
+        self.configure(quantize=config.quantization_method)
+
+    def configure(self, quantize: Optional[str] = None,
+                  kv_cache_dtype: Optional[str] = None) -> None:
+        """Set quantization_method / kv_cache_dtype on the config and
+        quantize the model (idempotent over weights already quantized);
+        caches allocated after this take the new dtype."""
+        from luminaai_tpu_torch.training.quantization import quantize_model
+
+        if kv_cache_dtype is not None:
+            self.config.kv_cache_dtype = kv_cache_dtype
+        if quantize is not None:
+            self.config.quantization_method = quantize
+            self.quantization_info = quantize_model(self.model, self.config)
+
+    def init_cache(self, batch: int, rows: int):
+        """The model's caches in this engine's kv_cache_dtype (the engine's
+        config decides, as in JAX, not the model's)."""
+        return self.model.init_cache(batch, rows,
+                                     kv_cache_dtype=self.config.kv_cache_dtype)
 
     @property
     def _stop_set(self):
@@ -287,7 +323,7 @@ class GenerationEngine:
         n = max(1, -(-L // chunk))
         ids = np.zeros((1, n * chunk), dtype=np.int64)
         ids[0, :L] = prompt
-        caches = self.model.init_cache(1, self.max_context)
+        caches = self.init_cache(1, self.max_context)
         logits = None
         for c in range(n):
             start = c * chunk
@@ -317,7 +353,7 @@ class GenerationEngine:
             bucket = min(_bucket_len(length), self.max_context)
             ids = np.zeros((1, bucket), dtype=np.int64)
             ids[0, :length] = prompt
-            caches = self.model.init_cache(1, self.max_context)
+            caches = self.init_cache(1, self.max_context)
             logits = self._prefill_rows(caches, ids, 0, length)
         counts = torch.zeros_like(logits, dtype=torch.int32)
         gen = torch.Generator(device=self.model.device).manual_seed(
@@ -592,7 +628,7 @@ class GenerationEngine:
             ids[i, :len(r)] = r
         pos = np.arange(bucket)[None]
         positions = np.where(pos < np.asarray(lengths)[:, None], pos, -1)
-        caches = self.model.init_cache(B, self.max_context)
+        caches = self.init_cache(B, self.max_context)
         hidden, _ = self.model(
             torch.as_tensor(ids, device=dev),
             positions=torch.as_tensor(positions, device=dev),
@@ -775,7 +811,7 @@ class StepwiseDecoder:
             -(-prefix_cache_pages // pages) if prefix_cache_pages > 0 else 0
         )
         self.total_slots = num_slots + arena_slots
-        caches = self.model.init_cache(self.total_slots, pages * page_size)
+        caches = engine.init_cache(self.total_slots, pages * page_size)
         # Lane accounting covers the first num_slots rows only; the arena
         # slots are reached through global page-table entries.
         self.pool = PagedKVPool(
@@ -905,8 +941,7 @@ class StepwiseDecoder:
     # -- device pieces -----------------------------------------------------
     def _lane(self, slot: int, rows: int):
         """Per-layer (k, v) views of one slot's first `rows` rows."""
-        return [(k[slot:slot + 1, :rows], v[slot:slot + 1, :rows])
-                for k, v in self._flat]
+        return map_sides(lambda t: t[slot:slot + 1, :rows], self._flat)
 
     def _forward_rows(self, ids: np.ndarray, caches, start: int,
                       length: int, last: int) -> torch.Tensor:
@@ -944,21 +979,17 @@ class StepwiseDecoder:
         P, ps = self.pool.pages, self.pool.page_size
         idx = torch.as_tensor(self._gtable[slot], dtype=torch.int64,
                               device=self.device)
-        views = []
-        for k, v in self.pool.caches:
-            pair = []
-            for t in (k, v):
-                flat = t.reshape(t.shape[0] * P, *t.shape[2:])
-                pair.append(flat.index_select(0, idx).reshape(
-                    1, P * ps, *t.shape[3:]))
-            views.append(tuple(pair))
+        views = map_sides(
+            lambda t: t.reshape(t.shape[0] * P, *t.shape[2:]).index_select(
+                0, idx).reshape(1, P * ps, *t.shape[3:]),
+            self.pool.caches)
         logits = self._forward_rows(ids, views, start, length, last)
         end = min(start + ids.shape[1], length)
         j0, j1 = max(start // ps, p0), min(-(-end // ps), P)
         if j1 > j0:
-            for (k, v), (vk, vv) in zip(self.pool.caches, views):
-                k[slot, j0:j1] = vk.view(P, ps, *k.shape[3:])[j0:j1]
-                v[slot, j0:j1] = vv.view(P, ps, *v.shape[3:])[j0:j1]
+            for t, vt in zip(cache_leaves(self.pool.caches),
+                             cache_leaves(views)):
+                t[slot, j0:j1] = vt.view(P, ps, *t.shape[3:])[j0:j1]
         return logits
 
     def _active_extent(self) -> int:
@@ -1402,14 +1433,14 @@ class StepwiseDecoder:
     @torch.inference_mode()
     def _copy_pages(self, src: List[int], dst: List[int]) -> None:
         """Copy whole pages (global ids slot * pages + page) inside the
-        pool: every layer's k and v, in one index_copy_ each."""
+        pool: every leaf (each layer's k and v, an int8 pool's codes and
+        scales), in one index_copy_ each."""
         s = torch.as_tensor(src, dtype=torch.int64, device=self.device)
         d = torch.as_tensor(dst, dtype=torch.int64, device=self.device)
         P = self.pool.pages
-        for k, v in self.pool.caches:
-            for t in (k, v):
-                flat = t.view(t.shape[0] * P, *t.shape[2:])
-                flat.index_copy_(0, d, flat.index_select(0, s))
+        for t in cache_leaves(self.pool.caches):
+            flat = t.view(t.shape[0] * P, *t.shape[2:])
+            flat.index_copy_(0, d, flat.index_select(0, s))
 
     @torch.inference_mode()
     def decode_step(

@@ -15,6 +15,11 @@ accounts for the lanes only, and the arena's pages are reached through the
 decoder's global page table; those arena pages are what the fleet's
 page sharing exports and imports (export_page / import_page, in the JAX
 pool's LPG1 wire format, byte for byte).
+
+With kv_cache_dtype='int8' each side of a layer is a pair (codes int8,
+scales fp32 [..., 1]) instead of one tensor, as in the JAX cache tree;
+`map_sides` and `cache_leaves` walk either form, the leaves in JAX's
+flatten order (per layer: k codes, k scales, v codes, v scales).
 """
 
 from __future__ import annotations
@@ -22,28 +27,31 @@ from __future__ import annotations
 import json
 import math
 import threading
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-KVPair = Tuple[torch.Tensor, torch.Tensor]
+# A layer's (k, v); each side a tensor or an int8 (codes, scales) pair.
+KVPair = Tuple[Any, Any]
 
 # Wire format for one serialized KV page (cross-replica page pulls), the
 # JAX pool's: magic, 4-byte big-endian header length, JSON header
 # {"page_size": int, "leaves": [{"shape": [...], "dtype": "..."}]}, then
 # each leaf's C-order bytes in layer order (layer 0 k, layer 0 v, layer 1
-# k, ...), each leaf [page_size, kv_heads, head_dim] after any leading axes.
+# k, ...; int8 pools: layer 0 k codes, k scales, v codes, v scales, ...),
+# each leaf [page_size, kv_heads, head_dim or 1] after any leading axes.
 PAGE_WIRE_MAGIC = b"LPG1"
 
 # The numpy dtype names the JAX pool writes for the cache dtypes the port
 # holds, and the torch dtypes they frame. bfloat16 is numpy's name under
 # ml_dtypes; here it maps straight to torch.bfloat16, whose bytes are the
-# same. (int8 caches, codes and scales, wait for the quantized slice.)
+# same. An int8 pool's codes are "int8", its scales "float32".
 _WIRE_DTYPES = {
     "float32": torch.float32,
     "float16": torch.float16,
     "bfloat16": torch.bfloat16,
+    "int8": torch.int8,
 }
 _WIRE_NAMES = {v: k for k, v in _WIRE_DTYPES.items()}
 
@@ -88,23 +96,39 @@ def parse_page_payload(payload: bytes) -> List[torch.Tensor]:
     return out
 
 
+def map_sides(fn: Callable[[torch.Tensor], Any],
+              caches: Sequence[KVPair]) -> List[KVPair]:
+    """fn applied to every tensor of per-layer (k, v) caches, the
+    structure kept (an int8 side stays a (codes, scales) pair)."""
+
+    def side(x):
+        return tuple(fn(t) for t in x) if isinstance(x, tuple) else fn(x)
+
+    return [(side(k), side(v)) for k, v in caches]
+
+
+def cache_leaves(caches: Sequence[KVPair]) -> List[torch.Tensor]:
+    """Every tensor of the caches in JAX's tree-flatten order."""
+    out: List[torch.Tensor] = []
+    for kv in caches:
+        for x in kv:
+            out.extend(x if isinstance(x, tuple) else (x,))
+    return out
+
+
 def to_paged(caches: Sequence[KVPair], pages: int, page_size: int) -> List[KVPair]:
     """[..., C, heads, dim] -> [..., pages, page_size, heads, dim] views."""
-
-    def one(x: torch.Tensor) -> torch.Tensor:
-        return x.view(x.shape[:-3] + (pages, page_size) + x.shape[-2:])
-
-    return [(one(k), one(v)) for k, v in caches]
+    return map_sides(
+        lambda x: x.view(x.shape[:-3] + (pages, page_size) + x.shape[-2:]),
+        caches)
 
 
 def to_flat(caches: Sequence[KVPair], pages: int, page_size: int) -> List[KVPair]:
     """Inverse of to_paged: the [..., pages * page_size, heads, dim] views
     the attention layers read and write."""
-
-    def one(x: torch.Tensor) -> torch.Tensor:
-        return x.view(x.shape[:-4] + (pages * page_size,) + x.shape[-2:])
-
-    return [(one(k), one(v)) for k, v in caches]
+    return map_sides(
+        lambda x: x.view(x.shape[:-4] + (pages * page_size,) + x.shape[-2:]),
+        caches)
 
 
 class PagedKVPool:
@@ -156,7 +180,7 @@ class PagedKVPool:
     def _leaves(self) -> List[torch.Tensor]:
         if self.caches is None:
             raise RuntimeError("accounting-only pool has no cache tensors")
-        return [t for kv in self.caches for t in kv]
+        return cache_leaves(self.caches)
 
     def _locate(self, gid: int) -> Tuple[int, int]:
         """Global page id -> physical (slot, page), bounds-checked against
@@ -173,8 +197,9 @@ class PagedKVPool:
 
     def export_page(self, gid: int) -> bytes:
         """Serialize ONE physical page (global id = slot * pages + page):
-        every layer's k and v [page_size, heads, dim] slice, copied to the
-        host on the current stream (ordered after every copy enqueued
+        every leaf's [page_size, heads, dim] slice (an int8 pool's codes
+        and [page_size, heads, 1] scales), copied to the host on the
+        current stream (ordered after every copy enqueued
         before it, the harvest flush included)."""
         slot, page = self._locate(gid)
         metas, blobs = [], []

@@ -8,6 +8,15 @@ compute-dtype copies once, without gradients (the values are identical,
 and the casts are then no-ops). Norm scales stay fp32 in both, as the JAX
 RMSNorm applies them.
 
+Quantized serving (training/quantization.py) puts a QuantizedTensor
+module in a weight's place; each call site then runs the int8 product of
+ops/quantized.py, as the JAX layers switch on isinstance (SwiGLU wi/wo,
+the attention projections, the embedding lookup and the head). A cache
+side is a tensor, or with kv_cache_dtype='int8' a (codes int8, scales
+fp32 [.., 1]) pair: fresh rows are quantized per row and kv head over
+head_dim at insert (the JAX layer's quantize_act), and the attention
+reads the pair (B5-int8 on the card).
+
 KV caches are updated IN PLACE: the JAX layers return a functionally
 updated cache, the port writes the rows into the caller's tensors (the
 pool, or a view of one slot of it) and returns the same tensors, so a
@@ -28,9 +37,17 @@ from luminaai_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_eligible,
 )
+from luminaai_tpu_torch.ops.quantized import (
+    QuantizedTensor,
+    embed_rows,
+    int8_attend,
+    project,
+    quantize_act,
+)
 from luminaai_tpu_torch.ops.ragged_paged_attention import (
     NEG_INF,
     LaneMeta,
+    cache_rows,
     implied_page_size,
     paged_attention,
 )
@@ -113,8 +130,40 @@ class SwiGLU(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        gate, up = torch.chunk(x @ self.wi.to(self.dtype), 2, dim=-1)
-        return (F.silu(gate) * up) @ self.wo.to(self.dtype)
+        gate, up = torch.chunk(project(x, self.wi, self.dtype), 2, dim=-1)
+        return project(F.silu(gate) * up, self.wo, self.dtype)
+
+
+class QKVParts(nn.Module):
+    """The fused projection's wq, wk and wv blocks ([H, n d] each) held
+    apart, where quantization took some and not others (the JAX per-leaf
+    min_size): each block runs its own product, in JAX's order."""
+
+    def __init__(self, parts):
+        super().__init__()
+        for name, w in zip(("wq", "wk", "wv"), parts):
+            if not isinstance(w, QuantizedTensor):
+                w = nn.Parameter(w, requires_grad=False)
+            setattr(self, name, w)
+
+    def parts(self):
+        return (self.wq, self.wk, self.wv)
+
+    def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
+        return torch.cat([project(x, w, dtype) for w in self.parts()],
+                         dim=-1)
+
+
+def _write_rows(cache, index, fresh: torch.Tensor) -> None:
+    """cache[index] = fresh, in place; an int8 (codes, scales) side
+    stores fresh quantized per row over head_dim."""
+    if isinstance(cache, tuple):
+        codes, scales = cache
+        q8, s = quantize_act(fresh)
+        codes[index] = q8
+        scales[index] = s
+    else:
+        cache[index] = fresh.to(cache.dtype)
 
 
 class GQAttention(nn.Module):
@@ -184,7 +233,10 @@ class GQAttention(nn.Module):
                 "the port's attention runs the per-lane cache paths only "
                 "(a [B] cache_index) and the no-cache forward"
             )
-        qkv = x @ self.wqkv.to(self.dtype)
+        if isinstance(self.wqkv, QKVParts):
+            qkv = self.wqkv(x, self.dtype)
+        else:
+            qkv = project(x, self.wqkv, self.dtype)
         q = qkv[..., : n_q * d].reshape(B, S, n_q, d)
         k = qkv[..., n_q * d: (n_q + n_kv) * d].reshape(B, S, n_kv, d)
         v = qkv[..., (n_q + n_kv) * d:].reshape(B, S, n_kv, d)
@@ -204,10 +256,11 @@ class GQAttention(nn.Module):
                 )
             else:
                 out = self._xla_attention(q, k, v)
-            return out.reshape(B, S, n_q * d) @ self.wo.to(self.dtype), None
+            return project(out.reshape(B, S, n_q * d), self.wo,
+                           self.dtype), None
 
         ck, cv = kv_cache
-        C = ck.shape[1]
+        C = cache_rows(ck)
         cos, sin = self._rope_tables(max(cfg.seq_length, S, C), x.device)
         q = apply_rope(q, cos, sin, positions, compute_dtype=rope_ct)
         k = apply_rope(k, cos, sin, positions, compute_dtype=rope_ct)
@@ -220,23 +273,23 @@ class GQAttention(nn.Module):
                     "positions (padding rows marked -1)"
                 )
             live = positions >= 0
-            rows = lanes[:, None].expand(B, S)[live]
-            ck[rows, positions[live]] = k[live].to(ck.dtype)
-            cv[rows, positions[live]] = v[live].to(cv.dtype)
+            index = (lanes[:, None].expand(B, S)[live], positions[live])
+            _write_rows(ck, index, k[live])
+            _write_rows(cv, index, v[live])
         else:
             # One decode row per lane. XLA drops an out-of-range scatter
             # row, torch faults on it: the only lanes that can sit past the
             # last row are finished or free ones whose output is discarded,
             # so their write is clamped onto their own last row.
-            at = cache_index.clamp(0, C - 1)
-            ck[lanes, at] = k[:, 0].to(ck.dtype)
-            cv[lanes, at] = v[:, 0].to(cv.dtype)
+            index = (lanes, cache_index.clamp(0, C - 1))
+            _write_rows(ck, index, k[:, 0])
+            _write_rows(cv, index, v[:, 0])
 
         backend = getattr(lane_meta, "backend", None) or "ragged"
         out = self._ragged_attention(
             q, ck, cv, lane_meta, cache_index, positions, backend
         )
-        y = out.reshape(B, S, n_q * d) @ self.wo.to(self.dtype)
+        y = project(out.reshape(B, S, n_q * d), self.wo, self.dtype)
         return y, (ck, cv)
 
     def _xla_attention(self, q, k, v):
@@ -276,7 +329,7 @@ class GQAttention(nn.Module):
             meta = LaneMeta(
                 lengths=lengths,
                 window=self.config.attention_window,
-                page_size=implied_page_size(k.shape[1]),
+                page_size=implied_page_size(cache_rows(k)),
             )
         return paged_attention(
             q, k, v, meta,
@@ -331,9 +384,10 @@ class Embedder(nn.Module):
         them, and head() casts at each use."""
         if self.trainable:
             return
-        self.embedding.copy_(self.embedding.to(self.dtype).float())
-        if not self.config.tie_word_embeddings:
-            self.lm_head.copy_(self.lm_head.to(self.dtype).float())
+        for name in ("embedding", "lm_head"):
+            t = getattr(self, name, None)
+            if isinstance(t, nn.Parameter):
+                t.copy_(t.to(self.dtype).float())
 
     def head_weight(self) -> torch.Tensor:
         """The head's fp32 parameter [V, H]: the embedding when tied, else
@@ -349,10 +403,16 @@ class Embedder(nn.Module):
         return self.head_weight()
 
     def encode(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embedding[tokens].to(self.dtype)
+        if isinstance(self.embedding, QuantizedTensor):
+            x = embed_rows(self.embedding, tokens, self.dtype)
+        else:
+            x = self.embedding[tokens].to(self.dtype)
         return x * self.scale if self.scale is not None else x
 
     def decode(self, x: torch.Tensor) -> torch.Tensor:
+        head = self.head_weight()
+        if isinstance(head, QuantizedTensor):
+            return int8_attend(x, head, torch.float32)
         return x.float() @ self.head().t()
 
 

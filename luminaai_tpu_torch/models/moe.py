@@ -27,10 +27,13 @@ choices); pairs past capacity are dropped and their gate is 0.
 - The load-balancing and z losses and the router-health metrics (:468-507).
 
 The expert products of 'sort', 'gather' and 'einsum' are the dense
-[E, G, C, .] torch matmuls (XLA's in JAX). 'a2a' dispatch (an expert
-mesh), int8 experts and the multi-device branches (the JAX `_gmm_path`
-under shard_map, `_a2a_path`) are not ported (ROADMAP queue A); 'a2a' is
-refused where the layer is built.
+[E, G, C, .] torch matmuls (XLA's in JAX). int8 experts (quantized
+serving: `wi`/`wo` QuantizedTensors over axis 1) run one int8 product an
+expert (ops/quantized.int8_expert, JAX :420-435), and send 'gmm' to
+'gather' as the JAX layer does (:303-310): the grouped-matmul kernel is
+bf16 only. 'a2a' dispatch (an expert mesh) and the multi-device branches
+(the JAX `_gmm_path` under shard_map, `_a2a_path`) are not ported
+(ROADMAP queue A); 'a2a' is refused where the layer is built.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from torch import nn
 
 from luminaai_tpu_torch.config import Config
 from luminaai_tpu_torch.ops.gmm import grouped_matmul
+from luminaai_tpu_torch.ops.quantized import QuantizedTensor, int8_expert
 
 # The megablox m tile: the sorted row buffer is padded up to it (the JAX
 # _GMM_ROW_TILE); pad rows sit past sum(group_sizes).
@@ -277,6 +281,11 @@ class MoELayer(nn.Module):
                                  torch.full_like(logits, -1e9))
         return logits, torch.softmax(logits, dim=-1)
 
+    def _expert_product(self, x, w, spec: str) -> torch.Tensor:
+        if isinstance(w, QuantizedTensor):
+            return int8_expert(x, w, self.dtype)
+        return torch.einsum(spec, x, w.to(self.dtype))
+
     def forward(self, x: torch.Tensor,
                 draws: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -289,6 +298,8 @@ class MoELayer(nn.Module):
         logits, probs = self.route(x, draws)
 
         mode = cfg.moe_dispatch
+        if mode == "gmm" and isinstance(self.wi, QuantizedTensor):
+            mode = "gather"  # the grouped-matmul kernel is bf16 only
         if mode == "gmm":
             out, tokens_per_expert, dropped = gmm_local(
                 x, probs, self.wi, self.wo, top_k=k, capacity=C,
@@ -330,12 +341,10 @@ class MoELayer(nn.Module):
                     expert_in = buf[:, : E * C].reshape(G, E, C, H)
                     expert_in = expert_in.transpose(0, 1)
                 tokens_per_expert = counts.to(torch.float32).sum(0)
-            fused = torch.einsum("egch,ehf->egcf", expert_in,
-                                 self.wi.to(self.dtype))
+            fused = self._expert_product(expert_in, self.wi, "egch,ehf->egcf")
             gate_act, up = torch.chunk(fused, 2, dim=-1)
             act = F.silu(gate_act) * up
-            expert_out = torch.einsum("egcf,efh->egch", act,
-                                      self.wo.to(self.dtype))
+            expert_out = self._expert_product(act, self.wo, "egcf,efh->egch")
             if mode == "einsum":
                 out = torch.einsum("gsec,egch->gsh", combine_w, expert_out)
             else:

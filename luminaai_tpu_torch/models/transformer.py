@@ -19,7 +19,7 @@ the JAX remat policy (REMAT_POLICIES) with torch.utils.checkpoint.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -34,6 +34,7 @@ from luminaai_tpu_torch.config import Config, resolve_device
 from luminaai_tpu_torch.models.layers import (
     Embedder,
     GQAttention,
+    QKVParts,
     RMSNorm,
     SwiGLU,
 )
@@ -41,9 +42,11 @@ from luminaai_tpu_torch.models.mod import MoDRouter, apply_mod
 from luminaai_tpu_torch.models.moe import MoELayer
 # Importing the flash module registers torch.ops.lumina.flash_fwd.
 from luminaai_tpu_torch.ops import flash_attention  # noqa: F401
+from luminaai_tpu_torch.ops.quantized import QuantizedTensor
 from luminaai_tpu_torch.ops.ragged_paged_attention import LaneMeta
 
-KVCache = Tuple[torch.Tensor, torch.Tensor]
+# A side is a tensor, or an int8 (codes, scales) pair.
+KVCache = Tuple[Any, Any]
 
 _aten = torch.ops.aten
 # The plain matrix products (what torch's matmul and einsum dispatch to):
@@ -194,10 +197,47 @@ class LuminaTransformer(nn.Module):
 
     def load_params(self, state_dict) -> "LuminaTransformer":
         """Load a state_dict (convert.params_from_flax) into the model's
-        dtypes and devices."""
-        self.load_state_dict(state_dict)
+        dtypes and devices. A QuantizedTensor entry (or a partly quantized
+        wqkv's tuple of blocks) takes its weight's place; a tensor entry
+        where a quantized weight sits puts a plain weight back."""
+        plain = {}
+        for name, val in state_dict.items():
+            owner_name, _, attr = name.rpartition(".")
+            owner = self.get_submodule(owner_name)
+            if isinstance(val, torch.Tensor) and isinstance(
+                    owner._parameters.get(attr), nn.Parameter):
+                plain[name] = val
+                continue
+            if isinstance(val, QuantizedTensor):
+                new = val.to(self.device).mm_layout()
+            elif isinstance(val, tuple):
+                new = QKVParts([
+                    w.to(self.device).mm_layout()
+                    if isinstance(w, QuantizedTensor)
+                    else w.to(self.device, owner.dtype) for w in val])
+            else:
+                new = nn.Parameter(torch.empty(
+                    val.shape, device=self.device,
+                    dtype=torch.float32 if attr in ("embedding", "lm_head")
+                    else owner.dtype), requires_grad=False)
+            owner._parameters.pop(attr, None)
+            owner._modules.pop(attr, None)
+            setattr(owner, attr, new)
+            if isinstance(new, nn.Parameter):
+                plain[name] = val
+            else:
+                plain.update({f"{name}.{k}": t
+                              for k, t in new.state_dict().items()})
+        self.load_state_dict(plain)
         self.embedder.round_()
         return self
+
+    def load_params_tree(self, flat) -> "LuminaTransformer":
+        """load_params from a flat {flax path: tensor or QuantizedTensor}
+        tree (convert.state_dict_to_flax's form)."""
+        from luminaai_tpu_torch.convert import flax_to_state_dict
+
+        return self.load_params(flax_to_state_dict(flat, self.config))
 
     def forward(
         self,
@@ -269,15 +309,24 @@ class LuminaTransformer(nn.Module):
             return x, aux
         return self.embedder.decode(x), aux
 
-    def init_cache(self, batch_size: int, max_len: int) -> List[KVCache]:
-        """Preallocated per-layer (k, v) caches [B, max_len, Hkv, D] in the
-        compute dtype: the plain position-addressed layout (the JAX
-        init_cache with rolling=False), which is what the slot-paged pool
-        uses."""
+    def init_cache(self, batch_size: int, max_len: int,
+                   kv_cache_dtype: Optional[str] = None) -> List[KVCache]:
+        """Preallocated per-layer (k, v) caches [B, max_len, Hkv, D]: the
+        plain position-addressed layout (the JAX init_cache with
+        rolling=False), which is what the slot-paged pool uses. Each side
+        is in the compute dtype, or with kv_cache_dtype 'int8' (None: the
+        model config's; the engine passes its own, as in JAX) a pair of
+        int8 codes (zeros) and fp32 per-row scales [.., 1] (ones)."""
         cfg = self.config
+        choice = kv_cache_dtype or cfg.kv_cache_dtype
         shape = (batch_size, max_len, cfg.num_kv_heads, cfg.head_dim())
-        kw = dict(dtype=self.dtype, device=self.device)
-        return [
-            (torch.zeros(shape, **kw), torch.zeros(shape, **kw))
-            for _ in range(cfg.num_layers)
-        ]
+
+        def side():
+            if choice == "int8":
+                return (torch.zeros(shape, dtype=torch.int8,
+                                    device=self.device),
+                        torch.ones(shape[:-1] + (1,), dtype=torch.float32,
+                                   device=self.device))
+            return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
+        return [(side(), side()) for _ in range(cfg.num_layers)]

@@ -22,6 +22,17 @@ Counterpart of luminaai_tpu/ops/ragged_paged_attention.py. Three pieces:
 The kernel reads the pool in place: k/v arrive as the whole per-layer pool
 and each lane's band is found through its page table, so nothing is
 sliced, gathered or transposed per step.
+
+int8 KV (config.kv_cache_dtype='int8'): each of k and v is a pair (codes
+int8 [T, C, Hkv, D], scales fp32 [T, C, Hkv, 1]). On the card the wrapper
+launches B5-int8 (`lumina_ragged_paged_attention_int8`), which reads the
+codes and scales through the page table and dequantizes each tile in
+shared memory; it counts in `ragged_paged_attention.launches_int8`, the
+bf16 kernel in `.launches`, and a launch of either over a global table
+also in `.launches_global`. The plain version dequantizes, as the JAX
+layer does before its attention, bf16(float(code) * scale), but only the
+rows it reads: the lanes' resident extent, or the pages a global table
+names. Nothing dequantizes the whole pool.
 """
 
 from __future__ import annotations
@@ -117,6 +128,19 @@ def kernel_shape_error(s_q: int, Hq: int, Hkv: int, D: int,
     return None
 
 
+def cache_rows(side) -> int:
+    """Rows C of a cache side [T, C, Hkv, D]: a tensor or an int8 (codes,
+    scales) pair."""
+    return (side[0] if isinstance(side, tuple) else side).shape[1]
+
+
+def dequantize_kv(side, dtype) -> torch.Tensor:
+    """bf16(float(code) * scale) (in `dtype`) of an int8 (codes, scales)
+    side: the JAX layer's read of an int8 cache."""
+    codes, scales = side
+    return (codes.to(torch.float32) * scales).to(dtype)
+
+
 def implied_page_size(cache_rows: int) -> int:
     """Page size for a LaneMeta derived inside the attention layer: the
     largest 8-aligned power of two dividing the cache extent, capped at
@@ -195,52 +219,125 @@ def ragged_paged_attention_ref(
     return out.reshape(B, Sq, n_q, d)
 
 
-def _plain(q, k, v, meta, positions=None):
+def _dequantized_read(dtype, k, v, meta):
+    """The int8 sides dequantized where the plain version reads them: a
+    global table's named pages (extent-sliced) gathered first, the result
+    then read as a local identity layout; otherwise the rows as given
+    (ragged_paged_attention_plain has sliced them to the extent)."""
+    if not meta.global_pages:
+        return dequantize_kv(k, dtype), dequantize_kv(v, dtype), meta
+    ps = meta.page_size
+    T, C = k[0].shape[:2]
+    table = meta.page_table.long()
+    if meta.extent is not None and meta.extent < C:
+        table = table[:, : meta.extent // ps]
+    B, P_l = table.shape
+
+    def gather(t):
+        pages = t.reshape(T * (C // ps), ps, *t.shape[2:])
+        return pages[table].reshape(B, P_l * ps, *t.shape[2:])
+
+    k = dequantize_kv(tuple(gather(t) for t in k), dtype)
+    v = dequantize_kv(tuple(gather(t) for t in v), dtype)
+    meta = dataclasses.replace(meta, page_table=None, identity_pages=True,
+                               extent=None, global_pages=False,
+                               _kernel_table=None)
+    return k, v, meta
+
+
+def ragged_paged_attention_plain(q, k, v, meta, positions=None):
     """The plain version over the resident extent: local-table callers
     hand over the whole lane rows, so slice them to meta.extent here (a
-    view); global tables slice their table inside the reference."""
+    view); global tables slice their table inside the reference. int8
+    sides are dequantized over what is read."""
     if (
         not meta.global_pages
         and meta.extent is not None
-        and meta.extent < k.shape[1]
+        and meta.extent < cache_rows(k)
     ):
-        k, v = k[:, : meta.extent], v[:, : meta.extent]
+        n = meta.extent
+        k, v = [tuple(t[:, :n] for t in x) if isinstance(x, tuple)
+                else x[:, :n] for x in (k, v)]
+    if isinstance(k, tuple):
+        k, v, meta = _dequantized_read(q.dtype, k, v, meta)
     return ragged_paged_attention_ref(q, k, v, meta, positions=positions)
 
 
 # ---------------------------------------------------------------------------
 # Hopper kernel wrapper
 # ---------------------------------------------------------------------------
-def _kernel_fn():
+_FN_ARGS = {"lumina_ragged_paged_attention": 6,
+            "lumina_ragged_paged_attention_int8": 8}
+
+
+def _kernel_fn(name: str = "lumina_ragged_paged_attention"):
     from luminaai_tpu_torch.ops import _build
 
     lib = _build.load("ragged_paged_attention")
-    fn = lib.lumina_ragged_paged_attention
+    fn = getattr(lib, name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                       ctypes.c_float, p]
+        fn.argtypes = ([p] * _FN_ARGS[name] + [i] * 8
+                       + [ctypes.c_float, p])
         fn.restype = ctypes.c_int
     return fn
 
 
+def _check_side(name, side, shape, device):
+    """An int8 side: contiguous int8 codes `shape` and fp32 scales
+    `shape[:-1] + (1,)` on `device`."""
+    codes, scales = side
+    want = {"codes": (codes, torch.int8, shape),
+            "scales": (scales, torch.float32, shape[:-1] + (1,))}
+    for part, (t, dtype, sh) in want.items():
+        if t.dtype != dtype or not t.is_contiguous() or tuple(t.shape) != sh:
+            raise ValueError(
+                f"{name} {part} must be contiguous {dtype} {sh}, got "
+                f"{t.dtype} {tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name} {part} is on {t.device}, q on {device}")
+
+
+def _wide_int8_scratch(k, v, meta, dtype):
+    """Head dims above 512 have no int8 kernel: the pages the lanes reach
+    (up to their longest length) dequantized into a bf16 scratch pool, and
+    its [B, P] table of scratch page ids."""
+    ps = meta.page_size
+    T, C = k[0].shape[:2]
+    n = max(1, -(-int(meta.lengths.max().item()) // ps))
+    ids = meta.kernel_table(C // ps)[:, :n].long().reshape(-1)
+
+    def gather(side):
+        return dequantize_kv(tuple(
+            t.reshape(T * (C // ps), ps, *t.shape[2:]).index_select(0, ids)
+            for t in side), dtype).contiguous()
+
+    B = meta.lengths.shape[0]
+    table = torch.arange(B * n, dtype=torch.int32,
+                         device=ids.device).view(B, n)
+    return gather(k), gather(v), table
+
+
 def ragged_paged_attention(
     q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
+    k,
+    v,
     meta: LaneMeta,
 ) -> torch.Tensor:
     """Page-table-native decode attention.
 
     q: [B, 1, Hq, D]; k/v: [T, C, Hkv, D] with C == P * meta.page_size: the
-    lanes' own rows (T == B, local table) or the whole pool (global table).
-    Returns [B, 1, Hq, D]. On the card: bf16, contiguous, one kernel launch.
-    On the CPU: the plain version.
+    lanes' own rows (T == B, local table) or the whole pool (global table);
+    or int8 (codes, scales) pairs of those shapes. Returns [B, 1, Hq, D].
+    On the card: bf16 q, contiguous, one kernel launch (B5, or B5-int8 for
+    int8 sides). On the CPU: the plain version.
     """
     if not q.is_cuda:
-        return _plain(q, k, v, meta)
+        return ragged_paged_attention_plain(q, k, v, meta)
+    int8 = isinstance(k, tuple)
     B, Sq, Hq, D = q.shape
-    T, C, Hkv = k.shape[0], k.shape[1], k.shape[2]
+    shape = tuple((k[0] if int8 else k).shape)
+    T, C, Hkv = shape[:3]
     ps = meta.page_size
     if Sq != 1:
         raise ValueError("the decode kernel takes one q row per lane")
@@ -252,13 +349,21 @@ def ragged_paged_attention(
         raise ValueError("the decode kernel needs per-lane lengths [B]")
     if not meta.global_pages and T != B:
         raise ValueError(f"local page tables need one k/v row per lane: {T} != {B}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous bf16, got {t.dtype}")
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    if k.shape != v.shape or k.shape[3] != D:
-        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} mismatch")
+    if q.dtype != torch.bfloat16 or not q.is_contiguous():
+        raise ValueError(f"q must be contiguous bf16, got {q.dtype}")
+    if shape[3] != D:
+        raise ValueError(f"k {shape} does not match q's head_dim {D}")
+    if int8:
+        for name, side in (("k", k), ("v", v)):
+            _check_side(name, side, shape, q.device)
+    else:
+        for name, t in (("k", k), ("v", v)):
+            if t.dtype != torch.bfloat16 or not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous bf16, got {t.dtype}")
+            if t.device != q.device:
+                raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if k.shape != v.shape:
+            raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} mismatch")
     P_slot = C // ps
     table = meta.kernel_table(P_slot)
     lengths = meta.lengths
@@ -267,22 +372,40 @@ def ragged_paged_attention(
     if table.device != q.device or lengths.device != q.device:
         raise ValueError("page table and lengths must be on q's device")
     out = torch.empty_like(q)
-    err = _kernel_fn()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(),
-        B, Hq, Hkv, D, ps, table.shape[1], T * P_slot,
-        int(meta.window or 0), 1.0 / math.sqrt(D),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tail = (int(meta.window or 0), 1.0 / math.sqrt(D), stream)
+    if int8 and D > 512:
+        k, v, table = _wide_int8_scratch(k, v, meta, q.dtype)
+        name, counted = "int8 (wide)", "launches_int8"
+        err = _kernel_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), B, Hq, Hkv, D, ps,
+            table.shape[1], table.numel(), *tail)
+    elif int8:
+        name, counted = "int8", "launches_int8"
+        err = _kernel_fn("lumina_ragged_paged_attention_int8")(
+            q.data_ptr(), k[0].data_ptr(), k[1].data_ptr(), v[0].data_ptr(),
+            v[1].data_ptr(), table.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), B, Hq, Hkv, D, ps, table.shape[1], T * P_slot,
+            *tail)
+    else:
+        name, counted = "bf16", "launches"
+        err = _kernel_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(),
+            B, Hq, Hkv, D, ps, table.shape[1], T * P_slot, *tail)
     if err != 0:
-        raise RuntimeError(f"ragged_paged_attention launch failed: CUDA error {err}")
-    ragged_paged_attention.launches += 1
+        raise RuntimeError(
+            f"ragged_paged_attention ({name}) launch failed: CUDA error {err}")
+    setattr(ragged_paged_attention, counted,
+            getattr(ragged_paged_attention, counted) + 1)
     if meta.global_pages:
         ragged_paged_attention.launches_global += 1
     return out
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.launches_int8 = 0
 ragged_paged_attention.launches_global = 0
 
 
@@ -297,8 +420,9 @@ def paged_attention(
 ) -> torch.Tensor:
     """Backend dispatcher:
 
-    'ragged'  the kernel for eligible decode shapes; prefill chunks
-              (Sq > 1) take the plain version; an ineligible decode shape
+    'ragged'  the kernel for eligible decode shapes (B5-int8 for int8
+              sides); prefill chunks (Sq > 1) take the plain version,
+              which dequantizes only the rows it reads; an ineligible decode shape
               on the card raises (there is no kernel for it, and the card
               path never falls back)
     'plain'   always the plain version (the oracle)
@@ -314,4 +438,5 @@ def paged_attention(
             )
     elif backend != "plain":
         raise ValueError(f"unknown attention backend {backend!r}")
-    return _plain(q, k, v, meta, positions=positions if Sq > 1 else None)
+    return ragged_paged_attention_plain(
+        q, k, v, meta, positions=positions if Sq > 1 else None)

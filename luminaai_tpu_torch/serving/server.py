@@ -2014,6 +2014,10 @@ class ChatServer:
             }
             if self.continuous:
                 out.update(self.batcher.stats())
+            # The port's addition: what the engine serves (JAX keeps it
+            # on the engine only).
+            out["quantization"] = self.engine.quantization_info
+            out["kv_cache_dtype"] = self.engine.config.kv_cache_dtype
             return 200, out
         if method == "POST" and path == "/v1/auth":
             if not self.secure:
@@ -2872,11 +2876,18 @@ def serve(
     page_share_self_url: Optional[str] = None,
     page_pull_timeout_s: Optional[float] = None,
     page_share_max_inflight: Optional[int] = None,
+    quantize: Optional[str] = None,
+    kv_cache_dtype: Optional[str] = None,
 ):
     """Serve an engine (CLI `serve`; the CLI builds the engine from
-    --checkpoint, --weights or --seed, with --adapter merged). The JAX
-    serve() builds its engine here from a checkpoint; its quantizer and
-    --trace-jax arguments wait for later slices."""
+    --checkpoint, --weights or --seed, with --adapter merged, and its
+    --quantize / --kv-cache-dtype in the engine's config). The JAX serve()
+    builds its engine here from a checkpoint; `quantize` and
+    `kv_cache_dtype` apply to the given engine as JAX applies them to the
+    one it builds (an engine already quantized passes through). Its
+    --trace-jax has no counterpart."""
+    if quantize is not None or kv_cache_dtype is not None:
+        engine.configure(quantize=quantize, kv_cache_dtype=kv_cache_dtype)
     if page_share and not page_share_self_url:
         # Peers reach this replica at the address it serves on; an
         # explicit --page-share-self overrides (NAT, name-based balancers).

@@ -161,7 +161,7 @@ def test_route_rejects_duplicates_and_takes_config_knobs(monkeypatch,
     monkeypatch.setattr(trouter, "run_router",
                         lambda urls, **kw: runs.append((urls, kw)))
     assert cli.main(["route", "--replica", "a:1", "--replica", "b:2",
-                     "--hedge-budget", "0.3", "--device", "cpu"]) == 0
+                     "--hedge-budget", "0.3"]) == 0
     (urls, kw), = runs
     cfg = Config()
     assert urls == ["http://a:1", "http://b:2"]
@@ -226,10 +226,12 @@ def test_fleet_entry_points_default_to_the_card(monkeypatch, fake_fleet):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["serve", "--replicas", "2", "--port", "7200"])
     assert not fake_fleet["procs"]  # nothing spawned
+    # `route` is host code: it takes no device and runs without a card.
+    runs = []
     monkeypatch.setattr(trouter, "run_router",
-                        lambda *a, **k: pytest.fail("router started"))
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        cli.main(["route", "--replica", "a:1", "--replica", "b:2"])
+                        lambda urls, **k: runs.append(urls))
+    assert cli.main(["route", "--replica", "a:1", "--replica", "b:2"]) == 0
+    assert runs == [["http://a:1", "http://b:2"]]
 
 
 def _free_base_port(n=3):

@@ -199,6 +199,27 @@ def test_fleet_modules_are_scanned(module):
     assert module.replace(".", "/") + ".py" in files
 
 
+# Quantized serving: the int8 ops and trees, and the model, cache, pool,
+# decoder, loader, server and CLI pieces that carry int8 weights and KV.
+QUANT_MODULES = (
+    "luminaai_tpu_torch.ops.quantized",
+    "luminaai_tpu_torch.training.quantization",
+    "luminaai_tpu_torch.ops.ragged_paged_attention",
+    "luminaai_tpu_torch.models.layers",
+    "luminaai_tpu_torch.models.moe",
+    "luminaai_tpu_torch.models.transformer",
+    "luminaai_tpu_torch.convert",
+    "luminaai_tpu_torch.inference.chat",
+)
+
+
+@pytest.mark.parametrize("module", QUANT_MODULES)
+def test_quantized_serving_modules_are_scanned(module):
+    assert module in _modules()
+    files = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert module.replace(".", "/") + ".py" in files
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, sys\n"

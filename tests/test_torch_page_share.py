@@ -245,6 +245,39 @@ def test_remote_pull_decode_bitwise_vs_cold(engines):
             dec_b.prefix_cache.release([pb])
 
 
+def test_remote_pull_int8_decode_bitwise_vs_cold(engines):
+    """The same with int8 KV caches (JAX tests/test_page_share.py:231
+    parametrises kv_dtype): a page carries each layer's k codes, k scales,
+    v codes and v scales, and B's pulled decode equals its cold one
+    bitwise."""
+    teng = engines[1]
+    i8 = TEngine(teng.model, teng.tokenizer,
+                 TConfig(**ARCH, kv_cache_dtype="int8"))
+    cold, dec_a, dec_b = _mk(i8, 0), _mk(i8), _mk(i8)
+    dec_b.page_share = LoopbackClient(dec_a)
+    prompt = _prompt(12, 96) + _prompt(22, 9)
+    want, _ = _drive(cold, prompt, 8, seed=11)
+    _drive(dec_a, prompt, 8, seed=11)
+    dec_a.flush_harvests()
+    got, info = _drive(dec_b, prompt, 8, seed=11)
+    assert got == want
+    npages = (len(prompt) - 1) // PS
+    page = dec_a.pool.export_page(0)
+    assert info["prefix"]["remote"]["pulled"] == npages
+    assert info["prefix"]["remote"]["bytes"] == npages * len(page)
+    from luminaai_tpu_torch.inference.kv_pool import parse_page_payload
+
+    leaves = parse_page_payload(page)
+    assert [x.dtype for x in leaves] == [torch.int8, torch.float32] * (
+        2 * ARCH["num_layers"])
+    for k in page_chain_keys(prompt, PS, npages):
+        pa = dec_a.prefix_cache.pin_key(k)
+        pb = dec_b.prefix_cache.pin_key(k)
+        assert dec_b.pool.export_page(pb) == dec_a.pool.export_page(pa)
+        dec_a.prefix_cache.release([pa])
+        dec_b.prefix_cache.release([pb])
+
+
 def test_partial_remote_chain_extends_contiguously(engines):
     """B holds the first page locally (have > 0): the pull fetches only
     the owner's extension and the admission splices both."""

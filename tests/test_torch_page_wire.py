@@ -1,8 +1,10 @@
 """The LPG1 page wire format (inference/kv_pool.py) against the JAX pool's.
 
-Both pools hold the same K/V (made from a numpy seed; bf16 and fp32),
-laid out [slots, pages, page_size, kv_heads, head_dim] per layer and side,
-with arena slots past the lane range as the prefix cache carves them.
+Both pools hold the same K/V (made from a numpy seed; bf16, fp32, and
+int8: codes [.., head_dim] plus fp32 scales [.., 1] per side, the JAX
+int8 cache tree's leaves), laid out [slots, pages, page_size, kv_heads,
+head_dim] per layer and side, with arena slots past the lane range as the
+prefix cache carves them.
 
 - A port page's LPG1 bytes equal JAX's `PagedKVPool.export_page` bytes,
   header and leaves, byte for byte (exact: no tolerance).
@@ -34,7 +36,13 @@ def _pools(dtype, seed=0):
         jpair, tpair = [], []
         for _ in range(2):
             x = rng.randn(SLOTS, PAGES, PS, HKV, HD).astype(np.float32)
-            if dtype == "bfloat16":
+            if dtype == "int8":
+                codes = rng.randint(-127, 128, x.shape).astype(np.int8)
+                scales = rng.rand(*x.shape[:-1], 1).astype(np.float32)
+                j = (jnp.asarray(codes), jnp.asarray(scales))
+                t = (torch.from_numpy(codes.copy()),
+                     torch.from_numpy(scales.copy()))
+            elif dtype == "bfloat16":
                 j = jnp.asarray(x).astype(jnp.bfloat16)
                 bits = np.asarray(j).view(np.uint16).view(np.int16).copy()
                 t = torch.from_numpy(bits).view(torch.bfloat16)
@@ -51,7 +59,10 @@ def _pools(dtype, seed=0):
 GIDS = (0, 5, LANES * PAGES + 1, SLOTS * PAGES - 1)  # lanes and arena
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+DTYPES = ["bfloat16", "float32", "int8"]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_export_bytes_equal_jax(dtype):
     jp, tp = _pools(dtype)
     assert tkv.PAGE_WIRE_MAGIC == jkv.PAGE_WIRE_MAGIC
@@ -60,11 +71,13 @@ def test_export_bytes_equal_jax(dtype):
         got = tp.export_page(gid)
         assert got == want, gid
         leaves = tkv.parse_page_payload(got)
-        assert len(leaves) == 2 * LAYERS
-        assert all(tuple(x.shape) == (PS, HKV, HD) for x in leaves)
+        per_side = 2 if dtype == "int8" else 1  # codes and scales
+        assert len(leaves) == 2 * per_side * LAYERS
+        shapes = [(PS, HKV, HD), (PS, HKV, 1)][:per_side] * 2 * LAYERS
+        assert [tuple(x.shape) for x in leaves] == shapes
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_import_round_trips_both_ways(dtype):
     jp, tp = _pools(dtype, seed=1)
     jp2, tp2 = _pools(dtype, seed=2)  # other bytes everywhere
@@ -77,10 +90,11 @@ def test_import_round_trips_both_ways(dtype):
         tbytes = tp.export_page(src)
         assert jp2.import_page(dst, tbytes) == len(tbytes)
         assert jp2.export_page(dst) == tbytes
-    # Parsed leaves are the pool's values, in layer order (k, v per layer).
+    # Parsed leaves are the pool's values, in layer order (k, v per layer;
+    # int8: k codes, k scales, v codes, v scales).
     leaves = tkv.parse_page_payload(tp.export_page(GIDS[1]))
     slot, page = divmod(GIDS[1], PAGES)
-    flat = [t for kv in tp.caches for t in kv]
+    flat = tkv.cache_leaves(tp.caches)
     for leaf, t in zip(leaves, flat):
         assert torch.equal(leaf, t[slot, page])
 
@@ -117,11 +131,11 @@ def test_parse_rejects_framing_violations(case):
 
 
 def test_parse_rejects_unknown_dtype_and_bad_leaf():
-    # An unknown name, an int8 leaf (int8 caches are not ported yet), a
-    # negative or missing shape, a header that is not an object.
+    # An unknown name, a numpy dtype no cache holds (int16), a negative or
+    # missing shape, a header that is not an object.
     for header in (
         b'{"page_size": 4, "leaves": [{"shape": [2], "dtype": "nope"}]}',
-        b'{"page_size": 4, "leaves": [{"shape": [2], "dtype": "int8"}]}',
+        b'{"page_size": 4, "leaves": [{"shape": [1], "dtype": "int16"}]}',
         b'{"page_size": 4, "leaves": [{"shape": [-2], "dtype": "float32"}]}',
         b'{"page_size": 4, "leaves": [{"dtype": "float32"}]}',
         b'[1, 2]',

@@ -11,8 +11,8 @@ has a counterpart.
   --adapt-experts), then `verify-checkpoint`, `evaluate` (equal to an
   in-memory merge), `chat --prompt` and `serve --checkpoint` on the
   merged checkpoint.
-- `verify-checkpoint` exits 0 intact, 1 corrupt, 2 missing; the options
-  the port has not ported raise and name their ROADMAP item.
+- `verify-checkpoint` exits 0 intact, 1 corrupt, 2 missing; `chat`
+  takes the quantizer's flags.
 """
 
 import argparse
@@ -315,11 +315,17 @@ def test_presets_json(capsys):
     assert info["debug_200m"]["use_mod"] and not info["debug_200m"]["use_moe"]
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--quantize", "int8"], "ROADMAP A9"),
-    (["--kv-cache-dtype", "int8"], "ROADMAP A6"),
+@pytest.mark.parametrize("flags,mode", [
+    (["--quantize", "int8"], "int8 COMPUTE"),
+    (["--quantize", "int4"], "int4 weight round-trip"),
+    (["--kv-cache-dtype", "int8"], None),
 ])
-def test_chat_refuses_what_is_not_ported(base, flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(["chat", "--checkpoint", str(base["dir"]), "--prompt",
-                  "x", *flags, *CPU])
+def test_chat_serves_the_quantizer_flags(base, flags, mode, capsys):
+    """`chat --quantize` / `--kv-cache-dtype` (refused before quantized
+    serving was ported) answer, with the JAX CLI's quantization line."""
+    rc = cli.main(["chat", "--checkpoint", str(base["dir"]), "--prompt",
+                   "x", "--max-new-tokens", "4", *flags, *CPU])
+    err = capsys.readouterr().err
+    assert rc == 0
+    assert (f"serving with {mode}" in err) if mode else (
+        "serving with" not in err)

@@ -1,9 +1,8 @@
 """`python -m luminaai_tpu_torch serve` against the JAX CLI's `serve`.
 
-- The flag set is the JAX parser's but the quantizer's (--quantize,
-  --kv-cache-dtype) and --trace-jax, plus the port's own model flags;
-  `route` and `top` take the JAX CLI's flags plus --device; every shared
-  flag has the JAX default.
+- The flag set is the JAX parser's but --trace-jax, plus the port's own
+  model flags; `route` and `top` take the JAX CLI's flags exactly (host
+  code: no --device); every shared flag has the JAX default.
 - The exit-2 checks exit 2 before any model load, where the JAX cmd_serve
   does: bad --latency-buckets, --healthz-stale-after <= 0, --secure with
   neither --user/--password nor a users.json (and --adapter without
@@ -20,7 +19,7 @@ import pytest
 from luminaai_tpu import cli as jcli
 from luminaai_tpu_torch import cli as tcli
 
-LEFT_OUT = {"--quantize", "--kv-cache-dtype", "--trace-jax"}
+LEFT_OUT = {"--trace-jax"}
 PORT_ONLY = {"--preset", "--dense", "--moe-dispatch", "--weights", "--seed",
              "--device"}
 
@@ -43,7 +42,7 @@ def test_flag_set_matches_jax(name):
     tsub = _sub(tcli._parser(), name)
     jf, tf = _flags(jsub), _flags(tsub)
     left_out = LEFT_OUT if name == "serve" else set()
-    port_only = PORT_ONLY if name == "serve" else {"--device"}
+    port_only = PORT_ONLY if name == "serve" else set()
     assert set(tf) == (set(jf) - left_out) | port_only
     for opt in set(jf) & set(tf):
         ja, ta = jf[opt], tf[opt]

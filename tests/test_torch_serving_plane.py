@@ -6,7 +6,8 @@ StepwiseDecoder double over each side's own PagedKVPool, the pattern of
 tests/test_resilience.py), so what is compared is the serving plane
 itself: the same request script gives the same status codes and the same
 payload keys (the port's /stats adds the scheduler's `decode_seconds`
-and `tick_seconds`), the same error texts, 401 without a token, 429 past the tenant bucket (with
+and `tick_seconds`, and the engine's `quantization` and
+`kv_cache_dtype`), the same error texts, 401 without a token, 429 past the tenant bucket (with
 retry_after), 503 + Retry-After past the queue depth and while draining,
 504 past a deadline, /healthz 503 before the warmup and 200 after, the
 same SSE frame sequence, the same fair-share admission order across
@@ -42,7 +43,8 @@ SIDES = {
     "jax": (jsrv, JConfig, JPool, JReg, JRec),
     "torch": (tsrv, TConfig, TPool, TReg, TRec),
 }
-PORT_EXTRA_STATS = {"decode_seconds", "tick_seconds"}
+PORT_EXTRA_STATS = {"decode_seconds", "tick_seconds", "quantization",
+                    "kv_cache_dtype"}
 USER, PASSWORD = "alice", "Corr3ct-Horse-Battery"
 
 
@@ -119,6 +121,7 @@ class _Engine:
                               use_flash_attention=False)
         self.tokenizer = _Tok()
         self.stepper = _Stepper(pool_cls, slots)
+        self.quantization_info = {}  # both engines carry it
 
     def make_stepwise(self, **kw):
         return self.stepper
