@@ -16,8 +16,10 @@ Phases (any failure raises and exits non-zero):
              head_dim 64, and the shapes the JAX gate admits that the
              first kernels refused (head_dim 192, 320 and 512, S 200, a
              group of 3), and B1-B3 at the flagship MoE shape (head_dim
-             64, q [16, 2048, 16, 64]) and at debug_200m's (q [8, 2048,
-             12, 64] over 4 kv heads: B2 on the mma.sync kernel); B5 also at head_dim 576 and at the
+             64, q [16, 2048, 16, 64]), at debug_200m's (q [8, 2048,
+             12, 64] over 4 kv heads, a group of 3) and at groups that
+             do not divide 128 rows (b14's 5 at head_dim 128, 6 at 64):
+             B2 on the wgmma kernel at every head_dim of 64 and 128; B5 also at head_dim 576 and at the
              split-KV kernel's share boundaries; the grouped matmul (B4a
              gmm with and without transpose_rhs, B4b tgmm) at the b1
              decode and flagship training shapes, with an empty group and
@@ -26,7 +28,7 @@ Phases (any failure raises and exits non-zero):
              library call at every shape, and compute the least time the
              card could take and each kernel's share of it; log which CUDA
              kernel each flash call took (torch.profiler) and require the
-             wgmma B2/B3 kernels at both training shapes;
+             wgmma B2/B3 kernels at every head_dim of 64 and 128;
   3. serve   the b1-width dense model (16 layers, hidden 2048, seeded
              weights) through the port's ContinuousScheduler +
              StepwiseDecoder behind its HTTP server: first-decode-step
@@ -303,16 +305,20 @@ REPAIRED_FLASH = {
 FLAGSHIP_ATTN = (16, 2048, 16, 8, 64)
 # debug_200m's attention (12 q over 4 kv heads, a group of 3, head_dim 64,
 # micro-batch 8 x 2048). The dispatch rule of csrc/flash_attention.cu sends
-# B2 to the mma.sync flash_bwd_dq_kernel (128 rows are no multiple of 3)
-# and B1 to the wgmma kernel (its 192 rows at head_dim 64 are).
+# B2 to the wgmma kernel with 3 x 42 rows and 2 padding rows of its 128,
+# and B1 to the wgmma kernel (its 192 rows at head_dim 64 are 3 x 64).
 DEBUG200M_ATTN = (8, 2048, 12, 4, 64)
+# Groups that do not divide B2's 128 rows, timed beside it: b14's
+# attention (40 q over 8 kv heads, head_dim 128, sequence 4096; 5 x 25
+# rows) and a group of 6 at head_dim 64 (6 x 21 rows). (B, S, Hq, Hkv, D).
+GROUP5_ATTN = (1, 4096, 40, 8, 128)
+GROUP6_ATTN = (4, 2048, 24, 4, 64)
 # The CUDA kernels B1-B3 must take, as the profiler names them: the wgmma
-# backward at every shape but debug_200m's, and debug_200m's three.
+# backward at every head_dim of 64 and 128, and debug_200m's three.
 WGMMA_BACKWARD = {"B2": "flash_bwd_dq_wgmma_kernel",
                   "B3": "flash_bwd_dkv_wgmma_kernel"}
 DEBUG200M_KERNELS = {"B1": "flash_fwd_wgmma_kernel",
-                     "B2": "flash_bwd_dq_kernel<",
-                     "B3": "flash_bwd_dkv_wgmma_kernel"}
+                     **WGMMA_BACKWARD}
 # B5 above head_dim 512 (512-column output slices): Hq 8 over Hkv 2.
 WIDE_DECODE = (8, 2, 576)
 # Rounds whose median is the library's time where single rounds differ by
@@ -336,18 +342,18 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    import torch
+    """ms a call of fn over back-to-back calls (the port's timer)."""
+    from luminaai_tpu_torch.ops import _timing
 
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return _timing.cuda_ms(fn, iters, warmup)
+
+
+def graph_ms(fn, iters: int) -> float:
+    """ms a call of fn replayed from a CUDA graph of `iters` calls: the
+    card's time without the host's between launches (the port's timer)."""
+    from luminaai_tpu_torch.ops import _timing
+
+    return _timing.graph_ms(fn, iters)
 
 
 def kernel_names(fn) -> list:
@@ -506,6 +512,9 @@ def phase_kernels(dev) -> dict:
 
     kernel_ms = cuda_ms(rotating(
         lambda kk, vv: rpa.ragged_paged_attention(q, kk, vv, meta)), 200)
+    kernel_graph_ms = graph_ms(rotating(
+        lambda kk, vv: rpa.ragged_paged_attention(q, kk, vv, meta)),
+        8 * COPIES)
     plain_ms = cuda_ms(rotating(
         lambda kk, vv: rpa.ragged_paged_attention_ref(q, kk, vv, meta)), 20)
 
@@ -536,7 +545,8 @@ def phase_kernels(dev) -> dict:
     flops = 4 * resident * HQ * D            # QK^T and PV
     t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_BF16_FLOPS * 1e3
-    log(f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+    log(f"kernel {kernel_ms:.4f} ms ({kernel_graph_ms:.4f} ms from a CUDA "
+        f"graph), plain {plain_ms:.4f} ms, library "
         f"(SDPA) {library_ms:.4f} ms (max diff to plain {lib_err:.3e}), "
         f"bound {max(t_bytes, t_ops):.4f} ms "
         f"({bytes_moved / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
@@ -550,6 +560,7 @@ def phase_kernels(dev) -> dict:
         "max_abs_err": max(errs.values()),
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
+        "graph_ms": kernel_graph_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -655,8 +666,9 @@ def phase_kernels_int8(dev) -> dict:
     del qw, kw_, vw, out, want
 
     def measure(meta, lens, unique_rows):
-        """(kernel, plain, library ms, bound ms, bound_by) over COPIES
-        pools (past the L2), bytes counting each distinct row once."""
+        """(kernel, plain, library ms, library error, bound ms, bound_by,
+        ms from a CUDA graph) over COPIES pools (past the L2), bytes
+        counting each distinct row once."""
         pools = [(k, v)] + [(tuple(t.clone() for t in k),
                              tuple(t.clone() for t in v))
                             for _ in range(COPIES - 1)]
@@ -667,6 +679,8 @@ def phase_kernels_int8(dev) -> dict:
 
         ms = cuda_ms(rotating(lambda kk, vv: rpa.ragged_paged_attention(
             q, kk, vv, meta)), 200)
+        graph = graph_ms(rotating(lambda kk, vv: rpa.ragged_paged_attention(
+            q, kk, vv, meta)), 8 * COPIES)
         plain = cuda_ms(rotating(
             lambda kk, vv: rpa.ragged_paged_attention_plain(
                 q, kk, vv, meta)), 20)
@@ -703,14 +717,15 @@ def phase_kernels_int8(dev) -> dict:
         t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
         t_ops = flops / H100_BF16_FLOPS * 1e3
         return (ms, plain, lib, lib_err, max(t_bytes, t_ops),
-                "bytes" if t_bytes >= t_ops else "operations")
+                "bytes" if t_bytes >= t_ops else "operations", graph)
 
     local = measure(cases["identity"], lengths, int(lengths.sum().item()))
     shared_rows = shared * PAGE
     uniq = shared_rows + int((glens - shared_rows).sum().item())
     glob = measure(cases["global_shared"], glens, uniq)
     for label, m in (("local", local), ("global (phase-10 shape)", glob)):
-        log(f"B5-int8 {label}: kernel {m[0]:.4f} ms, plain {m[1]:.4f} ms, "
+        log(f"B5-int8 {label}: kernel {m[0]:.4f} ms ({m[6]:.4f} ms from a "
+            f"CUDA graph), plain {m[1]:.4f} ms, "
             f"library (dequantize + SDPA) {m[2]:.4f} ms (max diff to plain "
             f"{m[3]:.3e}), bound {m[4]:.4f} ms ({m[5]}), share "
             f"{100 * m[4] / m[0]:.1f}%")
@@ -724,6 +739,7 @@ def phase_kernels_int8(dev) -> dict:
         "launches": None,  # filled from phase 14
         "max_abs_err": max(errs.values()),
         "ms": local[0],
+        "graph_ms": local[6],
         "plain_ms": local[1],
         "bound_ms": local[4],
         "bound_by": local[5],
@@ -731,7 +747,8 @@ def phase_kernels_int8(dev) -> dict:
         "shapes": {"lanes": LANES, "hq": HQ, "hkv": HKV, "head_dim": D,
                    "page_size": PAGE, "pages": PAGES,
                    "lengths": [int(x) for x in lengths.tolist()]},
-        "global_form": {"ms": glob[0], "plain_ms": glob[1],
+        "global_form": {"ms": glob[0], "graph_ms": glob[6],
+                        "plain_ms": glob[1],
                         "library_ms": glob[2], "bound_ms": glob[4],
                         "bound_by": glob[5],
                         "lengths": [int(x) for x in glens.tolist()],
@@ -943,10 +960,14 @@ def phase_flash_kernels(dev) -> list:
     log(f"SDPA forward vs plain B1 output: max abs diff {lib_err:.3e}")
     del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
-    _require_kernels(routes["train"], "the b1 training shape")
+    for name, case in cases.items():
+        if case[4] in (64, 128):  # any group: the mma.sync B2 only above 128
+            _require_kernels(routes[name], f"the {name} shape")
     for label, shape, expect in (
             ("flagship_d64", FLAGSHIP_ATTN, WGMMA_BACKWARD),
-            ("debug_200m_d64", DEBUG200M_ATTN, DEBUG200M_KERNELS)):
+            ("debug_200m_d64", DEBUG200M_ATTN, DEBUG200M_KERNELS),
+            ("group5_d128", GROUP5_ATTN, WGMMA_BACKWARD),
+            ("group6_d64", GROUP6_ATTN, WGMMA_BACKWARD)):
         at = _flash_at(inputs, rel, shape, label, expect)
         for e, kern in zip(entries, ("B1", "B2", "B3")):
             e[label] = at[kern]
@@ -1790,9 +1811,11 @@ def _plane_in_process(dev, engine, rpa_entry: dict, system: str,
     out = rpa.ragged_paged_attention(q, k, v, meta)
     ref = rpa.ragged_paged_attention_ref(q, k, v, meta)
     err = (out.float() - ref.float()).abs().max().item()
-    ms = plain_ms = None
+    ms = ms_graph = plain_ms = None
     if dev.type == "cuda":
         ms = cuda_ms(lambda: rpa.ragged_paged_attention(q, k, v, meta), 200)
+        ms_graph = graph_ms(
+            lambda: rpa.ragged_paged_attention(q, k, v, meta), 32)
         plain_ms = cuda_ms(
             lambda: rpa.ragged_paged_attention_ref(q, k, v, meta), 20)
     resident = int(lengths.sum().item())
@@ -1846,7 +1869,8 @@ def _plane_in_process(dev, engine, rpa_entry: dict, system: str,
         lib_ms = cuda_ms(lambda: sdpa(gather(kp), gather(vp)), 50)
         lib_sdpa_ms = cuda_ms(lambda: sdpa(kg, vg), 50)
     del kg, vg
-    glob = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+    glob = {"ms": ms, "graph_ms": ms_graph, "plain_ms": plain_ms,
+            "max_abs_err": err,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms, "library_sdpa_only_ms": lib_sdpa_ms,
@@ -1855,7 +1879,8 @@ def _plane_in_process(dev, engine, rpa_entry: dict, system: str,
             "shared_rows_per_lane": shared_rows, "unique_rows": unique_rows}
     log(f"B5 global table at the phase-10 shape (8 lanes, "
         f"{resident} resident rows, {shared_rows} of each lane's on shared "
-        f"arena pages, {unique_rows} distinct): {ms} ms, plain {plain_ms} "
+        f"arena pages, {unique_rows} distinct): {ms} ms ({ms_graph} ms from a "
+        f"CUDA graph), plain {plain_ms} "
         f"ms, library (gather through the table + SDPA with the length "
         f"mask) {lib_ms} ms, SDPA alone {lib_sdpa_ms} ms (max diff to "
         f"plain {lib_err:.3e}), bound "
@@ -4404,7 +4429,7 @@ def phase_mod(dev, entries: dict, rpa_entry: dict) -> dict:
     Launches per step (accumulation 4 of 8 x 2048, 12 layers, remat per
     block): B1 2 x 12 x 4 = 96 (forward + recompute), B2 = B3 = 48; the
     hybrid's 4 MoE layers add B4a 6 x 4 x 4 = 96 and B4b 2 x 4 x 4 = 32.
-    The profiler must name DEBUG200M_KERNELS (B2 the mma.sync kernel)."""
+    The profiler must name DEBUG200M_KERNELS (all three on wgmma)."""
     import torch
 
     from luminaai_tpu_torch import cli

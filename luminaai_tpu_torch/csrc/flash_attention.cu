@@ -26,14 +26,15 @@
 // 128 and multiples of 128: every preset) takes flash_fwd_wgmma_kernel
 // (wgmma fed by a TMA ring; its note is at the kernel). Other groups (3, 6,
 // 12, ...) take flash_fwd_kernel, head_dim above 256 flash_fwd_wide_kernel.
-// B2 at head_dim 64 and 128 with a group whose min(G, 128) heads divide 128
-// and G takes flash_bwd_dq_wgmma_kernel, B3 at head_dim 64 and 128 (any
-// group) flash_bwd_dkv_wgmma_kernel (wgmma over a TMA ring; their note is
-// at the kernels): both main-path shapes (b1: head_dim 128, group 4;
-// flagship MoE: head_dim 64, group 2). Head_dim 192 and 256, and B2's other
-// groups, take the mma.sync kernels flash_bwd_dq_kernel and
-// flash_bwd_dkv_kernel; head_dim above 256 the 64-column slice kernels.
-// Which kernel runs is decided by the shape alone, in the entry points.
+// B2 at head_dim 64 and 128 (any group: a group that does not divide 128
+// rows leaves padding rows, below) takes flash_bwd_dq_wgmma_kernel, B3 at
+// head_dim 64 and 128 (any group) flash_bwd_dkv_wgmma_kernel (wgmma over a
+// TMA ring; their note is at the kernels): the main-path shapes (b1:
+// head_dim 128, group 4; flagship MoE: head_dim 64, group 2; debug_200m:
+// head_dim 64, group 3). Head_dim 192 and 256 take the mma.sync kernels
+// flash_bwd_dq_kernel and flash_bwd_dkv_kernel; head_dim above 256 the
+// 64-column slice kernels. Which kernel runs is decided by the shape
+// alone, in the entry points.
 //
 // Products of the mma.sync kernels. Every matrix product is a warp-level
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate). Each warp owns 16 rows of its output; the
@@ -78,10 +79,13 @@
 // 4*B*Hq*D*(S^2/2) flops (~34 GFLOP, ~0.035 ms at 989 TFLOP/s bf16) over
 // ~42 MB (~0.013 ms at 3.35 TB/s); B2 does 6*B*Hq*D*(S^2/2) (~52 GFLOP) and
 // B3 8*B*Hq*D*(S^2/2) (~69 GFLOP). At the flagship MoE shape (q [16, 2048,
-// 16, 64], k/v [16, 2048, 8, 64]) B1 does ~137.5 GFLOP (~0.139 ms). The
-// mma.sync kernels reach well under half of the wgmma peak and load tiles
-// synchronously: 8-11% of their bounds (PERF.md); the wgmma kernels replaced
-// them on the main path.
+// 16, 64], k/v [16, 2048, 8, 64]) B1 does ~137.5 GFLOP (~0.139 ms); at
+// debug_200m's (q [8, 2048, 12, 64], k/v [8, 2048, 4, 64]) B2 does ~77
+// GFLOP (~0.078 ms), and its padding rows (2 of 128) add 1.6% to the
+// products' work. The mma.sync kernels reach well under half of the wgmma
+// peak and load tiles synchronously: 8-12% of their bounds (PERF.md); the
+// wgmma kernels replaced them for B2 and B3 at head_dim 64 and 128, and for
+// B1 where the group tiles its rows.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -934,17 +938,28 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 //   dQ += dS K), Q and dO in B3 (S^T = K Q^T, dK += dS^T Q).
 // - P = 2^(S c - lse log2 e), c = scale log2 e: one FFMA and ex2 per
 //   element. Tiles wholly inside every row's band skip the masks.
-// B2 (dQ): one block per (batch, kv head, q tile, head chunk) over B1's
-// 128 position-major (q head, position) rows, 64 per warpgroup (one 4-D box
-// per 64 columns brings Q and dO once); K/V tiles of 64 rows (128 at
-// head_dim 64) through the ring, from the window's band to the diagonal.
-// Per tile: S = Q K^T and dP = dO V^T (SS), P while dP runs, dS = P (dP -
-// delta) scale in registers, dQ += bf16(dS) K (RS, K MN-major).
+// B2 (dQ): one block per (batch, kv head, q tile, head chunk) over 128
+// position-major (q head, position) rows, 64 per warpgroup: row r is head
+// h0 + r % HB at position q0 + r / HB, HB = min(G, 128), P = floor(128 /
+// HB) positions a block (one 4-D box per 64 columns brings Q and dO once).
+// A group that does not divide 128 leaves 128 - HB P padding rows (3 x 42
+// = 126 rows at debug_200m's group of 3, 5 x 25 = 125 at b14's 5): each
+// 64-column stack stays 128 rows tall, so both warpgroups' descriptors keep
+// their offsets; the padding rows are zeroed once, take position Sq (no
+// lse or delta read, no store), and reach no other row, since a row of dQ
+// = dS K depends on its own row of dS alone. A group above 128 that 128
+// does not divide takes ceil(G / 128) chunks, the last one's heads past
+// the group padding too. K/V tiles of 64 rows (128 at head_dim 64) through
+// the ring, from the window's band to the diagonal. Per tile: S = Q K^T
+// and dP = dO V^T (SS), P while dP runs, dS = P (dP - delta) scale in
+// registers, dQ += bf16(dS) K (RS, K MN-major).
 // B3 (dK, dV): one block (or cluster, below) per (batch, kv head, 128 kv
 // rows), 64 per warpgroup, longest causal band first; K and V are loaded
 // once, and the
 // ring streams Q and dO tiles of 64 rows (128 at head_dim 64; taken 64
-// columns at a time) with their lse and delta (a flat fp32 TMA), for every
+// columns at a time) with their lse and delta (a flat fp32 TMA box of
+// TQ + 4 floats from the step's first row rounded down to 16 bytes, where
+// a box may start; the consumers read from (row & 3) on), for every
 // q head of the group and every q tile of the band (from the diagonal on,
 // to the window's far edge); both warpgroups read each stage. Per step: S^T
 // = K Q^T and dP^T = V dO^T (SS), P^T and dS^T in registers, dV +=
@@ -988,14 +1003,21 @@ struct BwdDkv {
   static constexpr int kKvBytes = kRowsKv * D * 2;  // K or V
   static constexpr int kTileBytes = kTQ * D * 2;    // Q or dO of one stage
   static constexpr int kStageBytes = 2 * kTileBytes;
-  static constexpr int kStatBytes = kTQ * 4;        // lse or delta of one stage
+  // lse or delta of one stage: a 1-D box of kTQ + 4 floats from the row
+  // rounded down to 16 bytes (where a box may start), in a slot of kStatSlot
+  // floats (128-byte aligned).
+  static constexpr int kStatBox = kTQ + 4;
+  static constexpr int kStatBytes = kStatBox * 4;
+  static constexpr int kStatSlot = kTQ + 32;
   static constexpr int kSmemBytes = 1024 + 2 * kKvBytes + kStages * kStageBytes +
-                                    kStages * 2 * kStatBytes + (2 * kStages + 1) * 8;
+                                    kStages * 2 * kStatSlot * 4 + (2 * kStages + 1) * 8;
   static constexpr int kThreads = 128 * kConsumers;  // thread 0 also loads
   static_assert(kStages * kStageBytes >= kConsumers * 64 * D * 4, "the merge parks over the ring");
 };
 
-template <int D>
+// kPadRows: the group does not divide the 128 rows (padding rows); the
+// groups that do take an instantiation without that bookkeeping.
+template <int D, bool kPadRows>
 __global__ void __launch_bounds__(BwdDq<D>::kThreads, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_do,
@@ -1015,7 +1037,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   uint64_t* empty = full + kStages;
   uint64_t* q_full = empty + kStages;
 
+  // HB heads x P positions land as rows [0, HB P); rows past them (a group
+  // that does not divide 128, e.g. 3 x 42 = 126) are padding.
   const int G = Hq / Hkv, HB = min(G, kRowsW), P = kRowsW / HB;
+  const int rows = kPadRows ? HB * P : kRowsW;
   const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * P;  // longest causal tiles first
   const int h0 = hk * G + blockIdx.z * HB;
@@ -1046,13 +1071,28 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     mbar_init(q_full, 1);
     fence_barrier_init();
-    // Q and dO once, and the first kStages K/V tiles.
-    mbar_arrive_expect_tx(q_full, 2 * F::kQBytes);
+    // Q and dO once (rows [0, HB P) of each 128-row stack), and the first
+    // kStages K/V tiles.
+    mbar_arrive_expect_tx(q_full, kPadRows ? 2 * F::kChunks * rows * kSwizzleRowBytes
+                                           : 2 * F::kQBytes);
     for (int c = 0; c < F::kChunks; ++c) {
       tma_load_4d(q_sm + c * kRowsW * kSwizzleRowBytes, &map_q, q_full, c * 64, h0, q0, b);
       tma_load_4d(do_sm + c * kRowsW * kSwizzleRowBytes, &map_do, q_full, c * 64, h0, q0, b);
     }
     for (int t = 0; t < min(tiles, kStages); ++t) load_tile(t);
+  }
+  if constexpr (kPadRows) {
+    // The padding rows of every Q and dO stack (the boxes never write
+    // them) become zeros once, so their scores stay finite; the products
+    // read them through the async proxy.
+    constexpr int kStacks = 2 * F::kChunks;
+    const int pad = (kRowsW - rows) * kSwizzleRowBytes / 16;  // 16-byte units a stack
+    for (int i = threadIdx.x; i < kStacks * pad; i += F::kThreads) {
+      const int st = i / pad;
+      *reinterpret_cast<uint4*>(q_sm + (st * kRowsW + rows) * kSwizzleRowBytes +
+                                (i - st * pad) * 16) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    fence_proxy_async();
   }
   __syncthreads();
 
@@ -1066,7 +1106,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const int r = wg * 64 + (tid >> 5) * 16 + (lane >> 2) + 8 * h;
     qpos[h] = q0 + r / HB;
     head[h] = h0 + r % HB;
-    const bool ok = qpos[h] < Sq;  // padding rows: Q and dO arrive as zeros
+    // A padding row (past HB P, or a head past the group in a partial last
+    // chunk) takes position Sq: read nowhere, stored nowhere.
+    if (kPadRows && (r >= rows || head[h] >= (hk + 1) * G)) qpos[h] = Sq;
+    const bool ok = qpos[h] < Sq;  // rows past Sq: Q and dO arrive as zeros
     const size_t i = (static_cast<size_t>(b) * Hq + head[h]) * Sq + (ok ? qpos[h] : 0);
     lse2[h] = ok ? lse[i] * kLog2e : 0.f;
     dlt[h] = ok ? delta[i] : 0.f;
@@ -1199,8 +1242,20 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2], bf16* out,
   }
 }
 
+// Two consecutive floats of shared memory, p 8-byte aligned where kAligned.
+template <bool kAligned>
+__device__ __forceinline__ float2 lds_pair(const float* p) {
+  if constexpr (kAligned) return *reinterpret_cast<const float2*>(p);
+  return make_float2(p[0], p[1]);
+}
+
 // Grid (kv tiles x split, B x Hkv), clusters of (split, 1, 1).
-template <int D>
+// kAligned (Sq % 4 == 0): every step's first lse/delta row starts its box,
+// and a pair of stats is one 8-byte load. Other lengths read from (row & 3)
+// on, two 4-byte loads a pair: on an H100 that offset and those loads
+// cost 1-3% at Sq 2048, and a run-time choice between the two ways spills
+// registers (PERF.md).
+template <int D, bool kAligned>
 __global__ void __launch_bounds__(BwdDkv<D>::kThreads, 1)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_do,
@@ -1217,8 +1272,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   uint8_t* k_sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* v_sm = k_sm + F::kKvBytes;
   uint8_t* ring = v_sm + F::kKvBytes;
-  float* stats = reinterpret_cast<float*>(ring + kStages * F::kStageBytes);  // [stage][lse, delta][TQ]
-  uint64_t* full = reinterpret_cast<uint64_t*>(stats + kStages * 2 * TQ);
+  // [stage][lse, delta][kStatSlot]
+  float* stats = reinterpret_cast<float*>(ring + kStages * F::kStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + kStages * 2 * F::kStatSlot);
   uint64_t* empty = full + kStages;
   uint64_t* kv_full = empty + kStages;
 
@@ -1248,7 +1304,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const int hq = hk * G + i / nq, q0 = q_begin + (i % nq) * TQ;
     uint8_t* q_st = ring + s * F::kStageBytes;
     uint8_t* do_st = q_st + F::kTileBytes;
-    float* st = stats + s * 2 * TQ;
+    float* st = stats + s * 2 * F::kStatSlot;
     mbar_arrive_expect_tx(&full[s], F::kStageBytes + 2 * F::kStatBytes);
     for (int rb = 0; rb < TQ / 64; ++rb) {
       for (int c = 0; c < F::kChunks; ++c) {
@@ -1257,10 +1313,12 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         tma_load_4d(do_st + off, &map_do, &full[s], c * 64, hq, q0 + rb * 64, b);
       }
     }
-    // Rows past Sq bring the next head's values (or zeros): masked.
-    const int row = (b * Hq + hq) * Sq + q0;
+    // The boxes start at the row rounded down to 16 bytes (Sq % 4 != 0
+    // leaves rows off it); rows past Sq bring the next head's values (or
+    // zeros): masked.
+    const int row = ((b * Hq + hq) * Sq + q0) & ~3;
     tma_load_1d(st, &map_lse, &full[s], row);
-    tma_load_1d(st + TQ, &map_delta, &full[s], row);
+    tma_load_1d(st + F::kStatSlot, &map_delta, &full[s], row);
   };
 
   if (producer) {
@@ -1308,11 +1366,14 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int j = 0; j < n; ++j) {
     const int s = j % kStages;
     const int q_tile = q_begin + ((s_begin + j) % nq) * TQ;
+    const int hq = hk * G + (s_begin + j) / nq;
     mbar_wait(&full[s], (j / kStages) & 1);
     const uint8_t* q_st = ring + s * F::kStageBytes;
     const uint8_t* do_st = q_st + F::kTileBytes;
-    const float* lse_st = stats + s * 2 * TQ;
-    const float* dl_st = lse_st + TQ;
+    // The step's first row sits (row & 3) floats into its boxes.
+    const int off = kAligned ? 0 : ((b * Hq + hq) * Sq + q_tile) & 3;
+    const float* lse_st = stats + s * 2 * F::kStatSlot + off;
+    const float* dl_st = lse_st + F::kStatSlot;
 #pragma unroll
     for (int h0 = 0; h0 < TQ; h0 += kSub) {
       const int q0 = q_tile + h0;
@@ -1357,7 +1418,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int e = 0; e < kSub / 2; e += 2) {
         const int r = (e >> 1) & 1;            // kv row kpos[r]
         const int col = 8 * (e / 4) + 2 * t4;  // q columns col, col + 1
-        const float2 l2 = *reinterpret_cast<const float2*>(lse_st + h0 + col);
+        const float2 l2 = lds_pair<kAligned>(lse_st + h0 + col);
         const float lq[2] = {l2.x, l2.y};
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
@@ -1382,7 +1443,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         for (int jj = 0; jj < 4; ++jj) {
           const int e = 8 * kk + 2 * jj;
           const int col = 16 * kk + 8 * (jj >> 1) + 2 * t4;
-          const float2 d2 = *reinterpret_cast<const float2*>(dl_st + h0 + col);
+          const float2 d2 = lds_pair<kAligned>(dl_st + h0 + col);
           pa[kk][jj] = pack_f32(st[e], st[e + 1]);
           da[kk][jj] = pack_f32(st[e] * (dpt[e] - d2.x) * scale,
                                 st[e + 1] * (dpt[e + 1] - d2.y) * scale);
@@ -1874,7 +1935,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kPadRows>
 cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq, int B, int Sq,
                             int Skv, int Hq, int Hkv, int causal, int window, float scale,
@@ -1887,10 +1948,11 @@ cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const v
     return cudaErrorInvalidValue;
   }
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmemBytes);
+      flash_bwd_dq_wgmma_kernel<D, kPadRows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      F::kSmemBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + P - 1) / P, B * Hkv, G / HB);
-  flash_bwd_dq_wgmma_kernel<D><<<grid, F::kThreads, F::kSmemBytes, stream>>>(
+  const dim3 grid((Sq + P - 1) / P, B * Hkv, (G + HB - 1) / HB);
+  flash_bwd_dq_wgmma_kernel<D, kPadRows><<<grid, F::kThreads, F::kSmemBytes, stream>>>(
       mq, mdo, mk, mv, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<bf16*>(dq), Sq, Skv, Hq, Hkv, causal, window, scale);
   return cudaGetLastError();
@@ -1906,12 +1968,14 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const 
   const uint64_t stats = static_cast<uint64_t>(B) * Hq * Sq;
   if (!bshd_map(&mq, q, B, Sq, Hq, D, 1, 64) || !bshd_map(&mdo, dout, B, Sq, Hq, D, 1, 64) ||
       !bshd_map(&mk, k, B, Skv, Hkv, D, 1, 64) || !bshd_map(&mv, v, B, Skv, Hkv, D, 1, 64) ||
-      !tensor_map_f32(&mlse, lse, stats, F::kTQ) ||
-      !tensor_map_f32(&mdelta, delta, stats, F::kTQ)) {
+      !tensor_map_f32(&mlse, lse, stats, F::kStatBox) ||
+      !tensor_map_f32(&mdelta, delta, stats, F::kStatBox)) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmemBytes);
+  auto* kernel = Sq % 4 == 0 ? flash_bwd_dkv_wgmma_kernel<D, true>
+                             : flash_bwd_dkv_wgmma_kernel<D, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmemBytes);
   if (err != cudaSuccess) return err;
   // Two blocks share each kv tile while the tiles number fewer than the
   // SMs (from the shapes alone): the b1 shape's 128.
@@ -1929,7 +1993,7 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, flash_bwd_dkv_wgmma_kernel<D>, mq, mdo, mk, mv, mlse, mdelta,
+  err = cudaLaunchKernelEx(&cfg, kernel, mq, mdo, mk, mv, mlse, mdelta,
                            static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv, Hq, Hkv,
                            causal, window, scale);
   return err != cudaSuccess ? err : cudaGetLastError();
@@ -2028,13 +2092,17 @@ int lumina_flash_bwd_dq(const void* q, const void* k, const void* v, const void*
                         void* stream) {
   if (!shape_ok(B, Sq, Skv, Hq, Hkv, D)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // head_dim 64 and 128 with a group that tiles 128 rows: the wgmma kernel.
-  if ((D == 64 || D == 128) && group_tiles(BwdDq<64>::kRowsW, Hq, Hkv)) {
-    return static_cast<int>(
-        D == 64 ? launch_dq_wgmma<64>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv, causal,
-                                      window, scale, s)
-                : launch_dq_wgmma<128>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv,
-                                       causal, window, scale, s));
+  // head_dim 64 and 128, any group: the wgmma kernel (with padding rows
+  // where the group does not divide its 128).
+  if (D == 64 || D == 128) {
+    const bool pad = !group_tiles(BwdDq<64>::kRowsW, Hq, Hkv);
+#define CALL(DD, PAD) \
+  launch_dq_wgmma<DD, PAD>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv, causal, window, \
+                           scale, s)
+    const cudaError_t err = D == 64 ? (pad ? CALL(64, true) : CALL(64, false))
+                                    : (pad ? CALL(128, true) : CALL(128, false));
+#undef CALL
+    return static_cast<int>(err);
   }
 #define CALL(DD)                                                                         \
   launch_dq<DD>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv, causal, window, scale, \

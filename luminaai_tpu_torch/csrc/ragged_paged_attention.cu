@@ -51,16 +51,35 @@
 // int8 KV (B5-int8, `lumina_ragged_paged_attention_int8`): the pool holds
 // int8 codes [n_pages, page_size, Hkv, D] and fp32 per-row scales
 // [n_pages, page_size, Hkv, 1] (quantized at insert over head_dim, the JAX
-// int8 cache). The split kernel's template flag kInt8 swaps its loads: the
-// code rows (half a bf16 tile's bytes) and the tile's R scales per side go
-// through the same page table by cp.async into a 3-stage ring, and each
-// tile is dequantized in shared memory, bf16(float(code) * scale) rounded
-// to nearest even (what the plain version's `.to(bfloat16)` computes), into
-// the bf16 K/V tile the ldmatrix / mma.sync products read; nothing after
-// that changes. Bound: sum(lengths) * Hkv * (D + 4) * 2 bytes a layer
-// (about 52% of the bf16 bound at head_dim 128). Head dims above 512 reach
-// no int8 kernel: the wrapper dequantizes only the pages the lanes reach
-// into a bf16 scratch and launches the wide kernel below.
+// int8 cache). The split kernel's template flag kInt8 swaps its loads and
+// its B operands; the grid, the cluster merge, the 16-head A rows and the
+// warps' output columns stay. The code rows (half a bf16 tile's bytes) and
+// the tile's R scales per side go through the same page table by cp.async
+// into a 3-stage ring, and the codes become bf16(float(code) * scale),
+// rounded to nearest even (the plain version's `dequantize_kv`), where
+// they are used, with one block barrier a tile (the ring's):
+// - K, the B operand of S = Q K^T, which every warp needs whole: each lane
+//   dequantizes its own B fragments in registers from 16-byte reads of the
+//   code ring. q's columns are placed in shared memory so that a lane's
+//   four k slots of four consecutive k steps are 16 consecutive codes of
+//   one K row (q_slot); no bf16 K tile, no ldmatrix of K.
+// - V, the B operand of O += P V, of which each warp reads only its D / 4
+//   columns: each warp dequantizes those columns into a warp-private bf16
+//   region (__syncwarp, not __syncthreads) that ldmatrix.trans reads as
+//   before. A register path would need a byte transpose (the fragment
+//   holds two rows of one column) and was not taken.
+// A warp converts while the others run their products. K's conversions are
+// repeated by each of the 4 warps (the price of no exchange): (4 R D + R
+// D) codes a block a tile, about 3.75 instructions a code (prmt, fsub,
+// fmul, half a cvt). Bound: sum(lengths) * Hkv * (D + 4) * 2 bytes a layer
+// (about 52% of the bf16 bound at head_dim 128). At the b1 decode shape
+// the kernel takes ~12x that bound, as bf16 B5 takes ~7x its own: a
+// block walks a few tiles (the longest lane's 32 over 8 ranks), so the
+// chain of page-table, copy and merge latencies sets the time; dequantizing
+// one shared bf16 tile between two block barriers instead was 1.4x slower
+// (PERF.md). Head dims above 512 reach no int8 kernel: the wrapper
+// dequantizes only the pages the lanes reach into a bf16 scratch and
+// launches the wide kernel below.
 //
 // Head dims above 512 (any multiple of 8 the gate admits) take
 // ragged_decode_kernel_wide, the first kernel's design: one block per (kv
@@ -82,6 +101,7 @@ using bf16 = __nv_bfloat16;
 using namespace hopper;
 
 constexpr int kThreads = 128;  // 4 warps
+constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -1e30f;
 
 // ---------------------------------------------------------------------------
@@ -97,16 +117,17 @@ constexpr int kPad = 8;        // bf16 per shared row: conflict-free ldmatrix
 int split_rows(int D) { return D <= 128 ? 64 : D <= 256 ? 32 : 16; }
 
 // Shared memory of the split kernel. bf16: q rows, then the ring of bf16
-// K/V tiles (the final fp32 state reuses it). int8: q rows, one bf16 K/V
-// tile, the ring of int8 code tiles (the final state reuses it), the
-// ring's fp32 scales. Both end with the merge's (max, sum, weights).
+// K/V tiles (the final fp32 state reuses it). int8: q rows, each warp's
+// bf16 V region (R rows of its D / 4 columns), the ring of int8 code tiles
+// (the final state reuses it), the ring's fp32 scales. Both end with the
+// merge's (max, sum, weights).
 size_t split_smem(int R, int D, bool int8) {
   const size_t ld = D + kPad;
   const size_t state = kHeads * D * sizeof(float);
   size_t body;
   if (int8) {
     const size_t ring = kStages * 2 * R * D;
-    body = 2 * R * ld * sizeof(bf16) + (ring > state ? ring : state) +
+    body = kWarps * R * (D / 4 + kPad) * sizeof(bf16) + (ring > state ? ring : state) +
            kStages * 2 * R * sizeof(float);
   } else {
     const size_t ring = kStages * 2 * R * ld * sizeof(bf16);
@@ -129,19 +150,41 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes)
                : "memory");
 }
 
-// Eight int8 codes times one scale -> eight bf16, round to nearest even.
-__device__ __forceinline__ uint4 dequant8(uint2 codes, float scale) {
-  uint32_t w[4];
+// Four int8 codes (one 32-bit word, code j in byte j) times one scale ->
+// two packed bf16 pairs (codes 0, 1 and 2, 3), bf16(float(code) * scale)
+// rounded to nearest even, the plain version's dequantize_kv. float(code)
+// is exact without a conversion instruction: byte ^ 0x80 is code + 128,
+// placed in the mantissa of 2^23, and 2^23 + 128 subtracted.
+__device__ __forceinline__ void dequant4(uint32_t codes, float scale, uint32_t& lo,
+                                         uint32_t& hi) {
+  const uint32_t biased = codes ^ 0x80808080u;
+  float f[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const uint32_t src = j < 2 ? codes.x : codes.y;
-    const int sh = 16 * (j & 1);
-    const float lo = static_cast<float>(static_cast<int8_t>((src >> sh) & 0xffu)) * scale;
-    const float hi = static_cast<float>(static_cast<int8_t>((src >> (sh + 8)) & 0xffu)) * scale;
-    const __nv_bfloat162 pr = __floats2bfloat162_rn(lo, hi);
-    w[j] = *reinterpret_cast<const uint32_t*>(&pr);
+    const float x = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540u + j));
+    f[j] = __fmul_rn(__fsub_rn(x, 8388736.f), scale);
   }
-  return make_uint4(w[0], w[1], w[2], w[3]);
+  lo = pack_f32(f[0], f[1]);
+  hi = pack_f32(f[2], f[3]);
+}
+
+// The int8 ring's 16-byte chunk c of tile row r lies at chunk c ^
+// code_swizzle(r, D) of the row, so that the S product's reads (8 lanes: 2
+// rows x 4 chunks) and the V dequantize's (8 lanes: 8 rows, one chunk) hit
+// 8 distinct bank groups. A row of D % 128 == 64 bytes already puts its odd
+// rows in the other half of the banks.
+__device__ __forceinline__ int code_swizzle(int r, int D) {
+  return D % 128 == 0 ? ((r & 1) << 2) | ((r >> 1) & 3) : (r >> 1) & 3;
+}
+
+// Where B5-int8 keeps q column c (even; c + 1 follows it) in its shared q
+// rows: c = 64 j + 16 t4 + 4 m + 2 hi + e is k slot 8 hi + 2 t4 + e of
+// mma k step 4 j + m. Lane (g, t4) then finds its B fragment of step 4 j
+// + m in bytes 4 m .. 4 m + 3 of chunk 4 j + t4 of its K row: one 16-byte
+// load serves four k steps. (The reduction over head_dim runs in another
+// order; each q . k product is the same.)
+__device__ __forceinline__ int q_slot(int c) {
+  return (4 * (c / 64) + ((c >> 2) & 3)) * 16 + ((c >> 1) & 1) * 8 + 2 * ((c >> 4) & 3);
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -202,17 +245,19 @@ ragged_decode_kernel_split(const bf16* __restrict__ q, const void* __restrict__ 
 
   extern __shared__ uint4 smem_u4[];
   bf16* q_sm = reinterpret_cast<bf16*>(smem_u4);  // [kHeads][ld]
-  // bf16: ring = kStages x (K [R][ld], V [R][ld]). int8: ring = the one
-  // dequantized K/V tile, then the int8 code ring kStages x (K [R][D],
-  // V [R][D]) and its scales kStages x (K [R], V [R]).
+  // bf16: ring = kStages x (K [R][ld], V [R][ld]). int8: ring = the warps'
+  // V regions kWarps x [R][ldv], then the int8 code ring kStages x (K
+  // [R][D], V [R][D], chunks swizzled) and its scales kStages x (K [R], V
+  // [R]).
   bf16* ring = q_sm + kHeads * ld;
+  const int ldv = D / 4 + kPad;
   const size_t state_bytes = static_cast<size_t>(kHeads) * D * sizeof(float);
   int8_t* codes = nullptr;
   float* scales = nullptr;
   float* o_sm;  // fp32 [kHeads][D]: the block's final state
   float* m_sm;
   if constexpr (kInt8) {
-    codes = reinterpret_cast<int8_t*>(ring + 2 * R * ld);
+    codes = reinterpret_cast<int8_t*>(ring + kWarps * R * ldv);
     const size_t ring_bytes = static_cast<size_t>(kStages) * 2 * R * D;
     scales = reinterpret_cast<float*>(codes + (ring_bytes > state_bytes ? ring_bytes
                                                                          : state_bytes));
@@ -235,13 +280,23 @@ ragged_decode_kernel_split(const bf16* __restrict__ q, const void* __restrict__ 
   const int n_t = t_end - t_begin;
   const int* lane_table = table + static_cast<size_t>(b) * P;
 
-  // The chunk's q rows; rows past the group are zeros.
+  // The chunk's q rows; rows past the group are zeros. int8: each column
+  // pair at its q_slot.
   const bf16* q_lane = q + (static_cast<size_t>(b) * Hq + q_head0) * D;
-  for (int i = tid; i < kHeads * (D / 8); i += kThreads) {
-    const int hh = i / (D / 8), c = i - hh * (D / 8);
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (hh < group) val = *reinterpret_cast<const uint4*>(q_lane + hh * D + c * 8);
-    *reinterpret_cast<uint4*>(q_sm + hh * ld + c * 8) = val;
+  if constexpr (kInt8) {
+    for (int i = tid; i < kHeads * (D / 2); i += kThreads) {
+      const int hh = i / (D / 2), c = 2 * (i - hh * (D / 2));
+      uint32_t val = 0u;
+      if (hh < group) val = *reinterpret_cast<const uint32_t*>(q_lane + hh * D + c);
+      *reinterpret_cast<uint32_t*>(q_sm + hh * ld + q_slot(c)) = val;
+    }
+  } else {
+    for (int i = tid; i < kHeads * (D / 8); i += kThreads) {
+      const int hh = i / (D / 8), c = i - hh * (D / 8);
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (hh < group) val = *reinterpret_cast<const uint4*>(q_lane + hh * D + c * 8);
+      *reinterpret_cast<uint4*>(q_sm + hh * ld + c * 8) = val;
+    }
   }
 
   // The pool row (page-table resolved) of band row kp, or 0 past the band.
@@ -266,8 +321,9 @@ ragged_decode_kernel_split(const bf16* __restrict__ q, const void* __restrict__ 
         const int kp = row0 + r;
         const size_t off = pool_row(kp) * D + cc * 16;
         const int bytes = kp < length ? 16 : 0;
-        cp_async16(k_st + r * D + cc * 16, kc + off, bytes);
-        cp_async16(v_st + r * D + cc * 16, vc + off, bytes);
+        const int dst = r * D + (cc ^ code_swizzle(r, D)) * 16;
+        cp_async16(k_st + dst, kc + off, bytes);
+        cp_async16(v_st + dst, vc + off, bytes);
       }
       float* ks_st = scales + static_cast<size_t>(st) * 2 * R;
       for (int r = tid; r < R; r += kThreads) {
@@ -315,24 +371,12 @@ ragged_decode_kernel_split(const bf16* __restrict__ q, const void* __restrict__ 
     if (i + kStages - 1 < n_t) load(t_begin + i + kStages - 1, (i + kStages - 1) % kStages);
     cp_async_commit();
 
-    const bf16* k_st;
-    if constexpr (kInt8) {
-      // Dequantize tile i into the bf16 tile (every warp finished reading
-      // it for tile i - 1 before the barrier above).
-      const int8_t* kc = codes + static_cast<size_t>(i % kStages) * 2 * R * D;
-      const float* ks = scales + static_cast<size_t>(i % kStages) * 2 * R;
-      for (int c = tid; c < 2 * R * (D / 8); c += kThreads) {
-        const int r = c / (D / 8), cc = c - r * (D / 8);  // r < R: K; else V
-        const uint2 raw = *reinterpret_cast<const uint2*>(kc + r * D + cc * 8);
-        *reinterpret_cast<uint4*>(ring + r * ld + cc * 8) = dequant8(raw, ks[r]);
-      }
-      __syncthreads();
-      k_st = ring;
-    } else {
-      k_st = ring + static_cast<size_t>(i % kStages) * 2 * R * ld;
-    }
-    const bf16* v_st = k_st + R * ld;
     const int rows = min(R, length - (start + (t_begin + i) * R));
+    const int mrow = (lane >> 3), r8 = lane & 7;
+    // The B operand of P V: the stage's V tile at the warp's columns (bf16),
+    // or the warp's own region of dequantized V (int8).
+    const bf16* v_op;
+    int v_ld;
 
     // S = Q K^T: the chunk's 16 heads x the tile's R rows.
     float s[R / 8][4];
@@ -340,19 +384,80 @@ ragged_decode_kernel_split(const bf16* __restrict__ q, const void* __restrict__ 
     for (int n = 0; n < R / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    const int mrow = (lane >> 3), r8 = lane & 7;
-#pragma unroll 4
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      ldmatrix_x4<false>(a, q_sm + ((mrow & 1) * 8 + r8) * ld + kk * 16 + (mrow >> 1) * 8);
+    if constexpr (kInt8) {
+      // K's B fragments dequantized in registers: lane (g, t4) reads chunk
+      // 4 j + t4 of rows 8 n + g (16 codes, four k steps; see q_slot) and
+      // multiplies them by the row's scale. No bf16 K tile, no barrier.
+      const int8_t* kc = codes + static_cast<size_t>(i % kStages) * 2 * R * D;
+      const float* ksc = scales + static_cast<size_t>(i % kStages) * 2 * R;
+      const int swz = code_swizzle(g, D);  // code_swizzle(8 n + g, D) for every n
+      float kscale[R / 8];
 #pragma unroll
-      for (int p = 0; p < R / 16; ++p) {
-        uint32_t bk[4];
-        ldmatrix_x4<false>(bk, k_st + (16 * p + (mrow >> 1) * 8 + r8) * ld + kk * 16 +
-                                   (mrow & 1) * 8);
-        mma(s[2 * p], a, bk[0], bk[1]);
-        mma(s[2 * p + 1], a, bk[2], bk[3]);
+      for (int n = 0; n < R / 8; ++n) kscale[n] = ksc[8 * n + g];
+      for (int j = 0; j < D / 64; ++j) {
+        uint32_t a[4][4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          ldmatrix_x4<false>(a[m], q_sm + ((mrow & 1) * 8 + r8) * ld + (4 * j + m) * 16 +
+                                       (mrow >> 1) * 8);
+        }
+#pragma unroll
+        for (int n = 0; n < R / 8; ++n) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(
+              kc + (8 * n + g) * D + ((4 * j + t4) ^ swz) * 16);
+          const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            uint32_t b0, b1;
+            dequant4(w[m], kscale[n], b0, b1);
+            mma(s[n], a[m], b0, b1);
+          }
+        }
       }
+
+      // This warp's D / 4 columns of V dequantized into its own region for
+      // the ldmatrix.trans of P V (a lane converts one row's 16-code chunk
+      // at a time, 8 lanes on 8 rows); only this warp reads the region, so
+      // __syncwarp orders it.
+      const int8_t* vc = kc + R * D;
+      const float* vsc = ksc + R;
+      const int nch = D / 64, ch0 = warp * nch;
+      bf16* v_w = ring + warp * R * ldv;
+      __syncwarp();  // this warp's reads of the previous tile are done
+      for (int u = lane; u < R * nch; u += 32) {
+        const int r = u % R, ch = u / R;
+        const uint4 raw = *reinterpret_cast<const uint4*>(
+            vc + r * D + ((ch0 + ch) ^ code_swizzle(r, D)) * 16);
+        const float sc = vsc[r];
+        uint32_t w[8];
+        dequant4(raw.x, sc, w[0], w[1]);
+        dequant4(raw.y, sc, w[2], w[3]);
+        dequant4(raw.z, sc, w[4], w[5]);
+        dequant4(raw.w, sc, w[6], w[7]);
+        uint4* dst = reinterpret_cast<uint4*>(v_w + r * ldv + ch * 16);
+        dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+        dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+      }
+      __syncwarp();
+      v_op = v_w;
+      v_ld = ldv;
+    } else {
+      const bf16* k_st = ring + static_cast<size_t>(i % kStages) * 2 * R * ld;
+#pragma unroll 4
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t a[4];
+        ldmatrix_x4<false>(a, q_sm + ((mrow & 1) * 8 + r8) * ld + kk * 16 + (mrow >> 1) * 8);
+#pragma unroll
+        for (int p = 0; p < R / 16; ++p) {
+          uint32_t bk[4];
+          ldmatrix_x4<false>(bk, k_st + (16 * p + (mrow >> 1) * 8 + r8) * ld + kk * 16 +
+                                     (mrow & 1) * 8);
+          mma(s[2 * p], a, bk[0], bk[1]);
+          mma(s[2 * p + 1], a, bk[2], bk[3]);
+        }
+      }
+      v_op = k_st + R * ld + c_w;
+      v_ld = ld;
     }
 
     // Online softmax in base 2 (every warp holds the same state).
@@ -399,7 +504,7 @@ ragged_decode_kernel_split(const bf16* __restrict__ q, const void* __restrict__ 
       for (int pp = 0; pp < kPairs; ++pp) {
         if (pp < pairs) {
           uint32_t bv[4];
-          ldmatrix_x4<true>(bv, v_st + (16 * j + (mrow & 1) * 8 + r8) * ld + c_w + 16 * pp +
+          ldmatrix_x4<true>(bv, v_op + (16 * j + (mrow & 1) * 8 + r8) * v_ld + 16 * pp +
                                     (mrow >> 1) * 8);
           mma(o[2 * pp], a, bv[0], bv[1]);
           mma(o[2 * pp + 1], a, bv[2], bv[3]);

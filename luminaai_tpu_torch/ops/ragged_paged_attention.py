@@ -26,8 +26,10 @@ sliced, gathered or transposed per step.
 int8 KV (config.kv_cache_dtype='int8'): each of k and v is a pair (codes
 int8 [T, C, Hkv, D], scales fp32 [T, C, Hkv, 1]). On the card the wrapper
 launches B5-int8 (`lumina_ragged_paged_attention_int8`), which reads the
-codes and scales through the page table and dequantizes each tile in
-shared memory; it counts in `ragged_paged_attention.launches_int8`, the
+codes and scales through the page table and dequantizes them where its
+products use them (K's operand fragments in registers, each warp's V
+columns in a shared region of its own); it counts in
+`ragged_paged_attention.launches_int8`, the
 bf16 kernel in `.launches`, and a launch of either over a global table
 also in `.launches_global`. The plain version dequantizes, as the JAX
 layer does before its attention, bf16(float(code) * scale), but only the

@@ -55,7 +55,8 @@ def _case(dev, lengths, P, ps, Hq, Hkv, D, global_pages=False, seed=3):
 
 @pytest.mark.parametrize("D,global_pages", [(128, False), (128, True),
                                             (64, False), (256, True),
-                                            (512, False), (576, False)])
+                                            (512, False), (576, False),
+                                            (192, False), (320, True)])
 def test_int8_kernel_matches_plain_on_card(dev, D, global_pages):
     P, ps = 6, 64
     q, k, v, meta = _case(dev, [1, 64, 65, P * ps], P, ps, 8, 2, D,

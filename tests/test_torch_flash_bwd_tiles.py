@@ -10,8 +10,12 @@ tests/test_ops.py runs it) on the same numpy inputs:
 - P recomputed in base 2, p = 2^(s c - lse log2 e) with c = scale log2 e;
   dS = P (dP - delta) scale with delta = rowsum(dO O) - g_lse;
 - B2's blocks: 128 (q head, position) rows, position-major (row r is head
-  h0 + r % HB at position q0 + r / HB, HB = min(G, 128)), K/V tiles of 64
-  rows (128 at head_dim 64) from the window's band (aligned down) to the
+  h0 + r % HB at position q0 + r / HB, HB = min(G, 128), P = 128 // HB
+  positions a block, ceil(G / HB) head chunks); a group that does not
+  divide 128 (3, 5, 6, 12, ...) leaves rows past HB P as padding, and a
+  partial last chunk's heads past the group too: zero rows, never stored
+  (every (head, position) is stored exactly once); K/V tiles of 64 rows
+  (128 at head_dim 64) from the window's band (aligned down) to the
   diagonal;
 - B3's blocks: 128 kv rows (64 a warpgroup), the q tiles of 64 rows (128
   at head_dim 64, taken 64 columns at a time) from the diagonal on to the
@@ -68,6 +72,20 @@ GEOMETRIES = {
     "partial_s200_g2_d64": (2, 200, 4, 2, 64, True, None),
     "noncausal_s200_g4_d64": (1, 200, 4, 1, 64, False, None),
 }
+# Groups that do not divide B2's 128 rows (padding rows; Sq no multiple of
+# P = 128 // G): debug_200m's 3, b14's 5, 6, and 12, at head_dim 64 and
+# 128, causal, with a window, and not causal.
+GROUP_GEOMETRIES = {
+    "causal_g3_d64_s200": (1, 200, 6, 2, 64, True, None),
+    "causal_g3_d128_s300": (1, 300, 3, 1, 128, True, None),
+    "g5_win90_d128_s310": (1, 310, 5, 1, 128, True, 90),
+    "noncausal_g5_d64_s160": (1, 160, 10, 2, 64, False, None),
+    "g6_win70_d64_s250": (1, 250, 6, 1, 64, True, 70),
+    "causal_g6_d128_s200": (2, 200, 6, 1, 128, True, None),
+    "causal_g12_d64_s205": (1, 205, 12, 1, 64, True, None),
+    "g12_win40_d128_s137": (1, 137, 24, 2, 128, True, 40),
+}
+ALL_GEOMETRIES = {**GEOMETRIES, **GROUP_GEOMETRIES}
 
 
 def _in_band(q, k, causal, window):
@@ -99,50 +117,69 @@ def _p(s, lse, scale):
     return torch.exp2(s * (scale * LOG2E) - lse * LOG2E)
 
 
+def dq_row_map(g, hk, chunk, q0, sq):
+    """B2's rows of one block: (position, head) per row, position sq for a
+    padding row (past HB P, or a head past the group in a partial last
+    chunk), as the kernel assigns them."""
+    hb = min(g, ROWS_DQ)
+    r = torch.arange(ROWS_DQ)
+    head = hk * g + chunk * hb + r % hb
+    pad = (r >= hb * (ROWS_DQ // hb)) | (head >= (hk + 1) * g)
+    pos = torch.where(pad, sq, q0 + r // hb)
+    return pos, head
+
+
+def dq_blocks(g, sq):
+    """B2's grid over one kv head: (head chunk, q0) for every block."""
+    hb = min(g, ROWS_DQ)
+    per = ROWS_DQ // hb
+    return [(chunk, q0) for chunk in range(-(-g // hb))
+            for q0 in range(0, sq, per)]
+
+
 def dq_tiles(q, k, v, do, lse, delta, scale, causal, window, counts):
     """B2's blocks and tiles: dQ [B, Sq, Hq, D] fp32."""
     B, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    hb = min(g, ROWS_DQ)
-    pos_per_block = ROWS_DQ // hb
+    pos_per_block = ROWS_DQ // min(g, ROWS_DQ)
     dq = torch.zeros(B, sq, hq, d)
-    r = torch.arange(ROWS_DQ)
+    stored = torch.zeros(B, sq, hq, dtype=torch.int64)
     TK = tk(d)
     for b in range(B):
         for hk in range(hkv):
-            for chunk in range(g // hb):
-                h0 = hk * g + chunk * hb
-                for q0 in range(0, sq, pos_per_block):
-                    pos, head = q0 + r // hb, h0 + r % hb
-                    ok = pos < sq
-                    p_c, h_c = pos.clamp(max=sq - 1), head
-                    qr = torch.where(ok[:, None], q[b, p_c, h_c], 0.0)
-                    dor = torch.where(ok[:, None], do[b, p_c, h_c], 0.0)
-                    lse_r = torch.where(ok, lse[b, h_c, p_c], 0.0)[:, None]
-                    dl_r = torch.where(ok, delta[b, h_c, p_c], 0.0)[:, None]
-                    qhi = min(q0 + pos_per_block, sq) - 1
-                    begin, end = _kv_range(q0, qhi, skv, causal, window, TK)
-                    acc = torch.zeros(ROWS_DQ, d)
-                    for kv0 in range(begin, end, TK):
-                        kp = torch.arange(kv0, kv0 + TK)
-                        kt = torch.zeros(TK, d)
-                        vt = torch.zeros(TK, d)
-                        n = min(TK, skv - kv0)
-                        kt[:n], vt[:n] = k[b, kv0:kv0 + n, hk], v[b, kv0:kv0 + n, hk]
-                        p = _p(qr @ kt.T, lse_r, scale)
-                        keep = _in_band(pos, kp, causal, window) & (kp < skv)
-                        interior = kv0 + TK <= skv and (not causal or (
-                            kv0 + TK - 1 <= q0
-                            and (not window or qhi - kv0 < window)))
-                        if interior:
-                            counts["dq_interior"] += 1
-                            assert keep[ok].all()
-                        else:
-                            p = torch.where(keep, p, 0.0)
-                        ds = p * (dor @ vt.T - dl_r) * scale
-                        acc += ds @ kt
-                    dq[b, pos[ok], head[ok]] = acc[ok]
+            for chunk, q0 in dq_blocks(g, sq):
+                pos, head = dq_row_map(g, hk, chunk, q0, sq)
+                ok = pos < sq
+                p_c, h_c = pos.clamp(max=sq - 1), head.clamp(max=hq - 1)
+                qr = torch.where(ok[:, None], q[b, p_c, h_c], 0.0)
+                dor = torch.where(ok[:, None], do[b, p_c, h_c], 0.0)
+                lse_r = torch.where(ok, lse[b, h_c, p_c], 0.0)[:, None]
+                dl_r = torch.where(ok, delta[b, h_c, p_c], 0.0)[:, None]
+                qhi = min(q0 + pos_per_block, sq) - 1
+                begin, end = _kv_range(q0, qhi, skv, causal, window, TK)
+                acc = torch.zeros(ROWS_DQ, d)
+                for kv0 in range(begin, end, TK):
+                    kp = torch.arange(kv0, kv0 + TK)
+                    kt = torch.zeros(TK, d)
+                    vt = torch.zeros(TK, d)
+                    n = min(TK, skv - kv0)
+                    kt[:n], vt[:n] = k[b, kv0:kv0 + n, hk], v[b, kv0:kv0 + n, hk]
+                    p = _p(qr @ kt.T, lse_r, scale)
+                    keep = _in_band(pos, kp, causal, window) & (kp < skv)
+                    interior = kv0 + TK <= skv and (not causal or (
+                        kv0 + TK - 1 <= q0
+                        and (not window or qhi - kv0 < window)))
+                    if interior:
+                        counts["dq_interior"] += 1
+                        assert keep[ok].all()
+                    else:
+                        p = torch.where(keep, p, 0.0)
+                    ds = p * (dor @ vt.T - dl_r) * scale
+                    acc += ds @ kt
+                dq[b, pos[ok], head[ok]] = acc[ok]
+                stored[b, pos[ok], head[ok]] += 1
+    counts["stored"] = stored
     return dq
 
 
@@ -218,8 +255,10 @@ def dkv_tiles(q, k, v, do, lse, delta, scale, causal, window, split, counts):
 @functools.lru_cache(maxsize=None)
 def _reference(name):
     """Inputs, the JAX VJP's (dq, dk, dv), and the port's plain O and lse."""
-    B, S, hq, hkv, d, causal, window = GEOMETRIES[name]
-    rng = np.random.RandomState(sorted(GEOMETRIES).index(name))
+    B, S, hq, hkv, d, causal, window = ALL_GEOMETRIES[name]
+    seed = (sorted(GEOMETRIES).index(name) if name in GEOMETRIES
+            else 100 + sorted(GROUP_GEOMETRIES).index(name))
+    rng = np.random.RandomState(seed)
     q, k, v, g_o = (rng.randn(*shape).astype(np.float32) for shape in (
         (B, S, hq, d), (B, S, hkv, d), (B, S, hkv, d), (B, S, hq, d)))
     g_lse = rng.randn(B, hq, S).astype(np.float32)
@@ -239,7 +278,7 @@ def _reference(name):
 def _tiles_inputs(name):
     (q, k, v, g_o, g_lse), grads = _reference(name)
     d = q.shape[-1]
-    causal, window = GEOMETRIES[name][5], GEOMETRIES[name][6] or 0
+    causal, window = ALL_GEOMETRIES[name][5], ALL_GEOMETRIES[name][6] or 0
     q, k, v, do, g_lse = map(torch.as_tensor, (q, k, v, g_o, g_lse))
     args = dict(scale=d ** -0.5, causal=causal, window=window)
     o, lse = tfa.flash_fwd_ref(q, k, v, **args)
@@ -247,7 +286,7 @@ def _tiles_inputs(name):
     return (q, k, v, do, lse, delta), args, grads
 
 
-@pytest.mark.parametrize("name", sorted(GEOMETRIES))
+@pytest.mark.parametrize("name", sorted(GEOMETRIES) + sorted(GROUP_GEOMETRIES))
 def test_dq_tiles_match_jax(name):
     inputs, args, (dq_j, _, _) = _tiles_inputs(name)
     counts = {"dq_interior": 0}
@@ -256,12 +295,37 @@ def test_dq_tiles_match_jax(name):
     np.testing.assert_allclose(dq.numpy(), dq_j, atol=GRAD_TOL)
     plain = tfa.flash_bwd_dq_ref(*inputs, **args)
     np.testing.assert_allclose(dq.numpy(), plain.numpy(), atol=GRAD_TOL)
+    assert (counts["stored"] == 1).all()  # every (head, position) once
     if args["causal"] and not args["window"] and inputs[0].shape[1] >= 256:
         assert counts["dq_interior"] > 0  # and a window of 80 has none
 
 
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 5, 6, 7, 12, 24, 96, 127, 128,
+                               129, 200, 256])
+def test_dq_padding_rows_never_store(g):
+    """B2's row map over a kv head's blocks: the rows past HB P and the
+    heads past the group are padding, and the other rows store every
+    (head, position) of the group exactly once, for lengths that are and
+    are not multiples of P."""
+    hb = min(g, ROWS_DQ)
+    rows = hb * (ROWS_DQ // hb)
+    assert ROWS_DQ - rows < hb  # the box leaves less than one position
+    for hk, sq in ((0, 1), (1, 127), (2, 130), (1, 257)):
+        stored = torch.zeros(sq, g, dtype=torch.int64)
+        for chunk, q0 in dq_blocks(g, sq):
+            pos, head = dq_row_map(g, hk, chunk, q0, sq)
+            r = torch.arange(ROWS_DQ)
+            pad = (r >= rows) | (r % hb + chunk * hb >= g)
+            assert (pos[pad] == sq).all()
+            ok = pos < sq
+            assert (ok == ~pad & (q0 + r // hb < sq)).all()
+            assert ((head[ok] >= hk * g) & (head[ok] < (hk + 1) * g)).all()
+            stored[pos[ok], head[ok] - hk * g] += 1
+        assert (stored == 1).all(), (g, sq)
+
+
 @pytest.mark.parametrize("split", [1, 2])
-@pytest.mark.parametrize("name", sorted(GEOMETRIES))
+@pytest.mark.parametrize("name", sorted(GEOMETRIES) + sorted(GROUP_GEOMETRIES))
 def test_dkv_tiles_and_cluster_merge_match_jax(name, split):
     inputs, args, (_, dk_j, dv_j) = _tiles_inputs(name)
     counts = {"dkv_interior": 0, "steps": [], "shares": [0, 0, 0]}

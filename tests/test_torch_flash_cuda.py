@@ -89,6 +89,19 @@ CASES = {
     "causal_g2_d64_s1024": (1, 1024, 16, 8, 64, True, 0),
     "noncausal_g4_d128_s200": (1, 200, 8, 2, 128, False, 0),
     "window64_g2_d64_skv512": (1, 256, 4, 2, 64, True, 64, 512),
+    # The wgmma B2 at groups that do not divide its 128 rows (padding
+    # rows): debug_200m's 3, b14's 5, 6 and 12, a partial length, a
+    # window, non-causal, and a group above 128 in two head chunks.
+    "causal_g3_d64_s2048": (1, 2048, 12, 4, 64, True, 0),
+    "causal_g5_d128_s1000": (1, 1000, 10, 2, 128, True, 0),
+    "window90_g6_d64_s500": (2, 500, 12, 2, 64, True, 90),
+    "noncausal_g12_d128_s137": (1, 137, 12, 1, 128, False, 0),
+    "causal_g130_d64_s64": (1, 64, 130, 1, 64, True, 0),
+    # Lengths that are no multiple of 4: B3's lse and delta rows start off
+    # a 16-byte boundary, which a TMA box may not (copied by its loading
+    # thread instead).
+    "causal_g2_d64_s130": (1, 130, 4, 2, 64, True, 0),
+    "window40_g4_d128_s201": (1, 201, 8, 2, 128, True, 40),
 }
 
 
