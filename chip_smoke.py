@@ -59,7 +59,7 @@ Phases (any failure raises and exits non-zero):
   7. runtime the training runtime through the port's CLI, in child
              processes (this script with --runtime-child, which runs the
              CLI's main and records each step), at the b1 dense widths
-             and 4 of its 16 layers (`train --config`; batch 8 x 2048, no
+             and 2 of its 16 layers (`train --config`; batch 8 x 2048, no
              accumulation): a JSONL text corpus
              written from a seed and packed through a TokenCache with the
              native packer; run A `train --data --packed --steps 6`
@@ -80,7 +80,8 @@ Phases (any failure raises and exits non-zero):
              under the adaptive orchestrator: at b1's health-check
              interval no decision fires in 6 steps, and the summaries
              carry `adaptive_decisions` (empty) and `trajectory`.)
-  8. adaptive the flagship MoE of phase 6 trained in-process under
+  8. adaptive the flagship MoE of phase 6 at ADAPTIVE_LAYERS of its 10
+             layers, trained in-process under
              AdaptiveTrainingOrchestrator(trainer).run() from phase 7's
              corpus, packed: one decision of each MoE-path kind injected
              through the orchestrator's _execute at fixed steps (LR x 0.5,
@@ -212,6 +213,34 @@ Phases (any failure raises and exits non-zero):
              phase 2's local shapes, the phase-10 global-table shape and
              head_dim 576, and times it.
 
+ 15. mesh    multi-GPU training on one card, in two parts.
+             (a) The sharded path on a one-rank NCCL mesh: `python -m
+             torch.distributed.run --standalone --nproc-per-node 1
+             chip_smoke.py --mesh-child ...`, which runs `train --config`
+             at phase 6's flagship MoE widths (gmm) at MESH_LAYERS of
+             their 10 layers for MESH_STEPS steps
+             through the port's CLI under torchrun: the Trainer builds the
+             mesh, FSDP2-shards the model and runs the sharded step. The
+             child first takes one step of the unsharded Trainer on the
+             same seed and batch; the sharded first step's loss and grad
+             norm must be within MESH_RTOL of it and its B1-B4 launches
+             equal; one profiled sharded step must show FSDP2's unshard
+             and gradient-reduction ranges beside B1-B4 (and its NCCL
+             all-gather / reduce-scatter, where FSDP2 issues them: over
+             more than one rank); the
+             checkpoint the run writes must restore in the unsharded
+             Trainer bitwise. Step time and peak memory beside the
+             unsharded Trainer's at the same depth and phase 6's.
+             (b) Ring attention over 4 virtual ranks at b75's attention
+             widths (q [1, 8192, 64, 128], k/v 8 heads, bf16, 2048 rows a
+             rank): every (rank, ring step) through the port's own chunk
+             function and merge (ops/ring_attention.py
+             virtual_ring_attention), causal, causal with window 2560 and
+             non-causal; o and lse against B1 on the whole sequence
+             (FLASH_REL_TOL, LSE_TOL), dq/dk/dv through the merged output
+             against B2/B3 on the whole sequence, exact B1 launches
+             (causal 4 diagonal + 6 visible, window 4, non-causal 16).
+
 `--only serve,plane,serve_moe` (development runs) runs the build, the
 kernel checks and the named phases only; its last line then says
 "partial".
@@ -328,6 +357,22 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12    # dense bf16 tensor-core peak
 # Training runs and checkpoints (git-ignored; removed when the script ends).
 RUN_DIR = Path(__file__).resolve().parent / "chip_smoke_runs"
+# Phase 15 (mesh). The sharded first step on a one-rank mesh against the
+# unsharded one: the same kernels on the same data; FSDP2's all-gather
+# and reduce-scatter of one rank copy the values, and the loss is scaled
+# by the reduce group's size (1). Within 1e-5 relative.
+MESH_STEPS = 3
+MESH_RTOL = 1e-5
+# Phase 15 (a) trains the flagship widths at 2 of their 10 layers: its
+# checkpoint is written, hashed, read and hashed again within the phase's
+# 60 s (10 layers: 9.1 GB and ~60 s of it).
+MESH_LAYERS = 2
+# b75's attention (64 q over 8 kv heads, head_dim 128, sequence 8192) over
+# 4 virtual sequence ranks; the window case's band reaches 2560 rows back.
+RING_ATTN = (1, 8192, 64, 8, 128)
+RING_RANKS = 4
+RING_WINDOW = 2560
+RING_B1 = {"causal": 10, "window": 4, "non_causal": 16}
 
 
 def _release() -> None:
@@ -356,18 +401,24 @@ def graph_ms(fn, iters: int) -> float:
     return _timing.graph_ms(fn, iters)
 
 
-def kernel_names(fn) -> list:
+def kernel_names(fn, tries: int = 3) -> list:
     """The CUDA kernels one call of fn launches, as torch.profiler (CUPTI)
-    names them: [] when the profiler records no device events."""
+    names them: [] when the profiler records no device events in any of
+    `tries` profiled calls (a session now and then records none: two of
+    five runs of this script on an H100 lost one B2 call's record)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    return sorted({e.key for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA})
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA})
+        if names:
+            return names
+    return []
 
 
 def _short(name: str) -> str:
@@ -3285,12 +3336,12 @@ def _run_child(args: list, log_path: Path, timeout: float = 900,
     return rc, text
 
 
-# The runtime phase's model: b1's widths without experts at a quarter of
-# its depth (4 of 16 layers: phases 7, 9 and 14 write, hash, load and
+# The runtime phase's model: b1's widths without experts at an eighth of
+# its depth (2 of 16 layers: phases 7, 9 and 14 write, hash, load and
 # convert its checkpoints several times, and the script must finish
 # within its time budget), through `train --config`; per optimizer step
 # (one micro-batch) B1 runs each layer's forward and its remat recompute.
-RUNTIME_LAYERS = 4
+RUNTIME_LAYERS = 2
 RUNTIME_LAUNCHES = {"B1": 2 * RUNTIME_LAYERS, "B2": RUNTIME_LAYERS,
                     "B3": RUNTIME_LAYERS}
 
@@ -3916,6 +3967,10 @@ def phase_posttrain_experts(dev, flash_entries: list, gmm_entries: list,
 # Adaptive training: the orchestrator's interventions on the flagship MoE.
 # ---------------------------------------------------------------------------
 ADAPTIVE_STEPS = 14  # global steps; 15 run (the rollback replays one)
+# The flagship MoE at 4 of its 10 layers: three forced saves and a
+# restore of its checkpoint (9.1 GB at 10 layers, 88 s of the phase's
+# 117 s on an H100 host) would push the script past its time budget.
+ADAPTIVE_LAYERS = 4
 # Executed step after which each scripted decision runs: (kind, params).
 # The weight decay doubles the config's; prune takes the least-loaded
 # expert of the step before; rollback goes to the last healthy step,
@@ -5408,9 +5463,384 @@ def phase_quant(dev, rpa_int8_entry: dict, gmm_entries: list,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: multi-GPU training on one card (the sharded path on a one-rank
+# NCCL mesh; ring attention over virtual ranks).
+# ---------------------------------------------------------------------------
+def _mesh_launches():
+    from luminaai_tpu_torch.ops import flash_attention as fa
+    from luminaai_tpu_torch.ops import gmm as tg
+
+    return {"B1": fa.flash_fwd.launches, "B2": fa.flash_bwd_dq.launches,
+            "B3": fa.flash_bwd_dkv.launches, "B4a": tg.gmm.launches,
+            "B4b": tg.tgmm.launches}
+
+
+def _comm_events(prof) -> dict:
+    """The profile's collective events: CPU-side ranges naming FSDP2's
+    all-gather / reduce-scatter and NCCL's ops, and CUDA kernels whose
+    name says nccl."""
+    import torch
+
+    cpu, dev = {}, {}
+    for e in prof.key_averages():
+        key = e.key
+        low = key.lower()
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if "nccl" in low:
+                dev[key[:80]] = [e.count, e.self_device_time_total / 1e3]
+        elif "fsdp::" in low or "nccl:" in low:
+            cpu[key[:80]] = e.count
+    return {"cpu": cpu, "cuda": dev}
+
+
+def mesh_child(argv: list) -> int:
+    """Phase 15 (a), under torchrun with one process: REC -- <train argv>.
+    One unsharded Trainer step on the run's seed and first batch, then
+    the CLI's `train` (which starts the NCCL group and trains over the
+    mesh) recording each step, then one profiled sharded step, then the
+    group torn down and the run's checkpoint restored in the unsharded
+    Trainer. Writes one JSON record to REC."""
+    sep = argv.index("--")
+    rec_path, cli_argv = Path(argv[0]), argv[sep + 1:]
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from luminaai_tpu_torch import cli
+    from luminaai_tpu_torch.config import Config
+    from luminaai_tpu_torch.ops import flash_attention as fa
+    from luminaai_tpu_torch.ops import gmm as tg
+    from luminaai_tpu_torch.training import trainer as tr
+
+    cfg_path = Path(cli_argv[cli_argv.index("--config") + 1])
+    out_dir = Path(cli_argv[cli_argv.index("--output-dir") + 1])
+    device = (cli_argv[cli_argv.index("--device") + 1]
+              if "--device" in cli_argv else "cuda")  # cpu: a rehearsal
+    cfg = Config.load(str(cfg_path))
+    cfg.output_dir = str(out_dir.parent / "mesh_plain")
+    rec: dict = {}
+
+    def digest(names, tensors):
+        return _tensor_digest({n: t.detach().cpu()
+                               for n, t in zip(names, tensors)})
+
+    cuda = device != "cpu"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+
+    # The unsharded Trainer (no process group yet): its first step on the
+    # run's seed and first batch, and a second step for its time.
+    t0 = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    plain = tr.Trainer(cfg, cli._synthetic_batches(cfg), device=device,
+                       seed=0)
+    rec["unsharded_init"] = digest(plain.state.names, plain.state.params)
+    batches = iter(cli._synthetic_batches(cfg)())
+    batch = plain._to_device(next(batches))
+    fa.reset_launches()
+    tg.reset_launches()
+    _, m = plain.train_step(plain.state, batch)
+    rec["unsharded"] = {"loss": float(m["loss"]),
+                        "grad_norm": float(m["grad_norm"]),
+                        "launches": _mesh_launches()}
+    second = plain._to_device(next(batches))
+    sync()
+    t1 = time.perf_counter()
+    _, m = plain.train_step(plain.state, second)
+    float(m["loss"])
+    rec["unsharded"]["step2_ms"] = (time.perf_counter() - t1) * 1e3
+    rec["unsharded"]["peak_gb"] = peak_gb()
+    plain.close()
+    del plain, m, second
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    rec["t_unsharded_s"] = time.perf_counter() - t0
+
+    held, steps = {}, []
+    orig_init = tr.Trainer.__init__
+
+    def init(self, *a, **kw):
+        orig_init(self, *a, **kw)
+        held["trainer"] = self
+        rec["sharded_init"] = digest(self.state.names, self.state.params)
+        step = self.train_step
+
+        def recording(state, batch):
+            before = _mesh_launches()
+            sync()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            loss = float(metrics["loss"])
+            ms = (time.perf_counter() - t0) * 1e3
+            after = _mesh_launches()
+            steps.append({"loss": loss,
+                          "grad_norm": float(metrics["grad_norm"]),
+                          "ms": ms,
+                          "launches": {k: after[k] - before[k]
+                                       for k in after}})
+            return state, metrics
+
+        self.train_step = recording
+
+    tr.Trainer.__init__ = init
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = cli.main(cli_argv)
+    rec["t_train_s"] = time.perf_counter() - t0
+    tr.Trainer.__init__ = orig_init
+    rec["exit"] = rc
+    rec["steps"] = list(steps)
+    rec["peak_gb"] = peak_gb()
+    t = held["trainer"]
+    rec["mesh"] = repr(t.mesh)
+    rec["world"] = dist.get_world_size()
+    rec["backend"] = dist.get_backend()
+    rec["fsdp_sharded"] = type(t.state.dparams[0]).__name__
+    saved = digest(t.state.names, t.state.params)
+    rec["saved_step"] = t.state.step
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
+                                     else [])
+    with profile(activities=acts) as prof:
+        t.train_step(t.state, batch)
+        sync()
+    rec["comm"] = _comm_events(prof)
+    rec["profiled_kernels"] = sorted({
+        _short(e.key) for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and ("flash_" in e.key or "grouped_kernel" in e.key)})
+    del t, held["trainer"]
+    dist.destroy_process_group()
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # The one-rank run's checkpoint in the unsharded Trainer.
+    t0 = time.perf_counter()
+    cfg2 = Config.load(str(cfg_path))
+    cfg2.output_dir = str(out_dir)
+    restored = tr.Trainer(cfg2, cli._synthetic_batches(cfg2),
+                          device=device, seed=1,
+                          checkpoint_dir=str(out_dir / "checkpoints"))
+    rec["restored_step"] = restored.state.step
+    rec["restore_bitwise"] = digest(restored.state.names,
+                                    restored.state.params) == saved
+    restored.close()
+    rec["t_restore_s"] = time.perf_counter() - t0
+    rec_path.write_text(json.dumps(rec))
+    return 0 if rc == 0 else 1
+
+
+def phase_mesh(dev, flash_entries: list, gmm_entries: list,
+               moe_run) -> dict:
+    """Phase 15: (a) the sharded path on a one-rank NCCL mesh through
+    `train` under torchrun (mesh_child); (b) ring attention over
+    RING_RANKS virtual ranks at b75's attention widths."""
+    from luminaai_tpu_torch.config import Config
+
+    t_phase = time.perf_counter()
+    run = RUN_DIR / "mesh"
+    run.mkdir(parents=True, exist_ok=True)
+    cfg = Config(**{**FLAGSHIP, "num_layers": MESH_LAYERS},
+                 **FLAGSHIP_LEVERS, max_steps=MESH_STEPS,
+                 output_dir=str(run / "out"))
+    cfg.save(str(run / "flagship.json"))
+    rec_path = run / "record.json"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", str(Path(__file__).resolve()),
+           "--mesh-child", str(rec_path), "--", "train", "--config",
+           str(run / "flagship.json"), "--synthetic", "--steps",
+           str(MESH_STEPS), "--no-adaptive", "--seed", "0",
+           "--output-dir", str(run / "out")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          cwd=str(RUN_DIR), timeout=600)
+    child_s = time.perf_counter() - t0
+    (run / "child.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0 or not rec_path.exists():
+        raise AssertionError(f"mesh child exited {proc.returncode}:\n"
+                             f"{(proc.stdout + proc.stderr)[-4000:]}")
+    rec = json.loads(rec_path.read_text())
+    first, plain = rec["steps"][0], rec["unsharded"]
+    loss_err = abs(first["loss"] - plain["loss"]) / abs(plain["loss"])
+    norm_err = abs(first["grad_norm"] - plain["grad_norm"]) / abs(
+        plain["grad_norm"])
+    log(f"mesh (a): the flagship widths at {MESH_LAYERS} of 10 layers; "
+        f"{rec['mesh']}, backend {rec['backend']}, world {rec['world']}, "
+        f"parameters {rec['fsdp_sharded']}; child {child_s:.1f} s (exit "
+        f"{rec['exit']}; unsharded Trainer {rec['t_unsharded_s']:.1f} s, "
+        f"train {rec['t_train_s']:.1f} s, restore "
+        f"{rec['t_restore_s']:.1f} s)")
+    log(f"  first sharded step vs unsharded: loss {first['loss']:.7f} vs "
+        f"{plain['loss']:.7f} (rel {loss_err:.2e}), grad_norm "
+        f"{first['grad_norm']:.7f} vs {plain['grad_norm']:.7f} (rel "
+        f"{norm_err:.2e}), tol {MESH_RTOL}; same initial weights: "
+        f"{rec['sharded_init'] == rec['unsharded_init']}")
+    if rec["sharded_init"] != rec["unsharded_init"]:
+        raise AssertionError("the sharded run starts from other weights")
+    if loss_err > MESH_RTOL or norm_err > MESH_RTOL:
+        raise AssertionError("the sharded first step disagrees with the "
+                             "unsharded one")
+    log(f"  launches, first step: sharded {first['launches']} unsharded "
+        f"{plain['launches']}")
+    if first["launches"] != plain["launches"] or min(
+            plain["launches"].values()) == 0:
+        raise AssertionError("the sharded step did not launch B1-B4 as the "
+                             "unsharded one does")
+    comm = rec["comm"]
+    log(f"  profiled sharded step: collectives (host) {comm['cpu']}, "
+        f"(card) {comm['cuda']}; port kernels {rec['profiled_kernels']}")
+    # FSDP2 ran: its unshard before each unit's forward and its gradient
+    # reduction after each unit's backward are in the profile. Its
+    # all-gather and reduce-scatter themselves go to NCCL only over more
+    # than one rank (FSDP2 copies the shard in place of a one-rank
+    # all-gather); they are required wherever they were issued.
+    ranges = " ".join(comm["cpu"])
+    for part in ("FSDP::pre_forward", "FSDP::post_backward_reduce"):
+        if part not in ranges:
+            raise AssertionError(f"{part} not in the sharded step's profile")
+    names = (ranges + " " + " ".join(comm["cuda"])).lower()
+    collectives = {
+        "all_gather": "all_gather" in names or "allgather" in names,
+        "reduce_scatter": ("reduce_scatter" in names
+                           or "reducescatter" in names),
+        # HSDP's gradient all-reduce over the replicate dimension.
+        "all_reduce": "all_reduce" in names or "allreduce" in names}
+    log(f"  FSDP2 collectives issued: {collectives} (world {rec['world']})")
+    if rec["world"] > 1 and not (collectives["all_gather"]
+                                 and collectives["reduce_scatter"]):
+        raise AssertionError("no FSDP2 all-gather / reduce-scatter in the "
+                             "sharded step's profile")
+    kinds = " ".join(rec["profiled_kernels"])
+    for part in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                 "grouped_kernel"):
+        if part not in kinds:
+            raise AssertionError(f"{part} not in the sharded step's "
+                                 "profile")
+    losses = [s["loss"] for s in rec["steps"]]
+    if len(losses) != MESH_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"sharded run: {losses}")
+    step_ms = statistics.median(s["ms"] for s in rec["steps"][1:])
+    p6 = moe_run or {}
+    log(f"  losses {losses}; sharded step {step_ms:.1f} ms (steps "
+        f"2-{MESH_STEPS}, median) vs the unsharded Trainer's second step "
+        f"{plain['step2_ms']:.1f} ms at the same depth (phase 6, 10 "
+        f"layers: {p6.get('step_ms_median', float('nan')):.1f} ms); peak "
+        f"memory {rec['peak_gb']:.2f} GB vs {plain['peak_gb']:.2f} GB "
+        f"unsharded (phase 6: {p6.get('peak_memory_gb', float('nan')):.2f}"
+        f" GB)")
+    log(f"  checkpoint of step {rec['saved_step']} restored in the "
+        f"unsharded Trainer at step {rec['restored_step']}, bitwise: "
+        f"{rec['restore_bitwise']}")
+    if not rec["restore_bitwise"] or rec["restored_step"] != rec[
+            "saved_step"]:
+        raise AssertionError("the one-rank checkpoint did not restore "
+                             "bitwise in the unsharded Trainer")
+    launched = {k: sum(s["launches"][k] for s in rec["steps"])
+                for k in plain["launches"]}
+    for e, kern in zip(flash_entries + gmm_entries,
+                       ("B1", "B2", "B3", "B4a", "B4b")):
+        e["launches"] = (e["launches"] or 0) + launched[kern]
+        e["launches_mesh"] = launched[kern]
+    out = {"first_step_loss_rel": loss_err,
+           "first_step_grad_norm_rel": norm_err, "losses": losses,
+           "step_ms_median": step_ms, "peak_memory_gb": rec["peak_gb"],
+           "unsharded_step_ms": plain["step2_ms"],
+           "unsharded_peak_memory_gb": plain["peak_gb"],
+           "launches": launched, "comm": comm, "collectives": collectives,
+           "child_s": child_s}
+    out["ring"] = _virtual_ring(dev, flash_entries)
+    shutil.rmtree(run, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"mesh phase: {out['wall_s']:.1f} s ({_smi()})")
+    return out
+
+
+def _virtual_ring(dev, flash_entries: list) -> dict:
+    """Phase 15 (b): the ring of RING_RANKS virtual ranks at RING_ATTN
+    against B1-B3 on the whole sequence, per case."""
+    import torch
+
+    from luminaai_tpu_torch.ops import flash_attention as fa
+    from luminaai_tpu_torch.ops import ring_attention as ra
+
+    B, S, Hq, Hkv, Dh = RING_ATTN
+    g = torch.Generator(device=dev).manual_seed(15)
+    q, k, v = (torch.randn(B, S, h, Dh, generator=g, device=dev,
+                           dtype=torch.bfloat16) for h in (Hq, Hkv, Hkv))
+    w = torch.randn(B, S, Hq, Dh, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    res = {}
+    for case, (causal, window) in {"causal": (True, None),
+                                   "window": (True, RING_WINDOW),
+                                   "non_causal": (False, None)}.items():
+        def whole():
+            return fa.flash_attention_with_lse(
+                q, k, v, causal=causal, window=window, block_q=128,
+                block_kv=128)
+
+        def ring(kinds=None):
+            return ra.virtual_ring_attention(
+                q, k, v, RING_RANKS, causal=causal, window=window,
+                block_q=128, block_kv=128, kinds=kinds, return_lse=True)
+
+        qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+        o_ref, lse_ref = fa.flash_attention_with_lse(
+            qr, kr, vr, causal=causal, window=window, block_q=128,
+            block_kv=128)
+        (o_ref.float() * w.float()).sum().backward()
+        ref = [o_ref.detach(), qr.grad, kr.grad, vr.grad]
+        qv, kv_, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        kinds = {}
+        fa.reset_launches()
+        o, lse = ra.virtual_ring_attention(
+            qv, kv_, vv, RING_RANKS, causal=causal, window=window,
+            block_q=128, block_kv=128, kinds=kinds, return_lse=True)
+        torch.cuda.synchronize()
+        b1 = fa.flash_fwd.launches
+        (o.float() * w.float()).sum().backward()
+        torch.cuda.synchronize()
+        b2, b3 = fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches
+        got = [o.detach(), qv.grad, kv_.grad, vv.grad]
+        errs = {}
+        for name, a, b in zip(("o", "dq", "dk", "dv"), got, ref):
+            errs[name] = float((a.float() - b.float()).abs().max()
+                               / b.float().abs().max())
+        errs["lse"] = float((lse.detach() - lse_ref.detach()).abs().max())
+        with torch.no_grad():
+            ms = cuda_ms(ring, 3, warmup=1)
+            ms_whole = cuda_ms(whole, 3, warmup=1)
+        log(f"mesh (b) ring {case}: chunks {kinds}; B1 {b1} (want "
+            f"{RING_B1[case]}), B2 {b2}, B3 {b3}; max rel err "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f"; forward {ms:.3f} ms vs B1 on the whole sequence "
+            f"{ms_whole:.3f} ms")
+        if b1 != RING_B1[case] or b2 != b1 or b3 != b1:
+            raise AssertionError(f"ring {case}: B1-B3 launched {b1}, {b2}, "
+                                 f"{b3}, want {RING_B1[case]} each")
+        if max(errs[n] for n in ("o", "dq", "dk", "dv")) > FLASH_REL_TOL \
+                or errs["lse"] > LSE_TOL:
+            raise AssertionError(f"ring {case} disagrees with B1-B3 on "
+                                 f"the whole sequence: {errs}")
+        res[case] = {"kinds": kinds, "B1": b1, "errs": errs,
+                     "ring_fwd_ms": ms, "whole_fwd_ms": ms_whole}
+        del qr, kr, vr, qv, kv_, vv, o, lse, got, ref, o_ref, lse_ref
+        _release()
+    return res
+
+
 ALL_PHASES = ("serve", "plane", "serve_moe", "train", "train_moe",
               "runtime", "posttrain", "adaptive", "posttrain_moe",
-              "train_tuned", "mod", "fleet", "quant")
+              "train_tuned", "mod", "fleet", "quant", "mesh")
 PHASES = set(ALL_PHASES)
 
 
@@ -5419,6 +5849,8 @@ def main() -> int:
         return runtime_child(sys.argv[2:])
     if sys.argv[1:2] == ["--serve-child"]:
         return serve_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--mesh-child"]:
+        return mesh_child(sys.argv[2:])
     if sys.argv[1:2] == ["--only"]:
         # Development runs: the build and kernel phases and the named ones
         # (comma-separated, of ALL_PHASES); the result line says "partial".
@@ -5471,6 +5903,10 @@ def main() -> int:
                                                 gmm_entries)
             shutil.rmtree(RUN_DIR / "train_moe")
             _release()
+        if "mesh" in PHASES:
+            done["mesh"] = phase_mesh(dev, flash_entries, gmm_entries,
+                                      done.get("train_moe"))
+            _release()
         if "runtime" in PHASES:
             done["runtime"] = phase_runtime(dev, entry, flash_entries)
             # Run B goes; run A's checkpoint feeds phase 9, its corpus
@@ -5487,7 +5923,9 @@ def main() -> int:
             _release()
         shutil.rmtree(RUN_DIR / "A", ignore_errors=True)
         if "adaptive" in PHASES:
-            done["adaptive"] = phase_adaptive(dev, flash_entries, gmm_entries)
+            done["adaptive"] = phase_adaptive(
+                dev, flash_entries, gmm_entries,
+                model={**FLAGSHIP, "num_layers": ADAPTIVE_LAYERS})
             _release()
         if "posttrain_moe" in PHASES:
             done["posttrain_moe"] = phase_posttrain_experts(

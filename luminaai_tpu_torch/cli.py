@@ -34,6 +34,14 @@ The presets are mixture-of-experts models, as in the JAX package; --dense
 builds the preset's widths without experts. The model is built on the card
 unless --device says otherwise.
 
+Multi-GPU training: `torchrun --nproc-per-node N -m luminaai_tpu_torch
+train ... --fsdp F --tp T --ep E --sp S` (the JAX mesh flags; --dp -1 takes
+the ranks left over, --moe-dispatch a2a routes tokens over --ep) runs one
+process a card over an NCCL process group (gloo with --device cpu); the
+Trainer shards the model over the mesh (parallel/sharding.py) and only
+rank 0 logs and writes. Over a mesh the loop runs bare (no adaptive
+decisions or OOM ladder: ROADMAP A6b).
+
 `train` takes the JAX CLI's flags that apply to one card. It runs under
 the AdaptiveTrainingOrchestrator (training/orchestrator.py) unless given
 --no-adaptive, as the JAX CLI does: the orchestrator watches the loss,
@@ -106,12 +114,14 @@ import argparse
 import dataclasses
 import json
 import logging
+import os
 import signal
 import sys
 from pathlib import Path
 from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
+import torch.distributed as dist
 
 from luminaai_tpu_torch.config import Config, ConfigPresets, resolve_device
 
@@ -123,12 +133,29 @@ logger = logging.getLogger(__name__)
 RESUMABLE_EXIT = 75
 
 
-def _moe_dispatch_flag(p: argparse.ArgumentParser) -> None:
-    # The JAX train flag's choices (luminaai_tpu/cli.py).
+def _moe_dispatch_flag(p: argparse.ArgumentParser,
+                       a2a: bool = False) -> None:
+    # The JAX train flag's choices (luminaai_tpu/cli.py); training also
+    # takes the config's 'a2a' (an expert mesh axis, --ep).
     p.add_argument("--moe-dispatch", dest="moe_dispatch",
-                   choices=["sort", "gather", "einsum", "gmm"],
+                   choices=["sort", "gather", "einsum", "gmm"]
+                   + (["a2a"] if a2a else []),
                    help="MoE dispatch (default: the config's, 'sort'); "
-                        "'gmm' runs the grouped-matmul kernel")
+                        "'gmm' runs the grouped-matmul kernel"
+                        + ("; 'a2a' routes tokens to their experts' "
+                           "ranks (needs --ep > 1)" if a2a else ""))
+
+
+def _mesh_flags(t: argparse.ArgumentParser) -> None:
+    # The JAX CLI's mesh flags (luminaai_tpu/cli.py:1812-1822). Under
+    # torchrun (one process a card) the ranks lay out over these axes.
+    t.add_argument("--dp", type=int, help="data axis (-1 = auto)")
+    t.add_argument("--pp", type=int,
+                   help="pipeline stages (not ported yet: ROADMAP A6b)")
+    t.add_argument("--fsdp", type=int, help="ZeRO-3-style shard ways")
+    t.add_argument("--tp", type=int, help="tensor-parallel ways")
+    t.add_argument("--ep", type=int, help="expert-parallel ways")
+    t.add_argument("--sp", type=int, help="sequence/ring-attention ways")
 
 
 def _model_overrides(args) -> Dict[str, object]:
@@ -367,7 +394,8 @@ def _train_flags(t: argparse.ArgumentParser) -> None:
                    help="run under the adaptive orchestrator")
     t.add_argument("--dense", action="store_true",
                    help="train the preset's widths without experts")
-    _moe_dispatch_flag(t)
+    _moe_dispatch_flag(t, a2a=True)
+    _mesh_flags(t)
     t.add_argument("--data",
                    help="jsonl conversations (or text with --packed)")
     t.add_argument("--eval-data", dest="eval_data")
@@ -556,7 +584,9 @@ def _synthetic_batches(cfg: Config, n_batches: int = 200, seed: int = 0):
 
 def make_data(cfg: Config, args):
     """(train_fn, eval_fn, dataset_tokens or None), as the JAX CLI's
-    make_data builds them (one process: no per-process shards)."""
+    make_data builds them. Over a process group the packed loader yields
+    this rank's rows; the others yield the global batch, whose rows the
+    Trainer selects (parallel.train_step.shard_batch)."""
     from luminaai_tpu_torch.data.dataset import (
         ConversationDataset,
         PackedDataset,
@@ -592,12 +622,18 @@ def make_data(cfg: Config, args):
             str(Path(cfg.output_dir) / "cache" / Path(data_path).stem),
             tokenizer,
         )
+        # Over a process group each batch rank reads only its own
+        # documents' rows (JAX cli.py:173-187).
+        from luminaai_tpu_torch.parallel.mesh import batch_shard
+
+        pi, pc = batch_shard(cfg) if dist.is_initialized() else (0, 1)
         ds = PackedDataset(
             cache, cfg.batch_size, cfg.seq_length,
             pad_id=tokenizer.pad_token_id, eos_id=tokenizer.eos_token_id,
             shuffle_seed=cfg.seed,
             use_native=cfg.use_native_dataloader,
             split_docs=cfg.pack_sequences,
+            process_index=pi, process_count=pc,
         )
         return (
             PrefetchLoader(lambda: iter(ds), prefetch=max(1, cfg.num_workers),
@@ -645,6 +681,12 @@ def _train_config(args) -> Config:
         ("grad_accum", "gradient_accumulation_steps"),
         ("tokenizer", "tokenizer_name"),
         ("experiment", "experiment_name"),
+        ("dp", "data_parallel_size"),
+        ("pp", "pipeline_parallel_size"),
+        ("fsdp", "fsdp_parallel_size"),
+        ("tp", "tensor_parallel_size"),
+        ("ep", "expert_parallel_size"),
+        ("sp", "sequence_parallel_size"),
     ]:
         val = getattr(args, flag)
         if val is not None:
@@ -722,7 +764,15 @@ def train(args) -> int:
 
     resolve_device(args.device)  # the card, or raise before any output
     cfg = _train_config(args)
-    logging.getLogger().setLevel(cfg.log_level)
+    # Under torchrun (RANK in the environment) or config.multihost: the
+    # process group over the cards, one process a card (NCCL; gloo only
+    # with --device cpu). Only rank 0 logs and writes.
+    if "RANK" in os.environ or cfg.multihost:
+        from luminaai_tpu_torch.parallel.mesh import initialize_multihost
+
+        initialize_multihost(cfg, device=args.device)
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    logging.getLogger().setLevel(cfg.log_level if rank0 else "WARNING")
     if args.resume:
         cfg.auto_resume = True
     train_fn, eval_fn, dataset_tokens = make_data(cfg, args)
@@ -741,7 +791,7 @@ def train(args) -> int:
     # Provenance before the trainer is built, so a crash still leaves it;
     # a resume never overwrites the original run's record.
     meta_path = Path(cfg.output_dir) / "experiment_metadata.json"
-    if not (args.resume and meta_path.exists()):
+    if rank0 and not (args.resume and meta_path.exists()):
         meta_path.parent.mkdir(parents=True, exist_ok=True)
         meta_path.write_text(json.dumps(_jsonable({
             "experiment_name": cfg.experiment_name,
@@ -756,7 +806,12 @@ def train(args) -> int:
     trainer = Trainer(cfg, train_data=train_fn, eval_data=eval_fn,
                       device=args.device, seed=args.seed)
     _install_signal_handlers(trainer)
-    if args.adaptive:
+    if trainer.mesh is not None:
+        # The adaptive decisions and the OOM ladder act on one process's
+        # view and rebuild one-card states; over a mesh they wait for
+        # ROADMAP A6b: the bare loop.
+        summary = trainer.train()
+    elif args.adaptive:
         orchestrator = AdaptiveTrainingOrchestrator(trainer)
         summary = orchestrator.run(oom_protect=args.oom_protect)
     elif args.oom_protect:
@@ -764,6 +819,8 @@ def train(args) -> int:
     else:
         summary = trainer.train()
     trainer.close()
+    if not rank0:
+        return RESUMABLE_EXIT if summary.get("preempted") else 0
 
     out = Path(cfg.output_dir) / "training_summary.json"
     out.parent.mkdir(parents=True, exist_ok=True)

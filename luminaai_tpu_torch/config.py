@@ -2,21 +2,18 @@
 
 The port keeps its own copy of the fields its serving, training,
 training-runtime and adaptive-training slices read (checkpoints, data,
-monitoring, retry, watchdog and the orchestrator's switches), with the
-JAX package's names, defaults and validation, so a `Config` built with
-the same keyword arguments describes the same model and the same training
-run on both sides, and `to_dict()` of both agrees on the shared keys
-once written as JSON (the port's gives the schedule tuple as a list).
+monitoring, retry, watchdog, the orchestrator's switches and the mesh),
+with the JAX package's names, defaults and validation, so a `Config` built
+with the same keyword arguments describes the same model and the same
+training run on both sides, and `to_dict()` of both agrees on the shared
+keys once written as JSON (the port's gives its tuples as lists).
 `save` / `load` write and read it as JSON (YAML where `yaml` imports), as
 the JAX Config does, and `load` drops the keys this copy does not know, so
-a JAX config file loads here. Fields for parallelism and serving extras
-stay in the JAX package until the slices that need them are ported
-(the serving plane's prefix cache and SLO fields are here, and the
-quantized serving fields: kv_cache_dtype, quantization_method,
-quantization_bits). Values
-the port does not run on one card are accepted here, as the JAX package
-accepts them, and refused where a model is built (the 'a2a' MoE dispatch,
-which needs an expert mesh: models/moe.py). The port's model loops over
+a JAX config file loads here. The serving extras stay in the JAX package
+until the slices that need them are ported. The mesh fields are JAX's,
+validated as JAX validates them; pipeline stages and the optimizer's host
+offload are accepted here and refused where a train step is built
+(ROADMAP A6b). The port's model loops over
 its layers whatever `scan_layers` says: the field names the layout of a
 checkpoint's parameter tree (convert.py reads and writes the scanned
 trees), and, as in the JAX package, sends int8 serving of such a model
@@ -150,9 +147,17 @@ class Config:
     # 'sort' = scatter into capacity buffers by flat slot ids and dense
     # expert products; 'gather' = the same buffers filled by a row gather
     # (gather-only backward); 'einsum' = one-hot dispatch/combine
-    # products; 'gmm' = the dropless grouped matmul (kernel B4). 'a2a'
-    # needs an expert mesh and is refused where the model is built.
+    # products; 'gmm' = the dropless grouped matmul (kernel B4); 'a2a' =
+    # tokens shard over (data, fsdp, expert) and are routed to their
+    # experts' ranks by the hierarchical all-to-all
+    # (parallel/expert_dispatch.py), needs an expert mesh axis.
     moe_dispatch: str = "sort"
+    # a2a only: how much of the expert axis spans nodes (the inter-node
+    # tier of the two-stage exchange); 1 = one stage.
+    expert_dcn_size: int = 1
+    # a2a only: the bucket payload's chunks, so one chunk's exchange runs
+    # beside another chunk's expert products.
+    moe_a2a_overlap_chunks: int = 2
 
     # --- MoD (models/mod.py; JAX config.py:172-174) ---
     use_mod: bool = False
@@ -199,6 +204,40 @@ class Config:
     eval_every_n_batches: int = 500
     save_every_n_batches: int = 1000
     assistant_loss_weight: float = 1.5
+
+    # --- Parallelism (luminaai_tpu/config.py:236-289) ---
+    # One process per card (torchrun); parallel/mesh.py lays the world
+    # out over these axes, the last varying fastest. data -1 takes the
+    # ranks the others leave.
+    mesh_axes: tuple = ("data", "pipe", "fsdp", "expert", "sequence",
+                        "tensor")
+    data_parallel_size: int = -1
+    # Pipeline parallelism and the optimizer's host offload are refused
+    # where training starts (ROADMAP A6b); the fields load from JAX files.
+    pipeline_parallel_size: int = 1
+    pipeline_microbatches: Optional[int] = None
+    pipeline_schedule: str = "1f1b"
+    fsdp_parallel_size: int = 1
+    expert_parallel_size: int = 1
+    tensor_parallel_size: int = 1
+    sequence_parallel_size: int = 1
+    use_ring_attention: bool = False  # required when sequence > 1
+    # Gradient reduction over (data, fsdp): 'flat' = FSDP2's own
+    # reduce-scatter; 'hierarchical' = parallel/grad_reduce.py's bucketed
+    # reduce-scatter inside a node, all-reduce across nodes
+    # (gradient_dcn_size groups of the data axis), all-gather back.
+    grad_reduce: str = "flat"
+    gradient_dcn_size: int = 1
+    grad_reduce_bucket_mb: float = 32.0
+    grad_reduce_overlap_chunks: int = 2
+    grad_reduce_dcn_dtype: Optional[str] = None  # None (fp32) or 'bf16'
+    allow_split_physical_axes: bool = False
+    # init_process_group from these when torchrun's environment is absent.
+    multihost: bool = False
+    coordinator_address: Optional[str] = None
+    process_id: Optional[int] = None
+    num_processes: Optional[int] = None
+    host_offload_optimizer: bool = False
 
     # --- Data (luminaai_tpu/config.py:290-299) ---
     train_data_path: str = "data/train.jsonl"
@@ -316,6 +355,12 @@ class Config:
     def __post_init__(self):
         if isinstance(self.mod_capacity_schedule, list):  # from JSON
             self.mod_capacity_schedule = tuple(self.mod_capacity_schedule)
+        if isinstance(self.mesh_axes, list):
+            self.mesh_axes = tuple(self.mesh_axes)
+        # Sequence parallelism rides ring attention (the JAX
+        # normalize_parallelism).
+        if self.sequence_parallel_size > 1:
+            self.use_ring_attention = True
         if self.num_kv_heads is None:
             self.num_kv_heads = self.num_heads
         if self.intermediate_size is None:
@@ -446,6 +491,7 @@ class Config:
                 raise ValueError(f"invalid moe_dispatch {self.moe_dispatch}")
             if not 0.0 <= self.expert_dropout_rate <= 0.5:
                 raise ValueError("expert_dropout_rate must be in [0, 0.5]")
+            self._validate_moe_mesh()
         if self.use_mod:
             if not 0.0 < self.mod_capacity_factor <= 1.0:
                 raise ValueError("mod_capacity_factor must be in (0, 1]")
@@ -454,15 +500,106 @@ class Config:
                 raise ValueError(
                     f"mod_capacity_schedule entries must be in (0, 1] "
                     f"(got {self.mod_capacity_schedule})")
+        self._validate_mesh()
+
+    def _validate_moe_mesh(self) -> None:
+        """The JAX validation of the MoE dispatches against the mesh
+        (config.py:664-729)."""
+        if self.moe_dispatch == "a2a":
+            if self.expert_parallel_size <= 1:
+                raise ValueError(
+                    "moe_dispatch='a2a' requires an expert mesh axis "
+                    "(expert_parallel_size > 1) — token routing needs "
+                    "shards to route between; use 'gmm' on a single-"
+                    "host/no-ep mesh")
+            if self.expert_parallel_size % self.expert_dcn_size:
+                raise ValueError(
+                    f"expert_dcn_size ({self.expert_dcn_size}) must "
+                    f"divide expert_parallel_size "
+                    f"({self.expert_parallel_size})")
+            if self.moe_a2a_overlap_chunks < 1:
+                raise ValueError("moe_a2a_overlap_chunks must be >= 1")
+        if self.expert_dcn_size < 1:
+            raise ValueError("expert_dcn_size must be >= 1")
+        if self.moe_dispatch in ("a2a", "gmm"):
+            for name, size in (("pipeline", self.pipeline_parallel_size),
+                               ("sequence", self.sequence_parallel_size)):
+                if size != 1:
+                    raise ValueError(
+                        f"moe_dispatch='{self.moe_dispatch}' composes "
+                        f"with data/fsdp/expert/tensor mesh axes only "
+                        f"({name}_parallel_size={size}); use 'gather' or "
+                        f"'sort' there")
+            if (self.tensor_parallel_size > 1 and self.intermediate_size
+                    % self.tensor_parallel_size):
+                raise ValueError(
+                    f"moe_dispatch='{self.moe_dispatch}' with tensor "
+                    f"parallelism needs intermediate_size divisible by "
+                    f"tensor_parallel_size ({self.intermediate_size} % "
+                    f"{self.tensor_parallel_size})")
+
+    def _validate_mesh(self) -> None:
+        """The JAX validation of the mesh fields (config.py:743-842)."""
+        if self.sequence_parallel_size > 1:
+            if self.seq_length % self.sequence_parallel_size:
+                raise ValueError(
+                    "seq_length must divide over sequence_parallel_size")
+            if not self.use_ring_attention:
+                raise ValueError(
+                    "sequence_parallel_size > 1 requires "
+                    "use_ring_attention=True (without it every device "
+                    "re-gathers the full sequence, defeating sequence "
+                    "parallelism)")
+        for axis in ("fsdp", "expert", "tensor", "sequence", "pipeline"):
+            if getattr(self, f"{axis}_parallel_size") < 1:
+                raise ValueError(f"{axis}_parallel_size must be >= 1")
+        if self.pipeline_parallel_size > 1:
+            if self.pipeline_schedule not in ("1f1b", "gpipe"):
+                raise ValueError(
+                    f"invalid pipeline_schedule {self.pipeline_schedule}")
+            if self.num_layers % self.pipeline_parallel_size:
+                raise ValueError(
+                    "num_layers must divide evenly over pipeline stages")
+        if (self.expert_parallel_size > 1 and self.use_moe
+                and self.num_experts % self.expert_parallel_size):
+            raise ValueError(
+                "num_experts must divide evenly over expert_parallel_size")
+        if self.grad_reduce not in ("flat", "hierarchical"):
+            raise ValueError(f"invalid grad_reduce {self.grad_reduce}")
+        if self.gradient_dcn_size < 1:
+            raise ValueError("gradient_dcn_size must be >= 1")
+        if self.grad_reduce_overlap_chunks < 1:
+            raise ValueError("grad_reduce_overlap_chunks must be >= 1")
+        if not self.grad_reduce_bucket_mb > 0:
+            raise ValueError("grad_reduce_bucket_mb must be positive")
+        if self.grad_reduce_dcn_dtype not in (None, "bf16"):
+            raise ValueError(
+                f"invalid grad_reduce_dcn_dtype {self.grad_reduce_dcn_dtype}")
+        if self.grad_reduce == "hierarchical":
+            for name, size in (("pipeline", self.pipeline_parallel_size),
+                               ("sequence", self.sequence_parallel_size)):
+                if size != 1:
+                    raise ValueError(
+                        f"grad_reduce='hierarchical' composes with data/"
+                        f"fsdp/expert/tensor mesh axes only ({name}_"
+                        f"parallel_size={size}); use grad_reduce='flat' "
+                        f"there")
+            if self.use_moe and self.moe_dispatch in ("gmm", "a2a"):
+                raise ValueError(
+                    f"grad_reduce='hierarchical' cannot nest the "
+                    f"moe_dispatch='{self.moe_dispatch}' shard_map inside "
+                    "its manual (data, fsdp) region; use 'sort'/'gather'/"
+                    "'einsum' dispatch or grad_reduce='flat'")
 
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
 
     def to_dict(self) -> Dict[str, Any]:
-        """The fields as JSON types (the schedule tuple as a list), so a
+        """The fields as JSON types (the tuples as lists), so a
         checkpoint's metadata reads back equal."""
         d = dataclasses.asdict(self)
         d["mod_capacity_schedule"] = list(self.mod_capacity_schedule)
+        d["mesh_axes"] = list(self.mesh_axes)
         return d
 
     @classmethod
@@ -670,7 +807,205 @@ class ConfigPresets:
             experiment_name="b1",
         )
 
-    _PRESETS = ("debug", "debug_200m", "debug_300m", "b1")
+    @staticmethod
+    def moe_stress_test() -> Config:
+        return Config(
+            vocab_size=50304,
+            hidden_size=512,
+            num_layers=8,
+            num_heads=8,
+            num_kv_heads=4,
+            seq_length=1024,
+            batch_size=8,
+            use_moe=True,
+            num_experts=32,
+            moe_top_k=2,
+            capacity_factor=1.1,
+            routing_noise_std=0.2,
+            expert_parallel_size=1,
+            experiment_name="moe_stress_test",
+        )
+
+    @staticmethod
+    def b7() -> Config:
+        return Config(
+            vocab_size=50304,
+            hidden_size=4096,
+            num_layers=32,
+            num_heads=32,
+            num_kv_heads=8,
+            seq_length=2048,
+            batch_size=512,
+            gradient_accumulation_steps=16,
+            learning_rate=1.5e-4,
+            use_moe=True,
+            num_experts=8,
+            moe_top_k=2,
+            fsdp_parallel_size=8,
+            expert_parallel_size=8,
+            scan_layers=True,
+            experiment_name="b7",
+        )
+
+    @staticmethod
+    def b14() -> Config:
+        return Config(
+            vocab_size=50304,
+            hidden_size=5120,
+            num_layers=40,
+            num_heads=40,
+            num_kv_heads=8,
+            seq_length=4096,
+            batch_size=512,
+            gradient_accumulation_steps=16,
+            learning_rate=1.2e-4,
+            use_moe=True,
+            num_experts=8,
+            moe_top_k=2,
+            fsdp_parallel_size=16,
+            expert_parallel_size=8,
+            scan_layers=True,
+            experiment_name="b14",
+        )
+
+    @staticmethod
+    def b30() -> Config:
+        return Config(
+            vocab_size=50304,
+            hidden_size=6656,
+            num_layers=48,
+            num_heads=52,
+            num_kv_heads=13,
+            seq_length=4096,
+            batch_size=1024,
+            gradient_accumulation_steps=32,
+            learning_rate=1e-4,
+            use_moe=True,
+            num_experts=8,
+            moe_top_k=2,
+            fsdp_parallel_size=32,
+            expert_parallel_size=8,
+            scan_layers=True,
+            experiment_name="b30",
+        )
+
+    @staticmethod
+    def b50() -> Config:
+        return Config(
+            vocab_size=50304,
+            hidden_size=8192,
+            num_layers=48,
+            num_heads=64,
+            num_kv_heads=8,
+            seq_length=4096,
+            batch_size=1024,
+            gradient_accumulation_steps=32,
+            learning_rate=8e-5,
+            use_moe=True,
+            num_experts=16,
+            moe_top_k=2,
+            fsdp_parallel_size=32,
+            expert_parallel_size=16,
+            scan_layers=True,
+            experiment_name="b50",
+        )
+
+    @staticmethod
+    def b75() -> Config:
+        return Config(
+            vocab_size=50304,
+            hidden_size=8192,
+            num_layers=64,
+            num_heads=64,
+            num_kv_heads=8,
+            seq_length=8192,
+            batch_size=1024,
+            gradient_accumulation_steps=32,
+            learning_rate=7e-5,
+            use_moe=True,
+            num_experts=16,
+            moe_top_k=2,
+            fsdp_parallel_size=64,
+            expert_parallel_size=16,
+            use_ring_attention=True,
+            sequence_parallel_size=1,
+            scan_layers=True,
+            experiment_name="b75",
+        )
+
+    @staticmethod
+    def b100() -> Config:
+        return Config(
+            vocab_size=50304,
+            hidden_size=10240,
+            num_layers=64,
+            num_heads=80,
+            num_kv_heads=8,
+            seq_length=8192,
+            batch_size=2048,
+            gradient_accumulation_steps=64,
+            learning_rate=6e-5,
+            use_moe=True,
+            num_experts=32,
+            moe_top_k=2,
+            fsdp_parallel_size=64,
+            expert_parallel_size=32,
+            use_ring_attention=True,
+            scan_layers=True,
+            experiment_name="b100",
+        )
+
+    @staticmethod
+    def b200() -> Config:
+        return Config(
+            vocab_size=50304,
+            hidden_size=12288,
+            num_layers=80,
+            num_heads=96,
+            num_kv_heads=8,
+            seq_length=8192,
+            batch_size=2048,
+            gradient_accumulation_steps=64,
+            learning_rate=5e-5,
+            use_moe=True,
+            num_experts=64,
+            moe_top_k=2,
+            fsdp_parallel_size=128,
+            expert_parallel_size=64,
+            use_ring_attention=True,
+            scan_layers=True,
+            experiment_name="b200",
+        )
+
+    @staticmethod
+    def b300() -> Config:
+        return Config(
+            vocab_size=50304,
+            hidden_size=16384,
+            num_layers=80,
+            num_heads=128,
+            num_kv_heads=16,
+            seq_length=8192,
+            batch_size=4096,
+            gradient_accumulation_steps=128,
+            learning_rate=4e-5,
+            use_moe=True,
+            num_experts=64,
+            moe_top_k=2,
+            fsdp_parallel_size=128,
+            expert_parallel_size=64,
+            tensor_parallel_size=2,
+            use_ring_attention=True,
+            scan_layers=True,
+            experiment_name="b300",
+        )
+
+    # The JAX package's 13 presets. The port's b1 keeps one card's share
+    # of the JAX preset's batch and no fsdp axis (see b1); the others are
+    # the JAX presets field for field, meshes included.
+    _PRESETS = ("debug", "debug_200m", "debug_300m", "moe_stress_test",
+                "b1", "b7", "b14", "b30", "b50", "b75", "b100", "b200",
+                "b300")
 
     @classmethod
     def available(cls) -> List[str]:

@@ -51,6 +51,12 @@ from luminaai_tpu_torch.ops.ragged_paged_attention import (
     implied_page_size,
     paged_attention,
 )
+from luminaai_tpu_torch.ops.ring_attention import ring_attention
+from luminaai_tpu_torch.parallel.mesh import (
+    active_mesh,
+    copy_to,
+    reduce_from,
+)
 
 
 class RMSNorm(nn.Module):
@@ -112,6 +118,15 @@ def apply_rope(
     return out.to(x.dtype)
 
 
+def _tensor_group():
+    """The tensor group of the mesh the step runs under (None without
+    tensor parallelism)."""
+    mesh = active_mesh()
+    if mesh is None or mesh.shape["tensor"] == 1:
+        return None
+    return mesh.group("tensor")
+
+
 class SwiGLU(nn.Module):
     """down(silu(gate(x)) * up(x)) with the fused [hidden, 2F] gate+up."""
 
@@ -130,8 +145,14 @@ class SwiGLU(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        tg = _tensor_group()
+        # Tensor parallel (parallel/sharding.py): wi holds this rank's
+        # gate and up columns, wo the matching rows; the partial outputs
+        # sum over the tensor group (Megatron column-then-row).
+        x = copy_to(x, tg)
         gate, up = torch.chunk(project(x, self.wi, self.dtype), 2, dim=-1)
-        return project(F.silu(gate) * up, self.wo, self.dtype)
+        return reduce_from(project(F.silu(gate) * up, self.wo, self.dtype),
+                           tg)
 
 
 class QKVParts(nn.Module):
@@ -233,20 +254,58 @@ class GQAttention(nn.Module):
                 "the port's attention runs the per-lane cache paths only "
                 "(a [B] cache_index) and the no-cache forward"
             )
-        if isinstance(self.wqkv, QKVParts):
+        mesh = active_mesh() if kv_cache is None else None
+        tg = None
+        if mesh is not None and mesh.shape["tensor"] > 1:
+            # Tensor parallel (parallel/sharding.py): wqkv holds this
+            # rank's q heads and its kv heads (all of them where the kv
+            # heads do not divide over the ranks, whose partial gradients
+            # then sum over the group), wo the matching rows.
+            tp, tg = mesh.shape["tensor"], mesh.group("tensor")
+            n_q = n_q // tp
+            w = self.wqkv
+            if n_kv % tp:
+                w = torch.cat([w[:, : n_q * d],
+                               copy_to(w[:, n_q * d:], tg)], dim=1)
+            else:
+                n_kv = n_kv // tp
+            qkv = project(copy_to(x, tg), w, self.dtype)
+        elif isinstance(self.wqkv, QKVParts):
             qkv = self.wqkv(x, self.dtype)
         else:
             qkv = project(x, self.wqkv, self.dtype)
         q = qkv[..., : n_q * d].reshape(B, S, n_q, d)
         k = qkv[..., n_q * d: (n_q + n_kv) * d].reshape(B, S, n_kv, d)
         v = qkv[..., (n_q + n_kv) * d:].reshape(B, S, n_kv, d)
+        if tg is not None and n_kv == cfg.num_kv_heads and n_q < (
+                cfg.num_heads):
+            # Whole kv heads: keep those this rank's q heads read.
+            grp = cfg.num_heads // cfg.num_kv_heads
+            q0 = mesh.coords["tensor"] * n_q
+            k = k[:, :, q0 // grp: -(-(q0 + n_q) // grp)]
+            v = v[:, :, q0 // grp: -(-(q0 + n_q) // grp)]
         rope_ct = self.dtype if cfg.rope_dtype == "bf16" else torch.float32
 
         if kv_cache is None:
-            cos, sin = self._rope_tables(max(cfg.seq_length, S), x.device)
+            sp = mesh.shape["sequence"] if mesh is not None else 1
+            if sp > 1 and positions is None:
+                # This rank's rows of the sequence rotate at their global
+                # positions.
+                i0 = mesh.coords["sequence"] * S
+                positions = torch.arange(i0, i0 + S,
+                                         device=x.device).expand(B, S)
+            cos, sin = self._rope_tables(max(cfg.seq_length, S * sp),
+                                         x.device)
             q = apply_rope(q, cos, sin, positions, compute_dtype=rope_ct)
             k = apply_rope(k, cos, sin, positions, compute_dtype=rope_ct)
-            if cfg.use_flash_attention and flash_eligible(
+            if sp > 1 and cfg.use_ring_attention:
+                out = ring_attention(
+                    q, k, v.contiguous(), mesh, causal=True,
+                    use_flash=cfg.use_flash_attention,
+                    block_q=cfg.flash_block_q, block_kv=cfg.flash_block_kv,
+                    window=cfg.attention_window,
+                )
+            elif cfg.use_flash_attention and flash_eligible(
                 S, d, cfg.flash_block_q, cfg.flash_block_kv
             ):
                 out = flash_attention(
@@ -256,8 +315,8 @@ class GQAttention(nn.Module):
                 )
             else:
                 out = self._xla_attention(q, k, v)
-            return project(out.reshape(B, S, n_q * d), self.wo,
-                           self.dtype), None
+            return reduce_from(project(out.reshape(B, S, n_q * d), self.wo,
+                                       self.dtype), tg), None
 
         ck, cv = kv_cache
         C = cache_rows(ck)

@@ -83,12 +83,28 @@ def apply_mod(router: MoDRouter, inner: Callable[[torch.Tensor],
     """Run `inner` ([G, C, H] -> [G, C, H]) on the router's tokens only;
     zeros elsewhere (the block adds the result to its residual). Returns
     (out [G, S, H] in x's dtype, {"mod_aux_loss", "mod_compute_ratio"})."""
+    from luminaai_tpu_torch.parallel.mesh import (
+        active_mesh,
+        gather_sum,
+        mean_over,
+    )
+
+    mesh = active_mesh()
+    sp = mesh.shape["sequence"] if mesh is not None else 1
+    if sp > 1:  # the capacity is per whole sequence (as in MoE routing)
+        Sl = x.shape[1]
+        x = gather_sum(x, mesh.group("sequence"), dim=1)
     G, S, H = x.shape
     indices, gate, aux = router(x)
     rows = indices[..., None].expand(G, indices.shape[1], H)
     selected = torch.gather(x, 1, rows)
     out_sel = inner(selected) * gate[..., None]
     out = torch.zeros_like(x).scatter_add(1, rows, out_sel.to(x.dtype))
+    if mesh is not None and mesh.stat_axes:
+        aux = mean_over(aux, mesh.group(*mesh.stat_axes))
+    if sp > 1:
+        i0 = mesh.coords["sequence"] * Sl
+        out = out[:, i0:i0 + Sl]
     metrics = {
         "mod_aux_loss": aux,
         "mod_compute_ratio": torch.tensor(indices.shape[-1] / S,

@@ -29,11 +29,22 @@ choices); pairs past capacity are dropped and their gate is 0.
 The expert products of 'sort', 'gather' and 'einsum' are the dense
 [E, G, C, .] torch matmuls (XLA's in JAX). int8 experts (quantized
 serving: `wi`/`wo` QuantizedTensors over axis 1) run one int8 product an
-expert (ops/quantized.int8_expert, JAX :420-435), and send 'gmm' to
-'gather' as the JAX layer does (:303-310): the grouped-matmul kernel is
-bf16 only. 'a2a' dispatch (an expert mesh) and the multi-device branches
-(the JAX `_gmm_path` under shard_map, `_a2a_path`) are not ported
-(ROADMAP queue A); 'a2a' is refused where the layer is built.
+expert (ops/quantized.int8_expert, JAX :420-435), and send 'gmm' and
+'a2a' to 'gather' as the JAX layer does (:303-310): the grouped-matmul
+kernel is bf16 only.
+
+Over a mesh (parallel/mesh.active_mesh; the JAX `_gmm_path` under
+shard_map, :515-647, and `_a2a_path`, :649-790): each expert rank holds
+E / ep experts and each tensor rank its share of F (gate and up columns
+of wi, rows of wo, parallel/sharding.py). 'gmm' (and 'sort', 'gather',
+'einsum') run this rank's experts over the rank's tokens, the partial
+outputs summed over the (expert, tensor) group; 'a2a' routes this rank's
+1/ep of the groups to their experts' ranks (parallel/expert_dispatch.py)
+and gathers the outputs back; without an expert axis 'a2a' is the local
+grouped matmul, as in JAX. Under sequence parallelism the layer routes
+the gathered whole sequences (capacity is per sequence) and keeps its
+rows. The load-balancing and z statistics average over the batch's ranks
+(Mesh.stat_axes), so the aux losses are the global batch's.
 """
 
 from __future__ import annotations
@@ -47,17 +58,35 @@ from torch import nn
 from luminaai_tpu_torch.config import Config
 from luminaai_tpu_torch.ops.gmm import grouped_matmul
 from luminaai_tpu_torch.ops.quantized import QuantizedTensor, int8_expert
+from luminaai_tpu_torch.parallel.mesh import (
+    active_mesh,
+    all_gather,
+    copy_to,
+    gather_rows,
+    gather_sum,
+    mean_over,
+    psum,
+    reduce_from,
+)
 
 # The megablox m tile: the sorted row buffer is padded up to it (the JAX
 # _GMM_ROW_TILE); pad rows sit past sum(group_sizes).
 GMM_ROW_TILE = 128
-PORTED_DISPATCH = ("sort", "gather", "einsum", "gmm")
+PORTED_DISPATCH = ("sort", "gather", "einsum", "gmm", "a2a")
 # The router's init std (the JAX layer's default_init(0.02), not init_std).
 ROUTER_INIT_STD = 0.02
 # Hook, as the JAX package's _GMM_OVERRIDE: a grouped-matmul function with
 # grouped_matmul's signature to run instead of it (chip_smoke.py re-runs a
 # step through the plain version with it). None runs ops/gmm's.
 GMM_OVERRIDE = None
+
+
+def _model_group(mesh):
+    """The (expert, tensor) group whose ranks hold the partials of one
+    expert FFN (None where both axes are 1)."""
+    if mesh is None or mesh.shape["expert"] * mesh.shape["tensor"] == 1:
+        return None
+    return mesh.group("expert", "tensor")
 
 
 def expert_capacity(config: Config, seq: int) -> int:
@@ -175,20 +204,30 @@ def top_k_routing(probs: torch.Tensor, top_k: int, capacity: int):
 
 def gmm_local(x: torch.Tensor, probs: torch.Tensor, wi: torch.Tensor,
               wo: torch.Tensor, *, top_k: int, capacity: int, dtype,
-              gmm_fn=grouped_matmul):
-    """The ragged grouped-matmul expert FFN of one device (the JAX
-    `_gmm_local` with ep_axis None). Returns (out [G, S, H], tokens per
-    expert [E] fp32, dropped [G, S]). Nothing here reads the device on the
-    host: the group sizes stay a device tensor."""
+              gmm_fn=grouped_matmul, ep_index: int = 0):
+    """The ragged grouped-matmul expert FFN of one rank (the JAX
+    `_gmm_local`). wi/wo hold E_l of the E = probs.shape[-1] experts,
+    those from ep_index * E_l (expert parallel): pairs routed elsewhere
+    sort to the excluded tail as dropped ones do, so `out` is this rank's
+    partial. Returns (out [G, S, H], tokens per expert [E] fp32, dropped
+    [G, S]). Nothing here reads the device on the host: the group sizes
+    stay a device tensor."""
     G, S, H = x.shape
-    E, k, C = wi.shape[0], top_k, capacity
+    E, k, C = probs.shape[-1], top_k, capacity
+    E_l = wi.shape[0]
     n = G * S * k
     slot, gate, dropped, counts = sort_routing(probs, k, C)
     gate = gate.to(dtype)
     # Pair p = ((g * S) + s) * k + r -> its expert; dropped pairs get E and
     # sort after every real expert's run (excluded through group_sizes).
     e_pair = torch.where(slot < E * C, slot // C, E).reshape(-1)
-    group_sizes = counts.sum(0).to(torch.int32)
+    counts_e = counts.sum(0).to(torch.int32)
+    group_sizes = counts_e
+    if E_l != E:
+        e_lo = ep_index * E_l
+        loc = e_pair - e_lo
+        e_pair = torch.where((loc >= 0) & (loc < E_l), loc, E_l)
+        group_sizes = counts_e[e_lo:e_lo + E_l]
     perm = torch.argsort(e_pair, stable=True)
     x_flat = x.to(dtype).reshape(G * S, H)
     n_pad = -(-n // GMM_ROW_TILE) * GMM_ROW_TILE
@@ -209,7 +248,7 @@ def gmm_local(x: torch.Tensor, probs: torch.Tensor, wi: torch.Tensor,
     inv_perm = torch.argsort(perm)
     y_pairs = yrow[inv_perm].reshape(G, S, k, H)
     out = torch.einsum("gskh,gsk->gsh", y_pairs, gate)
-    return out, group_sizes.to(torch.float32), dropped
+    return out, counts_e.to(torch.float32), dropped
 
 
 class MoELayer(nn.Module):
@@ -224,12 +263,6 @@ class MoELayer(nn.Module):
     def __init__(self, config: Config, dtype=torch.bfloat16, device=None,
                  trainable: bool = False):
         super().__init__()
-        if config.moe_dispatch not in PORTED_DISPATCH:
-            raise NotImplementedError(
-                f"moe_dispatch={config.moe_dispatch!r} needs an expert mesh "
-                f"and is not ported yet (ROADMAP queue A6); the port runs "
-                f"{PORTED_DISPATCH}"
-            )
         self.config = config
         self.dtype = dtype
         H, E, Fi = config.hidden_size, config.num_experts, (
@@ -286,25 +319,104 @@ class MoELayer(nn.Module):
             return int8_expert(x, w, self.dtype)
         return torch.einsum(spec, x, w.to(self.dtype))
 
+    def _experts(self, expert_in: torch.Tensor, mesh) -> torch.Tensor:
+        """The expert FFN over capacity buffers [E, G, C, H]. On a mesh
+        this rank runs its E_l experts (from expert index * E_l) over its
+        share of F (tensor parallel), the partials sum over the tensor
+        group and the experts' outputs gather over the expert group."""
+        mp = _model_group(mesh)
+        if mp is not None:
+            lo = mesh.coords["expert"] * self.wi.shape[0]
+            expert_in = copy_to(expert_in, mp)[lo:lo + self.wi.shape[0]]
+        fused = self._expert_product(expert_in, self.wi, "egch,ehf->egcf")
+        gate_act, up = torch.chunk(fused, 2, dim=-1)
+        act = F.silu(gate_act) * up
+        out = self._expert_product(act, self.wo, "egcf,efh->egch")
+        if mp is not None:
+            out = reduce_from(out, mesh.group("tensor"))
+            out = gather_rows(out, mesh.group("expert"), 0)
+        return out
+
+    def _a2a(self, x, probs, capacity: int, mesh):
+        """The a2a dispatch over the mesh's expert group (the JAX
+        `_a2a_path`, :649): this rank routes its 1/ep of the groups,
+        parallel/expert_dispatch.a2a_expert_ffn exchanges them, and the
+        outputs gather back over the expert group. Returns (out,
+        tokens_per_expert [E], dropped [G, S], stats)."""
+        from luminaai_tpu_torch.parallel.expert_dispatch import (
+            a2a_expert_ffn,
+            export_plan_gauges,
+            make_dispatch_plan,
+        )
+
+        cfg = self.config
+        G, S, H = x.shape
+        ep, e = mesh.shape["expert"], mesh.coords["expert"]
+        if G % ep:
+            raise ValueError(
+                f"a2a dispatch needs batch groups ({G}) divisible by "
+                f"the expert axis ({ep}) — EP borrows the data dimension")
+        G_l, dcn = G // ep, max(1, cfg.expert_dcn_size)
+        plan = make_dispatch_plan(
+            ep=ep, dcn_size=dcn, local_groups=G_l, seq=S,
+            top_k=cfg.moe_top_k, capacity=capacity,
+            num_experts=cfg.num_experts, hidden=H,
+            itemsize=torch.tensor([], dtype=self.dtype).element_size(),
+            overlap_chunks=max(1, cfg.moe_a2a_overlap_chunks), dp_groups=G)
+        export_plan_gauges(plan)
+        mp = _model_group(mesh)
+        rows = slice(e * G_l, (e + 1) * G_l)
+        eg = mesh.group("expert")
+        out, tpe, dropped, stats = a2a_expert_ffn(
+            copy_to(x, mp)[rows], copy_to(probs, mp)[rows], self.wi,
+            self.wo, top_k=cfg.moe_top_k, capacity=capacity,
+            num_experts=cfg.num_experts, dtype=self.dtype,
+            gmm_fn=GMM_OVERRIDE or grouped_matmul, ep_group=eg,
+            ep_index=e, plan=plan,
+            tiers=mesh.tier_groups("expert", dcn) if dcn > 1 else None,
+            tp_group=mesh.group("tensor"))
+        tok = mesh.group("data", "fsdp", "expert")
+        stats = {n: psum(v, tok) for n, v in stats.items()}
+        return (gather_rows(out, eg, 0), psum(tpe, eg),
+                all_gather(dropped, eg, axis=0), stats)
+
     def forward(self, x: torch.Tensor,
                 draws: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """x [G, S, H] -> (out [G, S, H] in the compute dtype, metrics).
         Deterministic unless `draws` (draw_routing) are given."""
         cfg = self.config
+        mesh = active_mesh()
+        sp = mesh.shape["sequence"] if mesh is not None else 1
+        if sp > 1:
+            # Routing capacity is per whole sequence: every sequence rank
+            # routes the gathered sequence and keeps its own rows.
+            Sl = x.shape[1]
+            x = gather_sum(x, mesh.group("sequence"), dim=1)
         G, S, H = x.shape
         E, k = cfg.num_experts, cfg.moe_top_k
         C = expert_capacity(cfg, S)
         logits, probs = self.route(x, draws)
 
         mode = cfg.moe_dispatch
-        if mode == "gmm" and isinstance(self.wi, QuantizedTensor):
+        if mode in ("gmm", "a2a") and isinstance(self.wi, QuantizedTensor):
             mode = "gather"  # the grouped-matmul kernel is bf16 only
-        if mode == "gmm":
+        ep = mesh.shape["expert"] if mesh is not None else 1
+        stats = {}
+        if mode == "a2a" and ep > 1:
+            out, tokens_per_expert, dropped, stats = self._a2a(
+                x, probs, C, mesh)
+        elif mode in ("gmm", "a2a"):
+            # 'a2a' without an expert axis is the local grouped matmul,
+            # as in JAX.
+            mp = _model_group(mesh)
             out, tokens_per_expert, dropped = gmm_local(
-                x, probs, self.wi, self.wo, top_k=k, capacity=C,
-                dtype=self.dtype, gmm_fn=GMM_OVERRIDE or grouped_matmul,
+                copy_to(x, mp), copy_to(probs, mp), self.wi, self.wo,
+                top_k=k, capacity=C, dtype=self.dtype,
+                gmm_fn=GMM_OVERRIDE or grouped_matmul,
+                ep_index=mesh.coords["expert"] if mesh is not None else 0,
             )
+            out = reduce_from(out, mp)
         else:
             if mode == "einsum":
                 dispatch, combine_w, dropped = top_k_routing(probs, k, C)
@@ -341,10 +453,7 @@ class MoELayer(nn.Module):
                     expert_in = buf[:, : E * C].reshape(G, E, C, H)
                     expert_in = expert_in.transpose(0, 1)
                 tokens_per_expert = counts.to(torch.float32).sum(0)
-            fused = self._expert_product(expert_in, self.wi, "egch,ehf->egcf")
-            gate_act, up = torch.chunk(fused, 2, dim=-1)
-            act = F.silu(gate_act) * up
-            expert_out = self._expert_product(act, self.wo, "egcf,efh->egch")
+            expert_out = self._experts(expert_in, mesh)
             if mode == "einsum":
                 out = torch.einsum("gsec,egch->gsh", combine_w, expert_out)
             else:
@@ -353,20 +462,32 @@ class MoELayer(nn.Module):
         if cfg.expert_output_scaling != 1.0:
             out = out * cfg.expert_output_scaling
 
-        # Aux losses and router health (fp32).
+        # Aux losses and router health (fp32), over the global batch: on
+        # a mesh the means over this rank's groups average over the
+        # batch's ranks (Mesh.stat_axes; () for per-shard statistics).
         f = tokens_per_expert / (G * S * k + 1e-9)
         p = probs.mean(dim=(0, 1))
         lse2 = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
         entropy = -torch.mean(
             torch.sum(probs * torch.log(probs + 1e-9), dim=-1))
+        drop = dropped.mean()
+        if mesh is not None and mesh.stat_axes:
+            g = mesh.group(*mesh.stat_axes)
+            f, p, lse2, entropy = (mean_over(t, g)
+                                   for t in (f, p, lse2, entropy))
+            drop = mean_over(drop, g)
         aux_loss = torch.clamp(
             torch.sum(f * p) * E * cfg.load_balancing_weight, max=1.0)
         metrics = {
             "moe_aux_loss": aux_loss,
             "moe_z_loss": lse2 * cfg.router_z_loss_weight,
-            "moe_drop_rate": dropped.mean(),
+            "moe_drop_rate": drop,
             "expert_utilization": f * E,  # 1.0 == perfectly balanced
             "moe_router_entropy": entropy,
             "moe_max_expert_share": f.max() / (f.sum() + 1e-9),
         }
+        metrics.update(stats)
+        if sp > 1:
+            i0 = mesh.coords["sequence"] * Sl
+            out = out[:, i0:i0 + Sl]
         return out.to(self.dtype), metrics

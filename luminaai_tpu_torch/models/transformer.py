@@ -171,6 +171,26 @@ def reduce_metrics(all_metrics: List[Dict[str, torch.Tensor]], device
     return out
 
 
+def _draw_routing(moe: MoELayer, B: int, S: int, generator, device):
+    """The layer's training-time draws. On a mesh they are drawn for the
+    global batch (every rank the same numbers from the step's generator)
+    and this rank keeps its rows, over the whole sequence (the MoE layer
+    routes gathered sequences): a sharded step routes as the one-rank
+    step does."""
+    from luminaai_tpu_torch.parallel.mesh import active_mesh
+
+    mesh = active_mesh()
+    if mesh is None:
+        return moe.draw_routing(B, S, generator, device)
+    nb = mesh.axis_size("data", "fsdp")
+    draws = moe.draw_routing(B * nb, S * mesh.shape["sequence"], generator,
+                             device)
+    if draws is not None and "noise" in draws:
+        b0 = mesh.axis_index("data", "fsdp") * B
+        draws["noise"] = draws["noise"][b0:b0 + B]
+    return draws
+
+
 class LuminaTransformer(nn.Module):
     """Decoder-only LM over a per-lane KV cache.
 
@@ -292,7 +312,8 @@ class LuminaTransformer(nn.Module):
             # recompute in the backward routes as its forward did.
             routing = None
             if not deterministic and hasattr(layer, "moe"):
-                routing = layer.moe.draw_routing(B, S, generator, x.device)
+                routing = _draw_routing(layer.moe, B, S, generator,
+                                        x.device)
             if scope == "block":
                 x, _, metrics = _ckpt(layer, x, positions=positions,
                                       routing=routing,

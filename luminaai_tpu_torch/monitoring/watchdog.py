@@ -28,8 +28,9 @@ the runtime tripwire:
     `step_anomaly` events and `<prefix>_{median,mad}` gauges. Reset on
     recompile — a new executable is a new timing regime.
 
-The JAX package's `host_step_skew()` (per-host step-completion skew
-over a multi-process gather) waits for the port's multi-GPU slice.
+  - `host_step_skew`: the spread of the ranks' wall clocks at the log
+    window's sync (the straggler signal), over one small all-gather when
+    a process group of more than one rank is up; 0.0 otherwise.
 
 Everything here is host-side wall clock: zero new syncs enter the step
 path, and the monitor thread holds no device state.
@@ -456,3 +457,37 @@ class StepTimeSentinel:
         """New timing regime (recompile): forget the old distribution."""
         with self._lock:
             self._stats.clear()
+
+
+def host_step_skew(registry=None) -> float:
+    """Per-rank step-completion skew at the caller's sync point (the JAX
+    watchdog.host_step_skew, :463): each rank's wall clock when it
+    reaches the log window's sync, max - min over the ranks. One tiny
+    all-gather of the (hi, lo) split of the clock (hi whole multiples of
+    4096 s, exact in fp32, lo the rest), only when a process group of
+    more than one rank is up; 0.0 with no collective otherwise. Sets the
+    `host_step_skew_seconds` gauge when a registry is passed."""
+    import torch
+    import torch.distributed as dist
+
+    skew = 0.0
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        now = time.time()
+        hi = float(int(now) // 4096)
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if dist.get_backend() == "nccl" else torch.device("cpu"))
+        mine = torch.tensor([hi, now - hi * 4096.0], dtype=torch.float32,
+                            device=dev)
+        out = torch.empty(2 * dist.get_world_size(), dtype=torch.float32,
+                          device=dev)
+        dist.all_gather_into_tensor(out, mine)
+        g = out.cpu().double().reshape(-1, 2)
+        full = g[:, 0] * 4096.0 + g[:, 1]
+        skew = float(full.max() - full.min())
+    if registry is not None:
+        registry.gauge(
+            "host_step_skew_seconds",
+            "Spread (max - min) of per-host wall clocks at the last "
+            "log-window sync — the straggler signal (0.0 single-host)",
+        ).set(skew)
+    return skew

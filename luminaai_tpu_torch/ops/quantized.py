@@ -122,7 +122,11 @@ def quantize_array(w: torch.Tensor, bits: int = 8, axis=-1) -> QuantizedTensor:
     w32 = w.to(torch.float32)
     qmax = 127.0 if bits == 8 else 7.0
     amax = torch.amax(torch.abs(w32), dim=axis, keepdim=True)
-    scale = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
+    # A divisor tensor on amax's device: CUDA's true division multiplies
+    # by the reciprocal of a Python-number divisor, one ulp off the
+    # quotient the CPU (and JAX) computes.
+    scale = torch.where(amax > 0, amax / amax.new_tensor(qmax),
+                        torch.ones_like(amax))
     q = torch.clamp(torch.round(w32 / scale), -qmax, qmax).to(torch.int8)
     if bits == 4:
         ax = axis[0]
@@ -142,7 +146,8 @@ def quantize_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     [..., K], scale fp32 [..., 1]). Zero rows get scale 1 and codes 0."""
     x32 = x.to(torch.float32)
     amax = torch.amax(torch.abs(x32), dim=-1, keepdim=True)
-    s = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    s = torch.where(amax > 0, amax / amax.new_tensor(127.0),
+                    torch.ones_like(amax))  # true quotient (quantize_array)
     xq = torch.clamp(torch.round(x32 / s), -127, 127).to(torch.int8)
     return xq, s
 

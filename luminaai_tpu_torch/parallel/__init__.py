@@ -1,2 +1,3 @@
-"""The train and eval steps (the JAX package's parallel/train_step.py,
-without a mesh: the port trains on one card)."""
+"""The train and eval steps, on one card and over a mesh (the JAX
+package's parallel/: mesh, sharding, grad_reduce, expert_dispatch,
+train_step; pipeline.py is not ported yet)."""

@@ -38,6 +38,12 @@ The restore copies into the live state (parameters, moments, count,
 step, generator) in place, bit for bit. A step whose moments are of
 another form than the live state's (the config's) is refused with a
 message naming both; it is never reinitialised.
+
+Over a process group the state is a parallel.sharding.ShardedTrainState:
+`save` gathers the shards into the one-rank layout (every rank takes
+part; rank 0 alone writes, its answer to "already saved?" broadcast), and
+`restore` reads the one-rank file on every rank and copies each rank's
+slices in, so a checkpoint moves between N ranks and 1 either way.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from luminaai_tpu_torch.config import Config
 from luminaai_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
@@ -396,7 +403,11 @@ class CheckpointManager:
         self.config = config
         self.dir = Path(checkpoint_dir).absolute()
         self.dir.mkdir(parents=True, exist_ok=True)
-        self._recover_aside()
+        # Over a process group only rank 0 writes (the ranks' states are
+        # gathered to it); every rank reads.
+        self.writer = not dist.is_initialized() or dist.get_rank() == 0
+        if self.writer:
+            self._recover_aside()
         self.history_file = self.dir / "checkpoint_history.json"
         self.history: List[Dict[str, Any]] = self._load_history()
         r = self._registry = registry or get_registry()
@@ -472,7 +483,13 @@ class CheckpointManager:
             for k, v in (metrics or {}).items()
             if np.isscalar(v) or getattr(v, "ndim", 1) == 0
         }
-        if step in self.all_steps() and not force:
+        dup = step in self.all_steps() and not force
+        if getattr(state, "sharded", False) and state.mesh.size > 1:
+            # Rank 0's answer for every rank: the save is collective.
+            flag = torch.tensor([float(dup)], device=state.mesh.device)
+            dist.broadcast(flag, 0)
+            dup = bool(flag.item())
+        if dup:
             return False  # already checkpointed (periodic duplicate)
         meta: Dict[str, Any] = {
             "step": step,
@@ -483,6 +500,11 @@ class CheckpointManager:
         if data_state is not None:
             meta["data_state"] = data_state
         t0 = time.perf_counter()
+        if getattr(state, "sharded", False):
+            # Every rank gathers its shards (collective); rank 0 writes.
+            state = state.gather_full()
+        if not self.writer:
+            return True
         tree = _host_tree(state, self.config)
         copy_s = time.perf_counter() - t0
 
@@ -642,6 +664,10 @@ class CheckpointManager:
                                  f"the model (missing {missing[:4]})")
             return sd
 
+        sharded = state if getattr(state, "sharded", False) else None
+        if sharded is not None:
+            # Every rank reads the whole state and keeps its shards.
+            state = sharded.host_template()
         saved = tree["opt_state"]
         opt = state.opt_state
         form = saved.get("form", "fp32")
@@ -674,6 +700,9 @@ class CheckpointManager:
         opt.count = int(saved["count"])
         state.step = int(tree["step"])
         state.generator.set_state(tree["generator"])
+        if sharded is not None:
+            sharded.load_full(state)
+            state = sharded
         if state.params and state.params[0].is_cuda:
             torch.cuda.synchronize(state.params[0].device)
         self.restore_log.append({

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -171,6 +171,11 @@ class AdamInt8State:
     nu_codes: List[torch.Tensor]
     nu_scales: List[torch.Tensor]
     rows: List[int]
+    # Per parameter, the process group its rows span on a mesh (a row
+    # split over tensor-parallel or fsdp ranks): the row's absmax is
+    # reduced over it, so the scales are the one-rank model's. None: no
+    # parameter's rows are split.
+    groups: Optional[List[Any]] = None
     form = "int8"
 
     def tensors(self) -> List[torch.Tensor]:
@@ -245,13 +250,20 @@ class AdamW:
         return lr
 
 
-def _q8(x: torch.Tensor, row: int):
+def _q8(x: torch.Tensor, row: int, group=None):
     """Row-wise absmax int8 codes and fp32 scales (JAX `_q8`) over rows of
     `row` elements along the last dimension; round half to even as
-    jnp.round."""
+    jnp.round. `group`: the ranks holding the other pieces of each row
+    (their absmax is the row's)."""
     shape = x.shape
     xr = x.reshape(*shape[:-1], shape[-1] // row, row)
-    scale = xr.abs().amax(dim=-1) / 127.0
+    amax = xr.abs().amax(dim=-1)
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    # The true quotient on the card too (ops/quantized.quantize_array).
+    scale = amax / amax.new_tensor(127.0)
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     codes = torch.clamp(torch.round(xr / safe[..., None]), -127, 127)
     if row == shape[-1]:
@@ -303,6 +315,7 @@ class AdamWInt8(AdamW):
         b1, b2 = self.b1, self.b2
         for i, (p, g) in enumerate(zip(params, grads)):
             row = state.rows[i]
+            group = state.groups[i] if state.groups else None
             g = g.float()
             mu = b1 * _dq8(state.mu_codes[i], state.mu_scales[i], row) + (
                 (1.0 - b1) * g)
@@ -312,7 +325,7 @@ class AdamWInt8(AdamW):
             for codes, scales, x in (
                     (state.mu_codes[i], state.mu_scales[i], mu),
                     (state.nu_codes[i], state.nu_scales[i], torch.sqrt(nu))):
-                c, s_ = _q8(x, row)
+                c, s_ = _q8(x, row, group)
                 codes.copy_(c)
                 scales.copy_(s_)
             self._finish(p, update, lr)

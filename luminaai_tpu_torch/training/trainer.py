@@ -43,6 +43,12 @@ The runtime around the loop, as in the JAX package:
     already brought to the host;
   - `train_with_oom_protection`: on torch.cuda.OutOfMemoryError split the
     micro-batches, then halve the batch;
+  - under an initialized process group (torchrun, one process a card) the
+    mesh (parallel/mesh.py), the sharded state (parallel/sharding.py) and
+    the sharded step, whatever the mesh's size: each rank trains its rows
+    of the global batch, a stop armed on any rank stops every rank at the
+    same step, `host_step_skew` runs at each log boundary, and rank 0
+    alone writes the logs and checkpoints;
   - the goodput ledger (compile = the first step until its sync,
     data_wait, checkpoint, eval, resume_replay), the hang watchdog (armed
     after the first step), the step-time sentinel, the health monitor and
@@ -67,6 +73,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from luminaai_tpu_torch.config import Config
 from luminaai_tpu_torch.convert import init_params
@@ -83,12 +90,18 @@ from luminaai_tpu_torch.monitoring.telemetry import (
 from luminaai_tpu_torch.monitoring.watchdog import (
     HangWatchdog,
     StepTimeSentinel,
+    host_step_skew,
 )
+from luminaai_tpu_torch.parallel.mesh import build_mesh, describe_mesh
+from luminaai_tpu_torch.parallel.sharding import init_sharded_state
 from luminaai_tpu_torch.parallel.train_step import (
     check_trainable,
     init_train_state,
     make_eval_step,
+    make_sharded_eval_step,
+    make_sharded_train_step,
     make_train_step,
+    shard_batch,
 )
 from luminaai_tpu_torch.training.checkpoint import (
     CheckpointManager,
@@ -108,7 +121,8 @@ Batches = Callable[[], Iterator[Dict[str, Any]]]
 
 
 class Trainer:
-    """Model + train state + loop + eval + checkpoints on one device."""
+    """Model + train state + loop + eval + checkpoints on one device, or
+    over the mesh of an initialized process group (one rank a card)."""
 
     def __init__(
         self,
@@ -129,6 +143,15 @@ class Trainer:
         self.eval_data = eval_data
         ckpt_dir = checkpoint_dir or f"{config.output_dir}/checkpoints"
         self.seed = config.seed if seed is None else seed
+        # Under an initialized process group: the mesh, and the sharded
+        # state and step whatever the mesh's size (JAX trainer.py:165-177);
+        # without one, the one-card path.
+        self.mesh = None
+        self._writer = not dist.is_initialized() or dist.get_rank() == 0
+        if dist.is_initialized():
+            self.mesh = build_mesh(config)
+            device = self.mesh.device
+            logger.info("training over %s", describe_mesh(self.mesh))
         if model is None:
             model = init_params(
                 LuminaTransformer(config, device=device, trainable=True),
@@ -144,10 +167,13 @@ class Trainer:
         self.total_steps = total_steps or config.max_steps or 10_000
         self.schedule = make_schedule(config, self.total_steps)
         self.tx = make_optimizer(config, self.total_steps, self.schedule)
-        self.state = init_train_state(model, self.tx, self.seed)
-        self.train_step = make_train_step(config, model, self.schedule,
-                                          self.tx)
-        self.eval_step = make_eval_step(config, model)
+        if self.mesh is not None:
+            self.model, self.state = init_sharded_state(
+                config, self.mesh, self.tx, self.seed, model=model)
+        else:
+            self.state = init_train_state(model, self.tx, self.seed)
+        self.train_step = self._make_train_step(self.schedule)
+        self.eval_step = self._make_eval_step()
 
         self.registry = registry or get_registry()
         self.recorder = recorder if recorder is not None else get_recorder()
@@ -234,7 +260,8 @@ class Trainer:
             "boundary with a blocking emergency save",
         )
         self.monitor = TrainingHealthMonitor(
-            log_dir=f"{config.output_dir}/logs",
+            # Only rank 0 writes the step log.
+            log_dir=f"{config.output_dir}/logs" if self._writer else None,
             loss_spike_threshold=config.loss_spike_threshold,
             grad_norm_threshold=config.grad_norm_threshold,
             health_check_interval=config.health_check_interval,
@@ -439,16 +466,39 @@ class Trainer:
         if self.watchdog is not None:
             self.watchdog.skip_next()
 
+    def _make_train_step(self, schedule):
+        if self.mesh is not None:
+            return make_sharded_train_step(self.config, self.model, schedule,
+                                           self.tx, self.mesh)
+        return make_train_step(self.config, self.model, schedule, self.tx)
+
+    def _make_eval_step(self):
+        if self.mesh is not None:
+            return make_sharded_eval_step(self.config, self.model, self.mesh)
+        return make_eval_step(self.config, self.model)
+
     def _rebuild_train_step(self, reason: str) -> None:
-        self.train_step = make_train_step(self.config, self.model,
-                                          self._active_schedule, self.tx)
+        self.train_step = self._make_train_step(self._active_schedule)
         self._count_recompile(reason)
 
     def _rebuild_steps(self, reason: str = "config_change") -> None:
         """Rebuild the train/eval steps against the (mutated) config and
         the active schedule (an LR override stays in force)."""
-        self.eval_step = make_eval_step(self.config, self.model)
+        self.eval_step = self._make_eval_step()
         self._rebuild_train_step(reason)
+
+    def _stop_agreed(self) -> Optional[str]:
+        """The stop request as every rank sees it: on a mesh of more than
+        one rank a stop armed on any rank stops them all at the same step
+        boundary (one scalar all-reduce a step)."""
+        if self.mesh is None or self.mesh.size == 1:
+            return self._stop_requested
+        flag = torch.tensor([1.0 if self._stop_requested else 0.0],
+                            device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        if flag.item() > 0 and not self._stop_requested:
+            self._stop_requested = "preemption (another rank)"
+        return self._stop_requested
 
     # -- adaptive hooks (called by the orchestrator) ----------------------
     def adjust_learning_rate(self, new_lr: float, reason: str = "") -> None:
@@ -754,6 +804,8 @@ class Trainer:
             if k == "input_ids":
                 t = t.long()
             out[k] = t.to(self.device, non_blocking=True)
+        if self.mesh is not None:  # this rank's rows of a global batch
+            out = shard_batch(out, self.mesh, self.config)
         return out
 
     def _goodput_batches(self, host_iter):
@@ -890,6 +942,9 @@ class Trainer:
                                                step=self.global_step)
                     if self.watchdog is not None:
                         self.watchdog.beat()
+                    # Straggler signal at this sync: one tiny all-gather
+                    # across the ranks, 0.0 on one.
+                    host_step_skew(self.registry)
                     self._m_tps.set(logged["tokens_per_sec"])
                     window_t0, window_tokens, window_steps = now, 0, 0
                     self.monitor.log_step(self.global_step, logged)
@@ -956,7 +1011,7 @@ class Trainer:
                     self._last_backup_time = time.time()
                     window_t0, window_tokens, window_steps = time.time(), 0, 0
 
-                if self._stop_requested:
+                if self._stop_agreed():
                     # Preemption: a BLOCKING emergency save at this step
                     # boundary, then return with preempted=True.
                     reason = self._stop_requested

@@ -92,3 +92,38 @@ def test_int8_products_on_card_equal_the_cpu(dev, m):
         dev).mm_layout()
     got = tq.int8_project(x.to(dev), wc, torch.float32)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("bits,axis", [(8, 0), (8, -1), (4, 0), (4, -1)])
+def test_quantize_array_on_card_equals_the_cpu(dev, bits, axis):
+    """The weight scales and codes (int8 and packed int4) that quantizing
+    a model on the card sets equal the CPU's bit for bit."""
+    rng = np.random.RandomState(bits * 10 + axis % 3)
+    w = torch.as_tensor(rng.randn(256, 384).astype(np.float32) * 0.02)
+    want = tq.quantize_array(w, bits=bits, axis=axis)
+    got = tq.quantize_array(w.to(dev), bits=bits, axis=axis)
+    assert torch.equal(got.scale.cpu(), want.scale)
+    assert torch.equal(got.q.cpu(), want.q)
+
+
+@pytest.mark.parametrize("m", [1, 8, 17, 40])
+def test_quantize_act_on_card_equals_the_cpu(dev, m):
+    rng = np.random.RandomState(100 + m)
+    x = torch.as_tensor(rng.randn(m, 256).astype(np.float32))
+    want_q, want_s = tq.quantize_act(x)
+    got_q, got_s = tq.quantize_act(x.to(dev))
+    assert torch.equal(got_s.cpu(), want_s)
+    assert torch.equal(got_q.cpu(), want_q)
+
+
+@pytest.mark.parametrize("row", [64, 384])
+def test_int8_adam_moments_on_card_equal_the_cpu(dev, row):
+    """The int8 Adam moments' row codes and scales (optimizer._q8)."""
+    from luminaai_tpu_torch.training.optimizer import _q8
+
+    rng = np.random.RandomState(row)
+    x = torch.as_tensor(rng.randn(32, 384).astype(np.float32) * 1e-3)
+    want_c, want_s = _q8(x, row)
+    got_c, got_s = _q8(x.to(dev), row)
+    assert torch.equal(got_s.cpu(), want_s)
+    assert torch.equal(got_c.cpu(), want_c)

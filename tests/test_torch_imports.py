@@ -220,6 +220,42 @@ def test_quantized_serving_modules_are_scanned(module):
     assert module.replace(".", "/") + ".py" in files
 
 
+# Multi-GPU training: the mesh, sharding, gradient reduction, expert
+# dispatch and ring attention modules, and the step, trainer, checkpoint,
+# watchdog and CLI pieces that run them.
+MESH_MODULES = (
+    "luminaai_tpu_torch.parallel.mesh",
+    "luminaai_tpu_torch.parallel.sharding",
+    "luminaai_tpu_torch.parallel.grad_reduce",
+    "luminaai_tpu_torch.parallel.expert_dispatch",
+    "luminaai_tpu_torch.ops.ring_attention",
+    "luminaai_tpu_torch.parallel.train_step",
+    "luminaai_tpu_torch.training.trainer",
+    "luminaai_tpu_torch.training.checkpoint",
+    "luminaai_tpu_torch.monitoring.watchdog",
+    "luminaai_tpu_torch.cli",
+)
+
+
+@pytest.mark.parametrize("module", MESH_MODULES)
+def test_mesh_modules_are_scanned(module):
+    assert module in _modules()
+    files = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert module.replace(".", "/") + ".py" in files
+
+
+def test_the_mesh_entry_points_refuse_what_is_left_for_a6b():
+    """Pipeline stages and the optimizer's host offload raise where a
+    train step is built, naming ROADMAP A6b."""
+    from luminaai_tpu_torch.config import Config
+    from luminaai_tpu_torch.parallel.train_step import check_trainable
+
+    for kw in (dict(pipeline_parallel_size=2, num_layers=2),
+               dict(host_offload_optimizer=True)):
+        with pytest.raises(NotImplementedError, match="A6b"):
+            check_trainable(Config(**kw))
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, sys\n"
@@ -283,18 +319,32 @@ def test_posttrain_entry_points_default_to_the_card(no_cuda, argv):
 
 
 def test_cli_refuses_moe_presets(tmp_path):
-    """What the CLI still refuses: a config carrying the 'a2a' MoE
-    dispatch (an expert mesh), where the model is built. Every flag choice
-    of --moe-dispatch is ported."""
+    """What the CLI refuses, as JAX's config does: the 'a2a' MoE dispatch
+    without an expert axis (from a flag or a config file). With --ep 2
+    the flags build a config (training it needs two ranks: see
+    tests/test_torch_mesh_trainer.py)."""
+    import json
+
+    from luminaai_tpu.config import Config as JConfig
     from luminaai_tpu_torch import cli
     from luminaai_tpu_torch.config import ConfigPresets
 
-    path = str(tmp_path / "a2a.json")
-    ConfigPresets.get("debug", moe_dispatch="a2a").save(path)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli.main(["train", "--config", path, "--synthetic", "--steps",
-                  "1", "--no-adaptive", "--device", "cpu", "--output-dir",
-                  str(tmp_path / "run")])
+    with pytest.raises(AssertionError, match="expert mesh axis"):
+        JConfig(use_moe=True, moe_dispatch="a2a")
+    run = ["--synthetic", "--steps", "1", "--no-adaptive", "--device",
+           "cpu", "--output-dir", str(tmp_path / "run")]
+    with pytest.raises(ValueError, match="expert mesh axis"):
+        cli.main(["train", "--preset", "debug", "--moe-dispatch", "a2a",
+                  *run])
+    path = tmp_path / "a2a.json"
+    d = ConfigPresets.get("debug").to_dict()
+    path.write_text(json.dumps(dict(d, moe_dispatch="a2a")))
+    with pytest.raises(ValueError, match="expert mesh axis"):
+        cli.main(["train", "--config", str(path), *run])
+    args = cli._parser().parse_args(["train", "--preset", "debug",
+                                     "--moe-dispatch", "a2a", "--ep", "2"])
+    cfg = cli._train_config(args)
+    assert (cfg.moe_dispatch, cfg.expert_parallel_size) == ("a2a", 2)
 
 
 def test_cli_serves_moe_presets(monkeypatch):

@@ -173,9 +173,32 @@ def test_routing_draws_change_assignment_and_are_reproducible():
 
 @pytest.mark.parametrize("mode", ["a2a"])
 def test_unported_dispatch_is_refused(mode):
-    cfg = TConfig(**dict(ARCH, moe_dispatch=mode))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmoe.MoELayer(cfg, dtype=torch.float32, device="cpu")
+    """'a2a' is ported (parallel/expert_dispatch.py). What JAX refuses,
+    the port refuses: the dispatch without an expert axis. With one
+    (expert_parallel_size 2) outside a process group the layer runs the
+    local grouped matmul, equal to 'sort' at 1e-5 (as the JAX layer,
+    tests/test_expert_dispatch.py:399)."""
+    with pytest.raises(AssertionError, match="expert mesh axis"):
+        JConfig(**dict(ARCH, moe_dispatch=mode))
+    with pytest.raises(ValueError, match="expert mesh axis"):
+        TConfig(**dict(ARCH, moe_dispatch=mode))
+    cfg = TConfig(**dict(ARCH, moe_dispatch=mode, expert_parallel_size=2))
+    layer = tmoe.MoELayer(cfg, dtype=torch.float32, device="cpu")
+    sort = tmoe.MoELayer(dataclasses.replace(cfg, moe_dispatch="sort"),
+                         dtype=torch.float32, device="cpu")
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for name in ("router", "wi", "wo"):
+            w = torch.randn(getattr(layer, name).shape, generator=g) * 0.1
+            getattr(layer, name).copy_(w)
+            getattr(sort, name).copy_(w)
+    x = torch.randn(2, 32, ARCH["hidden_size"], generator=g)
+    out, m = layer(x)
+    out_s, m_s = sort(x)
+    torch.testing.assert_close(out, out_s, atol=1e-5, rtol=1e-5)
+    assert "ep_tokens_routed" not in m  # no exchange ran
+    torch.testing.assert_close(m["moe_aux_loss"], m_s["moe_aux_loss"],
+                               atol=1e-6, rtol=1e-5)
 
 
 def test_moe_config_fields_and_patterns_match_jax():

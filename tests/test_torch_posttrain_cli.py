@@ -309,8 +309,9 @@ def test_verify_checkpoint_exit_codes(base, tmp_path, capsys):
 def test_presets_json(capsys):
     rc, out = _run(cli.main, ["presets", "--json"], capsys)
     info = json.loads(out)
-    assert rc == 0 and list(info) == ["debug", "debug_200m", "debug_300m",
-                                      "b1"]
+    assert rc == 0 and list(info) == [
+        "debug", "debug_200m", "debug_300m", "moe_stress_test", "b1", "b7",
+        "b14", "b30", "b50", "b75", "b100", "b200", "b300"]  # JAX's 13
     assert info["b1"]["hidden_size"] == 2048 and info["b1"]["num_experts"] == 8
     assert info["debug_200m"]["use_mod"] and not info["debug_200m"]["use_moe"]
 

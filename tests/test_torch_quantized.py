@@ -167,3 +167,31 @@ def test_int_mm_pads_no_rows_on_the_cpu():
     b = torch.randint(-127, 128, (5, 7), dtype=torch.int8)
     np.testing.assert_array_equal(
         tq.int_mm(a, b).numpy(), a.int().numpy() @ b.int().numpy())
+
+
+@pytest.mark.parametrize("which", ["quantize_array8", "quantize_array4",
+                                   "quantize_act", "q8"])
+def test_scales_divide_by_a_tensor_with_the_old_bits_on_the_cpu(which):
+    """The scales divide amax by a tensor (the card's true quotient); on
+    the CPU that gives the bits the Python-number divisor gave."""
+    from luminaai_tpu_torch.training.optimizer import _q8
+
+    rng = np.random.RandomState(7)
+    x = torch.as_tensor(rng.randn(48, 96).astype(np.float32) * 0.03)
+    amax_last = x.abs().amax(dim=-1, keepdim=True)
+    if which == "quantize_array8":
+        amax0 = x.abs().amax(dim=0, keepdim=True)
+        old = torch.where(amax0 > 0, amax0 / 127.0, torch.ones_like(amax0))
+        new = tq.quantize_array(x, bits=8, axis=0).scale
+    elif which == "quantize_array4":
+        old = torch.where(amax_last > 0, amax_last / 7.0,
+                          torch.ones_like(amax_last))
+        new = tq.quantize_array(x, bits=4, axis=-1).scale
+    elif which == "quantize_act":
+        old = torch.where(amax_last > 0, amax_last / 127.0,
+                          torch.ones_like(amax_last))
+        new = tq.quantize_act(x)[1]
+    else:
+        old = x.reshape(48, 3, 32).abs().amax(dim=-1) / 127.0
+        new = _q8(x, 32)[1]
+    assert torch.equal(new, old)

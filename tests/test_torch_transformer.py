@@ -160,14 +160,17 @@ def test_seeded_init_is_reproducible_with_jax_init_scales():
 
 
 def test_moe_is_refused():
-    """What the port still refuses where the model is built: the 'a2a'
-    dispatch (an expert mesh). Mixture of depths and the other dispatch
-    modes build."""
-    with pytest.raises(NotImplementedError, match="moe_dispatch='a2a'"):
-        TModel(TConfig(**ARCH, use_moe=True, moe_dispatch="a2a"),
-               device="cpu")
+    """What the port refuses, as the JAX config does: the 'a2a' dispatch
+    without an expert axis. With one it builds, as do mixture of depths
+    and the other dispatch modes."""
+    with pytest.raises(AssertionError, match="moe_dispatch='a2a'"):
+        JConfig(**ARCH, use_moe=True, moe_dispatch="a2a")
+    with pytest.raises(ValueError, match="moe_dispatch='a2a'"):
+        TConfig(**ARCH, use_moe=True, moe_dispatch="a2a")
     for kw in (dict(use_mod=True), dict(use_moe=True, moe_dispatch="gather"),
-               dict(use_moe=True, moe_dispatch="einsum")):
+               dict(use_moe=True, moe_dispatch="einsum"),
+               dict(use_moe=True, moe_dispatch="a2a",
+                    expert_parallel_size=2)):
         TModel(TConfig(**ARCH, **kw), device="cpu")
 
 
