@@ -229,8 +229,15 @@ Phases (any failure raises and exits non-zero):
              all-gather / reduce-scatter, where FSDP2 issues them: over
              more than one rank); the
              checkpoint the run writes must restore in the unsharded
-             Trainer bitwise. Step time and peak memory beside the
-             unsharded Trainer's at the same depth and phase 6's.
+             Trainer bitwise. The run trains under the adaptive
+             orchestrator (the CLI's default, over a mesh too); its
+             summary must carry the decisions. Step time and peak memory
+             beside the unsharded Trainer's at the same depth and phase
+             6's, each run's peak from a torch.cuda.memory trace of its
+             init and first step, named by what holds it (the ranges open
+             when each block live at the peak was allocated: the
+             Trainer's build, the forward, the backward, the optimizer,
+             and FSDP2's own).
              (b) Ring attention over 4 virtual ranks at b75's attention
              widths (q [1, 8192, 64, 128], k/v 8 heads, bf16, 2048 rows a
              rank): every (rank, ring step) through the port's own chunk
@@ -240,6 +247,26 @@ Phases (any failure raises and exits non-zero):
              (FLASH_REL_TOL, LSE_TOL), dq/dk/dv through the merged output
              against B2/B3 on the whole sequence, exact B1 launches
              (causal 4 diagonal + 6 visible, window 4, non-causal 16).
+
+ 16. pipe    pipeline stages and the optimizer's host offload on one card.
+             (a) Phase 6's flagship MoE widths (gmm, bf16 RoPE) at
+             PIPE_LAYERS layers, batch 16 x 2048: one step of the
+             one-stage step over PIPE_MICRO micro-batches, then the same
+             step through parallel/pipeline.py's virtual_pipeline_step
+             (PIPE_STAGES stages played in this process, the hops handed
+             over locally) under 1F1B and under GPipe, each from the same
+             seeded weights: loss and grad norm within MESH_RTOL of the
+             one-stage step's, B1-B4 launches equal to its, the most
+             microbatches in flight on each stage (1F1B at most P - p,
+             GPipe all), each step's peak memory; the pipelined eval
+             against the one-stage eval over the same microbatches
+             (MESH_RTOL). (b) The flagship at OFFLOAD_LAYERS layers:
+             OFFLOAD_STEPS steps of the unsharded Trainer with
+             host_offload_optimizer and as many without, same seed and
+             batches: the parameters' sha256 equal after the last, every
+             moment on the CPU and pinned between steps, the card's peak
+             memory lower by at least 80% of the moments' bytes; step
+             times beside each other. `--only pipe` runs it alone.
 
 `--only serve,plane,serve_moe` (development runs) runs the build, the
 kernel checks and the named phases only; its last line then says
@@ -373,6 +400,13 @@ RING_ATTN = (1, 8192, 64, 8, 128)
 RING_RANKS = 4
 RING_WINDOW = 2560
 RING_B1 = {"causal": 10, "window": 4, "non_causal": 16}
+# Phase 16 (pipe): the flagship widths at 4 layers over 2 stages in 4
+# microbatches (the one-stage step accumulates over the same 4), and the
+# optimizer's host offload at 2 layers for 3 steps.
+PIPE_LAYERS, PIPE_STAGES, PIPE_MICRO = 4, 2, 4
+OFFLOAD_LAYERS, OFFLOAD_STEPS = 2, 3
+# A memory trace keeps this many allocator events (init and one step).
+TRACE_EVENTS = 400_000
 
 
 def _release() -> None:
@@ -5494,6 +5528,122 @@ def _comm_events(prof) -> dict:
     return {"cpu": cpu, "cuda": dev}
 
 
+def _trace_start(cuda: bool) -> int:
+    """Record the caching allocator's events and the record_function
+    ranges open around them (no Python stacks: capturing them inside a
+    checkpoint's recompute in the backward raised SystemError on the
+    card's torch 2.11) from here; returns the bytes allocated before."""
+    import torch
+
+    if not cuda:
+        return 0
+    torch.cuda.synchronize()
+    torch.cuda.memory._record_memory_history(
+        max_entries=TRACE_EVENTS, context=None,
+        global_record_annotations=True)
+    return torch.cuda.memory_allocated()
+
+
+# The ranges mesh_child opens around the phases of a run (_annotate).
+TRACE_RANGES = ("init", "forward", "backward", "optimizer")
+
+
+def _annotate() -> None:
+    """Open a record_function range (TRACE_RANGES) around the Trainer's
+    build, the model's forward, autograd's backward and the optimizer's
+    update, for _trace_account to name what allocated each block."""
+    import torch
+    from torch.profiler import record_function
+
+    from luminaai_tpu_torch.models.transformer import LuminaTransformer
+    from luminaai_tpu_torch.training import optimizer as topt
+    from luminaai_tpu_torch.training import trainer as tr
+
+    def wrap(owner, attr, name):
+        fn = getattr(owner, attr)
+
+        def ranged(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+
+        setattr(owner, attr, ranged)
+
+    wrap(tr.Trainer, "__init__", "init")
+    wrap(LuminaTransformer, "forward", "forward")
+    wrap(torch.Tensor, "backward", "backward")
+    wrap(torch.autograd, "grad", "backward")
+    wrap(topt.AdamW, "apply", "optimizer")
+    wrap(topt.AdamWInt8, "apply", "optimizer")
+
+
+def _ranges(annotations):
+    """[(start_us, end_us, name)] of the recorded record_function ranges
+    (this script's and FSDP2's)."""
+    open_, out = {}, []
+    for a in annotations or []:
+        name = a.get("name", "")
+        if name not in TRACE_RANGES and not name.startswith("FSDP::"):
+            continue
+        if a.get("stage") == "START":
+            open_.setdefault(name, []).append(a["time_us"])
+        elif open_.get(name):
+            out.append((open_[name].pop(), a["time_us"], name))
+    return out
+
+
+def _holder(t_us, ranges) -> str:
+    """The ranges open at t_us: this script's, outermost first, then
+    FSDP2's innermost ('-' for none)."""
+    mine = [(s, n) for s, e, n in ranges if s <= t_us <= e
+            and n in TRACE_RANGES]
+    fsdp = [(s, n) for s, e, n in ranges if s <= t_us <= e
+            and n.startswith("FSDP::")]
+    parts = [n for _, n in sorted(mine)]
+    if fsdp:
+        parts.append(max(fsdp)[1])
+    return "/".join(parts) or "-"
+
+
+def _trace_account(cuda: bool, base: int, top: int = 10) -> dict:
+    """Stop the trace; the peak of the bytes allocated over it and what
+    held them then: the blocks live at the peak grouped by the ranges
+    open when each was allocated (_holder), largest first, the bytes
+    allocated before the trace under 'before'."""
+    import torch
+
+    if not cuda:
+        return {"peak_gb": 0.0, "held_gb": {}}
+    snap = torch.cuda.memory._snapshot()
+    torch.cuda.memory._record_memory_history(enabled=None)
+    events = snap["device_traces"][0]
+    ranges = _ranges(snap.get("external_annotations"))
+
+    def replay(upto):
+        live, cur, best, at = {}, 0, -1, -1
+        for i, e in enumerate(events[:upto]):
+            if e["action"] == "alloc":
+                live[e["addr"]] = e
+                cur += e["size"]
+                if cur > best:
+                    best, at = cur, i
+            elif e["action"] == "free_completed":
+                old = live.pop(e["addr"], None)
+                if old is not None:
+                    cur -= old["size"]
+        return live, best, at
+
+    _, best, at = replay(len(events))
+    live, _, _ = replay(at + 1)
+    held = {"before": base}
+    for e in live.values():
+        key = _holder(e.get("time_us", -1), ranges)
+        held[key] = held.get(key, 0) + e["size"]
+    order = sorted(held.items(), key=lambda kv: -kv[1])[:top]
+    return {"peak_gb": (base + max(best, 0)) / 1e9, "events": len(events),
+            "ranges": len(ranges),
+            "held_gb": {k: round(v / 1e9, 4) for k, v in order}}
+
+
 def mesh_child(argv: list) -> int:
     """Phase 15 (a), under torchrun with one process: REC -- <train argv>.
     One unsharded Trainer step on the run's seed and first batch, then
@@ -5527,6 +5677,7 @@ def mesh_child(argv: list) -> int:
                                for n, t in zip(names, tensors)})
 
     cuda = device != "cpu"
+    _annotate()
 
     def sync():
         if cuda:
@@ -5540,6 +5691,7 @@ def mesh_child(argv: list) -> int:
     t0 = time.perf_counter()
     if cuda:
         torch.cuda.reset_peak_memory_stats()
+    base = _trace_start(cuda)
     plain = tr.Trainer(cfg, cli._synthetic_batches(cfg), device=device,
                        seed=0)
     rec["unsharded_init"] = digest(plain.state.names, plain.state.params)
@@ -5550,7 +5702,8 @@ def mesh_child(argv: list) -> int:
     _, m = plain.train_step(plain.state, batch)
     rec["unsharded"] = {"loss": float(m["loss"]),
                         "grad_norm": float(m["grad_norm"]),
-                        "launches": _mesh_launches()}
+                        "launches": _mesh_launches(),
+                        "trace": _trace_account(cuda, base)}
     second = plain._to_device(next(batches))
     sync()
     t1 = time.perf_counter()
@@ -5559,7 +5712,9 @@ def mesh_child(argv: list) -> int:
     rec["unsharded"]["step2_ms"] = (time.perf_counter() - t1) * 1e3
     rec["unsharded"]["peak_gb"] = peak_gb()
     plain.close()
-    del plain, m, second
+    # `_` holds the unsharded state: drop it before the sharded run is
+    # measured (kept alive, it counted in the sharded run's peak).
+    del plain, m, second, _
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
@@ -5581,6 +5736,8 @@ def mesh_child(argv: list) -> int:
             state, metrics = step(state, batch)
             loss = float(metrics["loss"])
             ms = (time.perf_counter() - t0) * 1e3
+            if not steps:  # the trace covers the init and this step
+                rec["trace"] = _trace_account(cuda, held["base"])
             after = _mesh_launches()
             steps.append({"loss": loss,
                           "grad_norm": float(metrics["grad_norm"]),
@@ -5594,11 +5751,14 @@ def mesh_child(argv: list) -> int:
     tr.Trainer.__init__ = init
     if cuda:
         torch.cuda.reset_peak_memory_stats()
+    held["base"] = _trace_start(cuda)
     t0 = time.perf_counter()
     rc = cli.main(cli_argv)
     rec["t_train_s"] = time.perf_counter() - t0
     tr.Trainer.__init__ = orig_init
     rec["exit"] = rc
+    summary = json.loads((out_dir / "training_summary.json").read_text())
+    rec["adaptive_decisions"] = summary.get("adaptive_decisions")
     rec["steps"] = list(steps)
     rec["peak_gb"] = peak_gb()
     t = held["trainer"]
@@ -5659,8 +5819,8 @@ def phase_mesh(dev, flash_entries: list, gmm_entries: list,
            "--nproc-per-node", "1", str(Path(__file__).resolve()),
            "--mesh-child", str(rec_path), "--", "train", "--config",
            str(run / "flagship.json"), "--synthetic", "--steps",
-           str(MESH_STEPS), "--no-adaptive", "--seed", "0",
-           "--output-dir", str(run / "out")]
+           str(MESH_STEPS), "--seed", "0", "--output-dir",
+           str(run / "out")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True,
                           cwd=str(RUN_DIR), timeout=600)
@@ -5738,6 +5898,20 @@ def phase_mesh(dev, flash_entries: list, gmm_entries: list,
         f"memory {rec['peak_gb']:.2f} GB vs {plain['peak_gb']:.2f} GB "
         f"unsharded (phase 6: {p6.get('peak_memory_gb', float('nan')):.2f}"
         f" GB)")
+    tr_s, tr_u = rec["trace"], plain["trace"]
+    log(f"  traced peak (init and first step): sharded "
+        f"{tr_s['peak_gb']:.3f} GB, held by {tr_s['held_gb']}; unsharded "
+        f"{tr_u['peak_gb']:.3f} GB, held by {tr_u['held_gb']}")
+    above = {k: round(v - tr_u["held_gb"].get(k, 0.0), 4)
+             for k, v in tr_s["held_gb"].items()
+             if v - tr_u["held_gb"].get(k, 0.0) > 0.01}
+    log(f"  sharded above unsharded at the peaks, by holder: {above}")
+    log(f"  run under the orchestrator (the CLI's default over a mesh): "
+        f"adaptive_decisions {rec['adaptive_decisions']}")
+    if rec["adaptive_decisions"] is None:
+        raise AssertionError("the mesh run's summary carries no "
+                             "adaptive_decisions: the orchestrator did not "
+                             "run")
     log(f"  checkpoint of step {rec['saved_step']} restored in the "
         f"unsharded Trainer at step {rec['restored_step']}, bitwise: "
         f"{rec['restore_bitwise']}")
@@ -5756,6 +5930,9 @@ def phase_mesh(dev, flash_entries: list, gmm_entries: list,
            "step_ms_median": step_ms, "peak_memory_gb": rec["peak_gb"],
            "unsharded_step_ms": plain["step2_ms"],
            "unsharded_peak_memory_gb": plain["peak_gb"],
+           "traced_peak_gb": tr_s["peak_gb"],
+           "traced_unsharded_peak_gb": tr_u["peak_gb"],
+           "held_gb": tr_s["held_gb"], "unsharded_held_gb": tr_u["held_gb"],
            "launches": launched, "comm": comm, "collectives": collectives,
            "child_s": child_s}
     out["ring"] = _virtual_ring(dev, flash_entries)
@@ -5838,9 +6015,220 @@ def _virtual_ring(dev, flash_entries: list) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: pipeline stages played in one process, and the optimizer's
+# host offload.
+# ---------------------------------------------------------------------------
+def _pipe_eval_one(cfg, model, batch) -> dict:
+    """The one-stage eval averaged over the pipeline's microbatches (the
+    pipelined eval routes each microbatch as its own batch)."""
+    import torch
+
+    from luminaai_tpu_torch.parallel import train_step as ts
+
+    ev = ts.make_eval_step(cfg, model)
+    B = batch["input_ids"].shape[0] // PIPE_MICRO
+    ms = [ev(None, {k: v[i * B:(i + 1) * B] for k, v in batch.items()})
+          for i in range(PIPE_MICRO)]
+    return {k: float(torch.stack([m[k] for m in ms]).mean())
+            for k in ("loss", "ce_loss")}
+
+
+def _pipe_runs(dev) -> dict:
+    """Phase 16 (a): one step of the one-stage step and of the virtual
+    pipeline under each schedule from the same seeded weights, and each
+    one's eval before its step."""
+    import torch
+
+    from luminaai_tpu_torch import cli
+    from luminaai_tpu_torch.config import Config
+    from luminaai_tpu_torch.convert import init_params
+    from luminaai_tpu_torch.models.transformer import LuminaTransformer
+    from luminaai_tpu_torch.parallel import pipeline as pl
+    from luminaai_tpu_torch.parallel import train_step as ts
+    from luminaai_tpu_torch.training.optimizer import (
+        make_optimizer,
+        make_schedule,
+    )
+
+    cfg = Config(**{**FLAGSHIP, "num_layers": PIPE_LAYERS}, **FLAGSHIP_LEVERS,
+                 gradient_accumulation_steps=PIPE_MICRO, max_steps=3)
+    raw = next(iter(cli._synthetic_batches(cfg)()))
+    batch = {k: torch.as_tensor(v).long().to(dev) for k, v in raw.items()}
+    runs = {}
+    for name in ("one", "1f1b", "gpipe"):
+        model = init_params(LuminaTransformer(cfg, device=dev,
+                                              trainable=True), 0)
+        sched = make_schedule(cfg, 3)
+        tx = make_optimizer(cfg, 3, sched)
+        state = ts.init_train_state(model, tx, 0)
+        if name == "one":
+            step = ts.make_train_step(cfg, model, sched, tx)
+            ev = _pipe_eval_one(cfg, model, batch)
+        else:
+            step = pl.virtual_pipeline_step(cfg, model, sched, tx,
+                                            PIPE_STAGES, PIPE_MICRO, name)
+            m = pl.virtual_pipeline_eval(cfg, model, PIPE_STAGES, PIPE_MICRO,
+                                         name)(None, batch)
+            ev = {k: float(m[k]) for k in ("loss", "ce_loss")}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        state, m = step(state, batch)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        launches = _launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()  # a second step, timed
+        state, m = step(state, batch)
+        float(m["loss"])
+        ms = (time.perf_counter() - t0) * 1e3
+        runs[name] = {
+            "loss": loss, "grad_norm": norm, "ms": ms, "eval": ev,
+            "launches": launches, "peak_gb": peak / 1e9,
+            "step_peak_gb": (peak - base) / 1e9,
+            "in_flight": getattr(step, "in_flight", None)}
+        del model, state, step, m
+        _release()
+    return runs
+
+
+def _offload_runs(dev) -> dict:
+    """Phase 16 (b): OFFLOAD_STEPS steps of the unsharded Trainer with the
+    optimizer's moments on the card and offloaded to pinned host memory."""
+    import torch
+
+    from luminaai_tpu_torch import cli
+    from luminaai_tpu_torch.config import Config
+    from luminaai_tpu_torch.training.trainer import Trainer
+
+    out = {}
+    for off in (False, True):
+        cfg = Config(**{**FLAGSHIP, "num_layers": OFFLOAD_LAYERS},
+                     **FLAGSHIP_LEVERS, max_steps=OFFLOAD_STEPS,
+                     host_offload_optimizer=off,
+                     output_dir=str(RUN_DIR / "offload"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(cfg, cli._synthetic_batches(cfg), device=dev,
+                          seed=0)
+        opt = trainer.state.opt_state
+        moments = opt.tensors()
+        rec = {"moment_bytes": sum(t.numel() * t.element_size()
+                                   for t in moments),
+               "ms": [], "losses": [], "launches": None,
+               "on_host_pinned": []}
+        _reset_counts()
+        for raw in itertools.islice(iter(cli._synthetic_batches(cfg)()),
+                                    OFFLOAD_STEPS):
+            batch = trainer._to_device(raw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.state, m = trainer.train_step(trainer.state, batch)
+            rec["losses"].append(float(m["loss"]))
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["on_host_pinned"].append(all(
+                t.device.type == "cpu" and t.is_pinned()
+                for t in trainer.state.opt_state.tensors()))
+        rec["launches"] = _launch_counts()
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["digest"] = _tensor_digest({
+            n: p.detach().cpu() for n, p in zip(trainer.state.names,
+                                                trainer.state.params)})
+        trainer.close()
+        del trainer, opt, moments
+        _release()
+        out["offload" if off else "card"] = rec
+    return out
+
+
+def phase_pipe(dev, flash_entries: list, gmm_entries: list) -> dict:
+    """Phase 16: (a) the virtual pipeline against the one-stage step,
+    (b) the optimizer's host offload against the moments on the card."""
+    t_phase = time.perf_counter()
+    runs = _pipe_runs(dev)
+    one = runs["one"]
+    want_flight = {"1f1b": [PIPE_STAGES - p for p in range(PIPE_STAGES)],
+                   "gpipe": [PIPE_MICRO] * PIPE_STAGES}
+    log(f"pipe (a): flagship widths at {PIPE_LAYERS} layers, batch "
+        f"{FLAGSHIP['batch_size']} x {FLAGSHIP['seq_length']}, "
+        f"{PIPE_STAGES} stages x {PIPE_MICRO} microbatches (one-stage: "
+        f"accumulation {PIPE_MICRO}): loss {one['loss']:.7f}, grad_norm "
+        f"{one['grad_norm']:.7f}, second step {one['ms']:.1f} ms, peak "
+        f"{one['peak_gb']:.2f} GB ({one['step_peak_gb']:.2f} GB over the "
+        f"weights and moments), launches {one['launches']}")
+    for name in ("1f1b", "gpipe"):
+        r = runs[name]
+        rl = abs(r["loss"] - one["loss"]) / abs(one["loss"])
+        rn = abs(r["grad_norm"] - one["grad_norm"]) / abs(one["grad_norm"])
+        re_ = {k: abs(r["eval"][k] - one["eval"][k]) / abs(one["eval"][k])
+               for k in ("loss", "ce_loss")}
+        r.update(loss_rel=rl, grad_norm_rel=rn, eval_rel=re_)
+        log(f"  {name}: loss {r['loss']:.7f} (rel {rl:.2e}), grad_norm "
+            f"{r['grad_norm']:.7f} (rel {rn:.2e}), eval loss rel "
+            f"{re_['loss']:.2e} / ce {re_['ce_loss']:.2e} (tol "
+            f"{MESH_RTOL}); in flight per stage {r['in_flight']} (want "
+            f"{want_flight[name]}); second step {r['ms']:.1f} ms; peak "
+            f"{r['peak_gb']:.2f} GB ({r['step_peak_gb']:.2f} GB over the "
+            f"weights and moments); launches {r['launches']}")
+        if max(rl, rn, *re_.values()) > MESH_RTOL:
+            raise AssertionError(f"the {name} pipeline disagrees with the "
+                                 "one-stage step")
+        if r["launches"] != one["launches"] or min(
+                one["launches"].values()) == 0:
+            raise AssertionError(f"the {name} pipeline did not launch "
+                                 "B1-B4 as the one-stage step does")
+        if r["in_flight"] != want_flight[name]:
+            raise AssertionError(f"{name}: in flight {r['in_flight']}")
+    saved = runs["gpipe"]["step_peak_gb"] - runs["1f1b"]["step_peak_gb"]
+    log(f"  1F1B's step peak below GPipe's by {saved:.3f} GB")
+
+    off = _offload_runs(dev)
+    card, host = off["card"], off["offload"]
+    moment_gb = card["moment_bytes"] / 1e9
+    drop = card["peak_gb"] - host["peak_gb"]
+    ms_card = statistics.median(card["ms"][1:])
+    ms_host = statistics.median(host["ms"][1:])
+    log(f"pipe (b): flagship widths at {OFFLOAD_LAYERS} layers, "
+        f"{OFFLOAD_STEPS} Trainer steps: moments {moment_gb:.3f} GB; peak "
+        f"{card['peak_gb']:.3f} GB on the card vs {host['peak_gb']:.3f} GB "
+        f"offloaded (lower by {drop:.3f} GB, {drop / moment_gb:.1%} of the "
+        f"moments); step {ms_card:.1f} vs {ms_host:.1f} ms (steps 2-"
+        f"{OFFLOAD_STEPS}, median); moments on the CPU and pinned after "
+        f"each step: {host['on_host_pinned']}; parameters' sha256 equal: "
+        f"{card['digest'] == host['digest']}; losses {card['losses']} vs "
+        f"{host['losses']}")
+    if card["digest"] != host["digest"]:
+        raise AssertionError("offloaded moments gave other parameters")
+    if not all(host["on_host_pinned"]) or any(card["on_host_pinned"]):
+        raise AssertionError("the moments were not where they should be")
+    if drop < 0.8 * moment_gb:
+        raise AssertionError("the offload did not lower the card's peak by "
+                             "80% of the moments' bytes")
+    if host["launches"] != card["launches"]:
+        raise AssertionError("the offloaded steps launched other kernels")
+    launched = {k: sum(r["launches"][k] for r in runs.values())
+                + card["launches"][k] + host["launches"][k]
+                for k in one["launches"]}
+    for e, kern in zip(flash_entries + gmm_entries,
+                       ("B1", "B2", "B3", "B4a", "B4b")):
+        e["launches"] = (e["launches"] or 0) + launched[kern]
+        e["launches_pipe"] = launched[kern]
+    shutil.rmtree(RUN_DIR / "offload", ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    log(f"pipe phase: {wall:.1f} s ({_smi()})")
+    return {"pipeline": runs, "one_f_one_b_peak_saving_gb": saved,
+            "offload": {"moment_gb": moment_gb,
+                        "peak_card_gb": card["peak_gb"],
+                        "peak_offload_gb": host["peak_gb"],
+                        "step_ms_card": ms_card,
+                        "step_ms_offload": ms_host},
+            "launches": launched, "wall_s": wall}
+
+
 ALL_PHASES = ("serve", "plane", "serve_moe", "train", "train_moe",
               "runtime", "posttrain", "adaptive", "posttrain_moe",
-              "train_tuned", "mod", "fleet", "quant", "mesh")
+              "train_tuned", "mod", "fleet", "quant", "mesh", "pipe")
 PHASES = set(ALL_PHASES)
 
 
@@ -5906,6 +6294,9 @@ def main() -> int:
         if "mesh" in PHASES:
             done["mesh"] = phase_mesh(dev, flash_entries, gmm_entries,
                                       done.get("train_moe"))
+            _release()
+        if "pipe" in PHASES:
+            done["pipe"] = phase_pipe(dev, flash_entries, gmm_entries)
             _release()
         if "runtime" in PHASES:
             done["runtime"] = phase_runtime(dev, entry, flash_entries)

@@ -35,12 +35,13 @@ builds the preset's widths without experts. The model is built on the card
 unless --device says otherwise.
 
 Multi-GPU training: `torchrun --nproc-per-node N -m luminaai_tpu_torch
-train ... --fsdp F --tp T --ep E --sp S` (the JAX mesh flags; --dp -1 takes
-the ranks left over, --moe-dispatch a2a routes tokens over --ep) runs one
-process a card over an NCCL process group (gloo with --device cpu); the
-Trainer shards the model over the mesh (parallel/sharding.py) and only
-rank 0 logs and writes. Over a mesh the loop runs bare (no adaptive
-decisions or OOM ladder: ROADMAP A6b).
+train ... --pp P --fsdp F --tp T --ep E --sp S` (the JAX mesh flags; --dp
+-1 takes the ranks left over, --moe-dispatch a2a routes tokens over --ep,
+--pp runs pipeline stages, parallel/pipeline.py) runs one process a card
+over an NCCL process group (gloo with --device cpu); the Trainer builds
+the model born sharded over the mesh (parallel/sharding.py) and only rank
+0 logs and writes. The orchestrator and the OOM ladder run over the mesh
+too: rank 0 decides, every rank applies.
 
 `train` takes the JAX CLI's flags that apply to one card. It runs under
 the AdaptiveTrainingOrchestrator (training/orchestrator.py) unless given
@@ -151,7 +152,8 @@ def _mesh_flags(t: argparse.ArgumentParser) -> None:
     # torchrun (one process a card) the ranks lay out over these axes.
     t.add_argument("--dp", type=int, help="data axis (-1 = auto)")
     t.add_argument("--pp", type=int,
-                   help="pipeline stages (not ported yet: ROADMAP A6b)")
+                   help="pipeline stages (1F1B schedule; pipeline_schedule="
+                        "gpipe via --config)")
     t.add_argument("--fsdp", type=int, help="ZeRO-3-style shard ways")
     t.add_argument("--tp", type=int, help="tensor-parallel ways")
     t.add_argument("--ep", type=int, help="expert-parallel ways")
@@ -806,12 +808,9 @@ def train(args) -> int:
     trainer = Trainer(cfg, train_data=train_fn, eval_data=eval_fn,
                       device=args.device, seed=args.seed)
     _install_signal_handlers(trainer)
-    if trainer.mesh is not None:
-        # The adaptive decisions and the OOM ladder act on one process's
-        # view and rebuild one-card states; over a mesh they wait for
-        # ROADMAP A6b: the bare loop.
-        summary = trainer.train()
-    elif args.adaptive:
+    # Over a mesh too (JAX cli.py:324-329): rank 0 decides, every rank
+    # applies, and an OOM on any rank sends every rank down the same rung.
+    if args.adaptive:
         orchestrator = AdaptiveTrainingOrchestrator(trainer)
         summary = orchestrator.run(oom_protect=args.oom_protect)
     elif args.oom_protect:

@@ -11,9 +11,9 @@ keys once written as JSON (the port's gives its tuples as lists).
 the JAX Config does, and `load` drops the keys this copy does not know, so
 a JAX config file loads here. The serving extras stay in the JAX package
 until the slices that need them are ported. The mesh fields are JAX's,
-validated as JAX validates them; pipeline stages and the optimizer's host
-offload are accepted here and refused where a train step is built
-(ROADMAP A6b). The port's model loops over
+validated as JAX validates them (`normalize_parallelism` folds
+accumulation into pipeline microbatches, as in JAX). The port's model
+loops over
 its layers whatever `scan_layers` says: the field names the layout of a
 checkpoint's parameter tree (convert.py reads and writes the scanned
 trees), and, as in the JAX package, sends int8 serving of such a model
@@ -212,8 +212,9 @@ class Config:
     mesh_axes: tuple = ("data", "pipe", "fsdp", "expert", "sequence",
                         "tensor")
     data_parallel_size: int = -1
-    # Pipeline parallelism and the optimizer's host offload are refused
-    # where training starts (ROADMAP A6b); the fields load from JAX files.
+    # Pipeline stages (parallel/pipeline.py): stage p holds layers
+    # [p L / P, (p + 1) L / P); 'gpipe' or '1f1b' over
+    # pipeline_microbatches (None: one a stage).
     pipeline_parallel_size: int = 1
     pipeline_microbatches: Optional[int] = None
     pipeline_schedule: str = "1f1b"
@@ -237,6 +238,8 @@ class Config:
     coordinator_address: Optional[str] = None
     process_id: Optional[int] = None
     num_processes: Optional[int] = None
+    # The Adam moments in pinned host memory between steps, streamed to
+    # the card a parameter at a time for the update (training/optimizer.py).
     host_offload_optimizer: bool = False
 
     # --- Data (luminaai_tpu/config.py:290-299) ---
@@ -357,17 +360,36 @@ class Config:
             self.mod_capacity_schedule = tuple(self.mod_capacity_schedule)
         if isinstance(self.mesh_axes, list):
             self.mesh_axes = tuple(self.mesh_axes)
-        # Sequence parallelism rides ring attention (the JAX
-        # normalize_parallelism).
-        if self.sequence_parallel_size > 1:
-            self.use_ring_attention = True
         if self.num_kv_heads is None:
             self.num_kv_heads = self.num_heads
         if self.intermediate_size is None:
             # SwiGLU sizing: 8/3 * hidden, rounded up to a multiple of 128.
             raw = int(8 * self.hidden_size / 3)
             self.intermediate_size = ((raw + 127) // 128) * 128
+        self.normalize_parallelism()
         self.validate()
+
+    def normalize_parallelism(self) -> None:
+        """The JAX normalize_parallelism (config.py:528-551): sequence
+        parallelism rides ring attention; pipeline parallelism slices the
+        scanned layer stack, and gradient accumulation folds into pipeline
+        microbatches (the same memory effect, no extra bubbles), capped to
+        a divisor of the batch."""
+        if self.sequence_parallel_size > 1:
+            self.use_ring_attention = True
+        if self.pipeline_parallel_size > 1:
+            self.scan_layers = True
+            if self.gradient_accumulation_steps > 1:
+                n_micro = (self.pipeline_microbatches
+                           or self.pipeline_parallel_size)
+                cand = min(n_micro * self.gradient_accumulation_steps,
+                           self.batch_size)
+                # Ends with cand dividing batch_size, or cand == n_micro
+                # (whose divisibility validate() checks).
+                while cand > n_micro and self.batch_size % cand:
+                    cand -= 1
+                self.pipeline_microbatches = cand
+                self.gradient_accumulation_steps = 1
 
     def validate(self) -> None:
         if self.hidden_size % self.num_heads != 0:
@@ -560,6 +582,29 @@ class Config:
             if self.num_layers % self.pipeline_parallel_size:
                 raise ValueError(
                     "num_layers must divide evenly over pipeline stages")
+            n_micro = self.pipeline_microbatches or self.pipeline_parallel_size
+            if self.batch_size % n_micro:
+                raise ValueError(
+                    "batch_size must divide into pipeline_microbatches")
+            if self.gradient_accumulation_steps != 1:
+                raise ValueError(
+                    "pipeline parallelism replaces grad accumulation: raise "
+                    "pipeline_microbatches instead (same memory effect, no "
+                    "extra pipeline bubbles)")
+            if (self.expert_parallel_size > 1
+                    or self.sequence_parallel_size > 1) and (
+                    self.pipeline_schedule != "1f1b"):
+                raise ValueError(
+                    "pp x ep / pp x sp require pipeline_schedule='1f1b' "
+                    "(manual expert/sequence parallelism lives in the 1F1B "
+                    "region)")
+            if (self.expert_parallel_size > 1
+                    and (self.batch_size // n_micro)
+                    % self.expert_parallel_size):
+                raise ValueError(
+                    "microbatch size must divide over expert_parallel_size "
+                    "under pipeline parallelism (tokens shard over the "
+                    "expert axis inside the pipe region)")
         if (self.expert_parallel_size > 1 and self.use_moe
                 and self.num_experts % self.expert_parallel_size):
             raise ValueError(

@@ -359,29 +359,41 @@ def _to_state_dict(t: Callable[[str], torch.Tensor],
     return sd
 
 
+def init_std_of(name: str, config: Config) -> Optional[float]:
+    """The std parameter `name` is drawn with at init (None: not drawn:
+    norm scales are ones, the MoD bias zeros)."""
+    if name.endswith("norm.scale") or name.endswith("mod_router.bias"):
+        return None
+    if name.endswith("moe.router"):
+        return ROUTER_INIT_STD
+    if name.endswith("mod_router.router"):
+        return MOD_ROUTER_INIT_STD
+    return init_std_out(config.init_std) if name.endswith(".wo") else (
+        config.init_std)
+
+
+def init_value(name: str, shape, config: Config, gen: torch.Generator,
+               device) -> torch.Tensor:
+    """Parameter `name`'s whole fp32 init value: the next draw of `gen`
+    (init_params' order) scaled by its std, or its constant."""
+    std = init_std_of(name, config)
+    if std is None:
+        fill = 1.0 if name.endswith("norm.scale") else 0.0
+        return torch.full(shape, fill, dtype=torch.float32, device=device)
+    draw = torch.randn(shape, generator=gen, device=device,
+                       dtype=torch.float32)
+    return draw.mul_(std)
+
+
 @torch.no_grad()
 def init_params(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     """Fill the model's weights in place from `seed`, drawn on the model's
     device (a b1-width model draws 0.8G values) and cast to each weight's
-    dtype. Returns the model."""
+    dtype. Returns the model. parallel/sharding.py draws the same values
+    one parameter at a time and keeps each rank's slices (init_value)."""
     cfg: Config = model.config
-    std, std_out = cfg.init_std, init_std_out(cfg.init_std)
     gen = torch.Generator(device=model.device).manual_seed(int(seed))
     for name, p in model.named_parameters():
-        if name.endswith("norm.scale"):
-            p.fill_(1.0)
-            continue
-        if name.endswith("mod_router.bias"):
-            p.zero_()
-            continue
-        s = std_out if name.endswith(".wo") else std
-        if name.endswith("moe.router"):
-            s = ROUTER_INIT_STD
-        elif name.endswith("mod_router.router"):
-            s = MOD_ROUTER_INIT_STD
-        draw = torch.randn(
-            p.shape, generator=gen, device=p.device, dtype=torch.float32
-        )
-        p.copy_(draw.mul_(s))
+        p.copy_(init_value(name, p.shape, cfg, gen, p.device))
     model.embedder.round_()
     return model

@@ -270,6 +270,7 @@ class LuminaTransformer(nn.Module):
         deterministic: bool = True,
         return_hidden: bool = False,
         generator: Optional[torch.Generator] = None,
+        stage=None,
     ):
         """input_ids [B, S] -> with kv_caches: (fp32 logits [B, S, V],
         kv_caches), or (final-normed hidden [B, S, H], kv_caches) with
@@ -279,7 +280,12 @@ class LuminaTransformer(nn.Module):
         Without kv_caches: (logits or hidden, aux) as the JAX model returns
         them, aux = {"aux_loss": summed MoE losses, the MoE metrics}
         (reduce_metrics). `deterministic` is the JAX flag: False draws the
-        MoE routing noise and expert dropout from `generator`."""
+        MoE routing noise and expert dropout from `generator`. `stage`
+        (parallel/pipeline.py) is one pipeline stage's work, called with
+        the model and returned: through forward, so FSDP2's root hooks
+        gather the embedding and final norm around it."""
+        if stage is not None:
+            return stage(self)
         if kv_caches is None:
             return self._forward_no_cache(input_ids, positions,
                                           return_hidden, deterministic,
@@ -300,35 +306,46 @@ class LuminaTransformer(nn.Module):
 
     def _forward_no_cache(self, input_ids, positions, return_hidden,
                           deterministic, generator):
-        cfg = self.config
-        scope, context_fn = (None, None)
-        if cfg.gradient_checkpointing and torch.is_grad_enabled():
-            scope, context_fn = REMAT_POLICIES[cfg.remat_policy]
         B, S = input_ids.shape
         x = self.embedder.encode(input_ids)
-        all_metrics = []
-        for layer in self.layers:
-            # Random draws happen here, outside the checkpoints, so a
-            # recompute in the backward routes as its forward did.
-            routing = None
-            if not deterministic and hasattr(layer, "moe"):
-                routing = _draw_routing(layer.moe, B, S, generator,
-                                        x.device)
-            if scope == "block":
-                x, _, metrics = _ckpt(layer, x, positions=positions,
-                                      routing=routing,
-                                      context_fn=context_fn)
-            else:
-                x, _, metrics = layer(
-                    x, positions=positions, routing=routing,
-                    remat=cfg.remat_policy if scope == "branch" else None)
-            if metrics:
-                all_metrics.append(metrics)
+        # Random draws happen here, before the layers, so a recompute in
+        # the backward routes as its forward did.
+        routing = [None] * len(self.layers)
+        if not deterministic:
+            routing = [_draw_routing(layer.moe, B, S, generator, x.device)
+                       if hasattr(layer, "moe") else None
+                       for layer in self.layers]
+        x, all_metrics = self.run_blocks(x, range(len(self.layers)), routing,
+                                         positions)
         x = self.final_norm(x)
         aux = reduce_metrics(all_metrics, x.device)
         if return_hidden:
             return x, aux
         return self.embedder.decode(x), aux
+
+    def run_blocks(self, x, indices, routing, positions=None):
+        """x through the layers `indices` without a cache, under the
+        config's remat policy when grad is enabled: (x, [each reporting
+        layer's metrics]). `routing[i]` is layer i's draws (None: none).
+        The whole model's forward and a pipeline stage's both run here."""
+        cfg = self.config
+        scope, context_fn = (None, None)
+        if cfg.gradient_checkpointing and torch.is_grad_enabled():
+            scope, context_fn = REMAT_POLICIES[cfg.remat_policy]
+        all_metrics = []
+        for i in indices:
+            layer = self.layers[i]
+            if scope == "block":
+                x, _, metrics = _ckpt(layer, x, positions=positions,
+                                      routing=routing[i],
+                                      context_fn=context_fn)
+            else:
+                x, _, metrics = layer(
+                    x, positions=positions, routing=routing[i],
+                    remat=cfg.remat_policy if scope == "branch" else None)
+            if metrics:
+                all_metrics.append(metrics)
+        return x, all_metrics
 
     def init_cache(self, batch_size: int, max_len: int,
                    kv_cache_dtype: Optional[str] = None) -> List[KVCache]:

@@ -1,3 +1,3 @@
 """The train and eval steps, on one card and over a mesh (the JAX
 package's parallel/: mesh, sharding, grad_reduce, expert_dispatch,
-train_step; pipeline.py is not ported yet)."""
+pipeline, train_step)."""

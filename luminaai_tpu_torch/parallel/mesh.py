@@ -45,7 +45,8 @@ logger = logging.getLogger(__name__)
 MESH_AXES = ("data", "pipe", "fsdp", "expert", "sequence", "tensor")
 # The sets of axes some layer reduces over; each gets its groups at build.
 GROUP_AXES = (
-    ("data",), ("fsdp",), ("expert",), ("sequence",), ("tensor",),
+    ("data",), ("pipe",), ("fsdp",), ("expert",), ("sequence",),
+    ("tensor",),
     ("data", "fsdp"),                  # the batch shards (MoE statistics)
     ("data", "fsdp", "sequence"),      # the gradient reduction
     ("data", "fsdp", "expert"),        # a2a token shards

@@ -29,11 +29,20 @@ table to its modules:
     on every tensor rank.
   - 'expert' -> expert: each expert rank holds num_experts / ep experts.
 
-`init_sharded_state` builds the one-rank model from the seed on every
-rank, cuts each rank's slices out of it and shards it, so N ranks hold
-exactly the one-rank model's values; `ShardedTrainState.gather_full` /
-`load_full` move a whole state (the one-rank layout, what checkpoints
-store) in and out of the shards.
+  - 'layers' -> pipe: stage p holds layers [p L / P, (p + 1) L / P)
+    (parallel/pipeline.py); the embedding and final norm are on every
+    stage, as JAX keeps them outside the stages.
+
+`init_sharded_state` builds the parameters born sharded: the model on
+the meta device, another stage's layers dropped, the tensor/expert
+slices cut and FSDP2 applied there, then only this rank's storage
+materialized and filled one whole parameter at a time (the one-rank
+`convert.init_params` draws, in its order, each dropped once its slice
+is kept), so N ranks hold exactly the one-rank model's values and a rank
+never holds more than its shards and the largest single parameter.
+`ShardedTrainState.gather_full` / `load_full` move a whole state (the
+one-rank layout, what checkpoints store) in and out of the shards, over
+the pipeline stages too.
 """
 
 from __future__ import annotations
@@ -185,7 +194,10 @@ class ShardedTrainState(TrainState):
     """TrainState over this rank's shards: `params` are the local tensors
     the optimizer updates in place (views of the FSDP2 shards), `dparams`
     the module's parameters (DTensors under FSDP2), `index` each one's
-    param_index; `full_shapes` the one-rank shapes."""
+    param_index; `full_shapes` the one-rank shapes. Under pipeline stages
+    a rank holds the embedding, the final norm and its stage's layers;
+    `all_names` / `all_shapes` / `all_rows` describe the whole one-rank
+    model (its names in order, shapes and int8 moment rows)."""
 
     mesh: Optional[Mesh] = None
     dparams: List[torch.Tensor] = dataclasses.field(default_factory=list)
@@ -194,18 +206,29 @@ class ShardedTrainState(TrainState):
     full_shapes: List[Tuple[int, ...]] = dataclasses.field(
         default_factory=list)
     config: Optional[Config] = None
+    all_names: List[str] = dataclasses.field(default_factory=list)
+    all_shapes: Dict[str, Tuple[int, ...]] = dataclasses.field(
+        default_factory=dict)
+    all_rows: Dict[str, int] = dataclasses.field(default_factory=dict)
     sharded = True
 
     # -- whole-state transfers (checkpoints) -------------------------------
+    def _stage_lead(self) -> bool:
+        """Whether this rank gathers its stage's tensors: all its mesh
+        coordinates but the pipe one are 0 (rank 0 without stages)."""
+        return all(c == 0 for a, c in self.mesh.coords.items()
+                   if a != "pipe")
+
     def _gather(self, i: int, local: torch.Tensor, kind: str = "param"
                 ) -> Optional[torch.Tensor]:
         """The one-rank tensor of parameter i's `local` (laid out as its
         local shard: the parameter or a moment; kind 'scale' for int8
-        scales), on the CPU on rank 0 (None elsewhere). Collective."""
+        scales), on the CPU on its stage's lead rank (None elsewhere).
+        Collective over the stage's ranks."""
         from torch.distributed.tensor import DTensor
 
         p, mesh = self.dparams[i], self.mesh
-        local = local.detach()
+        local = local.detach().to(mesh.device)
         full_shape = self._full_shape(i, kind)
         if isinstance(p, DTensor) and local.ndim >= 1:
             shape = (p.shape[0],) + tuple(local.shape[1:])
@@ -228,7 +251,7 @@ class ShardedTrainState(TrainState):
                 coords = dict(mesh.coords, expert=_coord(mesh, r, "expert"),
                               tensor=_coord(mesh, r, "tensor"))
                 pieces.append((self._index(i, kind, coords), buf[j]))
-        if mesh.rank != 0:
+        if not self._stage_lead():
             return None
         full = torch.empty(full_shape, dtype=local.dtype)
         for ix, piece in pieces:
@@ -236,21 +259,12 @@ class ShardedTrainState(TrainState):
         return full
 
     def _full_row(self, i: int) -> int:
-        """The one-rank int8 row of parameter i: its local row, or the
-        whole last dimension where the local row is the local last
-        dimension (a row cut over ranks: _row_split)."""
-        row = self.opt_state.rows[i]
-        if row == self.params[i].shape[-1]:
-            return self.full_shapes[i][-1]
-        return row
+        """The one-rank int8 row of parameter i."""
+        return self.all_rows[self.names[i]]
 
     def _full_shape(self, i: int, kind: str) -> Tuple[int, ...]:
-        shape = tuple(self.full_shapes[i])
-        if kind != "scale":
-            return shape
-        row = self._full_row(i)
-        return shape[:-1] + (() if row == shape[-1]
-                             else (shape[-1] // row,))
+        return _kind_shape(self.names[i], tuple(self.full_shapes[i]), kind,
+                           self.all_rows)
 
     def _index(self, i: int, kind: str, coords) -> Dict[int, torch.Tensor]:
         ix = param_index(self.names[i], self.full_shapes[i], self.config,
@@ -260,55 +274,94 @@ class ShardedTrainState(TrainState):
         return _scale_index(ix, len(self.full_shapes[i]), self._full_row(i),
                             self.full_shapes[i][-1])
 
+    def _kinds(self):
+        """[(key, the local tensors, kind)] of every per-parameter list."""
+        opt = self.opt_state
+        if opt.form == "int8":
+            return [("params", self.params, "param"),
+                    ("mu_codes", opt.mu_codes, "param"),
+                    ("mu_scales", opt.mu_scales, "scale"),
+                    ("nu_codes", opt.nu_codes, "param"),
+                    ("nu_scales", opt.nu_scales, "scale")]
+        return [("params", self.params, "param"), ("mu", opt.mu, "param"),
+                ("nu", opt.nu, "param")]
+
+    def _collect_stages(self, kind: str, dtype,
+                        mine: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+        """Rank 0 receives every other stage's gathered layers from that
+        stage's lead rank (in all_names order; the others send theirs).
+        Returns the whole {name: tensor} on rank 0."""
+        mesh = self.mesh
+        P = mesh.shape["pipe"]
+        if P == 1 or not self._stage_lead():
+            return mine
+        stage = mesh.coords["pipe"]
+        if stage > 0:
+            for name in self.names:
+                if stage_of(name, self.config) == stage:
+                    dist.send(mine[name].to(mesh.device).contiguous(), 0)
+            return mine
+        out = dict(mine)
+        for q in range(1, P):
+            src = mesh._rank_of({**{a: 0 for a in mesh.axes}, "pipe": q})
+            for name in self.all_names:
+                if stage_of(name, self.config) != q:
+                    continue
+                shape = _kind_shape(name, self.all_shapes[name], kind,
+                                    self.all_rows)
+                buf = torch.empty(shape, dtype=dtype, device=mesh.device)
+                dist.recv(buf, src)
+                out[name] = buf.cpu()
+        return out
+
     def gather_full(self) -> Optional[TrainState]:
         """The whole state in the one-rank layout, on the CPU, on rank 0
         (None on the others). Collective: every rank calls it."""
         opt = self.opt_state
-
-        def full(ts, kind="param"):
-            return [self._gather(i, t, kind) for i, t in enumerate(ts)]
-
-        params = full(self.params)
+        whole = {}
+        for key, ts, kind in self._kinds():
+            mine = {n: self._gather(i, t, kind)
+                    for i, (n, t) in enumerate(zip(self.names, ts))}
+            mine = self._collect_stages(kind, ts[0].dtype, mine)
+            whole[key] = [mine.get(n) for n in self.all_names]
+        if self.mesh.rank != 0:
+            return None
         if opt.form == "int8":
             from luminaai_tpu_torch.training.optimizer import AdamInt8State
 
             new_opt = AdamInt8State(
-                count=opt.count, mu_codes=full(opt.mu_codes),
-                mu_scales=full(opt.mu_scales, "scale"),
-                nu_codes=full(opt.nu_codes),
-                nu_scales=full(opt.nu_scales, "scale"),
-                rows=[self._full_row(i) for i in range(len(opt.rows))])
+                count=opt.count, mu_codes=whole["mu_codes"],
+                mu_scales=whole["mu_scales"], nu_codes=whole["nu_codes"],
+                nu_scales=whole["nu_scales"],
+                rows=[self.all_rows[n] for n in self.all_names])
         else:
             from luminaai_tpu_torch.training.optimizer import AdamWState
 
-            new_opt = AdamWState(count=opt.count, mu=full(opt.mu),
-                                 nu=full(opt.nu))
-        if self.mesh.rank != 0:
-            return None
-        return TrainState(step=self.step, params=params, opt_state=new_opt,
-                          generator=self.generator, names=list(self.names))
+            new_opt = AdamWState(count=opt.count, mu=whole["mu"],
+                                 nu=whole["nu"])
+        return TrainState(step=self.step, params=whole["params"],
+                          opt_state=new_opt, generator=self.generator,
+                          names=list(self.all_names))
 
     def host_template(self) -> TrainState:
         """An empty whole state on the CPU for a checkpoint restore."""
         opt = self.opt_state
 
-        def like(ts):
-            return [torch.empty(s, dtype=t.dtype)
-                    for s, t in zip(self.full_shapes, ts)]
+        def like(ts, kind="param"):
+            return [torch.empty(_kind_shape(n, self.all_shapes[n], kind,
+                                            self.all_rows),
+                                dtype=ts[0].dtype) for n in self.all_names]
 
         if opt.form == "int8":
-            from luminaai_tpu_torch.training.optimizer import (
-                AdamInt8State,
-                _q8,
-            )
+            from luminaai_tpu_torch.training.optimizer import AdamInt8State
 
-            scales = [_q8(torch.zeros(s), self._full_row(i))[1]
-                      for i, s in enumerate(self.full_shapes)]
             new_opt = AdamInt8State(
-                count=0, mu_codes=like(opt.mu_codes), mu_scales=scales,
+                count=0, mu_codes=like(opt.mu_codes),
+                mu_scales=like(opt.mu_scales, "scale"),
                 nu_codes=like(opt.nu_codes),
-                nu_scales=[t.clone() for t in scales],
-                rows=[self._full_row(i) for i in range(len(opt.rows))])
+                nu_scales=like(opt.nu_scales, "scale"),
+                rows=[self.all_rows[n] for n in self.all_names])
         else:
             from luminaai_tpu_torch.training.optimizer import AdamWState
 
@@ -317,27 +370,24 @@ class ShardedTrainState(TrainState):
                           opt_state=new_opt,
                           generator=torch.Generator(
                               device=self.generator.device),
-                          names=list(self.names))
+                          names=list(self.all_names))
 
     def load_full(self, full: TrainState) -> None:
         """Copy a whole state (the one-rank layout, any device) into the
-        shards: every rank takes its slices."""
+        shards: every rank takes its slices, by name."""
         opt, src = self.opt_state, full.opt_state
-
-        def copy_into(locals_, fulls, kind="param"):
-            for i, (dst, f) in enumerate(zip(locals_, fulls)):
-                dst.copy_(self._local_of(i, f, dst, kind))
-
+        at = {n: j for j, n in enumerate(full.names)}
+        srcs = {"params": full.params}
+        if opt.form == "int8":
+            srcs.update(mu_codes=src.mu_codes, mu_scales=src.mu_scales,
+                        nu_codes=src.nu_codes, nu_scales=src.nu_scales)
+        else:
+            srcs.update(mu=src.mu, nu=src.nu)
         with torch.no_grad():
-            copy_into(self.params, full.params)
-            if opt.form == "int8":
-                copy_into(opt.mu_codes, src.mu_codes)
-                copy_into(opt.nu_codes, src.nu_codes)
-                copy_into(opt.mu_scales, src.mu_scales, "scale")
-                copy_into(opt.nu_scales, src.nu_scales, "scale")
-            else:
-                copy_into(opt.mu, src.mu)
-                copy_into(opt.nu, src.nu)
+            for key, ts, kind in self._kinds():
+                for i, (name, dst) in enumerate(zip(self.names, ts)):
+                    f = srcs[key][at[name]]
+                    dst.copy_(self._local_of(i, f, dst, kind))
         opt.count = src.count
         self.step = full.step
         self.generator.set_state(full.generator.get_state())
@@ -346,7 +396,7 @@ class ShardedTrainState(TrainState):
                   kind: str) -> torch.Tensor:
         from torch.distributed.tensor import DTensor
 
-        piece = take(full.to(dst.device),
+        piece = take(full.to(self.mesh.device),
                      self._index(i, kind, self.mesh.coords))
         if isinstance(self.dparams[i], DTensor) and piece.ndim >= 1:
             piece = _fsdp_local(piece, self.dparams[i])
@@ -394,26 +444,39 @@ def _fsdp_local(piece: torch.Tensor, p) -> torch.Tensor:
     return piece.new_empty((0,) + tuple(piece.shape[1:]))
 
 
-def shard_model(model, mesh: Mesh, config: Config):
-    """Cut this rank's tensor/expert slices out of a whole (one-rank)
-    trainable model in place and shard it with FSDP2 over mesh.fsdp (not
-    under grad_reduce='hierarchical'). Returns ({name: param_index},
-    {name: one-rank shape})."""
-    index, shapes = {}, {}
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            shapes[name] = tuple(p.shape)
-            ix = param_index(name, p.shape, config, mesh.shape, mesh.coords)
-            index[name] = ix
-            if ix:
-                p.data = take(p.data, ix)
-    if config.grad_reduce == "flat" and mesh.fsdp is not None:
-        from torch.distributed.fsdp import fully_shard
+def stage_of(name: str, config: Config) -> Optional[int]:
+    """The pipeline stage holding parameter `name` (the 'layers' -> pipe
+    rule: stage p holds layers [p L / P, (p + 1) L / P)); None for the
+    embedding and final norm, which every stage holds."""
+    if not name.startswith("layers."):
+        return None
+    per = config.num_layers // max(1, config.pipeline_parallel_size)
+    return int(name.split(".", 2)[1]) // per
 
-        for layer in model.layers:
-            fully_shard(layer, mesh=mesh.fsdp)
-        fully_shard(model, mesh=mesh.fsdp)
-    return index, shapes
+
+def stage_layers(config: Config, stage: int) -> range:
+    """The layer indices of pipeline stage `stage`."""
+    per = config.num_layers // max(1, config.pipeline_parallel_size)
+    return range(stage * per, (stage + 1) * per)
+
+
+def _kind_shape(name: str, shape: Tuple[int, ...], kind: str,
+                rows: Dict[str, int]) -> Tuple[int, ...]:
+    """The one-rank shape of parameter `name`'s tensor of `kind` (its
+    int8 scales: one per row of rows[name] along the last dimension)."""
+    if kind != "scale":
+        return tuple(shape)
+    row = rows[name]
+    return tuple(shape[:-1]) + (() if row == shape[-1]
+                                else (shape[-1] // row,))
+
+
+class AbsentLayer(torch.nn.Module):
+    """The place in model.layers of a layer another pipeline stage
+    holds: no parameters, never called."""
+
+    def forward(self, *args, **kwargs):
+        raise RuntimeError("this layer lives on another pipeline stage")
 
 
 def local_tensor(p: torch.Tensor) -> torch.Tensor:
@@ -423,34 +486,95 @@ def local_tensor(p: torch.Tensor) -> torch.Tensor:
     return p.to_local() if isinstance(p, DTensor) else p
 
 
+def _draw(name: str, shape, config: Config, gen: torch.Generator,
+          device) -> torch.Tensor:
+    """One whole parameter's init value (convert.init_value): the only
+    whole tensor born-sharded init allocates."""
+    from luminaai_tpu_torch.convert import init_value
+
+    return init_value(name, shape, config, gen, device)
+
+
 def init_sharded_state(config: Config, mesh: Mesh, tx, seed: int,
-                       model=None):
-    """(model, ShardedTrainState): the one-rank model built from `seed`
-    (or `model`, whole), this rank's slices cut and FSDP2-sharded, the
-    optimizer's moments on the local shards. N ranks then hold exactly
-    the one-rank model's values."""
-    from luminaai_tpu_torch.convert import init_params
+                       model=None, params: Optional[Dict[str, Any]] = None):
+    """(model, ShardedTrainState), born sharded: the model built on the
+    meta device, another stage's layers dropped (AbsentLayer), this rank's
+    tensor/expert slices cut, FSDP2 applied (one unit a local layer and
+    the root; not under grad_reduce='hierarchical'), then only the local
+    storage materialized on mesh.device and filled parameter by parameter
+    in the one-rank order from `params` ({name: whole tensor}), from
+    `model` (a whole model) or else from `seed` (convert.init_params'
+    draws, every parameter drawn whole and dropped once its slice is
+    kept). The optimizer's moments are built on the local shards. N ranks
+    then hold exactly the one-rank model's values."""
     from luminaai_tpu_torch.models.transformer import LuminaTransformer
 
-    if model is None:
-        model = init_params(
-            LuminaTransformer(config, device=mesh.device, trainable=True),
-            seed)
-    index, shapes = shard_model(model, mesh, config)
-    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    if model is not None:
+        params = dict(model.named_parameters())
+    local_model = LuminaTransformer(config, device="meta", trainable=True)
+    all_shapes = {n: tuple(p.shape)
+                  for n, p in local_model.named_parameters()}
+    all_names = list(all_shapes)
+    row_of = getattr(tx, "row_of", lambda name, p: p.shape[-1])
+    all_rows = {n: int(row_of(n, p))
+                for n, p in local_model.named_parameters()}
+    if mesh.shape["pipe"] > 1:
+        mine = set(stage_layers(config, mesh.coords["pipe"]))
+        for i in range(config.num_layers):
+            if i not in mine:
+                local_model.layers[i] = AbsentLayer()
+    index = {}
+    with torch.no_grad():
+        for name, p in local_model.named_parameters():
+            ix = param_index(name, p.shape, config, mesh.shape, mesh.coords)
+            index[name] = ix
+            if ix:
+                p.data = take(p.data, ix)
+    if config.grad_reduce == "flat" and mesh.fsdp is not None:
+        from torch.distributed.fsdp import fully_shard
+
+        for layer in local_model.layers:
+            if not isinstance(layer, AbsentLayer):
+                fully_shard(layer, mesh=mesh.fsdp)
+        fully_shard(local_model, mesh=mesh.fsdp)
+    local_model.to_empty(device=mesh.device)
+    local_model.device = mesh.device
+    named = dict(local_model.named_parameters())
+    gen = torch.Generator(device=mesh.device).manual_seed(int(seed))
+    with torch.no_grad():
+        for name in all_names:
+            if params is not None:
+                if name not in named:
+                    continue
+                full = params[name].detach().to(mesh.device)
+            else:  # every draw, in order: the generator's sequence
+                full = _draw(name, all_shapes[name], config, gen,
+                             mesh.device)
+            if name in named:
+                p = named[name]
+                piece = take(full, index[name])
+                dst = local_tensor(p)
+                if dst is not p and piece.ndim >= 1:
+                    piece = _fsdp_local(piece, p)
+                dst.copy_(piece.reshape(dst.shape))
+            del full
+    local_model.embedder.round_()
+    named = [(n, p) for n, p in local_model.named_parameters()
+             if p.requires_grad]
     names = [n for n, _ in named]
     dparams = [p for _, p in named]
     with torch.no_grad():
-        params = [local_tensor(p) for p in dparams]
-    opt_state = tx.init(params, names)
+        local = [local_tensor(p) for p in dparams]
+    opt_state = tx.init(local, names)
     if opt_state.form == "int8":
         opt_state.groups = [
             _row_split(index[n], t, r, local_tensor(p) is not p, mesh)
-            for n, t, r, p in zip(names, params, opt_state.rows, dparams)]
-    gen = torch.Generator(device=mesh.device).manual_seed(int(seed))
+            for n, t, r, p in zip(names, local, opt_state.rows, dparams)]
     state = ShardedTrainState(
-        step=0, params=params, opt_state=opt_state, generator=gen,
+        step=0, params=local, opt_state=opt_state,
+        generator=torch.Generator(device=mesh.device).manual_seed(int(seed)),
         names=names, mesh=mesh, dparams=dparams,
         index=[index[n] for n in names],
-        full_shapes=[shapes[n] for n in names], config=config)
-    return model, state
+        full_shapes=[all_shapes[n] for n in names], config=config,
+        all_names=all_names, all_shapes=all_shapes, all_rows=all_rows)
+    return local_model, state

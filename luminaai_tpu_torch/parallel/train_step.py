@@ -16,6 +16,9 @@ The step's contract, on one card (`make_train_step`) and over a mesh
     in the config's moment form (fp32, bf16 mu or int8), and report
     grad_norm and the learning rate of this update.
 
+Over a mesh with pipeline stages the sharded step is
+parallel/pipeline.py's (the JAX dispatch, train_step.py:215-220).
+
 config.dropout is accepted and read by no layer, as in the JAX package
 (its layers never apply it).
 
@@ -44,16 +47,14 @@ Batch = Dict[str, torch.Tensor]
 
 def check_trainable(config: Config) -> None:
     """Refuse training settings the port does not run: the batch must
-    split into the accumulation's micro-batches; pipeline stages and the
-    optimizer's host offload are not ported yet (ROADMAP A6b)."""
+    split into the accumulation's micro-batches; a pipelined layer stack
+    must be one homogeneous segment (parallel/pipeline.py)."""
     if config.pipeline_parallel_size > 1:
-        raise NotImplementedError(
-            "pipeline_parallel_size > 1 (GPipe / 1F1B, JAX "
-            "parallel/pipeline.py) is not ported yet (ROADMAP A6b)")
-    if config.host_offload_optimizer:
-        raise NotImplementedError(
-            "host_offload_optimizer (JAX sharding.py:340-370) is not "
-            "ported yet (ROADMAP A6b)")
+        from luminaai_tpu_torch.parallel.pipeline import pipeline_compatible
+
+        ok, why = pipeline_compatible(config)
+        if not ok:
+            raise ValueError(f"config not pipeline-compatible: {why}")
     if config.batch_size % max(1, config.gradient_accumulation_steps):
         raise ValueError(
             f"batch_size {config.batch_size} is not a multiple of "
@@ -205,8 +206,16 @@ def make_train_step(
     loss_fn: Optional[Callable] = None,
 ):
     """step(state, batch) -> (state, metrics); batch tensors on the
-    model's device. The state is updated in place and returned."""
+    model's device. The state is updated in place and returned. Under
+    pipeline stages without a mesh every stage plays in this process
+    (parallel/pipeline.py virtual_pipeline_step)."""
     check_trainable(config)
+    if config.pipeline_parallel_size > 1 and loss_fn is None:
+        from luminaai_tpu_torch.parallel.pipeline import (
+            make_pipeline_train_step,
+        )
+
+        return make_pipeline_train_step(config, model, schedule, tx)
     loss_fn = loss_fn or make_loss_fn(config, model)
     accum = config.gradient_accumulation_steps
 
@@ -246,6 +255,12 @@ def make_eval_step(config: Config, model, loss_fn: Optional[Callable] = None):
         metrics["loss"] = loss + aux.get("aux_loss", 0.0)
         return metrics
 
+    if config.pipeline_parallel_size > 1 and loss_fn is None:
+        from luminaai_tpu_torch.parallel.pipeline import (
+            make_pipeline_eval_step,
+        )
+
+        return make_pipeline_eval_step(config, model)
     run_loss = loss_fn or eval_loss
 
     def call(state: Optional[TrainState], batch: Batch):
@@ -286,9 +301,17 @@ def shard_batch(batch: Batch, mesh, config: Config) -> Batch:
     B = next(iter(batch.values())).shape[0]
     if n == 1 or B != config.batch_size:
         return batch
-    rows = local_rows(B, config.gradient_accumulation_steps, n,
+    rows = local_rows(B, micro_batches(config), n,
                       mesh.axis_index("data", "fsdp"))
     return {k: v[rows.to(v.device)] for k, v in batch.items()}
+
+
+def micro_batches(config: Config) -> int:
+    """The micro-batches a step splits its batch into: the pipeline's
+    microbatches under pipeline stages, else the accumulation steps."""
+    if config.pipeline_parallel_size > 1:
+        return config.pipeline_microbatches or config.pipeline_parallel_size
+    return max(1, config.gradient_accumulation_steps)
 
 
 def _make_local_loss(config: Config, model, mesh, red_group, n_red: int,
@@ -369,6 +392,8 @@ def sharded_global_norm(state, grads: List[torch.Tensor]) -> torch.Tensor:
     for p, g, ix, name in zip(state.dparams, grads, state.index,
                               state.names):
         pieces = mesh.shape["fsdp"] if isinstance(p, DTensor) else 1
+        if name.startswith("layers."):  # one pipeline stage holds it
+            pieces *= mesh.shape["pipe"]
         if ".moe." in name and 0 in ix:
             pieces *= mesh.shape["expert"]
         tp_cut = bool(set(ix) - {0}) if ".moe." in name else bool(ix)
@@ -411,7 +436,14 @@ def make_sharded_train_step(config: Config, model, schedule, tx, mesh):
     accum = max(1, config.gradient_accumulation_steps)
     # The batch must split into each micro-batch's share of every batch
     # rank: refuse here, not at the first batch.
-    local_rows(config.batch_size, accum, mesh.axis_size("data", "fsdp"), 0)
+    local_rows(config.batch_size, micro_batches(config),
+               mesh.axis_size("data", "fsdp"), 0)
+    if config.pipeline_parallel_size > 1:
+        from luminaai_tpu_torch.parallel.pipeline import (
+            make_pipeline_train_step,
+        )
+
+        return make_pipeline_train_step(config, model, schedule, tx, mesh)
     hierarchical = config.grad_reduce == "hierarchical"
     # The JAX hierarchical region trains with per-shard MoE statistics.
     mesh.stat_axes = () if hierarchical else ("data", "fsdp")
@@ -476,7 +508,14 @@ def local_grad(p: torch.Tensor) -> torch.Tensor:
 
 def make_sharded_eval_step(config: Config, model, mesh):
     """eval(state, batch) -> global metrics over the mesh (forward only,
-    deterministic, no z-loss or label smoothing, as make_eval_step)."""
+    deterministic, no z-loss or label smoothing, as make_eval_step); the
+    pipelined eval under pipeline stages."""
+    if config.pipeline_parallel_size > 1:
+        from luminaai_tpu_torch.parallel.pipeline import (
+            make_pipeline_eval_step,
+        )
+
+        return make_pipeline_eval_step(config, model, mesh)
     red = ("data", "fsdp") if config.grad_reduce == "hierarchical" else (
         "data", "fsdp", "sequence")
     loss_fn = _make_local_loss(config, model, mesh, mesh.group(*red),

@@ -91,11 +91,14 @@ def num_experts_in(params: Params) -> Optional[int]:
 
 
 def evolution_feasible(config, new_num_experts: int) -> Tuple[bool, str]:
-    """Whether the surgery may run: the model has MoE layers and keeps at
-    least max(2, top_k) experts. (The JAX gate also requires divisibility
-    by expert_parallel_size; the port runs on one card, where that is 1.)"""
+    """Whether the surgery may run: the model has MoE layers, keeps at
+    least max(2, top_k) experts, and the experts divide over the expert
+    axis (the JAX gate)."""
     if not config.use_moe:
         return False, "model has no MoE layers"
     if new_num_experts < max(2, config.moe_top_k):
         return False, f"cannot go below {max(2, config.moe_top_k)} experts"
+    if new_num_experts % config.expert_parallel_size != 0:
+        return (False, f"{new_num_experts} experts not divisible by "
+                       f"expert_parallel_size={config.expert_parallel_size}")
     return True, "ok"

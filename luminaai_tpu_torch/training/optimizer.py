@@ -31,6 +31,16 @@ reads it):
 
 `describe_optimizer_memory` gives the resident bytes by dtype, as JAX's
 does over the optax state.
+
+With config.host_offload_optimizer (JAX sharding.py:140-165, :255-292;
+DeepSpeed's cpu_offload) every moment lives in host memory between
+steps, pinned where the parameters are on the card, and the update
+streams each parameter's moments to the parameter's device, runs the
+same arithmetic there and copies them back (`_MomentStream`): the next
+parameter's moments load on a side stream while this one updates, so at
+most two parameters' moments are on the card at once. The count is a
+host integer either way. On the CPU the copies go host to host; the
+results are bitwise those of the moments kept beside the parameters.
 """
 
 from __future__ import annotations
@@ -148,6 +158,11 @@ class AdamWState:
     count: int
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
+    # The moments live in host memory (host_offload_optimizer).
+    offloaded: bool = False
+    # Per parameter, whether weight decay applies (AdamW.decay_of; None:
+    # the mask of each tensor).
+    decay: Optional[List[bool]] = None
 
     @property
     def form(self) -> str:
@@ -156,6 +171,9 @@ class AdamWState:
 
     def tensors(self) -> List[torch.Tensor]:
         return [*self.mu, *self.nu]
+
+    def moment_lists(self) -> List[List[torch.Tensor]]:
+        return [self.mu, self.nu]
 
 
 @dataclasses.dataclass
@@ -176,11 +194,86 @@ class AdamInt8State:
     # reduced over it, so the scales are the one-rank model's. None: no
     # parameter's rows are split.
     groups: Optional[List[Any]] = None
+    offloaded: bool = False
+    decay: Optional[List[bool]] = None
     form = "int8"
 
     def tensors(self) -> List[torch.Tensor]:
         return [*self.mu_codes, *self.mu_scales, *self.nu_codes,
                 *self.nu_scales]
+
+    def moment_lists(self) -> List[List[torch.Tensor]]:
+        return [self.mu_codes, self.mu_scales, self.nu_codes,
+                self.nu_scales]
+
+
+def _zeros(p: torch.Tensor, dtype, offload: bool) -> torch.Tensor:
+    """A zero moment for parameter p: beside it, or with `offload` in
+    host memory (pinned where p is on the card), never on the card."""
+    if not offload:
+        return torch.zeros_like(p, dtype=dtype)
+    return torch.zeros(p.shape, dtype=dtype, device="cpu",
+                       pin_memory=p.device.type == "cuda")
+
+
+def _pinned_like(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Host tensor t, pinned where parameter p is on the card."""
+    return t.pin_memory() if p.device.type == "cuda" else t
+
+
+class _MomentStream:
+    """One update's moments of an offloaded state on `device`, a
+    parameter at a time: fetch(i) gives parameter i's moments there (the
+    next parameter's then load on a side stream), store(i) copies them
+    back into host memory, finish() waits for the last copies."""
+
+    def __init__(self, lists, device: torch.device):
+        self.lists, self.device = lists, device
+        self.cuda = device.type == "cuda"
+        self.side = torch.cuda.Stream(device) if self.cuda else None
+        self.ahead = None  # (i, tensors, event)
+
+    def _load(self, i: int):
+        if not self.cuda:
+            return i, [lst[i].clone() for lst in self.lists], None
+        with torch.cuda.stream(self.side):
+            ts = [lst[i].to(self.device, non_blocking=True)
+                  for lst in self.lists]
+            ev = torch.cuda.Event()
+            ev.record(self.side)
+        return i, ts, ev
+
+    def fetch(self, i: int) -> List[torch.Tensor]:
+        got = self.ahead if self.ahead and self.ahead[0] == i else (
+            self._load(i))
+        _, ts, ev = got
+        if self.cuda:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(ev)
+            for t in ts:
+                t.record_stream(cur)
+        n = len(self.lists[0])
+        self.ahead = self._load(i + 1) if i + 1 < n else None
+        return ts
+
+    def store(self, i: int, ts: List[torch.Tensor]) -> None:
+        for lst, t in zip(self.lists, ts):
+            lst[i].copy_(t, non_blocking=self.cuda)
+
+    def finish(self) -> None:
+        if self.cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+
+
+def _moments(state, params):
+    """(fetch(i), store(i, tensors), finish()) over the state's moments:
+    in place where they live beside the parameters, else streamed."""
+    lists = state.moment_lists()
+    if not getattr(state, "offloaded", False) or not params:
+        return (lambda i: [lst[i] for lst in lists], lambda i, ts: None,
+                lambda: None)
+    stream = _MomentStream(lists, params[0].device)
+    return stream.fetch, stream.store, stream.finish
 
 
 def _bias_corrections(b1: float, b2: float, count: int):
@@ -211,17 +304,31 @@ class AdamW:
             # JAX's weak-typed decay meets a bf16 moment as a bf16 value.
             self._b1_mu = torch.tensor(b1, dtype=torch.bfloat16)
 
+    offload = False  # host_offload_optimizer: moments in host memory
+
     def init(self, params: Sequence[torch.Tensor],
              names: Optional[Sequence[str]] = None) -> AdamWState:
+        off = self.offload
         return AdamWState(
-            count=0,
-            mu=[torch.zeros_like(p, dtype=self.mu_dtype) for p in params],
-            nu=[torch.zeros_like(p, dtype=torch.float32) for p in params])
+            count=0, mu=[_zeros(p, self.mu_dtype, off) for p in params],
+            nu=[_zeros(p, torch.float32, off) for p in params], offloaded=off,
+            decay=self._decays(params, names))
+
+    # decay_of(name, param): whether a named parameter decays (set by
+    # make_optimizer for scanned layer stacks); None: mask(param).
+    decay_of = None
+
+    def _decays(self, params, names) -> Optional[List[bool]]:
+        if self.decay_of is None or names is None:
+            return None
+        return [bool(self.decay_of(n, p)) for n, p in zip(names, params)]
 
     def _finish(self, p: torch.Tensor, update: torch.Tensor,
-                lr: float) -> None:
+                lr: float, decay: Optional[bool] = None) -> None:
         """Decayed weights, then -lr, into the parameter in place."""
-        if self.weight_decay and self.mask(p):
+        if decay is None:
+            decay = self.mask(p)
+        if self.weight_decay and decay:
             update = update + self.weight_decay * p.float()
         p.add_(update.mul_(-lr).to(p.dtype))
 
@@ -233,9 +340,10 @@ class AdamW:
         lr = self.learning_rate(state.count)
         count = state.count + 1
         bc1, bc2 = _bias_corrections(self.b1, self.b2, count)
+        fetch, store, finish = _moments(state, params)
         for i, (p, g) in enumerate(zip(params, grads)):
             g = g.float()
-            mu, nu = state.mu[i], state.nu[i]
+            mu, nu = fetch(i)
             if mu.dtype == torch.float32:
                 mu.mul_(self.b1).add_((1 - self.b1) * g)
                 m32 = mu
@@ -245,7 +353,10 @@ class AdamW:
             update = (m32 / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             if m32 is not mu:
                 mu.copy_(m32)  # rounded to bf16, nearest even
-            self._finish(p, update, lr)
+            self._finish(p, update, lr,
+                         state.decay[i] if state.decay else None)
+            store(i, (mu, nu))
+        finish()
         state.count = count
         return lr
 
@@ -296,15 +407,22 @@ class AdamWInt8(AdamW):
         names = list(names) if names is not None else [None] * len(params)
         rows = [int(self.row_of(n, p)) for n, p in zip(names, params)]
 
+        off = self.offload
+
         def codes():
-            return [torch.zeros_like(p, dtype=torch.int8) for p in params]
+            return [_zeros(p, torch.int8, off) for p in params]
 
         def scales():
-            return [_q8(torch.zeros_like(p, dtype=torch.float32), r)[1]
-                    for p, r in zip(params, rows)]
+            out = []
+            for p, r in zip(params, rows):
+                s_ = _q8(_zeros(p, torch.float32, off), r)[1]
+                out.append(_pinned_like(s_, p) if off else s_)
+            return out
 
         return AdamInt8State(count=0, mu_codes=codes(), mu_scales=scales(),
-                             nu_codes=codes(), nu_scales=scales(), rows=rows)
+                             nu_codes=codes(), nu_scales=scales(), rows=rows,
+                             offloaded=off,
+                             decay=self._decays(params, names))
 
     @torch.no_grad()
     def apply(self, params: Sequence[torch.Tensor],
@@ -313,22 +431,25 @@ class AdamWInt8(AdamW):
         count = state.count + 1
         bc1, bc2 = _bias_corrections(self.b1, self.b2, count)
         b1, b2 = self.b1, self.b2
+        fetch, store, finish = _moments(state, params)
         for i, (p, g) in enumerate(zip(params, grads)):
             row = state.rows[i]
             group = state.groups[i] if state.groups else None
             g = g.float()
-            mu = b1 * _dq8(state.mu_codes[i], state.mu_scales[i], row) + (
-                (1.0 - b1) * g)
-            nu_sqrt = _dq8(state.nu_codes[i], state.nu_scales[i], row)
+            mu_c, mu_s, nu_c, nu_s = fetch(i)
+            mu = b1 * _dq8(mu_c, mu_s, row) + ((1.0 - b1) * g)
+            nu_sqrt = _dq8(nu_c, nu_s, row)
             nu = b2 * nu_sqrt * nu_sqrt + (1.0 - b2) * g * g
             update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            for codes, scales, x in (
-                    (state.mu_codes[i], state.mu_scales[i], mu),
-                    (state.nu_codes[i], state.nu_scales[i], torch.sqrt(nu))):
+            for codes, scales, x in ((mu_c, mu_s, mu),
+                                     (nu_c, nu_s, torch.sqrt(nu))):
                 c, s_ = _q8(x, row, group)
                 codes.copy_(c)
                 scales.copy_(s_)
-            self._finish(p, update, lr)
+            self._finish(p, update, lr,
+                         state.decay[i] if state.decay else None)
+            store(i, (mu_c, mu_s, nu_c, nu_s))
+        finish()
         state.count = count
         return lr
 
@@ -380,6 +501,14 @@ def make_optimizer(
             return d
         return p.shape[-1]
 
-    return make_adam(moment_form(config), schedule, config.beta1,
-                     config.beta2, config.eps, config.weight_decay,
-                     row_of=row_of)
+    tx = make_adam(moment_form(config), schedule, config.beta1,
+                   config.beta2, config.eps, config.weight_decay,
+                   row_of=row_of)
+    tx.offload = bool(config.host_offload_optimizer)
+    if config.scan_layers:
+        # JAX's decay mask (ndim >= 2) meets the scanned tree's stacked
+        # layer parameters, whose leading layer axis makes every one of
+        # them (norm scales, MoD bias) a decayed matrix.
+        tx.decay_of = lambda name, p: p.ndim >= 2 or name.startswith(
+            "layers.")
+    return tx

@@ -12,6 +12,15 @@ All decisions are host-side numpy on scalars the train step already
 produced, the same code as the JAX module's, so the same metric stream
 gives the same decisions on both sides. Every intervention carries a
 reason + confidence and respects a cooldown (intervention_cooldown_steps).
+
+Over a mesh of more than one rank (the Trainer's `mesh`) every rank
+observes the step's metrics, which the sharded step already reduced over
+the ranks; the readings that are a rank's own (step times, tokens/s,
+memory) are reduced first (one all-reduce: the slowest rank's times and
+throughput, the largest memory). At a health check rank 0 alone decides,
+one broadcast carries its decision (or none) and the healthy step the
+rollback fences to, and every rank executes it, so every rank takes the
+same decision at the same step and rebuilds its shards alike.
 """
 
 from __future__ import annotations
@@ -420,6 +429,13 @@ class RealTimeAnalytics:
         return anomalies
 
 
+def _local_reading(key: str) -> bool:
+    """Whether a logged metric is a rank's own reading (wall time,
+    throughput, memory), not a value the step reduced over the ranks."""
+    return (key.endswith("_seconds") or key.startswith("tokens_per_sec")
+            or "memory" in key)
+
+
 def _process_rank() -> int:
     """This process's rank in a torch.distributed group (0 without one)."""
     try:
@@ -614,8 +630,47 @@ class AdaptiveTrainingOrchestrator:
         summary["trajectory"] = self.analytics.predict_training_trajectory()
         return summary
 
+    # -- over a mesh ----------------------------------------------------------
+    def _mesh(self):
+        mesh = getattr(self.trainer, "mesh", None)
+        return mesh if mesh is not None and mesh.size > 1 else None
+
+    def _agreed_readings(self, metrics: Dict[str, Any]) -> Dict[str, Any]:
+        """The metrics with each rank's own readings reduced over the
+        ranks: the largest times and memory, the smallest throughput."""
+        keys = sorted(k for k, v in metrics.items()
+                      if isinstance(v, float) and _local_reading(k))
+        if not keys or self._mesh() is None:
+            return metrics
+        import torch
+        import torch.distributed as dist
+
+        # MAX over -x gives the smallest throughput.
+        sign = [-1.0 if k.startswith("tokens_per_sec") else 1.0
+                for k in keys]
+        t = torch.tensor([s * metrics[k] for s, k in zip(sign, keys)],
+                         dtype=torch.float64, device=self._mesh().device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        out = dict(metrics)
+        out.update({k: s * float(v) for s, k, v in zip(sign, keys,
+                                                       t.tolist())})
+        return out
+
+    def _agreed(self, decision: Optional[AdaptiveDecision]
+                ) -> Optional[AdaptiveDecision]:
+        """Rank 0's decision (and its rollback fence) on every rank."""
+        if self._mesh() is None:
+            return decision
+        import torch.distributed as dist
+
+        box = [(decision, self._last_healthy_step)]
+        dist.broadcast_object_list(box, src=0)
+        decision, self._last_healthy_step = box[0]
+        return decision
+
     # -- per-interval hook -------------------------------------------------
     def on_metrics(self, step: int, metrics: Dict[str, float]) -> None:
+        metrics = self._agreed_readings(metrics)
         loss = metrics.get("loss", float("nan"))
         grad_norm = metrics.get("grad_norm", 0.0)
         util = metrics.get("expert_utilization")
@@ -639,19 +694,28 @@ class AdaptiveTrainingOrchestrator:
         if step - self._last_health_check_step < self.config.health_check_interval:
             return
         self._last_health_check_step = step
-        decision = self._decide(step)
+        decision = None
+        if _process_rank() == 0 or self._mesh() is None:
+            decision = self._gated(step, self._decide(step))
+        decision = self._agreed(decision)
+        if decision is not None:
+            self._execute(decision)
+
+    def _gated(self, step: int, decision: Optional[AdaptiveDecision]
+               ) -> Optional[AdaptiveDecision]:
+        """The decision past the cooldown and the confidence floor."""
         if decision is None:
-            return
+            return None
         if step - self._last_intervention_step < self.config.intervention_cooldown_steps:
             logger.info("intervention suppressed by cooldown: %s", decision.kind)
-            return
+            return None
         if decision.confidence < self.config.min_override_threshold:
             logger.info(
                 "intervention below confidence floor: %s (%.2f)",
                 decision.kind, decision.confidence,
             )
-            return
-        self._execute(decision)
+            return None
+        return decision
 
     # -- decision fusion (ref :929 _process_real_time_metrics) -------------
     def _decide(self, step: int) -> Optional[AdaptiveDecision]:

@@ -42,12 +42,16 @@ The runtime around the loop, as in the JAX package:
     gauges and a router_health event), from the values the step's sync
     already brought to the host;
   - `train_with_oom_protection`: on torch.cuda.OutOfMemoryError split the
-    micro-batches, then halve the batch;
+    micro-batches (under pipeline stages: more pipeline microbatches),
+    then halve the batch;
   - under an initialized process group (torchrun, one process a card) the
-    mesh (parallel/mesh.py), the sharded state (parallel/sharding.py) and
-    the sharded step, whatever the mesh's size: each rank trains its rows
-    of the global batch, a stop armed on any rank stops every rank at the
-    same step, `host_step_skew` runs at each log boundary, and rank 0
+    mesh (parallel/mesh.py), the born-sharded state (parallel/sharding.py)
+    and the sharded or pipelined step, whatever the mesh's size: each rank
+    trains its rows of the global batch, a stop armed on any rank stops
+    every rank at the same step, an OOM on any rank is agreed after the
+    step (one all-reduce) so every rank takes the same rung, an expert
+    evolution or a rollback rebuilds every rank's shards from the same
+    whole state, `host_step_skew` runs at each log boundary, and rank 0
     alone writes the logs and checkpoints;
   - the goodput ledger (compile = the first step until its sync,
     data_wait, checkpoint, eval, resume_replay), the hang watchdog (armed
@@ -152,13 +156,13 @@ class Trainer:
             self.mesh = build_mesh(config)
             device = self.mesh.device
             logger.info("training over %s", describe_mesh(self.mesh))
-        if model is None:
+        if model is None and self.mesh is None:
             model = init_params(
                 LuminaTransformer(config, device=device, trainable=True),
                 self.seed,
             )
         self.model = model
-        self.device = model.device
+        self.device = device if model is None else model.device
         self.precision = PrecisionManager(config)
         plan = self.precision.plan
         logger.info("precision %s: %s parameters, %s compute", plan.name,
@@ -534,7 +538,7 @@ class Trainer:
         if not ok:
             logger.warning("expert evolution skipped: %s", why)
             return False
-        params = dict(zip(self.state.names, self.state.params))
+        params = self._whole_params()
         if action == "add_expert":
             gen = torch.Generator(device=self.device).manual_seed(
                 int(self.seed) + self.global_step)
@@ -546,15 +550,22 @@ class Trainer:
         old = self.state
         self._state_in_flux = True
         cfg.num_experts = new_E
-        model = LuminaTransformer(cfg, device=self.device, trainable=True)
-        with torch.no_grad():
-            for name, p in model.named_parameters():
-                p.copy_(new_params[name])
-        del params, new_params
-        self.model = model
         self.tx = make_optimizer(cfg, self.total_steps,
                                  self._active_schedule)
-        state = init_train_state(model, self.tx, self.seed)
+        if self.mesh is not None:
+            # Born sharded from the whole new parameters: every rank
+            # keeps its slices of the one-rank surgery's result.
+            model, state = init_sharded_state(cfg, self.mesh, self.tx,
+                                              self.seed, params=new_params)
+        else:
+            model = LuminaTransformer(cfg, device=self.device,
+                                      trainable=True)
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    p.copy_(new_params[name])
+            state = init_train_state(model, self.tx, self.seed)
+        del params, new_params
+        self.model = model
         state.step = state.opt_state.count = old.step  # no warmup replay
         state.generator = old.generator  # the routing draws go on
         self.state = state
@@ -571,6 +582,18 @@ class Trainer:
         self._min_restorable_step = self.global_step
         self.save_checkpoint(force=True)
         return True
+
+    def _whole_params(self) -> Dict[str, torch.Tensor]:
+        """{name: the one-rank parameter} on this rank's device. Over a
+        mesh the shards gather to rank 0 and every rank receives the whole
+        model (an expert evolution's surgery runs on every rank alike)."""
+        if self.mesh is None:
+            return dict(zip(self.state.names, self.state.params))
+        full = self.state.gather_full()
+        box = [None if full is None else dict(zip(full.names, full.params))]
+        if self.mesh.size > 1:
+            dist.broadcast_object_list(box, src=0)
+        return {n: t.to(self.device) for n, t in box[0].items()}
 
     def adjust_capacity_factor(self, new_factor: float,
                                reason: str = "") -> None:
@@ -707,8 +730,25 @@ class Trainer:
         math, ~1/factor of the activation memory. False when the batch
         cannot split further."""
         cfg = self.config
+        if cfg.pipeline_parallel_size > 1:
+            # Under pipeline stages the memory knob is the microbatch
+            # count (JAX trainer.py:643-660).
+            old = cfg.pipeline_microbatches or cfg.pipeline_parallel_size
+            new_micro = old * factor
+            if not self._splits(cfg.batch_size, new_micro):
+                logger.warning("cannot raise pipeline microbatches to %d "
+                               "(batch %d)", new_micro, cfg.batch_size)
+                return False
+            cfg.pipeline_microbatches = new_micro
+            self._rebuild_steps("microbatch_split")
+            logger.warning("pipeline microbatch split: %d -> %d (%s)", old,
+                           new_micro, reason)
+            self._interventions.append(
+                {"step": self.global_step, "kind": "microbatch_split",
+                 "from": old, "to": new_micro, "reason": reason})
+            return True
         new_accum = cfg.gradient_accumulation_steps * factor
-        if new_accum > cfg.batch_size or cfg.batch_size % new_accum != 0:
+        if not self._splits(cfg.batch_size, new_accum):
             logger.warning("cannot raise grad accum to %d (batch %d)",
                            new_accum, cfg.batch_size)
             return False
@@ -729,11 +769,29 @@ class Trainer:
         cfg = self.config
         if new_batch_size == cfg.batch_size:
             return True
+        ways = (self.mesh.axis_size("data", "fsdp")
+                if self.mesh is not None else 1)
+        if new_batch_size % ways:
+            logger.warning("batch size %d not divisible by the %d-way batch "
+                           "sharding (data x fsdp); refusing",
+                           new_batch_size, ways)
+            return False
         old_bs, old_accum = cfg.batch_size, cfg.gradient_accumulation_steps
-        micro = max(1, old_bs // old_accum)
-        new_accum = max(1, new_batch_size // micro)
-        while new_batch_size % new_accum != 0 and new_accum > 1:
-            new_accum -= 1
+        new_accum = old_accum
+        if cfg.pipeline_parallel_size > 1:
+            # Keep the pipeline microbatch's rows (the memory knob under
+            # pipeline stages; JAX trainer.py:709-717).
+            old_micro = cfg.pipeline_microbatches or cfg.pipeline_parallel_size
+            rows = max(1, old_bs // old_micro)
+            new_micro = max(1, new_batch_size // rows)
+            while new_batch_size % new_micro != 0 and new_micro > 1:
+                new_micro -= 1
+            cfg.pipeline_microbatches = new_micro
+        else:
+            micro = max(1, old_bs // old_accum)
+            new_accum = max(1, new_batch_size // micro)
+            while new_batch_size % new_accum != 0 and new_accum > 1:
+                new_accum -= 1
         cfg.batch_size = new_batch_size
         cfg.gradient_accumulation_steps = new_accum
         self._rebuild_steps("batch_size")
@@ -743,6 +801,29 @@ class Trainer:
             {"step": self.global_step, "kind": "batch_size", "from": old_bs,
              "to": new_batch_size, "accum": new_accum, "reason": reason})
         return True
+
+    def _splits(self, batch_size: int, micro: int) -> bool:
+        """Whether `batch_size` splits into `micro` micro-batches, each
+        over the mesh's batch ranks."""
+        ways = (self.mesh.axis_size("data", "fsdp")
+                if self.mesh is not None else 1)
+        return (micro <= batch_size and batch_size % micro == 0
+                and (batch_size // micro) % ways == 0)
+
+    def _oom_agreed(self, error: Optional[BaseException]) -> None:
+        """After every step over a mesh of more than one rank: one MAX
+        all-reduce of this rank's OOM flag; when any rank ran out of
+        memory every rank raises, so all take the same rung of the
+        ladder. A rank whose OOM struck inside one of the step's
+        collectives leaves the others waiting until the group's timeout."""
+        flag = torch.tensor([1.0 if error is not None else 0.0],
+                            device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        if flag.item() > 0:
+            if error is not None:
+                raise error
+            raise torch.cuda.OutOfMemoryError(
+                "out of memory on another rank (agreed after the step)")
 
     def train_with_oom_protection(
         self, max_attempts: Optional[int] = None
@@ -783,9 +864,15 @@ class Trainer:
             if (to_step is None or s <= to_step)
             and s >= self._min_restorable_step
         ]
-        if not candidates:
+        target = max(candidates) if candidates else -1
+        if self.mesh is not None and self.mesh.size > 1:
+            # Rank 0 (the writer, its saves committed) picks the step for
+            # every rank.
+            t = torch.tensor([target], dtype=torch.int64, device=self.device)
+            dist.broadcast(t, 0)
+            target = int(t.item())
+        if target < 0:
             return False  # never fall forward onto a possibly-tainted save
-        target = max(candidates)
         self._state_in_flux = True
         with self.goodput.region("checkpoint"), self._wd_pause():
             self.state = self.checkpoints.restore(self.state, target)
@@ -894,7 +981,16 @@ class Trainer:
                 n_tok = int(batch["input_ids"].numel())
                 t0 = time.perf_counter()
                 self._state_in_flux = True
-                self.state, metrics = self.train_step(self.state, batch)
+                if self.mesh is None or self.mesh.size == 1:
+                    self.state, metrics = self.train_step(self.state, batch)
+                else:
+                    oom = None
+                    try:
+                        self.state, metrics = self.train_step(self.state,
+                                                              batch)
+                    except torch.cuda.OutOfMemoryError as e:
+                        oom = e
+                    self._oom_agreed(oom)
                 # Reading the values waits for the device: dt is the
                 # whole step. Vector metrics (expert_utilization) stay
                 # lists.

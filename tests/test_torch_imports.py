@@ -221,16 +221,20 @@ def test_quantized_serving_modules_are_scanned(module):
 
 
 # Multi-GPU training: the mesh, sharding, gradient reduction, expert
-# dispatch and ring attention modules, and the step, trainer, checkpoint,
-# watchdog and CLI pieces that run them.
+# dispatch, ring attention and pipeline modules, and the step, optimizer
+# (host offload), trainer, orchestrator, checkpoint, watchdog and CLI
+# pieces that run them.
 MESH_MODULES = (
     "luminaai_tpu_torch.parallel.mesh",
     "luminaai_tpu_torch.parallel.sharding",
     "luminaai_tpu_torch.parallel.grad_reduce",
     "luminaai_tpu_torch.parallel.expert_dispatch",
     "luminaai_tpu_torch.ops.ring_attention",
+    "luminaai_tpu_torch.parallel.pipeline",
     "luminaai_tpu_torch.parallel.train_step",
+    "luminaai_tpu_torch.training.optimizer",
     "luminaai_tpu_torch.training.trainer",
+    "luminaai_tpu_torch.training.orchestrator",
     "luminaai_tpu_torch.training.checkpoint",
     "luminaai_tpu_torch.monitoring.watchdog",
     "luminaai_tpu_torch.cli",
@@ -245,15 +249,18 @@ def test_mesh_modules_are_scanned(module):
 
 
 def test_the_mesh_entry_points_refuse_what_is_left_for_a6b():
-    """Pipeline stages and the optimizer's host offload raise where a
-    train step is built, naming ROADMAP A6b."""
+    """Since A6b, pipeline stages and the optimizer's host offload build
+    where a train step is built; what JAX cannot pipeline (a layer stack
+    of more than one homogeneous segment) still raises there."""
     from luminaai_tpu_torch.config import Config
     from luminaai_tpu_torch.parallel.train_step import check_trainable
 
     for kw in (dict(pipeline_parallel_size=2, num_layers=2),
                dict(host_offload_optimizer=True)):
-        with pytest.raises(NotImplementedError, match="A6b"):
-            check_trainable(Config(**kw))
+        check_trainable(Config(**kw))
+    with pytest.raises(ValueError, match="homogeneous segment"):
+        check_trainable(Config(pipeline_parallel_size=2, num_layers=8,
+                               use_moe=True, moe_pattern="sandwich"))
 
 
 def test_importing_the_port_loads_no_jax():
