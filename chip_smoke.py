@@ -364,17 +364,37 @@ FLAGSHIP_ATTN = (16, 2048, 16, 8, 64)
 # B2 to the wgmma kernel with 3 x 42 rows and 2 padding rows of its 128,
 # and B1 to the wgmma kernel (its 192 rows at head_dim 64 are 3 x 64).
 DEBUG200M_ATTN = (8, 2048, 12, 4, 64)
-# Groups that do not divide B2's 128 rows, timed beside it: b14's
-# attention (40 q over 8 kv heads, head_dim 128, sequence 4096; 5 x 25
-# rows) and a group of 6 at head_dim 64 (6 x 21 rows). (B, S, Hq, Hkv, D).
+# Groups that do not tile B1's and B2's rows (128; B1's 192 at head_dim
+# 64), timed beside them: b14's attention (40 q over 8 kv heads, head_dim
+# 128, sequence 4096; 5 x 25 rows), a group of 6 at head_dim 64 (B2's 6 x
+# 21 rows), b100's and b200's heads at b14's sequence (10 x 12 and 12 x 10
+# rows) and a group of 5 at head_dim 64 (B1's 5 x 38 of 192 rows).
+# (B, S, Hq, Hkv, D).
 GROUP5_ATTN = (1, 4096, 40, 8, 128)
 GROUP6_ATTN = (4, 2048, 24, 4, 64)
-# The CUDA kernels B1-B3 must take, as the profiler names them: the wgmma
-# backward at every head_dim of 64 and 128, and debug_200m's three.
-WGMMA_BACKWARD = {"B2": "flash_bwd_dq_wgmma_kernel",
-                  "B3": "flash_bwd_dkv_wgmma_kernel"}
-DEBUG200M_KERNELS = {"B1": "flash_fwd_wgmma_kernel",
-                     **WGMMA_BACKWARD}
+B100_ATTN = (1, 4096, 80, 8, 128)
+B200_ATTN = (1, 4096, 96, 8, 128)
+GROUP5_D64_ATTN = (4, 2048, 20, 4, 64)
+# Head_dim 192 and 256 (B3 on its wgmma kernel): debug_300m's micro-batch
+# (4 q over 2 kv heads, batch 16 x 1024) and a head_dim-256 case.
+DEBUG300M_ATTN = (16, 1024, 4, 2, 192)
+D256_ATTN = (1, 2048, 8, 2, 256)
+
+
+def flash_kernels(d: int) -> dict:
+    """The CUDA kernels B1-B3 must take at head_dim d (up to 256), as the
+    profiler names them: B1 the wgmma forward at every group, B3 a wgmma
+    kernel at every head_dim, B2 the wgmma kernel at 64 and 128 and the
+    mma.sync one above."""
+    wide = d > 128
+    return {"B1": "flash_fwd_wgmma_kernel",
+            "B2": "flash_bwd_dq_kernel" if wide else "flash_bwd_dq_wgmma_kernel",
+            "B3": ("flash_bwd_dkv_wgmma_hd256_kernel" if wide
+                   else "flash_bwd_dkv_wgmma_kernel")}
+
+
+# The kernels at the main paths' head dims (64 and 128).
+WGMMA_KERNELS = flash_kernels(128)
 # B5 above head_dim 512 (512-column output slices): Hq 8 over Hkv 2.
 WIDE_DECODE = (8, 2, 576)
 # Rounds whose median is the library's time where single rounds differ by
@@ -1046,14 +1066,25 @@ def phase_flash_kernels(dev) -> list:
     del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
     for name, case in cases.items():
-        if case[4] in (64, 128):  # any group: the mma.sync B2 only above 128
-            _require_kernels(routes[name], f"the {name} shape")
-    for label, shape, expect in (
-            ("flagship_d64", FLAGSHIP_ATTN, WGMMA_BACKWARD),
-            ("debug_200m_d64", DEBUG200M_ATTN, DEBUG200M_KERNELS),
-            ("group5_d128", GROUP5_ATTN, WGMMA_BACKWARD),
-            ("group6_d64", GROUP6_ATTN, WGMMA_BACKWARD)):
-        at = _flash_at(inputs, rel, shape, label, expect)
+        if case[4] <= 256:  # above 256: the 64-column slice kernels
+            _require_kernels(routes[name], f"the {name} shape",
+                             flash_kernels(case[4]))
+    # (label, shape, whether B2 and B3 are timed beside B1)
+    for label, shape, backward in (
+            ("flagship_d64", FLAGSHIP_ATTN, True),
+            ("debug_200m_d64", DEBUG200M_ATTN, True),
+            ("group5_d128", GROUP5_ATTN, True),
+            ("group6_d64", GROUP6_ATTN, True),
+            ("b100_g10_d128", B100_ATTN, False),
+            ("b200_g12_d128", B200_ATTN, False),
+            ("group5_d64", GROUP5_D64_ATTN, False),
+            ("d192_g2_s1024", REPAIRED_FLASH["d192_g2_s1024"][:5], True),
+            ("debug_300m_d192", DEBUG300M_ATTN, True),
+            ("d256_g4_s2048", D256_ATTN, True)):
+        t0 = time.perf_counter()
+        at = _flash_at(inputs, rel, shape, label, flash_kernels(shape[4]),
+                       backward)
+        log(f"  {label}: checked and timed in {time.perf_counter() - t0:.1f} s")
         for e, kern in zip(entries, ("B1", "B2", "B3")):
             e[label] = at[kern]
             e["max_abs_err"] = max(e["max_abs_err"], at[kern]["max_abs_err"])
@@ -1061,7 +1092,7 @@ def phase_flash_kernels(dev) -> list:
 
 
 def _require_kernels(taken: dict, where: str,
-                     want: dict = WGMMA_BACKWARD) -> None:
+                     want: dict = WGMMA_KERNELS) -> None:
     """The profiler named each kernel of `want` ({kernel: CUDA kernel
     name}) at least once, and under that name only."""
     for kern, name in want.items():
@@ -1070,12 +1101,16 @@ def _require_kernels(taken: dict, where: str,
                                  f"the profiler named {taken[kern]}")
 
 
-def _flash_at(inputs, rel, shape, label, expect: dict) -> dict:
+def _flash_at(inputs, rel, shape, label, expect: dict,
+              backward: bool = True) -> dict:
     """B1-B3 at a training shape (B, S, Hq, Hkv, D), causal: each against
     its plain version, the CUDA kernel the profiler names (those of
     `expect`, see _require_kernels), then kernel /
     plain / SDPA (forward for B1, backward for B2 and B3, the median of
-    LIB_ROUNDS rounds) ms and the bound. -> {kernel: entry}."""
+    LIB_ROUNDS rounds) ms and the bound; with backward=False only B1 and
+    SDPA's forward are timed (B2 and B3 checked, not timed). Above head_dim
+    128 the SDPA backend the profiler names is logged, and a backward no
+    backend takes is logged and recorded as None. -> {kernel: entry}."""
     import torch
     import torch.nn.functional as F
 
@@ -1131,8 +1166,10 @@ def _flash_at(inputs, rel, shape, label, expect: dict) -> dict:
     _require_kernels(taken, label, expect)
     ms, plain_ms = {}, {}
     for kern, (kc, pc) in calls.items():
+        if kern != "B1" and not backward:
+            continue
         ms[kern] = cuda_ms(kc, 20)
-        plain_ms[kern] = cuda_ms(pc, 2, 1)
+        plain_ms[kern] = cuda_ms(pc, 2, 1) if backward else None
         torch.cuda.empty_cache()
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
@@ -1144,14 +1181,26 @@ def _flash_at(inputs, rel, shape, label, expect: dict) -> dict:
 
     with torch.no_grad():
         lib_fwd = cuda_ms(sdpa, 20)
-    out = sdpa()
-    lib_bwd_rounds = [cuda_ms(lambda: torch.autograd.grad(
-        out, (qt, kt, vt), dot, retain_graph=True), 10)
-        for _ in range(LIB_ROUNDS)]
-    lib_bwd = statistics.median(lib_bwd_rounds)
-    log(f"SDPA backward at the {label} shape, {LIB_ROUNDS} rounds (ms): "
-        + ", ".join(f"{x:.4f}" for x in lib_bwd_rounds))
-    del out, qt, kt, vt, dot
+    lib_bwd, lib_bwd_rounds, backend = None, None, None
+    if d > 128:  # which SDPA kernels run at this head_dim, both ways
+        try:
+            backend = kernel_names(lambda: torch.autograd.grad(
+                sdpa(), (qt, kt, vt), dot))
+        except RuntimeError as exc:  # no backend takes its backward
+            backend = kernel_names(sdpa)
+            log(f"SDPA backward at the {label} shape: none ({exc})")
+            backward = False
+        log(f"SDPA kernels at the {label} shape: {', '.join(backend)}")
+    if backward:
+        out = sdpa()
+        lib_bwd_rounds = [cuda_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), 10)
+            for _ in range(LIB_ROUNDS)]
+        lib_bwd = statistics.median(lib_bwd_rounds)
+        log(f"SDPA backward at the {label} shape, {LIB_ROUNDS} rounds (ms): "
+            + ", ".join(f"{x:.4f}" for x in lib_bwd_rounds))
+        del out
+    del qt, kt, vt, dot
 
     pairs = b * hq * _band_pairs(s, True, 0)
     act, kv, stat = b * s * hq * d * 2, b * s * hkv * d * 2, b * hq * s * 4
@@ -1166,22 +1215,31 @@ def _flash_at(inputs, rel, shape, label, expect: dict) -> dict:
         t_ops = flops / H100_BF16_FLOPS * 1e3
         bound = max(t_bytes, t_ops)
         lib_ms = lib_fwd if kern == "B1" else lib_bwd
-        log(f"{kern} at the {label} shape: kernel {ms[kern]:.4f} ms, plain "
-            f"{plain_ms[kern]:.4f} ms, library (SDPA "
-            f"{'fwd' if kern == 'B1' else 'bwd'}) {lib_ms:.4f} ms, bound "
-            f"{bound:.4f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; "
-            f"{100 * bound / ms[kern]:.1f}% of bound)")
         out[kern] = {
-            "ms": ms[kern], "plain_ms": plain_ms[kern], "library_ms": lib_ms,
+            "ms": ms.get(kern), "plain_ms": plain_ms.get(kern),
+            "library_ms": lib_ms,
             "library_rounds_ms": None if kern == "B1" else lib_bwd_rounds,
             "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "max_abs_err": abs_err[kern], "rel_err": errs[kern],
             "kernels_taken": taken[kern], "shape": [b, s, hq, hkv, d]}
+        if kern not in ms:
+            continue
+        log(f"{kern} at the {label} shape: kernel {ms[kern]:.4f} ms, plain "
+            f"{_ms(plain_ms[kern])}, library (SDPA "
+            f"{'fwd' if kern == 'B1' else 'bwd'}) {_ms(lib_ms)}, bound "
+            f"{bound:.4f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; "
+            f"{100 * bound / ms[kern]:.1f}% of bound)")
     out["B1"]["lse_err"] = lse_err
+    if backend is not None:
+        out["B1"]["sdpa_kernels"] = backend
     del q, k, v, do, lse_ref, delta
     torch.cuda.empty_cache()
     return out
+
+
+def _ms(t) -> str:
+    return "not measured" if t is None else f"{t:.4f} ms"
 
 
 # The port's kernels by family, as torch.profiler names them.
@@ -2359,7 +2417,7 @@ def _model_flops_per_step(cfg, n_params: int) -> float:
                 + 4 * cfg.head_dim() * pairs * cfg.num_layers)
 
 
-def profile_train_step(trainer, batch, want: dict = WGMMA_BACKWARD) -> dict:
+def profile_train_step(trainer, batch, want: dict = WGMMA_KERNELS) -> dict:
     """Card busy time and top kernels of one optimizer step, from
     torch.profiler (CUPTI). The flash kernels it names must be those of
     `want` (see _require_kernels): a profiler that records no device time
@@ -2479,11 +2537,11 @@ def phase_train(dev, entries: list) -> dict:
 
 
 def _check_run(hist, plain_loss: float, plain_norm: float, what: str,
-               steps: int = TRAIN_STEPS):
+               steps: int = TRAIN_STEPS, falling: bool = True):
     """`steps` finite losses and grad norms, a falling loss (_short_run),
     and the first step within LOSS_RTOL / GRAD_NORM_RTOL of its re-run
     through `what`. -> (losses, grad norms)."""
-    losses = _short_run(hist, steps, "training")
+    losses = _short_run(hist, steps, "training", falling)
     norms = [h["grad_norm"] for h in hist]
     loss_err = abs(hist[0]["loss"] - plain_loss) / abs(plain_loss)
     norm_err = abs(hist[0]["grad_norm"] - plain_norm) / abs(plain_norm)
@@ -4397,14 +4455,15 @@ def _add_launches(entries: dict, launches: dict, key: str) -> None:
             e[key] = launches[kern]
 
 
-def _short_run(hist, steps: int, what: str) -> list:
+def _short_run(hist, steps: int, what: str, falling: bool = True) -> list:
     """`steps` finite losses and grad norms, the last loss below the
-    first."""
+    first (unless falling is False: two steps under a warmup whose first
+    update has lr 0 train on an unchanged model)."""
     losses = [h["loss"] for h in hist]
     norms = [h["grad_norm"] for h in hist]
     if len(hist) != steps or not all(map(math.isfinite, losses + norms)):
         raise AssertionError(f"bad {what} run: {losses} {norms}")
-    if not losses[-1] < losses[0]:
+    if falling and not losses[-1] < losses[0]:
         raise AssertionError(f"{what}: the loss did not fall: {losses}")
     return losses
 
@@ -4518,7 +4577,7 @@ def phase_mod(dev, entries: dict, rpa_entry: dict) -> dict:
     Launches per step (accumulation 4 of 8 x 2048, 12 layers, remat per
     block): B1 2 x 12 x 4 = 96 (forward + recompute), B2 = B3 = 48; the
     hybrid's 4 MoE layers add B4a 6 x 4 x 4 = 96 and B4b 2 x 4 x 4 = 32.
-    The profiler must name DEBUG200M_KERNELS (all three on wgmma)."""
+    The profiler must name WGMMA_KERNELS (all three on wgmma)."""
     import torch
 
     from luminaai_tpu_torch import cli
@@ -4567,7 +4626,7 @@ def phase_mod(dev, entries: dict, rpa_entry: dict) -> dict:
     _add_launches(entries, launches, "launches_mod")
     steady = _steady_step(cfg, hist, n_params, "debug_200m step",
                           " (dense FFN counted)")
-    prof = profile_train_step(trainer, first, DEBUG200M_KERNELS)
+    prof = profile_train_step(trainer, first)
 
     # One mod_capacity decision, then the step after it against the plain
     # attention on the same batch.
@@ -6226,9 +6285,147 @@ def phase_pipe(dev, flash_entries: list, gmm_entries: list) -> dict:
             "launches": launched, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the groups and head dims the first kernels left to mma.sync,
+# trained on the card
+# ---------------------------------------------------------------------------
+GROUPS_STEPS = 3  # (a) debug_300m
+# (b) b14's attention widths, dense: 2 of its 40 layers (b14 trains on 16+
+# cards: fsdp 16 x expert 8), micro-batch 1 x 4096, one card's mesh, two
+# Trainer steps.
+B14_LAYERS, B14_STEPS = 2, 2
+
+
+def _groups_run(dev, cfg, label: str, steps: int, plain_gmm: bool,
+                loop: bool) -> dict:
+    """`steps` Trainer steps of cfg: the first against the same step
+    through the plain attention (and the plain gmm), exact B1-B4 launches,
+    the flash kernels the profiler names (flash_kernels(head_dim)), step
+    times and peak memory. With loop=True the steps run through
+    Trainer.train_step on the loop's first batches, without train()'s
+    closing checkpoint (a 0.8B-parameter model's fp32 state is 9.6 GB to
+    write and hash), and the loss need not fall (two steps under a warmup
+    whose first update has lr 0)."""
+    import torch
+
+    from luminaai_tpu_torch import cli
+    from luminaai_tpu_torch.training.trainer import Trainer
+
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, cli._synthetic_batches(cfg), device=dev, seed=0)
+    n_params = sum(p.numel() for p in trainer.state.params)
+    L, n_moe = cfg.num_layers, cfg.num_moe_layers()
+    d = cfg.hidden_size // cfg.num_heads
+    log(f"trainer: {label}, {L} layers, hidden {cfg.hidden_size}, "
+        f"{cfg.num_heads} q over {cfg.num_kv_heads} kv heads (head_dim {d}), "
+        f"{n_moe} MoE layers ({cfg.moe_dispatch}), {n_params / 1e6:.1f}M "
+        f"params, batch {cfg.batch_size} x {cfg.seq_length}, accumulation "
+        f"{cfg.gradient_accumulation_steps}")
+    batches = iter(cli._synthetic_batches(cfg)())
+    first = trainer._to_device(next(batches))
+    t_built = time.perf_counter()
+    plain_loss, plain_norm = _first_step_plain(trainer, cfg, first, plain_gmm)
+    t_plain = time.perf_counter()
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    if loop:
+        hist, batch = [], first
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t_step = time.perf_counter()
+            trainer.state, m = trainer.train_step(trainer.state, batch)
+            torch.cuda.synchronize()
+            hist.append({"loss": float(m["loss"]),
+                         "grad_norm": float(m["grad_norm"]),
+                         "step_seconds": time.perf_counter() - t_step})
+            if i + 1 < steps:
+                batch = trainer._to_device(next(batches))
+    else:
+        hist = trainer.train()["history"]
+    launches = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t_trained = time.perf_counter()
+    ms = [h["step_seconds"] * 1e3 for h in hist]
+    for i, h in enumerate(hist, 1):
+        log(f"  step {i}: loss {h['loss']:.4f} grad_norm "
+            f"{h['grad_norm']:.4f} {ms[i - 1]:.1f} ms")
+    losses, norms = _check_run(
+        hist, plain_loss, plain_norm,
+        "plain attention" + (" and gmm" if plain_gmm else ""), steps,
+        not loop)
+    n = cfg.gradient_accumulation_steps * steps
+    want = {"B1": 2 * L * n, "B2": L * n, "B3": L * n,
+            "B4a": 6 * n_moe * n, "B4b": 2 * n_moe * n}
+    log(f"kernel launches, {label}: {launches} (want {want}); step ms "
+        f"{[round(x, 1) for x in ms]}, peak {peak_gb:.2f} GB")
+    if launches != want:
+        raise AssertionError(f"{label} did not run through the kernels as "
+                             "expected")
+    prof = profile_train_step(trainer, first, flash_kernels(d))
+    trainer.close()
+    del trainer, first
+    _release()
+    log(f"  {label}: built in {t_built - t0:.1f} s, plain first step "
+        f"{t_plain - t_built:.1f} s, {steps} steps"
+        f"{'' if loop else ' and the closing checkpoint'} "
+        f"{t_trained - t_plain:.1f} s, profiled step and teardown "
+        f"{time.perf_counter() - t_trained:.1f} s")
+    return {"steps": steps, "losses": losses, "grad_norms": norms,
+            "step_ms": ms, "peak_memory_gb": peak_gb, "params": n_params,
+            "first_step_loss_plain": plain_loss,
+            "first_step_grad_norm_plain": plain_norm, "launches": launches,
+            **prof}
+
+
+def phase_groups(dev, entries: dict, b14: bool) -> dict:
+    """Phase 17: (a) `train --preset debug_300m --synthetic --moe-dispatch
+    gmm` in process (its config and data through the CLI's own builders):
+    full widths and depth (6 layers of hidden 768, 4 q over 2 kv heads at
+    head_dim 192, 8 experts top-2, batch 16 x 1024), GROUPS_STEPS steps;
+    B1 on flash_fwd_wgmma_kernel, B2 on flash_bwd_dq_kernel, B3 on
+    flash_bwd_dkv_wgmma_hd256_kernel, B4 through gmm. (b) b14's attention
+    widths dense (hidden 5120, 40 q over 8 kv heads, a group of 5 at
+    head_dim 128) at B14_LAYERS layers, micro-batch 1 x 4096, B14_STEPS
+    steps through Trainer.train_step; B1 on flash_fwd_wgmma_kernel with
+    padding rows. Each first step against the plain attention (and gmm),
+    launches exact. (b) runs only when b14 is true (`--only groups`): with
+    it the whole script ran past its 930 s budget on an H100 (968.4 s);
+    phase 2 still holds B1-B3 at b14's attention."""
+    from luminaai_tpu_torch import cli
+    from luminaai_tpu_torch.config import ConfigPresets
+
+    smi = _smi()
+    t_phase = time.perf_counter()
+    args = cli._parser().parse_args([
+        "train", "--preset", "debug_300m", "--synthetic", "--moe-dispatch",
+        "gmm", "--steps", str(GROUPS_STEPS), "--output-dir",
+        str(RUN_DIR / "groups_300m")])
+    cfg = cli._train_config(args)
+    a = _groups_run(dev, cfg, "debug_300m", GROUPS_STEPS, True, False)
+    _add_launches(entries, a["launches"], "launches_groups_300m")
+    out = {"debug_300m": a}
+    if not b14:
+        out["wall_s"] = time.perf_counter() - t_phase
+        log(f"groups: phase wall {out['wall_s']:.1f} s, (b) b14 under "
+            f"`--only groups` alone ({smi})")
+        return out
+    cfg = ConfigPresets.get(
+        "b14", use_moe=False, num_layers=B14_LAYERS, batch_size=1,
+        gradient_accumulation_steps=1, fsdp_parallel_size=1,
+        expert_parallel_size=1, max_steps=B14_STEPS,
+        output_dir=str(RUN_DIR / "groups_b14"))
+    b = _groups_run(dev, cfg, f"b14 dense at {B14_LAYERS} of 40 layers",
+                    B14_STEPS, False, True)
+    _add_launches(entries, b["launches"], "launches_groups_b14")
+    out.update(b14=b, wall_s=time.perf_counter() - t_phase)
+    log(f"groups: phase wall {out['wall_s']:.1f} s ({smi})")
+    return out
+
+
 ALL_PHASES = ("serve", "plane", "serve_moe", "train", "train_moe",
               "runtime", "posttrain", "adaptive", "posttrain_moe",
-              "train_tuned", "mod", "fleet", "quant", "mesh", "pipe")
+              "train_tuned", "mod", "fleet", "quant", "mesh", "pipe",
+              "groups")
 PHASES = set(ALL_PHASES)
 
 
@@ -6332,6 +6529,11 @@ def main() -> int:
             _release()
         if "mod" in PHASES:
             done["mod"] = phase_mod(dev, by_kernel, entry)
+            _release()
+        if "groups" in PHASES:
+            done["groups"] = phase_groups(dev, by_kernel, partial)
+            shutil.rmtree(RUN_DIR / "groups_300m", ignore_errors=True)
+            shutil.rmtree(RUN_DIR / "groups_b14", ignore_errors=True)
             _release()
         if "fleet" in PHASES:
             done["fleet"] = phase_fleet(dev, entry)

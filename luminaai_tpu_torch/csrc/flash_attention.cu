@@ -2,14 +2,13 @@
 //
 // Replaces the TPU kernels of luminaai_tpu/ops/flash_attention.py:
 //   B1 `_fwd_kernel`      (pallas_call in `_fwd`)  -> flash_fwd_wgmma_kernel
-//                                                     (flash_fwd_kernel for
-//                                                     the other shapes)
 //   B2 `_bwd_dq_kernel`   (pallas_call in `_bwd`)  -> flash_bwd_dq_wgmma_kernel
-//                                                     (flash_bwd_dq_kernel
-//                                                     for the other shapes)
+//                                                     (flash_bwd_dq_kernel at
+//                                                     head_dim 192 and 256)
 //   B3 `_bwd_dkv_kernel`  (pallas_call in `_bwd`)  -> flash_bwd_dkv_wgmma_kernel
-//                                                     (flash_bwd_dkv_kernel
-//                                                     for the other shapes)
+//                                                     (flash_bwd_dkv_wgmma_hd256_kernel
+//                                                     at head_dim 192 and 256)
+// and, above head_dim 256, the 64-column slice kernels at the end.
 // They compute the same functions: GQA attention, causal or not, with an
 // optional sliding-window band; fp32 scores and an online softmax; P
 // rounded to bf16 before P.V and P^T.dO; dS = P*(dP - delta)*scale rounded
@@ -21,23 +20,21 @@
 // [B, Skv, Hkv, D] bf16; lse, delta [B, Hq, Sq] fp32. delta is
 // rowsum(dO * O) minus the lse cotangent, computed by the caller.
 //
-// Which shapes take which kernel. B1 at head_dim 64, 128, 192 and 256 with a
-// group whose HB = min(G, 128) heads divide both 128 and G (1, 2, 4, ...,
-// 128 and multiples of 128: every preset) takes flash_fwd_wgmma_kernel
-// (wgmma fed by a TMA ring; its note is at the kernel). Other groups (3, 6,
-// 12, ...) take flash_fwd_kernel, head_dim above 256 flash_fwd_wide_kernel.
-// B2 at head_dim 64 and 128 (any group: a group that does not divide 128
-// rows leaves padding rows, below) takes flash_bwd_dq_wgmma_kernel, B3 at
-// head_dim 64 and 128 (any group) flash_bwd_dkv_wgmma_kernel (wgmma over a
-// TMA ring; their note is at the kernels): the main-path shapes (b1:
-// head_dim 128, group 4; flagship MoE: head_dim 64, group 2; debug_200m:
-// head_dim 64, group 3). Head_dim 192 and 256 take the mma.sync kernels
-// flash_bwd_dq_kernel and flash_bwd_dkv_kernel; head_dim above 256 the
-// 64-column slice kernels. Which kernel runs is decided by the shape
-// alone, in the entry points.
+// Which shapes take which kernel. B1 at head_dim 64, 128, 192 and 256, any
+// group, takes flash_fwd_wgmma_kernel (wgmma fed by a TMA ring; its note is
+// at the kernel): a group whose HB = min(G, rows) heads do not divide the
+// block's rows (128; 192 at head_dim 64) and G leaves padding rows (b14's 5
+// x 25 of 128, b100's 10 x 12, b200's 12 x 10). B2 at head_dim 64 and 128,
+// any group (padding rows likewise), takes flash_bwd_dq_wgmma_kernel; B3 at
+// head_dim 64 and 128 flash_bwd_dkv_wgmma_kernel and at 192 and 256
+// flash_bwd_dkv_wgmma_hd256_kernel (wgmma over a TMA ring; their notes are
+// at the kernels). B2 at head_dim 192 and 256 takes the mma.sync
+// flash_bwd_dq_kernel, and head_dim above 256 the 64-column slice kernels.
+// Which kernel runs is decided by the shape alone, in the entry points.
 //
-// Products of the mma.sync kernels. Every matrix product is a warp-level
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate). Each warp owns 16 rows of its output; the
+// Products of the mma.sync kernels (B2 at head_dim 192 and 256, and the
+// slice kernels). Every matrix product is a warp-level mma.sync m16n8k16
+// (bf16 in, fp32 accumulate). Each warp owns 16 rows of its output; the
 // accumulators stay in registers in the instruction's documented fragment
 // layout (thread lane holds rows lane/4 and lane/4 + 8, columns
 // 2*(lane%4) + {0, 1} of each 8-column tile), so the softmax statistics of
@@ -46,28 +43,26 @@
 // Tiles are staged in shared memory with 16-byte loads; rows are padded by
 // 8 bf16 so the fragment loads are free of bank conflicts.
 //
-// flash_fwd_kernel (B1) and B2 (dQ): one block of 8 warps per (batch, kv
-// head, q tile, head chunk). The block holds 128 (q head, position) rows: HB =
-// min(G, 128) q heads of the GQA group times P = 128 / HB positions (row r
-// is head r / P at position q0 + r % P), so each K/V tile staged in shared
-// memory serves every head of the block (the TPU grid ran one q head per
-// step and fetched each K/V block once per q head). Every row carries its
-// own head and position, so any group size tiles: G = 3 gives 3 x 42 rows
-// and 2 padding rows; rows past the group or past Sq are staged as zeros
-// and never stored. The loop over K/V tiles (64 rows, 32 above head_dim
-// 128 to keep the accumulators in registers) inside the block stands in
-// for the TPU's sequential kv grid axis; it starts at the window's band
-// (the TPU's _kv_block_offset) and stops at the diagonal (the TPU's
-// _block_needed), and each element is masked as the TPU's _band_mask does;
-// a partial last K/V tile is staged with zeros and masked past Skv.
-// B3 (dK, dV): one block of 4 warps per (batch, kv head, 64-row kv tile,
-// column half); the block loops over the group's q heads and, from the
-// diagonal on, over the band's 32-row q tiles, accumulating dK and dV in
-// fp32 registers, so the GQA group is reduced in the kernel (no [B, Hq, S,
-// D] fp32 buffer, no atomics; the TPU path wrote per-q-head fp32 dK/dV and
-// summed the group afterwards). Above head_dim 128 two blocks split the
-// output columns (each recomputes the scores) so the two accumulators fit
-// the register file.
+// flash_bwd_dq_kernel (B2) and the forward and dQ slice kernels: one block
+// of 8 warps per (batch, kv head, q tile, head chunk). The block holds 128
+// (q head, position) rows: HB = min(G, 128) q heads of the GQA group times
+// P = 128 / HB positions (row r is head r / P at position q0 + r % P), so
+// each K/V tile staged in shared memory serves every head of the block
+// (the TPU grid ran one q head per step and fetched each K/V block once
+// per q head). Every row carries its own head and position, so any group
+// size tiles: G = 3 gives 3 x 42 rows and 2 padding rows; rows past the
+// group or past Sq are staged as zeros and never stored. The loop over K/V
+// tiles (64 rows, 32 above head_dim 128 to keep the accumulators in
+// registers) inside the block stands in for the TPU's sequential kv grid
+// axis; it starts at the window's band (the TPU's _kv_block_offset) and
+// stops at the diagonal (the TPU's _block_needed), and each element is
+// masked as the TPU's _band_mask does; a partial last K/V tile is staged
+// with zeros and masked past Skv. The dK/dV slice kernel: one block of 4
+// warps per (batch, kv head, 64-row kv tile, 64-column slice) looping over
+// the group's q heads and the band's 32-row q tiles, the GQA group reduced
+// in its fp32 registers (no [B, Hq, S, D] fp32 buffer, no atomics; the TPU
+// path wrote per-q-head fp32 dK/dV and summed the group afterwards), as
+// every B3 kernel here does.
 //
 // Shapes: any head_dim that is a multiple of 64 (a template each for 64,
 // 128, 192 and 256; above 256 the 64-column slice kernels at the end of
@@ -83,15 +78,17 @@
 // debug_200m's (q [8, 2048, 12, 64], k/v [8, 2048, 4, 64]) B2 does ~77
 // GFLOP (~0.078 ms), and its padding rows (2 of 128) add 1.6% to the
 // products' work. The mma.sync kernels reach well under half of the wgmma
-// peak and load tiles synchronously: 8-12% of their bounds (PERF.md); the
-// wgmma kernels replaced them for B2 and B3 at head_dim 64 and 128, and for
-// B1 where the group tiles its rows.
+// peak and load tiles synchronously: 3-12% of their bounds (PERF.md); the
+// wgmma kernels replaced them for B1 at every group and head_dim up to 256,
+// for B2 at head_dim 64 and 128, and for B3 at every head_dim up to 256.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -111,11 +108,9 @@ constexpr int kTileQ3 = 32;              // q rows per B3 loop step
 constexpr int kPad = 8;                  // bf16 padding per shared row
 constexpr float kNegInf = -1e30f;        // the TPU kernels' NEG_INF
 
-// K/V rows per B1/B2 tile, and output columns per B3 block.
+// K/V rows per tile of the mma.sync B2 kernel.
 template <int D>
 __host__ __device__ constexpr int tile_kv() { return D <= 128 ? 64 : 32; }
-template <int D>
-__host__ __device__ constexpr int cols3() { return D <= 128 ? D : D / 2; }
 
 __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
   __nv_bfloat162 v;
@@ -346,102 +341,7 @@ __device__ __forceinline__ void kv_range(int qlo, int qhi, int Skv, int causal, 
 }
 
 // ---------------------------------------------------------------------------
-// B1: forward
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                 int Sq, int Skv, int Hq, int Hkv, int causal, int window, float scale) {
-  constexpr int LD = D + kPad;
-  constexpr int TK = tile_kv<D>();
-  extern __shared__ uint4 smem_u4[];
-  bf16* q_sm = reinterpret_cast<bf16*>(smem_u4);  // [kRows][LD]
-  bf16* k_sm = q_sm + kRows * LD;                  // [TK][LD]
-  bf16* v_sm = k_sm + TK * LD;                     // [TK][LD]
-
-  const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
-  const Rows rows = block_rows(Hq / Hkv, hk, blockIdx.z);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = warp * 16;  // first block row of the warp
-  const int row[2] = {wr + g, wr + g + 8};
-  const int qpos[2] = {rows.pos(row[0]), rows.pos(row[1])};
-  const bf16* q_w = q_sm + wr * LD;
-
-  stage_group<D>(q_sm, q, b, Sq, Hq, D, 0, rows, tid);
-
-  int kv_begin, kv_end;
-  kv_range<TK>(rows.q0, min(rows.q0 + rows.P, Sq) - 1, Skv, causal, window, kv_begin, kv_end);
-  const size_t kv_ld = static_cast<size_t>(Hkv) * D;
-  const bf16* k_bh = k + (static_cast<size_t>(b) * Skv * Hkv + hk) * D;
-  const bf16* v_bh = v + (static_cast<size_t>(b) * Skv * Hkv + hk) * D;
-
-  float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += TK) {
-    __syncthreads();  // the previous tile is consumed
-    stage<D>(k_sm, k_bh + kv0 * kv_ld, kv_ld, TK, Skv - kv0, tid, kThreads);
-    stage<D>(v_sm, v_bh + kv0 * kv_ld, kv_ld, TK, Skv - kv0, tid, kThreads);
-    __syncthreads();
-
-    // S = Q K^T for the warp's 16 rows x TK kv columns.
-    float s[TK / 8][4];
-#pragma unroll
-    for (int n = 0; n < TK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const AFrag a = a_rows(q_w, LD, kk, lane);
-#pragma unroll
-      for (int n = 0; n < TK / 8; ++n) {
-        uint32_t b0, b1;
-        b_rows(k_sm, LD, n, kk, lane, b0, b1);
-        mma(s[n], a.r[0], a.r[1], a.r[2], a.r[3], b0, b1);
-      }
-    }
-
-    softmax_step<TK, D / 8>(s, acc, m_i, l_i, qpos, kv0, t, Skv, causal, window, scale);
-
-    // acc += bf16(P) V.
-#pragma unroll
-    for (int j = 0; j < TK / 16; ++j) {
-      const AFrag a = a_acc(s[2 * j], s[2 * j + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b0, b1;
-        b_cols(v_sm, LD, j, n, lane, b0, b1);
-        mma(acc[n], a.r[0], a.r[1], a.r[2], a.r[3], b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (!rows.valid(row[r], Sq)) continue;
-    const int hq = rows.head(row[r]);
-    const float safe = l_i[r] == 0.f ? 1.f : l_i[r];
-    if (t == 0) {
-      lse[(static_cast<size_t>(b) * Hq + hq) * Sq + qpos[r]] = m_i[r] + logf(safe);
-    }
-    bf16* out = o + ((static_cast<size_t>(b) * Sq + qpos[r]) * Hq + hq) * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(out + n * 8) =
-          __floats2bfloat162_rn(acc[n][2 * r] / safe, acc[n][2 * r + 1] / safe);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// B1 on Hopper: wgmma fed by a TMA ring (head_dim 64-256, groups that tile
-// the block's rows)
+// B1 on Hopper: wgmma fed by a TMA ring (head_dim 64-256, any group)
 // ---------------------------------------------------------------------------
 // Bound: operations (0.0348 ms at the b1 training shape, 0.139 ms at the
 // flagship MoE shape, at 989 TFLOP/s); the softmax's exponentials (16 a
@@ -451,7 +351,15 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // row r is head h0 + r % HB at position q0 + r / HB (HB = min(G, rows)),
 // the order in which a 4-D TMA box (64 columns, HB heads, P positions, 1)
 // of q [B, Sq, Hq, D] lands; positions past Sq arrive as zeros and are
-// never stored, so a partial last q tile needs no staging code. The last
+// never stored, so a partial last q tile needs no staging code. P =
+// floor(rows / HB): a group that does not tile the rows (b14's 5: 5 x 25 =
+// 125 of 128) leaves rows past HB P as padding rows, zeroed once before the
+// first product; they take position Sq (no lse, no O store) and reach no
+// other row, since a row's softmax and its row of P V depend on that row
+// alone (3 of 128 rows at b14: 2.4% more products). A group above the rows
+// that they do not divide takes ceil(G / HB) head chunks, the last one's
+// heads past the group padding too. The groups that tile keep an
+// instantiation without that bookkeeping (kPadRows false). The last
 // warpgroup (one thread) loads Q once and keeps a ring of K/V stages in
 // flight (full/empty mbarriers, setmaxnreg hands its registers to the
 // others); each consumer warpgroup owns 64 rows: S = Q K^T by wgmma from
@@ -500,7 +408,10 @@ __device__ __forceinline__ void pv_product(float (&acc)[D / 2], const uint32_t (
   wgmma_commit();
 }
 
-template <int D>
+// kPadRows: the group does not tile the block's rows (padding rows, as in
+// B2 below); the groups that do take an instantiation without that
+// bookkeeping.
+template <int D, bool kPadRows>
 __global__ void __launch_bounds__(Fwd<D>::kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
@@ -517,7 +428,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   uint64_t* q_full = empty + F::kStages;
 
   constexpr int kRowsW = F::kRowsW, kConsumers = F::kConsumers;
+  // HB heads x P positions land as rows [0, HB P); rows past them (a group
+  // that does not tile the rows, e.g. 5 x 25 = 125 of 128) are padding.
   const int G = Hq / Hkv, HB = min(G, kRowsW), P = kRowsW / HB;
+  const int rows = kPadRows ? HB * P : kRowsW;
   const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * P;  // longest causal tiles first
   const int h0 = hk * G + blockIdx.z * HB;
@@ -534,13 +448,27 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_init(q_full, 1);
     fence_barrier_init();
   }
+  if constexpr (kPadRows) {
+    // The padding rows of every Q stack (the boxes never write them)
+    // become zeros once, so their scores stay finite; the products read
+    // them through the async proxy.
+    const int pad = (kRowsW - rows) * kSwizzleRowBytes / 16;  // 16-byte units a stack
+    for (int i = threadIdx.x; i < F::kChunks * pad; i += F::kThreads) {
+      const int st = i / pad;
+      *reinterpret_cast<uint4*>(q_sm + (st * kRowsW + rows) * kSwizzleRowBytes +
+                                (i - st * pad) * 16) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    fence_proxy_async();
+  }
   __syncthreads();
 
   if (threadIdx.x >= 128 * kConsumers) {
     // Producer: Q once, then K and V tiles through the ring.
     regs_dealloc<kConsumers == 2 ? 40 : 24>();
     if (threadIdx.x == 128 * kConsumers) {
-      mbar_arrive_expect_tx(q_full, F::kQBytes);
+      // The box's real bytes: rows [0, HB P) of each stack.
+      mbar_arrive_expect_tx(q_full, kPadRows ? F::kChunks * rows * kSwizzleRowBytes
+                                             : F::kQBytes);
       for (int c = 0; c < F::kChunks; ++c)
         tma_load_4d(q_sm + c * kRowsW * kSwizzleRowBytes, &map_q, q_full, c * 64, h0, q0, b);
       int stage = 0;
@@ -575,6 +503,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       const int r = wg * 64 + (tid >> 5) * 16 + (lane >> 2) + 8 * h;
       qpos[h] = q0 + r / HB;
       head[h] = h0 + r % HB;
+      // A padding row (past HB P, or a head past the group in a partial
+      // last chunk) takes position Sq: stored nowhere. Its softmax and its
+      // row of P V depend on that row alone, so no other row reads it.
+      if (kPadRows && (r >= rows || head[h] >= (hk + 1) * G)) qpos[h] = Sq;
     }
     const float c = scale * 1.4426950408889634f;
     float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
@@ -789,125 +721,6 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < D / 8; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(out + n * 8) =
           __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// B3: dK, dV
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads3)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv, int Hq,
-                     int Hkv, int causal, int window, float scale) {
-  constexpr int LD = D + kPad;
-  constexpr int DN = cols3<D>();  // output columns of this block
-  extern __shared__ uint4 smem_u4[];
-  bf16* k_sm = reinterpret_cast<bf16*>(smem_u4);  // [kTileKv3][LD]
-  bf16* v_sm = k_sm + kTileKv3 * LD;               // [kTileKv3][LD]
-  bf16* q_sm = v_sm + kTileKv3 * LD;               // [kTileQ3][LD]
-  bf16* do_sm = q_sm + kTileQ3 * LD;               // [kTileQ3][LD]
-  float* lse_sm = reinterpret_cast<float*>(do_sm + kTileQ3 * LD);  // [kTileQ3]
-  float* delta_sm = lse_sm + kTileQ3;                                // [kTileQ3]
-
-  const int G = Hq / Hkv;
-  const int kv0 = blockIdx.x * kTileKv3;
-  const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
-  const int nt0 = DN == D ? 0 : blockIdx.z * (DN / 8);  // first 8-column output tile
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int kpos[2] = {kv0 + warp * 16 + g, kv0 + warp * 16 + g + 8};
-
-  const size_t kv_ld = static_cast<size_t>(Hkv) * D;
-  const size_t kv_base = (static_cast<size_t>(b) * Skv + kv0) * kv_ld + static_cast<size_t>(hk) * D;
-  stage<D>(k_sm, k + kv_base, kv_ld, kTileKv3, Skv - kv0, tid, kThreads3);
-  stage<D>(v_sm, v + kv_base, kv_ld, kTileKv3, Skv - kv0, tid, kThreads3);
-  const bf16* k_w = k_sm + warp * 16 * LD;
-  const bf16* v_w = v_sm + warp * 16 * LD;
-
-  // q rows that can see this kv tile: from the diagonal on, up to the
-  // window's far edge.
-  int q_begin = 0, q_end = Sq;
-  if (causal) {
-    q_begin = (kv0 / kTileQ3) * kTileQ3;
-    if (window > 0) q_end = min(Sq, kv0 + kTileKv3 - 1 + window);
-  }
-
-  float dk_acc[DN / 8][4], dv_acc[DN / 8][4];
-#pragma unroll
-  for (int n = 0; n < DN / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  const size_t q_ld = static_cast<size_t>(Hq) * D;
-  for (int gi = 0; gi < G; ++gi) {
-    const int hq = hk * G + gi;
-    const float* lse_h = lse + (static_cast<size_t>(b) * Hq + hq) * Sq;
-    const float* delta_h = delta + (static_cast<size_t>(b) * Hq + hq) * Sq;
-    for (int q0 = q_begin; q0 < q_end; q0 += kTileQ3) {
-      __syncthreads();  // the previous q tile is consumed (K/V staged first time)
-      const size_t q_base = (static_cast<size_t>(b) * Sq + q0) * q_ld + static_cast<size_t>(hq) * D;
-      stage<D>(q_sm, q + q_base, q_ld, kTileQ3, Sq - q0, tid, kThreads3);
-      stage<D>(do_sm, dout + q_base, q_ld, kTileQ3, Sq - q0, tid, kThreads3);
-      if (tid < kTileQ3) {
-        const bool ok = q0 + tid < Sq;
-        lse_sm[tid] = ok ? lse_h[q0 + tid] : 0.f;
-        delta_sm[tid] = ok ? delta_h[q0 + tid] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: the warp's 16 kv rows x 32 q columns.
-      float st[kTileQ3 / 8][4], dpt[kTileQ3 / 8][4];
-#pragma unroll
-      for (int n = 0; n < kTileQ3 / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const AFrag ak = a_rows(k_w, LD, kk, lane);
-        const AFrag av = a_rows(v_w, LD, kk, lane);
-#pragma unroll
-        for (int n = 0; n < kTileQ3 / 8; ++n) {
-          uint32_t b0, b1;
-          b_rows(q_sm, LD, n, kk, lane, b0, b1);
-          mma(st[n], ak.r[0], ak.r[1], ak.r[2], ak.r[3], b0, b1);
-          b_rows(do_sm, LD, n, kk, lane, b0, b1);
-          mma(dpt[n], av.r[0], av.r[1], av.r[2], av.r[3], b0, b1);
-        }
-      }
-      // P^T (kept in st) and dS^T (in dpt).
-      pds_step(st, dpt, lse_sm, delta_sm, kpos, q0, t, Sq, Skv, causal, window, scale);
-      // dV += bf16(P^T) dO and dK += bf16(dS^T) Q, this block's columns.
-#pragma unroll
-      for (int j = 0; j < kTileQ3 / 16; ++j) {
-        const AFrag ap = a_acc(st[2 * j], st[2 * j + 1]);
-        const AFrag ads = a_acc(dpt[2 * j], dpt[2 * j + 1]);
-#pragma unroll
-        for (int n = 0; n < DN / 8; ++n) {
-          uint32_t b0, b1;
-          b_cols(do_sm, LD, j, nt0 + n, lane, b0, b1);
-          mma(dv_acc[n], ap.r[0], ap.r[1], ap.r[2], ap.r[3], b0, b1);
-          b_cols(q_sm, LD, j, nt0 + n, lane, b0, b1);
-          mma(dk_acc[n], ads.r[0], ads.r[1], ads.r[2], ads.r[3], b0, b1);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (kpos[r] >= Skv) continue;
-    const size_t off = (static_cast<size_t>(b) * Skv + kpos[r]) * kv_ld +
-                       static_cast<size_t>(hk) * D + nt0 * 8 + 2 * t;
-#pragma unroll
-    for (int n = 0; n < DN / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8) =
-          __floats2bfloat162_rn(dk_acc[n][2 * r], dk_acc[n][2 * r + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8) =
-          __floats2bfloat162_rn(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
     }
   }
 }
@@ -1504,6 +1317,270 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 // ---------------------------------------------------------------------------
+// B3 on Hopper at head_dim 192 and 256: one warpgroup a gradient
+// ---------------------------------------------------------------------------
+// Bound: operations, 8 flops per head_dim per attended (q, k) pair (51.5
+// GFLOP, 0.0521 ms at debug_300m's micro-batch, q [16, 1024, 4, 192], at
+// 989 TFLOP/s). The head_dim-128 layout above keeps full-width dK and dV
+// in each warpgroup: D / 2 + D / 2 fp32 registers a thread, 192 or 256
+// here before the scores, past the 255 a thread may hold. So here the two
+// warpgroups of a block share its 64 kv rows and split the work by
+// gradient: warpgroup 0 runs S^T = K Q^T, makes P^T (masked, fp32) and
+// accumulates dV += bf16(P^T) dO; warpgroup 1 runs dP^T = V dO^T, takes
+// P^T from warpgroup 0 through shared memory (fp32, [element][thread]:
+// the two accumulators' layouts are the same) and accumulates dK +=
+// bf16(dS^T) Q with dS^T = P^T (dP^T - delta) scale. Each thread then
+// holds one D / 2 accumulator (96 or 128 registers) beside a 64-column
+// score tile, no product is recomputed, and every gradient product spans
+// the full head_dim in one wgmma (N 192 or 256), so no operand starts
+// inside a 64-column box (a column split at 96 would). The hand-off is
+// 16 KB a step through two named barriers: 1 (P^T written; warpgroup 0
+// arrives, 1 waits) and 2 (P^T read; 1 arrives, 0 waits before its next
+// write). Not taken: (a) two ranks of a cluster splitting the output
+// columns, each recomputing both score products over the full D (1.5x
+// B3's products, and at head_dim 192 the half-way column 96 starts inside
+// a box); (b) FlashAttention-3's split of the score tile, which hands both
+// P^T and dS^T over and splits the output columns (the same column
+// problem at 192).
+// Otherwise as the kernel above: K and V loaded once; a ring of kStages
+// Q / dO / lse / delta stages of 64 q rows for every (q head, q tile) step
+// of the band (from the diagonal on, to the window's far edge), the group
+// summed in the fp32 accumulators; each warpgroup leaves its gradient
+// product in flight under its next score product and releases a stage
+// once both products that read it are done. The producer is warpgroup 1's
+// first thread (the warpgroup that trails): at step j it refills step j -
+// 1's stage with step j - 1 + kStages. A cluster of two blocks shares a kv
+// tile while the tiles number fewer than the SMs, and merges as above
+// (rank 0 writes dK, rank 1 dV, rank 0's partial first in each sum).
+template <int D>
+struct BwdDkvHd {
+  static constexpr int kTQ = 64;                   // q rows per stage
+  static constexpr int kStages = D <= 192 ? 3 : 2;
+  static constexpr int kChunks = D / 64;
+  static constexpr int kRowsKv = 64;               // kv rows per block
+  static constexpr int kKvBytes = kRowsKv * D * 2;  // K or V
+  static constexpr int kTileBytes = kTQ * D * 2;    // Q or dO of one stage
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kPBytes = kRowsKv * kTQ * 4;  // P^T in fp32
+  static constexpr int kStatBox = kTQ + 4;          // as BwdDkv
+  static constexpr int kStatBytes = kStatBox * 4;
+  static constexpr int kStatSlot = kTQ + 32;
+  static constexpr int kSmemBytes = 1024 + 2 * kKvBytes + kStages * kStageBytes + kPBytes +
+                                    kStages * 2 * kStatSlot * 4 + (2 * kStages + 1) * 8;
+  static constexpr int kThreads = 256;
+  static_assert(kSmemBytes <= 232448, "shared memory of one block");
+  static_assert(kStages * kStageBytes >= kRowsKv * D * 4, "the merge parks over the ring");
+};
+
+template <int D, bool kAligned>
+__global__ void __launch_bounds__(BwdDkvHd<D>::kThreads, 1)
+flash_bwd_dkv_wgmma_hd256_kernel(const __grid_constant__ CUtensorMap map_q,
+                                 const __grid_constant__ CUtensorMap map_do,
+                                 const __grid_constant__ CUtensorMap map_k,
+                                 const __grid_constant__ CUtensorMap map_v,
+                                 const __grid_constant__ CUtensorMap map_lse,
+                                 const __grid_constant__ CUtensorMap map_delta,
+                                 bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv,
+                                 int Hq, int Hkv, int causal, int window, float scale) {
+  using F = BwdDkvHd<D>;
+  constexpr int TQ = F::kTQ, kStages = F::kStages, kRowsKv = F::kRowsKv;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* k_sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* v_sm = k_sm + F::kKvBytes;
+  uint8_t* ring = v_sm + F::kKvBytes;
+  float* p_sm = reinterpret_cast<float*>(ring + kStages * F::kStageBytes);  // [element][thread]
+  float* stats = p_sm + kRowsKv * TQ;  // [stage][lse, delta][kStatSlot]
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + kStages * 2 * F::kStatSlot);
+  uint64_t* empty = full + kStages;
+  uint64_t* kv_full = empty + kStages;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int G = Hq / Hkv;
+  const int kv0 = (blockIdx.x / split) * kRowsKv;  // longest causal tiles first
+  const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
+
+  // The q tiles that can see these kv rows, the (q head, q tile) steps, and
+  // this rank's share.
+  int q_begin = 0, q_end = Sq;
+  if (causal) {
+    q_begin = (kv0 / TQ) * TQ;
+    if (window > 0) q_end = min(Sq, kv0 + kRowsKv - 1 + window);
+  }
+  const int nq = q_end > q_begin ? (q_end - q_begin + TQ - 1) / TQ : 0;
+  const int s_begin = G * nq * rank / split;
+  const int n = G * nq * (rank + 1) / split - s_begin;
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const bool producer = threadIdx.x == 128;
+  // Step j of the share into stage j % kStages: Q, dO, lse and delta.
+  auto load_step = [&](int j) {
+    const int s = j % kStages, i = s_begin + j;
+    const int hq = hk * G + i / nq, q0 = q_begin + (i % nq) * TQ;
+    uint8_t* q_st = ring + s * F::kStageBytes;
+    float* st = stats + s * 2 * F::kStatSlot;
+    mbar_arrive_expect_tx(&full[s], F::kStageBytes + 2 * F::kStatBytes);
+    for (int c = 0; c < F::kChunks; ++c) {
+      tma_load_4d(q_st + c * TQ * kSwizzleRowBytes, &map_q, &full[s], c * 64, hq, q0, b);
+      tma_load_4d(q_st + F::kTileBytes + c * TQ * kSwizzleRowBytes, &map_do, &full[s], c * 64,
+                  hq, q0, b);
+    }
+    const int row = ((b * Hq + hq) * Sq + q0) & ~3;  // as in the kernel above
+    tma_load_1d(st, &map_lse, &full[s], row);
+    tma_load_1d(st + F::kStatSlot, &map_delta, &full[s], row);
+  };
+
+  if (producer) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one arrival per warpgroup
+    }
+    mbar_init(kv_full, 1);
+    fence_barrier_init();
+    // K and V once, and the first kStages steps.
+    mbar_arrive_expect_tx(kv_full, 2 * F::kKvBytes);
+    for (int c = 0; c < F::kChunks; ++c) {
+      tma_load_4d(k_sm + c * kBoxBytes, &map_k, kv_full, c * 64, hk, kv0, b);
+      tma_load_4d(v_sm + c * kBoxBytes, &map_v, kv_full, c * 64, hk, kv0, b);
+    }
+    for (int j = 0; j < min(n, kStages); ++j) load_step(j);
+  }
+  __syncthreads();
+
+  const int lane = tid & 31, t4 = lane & 3;
+  constexpr float kLog2e = 1.4426950408889634f;
+  int kpos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) kpos[h] = kv0 + (tid >> 5) * 16 + (lane >> 2) + 8 * h;
+  const float c = scale * kLog2e;
+  float acc[D / 2];  // warpgroup 0: dV; warpgroup 1: dK
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  // The score product's A operand: K (warpgroup 0) or V (warpgroup 1).
+  const uint64_t a_k = smem_desc(wg == 0 ? k_sm : v_sm, 16, 8 * kSwizzleRowBytes);
+  mbar_wait(kv_full, 0);
+
+  for (int j = 0; j < n; ++j) {
+    const int s = j % kStages;
+    const int q0 = q_begin + ((s_begin + j) % nq) * TQ;
+    const int hq = hk * G + (s_begin + j) / nq;
+    mbar_wait(&full[s], (j / kStages) & 1);
+    const uint8_t* q_st = ring + s * F::kStageBytes;
+    const uint8_t* do_st = q_st + F::kTileBytes;
+    const int off = kAligned ? 0 : ((b * Hq + hq) * Sq + q0) & 3;
+    const float* lse_st = stats + s * 2 * F::kStatSlot + off;
+    const float* dl_st = lse_st + F::kStatSlot;
+
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1): 64 kv rows
+    // x TQ q columns, both operands K-major.
+    const uint64_t b_k = smem_desc(wg == 0 ? q_st : do_st, 16, 8 * kSwizzleRowBytes);
+    float sc[TQ / 2];
+    wgmma_fence();
+    wgmma_ss_zero<TQ, 0, 0>(sc, a_k, b_k);
+#pragma unroll
+    for (int kk = 1; kk < D / 16; ++kk) {
+      const uint32_t col = (kk % 4) * 32;
+      wgmma<TQ, 0, 0>(sc, desc_advance(a_k, (kk / 4) * kRowsKv * kSwizzleRowBytes + col),
+                      desc_advance(b_k, (kk / 4) * TQ * kSwizzleRowBytes + col));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous step's gradient product
+    fence_regs(acc);
+    if (j > 0 && tid == 0) mbar_arrive(&empty[(j - 1) % kStages]);
+    if (producer && j > 0 && j - 1 + kStages < n) {
+      mbar_wait(&empty[(j - 1) % kStages], ((j - 1) / kStages) & 1);
+      load_step(j - 1 + kStages);
+    }
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    uint32_t a[TQ / 16][4];  // the gradient product's A operand, bf16
+    if (wg == 0) {
+      // P^T in place; masked only on tiles that some pair's band cuts or
+      // that run past Sq.
+      const bool interior =
+          q0 + TQ <= Sq &&
+          (!causal || (q0 >= kv0 + kRowsKv - 1 && (window <= 0 || q0 + TQ - 1 - kv0 < window)));
+#pragma unroll
+      for (int e = 0; e < TQ / 2; e += 2) {
+        const int r = (e >> 1) & 1;            // kv row kpos[r]
+        const int col = 8 * (e / 4) + 2 * t4;  // q columns col, col + 1
+        const float2 l2 = lds_pair<kAligned>(lse_st + col);
+        const float lq[2] = {l2.x, l2.y};
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          float p = exp2_approx(fmaf(sc[e + u], c, -lq[u] * kLog2e));
+          if (!interior) {
+            const int q = q0 + col + u;
+            const bool keep =
+                q < Sq && (!causal || (q >= kpos[r] && (window <= 0 || q - kpos[r] < window)));
+            if (!keep) p = 0.f;
+          }
+          sc[e + u] = p;
+        }
+      }
+      if (j > 0) named_barrier(2, 256);  // warpgroup 1 has read the last P^T
+#pragma unroll
+      for (int i = 0; i < TQ / 2; ++i) p_sm[i * 128 + tid] = sc[i];
+      named_barrier_arrive(1, 256);
+#pragma unroll
+      for (int kk = 0; kk < TQ / 16; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[kk][i] = pack_f32(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+    } else {
+      named_barrier(1, 256);  // this step's P^T
+#pragma unroll
+      for (int kk = 0; kk < TQ / 16; ++kk) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int e = 8 * kk + 2 * i;
+          const int col = 16 * kk + 8 * (i >> 1) + 2 * t4;
+          const float2 d2 = lds_pair<kAligned>(dl_st + col);
+          a[kk][i] = pack_f32(p_sm[e * 128 + tid] * (sc[e] - d2.x) * scale,
+                              p_sm[(e + 1) * 128 + tid] * (sc[e + 1] - d2.y) * scale);
+        }
+      }
+      if (j + 1 < n) named_barrier_arrive(2, 256);
+    }
+
+    // dV += bf16(P^T) dO (warpgroup 0) or dK += bf16(dS^T) Q (warpgroup 1):
+    // A from registers, B MN-major (the same bytes as above).
+    const uint64_t b_m =
+        smem_desc(wg == 0 ? do_st : q_st, TQ * kSwizzleRowBytes, 8 * kSwizzleRowBytes);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TQ / 16; ++kk) {
+      wgmma_rs<D, 1>(acc, a[kk], desc_advance(b_m, kk * 16 * kSwizzleRowBytes));
+    }
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  bf16* out = wg == 0 ? dv : dk;
+  if (split == 1) {
+    store_rows<D>(acc, out, kpos, t4, b, Skv, Hkv, hk);
+    return;
+  }
+  // Two ranks: rank 0 writes dK (its warpgroup 1 adds rank 1's), rank 1 dV
+  // (its warpgroup 0 adds rank 0's); the other two warpgroups push their
+  // partials into the writer's shared memory (over the ring).
+  float* park = reinterpret_cast<float*>(ring) + tid;
+  cluster.sync();
+  if (wg == rank) park_rows<D>(acc, cluster.map_shared_rank(park, rank ^ 1));
+  cluster.sync();
+  if (wg != rank) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = rank == 0 ? acc[i] + park[i * 128]
+                                                       : park[i * 128] + acc[i];
+    store_rows<D>(acc, out, kpos, t4, b, Skv, Hkv, hk);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // head_dim above 256 (any multiple of 64): B1-B3 over 64-column slices
 // ---------------------------------------------------------------------------
 // The kernels above keep whole rows of Q (B1, B2: and dO) or K and V (B3) in
@@ -1849,11 +1926,6 @@ bool group_tiles(int rows, int Hq, int Hkv) {
   return rows % HB == 0 && G % HB == 0;
 }
 
-template <int D>
-bool wgmma_rows(int Hq, int Hkv) {
-  return group_tiles(Fwd<D>::kRowsW, Hq, Hkv);
-}
-
 // The tensor map of a [B, S, H, D] bf16 tensor (q, k, v, dO), in boxes of
 // 64 columns x `heads` heads x `rows` positions.
 bool bshd_map(CUtensorMap* map, const void* base, int B, int S, int H, int D, int heads,
@@ -1867,6 +1939,8 @@ bool bshd_map(CUtensorMap* map, const void* base, int B, int S, int H, int D, in
   return tensor_map(map, base, 4, dims, strides, box);
 }
 
+// B1 at head_dim 64-256, any group: padding rows where the group does not
+// tile the block's rows.
 template <int D>
 cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* lse,
                              int B, int Sq, int Skv, int Hq, int Hkv, int causal, int window,
@@ -1878,26 +1952,15 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* 
       !bshd_map(&mv, v, B, Skv, Hkv, D, 1, 64)) {
     return cudaErrorInvalidValue;
   }
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmemBytes);
+  auto* kernel = group_tiles(F::kRowsW, Hq, Hkv) ? flash_fwd_wgmma_kernel<D, false>
+                                                 : flash_fwd_wgmma_kernel<D, true>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmemBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + P - 1) / P, B * Hkv, G / HB);
-  flash_fwd_wgmma_kernel<D><<<grid, F::kThreads, F::kSmemBytes, stream>>>(
+  const dim3 grid((Sq + P - 1) / P, B * Hkv, (G + HB - 1) / HB);
+  kernel<<<grid, F::kThreads, F::kSmemBytes, stream>>>(
       mq, mk, mv, static_cast<bf16*>(o), static_cast<float*>(lse), Sq, Skv, Hq, Hkv, causal,
       window, scale);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
-                       int Sq, int Skv, int Hq, int Hkv, int causal, int window, float scale,
-                       cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * (kRows + 2 * tile_kv<D>()) * (D + kPad);
-  cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
-  if (err != cudaSuccess) return err;
-  flash_fwd_kernel<D><<<group_grid(B, Sq, Hq, Hkv), kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), static_cast<float*>(lse), Sq, Skv, Hq, Hkv, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -1914,24 +1977,6 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dq), Sq, Skv, Hq, Hkv, causal,
       window, scale);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
-                       int Skv, int Hq, int Hkv, int causal, int window, float scale,
-                       cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * (2 * kTileKv3 + 2 * kTileQ3) * (D + kPad) +
-                      sizeof(float) * 2 * kTileQ3;
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Skv + kTileKv3 - 1) / kTileKv3, B * Hkv, D / cols3<D>());
-  flash_bwd_dkv_kernel<D><<<grid, kThreads3, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq,
-      Skv, Hq, Hkv, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -1958,12 +2003,22 @@ cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const v
   return cudaGetLastError();
 }
 
+// B3's wgmma kernels: the head_dim 64/128 one, or the head_dim 192/256 one.
+template <int D, bool kAligned>
+auto dkv_wgmma_kernel() {
+  if constexpr (D <= 128) {
+    return flash_bwd_dkv_wgmma_kernel<D, kAligned>;
+  } else {
+    return flash_bwd_dkv_wgmma_hd256_kernel<D, kAligned>;
+  }
+}
+
 template <int D>
 cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dk, void* dv, int B,
                              int Sq, int Skv, int Hq, int Hkv, int causal, int window,
                              float scale, cudaStream_t stream) {
-  using F = BwdDkv<D>;
+  using F = std::conditional_t<(D <= 128), BwdDkv<D>, BwdDkvHd<D>>;
   CUtensorMap mq, mdo, mk, mv, mlse, mdelta;
   const uint64_t stats = static_cast<uint64_t>(B) * Hq * Sq;
   if (!bshd_map(&mq, q, B, Sq, Hq, D, 1, 64) || !bshd_map(&mdo, dout, B, Sq, Hq, D, 1, 64) ||
@@ -1972,8 +2027,7 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const 
       !tensor_map_f32(&mdelta, delta, stats, F::kStatBox)) {
     return cudaErrorInvalidValue;
   }
-  auto* kernel = Sq % 4 == 0 ? flash_bwd_dkv_wgmma_kernel<D, true>
-                             : flash_bwd_dkv_wgmma_kernel<D, false>;
+  auto* kernel = Sq % 4 == 0 ? dkv_wgmma_kernel<D, true>() : dkv_wgmma_kernel<D, false>();
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmemBytes);
   if (err != cudaSuccess) return err;
@@ -2072,15 +2126,6 @@ int lumina_flash_fwd(const void* q, const void* k, const void* v, void* o, void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CALL(DD) \
   launch_fwd_wgmma<DD>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, causal, window, scale, s)
-  switch (D) {
-    case 64: if (wgmma_rows<64>(Hq, Hkv)) return static_cast<int>(CALL(64)); break;
-    case 128: if (wgmma_rows<128>(Hq, Hkv)) return static_cast<int>(CALL(128)); break;
-    case 192: if (wgmma_rows<192>(Hq, Hkv)) return static_cast<int>(CALL(192)); break;
-    case 256: if (wgmma_rows<256>(Hq, Hkv)) return static_cast<int>(CALL(256)); break;
-    default: break;
-  }
-#undef CALL
-#define CALL(DD) launch_fwd<DD>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, causal, window, scale, s)
   LUMINA_BY_DIM(D, CALL,
                 launch_fwd_wide(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, causal, window, scale, s))
 #undef CALL
@@ -2119,17 +2164,9 @@ int lumina_flash_bwd_dkv(const void* q, const void* k, const void* v, const void
                          void* stream) {
   if (!shape_ok(B, Sq, Skv, Hq, Hkv, D)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // head_dim 64 and 128, any group: the wgmma kernel.
-  if (D == 64 || D == 128) {
-    return static_cast<int>(
-        D == 64 ? launch_dkv_wgmma<64>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, Hq, Hkv,
-                                       causal, window, scale, s)
-                : launch_dkv_wgmma<128>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, Hq, Hkv,
-                                        causal, window, scale, s));
-  }
-#define CALL(DD)                                                                       \
-  launch_dkv<DD>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, Hq, Hkv, causal, window, \
-                 scale, s)
+#define CALL(DD)                                                                              \
+  launch_dkv_wgmma<DD>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, Hq, Hkv, causal, window, \
+                       scale, s)
   LUMINA_BY_DIM(D, CALL,
                 launch_dkv_wide(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, Hq, Hkv, D,
                                 causal, window, scale, s))

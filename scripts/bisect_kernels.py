@@ -3,7 +3,8 @@
 
     python scripts/bisect_kernels.py --parent DIR [--rounds 2]
         [--cases b1_decode,b1_decode_int8,b1_train,flagship_train,
-                 debug200m_train,gmm_train_wi,...]
+                 debug200m_train,b14_group5_train,debug300m_train,
+                 gmm_train_wi,...]
 
 DIR holds another checkout of the repository (for example the parent
 commit, unpacked with `git archive`). The script builds
@@ -20,7 +21,10 @@ one card, in turns (parent, this, this, parent, ...), on the same inputs:
   k/v [2, 2048, 4, 128], causal), at the flagship MoE training shape
   (q [16, 2048, 16, 64], k/v [16, 2048, 8, 64], causal) and at
   debug_200m's (q [8, 2048, 12, 64], k/v [8, 2048, 4, 64], causal: a
-  group of 3);
+  group of 3), at b14's attention (q [1, 4096, 40, 128], k/v [1, 4096, 8,
+  128], causal: a group of 5, padding rows in B1 and B2) and at
+  debug_300m's micro-batch (q [16, 1024, 4, 192], k/v [16, 1024, 2, 192],
+  causal: head_dim 192);
 - B4a (gmm, and with transpose_rhs) and B4b (tgmm) at the flagship MoE
   wi shape (65,536 rows, 65,100 kept over 8 experts, K 1024, N 5632) and
   wo shape (K 2816, N 1024), and B4a at the b1 decode wi shape (16 pair rows over 7 of 8 experts in a
@@ -32,7 +36,10 @@ CUDA-event ms of every kernel, tree and round over back-to-back calls
 graph of the same calls ("graph_ms": no host time between launches,
 which back-to-back calls of a kernel of tens of microseconds might
 include); and the largest absolute difference between the two trees'
-outputs on the same inputs ("max_abs_diff"). It needs a card and nvcc.
+outputs on the same inputs ("max_abs_diff"). Before the timings it prints
+each tree's ptxas lines for the flash kernels (registers and spills, from
+`-Xptxas -v`; the whole logs stay in _kernels/bisect/). It needs a card and
+nvcc.
 """
 
 from __future__ import annotations
@@ -56,12 +63,18 @@ GMM_TRAIN_WO = (65536, 2816, 1024, GMM_TRAIN_WI[3])
 GMM_SERVE_WI = (128, 2048, 2 * 5504, [2, 3, 1, 0, 4, 2, 3, 1])
 
 
+def _build_dir() -> Path:
+    from luminaai_tpu_torch.ops import _build
+
+    return _build.BUILD_DIR / "bisect"
+
+
 def build(tree: Path, tag: str) -> dict:
     """{source: loaded library} built from tree's csrc/ into this
     checkout's git-ignored _kernels/bisect/ (with each build's log)."""
     from luminaai_tpu_torch.ops import _build
 
-    out = _build.BUILD_DIR / "bisect"
+    out = _build_dir()
     out.mkdir(parents=True, exist_ok=True)
     procs = {
         name: subprocess.Popen(
@@ -228,8 +241,8 @@ def main(argv=None) -> int:
                     help="another checkout (e.g. the parent commit)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--cases", default="b1_decode,b1_decode_int8,b1_train,"
-                    "flagship_train,debug200m_train,gmm_train_wi,"
-                    "gmm_train_wo,gmm_serve_wi",
+                    "flagship_train,debug200m_train,b14_group5_train,"
+                    "debug300m_train,gmm_train_wi,gmm_train_wo,gmm_serve_wi",
                     help="comma-separated subset of the cases to time")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
@@ -242,6 +255,11 @@ def main(argv=None) -> int:
 
     trees = {"parent": build(args.parent.resolve(), "parent"),
              "this": build(ROOT, "this")}
+    for tag in trees:
+        log = (_build_dir() / f"{tag}-flash_attention.log").read_text()
+        for line in log.splitlines():
+            if "flash_" in line or "registers" in line or "spill" in line:
+                print(f"ptxas [{tag}] {line.strip()}")
     dev = torch.device("cuda", 0)
     makers = {
         "b1_decode": (lambda: decode_calls(dev), 200),
@@ -250,6 +268,10 @@ def main(argv=None) -> int:
         "flagship_train": (lambda: flash_calls(dev, 16, 2048, 16, 8, 64),
                            20),
         "debug200m_train": (lambda: flash_calls(dev, 8, 2048, 12, 4, 64),
+                            20),
+        "b14_group5_train": (lambda: flash_calls(dev, 1, 4096, 40, 8, 128),
+                             20),
+        "debug300m_train": (lambda: flash_calls(dev, 16, 1024, 4, 2, 192),
                             20),
         "gmm_train_wi": (lambda: gmm_calls(dev, *GMM_TRAIN_WI), 20),
         "gmm_train_wo": (lambda: gmm_calls(dev, *GMM_TRAIN_WO), 20),

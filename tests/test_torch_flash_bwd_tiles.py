@@ -24,6 +24,11 @@ tests/test_ops.py runs it) on the same numpy inputs:
   `split` contiguous shares for the blocks of a cluster (empty, partial or
   whole), each share's fp32 partial, and the merge that sums the partials
   in rank order;
+- B3 at head_dim 192 and 256 (flash_bwd_dkv_wgmma_hd256_kernel): 64 kv
+  rows a block, both warpgroups over them, q tiles of 64 rows; warpgroup 0
+  makes S^T = K Q^T and the masked fp32 P^T and accumulates dV, warpgroup
+  1 makes dP^T = V dO^T, takes P^T from warpgroup 0 (shared memory) for
+  dS^T and accumulates dK; the cluster shares and merge as above;
 - the interior test: a tile it calls interior needs no mask (checked
   element by element), so the kernels skip the masks there.
 
@@ -51,6 +56,8 @@ ROWS_DQ = 128  # B2: (q head, position) rows per block
 ROWS_KV = 128  # B3: kv rows per block
 WG_ROWS = 64   # B3: kv rows per consumer warpgroup
 SUB = 64       # B3: q columns per product
+ROWS_KV_HD = 64  # B3 at head_dim 192/256: kv rows per block
+TQ_HD = 64       # B3 at head_dim 192/256: q rows per step
 
 
 def tk(d):
@@ -85,7 +92,15 @@ GROUP_GEOMETRIES = {
     "causal_g12_d64_s205": (1, 205, 12, 1, 64, True, None),
     "g12_win40_d128_s137": (1, 137, 24, 2, 128, True, 40),
 }
-ALL_GEOMETRIES = {**GEOMETRIES, **GROUP_GEOMETRIES}
+# B3 at head_dim 192 and 256: causal with a group of 2, a window over a
+# length that is no multiple of 4 (the stats' off-boundary rows), and a
+# group of 5 not causal.
+HD_GEOMETRIES = {
+    "causal_g2_d192_s256": (1, 256, 4, 2, 192, True, None),
+    "win70_g3_d256_s201": (1, 201, 3, 1, 256, True, 70),
+    "noncausal_g5_d192_s137": (1, 137, 5, 1, 192, False, None),
+}
+ALL_GEOMETRIES = {**GEOMETRIES, **GROUP_GEOMETRIES, **HD_GEOMETRIES}
 
 
 def _in_band(q, k, causal, window):
@@ -104,11 +119,12 @@ def _kv_range(qlo, qhi, skv, causal, window, tile):
     return begin // tile * tile, end
 
 
-def _q_range(kv0, sq, causal, window, tile):
-    """B3: [begin, end) of the q rows that can see kv rows [kv0, kv0 + 128)."""
+def _q_range(kv0, sq, causal, window, tile, rows=ROWS_KV):
+    """B3: [begin, end) of the q rows that can see kv rows [kv0, kv0 +
+    rows)."""
     if not causal:
         return 0, sq
-    end = min(sq, kv0 + ROWS_KV - 1 + window) if window else sq
+    end = min(sq, kv0 + rows - 1 + window) if window else sq
     return kv0 // tile * tile, end
 
 
@@ -252,12 +268,82 @@ def dkv_tiles(q, k, v, do, lse, delta, scale, causal, window, split, counts):
     return dk, dv
 
 
+def dkv_tiles_hd(q, k, v, do, lse, delta, scale, causal, window, split,
+                 counts):
+    """B3's head_dim 192/256 blocks, the two warpgroups' split of the work,
+    the cluster shares and merge: (dK, dV) [B, Skv, Hkv, D] fp32."""
+    B, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    dk = torch.zeros(B, skv, hkv, d)
+    dv = torch.zeros(B, skv, hkv, d)
+    for b in range(B):
+        for hk in range(hkv):
+            for kv0 in range(0, skv, ROWS_KV_HD):
+                q_begin, q_end = _q_range(kv0, sq, causal, window, TQ_HD,
+                                          ROWS_KV_HD)
+                nq = max(0, -(-(q_end - q_begin) // TQ_HD))
+                steps = g * nq
+                counts["steps"].append(steps)
+                n = min(ROWS_KV_HD, skv - kv0)
+                kp = torch.arange(kv0, kv0 + ROWS_KV_HD)
+                kr = torch.zeros(ROWS_KV_HD, d)
+                vr = torch.zeros(ROWS_KV_HD, d)
+                kr[:n], vr[:n] = k[b, kv0:kv0 + n, hk], v[b, kv0:kv0 + n, hk]
+                partials = []
+                for rank in range(split):
+                    acc_v = torch.zeros(ROWS_KV_HD, d)  # warpgroup 0
+                    acc_k = torch.zeros(ROWS_KV_HD, d)  # warpgroup 1
+                    share = range(steps * rank // split,
+                                  steps * (rank + 1) // split)
+                    counts["shares"][min(len(share), 2)] += 1
+                    for j in share:
+                        hq_j = hk * g + j // nq
+                        q0 = q_begin + (j % nq) * TQ_HD
+                        qp = torch.arange(q0, q0 + TQ_HD)
+                        ok = qp < sq
+                        qc = qp.clamp(max=sq - 1)
+                        qt = torch.where(ok[:, None], q[b, qc, hq_j], 0.0)
+                        dot = torch.where(ok[:, None], do[b, qc, hq_j], 0.0)
+                        lse_c = lse[b, hq_j, qc][None, :]
+                        dl_c = delta[b, hq_j, qc][None, :]
+                        # Warpgroup 0: S^T, P^T masked unless interior, dV.
+                        pt = _p(kr @ qt.T, lse_c, scale)
+                        keep = (_in_band(qp, kp, causal, window).T
+                                & ok[None, :])
+                        interior = q0 + TQ_HD <= sq and (not causal or (
+                            q0 >= kv0 + ROWS_KV_HD - 1
+                            and (not window
+                                 or q0 + TQ_HD - 1 - kv0 < window)))
+                        if interior:
+                            counts["dkv_interior"] += 1
+                            assert keep.all()
+                        else:
+                            pt = torch.where(keep, pt, 0.0)
+                        acc_v += pt @ dot
+                        # Warpgroup 1: dP^T, then dS^T from the P^T that
+                        # warpgroup 0 hands over in fp32; masked there.
+                        handed = pt.clone()
+                        dst = handed * (vr @ dot.T - dl_c) * scale
+                        acc_k += dst @ qt
+                    partials.append((acc_k, acc_v))
+                mk, mv = partials[0]
+                for acc_k, acc_v in partials[1:]:
+                    mk = mk + acc_k
+                    mv = mv + acc_v
+                dk[b, kv0:kv0 + n, hk] = mk[:n]
+                dv[b, kv0:kv0 + n, hk] = mv[:n]
+    return dk, dv
+
+
 @functools.lru_cache(maxsize=None)
 def _reference(name):
     """Inputs, the JAX VJP's (dq, dk, dv), and the port's plain O and lse."""
     B, S, hq, hkv, d, causal, window = ALL_GEOMETRIES[name]
     seed = (sorted(GEOMETRIES).index(name) if name in GEOMETRIES
-            else 100 + sorted(GROUP_GEOMETRIES).index(name))
+            else 100 + sorted(GROUP_GEOMETRIES).index(name)
+            if name in GROUP_GEOMETRIES
+            else 200 + sorted(HD_GEOMETRIES).index(name))
     rng = np.random.RandomState(seed)
     q, k, v, g_o = (rng.randn(*shape).astype(np.float32) for shape in (
         (B, S, hq, d), (B, S, hkv, d), (B, S, hkv, d), (B, S, hq, d)))
@@ -344,19 +430,40 @@ def test_dkv_tiles_and_cluster_merge_match_jax(name, split):
         assert counts["shares"][0] > 0  # empty shares occurred
 
 
+@pytest.mark.parametrize("split", [1, 2])
+@pytest.mark.parametrize("name", sorted(HD_GEOMETRIES))
+def test_dkv_hd_tiles_and_cluster_merge_match_jax(name, split):
+    """B3 at head_dim 192/256: the warpgroups' split by gradient with P^T
+    handed over, against the JAX VJP and the plain version."""
+    inputs, args, (_, dk_j, dv_j) = _tiles_inputs(name)
+    counts = {"dkv_interior": 0, "steps": [], "shares": [0, 0, 0]}
+    dk, dv = dkv_tiles_hd(*inputs, args["scale"], args["causal"],
+                          args["window"], split, counts)
+    np.testing.assert_allclose(dk.numpy(), dk_j, atol=GRAD_TOL, err_msg="dk")
+    np.testing.assert_allclose(dv.numpy(), dv_j, atol=GRAD_TOL, err_msg="dv")
+    dk_p, dv_p = tfa.flash_bwd_dkv_ref(*inputs, **args)
+    np.testing.assert_allclose(dk.numpy(), dk_p.numpy(), atol=GRAD_TOL)
+    np.testing.assert_allclose(dv.numpy(), dv_p.numpy(), atol=GRAD_TOL)
+    if args["causal"] and not args["window"]:
+        assert counts["dkv_interior"] > 0
+        assert counts["steps"][0] > counts["steps"][-1]
+
+
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
                                            (True, 200), (False, 0)])
 @pytest.mark.parametrize("sq", [128, 200, 384])
 def test_q_ranges_cover_every_pair_of_the_band(sq, causal, window):
     """B3: every (q, k) pair in the band has q inside its kv tile's q range,
-    and the range starts at most one tile before the tile's first pair."""
+    and the range starts at most one tile before the tile's first pair, at
+    every head_dim's tiles."""
     kp, qp = torch.arange(sq), torch.arange(sq)
     keep = _in_band(qp, kp, causal, window)
-    for d in (64, 128):
-        TQ = tq(d)
-        for kv0 in range(0, sq, ROWS_KV):
-            begin, end = _q_range(kv0, sq, causal, window, TQ)
-            seen = keep[:, kv0:kv0 + ROWS_KV].any(dim=1).nonzero().flatten()
+    # head_dim 64 and 128, then 192 and 256 (64-row kv tiles).
+    for rows, TQ in ((ROWS_KV, tq(64)), (ROWS_KV, tq(128)),
+                     (ROWS_KV_HD, TQ_HD)):
+        for kv0 in range(0, sq, rows):
+            begin, end = _q_range(kv0, sq, causal, window, TQ, rows)
+            seen = keep[:, kv0:kv0 + rows].any(dim=1).nonzero().flatten()
             if len(seen):
                 assert begin <= seen.min() and seen.max() < end
                 assert seen.min() - begin < TQ

@@ -102,6 +102,25 @@ CASES = {
     # thread instead).
     "causal_g2_d64_s130": (1, 130, 4, 2, 64, True, 0),
     "window40_g4_d128_s201": (1, 201, 8, 2, 128, True, 40),
+    # The wgmma B1 at groups that do not tile its rows (padding rows; 128
+    # rows, 192 at head_dim 64): b14's 5, b100's 10, b200's 12, 5 at head
+    # dims 64, 192 and 256, 3 at 192 and 256, and groups above the rows in
+    # two head chunks.
+    "causal_g5_d64_s700": (1, 700, 10, 2, 64, True, 0),
+    "causal_g10_d128_s600": (1, 600, 10, 1, 128, True, 0),
+    "window100_g12_d128_s500": (1, 500, 24, 2, 128, True, 100),
+    "causal_g3_d192_s300": (1, 300, 6, 2, 192, True, 0),
+    "noncausal_g5_d192_s256": (1, 256, 5, 1, 192, False, 0),
+    "causal_g3_d256_s256": (1, 256, 3, 1, 256, True, 0),
+    "window80_g5_d256_s400": (2, 400, 10, 2, 256, True, 80),
+    "causal_g130_d128_s64": (1, 64, 130, 1, 128, True, 0),
+    "causal_g200_d64_s40": (1, 40, 200, 1, 64, True, 0),
+    # The wgmma B3 at head_dim 192 and 256: lengths that are no multiple of
+    # 4 under a window, and grids that fill the card (no cluster split).
+    "window40_g2_d192_s137": (1, 137, 4, 2, 192, True, 40),
+    "window40_g4_d256_s137": (1, 137, 4, 1, 256, True, 40),
+    "causal_g2_d192_s2048": (4, 2048, 4, 2, 192, True, 0),
+    "causal_g2_d256_s2048": (2, 2048, 8, 4, 256, True, 0),
 }
 
 
