@@ -19,7 +19,7 @@ Phases (any failure raises and exits non-zero):
              64, q [16, 2048, 16, 64]), at debug_200m's (q [8, 2048,
              12, 64] over 4 kv heads, a group of 3) and at groups that
              do not divide 128 rows (b14's 5 at head_dim 128, 6 at 64):
-             B2 on the wgmma kernel at every head_dim of 64 and 128; B5 also at head_dim 576 and at the
+             B2 on the wgmma kernel at every head_dim up to 256; B5 also at head_dim 576 and at the
              split-KV kernel's share boundaries; the grouped matmul (B4a
              gmm with and without transpose_rhs, B4b tgmm) at the b1
              decode and flagship training shapes, with an empty group and
@@ -28,7 +28,7 @@ Phases (any failure raises and exits non-zero):
              library call at every shape, and compute the least time the
              card could take and each kernel's share of it; log which CUDA
              kernel each flash call took (torch.profiler) and require the
-             wgmma B2/B3 kernels at every head_dim of 64 and 128;
+             wgmma B1-B3 kernels at every head_dim up to 256;
   3. serve   the b1-width dense model (16 layers, hidden 2048, seeded
              weights) through the port's ContinuousScheduler +
              StepwiseDecoder behind its HTTP server: first-decode-step
@@ -383,13 +383,12 @@ D256_ATTN = (1, 2048, 8, 2, 256)
 
 def flash_kernels(d: int) -> dict:
     """The CUDA kernels B1-B3 must take at head_dim d (up to 256), as the
-    profiler names them: B1 the wgmma forward at every group, B3 a wgmma
-    kernel at every head_dim, B2 the wgmma kernel at 64 and 128 and the
-    mma.sync one above."""
-    wide = d > 128
+    profiler names them: B1 the wgmma forward and B2 the wgmma dQ kernel at
+    every group and head_dim, B3 the wgmma kernel at 64 and 128 and its
+    head_dim-192/256 kernel above."""
     return {"B1": "flash_fwd_wgmma_kernel",
-            "B2": "flash_bwd_dq_kernel" if wide else "flash_bwd_dq_wgmma_kernel",
-            "B3": ("flash_bwd_dkv_wgmma_hd256_kernel" if wide
+            "B2": "flash_bwd_dq_wgmma_kernel",
+            "B3": ("flash_bwd_dkv_wgmma_hd256_kernel" if d > 128
                    else "flash_bwd_dkv_wgmma_kernel")}
 
 
@@ -455,22 +454,30 @@ def graph_ms(fn, iters: int) -> float:
     return _timing.graph_ms(fn, iters)
 
 
-def kernel_names(fn, tries: int = 3) -> list:
+def kernel_names(fn, tries: int = 6, margin_s: float = 0.01) -> list:
     """The CUDA kernels one call of fn launches, as torch.profiler (CUPTI)
     names them: [] when the profiler records no device events in any of
-    `tries` profiled calls (a session now and then records none: two of
-    five runs of this script on an H100 lost one B2 call's record)."""
+    `tries` profiled calls. The profiler keeps only the device events that
+    fall inside its window on the host's clock, and a session around one
+    short call now and then records none (two of five runs of this script
+    on an H100 lost one B2 call's record; one lost B1's in three tries in a
+    row), so the call sits `margin_s` of idle host time from each end of
+    the window, doubled at each try."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(tries):
+    for i in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(margin_s * 2 ** i)
             fn()
             torch.cuda.synchronize()
+            time.sleep(margin_s * 2 ** i)
         names = sorted({e.key for e in prof.key_averages()
                         if e.device_type == torch.autograd.DeviceType.CUDA})
         if names:
+            if i:
+                log(f"  the profiler named the call's kernels at try {i + 1}")
             return names
     return []
 
@@ -6382,7 +6389,7 @@ def phase_groups(dev, entries: dict, b14: bool) -> dict:
     gmm` in process (its config and data through the CLI's own builders):
     full widths and depth (6 layers of hidden 768, 4 q over 2 kv heads at
     head_dim 192, 8 experts top-2, batch 16 x 1024), GROUPS_STEPS steps;
-    B1 on flash_fwd_wgmma_kernel, B2 on flash_bwd_dq_kernel, B3 on
+    B1 on flash_fwd_wgmma_kernel, B2 on flash_bwd_dq_wgmma_kernel, B3 on
     flash_bwd_dkv_wgmma_hd256_kernel, B4 through gmm. (b) b14's attention
     widths dense (hidden 5120, 40 q over 8 kv heads, a group of 5 at
     head_dim 128) at B14_LAYERS layers, micro-batch 1 x 4096, B14_STEPS

@@ -3,8 +3,6 @@
 // Replaces the TPU kernels of luminaai_tpu/ops/flash_attention.py:
 //   B1 `_fwd_kernel`      (pallas_call in `_fwd`)  -> flash_fwd_wgmma_kernel
 //   B2 `_bwd_dq_kernel`   (pallas_call in `_bwd`)  -> flash_bwd_dq_wgmma_kernel
-//                                                     (flash_bwd_dq_kernel at
-//                                                     head_dim 192 and 256)
 //   B3 `_bwd_dkv_kernel`  (pallas_call in `_bwd`)  -> flash_bwd_dkv_wgmma_kernel
 //                                                     (flash_bwd_dkv_wgmma_hd256_kernel
 //                                                     at head_dim 192 and 256)
@@ -20,49 +18,43 @@
 // [B, Skv, Hkv, D] bf16; lse, delta [B, Hq, Sq] fp32. delta is
 // rowsum(dO * O) minus the lse cotangent, computed by the caller.
 //
-// Which shapes take which kernel. B1 at head_dim 64, 128, 192 and 256, any
-// group, takes flash_fwd_wgmma_kernel (wgmma fed by a TMA ring; its note is
-// at the kernel): a group whose HB = min(G, rows) heads do not divide the
-// block's rows (128; 192 at head_dim 64) and G leaves padding rows (b14's 5
-// x 25 of 128, b100's 10 x 12, b200's 12 x 10). B2 at head_dim 64 and 128,
-// any group (padding rows likewise), takes flash_bwd_dq_wgmma_kernel; B3 at
-// head_dim 64 and 128 flash_bwd_dkv_wgmma_kernel and at 192 and 256
-// flash_bwd_dkv_wgmma_hd256_kernel (wgmma over a TMA ring; their notes are
-// at the kernels). B2 at head_dim 192 and 256 takes the mma.sync
-// flash_bwd_dq_kernel, and head_dim above 256 the 64-column slice kernels.
-// Which kernel runs is decided by the shape alone, in the entry points.
+// Which shapes take which kernel. At head_dim 64, 128, 192 and 256, any
+// group, every kernel is wgmma fed by a TMA ring (their notes are at the
+// kernels): B1 flash_fwd_wgmma_kernel and B2 flash_bwd_dq_wgmma_kernel,
+// where a group whose HB = min(G, rows) heads do not divide the block's
+// rows (128; B1's 192 at head_dim 64) and G leaves padding rows (b14's 5 x
+// 25 of 128, b100's 10 x 12, b200's 12 x 10); B3 flash_bwd_dkv_wgmma_kernel
+// at 64 and 128 and flash_bwd_dkv_wgmma_hd256_kernel at 192 and 256. Above
+// head_dim 256 the 64-column slice kernels take every shape. Which kernel
+// runs is decided by the shape alone, in the entry points.
 //
-// Products of the mma.sync kernels (B2 at head_dim 192 and 256, and the
-// slice kernels). Every matrix product is a warp-level mma.sync m16n8k16
-// (bf16 in, fp32 accumulate). Each warp owns 16 rows of its output; the
-// accumulators stay in registers in the instruction's documented fragment
-// layout (thread lane holds rows lane/4 and lane/4 + 8, columns
-// 2*(lane%4) + {0, 1} of each 8-column tile), so the softmax statistics of
-// a row live in the 4 threads of a quad and P / dS go from the score
-// accumulators straight into A fragments without touching shared memory.
-// Tiles are staged in shared memory with 16-byte loads; rows are padded by
-// 8 bf16 so the fragment loads are free of bank conflicts.
-//
-// flash_bwd_dq_kernel (B2) and the forward and dQ slice kernels: one block
-// of 8 warps per (batch, kv head, q tile, head chunk). The block holds 128
-// (q head, position) rows: HB = min(G, 128) q heads of the GQA group times
-// P = 128 / HB positions (row r is head r / P at position q0 + r % P), so
-// each K/V tile staged in shared memory serves every head of the block
-// (the TPU grid ran one q head per step and fetched each K/V block once
-// per q head). Every row carries its own head and position, so any group
-// size tiles: G = 3 gives 3 x 42 rows and 2 padding rows; rows past the
-// group or past Sq are staged as zeros and never stored. The loop over K/V
-// tiles (64 rows, 32 above head_dim 128 to keep the accumulators in
-// registers) inside the block stands in for the TPU's sequential kv grid
-// axis; it starts at the window's band (the TPU's _kv_block_offset) and
-// stops at the diagonal (the TPU's _block_needed), and each element is
-// masked as the TPU's _band_mask does; a partial last K/V tile is staged
-// with zeros and masked past Skv. The dK/dV slice kernel: one block of 4
-// warps per (batch, kv head, 64-row kv tile, 64-column slice) looping over
-// the group's q heads and the band's 32-row q tiles, the GQA group reduced
-// in its fp32 registers (no [B, Hq, S, D] fp32 buffer, no atomics; the TPU
-// path wrote per-q-head fp32 dK/dV and summed the group afterwards), as
-// every B3 kernel here does.
+// The slice kernels (head_dim above 256, which no preset of either package
+// uses) are the first, mma.sync designs. Every matrix product is a
+// warp-level mma.sync m16n8k16 (bf16 in, fp32 accumulate). Each warp owns
+// 16 rows of its output; the accumulators stay in registers in the
+// instruction's documented fragment layout (thread lane holds rows lane/4
+// and lane/4 + 8, columns 2*(lane%4) + {0, 1} of each 8-column tile), so
+// the softmax statistics of a row live in the 4 threads of a quad and P /
+// dS go from the score accumulators straight into A fragments without
+// touching shared memory. Tiles are staged in shared memory with 16-byte
+// loads; rows are padded by 8 bf16 so the fragment loads are free of bank
+// conflicts. The forward and dQ slice kernels: one block of 8 warps per
+// (batch, kv head, q tile, head chunk, 64-column slice) over 128 (q head,
+// position) rows: HB = min(G, 128) q heads of the GQA group times P = 128 /
+// HB positions (row r is head r / P at position q0 + r % P), so each K/V
+// tile staged in shared memory serves every head of the block (the TPU
+// grid ran one q head per step and fetched each K/V block once per q
+// head); rows past the group or past Sq are staged as zeros and never
+// stored. The loop over 64-row K/V tiles inside the block stands in for
+// the TPU's sequential kv grid axis; it starts at the window's band (the
+// TPU's _kv_block_offset) and stops at the diagonal (the TPU's
+// _block_needed), and each element is masked as the TPU's _band_mask does;
+// a partial last K/V tile is staged with zeros and masked past Skv. The
+// dK/dV slice kernel: one block of 4 warps per (batch, kv head, 64-row kv
+// tile, 64-column slice) looping over the group's q heads and the band's
+// 32-row q tiles, the GQA group reduced in its fp32 registers (no [B, Hq,
+// S, D] fp32 buffer, no atomics; the TPU path wrote per-q-head fp32 dK/dV
+// and summed the group afterwards), as every B3 kernel here does.
 //
 // Shapes: any head_dim that is a multiple of 64 (a template each for 64,
 // 128, 192 and 256; above 256 the 64-column slice kernels at the end of
@@ -77,10 +69,11 @@
 // 16, 64], k/v [16, 2048, 8, 64]) B1 does ~137.5 GFLOP (~0.139 ms); at
 // debug_200m's (q [8, 2048, 12, 64], k/v [8, 2048, 4, 64]) B2 does ~77
 // GFLOP (~0.078 ms), and its padding rows (2 of 128) add 1.6% to the
-// products' work. The mma.sync kernels reach well under half of the wgmma
-// peak and load tiles synchronously: 3-12% of their bounds (PERF.md); the
-// wgmma kernels replaced them for B1 at every group and head_dim up to 256,
-// for B2 at head_dim 64 and 128, and for B3 at every head_dim up to 256.
+// products' work; at debug_300m's (q [16, 1024, 4, 192], k/v [16, 1024, 2,
+// 192]) B2 does ~38.7 GFLOP (~0.039 ms). The mma.sync kernels reached well
+// under half of the wgmma peak and loaded tiles synchronously: 3-12% of
+// their bounds (PERF.md); the wgmma kernels replaced them at every group
+// and head_dim up to 256.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -107,10 +100,6 @@ constexpr int kTileKv3 = kWarps3 * 16;   // kv rows per B3 block
 constexpr int kTileQ3 = 32;              // q rows per B3 loop step
 constexpr int kPad = 8;                  // bf16 padding per shared row
 constexpr float kNegInf = -1e30f;        // the TPU kernels' NEG_INF
-
-// K/V rows per tile of the mma.sync B2 kernel.
-template <int D>
-__host__ __device__ constexpr int tile_kv() { return D <= 128 ? 64 : 32; }
 
 __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
   __nv_bfloat162 v;
@@ -623,114 +612,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 // ---------------------------------------------------------------------------
-// B2: dQ
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv, int causal,
-                    int window, float scale) {
-  constexpr int LD = D + kPad;
-  constexpr int TK = tile_kv<D>();
-  extern __shared__ uint4 smem_u4[];
-  bf16* q_sm = reinterpret_cast<bf16*>(smem_u4);  // [kRows][LD]
-  bf16* do_sm = q_sm + kRows * LD;                 // [kRows][LD]
-  bf16* k_sm = do_sm + kRows * LD;                 // [TK][LD]
-  bf16* v_sm = k_sm + TK * LD;                     // [TK][LD]
-
-  const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
-  const Rows rows = block_rows(Hq / Hkv, hk, blockIdx.z);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = warp * 16;
-  const int row[2] = {wr + g, wr + g + 8};
-  const int qpos[2] = {rows.pos(row[0]), rows.pos(row[1])};
-  const bf16* q_w = q_sm + wr * LD;
-  const bf16* do_w = do_sm + wr * LD;
-
-  stage_group<D>(q_sm, q, b, Sq, Hq, D, 0, rows, tid);
-  stage_group<D>(do_sm, dout, b, Sq, Hq, D, 0, rows, tid);
-  float lse_r[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (!rows.valid(row[r], Sq)) continue;
-    const size_t i = (static_cast<size_t>(b) * Hq + rows.head(row[r])) * Sq + qpos[r];
-    lse_r[r] = lse[i];
-    delta_r[r] = delta[i];
-  }
-
-  int kv_begin, kv_end;
-  kv_range<TK>(rows.q0, min(rows.q0 + rows.P, Sq) - 1, Skv, causal, window, kv_begin, kv_end);
-  const size_t kv_ld = static_cast<size_t>(Hkv) * D;
-  const bf16* k_bh = k + (static_cast<size_t>(b) * Skv * Hkv + hk) * D;
-  const bf16* v_bh = v + (static_cast<size_t>(b) * Skv * Hkv + hk) * D;
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += TK) {
-    __syncthreads();
-    stage<D>(k_sm, k_bh + kv0 * kv_ld, kv_ld, TK, Skv - kv0, tid, kThreads);
-    stage<D>(v_sm, v_bh + kv0 * kv_ld, kv_ld, TK, Skv - kv0, tid, kThreads);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T.
-    float s[TK / 8][4], dp[TK / 8][4];
-#pragma unroll
-    for (int n = 0; n < TK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const AFrag aq = a_rows(q_w, LD, kk, lane);
-      const AFrag ado = a_rows(do_w, LD, kk, lane);
-#pragma unroll
-      for (int n = 0; n < TK / 8; ++n) {
-        uint32_t b0, b1;
-        b_rows(k_sm, LD, n, kk, lane, b0, b1);
-        mma(s[n], aq.r[0], aq.r[1], aq.r[2], aq.r[3], b0, b1);
-        b_rows(v_sm, LD, n, kk, lane, b0, b1);
-        mma(dp[n], ado.r[0], ado.r[1], ado.r[2], ado.r[3], b0, b1);
-      }
-    }
-    // dS = P * (dP - delta) * scale, P recomputed from lse.
-    ds_step<TK>(s, dp, lse_r, delta_r, qpos, kv0, t, Skv, causal, window, scale);
-    // dQ += bf16(dS) K.
-#pragma unroll
-    for (int j = 0; j < TK / 16; ++j) {
-      const AFrag a = a_acc(s[2 * j], s[2 * j + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b0, b1;
-        b_cols(k_sm, LD, j, n, lane, b0, b1);
-        mma(acc[n], a.r[0], a.r[1], a.r[2], a.r[3], b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (!rows.valid(row[r], Sq)) continue;
-    bf16* out = dq + ((static_cast<size_t>(b) * Sq + qpos[r]) * Hq + rows.head(row[r])) * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(out + n * 8) =
-          __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// B2 and B3 on Hopper: wgmma fed by a TMA ring (head_dim 64 and 128)
+// B2 (head_dim 64-256) and B3 (head_dim 64 and 128) on Hopper: wgmma fed by
+// a TMA ring
 // ---------------------------------------------------------------------------
 // Bound: operations (B2 6 and B3 8 flops per head_dim per attended (q, k)
 // pair: 0.0521 and 0.0695 ms at the b1 training shape, 0.209 and 0.278 ms
-// at the flagship MoE shape, at 989 TFLOP/s). Each block runs two consumer
+// at the flagship MoE shape, B2 0.0391 ms at debug_300m's micro-batch (q
+// [16, 1024, 4, 192]), at 989 TFLOP/s). Each block runs two consumer
 // warpgroups; each runs its two score products by wgmma from shared memory
 // and its gradient product(s) by wgmma with the A operand from registers,
 // and leaves a step's gradient products in flight under its next step's
@@ -739,16 +627,25 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 //   thread at 12 warps (3 a scheduler) with or without setmaxnreg, which
 //   spilled B3's two head_dim-128 fp32 accumulators (64 + 64 a thread) and
 //   serialized the wgmmas once a product stayed in flight. At 8 warps every
-//   thread may hold 255. Thread 0 also issues the loads: at step j it
-//   refills the stage of step j - 2 (released by both warpgroups at step
-//   j - 1) with step j + 2, so one warpgroup may run a step ahead.
+//   thread may hold 255. Thread 0 also issues the loads. A warpgroup
+//   releases step j's stage at step j + 1, once the gradient product that
+//   read it has completed; at step j the producer refills the stage of step
+//   j - kLag (released by both warpgroups) with step j - kLag + kStages. B3
+//   and B2 at head_dim 64/128 (4 stages) take kLag 2: the stage was
+//   released a step earlier, so one warpgroup may run a step ahead of the
+//   other. B2 at 192 and 256 (2 and 3 stages) take kLag 1 (the rule of the
+//   head_dim-192/256 B3 kernel below): the producer first releases step j -
+//   1 itself, then waits for the other warpgroup to release it. Measured
+//   (PERF.md): kLag 1 at 4 stages ran B2 4-12% slower at head_dim 64/128,
+//   and kLag 2 over head_dim 256's 3 stages no faster than kLag 1.
 // - Every tile is a 128-byte-swizzled [D / 64][rows] stack of 64 x 64 boxes
-//   (a row's 64-column chunks one rows-tall stack apart). Used K-major (the
-//   reduction over D) a tile is an A or B operand with SBO 1024; the same
-//   bytes used MN-major (the reduction over rows, N over D) are a B operand
-//   with LBO = one stack (rows x 128 bytes) and SBO 1024, a k step 16 rows
-//   (2048 bytes). So one copy serves both products: K in B2 (S = Q K^T,
-//   dQ += dS K), Q and dO in B3 (S^T = K Q^T, dK += dS^T Q).
+//   (a row's 64-column chunks one rows-tall stack apart; 32-row tiles at
+//   B2's head_dim 256 stack 32 x 64 boxes). Used K-major (the reduction over
+//   D) a tile is an A or B operand with SBO 1024; the same bytes used
+//   MN-major (the reduction over rows, N over D) are a B operand with LBO =
+//   one stack (rows x 128 bytes) and SBO 1024, a k step 16 rows (2048
+//   bytes). So one copy serves both products: K in B2 (S = Q K^T, dQ += dS
+//   K), Q and dO in B3 (S^T = K Q^T, dK += dS^T Q).
 // - P = 2^(S c - lse log2 e), c = scale log2 e: one FFMA and ex2 per
 //   element. Tiles wholly inside every row's band skip the masks.
 // B2 (dQ): one block per (batch, kv head, q tile, head chunk) over 128
@@ -762,10 +659,21 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // lse or delta read, no store), and reach no other row, since a row of dQ
 // = dS K depends on its own row of dS alone. A group above 128 that 128
 // does not divide takes ceil(G / 128) chunks, the last one's heads past
-// the group padding too. K/V tiles of 64 rows (128 at head_dim 64) through
-// the ring, from the window's band to the diagonal. Per tile: S = Q K^T
-// and dP = dO V^T (SS), P while dP runs, dS = P (dP - delta) scale in
-// registers, dQ += bf16(dS) K (RS, K MN-major).
+// the group padding too. K/V tiles through the ring, from the window's
+// band to the diagonal: 128 rows at head_dim 64, 64 at 128 and 192, 32 at
+// 256. Per tile: S = Q K^T and dP = dO V^T (SS, N = the tile's rows), P
+// while dP runs, dS = P (dP - delta) scale in registers, dQ += bf16(dS) K
+// (RS, K MN-major, N = D). At head_dim 192 and 256 the full-width dQ
+// accumulator (96 or 128 fp32 a thread) stays in each warpgroup, and
+// shared memory sets the tile: Q and dO for 128 rows take 96 or 128 KB of
+// the block's 227, which leaves 2 stages of 64-row K/V tiles at 192 (48 KB
+// a stage) and 3 stages of 32-row tiles at 256 (32 KB a stage; a 64-row
+// stage would be 64 KB, and two do not fit). A thread then holds the dQ
+// accumulator, one tile's S and dP (TK / 2 each) and the last tile's bf16
+// dS (TK / 4) while that dQ product runs: 176 registers at 192, 168 at 256.
+// The cost at 256: the score products run m64n32k16, each reading 3 KB of
+// shared memory for 64 K flops. At 192, 4 stages of 32-row tiles (the same
+// bytes) ran 17% slower than 2 of 64 rows (PERF.md).
 // B3 (dK, dV): one block (or cluster, below) per (batch, kv head, 128 kv
 // rows), 64 per warpgroup, longest causal band first; K and V are loaded
 // once, and the
@@ -792,8 +700,11 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // then read by one warpgroup: twice the tile traffic).
 template <int D>
 struct BwdDq {
-  static constexpr int kTK = D <= 64 ? 128 : 64;  // kv rows per stage
-  static constexpr int kStages = 4;
+  // kv rows per stage, and stages: what shared memory leaves beside Q and dO.
+  static constexpr int kTK = D <= 64 ? 128 : D <= 192 ? 64 : 32;
+  static constexpr int kStages = D <= 128 ? 4 : D <= 192 ? 2 : 3;
+  static constexpr int kLag = kStages == 4 ? 2 : 1;  // the refill's (note above)
+  static constexpr int kBoxRows = kTK < 64 ? kTK : 64;  // rows of a K or V box
   static constexpr int kChunks = D / 64;
   static constexpr int kConsumers = 2;
   static constexpr int kRowsW = 64 * kConsumers;  // (q head, position) rows
@@ -803,6 +714,8 @@ struct BwdDq {
   static constexpr int kSmemBytes =
       1024 + 2 * kQBytes + kStages * kStageBytes + (2 * kStages + 1) * 8;
   static constexpr int kThreads = 128 * kConsumers;  // thread 0 also loads
+  static_assert(kSmemBytes <= 232448, "shared memory of one block");
+  static_assert(kLag >= 1 && kLag < kStages, "the refill loads a later step");
 };
 
 template <int D>
@@ -863,18 +776,28 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int tiles = kv_end > kv_begin ? (kv_end - kv_begin + TK - 1) / TK : 0;
 
   const bool producer = threadIdx.x == 0;
-  // K/V tile t into stage t % kStages.
+  // K/V tile t into stage t % kStages, in boxes of kBoxRows rows.
   auto load_tile = [&](int t) {
+    constexpr int kBox = F::kBoxRows;
     const int s = t % kStages, kv0 = kv_begin + t * TK;
     uint8_t* k_st = ring + s * F::kStageBytes;
     uint8_t* v_st = k_st + F::kTileBytes;
     mbar_arrive_expect_tx(&full[s], F::kStageBytes);
-    for (int rb = 0; rb < TK / 64; ++rb) {
+    for (int rb = 0; rb < TK / kBox; ++rb) {
       for (int c = 0; c < F::kChunks; ++c) {
-        const int off = c * TK * kSwizzleRowBytes + rb * kBoxBytes;
-        tma_load_4d(k_st + off, &map_k, &full[s], c * 64, hk, kv0 + rb * 64, b);
-        tma_load_4d(v_st + off, &map_v, &full[s], c * 64, hk, kv0 + rb * 64, b);
+        const int off = (c * TK + rb * kBox) * kSwizzleRowBytes;
+        tma_load_4d(k_st + off, &map_k, &full[s], c * 64, hk, kv0 + rb * kBox, b);
+        tma_load_4d(v_st + off, &map_v, &full[s], c * 64, hk, kv0 + rb * kBox, b);
       }
+    }
+  };
+  // At tile t: the stage of tile t - kLag, once both warpgroups released
+  // it, with tile t - kLag + kStages.
+  auto refill = [&](int t) {
+    constexpr int kLag = F::kLag;
+    if (producer && t >= kLag && t - kLag + kStages < tiles) {
+      mbar_wait(&empty[(t - kLag) % kStages], ((t - kLag) / kStages) & 1);
+      load_tile(t - kLag + kStages);
     }
   };
   if (producer) {
@@ -939,8 +862,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   // Tile t: S and dP as two wgmma groups; P while dP runs; dS; the dQ
   // product left in flight under the next tile's S and dP. A warpgroup
   // releases tile t's stage once its dQ product has completed (at tile
-  // t + 1); the producer thread refills the stage of tile t - 2 with tile
-  // t + 2, so the other warpgroup may run up to a tile behind.
+  // t + 1). The producer refills under the score products where the stage
+  // was released a tile earlier (kLag 2: the other warpgroup may run up to
+  // a tile behind), else right after releasing it itself (kLag 1).
   for (int t = 0; t < tiles; ++t) {
     const int s = t % kStages, kv0 = kv_begin + t * TK;
     mbar_wait(&full[s], (t / kStages) & 1);
@@ -967,14 +891,12 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                       desc_advance(v_b, (kk / 4) * TK * kSwizzleRowBytes + col));
     }
     wgmma_commit();
-    if (producer && t >= 2 && t + 2 < tiles) {
-      mbar_wait(&empty[(t - 2) % kStages], ((t - 2) / kStages) & 1);
-      load_tile(t + 2);
-    }
+    if constexpr (F::kLag > 1) refill(t);
     wgmma_wait<1>();  // the previous dQ product and S
     fence_regs(sc);
     fence_regs(acc);
     if (t > 0 && tid == 0) mbar_arrive(&empty[(t - 1) % kStages]);
+    if constexpr (F::kLag == 1) refill(t);
 
     // P = 2^(S c - lse log2 e) in place; masked only on tiles that some
     // row's band cuts or that run past Skv.
@@ -1964,22 +1886,6 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* 
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, void* dq, int B, int Sq, int Skv,
-                      int Hq, int Hkv, int causal, int window, float scale,
-                      cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * (2 * kRows + 2 * tile_kv<D>()) * (D + kPad);
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, smem);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<D><<<group_grid(B, Sq, Hq, Hkv), kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), Sq, Skv, Hq, Hkv, causal,
-      window, scale);
-  return cudaGetLastError();
-}
-
 template <int D, bool kPadRows>
 cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq, int B, int Sq,
@@ -1989,7 +1895,8 @@ cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const v
   const int G = Hq / Hkv, HB = G < F::kRowsW ? G : F::kRowsW, P = F::kRowsW / HB;
   CUtensorMap mq, mdo, mk, mv;
   if (!bshd_map(&mq, q, B, Sq, Hq, D, HB, P) || !bshd_map(&mdo, dout, B, Sq, Hq, D, HB, P) ||
-      !bshd_map(&mk, k, B, Skv, Hkv, D, 1, 64) || !bshd_map(&mv, v, B, Skv, Hkv, D, 1, 64)) {
+      !bshd_map(&mk, k, B, Skv, Hkv, D, 1, F::kBoxRows) ||
+      !bshd_map(&mv, v, B, Skv, Hkv, D, 1, F::kBoxRows)) {
     return cudaErrorInvalidValue;
   }
   const cudaError_t err = cudaFuncSetAttribute(
@@ -2137,25 +2044,18 @@ int lumina_flash_bwd_dq(const void* q, const void* k, const void* v, const void*
                         void* stream) {
   if (!shape_ok(B, Sq, Skv, Hq, Hkv, D)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // head_dim 64 and 128, any group: the wgmma kernel (with padding rows
-  // where the group does not divide its 128).
-  if (D == 64 || D == 128) {
-    const bool pad = !group_tiles(BwdDq<64>::kRowsW, Hq, Hkv);
-#define CALL(DD, PAD) \
+  // head_dim 64-256, any group: the wgmma kernel (with padding rows where
+  // the group does not divide its 128).
+  const bool pad = !group_tiles(BwdDq<64>::kRowsW, Hq, Hkv);
+#define LAUNCH(DD, PAD)                                                                  \
   launch_dq_wgmma<DD, PAD>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv, causal, window, \
                            scale, s)
-    const cudaError_t err = D == 64 ? (pad ? CALL(64, true) : CALL(64, false))
-                                    : (pad ? CALL(128, true) : CALL(128, false));
-#undef CALL
-    return static_cast<int>(err);
-  }
-#define CALL(DD)                                                                         \
-  launch_dq<DD>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv, causal, window, scale, \
-                s)
+#define CALL(DD) (pad ? LAUNCH(DD, true) : LAUNCH(DD, false))
   LUMINA_BY_DIM(D, CALL,
                 launch_dq_wide(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv, D, causal,
                                window, scale, s))
 #undef CALL
+#undef LAUNCH
 }
 
 int lumina_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,

@@ -215,6 +215,20 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 
 // d[64 x N] += A[64 x 16] B[16 x N] (bf16 in, fp32 accumulate).
 template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t desc_a,
+                                               uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
                                                uint64_t desc_b) {
   asm volatile(
@@ -292,8 +306,11 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
 
 template <int N, int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b) {
-  static_assert(N == 64 || N == 128 || N == 256, "wgmma widths instantiated here: 64, 128, 256");
-  if constexpr (N == 64) {
+  static_assert(N == 32 || N == 64 || N == 128 || N == 256,
+                "wgmma widths instantiated here: 32, 64, 128, 256");
+  if constexpr (N == 32) {
+    wgmma_m64n32k16<kTransA, kTransB>(d, desc_a, desc_b);
+  } else if constexpr (N == 64) {
     wgmma_m64n64k16<kTransA, kTransB>(d, desc_a, desc_b);
   } else if constexpr (N == 128) {
     wgmma_m64n128k16<kTransA, kTransB>(d, desc_a, desc_b);
@@ -410,6 +427,20 @@ __device__ __forceinline__ void wgmma_rs_m64n256k16(float (&d)[128], const uint3
 // The first k step of a fresh SS product: d = A B, d written only (its
 // old values are neither read nor kept live).
 template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_zero_m64n32k16(float (&d)[16], uint64_t desc_a,
+                                                       uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(0), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_ss_zero_m64n64k16(float (&d)[32], uint64_t desc_a,
                                                        uint64_t desc_b) {
   asm volatile(
@@ -452,8 +483,10 @@ __device__ __forceinline__ void wgmma_ss_zero_m64n128k16(float (&d)[64], uint64_
 template <int N, int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_ss_zero(float (&d)[N / 2], uint64_t desc_a,
                                               uint64_t desc_b) {
-  static_assert(N == 64 || N == 128, "SS widths with a zero scale: 64, 128");
-  if constexpr (N == 64) {
+  static_assert(N == 32 || N == 64 || N == 128, "SS widths with a zero scale: 32, 64, 128");
+  if constexpr (N == 32) {
+    wgmma_ss_zero_m64n32k16<kTransA, kTransB>(d, desc_a, desc_b);
+  } else if constexpr (N == 64) {
     wgmma_ss_zero_m64n64k16<kTransA, kTransB>(d, desc_a, desc_b);
   } else {
     wgmma_ss_zero_m64n128k16<kTransA, kTransB>(d, desc_a, desc_b);

@@ -4,7 +4,7 @@
     python scripts/bisect_kernels.py --parent DIR [--rounds 2]
         [--cases b1_decode,b1_decode_int8,b1_train,flagship_train,
                  debug200m_train,b14_group5_train,debug300m_train,
-                 gmm_train_wi,...]
+                 d256_train,gmm_train_wi,...]
 
 DIR holds another checkout of the repository (for example the parent
 commit, unpacked with `git archive`). The script builds
@@ -22,9 +22,10 @@ one card, in turns (parent, this, this, parent, ...), on the same inputs:
   (q [16, 2048, 16, 64], k/v [16, 2048, 8, 64], causal) and at
   debug_200m's (q [8, 2048, 12, 64], k/v [8, 2048, 4, 64], causal: a
   group of 3), at b14's attention (q [1, 4096, 40, 128], k/v [1, 4096, 8,
-  128], causal: a group of 5, padding rows in B1 and B2) and at
-  debug_300m's micro-batch (q [16, 1024, 4, 192], k/v [16, 1024, 2, 192],
-  causal: head_dim 192);
+  128], causal: a group of 5, padding rows in B1 and B2), at debug_300m's
+  micro-batch (q [16, 1024, 4, 192], k/v [16, 1024, 2, 192], causal:
+  head_dim 192) and at head_dim 256 (q [1, 2048, 8, 256], k/v [1, 2048, 2,
+  256], causal);
 - B4a (gmm, and with transpose_rhs) and B4b (tgmm) at the flagship MoE
   wi shape (65,536 rows, 65,100 kept over 8 experts, K 1024, N 5632) and
   wo shape (K 2816, N 1024), and B4a at the b1 decode wi shape (16 pair rows over 7 of 8 experts in a
@@ -242,7 +243,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--cases", default="b1_decode,b1_decode_int8,b1_train,"
                     "flagship_train,debug200m_train,b14_group5_train,"
-                    "debug300m_train,gmm_train_wi,gmm_train_wo,gmm_serve_wi",
+                    "debug300m_train,d256_train,gmm_train_wi,gmm_train_wo,"
+                    "gmm_serve_wi",
                     help="comma-separated subset of the cases to time")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
@@ -273,6 +275,7 @@ def main(argv=None) -> int:
                              20),
         "debug300m_train": (lambda: flash_calls(dev, 16, 1024, 4, 2, 192),
                             20),
+        "d256_train": (lambda: flash_calls(dev, 1, 2048, 8, 2, 256), 20),
         "gmm_train_wi": (lambda: gmm_calls(dev, *GMM_TRAIN_WI), 20),
         "gmm_train_wo": (lambda: gmm_calls(dev, *GMM_TRAIN_WO), 20),
         "gmm_serve_wi": (lambda: gmm_calls(dev, *GMM_SERVE_WI,

@@ -15,8 +15,10 @@ tests/test_ops.py runs it) on the same numpy inputs:
   divide 128 (3, 5, 6, 12, ...) leaves rows past HB P as padding, and a
   partial last chunk's heads past the group too: zero rows, never stored
   (every (head, position) is stored exactly once); K/V tiles of 64 rows
-  (128 at head_dim 64) from the window's band (aligned down) to the
-  diagonal;
+  (128 at head_dim 64, 32 at 256) from the window's band (aligned down) to
+  the diagonal; the ring that feeds them (stages and the producer's refill
+  rule, walked over every interleaving of the two warpgroups) and the
+  block's shared memory, per head_dim;
 - B3's blocks: 128 kv rows (64 a warpgroup), the q tiles of 64 rows (128
   at head_dim 64, taken 64 columns at a time) from the diagonal on to the
   window's far edge, every q head of the group, the GQA group summed in
@@ -62,7 +64,7 @@ TQ_HD = 64       # B3 at head_dim 192/256: q rows per step
 
 def tk(d):
     """B2: kv rows per tile."""
-    return 128 if d <= 64 else 64
+    return 128 if d <= 64 else 64 if d <= 192 else 32
 
 
 def tq(d):
@@ -372,7 +374,8 @@ def _tiles_inputs(name):
     return (q, k, v, do, lse, delta), args, grads
 
 
-@pytest.mark.parametrize("name", sorted(GEOMETRIES) + sorted(GROUP_GEOMETRIES))
+@pytest.mark.parametrize("name", sorted(GEOMETRIES) + sorted(GROUP_GEOMETRIES)
+                         + sorted(HD_GEOMETRIES))
 def test_dq_tiles_match_jax(name):
     inputs, args, (dq_j, _, _) = _tiles_inputs(name)
     counts = {"dq_interior": 0}
@@ -408,6 +411,139 @@ def test_dq_padding_rows_never_store(g):
             assert ((head[ok] >= hk * g) & (head[ok] < (hk + 1) * g)).all()
             stored[pos[ok], head[ok] - hk * g] += 1
         assert (stored == 1).all(), (g, sq)
+
+
+# B2's ring by head_dim, as BwdDq<D> sets it: (kv rows a tile, stages, the
+# refill's lag). At tile t the producer (thread 0, in warpgroup 0) refills
+# the stage of tile t - lag, once both warpgroups have released it, with
+# tile t - lag + stages; with lag 1 it first releases tile t - 1 itself.
+DQ_RING = {64: (128, 4, 2), 128: (64, 4, 2), 192: (64, 2, 1), 256: (32, 3, 1)}
+SMEM_BYTES = 232448  # shared memory one block may take on an H100
+
+
+def dq_smem_bytes(d):
+    """BwdDq<D>::kSmemBytes: alignment slack, Q and dO for 128 rows, the
+    ring of K/V stages, the mbarriers."""
+    tile, stages, _ = DQ_RING[d]
+    return 1024 + 2 * ROWS_DQ * d * 2 + stages * 2 * tile * d * 2 + (2 * stages + 1) * 8
+
+
+def dq_ring_program(wg, tiles, stages, lag, refill_of=None):
+    """One warpgroup's ring actions, in the kernel's order after the block
+    barrier (the producer's first min(tiles, stages) loads come before it):
+    per tile t, wait for its stage to be full; the producer's refill before
+    the release where lag > 1 (under the score products), after it where
+    lag is 1; release tile t - 1's stage (its dQ product has completed).
+    refill_of(t) -> (tile waited for, tile loaded) or None overrides the
+    kernel's rule."""
+    def refill(t):
+        if refill_of is not None:
+            pair = refill_of(t)
+            return [] if pair is None else [("wait_empty", pair[0]), ("load", pair[1])]
+        if t >= lag and t - lag + stages < tiles:
+            return [("wait_empty", t - lag), ("load", t - lag + stages)]
+        return []
+
+    prog = []
+    for t in range(tiles):
+        prog.append(("wait_full", t))
+        if wg == 0 and lag > 1:
+            prog += refill(t)
+        if t > 0:
+            prog.append(("release", t - 1))
+        if wg == 0 and lag == 1:
+            prog += refill(t)
+    return prog
+
+
+def dq_ring_faults(tiles, stages, lag, refill_of=None):
+    """Walk every interleaving of the two warpgroups' ring actions. ->
+    the faults found (empty where the schedule holds): a tile loaded twice
+    or never, a load into a stage not released by both warpgroups or still
+    read, a tile read after its stage was overwritten, a deadlock."""
+    progs = [dq_ring_program(w, tiles, stages, lag, refill_of) for w in (0, 1)]
+    first = tuple(range(min(tiles, stages)))
+    faults, seen = set(), set()
+    stack = [((0, 0), first)]
+    while stack:
+        pcs, loads = stack.pop()
+        if (pcs, loads) in seen:
+            continue
+        seen.add((pcs, loads))
+        done = [progs[w][:pcs[w]] for w in (0, 1)]
+        released = [{t for a, t in done[w] if a == "release"} for w in (0, 1)]
+        reading = [{t for a, t in done[w] if a == "wait_full"} - released[w]
+                   for w in (0, 1)]
+        held = {}  # stage -> the tile last loaded into it
+        for t in loads:
+            held[t % stages] = t
+        moved = False
+        for w in (0, 1):
+            if pcs[w] == len(progs[w]):
+                continue
+            act, t = progs[w][pcs[w]]
+            if act == "wait_full" and t not in loads:
+                continue
+            if act == "wait_empty" and not all(t in r for r in released):
+                continue
+            nxt = loads
+            if act == "load":
+                if t in loads:
+                    faults.add(f"tile {t} loaded twice")
+                old = t - stages
+                if old >= 0 and not all(old in r for r in released):
+                    faults.add(f"tile {t} into a stage not released by both")
+                if any(old in r for r in reading):
+                    faults.add(f"tile {t} over tile {old} while it is read")
+                nxt = loads + (t,)
+            if act in ("wait_full", "release") and held.get(t % stages) != t:
+                faults.add(f"tile {t} read after its stage was overwritten")
+            moved = True
+            stack.append(((pcs[0] + (w == 0), pcs[1] + (w == 1)), nxt))
+        if not moved and pcs != (len(progs[0]), len(progs[1])):
+            faults.add(f"deadlock at {pcs}")
+        if pcs == (len(progs[0]), len(progs[1])) and sorted(loads) != list(range(tiles)):
+            faults.add(f"tiles loaded {sorted(loads)}")
+    return faults
+
+
+@pytest.mark.parametrize("d", sorted(DQ_RING))
+def test_dq_ring_refill_schedule(d):
+    """B2's producer at each head_dim's (tile, stages, lag), 0-9 tiles:
+    every tile loaded exactly once, each into a stage that both warpgroups
+    have released and no one still reads, no deadlock; and the model
+    catches the rule the kernel had before its stage count varied (at tile
+    t refill tile t - 2's stage with tile t + 2), which holds at 4 stages
+    only."""
+    tile, stages, lag = DQ_RING[d]
+    assert tile == tk(d)
+    for tiles in range(10):
+        assert not dq_ring_faults(tiles, stages, lag), (d, tiles)
+    def four_stage_rule(t):
+        return (t - 2, t + 2) if t >= 2 and t + 2 < 9 else None
+    assert not dq_ring_faults(9, 4, 2, four_stage_rule)
+    if stages != 4:
+        assert dq_ring_faults(9, stages, 2, four_stage_rule)
+
+
+@pytest.mark.parametrize("d", sorted(DQ_RING))
+def test_dq_block_fits_shared_memory_and_registers(d):
+    """BwdDq<D>: shared memory at or under the H100's 232,448 bytes a
+    block; K/V boxes of whole 8-row swizzle groups that tile the stage; and
+    per thread the dQ accumulator (D / 2 fp32), one tile's S and dP (TK / 2
+    each) and the last tile's bf16 dS (TK / 4), live together while that dQ
+    product runs: at most head_dim 64's 192 (which compiles without a
+    spill) of the 255 registers a thread may hold."""
+    tile, stages, _ = DQ_RING[d]
+    assert dq_smem_bytes(d) <= SMEM_BYTES, dq_smem_bytes(d)
+    box = min(tile, 64)
+    assert tile % box == 0 and box % 8 == 0
+    assert tile in (32, 64, 128)  # the SS wgmma widths hopper.cuh has
+    assert d // 2 + tile + tile // 4 <= 192
+    # One more stage would not fit at head_dim 192 and 256.
+    if d > 128:
+        over = dq_smem_bytes(d) + 2 * tile * d * 2 + 16
+        assert over > SMEM_BYTES
 
 
 @pytest.mark.parametrize("split", [1, 2])

@@ -121,6 +121,12 @@ CASES = {
     "window40_g4_d256_s137": (1, 137, 4, 1, 256, True, 40),
     "causal_g2_d192_s2048": (4, 2048, 4, 2, 192, True, 0),
     "causal_g2_d256_s2048": (2, 2048, 8, 4, 256, True, 0),
+    # The wgmma B2 at head_dim 192 and 256 (2 stages of 64-row K/V tiles,
+    # 3 of 32-row tiles): a non-causal Skv that is no multiple of either
+    # beside a shorter Sq, and a group above 128 rows at 192 (a second head
+    # chunk of one head, the rest padding).
+    "noncausal_g2_d256_s137_skv200": (1, 137, 4, 2, 256, False, 0, 200),
+    "causal_g129_d192_s64": (1, 64, 129, 1, 192, True, 0),
 }
 
 
