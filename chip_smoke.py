@@ -268,9 +268,34 @@ Phases (any failure raises and exits non-zero):
              memory lower by at least 80% of the moments' bytes; step
              times beside each other. `--only pipe` runs it alone.
 
+ 18. a7      the A5 leftovers, after phase 17. (a) Soft-prompt tuning at
+             b1's widths, all 16 layers, no experts, seeded bf16 weights:
+             P = 128 virtual tokens (random rows of the embedding table)
+             before 4 x 1920 real tokens (S + P = 2048, flash-eligible),
+             `make_prompt_tuning_step` 3 Adam steps on one repeated batch:
+             B1 2 x 16, B2 = B3 16 a step exactly; the first step's loss
+             within LOSS_RTOL and the prompt gradient's norm within
+             GRAD_NORM_RTOL of the same step through the plain attention;
+             the base parameters' sha256 unchanged and no base gradient;
+             the loss falling; step ms. (b) Trainer on phase 6's flagship
+             widths at MESH_LAYERS layers (gmm): steps_per_epoch 2 x
+             num_epochs 2 over a 2-batch loader (final_step 4, epochs 2),
+             the first step under the FLOP counter
+             (compiled_cost_analysis: counted against analytic FLOPs, the
+             kernels' own counts, peak memory, the in-place audit), a
+             profiling window over steps [2, 4) whose torch.profiler trace
+             and attribution.jsonl must exist, attribute time to
+             attn_flash_kernels, moe_expert_matmul and ce_loss, and sum to
+             the trace's card busy time within 2%; summary["slo"]; exact
+             B1-B4 launches. (c) Through cli.main in process: `diagnose
+             --preset b1` (exit 0, the card named as nvidia-smi names it;
+             its probes on a one-rank NCCL group), `report training --dir`
+             on (b)'s output (the HTML), `events --stats` over (b)'s flight
+             record. `--only a7` runs it after the build alone.
+
 `--only serve,plane,serve_moe` (development runs) runs the build, the
-kernel checks and the named phases only; its last line then says
-"partial".
+kernel checks and the named phases only (`--only a7` skips the kernel
+checks); its last line then says "partial".
 
 Earlier train phases write their checkpoints under chip_smoke_runs/ too,
 and the directory is removed when the script ends.
@@ -3128,8 +3153,22 @@ def _tensor_digest(tree: dict) -> str:
     for name in sorted(tree):
         t = tree[name].contiguous()
         h.update(name.encode() + b"\0" + str(t.dtype).encode())
-        h.update(t.view(-1).view(torch.uint8).numpy().tobytes())
+        h.update(t.view(-1).view(torch.uint8).numpy())  # no copy
     return h.hexdigest()
+
+
+def _digest_in_background(model) -> dict:
+    """_module_digest's value computed on a thread (sha256 releases the
+    interpreter lock) from a host copy taken now: {"thread", "digest"}."""
+    host = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    out: dict = {}
+
+    def run():
+        out["digest"] = _tensor_digest(host)
+
+    out["thread"] = threading.Thread(target=run, daemon=True)
+    out["thread"].start()
+    return out
 
 
 def runtime_child(argv: list) -> int:
@@ -6429,10 +6468,283 @@ def phase_groups(dev, entries: dict, b14: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the A5 leftovers (soft prompts, the trainer's profiling window,
+# epochs and SLO stack, diagnose / report / events)
+# ---------------------------------------------------------------------------
+# (a) Soft-prompt tuning at b1's widths (16 layers, dense): P virtual tokens
+# before BATCH x S real ones (S + P = 2048, flash-eligible), PROMPT_STEPS
+# Adam steps at PROMPT_LR on one repeated batch.
+PROMPT_P, PROMPT_S, PROMPT_BATCH = 128, 1920, 4
+PROMPT_STEPS, PROMPT_LR = 3, 1e-2
+# (b) The Trainer on the flagship MoE widths at MESH_LAYERS layers: epochs
+# of A7_EPOCH_STEPS batches, a profiling window of A7_PROFILE_STEPS steps
+# from step A7_PROFILE_START, the first step under the FLOP counter.
+A7_EPOCH_STEPS, A7_EPOCHS = 2, 2
+A7_PROFILE_START, A7_PROFILE_STEPS = 2, 2
+# The attributed self time a step must be within this share of the
+# trace's card busy time a step (kernels on one stream do not overlap).
+A7_BUSY_RTOL = 0.02
+
+
+def _prompt_tuning(dev, entries: dict) -> dict:
+    """(a): `make_prompt_tuning_step` at b1's widths on the card."""
+    import numpy as np
+    import torch
+
+    from luminaai_tpu_torch.config import ConfigPresets
+    from luminaai_tpu_torch.convert import init_params
+    from luminaai_tpu_torch.models.transformer import LuminaTransformer
+    from luminaai_tpu_torch.training import adapters
+
+    cfg = ConfigPresets.get("b1", use_moe=False)
+    t0 = time.perf_counter()
+    model = init_params(LuminaTransformer(cfg, device=dev), 0)
+    base = _digest_in_background(model)
+    t_built = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    prompt = adapters.init_soft_prompt(model, PROMPT_P, gen)
+    rng = np.random.RandomState(0)
+    ids = torch.as_tensor(rng.randint(1, cfg.vocab_size,
+                                      (PROMPT_BATCH, PROMPT_S)),
+                          dtype=torch.long, device=dev)
+    batch = {"input_ids": ids}
+    tx = adapters.adam(PROMPT_LR)
+    step = adapters.make_prompt_tuning_step(cfg, model, tx)
+    # The first step's loss and prompt gradient through the plain
+    # attention, on a copy of the prompt (the step updates in place).
+    cfg.use_flash_attention = False
+    try:
+        _, m = step((prompt.clone(), tx.init([prompt])), batch)
+        plain_loss, plain_norm = float(m["loss"]), float(m["grad_norm"])
+    finally:
+        cfg.use_flash_attention = True
+    del m
+    torch.cuda.empty_cache()
+    t_plain = time.perf_counter()
+    carry = (prompt, tx.init([prompt]))
+    _reset_counts()
+    hist = []
+    for _ in range(PROMPT_STEPS):
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
+        carry, m = step(carry, batch)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        hist.append({"loss": loss, "grad_norm": norm,
+                     "step_seconds": time.perf_counter() - t_step})
+    launches = _launch_counts()
+    t_steps = time.perf_counter()
+    L = cfg.num_layers
+    # B1 twice a layer (the forward and the remat recompute), B2 and B3 once.
+    want = {"B1": 2 * L * PROMPT_STEPS, "B2": L * PROMPT_STEPS,
+            "B3": L * PROMPT_STEPS, "B4a": 0, "B4b": 0}
+    ms = [h["step_seconds"] * 1e3 for h in hist]
+    log(f"a7 (a) soft prompt: b1 dense, {L} layers, P {PROMPT_P} + S "
+        f"{PROMPT_S} = {PROMPT_P + PROMPT_S} rows x {PROMPT_BATCH}; losses "
+        f"{[round(h['loss'], 5) for h in hist]}, prompt grad norms "
+        f"{[round(h['grad_norm'], 5) for h in hist]}, step ms "
+        f"{[round(x, 1) for x in ms]}; launches {launches} (want {want})")
+    if launches != want:
+        raise AssertionError("soft-prompt tuning did not run through B1-B3 "
+                             "as expected")
+    loss_err = abs(hist[0]["loss"] - plain_loss) / abs(plain_loss)
+    norm_err = abs(hist[0]["grad_norm"] - plain_norm) / abs(plain_norm)
+    log(f"  first step, kernels vs the plain attention: loss rel "
+        f"{loss_err:.2e} (tol {LOSS_RTOL}), prompt grad norm rel "
+        f"{norm_err:.2e} (tol {GRAD_NORM_RTOL})")
+    if loss_err > LOSS_RTOL or norm_err > GRAD_NORM_RTOL:
+        raise AssertionError("the soft-prompt step disagrees with the plain "
+                             "attention's")
+    if not all(map(math.isfinite, [h["loss"] for h in hist])) or not (
+            hist[-1]["loss"] < hist[0]["loss"]):
+        raise AssertionError("soft-prompt tuning: the loss did not fall")
+    grads = [n for n, p in model.named_parameters()
+             if p.requires_grad or p.grad is not None]
+    if grads:
+        raise AssertionError(f"the base model holds gradients: {grads[:3]}")
+    _add_launches(entries, launches, "launches_a7_prompt")
+    # The base's digest after the steps, hashed while (b) runs: the
+    # caller compares it with the one from before (`base`).
+    after = _digest_in_background(model)
+    del model, carry, step
+    _release()
+    log(f"  (a): built {t_built - t0:.1f} s, plain step "
+        f"{t_plain - t_built:.1f} s, {PROMPT_STEPS} steps "
+        f"{t_steps - t_plain:.1f} s, checks {time.perf_counter() - t_steps:.1f}"
+        f" s")
+    return {"losses": [h["loss"] for h in hist],
+            "grad_norms": [h["grad_norm"] for h in hist], "step_ms": ms,
+            "first_step_loss_plain": plain_loss,
+            "first_step_grad_norm_plain": plain_norm,
+            "launches": launches, "digests": (base, after)}
+
+
+def _same_base(digests) -> str:
+    """Wait for (a)'s two background digests; raise unless equal."""
+    for d in digests:
+        d["thread"].join()
+    before, after = (d["digest"] for d in digests)
+    log(f"a7 (a) base parameters' sha256 before and after the steps: "
+        f"{before[:16]}, {after[:16]}")
+    if before != after:
+        raise AssertionError("soft-prompt tuning moved the base parameters")
+    return before
+
+
+def _a7_trainer(dev, entries: dict) -> dict:
+    """(b): the Trainer with epochs, a profiling window, the SLO stack and
+    the first step's cost analysis, at the flagship widths."""
+    import torch
+
+    from luminaai_tpu_torch import cli
+    from luminaai_tpu_torch.config import Config
+    from luminaai_tpu_torch.training.trainer import Trainer
+
+    out_dir = RUN_DIR / "a7"
+    cfg = Config(**{**FLAGSHIP, "num_layers": MESH_LAYERS},
+                 **FLAGSHIP_LEVERS, num_epochs=A7_EPOCHS,
+                 profile_start_step=A7_PROFILE_START,
+                 profile_num_steps=A7_PROFILE_STEPS,
+                 compiled_cost_analysis=True, output_dir=str(out_dir),
+                 # A log boundary every step: router_health events for
+                 # (c)'s flight record.
+                 health_check_interval=10)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, cli._synthetic_batches(cfg,
+                                                  n_batches=A7_EPOCH_STEPS),
+                      device=dev, seed=0, steps_per_epoch=A7_EPOCH_STEPS)
+    t_built = time.perf_counter()
+    _reset_counts()
+    summary = trainer.train()
+    launches = _launch_counts()
+    t_train = time.perf_counter()
+    trainer._dump_flight_record("a7")
+    costs = trainer._compiled_costs or {}
+    ckpt_dir = str(trainer.checkpoints.dir)
+    trainer.close()
+    (out_dir / "training_summary.json").write_text(
+        json.dumps(cli._jsonable(summary), indent=2))
+    n = A7_EPOCH_STEPS * A7_EPOCHS
+    L, n_moe = cfg.num_layers, cfg.num_moe_layers()
+    want = {"B1": 2 * L * n, "B2": L * n, "B3": L * n, "B4a": 6 * n_moe * n,
+            "B4b": 2 * n_moe * n}
+    log(f"a7 (b) trainer: flagship widths at {L} layers, final_step "
+        f"{summary['final_step']}, epochs {summary['epochs']}, launches "
+        f"{launches} (want {want}); step ms "
+        f"{[round(h['step_seconds'] * 1e3, 1) for h in summary['history']]}")
+    if (summary["final_step"], summary["epochs"]) != (n, A7_EPOCHS):
+        raise AssertionError("the trainer did not stop after its epochs")
+    if launches != want:
+        raise AssertionError("the trainer's steps did not run through the "
+                             "kernels as expected")
+    if "slo" not in summary:
+        raise AssertionError("the trainer's summary carries no SLO verdicts")
+    prof_dir = out_dir / "profile"
+    traces = sorted(p.name for p in prof_dir.glob("*.pt.trace.json"))
+    records = (prof_dir / "attribution.jsonl").read_text().splitlines()
+    rec = json.loads(records[-1])
+    subs = {k: v["ms_per_step"] for k, v in rec["subsystems"].items()}
+    busy = rec["device_busy_ms_per_step"]
+    total = rec["total_ms_per_step"]
+    log(f"  profile window: {traces}, n_steps {rec['n_steps']}, attributed "
+        f"{total:.3f} ms a step against {busy:.3f} ms busy; subsystems "
+        f"(ms a step) {subs}")
+    for o in rec["top_ops"][:5]:
+        log(f"    {o['ms_per_step']:8.3f} ms  {o['fw_name']}")
+    if traces != [f"steps{A7_PROFILE_START}-"
+                  f"{A7_PROFILE_START + A7_PROFILE_STEPS}.pt.trace.json"] or (
+            rec["n_steps"] != A7_PROFILE_STEPS):
+        raise AssertionError("the profiling window wrote no trace of its "
+                             "steps")
+    for name in ("attn_flash_kernels", "moe_expert_matmul", "ce_loss"):
+        if not subs.get(name, 0) > 0:
+            raise AssertionError(f"the window attributes nothing to {name}")
+    if not busy > 0 or abs(total - busy) > A7_BUSY_RTOL * busy:
+        raise AssertionError("the attributed time is not the card's busy "
+                             "time")
+    xc = costs.get("mfu_crosscheck") or {}
+    mem = costs.get("memory") or {}
+    audit = costs.get("donation_audit") or {}
+    log(f"  first step under the FLOP counter: counted "
+        f"{xc.get('compiled_flops_per_step', 0):.4e} FLOPs (aten "
+        f"{(costs.get('cost_model') or {}).get('aten_flops', 0):.4e}, "
+        f"kernels {(costs.get('cost_model') or {}).get('kernel_flops')}), "
+        f"analytic 6NT {xc.get('analytic_flops_per_step', 0):.4e}, "
+        f"divergence {xc.get('divergence')} (flagged {xc.get('flagged')}); "
+        f"peak {mem.get('peak_bytes', 0) / 1e9:.2f} GB; in-place coverage "
+        f"{audit.get('coverage')}")
+    if not costs.get("available") or xc.get("divergence") is None:
+        raise AssertionError("the first step's cost analysis is missing")
+    if set((costs.get("cost_model") or {}).get("kernel_flops") or {}) != {
+            "B1", "B2", "B3", "B4a", "B4b"}:
+        raise AssertionError("the kernels reported no FLOPs to the counter")
+    _add_launches(entries, launches, "launches_a7_trainer")
+    _release()
+    log(f"  (b): built {t_built - t0:.1f} s, trained {t_train - t_built:.1f}"
+        f" s (goodput {summary['goodput'].get('seconds')}), checks and "
+        f"teardown {time.perf_counter() - t_train:.1f} s")
+    return {"summary_keys": sorted(summary), "launches": launches,
+            "attribution": rec, "costs": costs, "out_dir": str(out_dir),
+            "ckpt_dir": ckpt_dir,
+            "step_ms": [h["step_seconds"] * 1e3 for h in summary["history"]]}
+
+
+def _cli_capture(argv: list) -> tuple:
+    """(exit code, stdout) of the CLI's main, in this process."""
+    import contextlib
+    import io
+
+    from luminaai_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def phase_a7(dev, entries: dict) -> dict:
+    """Phase 18: (a) soft-prompt tuning at b1's widths, (b) the Trainer's
+    epochs, profiling window, attribution, SLO stack and cost analysis at
+    the flagship widths, (c) `diagnose`, `report training` and `events
+    --stats` through the CLI's main."""
+    smi = _smi()
+    t_phase = time.perf_counter()
+    out = {"prompt": _prompt_tuning(dev, entries)}
+    b = _a7_trainer(dev, entries)
+    out["prompt"]["base_sha256"] = _same_base(out["prompt"].pop("digests"))
+    out["trainer"] = {k: v for k, v in b.items() if k != "costs"}
+    out["trainer"]["divergence"] = (b["costs"].get("mfu_crosscheck")
+                                    or {}).get("divergence")
+    t_c = time.perf_counter()
+    rc, text = _cli_capture(["diagnose", "--preset", "b1"])
+    t_diag = time.perf_counter()
+    card = smi.split(",")[0].strip()
+    log(f"a7 (c) diagnose: exit {rc}; " + "; ".join(
+        ln.strip() for ln in text.splitlines()
+        if "device_kind" in ln or "mean_seconds" in ln
+        or "probe_seconds" in ln or "recommended" in ln)[:700])
+    if rc != 0 or card not in text:
+        raise AssertionError(f"diagnose failed or did not name {card!r}")
+    report = Path(b["out_dir"]) / "training_report.html"
+    rc_r, _ = _cli_capture(["report", "training", "--dir", b["out_dir"]])
+    rc_e, ev = _cli_capture(["events", "--stats", b["ckpt_dir"]])
+    log(f"  report exit {rc_r} ({report.stat().st_size if report.exists() else 0}"
+        f" bytes); events --stats exit {rc_e}: "
+        + " | ".join(ev.strip().splitlines()[:4]))
+    if rc_r != 0 or not report.exists() or rc_e != 0 or (
+            "router_health" not in ev):
+        raise AssertionError("report or events failed")
+    out["cli_s"] = time.perf_counter() - t_c
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"a7: phase wall {out['wall_s']:.1f} s (CLI part {out['cli_s']:.1f}"
+        f" s, diagnose {t_diag - t_c:.1f} s) ({smi})")
+    return out
+
+
 ALL_PHASES = ("serve", "plane", "serve_moe", "train", "train_moe",
               "runtime", "posttrain", "adaptive", "posttrain_moe",
               "train_tuned", "mod", "fleet", "quant", "mesh", "pipe",
-              "groups")
+              "groups", "a7")
 PHASES = set(ALL_PHASES)
 
 
@@ -6476,10 +6788,11 @@ def main() -> int:
         entry = phase_kernels(dev)
         entry_int8 = phase_kernels_int8(dev)
         flash_entries = phase_flash_kernels(dev) if not partial or (
-            PHASES - {"serve", "plane", "serve_moe", "fleet", "quant"}) else []
+            PHASES - {"serve", "plane", "serve_moe", "fleet", "quant",
+                      "a7"}) else []
         gmm_entries = phase_gmm_kernels(dev) if not partial or (
             PHASES - {"serve", "plane", "train", "runtime",
-                      "posttrain", "fleet", "quant"}) else []
+                      "posttrain", "fleet", "quant", "a7"}) else []
         if "serve" in PHASES:  # phase 3, and phase 10 ("plane") after it
             done["serve"] = phase_serve(dev, entry)
             _release()
@@ -6541,6 +6854,10 @@ def main() -> int:
             done["groups"] = phase_groups(dev, by_kernel, partial)
             shutil.rmtree(RUN_DIR / "groups_300m", ignore_errors=True)
             shutil.rmtree(RUN_DIR / "groups_b14", ignore_errors=True)
+            _release()
+        if "a7" in PHASES:
+            done["a7"] = phase_a7(dev, by_kernel)
+            shutil.rmtree(RUN_DIR / "a7", ignore_errors=True)
             _release()
         if "fleet" in PHASES:
             done["fleet"] = phase_fleet(dev, entry)

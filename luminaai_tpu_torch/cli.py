@@ -1,6 +1,6 @@
 """Command line of the port: `python -m luminaai_tpu_torch` with the
 subcommands serve, route, top, train, resume, data, finetune, evaluate,
-chat, convert, verify-checkpoint and presets.
+chat, convert, report, diagnose, events, verify-checkpoint and presets.
 
   python -m luminaai_tpu_torch train --preset b1 --dense \\
       --data corpus.jsonl --packed --steps 1000 --output-dir runs/b1
@@ -29,6 +29,13 @@ chat, convert, verify-checkpoint and presets.
       --kv-cache-dtype int8
   python -m luminaai_tpu_torch convert --checkpoint runs/b1 --to int8 \\
       --out runs/b1-int8
+  python -m luminaai_tpu_torch train --preset b1 --dense --synthetic \\
+      --steps 8 --profile-steps 2 --profile-start 4 --cost-analysis
+  python -m luminaai_tpu_torch report training --dir runs/b1
+  python -m luminaai_tpu_torch diagnose --preset b1
+  python -m luminaai_tpu_torch events --stats runs/b1/checkpoints
+  python -m luminaai_tpu_torch data acquire --in oasst_dump.jsonl \\
+      --out data/oasst
 
 The presets are mixture-of-experts models, as in the JAX package; --dense
 builds the preset's widths without experts. The model is built on the card
@@ -43,7 +50,17 @@ the model born sharded over the mesh (parallel/sharding.py) and only rank
 0 logs and writes. The orchestrator and the OOM ladder run over the mesh
 too: rank 0 decides, every rank applies.
 
-`train` takes the JAX CLI's flags that apply to one card. It runs under
+`train` takes the JAX CLI's flags. It prints the diagnostics banner and a
+time estimate at 40% of the card's dense bf16 peak (--quiet skips both);
+--epochs sets num_epochs (the Trainer gets no steps_per_epoch, as in the
+JAX CLI, so it runs --steps or the config's max_steps); --profile-steps N
+captures a torch.profiler trace of N steps from --profile-start (default
+3) into --profile-dir (default OUTPUT_DIR/profile) and attributes it per
+subsystem (attribution.jsonl beside the trace); --cost-analysis counts the
+first step's FLOPs and peak memory; --auto-hardware lays the mesh out for
+the detected cards (ConfigManager.optimize_for_hardware); --no-moe,
+--attention-window, --watchdog/--no-watchdog, --slo/--no-slo and
+--slo-config set their Config fields. It runs under
 the AdaptiveTrainingOrchestrator (training/orchestrator.py) unless given
 --no-adaptive, as the JAX CLI does: the orchestrator watches the loss,
 grad norm and router metrics at each log boundary and may change the LR,
@@ -65,8 +82,10 @@ newest step under DIR whose sha256 manifest verifies, with the model
 config saved in it.
 
 The post-training subcommands take the JAX CLI's flags. `data` blends,
-samples, converts, validates conversation files and trains a BPE
-vocabulary (host work; `acquire` needs the network and is not ported).
+samples, converts, validates conversation files, trains a BPE vocabulary
+and acquires OASST (`acquire --in DUMP` processes a local raw dump into
+chat-format shards offline; without --in it tries the `datasets`
+download and exits 1 where that or the network is missing).
 `finetune` LoRA-tunes a checkpoint's fp32 weights with the base frozen
 (training/adapters.py) and writes the adapter as OUT/adapter.npz + .json
 (the JAX format); --merge-out also writes base + adapter as a params-only
@@ -86,8 +105,8 @@ exports it as an int8 serving checkpoint, which serve and chat load
 as saved and finetune, evaluate and convert refuse; it quantizes on the
 card unless given --device.
 
-`serve` takes the JAX CLI's serving flags but --trace-jax
-(serving/server.py):
+`serve` takes the JAX CLI's serving flags (serving/server.py; --trace-jax
+mirrors every span as a torch.profiler range):
 continuous batching (or --no-continuous micro-batching over
 generate_batch), the radix prefix cache
 (--prefix-cache-pages), telemetry and spans, SLOs, the hang watchdog,
@@ -107,11 +126,22 @@ a non-positive --healthz-stale-after, and --secure with neither
 --user/--password nor a users.json exit 2 before any model load. `top`
 renders a server's /metrics/history and /slo or a router's /fleet table
 (--url), a tshist dump, or the live ring.
+
+`report training --dir RUN` and `report data FILES` write the JAX HTML
+reports (utils/reporting.py). `diagnose` probes the card in a subprocess
+(exit 1 without one, as JAX's exits when its backend probe fails), then
+prints the host, card and topology, a timed all-reduce over a one-rank
+mesh (or the job's), the expert all-to-all and gradient-reduce probes,
+the recommended preset and whether --preset fits. `events` queries
+flight-record dumps (flightrec-*.jsonl, or the directories holding them)
+or the live ring: --type, --grep, --request, --since, --tail, --json,
+--stats [--by tenant|request].
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import logging
@@ -124,7 +154,12 @@ from typing import Any, Dict, Iterator, List, Optional
 import numpy as np
 import torch.distributed as dist
 
-from luminaai_tpu_torch.config import Config, ConfigPresets, resolve_device
+from luminaai_tpu_torch.config import (
+    Config,
+    ConfigManager,
+    ConfigPresets,
+    resolve_device,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -186,9 +221,9 @@ def _quantizer_flags(p: argparse.ArgumentParser) -> None:
 
 
 def _serve_flags(sv: argparse.ArgumentParser) -> None:
-    """`serve`'s flags: the JAX CLI's (luminaai_tpu/cli.py serve) without
-    --trace-jax, plus the port's own model flags (--preset, --dense,
-    --moe-dispatch, --weights, --seed, --device)."""
+    """`serve`'s flags: the JAX CLI's (luminaai_tpu/cli.py serve), plus
+    the port's own model flags (--preset, --dense, --moe-dispatch,
+    --weights, --seed, --device)."""
     sv.add_argument("--preset", default="b1",
                     choices=ConfigPresets.available())
     sv.add_argument("--dense", action="store_true",
@@ -240,6 +275,10 @@ def _serve_flags(sv: argparse.ArgumentParser) -> None:
     sv.add_argument("--trace-jsonl", dest="trace_jsonl",
                     help="write request/prefill/stream spans to this "
                          "JSONL file (tracing is off without it)")
+    sv.add_argument("--trace-jax", dest="trace_jax", action="store_true",
+                    help="mirror spans as torch.profiler record_function "
+                         "ranges (visible when a profiler trace is "
+                         "captured; the JAX flag's name)")
     sv.add_argument("--latency-buckets", dest="latency_buckets",
                     help="comma-separated histogram bucket bounds in "
                          "seconds (default spans 0.5ms..30s)")
@@ -427,6 +466,55 @@ def _train_flags(t: argparse.ArgumentParser) -> None:
                         "config seed)")
     t.add_argument("--device", default=None,
                    help="torch device (default: the card)")
+    # The JAX CLI's (luminaai_tpu/cli.py:1728-1806, :1840).
+    t.add_argument("--epochs", type=int,
+                   help="num_epochs (recorded: the run takes --steps)")
+    t.add_argument("--no-moe", dest="no_moe", action="store_true",
+                   help="the preset without experts (as --dense)")
+    t.add_argument("--attention-window", dest="attention_window", type=int,
+                   help="sliding-window attention: attend to the last N "
+                        "positions only")
+    t.add_argument("--auto-hardware", dest="auto_hardware",
+                   action="store_true",
+                   help="lay the mesh out for the detected cards")
+    t.add_argument("--quiet", action="store_true",
+                   help="no diagnostics banner or time estimate")
+    prof = t.add_argument_group("performance attribution")
+    prof.add_argument("--profile-steps", dest="profile_steps", type=int,
+                      help="capture a torch.profiler trace of N steps and "
+                           "export the per-subsystem breakdown (gauges + "
+                           "attribution.jsonl)")
+    prof.add_argument("--profile-start", dest="profile_start", type=int,
+                      help="first profiled step (default 3: after the "
+                           "kernels' build)")
+    prof.add_argument("--profile-dir", dest="profile_dir",
+                      help="trace output dir (default OUTPUT_DIR/profile)")
+    prof.add_argument("--cost-analysis", dest="cost_analysis",
+                      action="store_true",
+                      help="count the first step's FLOPs and peak memory "
+                           "and cross-check them against 6NT")
+    wd = t.add_argument_group("hang watchdog")
+    wd.add_argument("--watchdog", dest="watchdog",
+                    action=argparse.BooleanOptionalAction, default=None,
+                    help="heartbeat hang detection over the train loop "
+                         "(default: on)")
+    wd.add_argument("--watchdog-abort", dest="watchdog_abort",
+                    action="store_true",
+                    help="exit 75 (resumable) after a confirmed hang is "
+                         "dumped")
+    wd.add_argument("--watchdog-k", dest="watchdog_k", type=float,
+                    help="threshold multiplier over the rolling median "
+                         "step window (default 10)")
+    wd.add_argument("--watchdog-floor", dest="watchdog_floor", type=float,
+                    help="minimum stall seconds before the watchdog fires "
+                         "(default 30)")
+    so = t.add_argument_group("SLO engine")
+    so.add_argument("--slo", dest="slo",
+                    action=argparse.BooleanOptionalAction, default=None,
+                    help="windowed history ring + burn-rate alerts over the "
+                         "default train objectives (default: on)")
+    so.add_argument("--slo-config", dest="slo_config",
+                    help="JSON file REPLACING the default objectives")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -526,7 +614,9 @@ def _parser() -> argparse.ArgumentParser:
     d.add_argument("--vocab-size", dest="vocab_size", type=int, default=4096,
                    help="train-tokenizer: target vocab (incl. 256 bytes)")
     d.add_argument("--max-per-file", dest="max_per_file", type=int,
-                   default=None, help="acquire (not ported)")
+                   default=None,
+                   help="acquire: records per shard (default: the config's "
+                        "max_conversations_per_file)")
 
     cv = sub.add_parser(
         "convert",
@@ -563,6 +653,49 @@ def _parser() -> argparse.ArgumentParser:
 
     ps = sub.add_parser("presets", help="list model presets")
     ps.add_argument("--json", action="store_true")
+
+    rp = sub.add_parser("report", help="HTML reports")
+    rp.add_argument("kind", choices=["training", "data"])
+    rp.add_argument("--dir", help="experiment dir (training report)")
+    rp.add_argument("--out")
+    rp.add_argument("inputs", nargs="*", help="jsonl files (data report)")
+
+    g = sub.add_parser("diagnose", help="system diagnostics")
+    g.add_argument("--preset", help="also check whether PRESET fits")
+    g.add_argument("--probe-timeout", type=int, default=90,
+                   help="seconds before the card's probe counts as hung")
+
+    ev = sub.add_parser(
+        "events",
+        help="query the wide-event flight recorder (flightrec-*.jsonl "
+             "dumps or the live buffer)",
+    )
+    ev.add_argument(
+        "paths", nargs="*",
+        help="dump files or directories holding flightrec-*.jsonl "
+             "(e.g. a checkpoint dir); default: the in-process buffer",
+    )
+    ev.add_argument("--tail", type=int, default=0,
+                    help="show only the last N matching events")
+    ev.add_argument("--grep", help="regex over the serialized record")
+    ev.add_argument("--type", dest="etype",
+                    help="only events of this type (e.g. request_admitted)")
+    ev.add_argument("--request", dest="request_id",
+                    help="only events of one request id: its full "
+                         "lifecycle")
+    ev.add_argument("--since", dest="since",
+                    help="only events at/after this floor: an epoch "
+                         "timestamp, or a duration ago with an s/m/h/d "
+                         "suffix (e.g. 90s, 5m, 2h)")
+    ev.add_argument("--stats", action="store_true",
+                    help="summarize instead of listing: count + rate per "
+                         "event type, first/last timestamps")
+    ev.add_argument("--by", dest="stats_by", choices=("tenant", "request"),
+                    help="with --stats: group the summary by identity, "
+                         "biggest burners first")
+    ev.add_argument("--json", action="store_true",
+                    help="one JSON record per line; with --stats, the "
+                         "summary as one JSON object")
     return p
 
 
@@ -689,15 +822,42 @@ def _train_config(args) -> Config:
         ("tp", "tensor_parallel_size"),
         ("ep", "expert_parallel_size"),
         ("sp", "sequence_parallel_size"),
+        ("epochs", "num_epochs"),
+        ("attention_window", "attention_window"),
+        ("profile_dir", "profile_dir"),
+        ("watchdog", "watchdog"),
+        ("watchdog_k", "watchdog_k"),
+        ("watchdog_floor", "watchdog_floor_s"),
+        ("slo", "slo"),
+        ("slo_config", "slo_config"),
     ]:
         val = getattr(args, flag)
         if val is not None:
             overrides[field] = val
     if args.no_flash:
         overrides["use_flash_attention"] = False
+    if args.no_moe:
+        overrides["use_moe"] = False
+    if args.cost_analysis:
+        overrides["compiled_cost_analysis"] = True
+    if args.watchdog_abort:
+        overrides["watchdog_abort"] = True
+    # The profiling window (JAX cli.py:76-88): either flag alone opens it;
+    # --profile-steps without --profile-start starts at step 3, past the
+    # first step's kernel builds.
+    if args.profile_start:
+        overrides["profile_start_step"] = args.profile_start
+    if args.profile_steps:
+        overrides["profile_num_steps"] = args.profile_steps
     if args.config:
-        return dataclasses.replace(Config.load(args.config), **overrides)
-    return ConfigPresets.get(args.preset, **overrides)
+        cfg = dataclasses.replace(Config.load(args.config), **overrides)
+    else:
+        cfg = ConfigPresets.get(args.preset, **overrides)
+    if args.profile_steps and not cfg.profile_start_step:
+        cfg.profile_start_step = 3
+    if args.auto_hardware:
+        cfg = ConfigManager.optimize_for_hardware(cfg)
+    return cfg
 
 
 def _jsonable(obj: Any) -> Any:
@@ -775,6 +935,10 @@ def train(args) -> int:
         initialize_multihost(cfg, device=args.device)
     rank0 = not dist.is_initialized() or dist.get_rank() == 0
     logging.getLogger().setLevel(cfg.log_level if rank0 else "WARNING")
+    if rank0 and not args.quiet:
+        from luminaai_tpu_torch.utils.environment import format_diagnostics
+
+        print(format_diagnostics())
     if args.resume:
         cfg.auto_resume = True
     train_fn, eval_fn, dataset_tokens = make_data(cfg, args)
@@ -789,6 +953,10 @@ def train(args) -> int:
             f"{plan.recommended_steps} (dataset {dataset_tokens:,} tokens, "
             f"applied={'yes' if args.steps is None else 'no, --steps set'})"
         )
+
+    steps = cfg.max_steps or 0
+    if steps and rank0 and not args.quiet:
+        _print_time_estimate(cfg, steps)
 
     # Provenance before the trainer is built, so a crash still leaves it;
     # a resume never overwrites the original run's record.
@@ -837,6 +1005,28 @@ def train(args) -> int:
         f"final_loss={final.get('loss', float('nan')):.4f}"
     )
     return 0
+
+
+def _print_time_estimate(cfg: Config, steps: int) -> None:
+    """A rough wall-clock estimate before committing compute (JAX
+    cli.py:282): 6 x active parameters FLOPs a token at 40% of the
+    cards' dense bf16 peak (device_peak_flops; a CPU planning figure
+    without a card)."""
+    from luminaai_tpu_torch.utils.environment import (
+        device_peak_flops,
+        get_device_info,
+    )
+
+    tok_per_step = cfg.batch_size * cfg.seq_length
+    dev = get_device_info()
+    est_tps = max(1.0, 0.4 * device_peak_flops() * dev["device_count"]
+                  / (6 * max(cfg.estimate_active_parameters(), 1)))
+    hours = steps * tok_per_step / est_tps / 3600
+    print(
+        f"estimated training time: ~{hours:.2f}h for {steps} steps "
+        f"({tok_per_step * steps / 1e6:.0f}M tokens at ~{est_tps:,.0f} "
+        "tok/s planning rate)"
+    )
 
 
 def build_serve_engine(args):
@@ -890,9 +1080,20 @@ def data(args) -> int:
         n = create_sample_data(args.out, num_conversations=args.count)
         print(f"wrote {n} sample conversations to {args.out}")
     elif args.action == "acquire":
-        raise NotImplementedError(
-            "data acquire (data/acquisition.py, the OASST download) is not "
-            "ported yet (ROADMAP A5); pass local files to oasst/blend")
+        from luminaai_tpu_torch.data.acquisition import DatasetDownloader
+
+        max_per_file = args.max_per_file
+        if max_per_file is None:  # the flag overrides the config default
+            max_per_file = Config().max_conversations_per_file
+        dl = DatasetDownloader(args.out or "data/oasst",
+                               max_records_per_file=max_per_file)
+        if args.inp:  # the offline path: a local raw OASST dump
+            print(json.dumps(_jsonable(dl.process_local_dump(args.inp)),
+                             indent=2))
+        elif not dl.download_and_process():
+            print("download unavailable (offline?); pass --in DUMP.jsonl "
+                  "to process a local raw dump", file=sys.stderr)
+            return 1
     elif args.action == "train-tokenizer":
         # Offline BPE vocab training; --in takes conversation or
         # plain-text jsonl; --vocab-size is the target vocab.
@@ -1525,6 +1726,7 @@ def serve(args) -> int:
         admission_window_ms=args.admission_window_ms,
         telemetry=not args.no_telemetry,
         trace_jsonl=args.trace_jsonl,
+        trace_jax=args.trace_jax,
         latency_buckets=buckets,
         request_timeout_s=args.request_timeout_s,
         max_queue_depth=args.max_queue_depth,
@@ -1727,6 +1929,249 @@ def top(args) -> int:
         return int(e.code or 2)
 
 
+def report(args) -> int:
+    """HTML reports (utils/reporting.py)."""
+    if args.kind == "training":
+        from luminaai_tpu_torch.utils.reporting import create_training_report
+
+        if not args.dir:
+            print("report training requires --dir EXPERIMENT_DIR",
+                  file=sys.stderr)
+            return 2
+        out = create_training_report(args.dir, args.out)
+        if out is None:
+            print(f"no training_summary.json under {args.dir}",
+                  file=sys.stderr)
+            return 1
+        print(f"training report: {out}")
+    else:
+        from luminaai_tpu_torch.data.tokenizer import ConversationTokenizer
+        from luminaai_tpu_torch.utils.reporting import (
+            create_data_summary_report,
+        )
+
+        out = create_data_summary_report(
+            args.inputs, ConversationTokenizer(),
+            output_path=args.out or "data_summary_report.html",
+        )
+        print(f"data report: {out}")
+    return 0
+
+
+def _print_sections(title: Optional[str], sections: Dict[str, Any]) -> None:
+    if title:
+        print(f"[{title}]")
+    for section, vals in sections.items():
+        print(f"  {section}:")
+        if isinstance(vals, dict):
+            for k, v in vals.items():
+                print(f"    {k}: {v}")
+        else:
+            print(f"    {vals}")
+
+
+@contextlib.contextmanager
+def _one_rank_group():
+    """A one-rank NCCL process group on the card for diagnose's probes
+    where none is initialized, destroyed after them (the job's own group
+    otherwise)."""
+    if dist.is_initialized():
+        yield
+        return
+    import torch
+
+    from luminaai_tpu_torch.parallel.mesh import current_device
+
+    dev = current_device()
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{_free_tcp_port()}", rank=0,
+        world_size=1, device_id=dev)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_tcp_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def diagnose(args) -> int:
+    """The card's probe first, in a subprocess with a timeout (nothing here
+    touches CUDA before it answers; exit 1 when it does not), then the
+    host, card and topology, the connectivity and collective probes on a
+    mesh (a one-rank NCCL group where none is up), and the recommendation."""
+    from luminaai_tpu_torch.utils.environment import (
+        check_config_fits,
+        connectivity_probe,
+        cuda_runtime_diagnostics,
+        format_diagnostics,
+        recommend_preset,
+    )
+
+    rt = cuda_runtime_diagnostics(probe_timeout=args.probe_timeout)
+    print(format_diagnostics(
+        include_accelerator=rt["backend"]["status"] == "ok"))
+    _print_sections("runtime", rt)
+    if rt["backend"]["status"] != "ok":
+        return 1
+    from luminaai_tpu_torch.parallel.expert_dispatch import expert_a2a_probe
+    from luminaai_tpu_torch.parallel.grad_reduce import grad_reduce_probe
+    from luminaai_tpu_torch.parallel.mesh import build_mesh
+
+    with _one_rank_group():
+        mesh = build_mesh(Config())
+        conn = connectivity_probe(mesh=None)
+        _print_sections("connectivity", conn)
+        if not conn["visibility"]["visibility_ok"]:
+            print("    WARNING: ranks != nodes x ranks per node: a node is "
+                  "missing part of its cards")
+        a2a = expert_a2a_probe(mesh)
+        print("[expert-a2a]")
+        print(f"  mesh: ep={a2a['ep']} (dcn={a2a['dcn']} x ici={a2a['ici']})")
+        _print_sections(None, a2a["stages"])
+        gr = grad_reduce_probe(mesh)
+        print("[grad-reduce]")
+        print(f"  mesh: world={gr['world']} (dcn={gr['dcn']} x "
+              f"ici={gr['ici']})")
+        _print_sections(None, gr["stages"])
+    print(f"recommended preset for this fleet: {recommend_preset()}")
+    if args.preset:
+        fit = check_config_fits(ConfigPresets.get(args.preset))
+        print(f"{args.preset}: {json.dumps(fit, indent=2)}")
+    return 0
+
+
+def events(args) -> int:
+    """Query the wide-event flight recorder: dump files, directories (the
+    newest flightrec-*.jsonl in each), or this process's live ring (JAX
+    cmd_events, cli.py:1287)."""
+    from luminaai_tpu_torch.monitoring.events import (
+        events_stats,
+        filter_events,
+        format_event,
+        get_recorder,
+        latest_dump,
+        parse_since,
+        read_events,
+    )
+
+    if args.grep:
+        import re
+
+        try:
+            re.compile(args.grep)
+        except re.error as e:
+            print(f"bad --grep regex {args.grep!r}: {e}", file=sys.stderr)
+            return 2
+    since = None
+    if args.since:
+        try:
+            since = parse_since(args.since)
+        except ValueError as e:
+            print(f"bad --since value {args.since!r}: {e}", file=sys.stderr)
+            return 2
+
+    found: List[Dict[str, Any]] = []
+    sources: List[str] = []
+    for p in args.paths or []:
+        path = p
+        if os.path.isdir(p):
+            path = latest_dump(p)
+            if path is None:
+                print(f"no flightrec-*.jsonl dumps under {p}",
+                      file=sys.stderr)
+                return 2
+        if not os.path.exists(path):
+            print(f"no such dump: {path}", file=sys.stderr)
+            return 2
+        found.extend(read_events(path))
+        sources.append(path)
+    if not args.paths:
+        found = get_recorder().snapshot()
+        sources.append("<live buffer>")
+
+    total = len(found)
+    found = filter_events(
+        found, type=args.etype, grep=args.grep, request=args.request_id,
+        since=since, tail=args.tail if args.tail else None,
+    )
+    if args.stats or args.stats_by:
+        # --by implies --stats.
+        stats = events_stats(found, by=args.stats_by)
+        if args.json:
+            print(json.dumps(stats, default=str))
+        elif stats.get("by"):
+            _print_grouped_stats(stats)
+        else:
+            print(
+                f"{stats['total']} event(s) spanning "
+                f"{stats['span_s']}s ({_fmt_ts(stats['first_ts'])} .. "
+                f"{_fmt_ts(stats['last_ts'])})"
+            )
+            header = f"{'type':<24}{'count':>8}{'rate/s':>10}  first .. last"
+            print(header)
+            print("-" * len(header))
+            for t, rec in stats["by_type"].items():
+                rate = (f"{rec['rate_per_s']:.3f}"
+                        if rec["rate_per_s"] is not None else "-")
+                print(
+                    f"{t:<24}{rec['count']:>8}{rate:>10}  "
+                    f"{_fmt_ts(rec['first_ts'])} .. "
+                    f"{_fmt_ts(rec['last_ts'])}"
+                )
+    elif args.json:
+        for ev in found:
+            print(json.dumps(ev, default=str))
+    else:
+        for ev in found:
+            print(format_event(ev))
+    print(f"{len(found)} event(s) shown of {total} from "
+          f"{', '.join(sources)}", file=sys.stderr)
+    return 0
+
+
+def _fmt_ts(ts, fmt: str = "%Y-%m-%d %H:%M:%S") -> str:
+    import time as _time
+
+    if not isinstance(ts, (int, float)):
+        return "?"
+    return _time.strftime(fmt, _time.localtime(ts))
+
+
+def _print_grouped_stats(stats: Dict[str, Any]) -> None:
+    """`events --stats --by tenant|request`: biggest burners first, each
+    with its rate and top event types (JAX cli.py:1401)."""
+    print(
+        f"{stats['total']} event(s) spanning {stats['span_s']}s, "
+        f"grouped by {stats['by']}"
+    )
+    header = (
+        f"{stats['by']:<26}{'count':>8}{'rate/s':>10}  "
+        f"first .. last  top types"
+    )
+    print(header)
+    print("-" * len(header))
+    for key, rec in stats["groups"].items():
+        rate = (f"{rec['rate_per_s']:.3f}"
+                if rec["rate_per_s"] is not None else "-")
+        top = ", ".join(
+            f"{t}={n}" for t, n in sorted(
+                rec["by_type"].items(), key=lambda kv: (-kv[1], kv[0])
+            )[:3]
+        )
+        print(
+            f"{key:<26}{rec['count']:>8}{rate:>10}  "
+            f"{_fmt_ts(rec['first_ts'], '%H:%M:%S')} .. "
+            f"{_fmt_ts(rec['last_ts'], '%H:%M:%S')}  {top}"
+        )
+
+
 COMMANDS = {
     "serve": serve,
     "route": route,
@@ -1738,6 +2183,9 @@ COMMANDS = {
     "convert": convert,
     "verify-checkpoint": verify_checkpoint,
     "presets": presets,
+    "report": report,
+    "diagnose": diagnose,
+    "events": events,
 }
 
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
@@ -173,6 +174,7 @@ class Config:
     beta2: float = 0.95
     eps: float = 1e-8
     grad_clip_norm: float = 1.0
+    num_epochs: int = 3
     max_steps: Optional[int] = None
     warmup_ratio: float = 0.15
     lr_scheduler: str = "cosine"
@@ -247,6 +249,7 @@ class Config:
     eval_data_path: str = "data/eval.jsonl"
     tokenizer_name: str = "byte"  # byte|bpe:PATH
     num_workers: int = 2
+    max_conversations_per_file: int = 10000
     streaming_threshold_gb: float = 10.0
     pack_sequences: bool = True
     use_native_dataloader: bool = True  # C++ packer (native/) when built
@@ -261,6 +264,19 @@ class Config:
     # --- Production / experiment ---
     experiment_name: Optional[str] = None
     output_dir: str = "experiments"
+    # A torch.profiler trace (CPU and CUDA activities, a Chrome trace)
+    # of the steps [profile_start_step, profile_start_step +
+    # profile_num_steps) into profile_dir (default output_dir/profile); 0
+    # disables. The Trainer attributes it per subsystem
+    # (monitoring/attribution.py) into registry gauges and
+    # attribution.jsonl (JAX config.py:313-320).
+    profile_start_step: int = 0
+    profile_num_steps: int = 3
+    profile_dir: Optional[str] = None
+    # Count the first train step's FLOPs (torch's FLOP counter plus the
+    # kernel wrappers' own counts) and the allocator's peak, with the
+    # analytic-vs-counted cross-check (JAX config.py:326).
+    compiled_cost_analysis: bool = False
     seed: int = 42
     log_level: str = "INFO"
     save_total_limit: int = 5
@@ -783,6 +799,7 @@ class ConfigPresets:
             intermediate_size=256,
             batch_size=2,
             gradient_accumulation_steps=2,
+            num_epochs=1,
             learning_rate=5e-5,
             gradient_checkpointing=False,
             use_moe=True,
@@ -1083,6 +1100,53 @@ class ConfigPresets:
                 f"Unknown preset: {name}. Available: {cls.available()}"
             )
         return dataclasses.replace(getattr(cls, name)(), **overrides)
+
+
+class ConfigManager:
+    """Config tuning against the detected hardware (the JAX
+    ConfigManager's optimize_for_hardware, config.py:1361)."""
+
+    @staticmethod
+    def optimize_for_hardware(config: Config,
+                              n_devices: Optional[int] = None) -> Config:
+        """A mesh layout for the detected cards
+        (utils/environment.get_device_info): experts sharded first
+        (expert axis = gcd(num_experts, cards)), then tensor parallelism
+        doubled while one card's share of ~12 bytes a parameter (fp32
+        parameters and two moments) exceeds half its memory, the rest of
+        the model-sharding ways as fsdp; data 1. The JAX rule, unchanged."""
+        from luminaai_tpu_torch.utils.environment import get_device_info
+
+        dev = get_device_info()
+        n = n_devices or dev["device_count"]
+        hbm_gb = dev.get("memory_per_device_gb") or 16.0
+        updates: Dict[str, Any] = {}
+        ep = 1
+        if config.use_moe:
+            ep = math.gcd(config.num_experts, n)
+        remaining = n // ep
+        updates["expert_parallel_size"] = ep
+        updates["data_parallel_size"] = 1
+        state_gb = config.estimate_parameters() * 12 / 1e9
+        shards = max(1, remaining)
+        tp = 1
+
+        def per_chip_gb(tp_size: int) -> float:
+            # ~75% of the state shards over fsdp, ~25% (embeddings, fused
+            # projections) only over tensor ranks.
+            fsdp = max(1, shards // tp_size)
+            return state_gb * (0.75 / (tp_size * fsdp) + 0.25 / tp_size)
+
+        while (
+            per_chip_gb(tp) > hbm_gb * 0.5
+            and tp * 2 <= shards
+            and tp < 8
+            and config.num_heads % (tp * 2) == 0
+        ):
+            tp *= 2
+        updates["tensor_parallel_size"] = tp
+        updates["fsdp_parallel_size"] = shards // tp
+        return dataclasses.replace(config, **updates)
 
 
 def resolve_device(device: Optional[Any] = None) -> torch.device:

@@ -1,1 +1,2 @@
-"""Data-side pieces of the port (the byte tokenizer)."""
+"""Data-side pieces of the port: tokenizers, datasets and packing,
+processing and blending, and the OASST acquisition (acquisition.py)."""

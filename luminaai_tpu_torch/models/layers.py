@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from luminaai_tpu_torch.config import Config
+from luminaai_tpu_torch.monitoring.attribution import ATTENTION_SCOPE
 from luminaai_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_eligible,
@@ -235,7 +236,13 @@ class GQAttention(nn.Module):
             self._rope = (max_len, cos, sin)
         return self._rope[1], self._rope[2]
 
-    def forward(
+    def forward(self, x: torch.Tensor, **kwargs):
+        """`_attend` inside the profiler scope `attention` (what
+        monitoring/attribution.py attributes to attn_proj_rope)."""
+        with torch.profiler.record_function(ATTENTION_SCOPE):
+            return self._attend(x, **kwargs)
+
+    def _attend(
         self,
         x: torch.Tensor,
         *,

@@ -56,6 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from luminaai_tpu_torch.config import Config
+from luminaai_tpu_torch.monitoring.attribution import EXPERTS_SCOPE, MOE_SCOPE
 from luminaai_tpu_torch.ops.gmm import grouped_matmul
 from luminaai_tpu_torch.ops.quantized import QuantizedTensor, int8_expert
 from luminaai_tpu_torch.parallel.mesh import (
@@ -238,11 +239,13 @@ def gmm_local(x: torch.Tensor, probs: torch.Tensor, wi: torch.Tensor,
         rows = F.pad(rows, (0, 0, 0, n_pad - n))
     lhs = torch.where(row_kept, rows, torch.zeros((), dtype=rows.dtype,
                                                    device=rows.device))
-    fused = gmm_fn(lhs, wi.to(dtype), group_sizes, dtype)
-    gate_act, up = torch.chunk(fused, 2, dim=-1)
-    act = torch.where(row_kept, F.silu(gate_act) * up,
-                      torch.zeros((), dtype=fused.dtype, device=x.device))
-    yrow = gmm_fn(act.contiguous(), wo.to(dtype), group_sizes, dtype)
+    with torch.profiler.record_function(EXPERTS_SCOPE):
+        fused = gmm_fn(lhs, wi.to(dtype), group_sizes, dtype)
+        gate_act, up = torch.chunk(fused, 2, dim=-1)
+        act = torch.where(row_kept, F.silu(gate_act) * up,
+                          torch.zeros((), dtype=fused.dtype,
+                                      device=x.device))
+        yrow = gmm_fn(act.contiguous(), wo.to(dtype), group_sizes, dtype)
     yrow = torch.where(row_kept, yrow,
                        torch.zeros((), dtype=yrow.dtype, device=x.device))[:n]
     inv_perm = torch.argsort(perm)
@@ -384,7 +387,13 @@ class MoELayer(nn.Module):
                 draws: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """x [G, S, H] -> (out [G, S, H] in the compute dtype, metrics).
-        Deterministic unless `draws` (draw_routing) are given."""
+        Deterministic unless `draws` (draw_routing) are given. Runs inside
+        the profiler scope `moe`, its expert FFN inside `moe/experts`
+        (monitoring/attribution.py)."""
+        with torch.profiler.record_function(MOE_SCOPE):
+            return self._route_and_combine(x, draws)
+
+    def _route_and_combine(self, x, draws):
         cfg = self.config
         mesh = active_mesh()
         sp = mesh.shape["sequence"] if mesh is not None else 1
@@ -453,7 +462,8 @@ class MoELayer(nn.Module):
                     expert_in = buf[:, : E * C].reshape(G, E, C, H)
                     expert_in = expert_in.transpose(0, 1)
                 tokens_per_expert = counts.to(torch.float32).sum(0)
-            expert_out = self._experts(expert_in, mesh)
+            with torch.profiler.record_function(EXPERTS_SCOPE):
+                expert_out = self._experts(expert_in, mesh)
             if mode == "einsum":
                 out = torch.einsum("gsec,egch->gsh", combine_w, expert_out)
             else:

@@ -271,6 +271,7 @@ class LuminaTransformer(nn.Module):
         return_hidden: bool = False,
         generator: Optional[torch.Generator] = None,
         stage=None,
+        prefix_embeds: Optional[torch.Tensor] = None,
     ):
         """input_ids [B, S] -> with kv_caches: (fp32 logits [B, S, V],
         kv_caches), or (final-normed hidden [B, S, H], kv_caches) with
@@ -283,13 +284,22 @@ class LuminaTransformer(nn.Module):
         MoE routing noise and expert dropout from `generator`. `stage`
         (parallel/pipeline.py) is one pipeline stage's work, called with
         the model and returned: through forward, so FSDP2's root hooks
-        gather the embedding and final norm around it."""
+        gather the embedding and final norm around it. `prefix_embeds`
+        [B, P, H] (soft-prompt tuning, training/adapters.py; no-cache
+        forward only) are virtual tokens put before the blocks, with the
+        stable-embedding scale when config.use_stable_embedding; positions
+        run over all S + P rows, the prefix rows are routed (and counted
+        in the aux losses) like the others, and are stripped after the
+        final norm, so the outputs cover the S real tokens (JAX
+        transformer.py:255-336)."""
         if stage is not None:
             return stage(self)
         if kv_caches is None:
             return self._forward_no_cache(input_ids, positions,
                                           return_hidden, deterministic,
-                                          generator)
+                                          generator, prefix_embeds)
+        if prefix_embeds is not None:
+            raise ValueError("prefix_embeds apply to the no-cache forward")
         x = self.embedder.encode(input_ids)
         for layer, cache in zip(self.layers, kv_caches):
             x, _, _ = layer(
@@ -305,9 +315,18 @@ class LuminaTransformer(nn.Module):
         return self.embedder.decode(x), kv_caches
 
     def _forward_no_cache(self, input_ids, positions, return_hidden,
-                          deterministic, generator):
-        B, S = input_ids.shape
+                          deterministic, generator, prefix_embeds=None):
         x = self.embedder.encode(input_ids)
+        n_prefix = 0
+        if prefix_embeds is not None:
+            # The prefix takes the real tokens' stable-embedding scale:
+            # init_soft_prompt draws raw table rows.
+            n_prefix = prefix_embeds.shape[1]
+            prefix = prefix_embeds.to(x.dtype)
+            if self.embedder.scale is not None:
+                prefix = prefix * self.embedder.scale
+            x = torch.cat([prefix, x], dim=1)
+        B, S = x.shape[:2]
         # Random draws happen here, before the layers, so a recompute in
         # the backward routes as its forward did.
         routing = [None] * len(self.layers)
@@ -318,6 +337,9 @@ class LuminaTransformer(nn.Module):
         x, all_metrics = self.run_blocks(x, range(len(self.layers)), routing,
                                          positions)
         x = self.final_norm(x)
+        if n_prefix:
+            # The [B, P, V] logits would be computed only to be discarded.
+            x = x[:, n_prefix:]
         aux = reduce_metrics(all_metrics, x.device)
         if return_hidden:
             return x, aux

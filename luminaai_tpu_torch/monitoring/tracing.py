@@ -1,6 +1,5 @@
 """Request/step span tracing: context-manager spans with JSONL export
-(the port's copy of luminaai_tpu/monitoring/tracing.py, without its
-jax.profiler annotation hook).
+(the port's copy of luminaai_tpu/monitoring/tracing.py).
 
 The metrics registry (telemetry.py) answers "how fast is the system" in
 aggregate; this module answers "where did THIS request's time go". A
@@ -10,6 +9,13 @@ start/duration, parent/child nesting per thread, and free-form
 attributes, and appends each finished span as one JSON line — the same
 sink shape the training health monitor already writes, greppable and
 pandas-loadable without a collector deployment.
+
+Optionally each span also opens a `torch.profiler.record_function`
+range of its name (`profiler_ranges`, the CLI's `serve --trace-jax`, the
+JAX flag's name), so when a torch.profiler trace is being captured the
+host-side spans show up as named regions on its timeline, beside the
+card's kernels they caused. Every failure there degrades to plain host
+spans: tracing must never take down serving.
 
 Disabled tracers (the default for serving: `--trace-jsonl` opts in) cost
 one attribute check per span — no objects, no lock, no I/O.
@@ -98,23 +104,38 @@ _NULL_SPAN = _NullSpan()
 
 class _OpenSpan:
     """Context manager binding one Span to the tracer's per-thread stack
-    (parenting)."""
+    (parenting) and, optionally, a torch.profiler.record_function range."""
 
-    __slots__ = ("_tracer", "_span", "_t0")
+    __slots__ = ("_tracer", "_span", "_t0", "_range")
 
     def __init__(self, tracer: "SpanTracer", span: Span):
         self._tracer = tracer
         self._span = span
         self._t0 = 0.0
+        self._range = None
 
     def __enter__(self) -> Span:
         tracer = self._tracer
         stack = tracer._stack()
         stack.append(self._span)
+        if tracer.profiler_ranges:
+            try:
+                import torch
+
+                self._range = torch.profiler.record_function(
+                    self._span.name)
+                self._range.__enter__()
+            except (ImportError, RuntimeError):  # host spans only
+                self._range = None
         self._t0 = time.perf_counter()
         return self._span
 
     def __exit__(self, exc_type, exc, tb):
+        if self._range is not None:
+            try:
+                self._range.__exit__(exc_type, exc, tb)
+            except RuntimeError:
+                pass
         span = self._span
         span.duration_s = time.perf_counter() - self._t0
         if exc is not None:
@@ -145,8 +166,10 @@ class SpanTracer:
         jsonl_path: Optional[str] = None,
         enabled: bool = True,
         max_spans_in_memory: int = 1000,
+        profiler_ranges: bool = False,
     ):
         self.enabled = bool(enabled)
+        self.profiler_ranges = bool(profiler_ranges)
         self.jsonl_path = jsonl_path
         self._write_lock = threading.Lock()
         self._file: Optional[IO[str]] = None

@@ -18,6 +18,9 @@ Counterpart of luminaai_tpu/ops/flash_attention.py. Layout as there: q
   its kernel and counts the launch in `<wrapper>.launches`, or raises on a
   shape, type or layout the kernel does not take; on a CPU tensor it runs
   its plain version. It never falls back from the card.
+- `band_pairs` / `launch_flops`: the work of one launch from its shape,
+  which each wrapper reports into an open FLOP window (ops/_flops.py):
+  the FLOP counter does not see the kernels.
 - `flash_fwd_op`, the operator `torch.ops.lumina.flash_fwd` in place of
   the JAX custom VJP: both outputs are differentiable (B2 and B3 in its
   backward); the lse cotangent folds into delta (delta = rowsum(dO * O) -
@@ -29,10 +32,13 @@ Counterpart of luminaai_tpu/ops/flash_attention.py. Layout as there: q
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
+
+from luminaai_tpu_torch.ops import _flops
 
 NEG_INF = -1e30
 
@@ -218,6 +224,30 @@ def _check(q, k, v, extra=(), stats=()):
     return B, Sq, Skv, Hq, Hkv, D
 
 
+@functools.lru_cache(maxsize=256)
+def band_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(q, k) pairs inside the attention band of one (batch, head): the
+    keep-mask of `_band` (query i attends key j <= i, and i - j < window
+    under a window), every pair without causality."""
+    if not causal:
+        return sq * skv
+    return sum(max(0, min(q, skv - 1) - (max(0, q - window + 1) if window
+                                          else 0) + 1)
+               for q in range(sq))
+
+
+# FLOPs per attended pair and q head, per unit of head_dim: B1 Q.K^T and
+# P.V; B2 S, dP and dS.K; B3 S^T, dP^T, dV and dK.
+_PAIR_FLOPS = {"B1": 4, "B2": 6, "B3": 8}
+
+
+def launch_flops(kernel: str, B: int, Sq: int, Skv: int, Hq: int, D: int,
+                 causal: bool, window: int) -> int:
+    """FLOPs of one launch of B1, B2 or B3 at this shape."""
+    return (_PAIR_FLOPS[kernel] * D * B * Hq
+            * band_pairs(Sq, Skv, bool(causal), int(window or 0)))
+
+
 def _launch(name, n_ptrs, ptrs, dims, causal, window, scale, device):
     err = _kernel(name, n_ptrs)(
         *ptrs, *dims, int(causal), int(window or 0), float(scale),
@@ -225,6 +255,12 @@ def _launch(name, n_ptrs, ptrs, dims, causal, window, scale, device):
     )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    if _flops.active():
+        B, Sq, Skv, Hq, _, D = dims
+        kernel = {"lumina_flash_fwd": "B1", "lumina_flash_bwd_dq": "B2",
+                  "lumina_flash_bwd_dkv": "B3"}[name]
+        _flops.report(kernel, launch_flops(kernel, B, Sq, Skv, Hq, D,
+                                           causal, window))
 
 
 def flash_fwd(q, k, v, *, scale: float, causal: bool = True,

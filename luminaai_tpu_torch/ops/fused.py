@@ -22,6 +22,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from luminaai_tpu_torch.monitoring.attribution import CE_SCOPE
+
 
 def cross_entropy_loss(
     logits: torch.Tensor,
@@ -105,7 +107,14 @@ def fused_lm_head_cross_entropy(
 
 
 def _chunk_stats(head, h_c, l_c, w_c, label_smoothing):
-    """(nll_sum, w_sum, z_sum, n_tok) of one chunk, as one [4] tensor."""
+    """(nll_sum, w_sum, z_sum, n_tok) of one chunk, as one [4] tensor,
+    inside the profiler scope `fused_ce` (monitoring/attribution.py): the
+    forward and its recompute in the backward."""
+    with torch.profiler.record_function(CE_SCOPE):
+        return _chunk_sums(head, h_c, l_c, w_c, label_smoothing)
+
+
+def _chunk_sums(head, h_c, l_c, w_c, label_smoothing):
     logits = h_c.float() @ head.t()  # [B, c, V] fp32
     lse = torch.logsumexp(logits, dim=-1)
     label_logit = logits.gather(-1, l_c.long()[..., None])[..., 0]

@@ -27,7 +27,8 @@ inputs, rounded to the output dtype; these read the group sizes on the
 host). On a CUDA tensor it launches its kernel (csrc/gmm.cu) and counts
 the launch in `<wrapper>.launches`, or raises on what the kernel does not
 take: bf16 operands and output, K and N multiples of 8, contiguous rows.
-It never falls back from the card.
+It never falls back from the card. Inside an open FLOP window
+(ops/_flops.py) a launch also reports its FLOPs (`launch_flops`).
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ import ctypes
 from typing import Optional
 
 import torch
+
+from luminaai_tpu_torch.ops import _flops
 
 
 # ---------------------------------------------------------------------------
@@ -130,11 +133,22 @@ def _check(pairs, group_sizes, out_dtype, dims):
                              f"multiple of 8, got {d}")
 
 
-def _launch(name, ptrs, dims, flag, device):
+def launch_flops(kept, k: int, n: int):
+    """FLOPs of one B4a or B4b launch: 2 x K x N per kept row (`kept`, the
+    group sizes' sum, an int or a device tensor)."""
+    return 2 * k * n * kept
+
+
+def _launch(name, ptrs, dims, flag, device, group_sizes):
     err = _kernel(name)(*ptrs, *dims, int(flag),
                         torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    if _flops.active():
+        _, k, n, _ = dims
+        # The sum stays on the card until the window is read.
+        _flops.report("B4a" if name == "lumina_gmm" else "B4b",
+                      launch_flops(group_sizes.sum(dtype=torch.int64), k, n))
 
 
 def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
@@ -159,7 +173,7 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
     out = torch.empty(m, n, dtype=out_dtype, device=lhs.device)
     _launch("lumina_gmm",
             [t.data_ptr() for t in (lhs, rhs, group_sizes, out)],
-            (m, k, n, e), transpose_rhs, lhs.device)
+            (m, k, n, e), transpose_rhs, lhs.device, group_sizes)
     gmm.launches += 1
     return out
 
@@ -186,7 +200,7 @@ def tgmm(lhsT: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
     out = torch.empty(e, k, n, dtype=out_dtype, device=rhs.device)
     _launch("lumina_tgmm",
             [t.data_ptr() for t in (lhs, rhs, group_sizes, out)],
-            (m, k, n, e), 0, rhs.device)
+            (m, k, n, e), 0, rhs.device, group_sizes)
     tgmm.launches += 1
     return out
 

@@ -2854,6 +2854,7 @@ def serve(
     admission_window_ms: float = 0.0,
     telemetry: bool = True,
     trace_jsonl: Optional[str] = None,
+    trace_jax: bool = False,
     latency_buckets=None,
     request_timeout_s: Optional[float] = None,
     max_queue_depth: int = 128,
@@ -2884,8 +2885,10 @@ def serve(
     --quantize / --kv-cache-dtype in the engine's config). The JAX serve()
     builds its engine here from a checkpoint; `quantize` and
     `kv_cache_dtype` apply to the given engine as JAX applies them to the
-    one it builds (an engine already quantized passes through). Its
-    --trace-jax has no counterpart."""
+    one it builds (an engine already quantized passes through).
+    `trace_jax` (the JAX flag's name) mirrors every span as a
+    torch.profiler.record_function range, and traces spans without a
+    --trace-jsonl file too (kept in memory)."""
     if quantize is not None or kv_cache_dtype is not None:
         engine.configure(quantize=quantize, kv_cache_dtype=kv_cache_dtype)
     if page_share and not page_share_self_url:
@@ -2893,8 +2896,9 @@ def serve(
         # explicit --page-share-self overrides (NAT, name-based balancers).
         page_share_self_url = f"http://{host}:{port}"
     tracer = NULL_TRACER
-    if trace_jsonl:
-        tracer = SpanTracer(jsonl_path=trace_jsonl)
+    if trace_jsonl or trace_jax:
+        tracer = SpanTracer(jsonl_path=trace_jsonl,
+                            profiler_ranges=trace_jax)
     ChatServer(
         engine, secure=secure, bootstrap_user=bootstrap_user,
         continuous=continuous, num_slots=num_slots, page_size=page_size,

@@ -27,7 +27,15 @@ them again), and runs the train step's loss function
 (parallel/train_step.make_loss_fn), so the flash kernels, and the
 grouped matmul for adapted experts, carry the step.
 
-Soft-prompt tuning is not ported (it needs `prefix_embeds` in the model).
+Soft-prompt tuning (the JAX file's second half, :245-319): a [P, H]
+tensor of virtual tokens, initialized from random rows of the embedding
+table (`init_soft_prompt`, drawn from a torch.Generator), prepended to
+every sequence through the model's `prefix_embeds` (`prepend_soft_prompt`,
+which warns, as JAX does, when S + P leaves the flash kernels' gate), and
+trained alone (`make_prompt_tuning_step`): the base frozen, the loss the
+JAX step's (next-token CE of the real tokens plus the MoE aux loss), and
+Adam moments for the prompt only. Its gradient reaches the prompt through
+every layer's attention backward (B2, B3 on the card).
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import logging
 import os
 import re
 from typing import Callable, Dict, Iterator, Mapping, Optional, Tuple
@@ -51,6 +60,8 @@ from luminaai_tpu_torch.training.optimizer import (
     make_adam,
     moment_form,
 )
+
+logger = logging.getLogger(__name__)
 
 _TARGET_NAMES = ("wq", "wk", "wv", "wo", "wi")
 
@@ -268,3 +279,79 @@ def load_lora(path: str, device=None) -> Tuple[Lora, LoRASpec]:
         raw = json.load(f)
     raw["target_patterns"] = tuple(raw["target_patterns"])
     return lora, LoRASpec(**raw)
+
+
+# ---------------------------------------------------------------------------
+# Soft-prompt tuning
+# ---------------------------------------------------------------------------
+def init_soft_prompt(model: torch.nn.Module, num_tokens: int,
+                     generator: torch.Generator) -> torch.Tensor:
+    """[P, H] fp32 virtual-token embeddings: random rows of the model's
+    embedding table (rows in the distribution the first layer expects),
+    drawn from `generator` on its device."""
+    table = model.embedder.embedding
+    idx = torch.randint(0, table.shape[0], (num_tokens,),
+                        generator=generator, device=generator.device)
+    return table.detach()[idx.to(table.device)].float().clone()
+
+
+def prepend_soft_prompt(model: torch.nn.Module, prompt: torch.Tensor,
+                        input_ids: torch.Tensor, return_hidden: bool = False):
+    """The model's no-cache forward with `prompt` [P, H] before every
+    sequence of input_ids [B, S]: (logits [B, S, V], or the final-normed
+    hidden [B, S, H] with return_hidden, for the real tokens only; aux).
+    Warns when S + P is not flash-eligible: attention then takes the
+    plain path (JAX adapters.py:269-287)."""
+    from luminaai_tpu_torch.ops.flash_attention import flash_eligible
+
+    cfg = model.config
+    B, S = input_ids.shape
+    P = prompt.shape[0]
+    if cfg.use_flash_attention and not flash_eligible(
+            S + P, cfg.head_dim(), cfg.flash_block_q, cfg.flash_block_kv):
+        logger.warning(
+            "soft prompt of %d tokens makes seq %d flash-ineligible (no "
+            "block divisor >= 128): attention takes the plain O(S^2) path; "
+            "pick P so S+P has a divisor >= 128 that is <= the configured "
+            "flash blocks (e.g. a multiple of 128)", P, S + P)
+    return model(input_ids, return_hidden=return_hidden,
+                 prefix_embeds=prompt[None].expand(B, P, prompt.shape[1]))
+
+
+def make_prompt_tuning_step(config: Config, model: torch.nn.Module,
+                            tx: AdamW):
+    """The step training only the [P, H] prompt (JAX adapters.py:289-319).
+
+    The model is frozen here (requires_grad=False: no .grad, no moments).
+    Returns step((prompt, opt_state), batch) -> ((prompt, opt_state),
+    metrics), with opt_state = tx.init([prompt]); the prompt and its
+    moments update in place. The loss is JAX's: next-token CE over the
+    real tokens (shifted labels, loss_mask / loss_weights shifted with
+    them; the fused LM-head CE where config.fused_lm_head_ce) plus the
+    MoE aux loss; metrics are the CE's plus `loss` and `grad_norm`, the
+    prompt gradient's norm."""
+    from luminaai_tpu_torch.parallel.train_step import (
+        _ce,
+        _shifted_mask_weights,
+        shift_labels,
+    )
+
+    model.requires_grad_(False)
+
+    def step(carry, batch):
+        prompt, opt_state = carry
+        leaf = prompt.requires_grad_(True)
+        out, aux = prepend_soft_prompt(model, leaf, batch["input_ids"],
+                                       return_hidden=config.fused_lm_head_ce)
+        labels, valid = shift_labels(batch)
+        mask, weights = _shifted_mask_weights(batch, valid)
+        loss, metrics = _ce(config, model, out, labels, mask, weights)
+        loss = loss + aux.get("aux_loss", 0.0)
+        (grad,) = torch.autograd.grad(loss, [leaf])
+        leaf.requires_grad_(False)
+        metrics["loss"] = loss.detach()
+        metrics["grad_norm"] = global_norm([grad])
+        tx.apply([prompt], [grad], opt_state)
+        return (prompt, opt_state), metrics
+
+    return step

@@ -464,10 +464,12 @@ def describe_optimizer_memory(opt_state) -> Dict[str, object]:
     describe_optimizer_memory over the optax state: the moments in their
     stored widths, int8 codes and their fp32 scales, and optax's two int32
     counters), largest first."""
+    from luminaai_tpu_torch.monitoring.attribution import tree_bytes
+
     by_dtype: Dict[str, int] = dict(_OPTAX_COUNTERS)
     for t in opt_state.tensors():
         key = str(t.dtype).removeprefix("torch.")  # JAX's dtype names
-        by_dtype[key] = by_dtype.get(key, 0) + t.numel() * t.element_size()
+        by_dtype[key] = by_dtype.get(key, 0) + tree_bytes([t])
     return {
         "total_bytes": sum(by_dtype.values()),
         "by_dtype": dict(sorted(by_dtype.items(), key=lambda kv: -kv[1])),

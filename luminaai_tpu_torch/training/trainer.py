@@ -56,22 +56,40 @@ The runtime around the loop, as in the JAX package:
   - the goodput ledger (compile = the first step until its sync,
     data_wait, checkpoint, eval, resume_replay), the hang watchdog (armed
     after the first step), the step-time sentinel, the health monitor and
-    the flight recorder, all on the process registry.
+    the flight recorder, all on the process registry;
+  - the SLO stack (config.slo: monitoring/slo.py's build_slo_stack, the
+    time-series ring sampling the registry and the engine judging the
+    train objectives; summary["slo"] carries the verdicts), and span
+    tracing (`tracer`: checkpoint_save and evaluate spans);
+  - epochs: with `steps_per_epoch`, total_steps is steps_per_epoch x
+    num_epochs and the loop stops after num_epochs passes (the JAX CLI
+    passes none, so `train --epochs` only records num_epochs, as there);
+  - the profiling window (config.profile_start_step /
+    profile_num_steps / profile_dir): a torch.profiler trace (CPU and
+    CUDA) of exactly the steps [start, start + n), each marked
+    "train_step <global step>", written as
+    <dir>/steps<start>-<end>.pt.trace.json on rank 0, then attributed per
+    subsystem (monitoring/attribution.py) into the registry and
+    <dir>/attribution.jsonl;
+  - config.compiled_cost_analysis: on one card, the first step runs
+    under the FLOP counter (monitoring/attribution.compiled_cost_metrics:
+    torch's counter plus the kernels' own counts, the allocator's peak,
+    the analytic-vs-counted cross-check and the in-place audit of the
+    state).
 
 The summary keeps the JAX keys (final_step, epochs, elapsed_sec,
 tokens_seen, tokens_per_sec, final_metrics, health, interventions,
-preempted, resumed_exact_data_state, goodput) and adds the per-step
+preempted, resumed_exact_data_state, goodput, slo) and adds the per-step
 history.
 
-Not ported (ROADMAP): the SLO engine and time-series ring, span tracing
-and profiling windows; the scan-layer compile fallback and compiled-cost
-export are XLA's own.
+The scan-layer compile fallback is XLA's own and has no counterpart.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import time
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
@@ -85,12 +103,19 @@ from luminaai_tpu_torch.models.transformer import LuminaTransformer
 from luminaai_tpu_torch.monitoring.events import FlightRecorder, get_recorder
 from luminaai_tpu_torch.monitoring.goodput import GoodputLedger
 from luminaai_tpu_torch.monitoring.logger import TrainingHealthMonitor
+from luminaai_tpu_torch.monitoring.slo import SLOEngine, build_slo_stack
 from luminaai_tpu_torch.monitoring.telemetry import (
     MetricsRegistry,
     get_registry,
     register_build_info,
     weak_callback,
 )
+from luminaai_tpu_torch.monitoring.timeseries import (
+    TimeSeriesRing,
+    get_history,
+    set_history,
+)
+from luminaai_tpu_torch.monitoring.tracing import NULL_TRACER, SpanTracer
 from luminaai_tpu_torch.monitoring.watchdog import (
     HangWatchdog,
     StepTimeSentinel,
@@ -117,6 +142,7 @@ from luminaai_tpu_torch.training.optimizer import (
     make_schedule,
 )
 from luminaai_tpu_torch.training.precision import PrecisionManager
+from luminaai_tpu_torch.utils import profiling
 from luminaai_tpu_torch.utils.retry import RetryPolicy, set_default_policy
 
 logger = logging.getLogger(__name__)
@@ -136,7 +162,9 @@ class Trainer:
         model: Optional[LuminaTransformer] = None,
         checkpoint_dir: Optional[str] = None,
         total_steps: Optional[int] = None,
+        steps_per_epoch: Optional[int] = None,
         registry: Optional[MetricsRegistry] = None,
+        tracer: Optional[SpanTracer] = None,
         recorder: Optional[FlightRecorder] = None,
         device=None,
         seed: Optional[int] = None,
@@ -168,7 +196,15 @@ class Trainer:
         logger.info("precision %s: %s parameters, %s compute", plan.name,
                     plan.param_dtype, plan.compute_dtype)
 
-        self.total_steps = total_steps or config.max_steps or 10_000
+        if total_steps is None:
+            if config.max_steps:
+                total_steps = config.max_steps
+            elif steps_per_epoch:
+                total_steps = steps_per_epoch * config.num_epochs
+            else:
+                total_steps = 10_000
+        self.total_steps = total_steps
+        self.steps_per_epoch = steps_per_epoch
         self.schedule = make_schedule(config, self.total_steps)
         self.tx = make_optimizer(config, self.total_steps, self.schedule)
         if self.mesh is not None:
@@ -180,6 +216,7 @@ class Trainer:
         self.eval_step = self._make_eval_step()
 
         self.registry = registry or get_registry()
+        self.tracer = tracer or NULL_TRACER
         self.recorder = recorder if recorder is not None else get_recorder()
         # Wall clock per cause (goodput), the hang watchdog and the
         # step-time sentinel: host clocks only, no new syncs.
@@ -210,6 +247,26 @@ class Trainer:
             enabled=config.step_anomaly,
         )
         register_build_info(self.registry, config=config)
+        # SLO layer: the ring keeps windowed registry history on a
+        # background sampler (started by train()), the engine judges the
+        # train objectives (or config.slo_config's) by burn rate. Host
+        # side only: it reads what the producers already wrote.
+        # (JAX's Trainer.history; here `history` is the per-step list.)
+        self.timeseries: Optional[TimeSeriesRing] = None
+        self.slo: Optional[SLOEngine] = None
+        self._installed_history = False
+        if config.slo:
+            self.timeseries, self.slo = build_slo_stack(
+                config, registry=self.registry, recorder=self.recorder,
+                program="train",
+            )
+            # The first ring installed is the process default (`top`
+            # with no source reads it); close() restores.
+            self._prev_history = (
+                set_history(self.timeseries) if get_history() is None
+                else None
+            )
+            self._installed_history = get_history() is self.timeseries
         # Liveness: wall ts of the last completed optimizer step, NaN
         # outside a live loop or inside eval/checkpoint windows.
         self._last_step_wall: Optional[float] = None
@@ -307,6 +364,10 @@ class Trainer:
         # expert evolution swaps the model. A forced save must not
         # snapshot the state then.
         self._state_in_flux = False
+        # The open profiling window's torch.profiler session, its dir.
+        self._profiler = None
+        self._profile_trace_dir: Optional[str] = None
+        self._compiled_costs: Optional[Dict[str, Any]] = None
         # Orchestrator hook: called with (step, scalar metrics) at each
         # log boundary; may call the adaptive hooks below.
         self.step_callback: Optional[
@@ -422,7 +483,8 @@ class Trainer:
         )
 
     def save_checkpoint(self, metrics=None, force: bool = False) -> None:
-        with self.goodput.region("checkpoint"), self._wd_pause():
+        with self.tracer.span("checkpoint_save", step=self.global_step), \
+                self.goodput.region("checkpoint"), self._wd_pause():
             self.checkpoints.save(
                 self.state, self.global_step, metrics, force=force,
                 data_state=self._data_state(),
@@ -923,7 +985,8 @@ class Trainer:
         count = 0
         self.model.eval()
         try:
-            with self.goodput.region("eval"), self._wd_pause():
+            with self.tracer.span("evaluate", step=self.global_step) as sp, \
+                    self.goodput.region("eval"), self._wd_pause():
                 for i, batch in enumerate(self.eval_data()):
                     if i >= max_batches:
                         break
@@ -933,6 +996,7 @@ class Trainer:
                         if getattr(v, "ndim", 1) == 0:
                             totals[k] = totals.get(k, 0.0) + float(v)
                     count += 1
+                sp.set(batches=count)
         finally:
             self.model.train()
         if count == 0:
@@ -943,10 +1007,13 @@ class Trainer:
 
     # -- main loop ---------------------------------------------------------
     def train(self) -> Dict[str, Any]:
-        """Run to total_steps. Returns the summary dict."""
+        """Run to total_steps (or num_epochs passes with steps_per_epoch).
+        Returns the summary dict."""
         try:
             self._last_step_wall = None
             self._training_active = True
+            if self.timeseries is not None:
+                self.timeseries.start()  # idempotent across train() calls
             return self._train_inner()
         finally:
             self._training_active = False
@@ -974,6 +1041,7 @@ class Trainer:
                 if self.global_step >= self.total_steps:
                     break
                 first_step = self.global_step == self._run_start_step
+                self._maybe_profile()
                 if first_step:
                     # The first step until its sync: kernel builds and
                     # loads, the allocator's warm-up.
@@ -982,12 +1050,18 @@ class Trainer:
                 t0 = time.perf_counter()
                 self._state_in_flux = True
                 if self.mesh is None or self.mesh.size == 1:
-                    self.state, metrics = self.train_step(self.state, batch)
+                    if first_step and cfg.compiled_cost_analysis:
+                        metrics = self._export_compiled_costs(batch)
+                    else:
+                        with self._step_mark():
+                            self.state, metrics = self.train_step(
+                                self.state, batch)
                 else:
                     oom = None
                     try:
-                        self.state, metrics = self.train_step(self.state,
-                                                              batch)
+                        with self._step_mark():
+                            self.state, metrics = self.train_step(
+                                self.state, batch)
                     except torch.cuda.OutOfMemoryError as e:
                         oom = e
                     self._oom_agreed(oom)
@@ -1009,6 +1083,7 @@ class Trainer:
                 scalars["step_seconds"] = dt
                 scalars["tokens_per_sec"] = n_tok / max(dt, 1e-9)
                 self.history.append(scalars)
+                self._maybe_end_profile()
                 logger.info(
                     "step %d loss=%.4f grad_norm=%.4f lr=%.3e tokens/s=%.1f",
                     self.global_step, scalars["loss"], scalars["grad_norm"],
@@ -1137,6 +1212,12 @@ class Trainer:
                 self._batch_in_epoch = 0
                 self._state_in_flux = False
 
+            if (
+                self.steps_per_epoch is not None
+                and epoch >= cfg.num_epochs
+            ):
+                break
+
         if not self._preempted:
             # A preempted run already banked its emergency checkpoint.
             final_eval = self.evaluate() if self.eval_data is not None else {}
@@ -1160,6 +1241,15 @@ class Trainer:
             "goodput": self.goodput.snapshot(),
             "history": list(self.history),
         }
+        if self.slo is not None:
+            # The final verdicts over what the ring kept: one last sample,
+            # so a short run whose sampler never ticked still carries the
+            # objectives' states (the attached engine evaluates on it).
+            self.timeseries.sample_once()
+            summary["slo"] = {
+                **self.slo.verdicts(),
+                "ring": self.timeseries.stats(),
+            }
         logger.info("training done: final_step=%d preempted=%s",
                     self.global_step, self._preempted)
         return summary
@@ -1223,8 +1313,128 @@ class Trainer:
 
     # -- crash forensics ---------------------------------------------------
     def _dump_flight_record(self, reason: str) -> Optional[str]:
-        """Dump the flight ring next to the checkpoints. Never raises."""
+        """Dump the flight ring next to the checkpoints, and the
+        time-series history with the SLO verdicts where the ring is on
+        (`top <dir>` replays it). Never raises."""
+        if self.timeseries is not None:
+            self.timeseries.dump_to_dir(
+                str(self.checkpoints.dir), reason,
+                slo=self.slo.verdicts() if self.slo is not None else None,
+            )
         return self.recorder.dump_to_dir(str(self.checkpoints.dir), reason)
+
+    # -- profiling ----------------------------------------------------------
+    def _maybe_profile(self) -> None:
+        """Open the profiling window before the step at
+        config.profile_start_step (rank 0; 0 disables). A profiler that
+        fails to start costs a warning, not the run."""
+        cfg = self.config
+        if (not cfg.profile_start_step or self._profiler is not None
+                or not self._writer
+                or self.global_step != cfg.profile_start_step):
+            return
+        trace_dir = cfg.profile_dir or f"{cfg.output_dir}/profile"
+        try:
+            self._profiler = profiling.start_trace()
+        except RuntimeError as e:  # a profiler already running
+            logger.warning("profiler start failed: %s", e)
+            return
+        self._profile_trace_dir = trace_dir
+        logger.info("profiler trace started -> %s", trace_dir)
+
+    def _step_mark(self):
+        """The open window's mark around one step ("train_step <global
+        step>"); nothing outside a window."""
+        if self._profiler is None:
+            return contextlib.nullcontext()
+        return profiling.annotate(f"train_step {self.global_step}")
+
+    def _maybe_end_profile(self, force: bool = False) -> None:
+        """Close the window after its last step (or at the end of the
+        run) and attribute it."""
+        cfg = self.config
+        if self._profiler is None or not force and self.global_step < (
+                cfg.profile_start_step + cfg.profile_num_steps):
+            return
+        prof, self._profiler = self._profiler, None
+        start = cfg.profile_start_step
+        path = profiling.stop_trace(
+            prof, self._profile_trace_dir,
+            f"steps{start}-{start + cfg.profile_num_steps}")
+        logger.info("profiler trace stopped -> %s", path)
+        self._attribute_profile(self._profile_trace_dir)
+
+    def _attribute_profile(self, trace_dir: str) -> None:
+        """Per-subsystem breakdown of the window just captured, into the
+        registry and <trace_dir>/attribution.jsonl; a failure costs a
+        warning, never the run."""
+        from luminaai_tpu_torch.monitoring.attribution import (
+            attribute_torch_trace_dir,
+            export_attribution,
+        )
+
+        try:
+            attr = attribute_torch_trace_dir(
+                trace_dir, n_steps=max(1, self.config.profile_num_steps))
+            export_attribution(
+                attr, registry=self.registry,
+                jsonl_path=os.path.join(trace_dir, "attribution.jsonl"),
+            )
+        except (OSError, RuntimeError, ValueError) as e:
+            logger.warning("trace attribution unavailable: %s", e)
+            return
+        top = list(attr.ms_per_step.items())[:3]
+        logger.info(
+            "step attribution (%d steps, %.1f ms/step attributed): %s -> "
+            "%s/attribution.jsonl", attr.n_steps, attr.total_ms_per_step,
+            ", ".join(f"{k}={v:.1f}ms" for k, v in top), trace_dir)
+
+    def _export_compiled_costs(self, batch) -> Dict[str, torch.Tensor]:
+        """The first step, run under the FLOP counter
+        (config.compiled_cost_analysis; monitoring/attribution.py):
+        exports the counted FLOPs, the allocator's peak and the
+        analytic-vs-counted cross-check, audits that the step updated the
+        parameters and moments in place, and returns the step's metrics.
+        One card only: over a mesh of more than one rank the first step
+        runs uncounted."""
+        from luminaai_tpu_torch.monitoring.attribution import (
+            analytic_train_flops,
+            compiled_cost_metrics,
+            donation_audit,
+            tree_bytes,
+        )
+
+        out: Dict[str, Any] = {}
+
+        def step():
+            with self._step_mark():
+                self.state, out["metrics"] = self.train_step(self.state,
+                                                             batch)
+
+        result = compiled_cost_metrics(
+            step, program="train", registry=self.registry, state=self.state,
+            analytic_flops=analytic_train_flops(
+                self.config.estimate_active_parameters(),
+                int(batch["input_ids"].numel())),
+        )
+        audit = donation_audit(result.get("memory"), tree_bytes(self.state),
+                               registry=self.registry)
+        result["donation_audit"] = audit
+        if audit.get("flagged"):
+            logger.warning(
+                "in-place audit: coverage %.2f < %.2f: the step replaces "
+                "its state's storage", audit.get("coverage") or 0.0,
+                audit.get("threshold", 0.0))
+        xc = result.get("mfu_crosscheck") or {}
+        if xc.get("flagged"):
+            logger.warning(
+                "analytic-vs-counted FLOPs diverge %.1f%% (analytic 6NT "
+                "%.3e, counted %.3e)", 100 * xc["divergence"],
+                xc["analytic_flops_per_step"], xc["compiled_flops_per_step"])
+        else:
+            logger.info("compiled cost analysis: %s", result)
+        self._compiled_costs = result
+        return out["metrics"]
 
     # -- failure handling --------------------------------------------------
     def _handle_nonfinite(self) -> bool:
@@ -1278,8 +1488,15 @@ class Trainer:
         return False
 
     def close(self) -> None:
+        if self._profiler is not None:  # the run ended inside the window
+            self._maybe_end_profile(force=True)
         if self.watchdog is not None:
             self.watchdog.close()
+        if self.timeseries is not None:
+            self.timeseries.stop()
+            if (self._installed_history
+                    and get_history() is self.timeseries):
+                set_history(getattr(self, "_prev_history", None))
         self.checkpoints.close()
         self.goodput.stop()
         set_default_policy(self._prev_io_policy)

@@ -131,8 +131,10 @@ SMALL = ["--preset", "debug", "--synthetic", "--steps", "4",
 
 def test_train_is_adaptive_by_default(tmp_path, restore_process_state):
     out = tmp_path / "adaptive"
+    # --no-slo as the JAX run below: the port's CLI takes it since it runs
+    # the Trainer's SLO stack (whose verdicts add the summary's "slo").
     assert cli.main(["train", *SMALL, "--moe-dispatch", "gmm", "--device",
-                     "cpu", "--output-dir", str(out)]) == 0
+                     "cpu", "--no-slo", "--output-dir", str(out)]) == 0
     summary = json.loads((out / "training_summary.json").read_text())
     assert summary["adaptive_decisions"] == []
     assert "trajectory" in summary

@@ -248,6 +248,30 @@ def test_mesh_modules_are_scanned(module):
     assert module.replace(".", "/") + ".py" in files
 
 
+# The A5 leftovers: soft prompts, profiling windows and attribution, the
+# environment and diagnostics, the reports, the OASST acquisition, and the
+# model, trainer, kernel and CLI pieces that carry them.
+A7_MODULES = (
+    "luminaai_tpu_torch.utils.environment",
+    "luminaai_tpu_torch.utils.profiling",
+    "luminaai_tpu_torch.utils.reporting",
+    "luminaai_tpu_torch.monitoring.attribution",
+    "luminaai_tpu_torch.data.acquisition",
+    "luminaai_tpu_torch.ops._flops",
+    "luminaai_tpu_torch.training.adapters",
+    "luminaai_tpu_torch.training.trainer",
+    "luminaai_tpu_torch.models.transformer",
+    "luminaai_tpu_torch.cli",
+)
+
+
+@pytest.mark.parametrize("module", A7_MODULES)
+def test_a7_modules_are_scanned(module):
+    assert module in _modules()
+    files = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert module.replace(".", "/") + ".py" in files
+
+
 def test_the_mesh_entry_points_refuse_what_is_left_for_a6b():
     """Since A6b, pipeline stages and the optimizer's host offload build
     where a train step is built; what JAX cannot pipeline (a layer stack

@@ -1,6 +1,7 @@
 """`python -m luminaai_tpu_torch serve` against the JAX CLI's `serve`.
 
-- The flag set is the JAX parser's but --trace-jax, plus the port's own
+- The flag set is the JAX parser's (--trace-jax included: the port's
+  tracer mirrors spans as torch.profiler ranges), plus the port's own
   model flags; `route` and `top` take the JAX CLI's flags exactly (host
   code: no --device); every shared flag has the JAX default.
 - The exit-2 checks exit 2 before any model load, where the JAX cmd_serve
@@ -19,7 +20,7 @@ import pytest
 from luminaai_tpu import cli as jcli
 from luminaai_tpu_torch import cli as tcli
 
-LEFT_OUT = {"--trace-jax"}
+LEFT_OUT = set()
 PORT_ONLY = {"--preset", "--dense", "--moe-dispatch", "--weights", "--seed",
              "--device"}
 
