@@ -293,9 +293,33 @@ Phases (any failure raises and exits non-zero):
              on (b)'s output (the HTML), `events --stats` over (b)'s flight
              record. `--only a7` runs it after the build alone.
 
+ 19. a8      the last JAX modules, after phase 18, at b1's widths (16
+             layers, dense, seeded bf16 weights) with attention_window
+             1020: the rolling cache holds 1024 slots (init_cache), slack
+             4. (1) One 1800-token request, bucket-prefilled at 2048 rows
+             through B1 banded (16 launches), then 128 greedy tokens
+             through the rolling cache (no B5: the slot mask is plain);
+             the same request through a plain-cache engine (B5 16 a
+             step): every position's logits, teacher-forced on the plain
+             run's tokens, within LOGIT_RTOL x max|logit|; the cache's
+             bytes exactly 1024/2048 of the plain one's; step ms of both.
+             (2) generate_speculative, draft_k 8: every verify 5 rows (the
+             cap C - window + 1), its tokens the greedy ones up to a
+             near-tie (the top-2 gap printed where one differs). (3)
+             generate_batch over prompts of 300-1800 tokens: each lane's
+             tokens its single-request run's, up to a near-tie. (4) int8
+             KV: one request through the rolling cache against the plain
+             int8 cache (B5-int8). (5) One b1 decode step and one
+             2-layer flagship train step under
+             torch.cuda.set_sync_debug_mode("warn"), the syncs CUDA
+             reports beside detect_host_syncs's count. (6) `analyze
+             --json` through the CLI's main (a child process started at
+             the phase's start) exits 0. `--only a8` runs it after the
+             build alone.
+
 `--only serve,plane,serve_moe` (development runs) runs the build, the
-kernel checks and the named phases only (`--only a7` skips the kernel
-checks); its last line then says "partial".
+kernel checks and the named phases only (`--only a7` and `--only a8`
+skip the kernel checks); its last line then says "partial".
 
 Earlier train phases write their checkpoints under chip_smoke_runs/ too,
 and the directory is removed when the script ends.
@@ -505,6 +529,31 @@ def kernel_names(fn, tries: int = 6, margin_s: float = 0.01) -> list:
                 log(f"  the profiler named the call's kernels at try {i + 1}")
             return names
     return []
+
+
+def flash_taken(calls: dict) -> dict:
+    """{kernel: names} for {"B1"|"B2"|"B3": one call}: the CUDA kernels
+    that one call launches as torch.profiler names them (_short), held
+    against the kernel the flash library recorded at its launch site
+    (flash_attention.last_kernel). Where both name kernels they must agree;
+    where the profiler records no device events in all of kernel_names's
+    tries (one B2 call lost all six on an H100), the library's record
+    stands in and the log says so."""
+    from luminaai_tpu_torch.ops import flash_attention as fa
+
+    taken = {}
+    for kern, call in calls.items():
+        names = [_short(n) for n in kernel_names(call)]
+        lib = fa.last_kernel(kern)
+        if not names:
+            log(f"  {kern}: the profiler recorded no device events in any "
+                f"try; the library recorded the launch of {lib}")
+            names = [lib]
+        elif lib not in names:
+            raise AssertionError(f"{kern}: the profiler named {names}, the "
+                                 f"library recorded {lib}")
+        taken[kern] = names
+    return taken
 
 
 def _short(name: str) -> str:
@@ -953,12 +1002,12 @@ def phase_flash_kernels(dev) -> list:
         dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, do, lse_ref, delta,
                                               **args)
         torch.cuda.synchronize()
-        taken = {kern: [_short(n) for n in kernel_names(call)] for kern, call
-                 in (("B1", lambda: fa.flash_fwd(q, k, v, **args)),
-                     ("B2", lambda: fa.flash_bwd_dq(
-                         q, k, v, do, lse_ref, delta, **args)),
-                     ("B3", lambda: fa.flash_bwd_dkv(
-                         q, k, v, do, lse_ref, delta, **args)))}
+        taken = flash_taken({
+            "B1": lambda: fa.flash_fwd(q, k, v, **args),
+            "B2": lambda: fa.flash_bwd_dq(q, k, v, do, lse_ref, delta,
+                                          **args),
+            "B3": lambda: fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta,
+                                           **args)})
         routes[name] = taken
         log(f"  kernels taken [{name}]: " + "; ".join(
             f"{kern} {', '.join(n) or 'not measured'}"
@@ -1190,8 +1239,7 @@ def _flash_at(inputs, rel, shape, label, expect: dict,
                lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse_ref, delta,
                                             **args)),
     }
-    taken = {kern: [_short(n) for n in kernel_names(kc)]
-             for kern, (kc, _) in calls.items()}
+    taken = flash_taken({kern: kc for kern, (kc, _) in calls.items()})
     log(f"  kernels taken [{label}]: " + "; ".join(
         f"{kern} {', '.join(n) or 'not measured'}" for kern, n in
         taken.items()))
@@ -6741,10 +6789,368 @@ def phase_a7(dev, entries: dict) -> dict:
     return out
 
 
+# Phase 19: the last JAX modules (the rolling window cache with
+# scalar-offset decode, the host-sync audit on the card, `analyze`)
+# ---------------------------------------------------------------------------
+# b1's widths with a window of 1020: C = ceil(1020 / 128) * 128 = 1024
+# slots, slack 4, so speculation's draft_k 8 is capped at 5.
+A8_WINDOW = 1020
+A8_PROMPT, A8_NEW = 1800, 128
+A8_DRAFT_K, A8_SPEC_NEW = 8, 48
+A8_LANES, A8_LANE_NEW = (300, 800, 1300, 1800), 16
+A8_INT8_NEW = 8
+A8_TRAIN_LAYERS = 2
+
+
+def _a8_model(dev):
+    """(model, config) of b1 dense with the window, seeded bf16 weights."""
+    from luminaai_tpu_torch.config import ConfigPresets
+    from luminaai_tpu_torch.convert import init_params
+    from luminaai_tpu_torch.models.transformer import LuminaTransformer
+
+    cfg = ConfigPresets.get("b1", use_moe=False)
+    cfg.attention_window = A8_WINDOW
+    model = init_params(LuminaTransformer(cfg, device=dev), 0)
+    return model, cfg
+
+
+def _greedy_run(engine, prompt, n_new, forced=None, time_steps=False):
+    """Prefill `prompt` and decode n_new - 1 rows after the first token:
+    (tokens, per-step fp32 logits on the host, step ms, caches). With
+    `forced`, row i feeds forced[i] (teacher forcing) and tokens are
+    this run's own argmaxes."""
+    import numpy as np
+    import torch
+
+    prompt = list(prompt)
+    L = len(prompt)
+    bucket = min(max(64, 1 << (L - 1).bit_length()), engine.max_context)
+    ids = np.zeros((1, bucket), dtype=np.int64)
+    ids[0, :L] = prompt
+    caches = engine.init_cache(1, engine.max_context)
+    logits = engine._prefill_rows(caches, ids, 0, L)
+    rows, tokens, ms = [logits.float().cpu()], [], []
+    tok = int(logits.argmax(-1))
+    tokens.append(tok)
+    for i in range(n_new - 1):
+        feed = forced[i] if forced is not None else tok
+        if time_steps:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = engine._decode_logits(caches, feed, L + i)
+        tok = int(logits.argmax(-1))
+        if time_steps:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        rows.append(logits.float().cpu())
+        tokens.append(tok)
+    return tokens, rows, ms, caches
+
+
+def _cache_bytes(caches) -> int:
+    n = 0
+    for layer in caches:
+        for side in layer:
+            for t in (side if isinstance(side, tuple) else (side,)):
+                n += t.numel() * t.element_size()
+    return n
+
+
+def _near_tie_at(got, want, rows, what):
+    """The index where `got` first leaves `want` (None where they agree
+    over got's length), held to be a near-tie of `rows` (the reference
+    run's logits): its top-2 gap within LOGIT_RTOL x max|logit|."""
+    for j, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            top = rows[j][0].topk(2).values
+            gap = float(top[0] - top[1])
+            bound = LOGIT_RTOL * float(rows[j].abs().max())
+            log(f"  {what}: token {j} differs ({a} vs {b}); the reference's "
+                f"top-2 logit gap there {gap:.4f} (near-tie bound "
+                f"{bound:.4f})")
+            if gap > bound:
+                raise AssertionError(f"{what} left the greedy tokens at "
+                                     f"{j} where no near-tie was")
+            return j
+    if len(got) > len(want):
+        raise AssertionError(f"{what}: more tokens than the reference")
+    return None
+
+
+def _sync_warnings(fn) -> dict:
+    """Synchronizing CUDA operations fn makes, as
+    torch.cuda.set_sync_debug_mode("warn") reports them: their count and
+    where each was made (the warning's line, and the innermost frame in
+    luminaai_tpu_torch/ that led to it)."""
+    import traceback
+    import warnings
+
+    import torch
+
+    sites = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        port = next((f"{Path(fr.filename).name}:{fr.lineno} {fr.name}"
+                     for fr in reversed(traceback.extract_stack())
+                     if "/luminaai_tpu_torch/" in fr.filename), "-")
+        sites.append(f"{Path(filename).name}:{lineno} <- {port}")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return {"count": len(sites), "sites": sorted(set(sites))}
+
+
+def _a8_syncs(dev, plain, caches, tok, pos) -> dict:
+    """(5): one b1 decode step (the plain cache, B5) and one 2-layer
+    flagship train step, CUDA's sync reports beside detect_host_syncs."""
+    import torch
+
+    from luminaai_tpu_torch import cli
+    from luminaai_tpu_torch.analysis.trace_audit import detect_host_syncs
+    from luminaai_tpu_torch.config import Config
+    from luminaai_tpu_torch.training.trainer import Trainer
+
+    out = {}
+    step = lambda: plain._decode_logits(caches, tok, pos)  # noqa: E731
+    with torch.inference_mode():
+        step()
+        out["decode"] = {"cuda_sync_warnings": _sync_warnings(step),
+                         "detected": detect_host_syncs(step)}
+    cfg = Config(**{**FLAGSHIP, "num_layers": A8_TRAIN_LAYERS},
+                 **FLAGSHIP_LEVERS, max_steps=3,
+                 output_dir=str(RUN_DIR / "a8"))
+    trainer = Trainer(cfg, cli._synthetic_batches(cfg), device=dev, seed=0)
+    raw = next(iter(cli._synthetic_batches(cfg)()))
+    batch = trainer._to_device(raw)
+
+    def train_step():
+        trainer.state, _ = trainer.train_step(trainer.state, batch)
+
+    train_step()
+    out["train"] = {"cuda_sync_warnings": _sync_warnings(train_step),
+                    "detected": detect_host_syncs(train_step)}
+    trainer.close()
+    del trainer
+    for k, v in out.items():
+        det = v["detected"]
+        cuda = v["cuda_sync_warnings"]
+        log(f"a8 (5) host syncs, {k} step: CUDA's sync debug mode "
+            f"{cuda['count']} at {cuda['sites']}; detect_host_syncs "
+            f"{det['total']} "
+            f"{det['by_op']} at "
+            f"{[(x['site'], x['count']) for x in det['sites']]}")
+    return out
+
+
+def phase_a8(dev, entries: dict, rpa_entry: dict,
+             rpa_int8_entry: dict) -> dict:
+    """Phase 19: the rolling window cache at b1's widths against the plain
+    cache, speculation's draft cap, generate_batch's rolling lanes, int8
+    KV, host syncs on the card, and `analyze`."""
+    import os
+
+    smi = _smi()
+    t_phase = time.perf_counter()
+    env = {**os.environ, "OMP_NUM_THREADS": "2"}
+    analyze = subprocess.Popen(
+        [sys.executable, "-m", "luminaai_tpu_torch", "analyze", "--json"],
+        cwd=str(Path(__file__).resolve().parent), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out = _a8_card(dev, entries, rpa_entry, rpa_int8_entry, smi)
+        text, err = analyze.communicate(timeout=300)
+    finally:
+        if analyze.poll() is None:
+            analyze.kill()
+            analyze.wait()
+    doc = json.loads(text) if analyze.returncode in (0, 1) else {}
+    verdicts = {v["name"]: v["ok"] for v in doc.get("audit_verdicts", [])}
+    surface = doc.get("audits", {}).get("recompile_surface", {})
+    log(f"a8 (6) analyze --json: exit {analyze.returncode}, "
+        f"{doc.get('summary', {}).get('unwaived')} unwaived finding(s), "
+        f"verdicts {verdicts}, surface "
+        f"{ {p: r['distinct_signatures'] for p, r in surface.get('programs', {}).items()} }"
+        + ("" if analyze.returncode == 0 else f"; stderr {err[-600:]}"))
+    if analyze.returncode != 0:
+        raise AssertionError("analyze did not exit 0")
+    out["analyze_exit"] = analyze.returncode
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"a8: phase wall {out['wall_s']:.1f} s ({smi})")
+    return out
+
+
+def _a8_card(dev, entries, rpa_entry, rpa_int8_entry, smi) -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from luminaai_tpu_torch.data.tokenizer import ConversationTokenizer
+    from luminaai_tpu_torch.inference.generate import GenerationEngine
+    from luminaai_tpu_torch.ops import ragged_paged_attention as rpa
+
+    class PlainCacheEngine(GenerationEngine):
+        """The engine over the plain position-addressed cache."""
+
+        def init_cache(self, batch, rows, rolling=True):
+            return super().init_cache(batch, rows, rolling=False)
+
+    t0 = time.perf_counter()
+    model, cfg = _a8_model(dev)
+    tok = ConversationTokenizer()
+    roll = GenerationEngine(model, tok, dataclasses.replace(cfg))
+    plain = PlainCacheEngine(model, tok, dataclasses.replace(cfg))
+    rng = np.random.RandomState(19)
+    prompt = list(rng.randint(10, cfg.vocab_size, A8_PROMPT))
+    out = {}
+    with torch.inference_mode():
+        # (1) plain cache: greedy tokens, B5 a layer a step.
+        b5 = rpa.ragged_paged_attention.launches
+        p_tok, p_rows, p_ms, p_caches = _greedy_run(plain, prompt, A8_NEW,
+                                                    time_steps=True)
+        b5_plain = rpa.ragged_paged_attention.launches - b5
+        # The rolling cache, teacher-forced on the plain tokens.
+        _reset_counts()
+        b5 = rpa.ragged_paged_attention.launches
+        r_tok, r_rows, r_ms, r_caches = _greedy_run(
+            roll, prompt, A8_NEW, forced=p_tok, time_steps=True)
+        b5_roll = rpa.ragged_paged_attention.launches - b5
+        b1 = _launch_counts()["B1"]
+        errs = [float((a - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(r_rows, p_rows)]
+        C = r_caches[0][0].shape[1]
+        bytes_roll, bytes_plain = _cache_bytes(r_caches), _cache_bytes(
+            p_caches)
+        L = cfg.num_layers
+        log(f"a8 (1) b1 dense, window {A8_WINDOW}: rolling cache {C} slots, "
+            f"{bytes_roll / 2**20:.1f} MiB against {bytes_plain / 2**20:.1f} "
+            f"MiB plain; prefill of {A8_PROMPT} tokens (one bucket): B1 "
+            f"{b1} (want {L}); decode B5 {b5_roll} rolling (want 0), "
+            f"{b5_plain} plain (want {L * (A8_NEW - 1)}); logits vs plain, "
+            f"teacher-forced, max rel err {max(errs):.3e} at position "
+            f"{int(np.argmax(errs))} (tol {LOGIT_RTOL}); decode step ms "
+            f"median rolling {statistics.median(r_ms):.2f}, plain "
+            f"{statistics.median(p_ms):.2f} ({smi})")
+        slots = -(-A8_WINDOW // 128) * 128
+        if C != slots or C * bytes_plain != bytes_roll * plain.max_context:
+            raise AssertionError("the rolling cache is not half the plain "
+                                 "cache")
+        if b1 != L or b5_roll != 0 or b5_plain != L * (A8_NEW - 1):
+            raise AssertionError("phase 19's kernel launches are off")
+        if max(errs) > LOGIT_RTOL:
+            raise AssertionError("rolling logits left the plain cache's")
+        _add_launches(entries, {"B1": b1}, "launches_a8")
+        rpa_entry["launches"] = (rpa_entry["launches"] or 0) + b5_plain
+        rpa_entry["launches_a8"] = b5_plain
+        # The rolling run's own greedy tokens: the plain ones up to the
+        # first argmax that differs (a near-tie), then its own there.
+        j = _near_tie_at(r_tok, p_tok, p_rows, "rolling vs plain greedy")
+        greedy = p_tok if j is None else p_tok[:j] + [r_tok[j]]
+        out["decode"] = {"cache_slots": C, "cache_bytes": bytes_roll,
+                         "plain_cache_bytes": bytes_plain,
+                         "logit_rel_err": max(errs),
+                         "step_ms_rolling": statistics.median(r_ms),
+                         "step_ms_plain": statistics.median(p_ms),
+                         "B1": b1, "B5_plain": b5_plain}
+        del p_caches, r_caches
+        t1 = time.perf_counter()
+
+        # (2) speculation: every verify capped at C - window + 1 rows.
+        widths = []
+        verify = roll._verify
+
+        def counted(caches, ids, start):
+            widths.append(len(ids))
+            return verify(caches, ids, start)
+
+        roll._verify = counted
+        try:
+            s_tok, stats = roll.generate_speculative(
+                prompt, max_new_tokens=A8_SPEC_NEW, draft_k=A8_DRAFT_K)
+        finally:
+            del roll._verify
+        cap = C - A8_WINDOW + 1
+        log(f"a8 (2) speculative, draft_k {A8_DRAFT_K}: {len(widths)} "
+            f"verify calls, widths {sorted(set(widths))} (cap {cap}), "
+            f"{stats.get('tokens_per_verify')} tokens a verify")
+        if set(widths) != {cap}:
+            raise AssertionError("the draft cap did not hold")
+        _near_tie_at(s_tok[:len(greedy)], greedy, r_rows,
+                     "speculative vs greedy")
+        out["speculative"] = {"verify_calls": len(widths), "width": cap,
+                              "tokens_per_verify":
+                                  stats.get("tokens_per_verify")}
+        t2 = time.perf_counter()
+
+        # (3) generate_batch: each lane against its single-request run.
+        lanes = [prompt[:n] for n in A8_LANES]
+        batch = roll.generate_batch(lanes, max_new_tokens=A8_LANE_NEW,
+                                    temperature=0.0,
+                                    repetition_penalty=1.0)
+        diffs = []
+        for n, lane, (b_tok, _) in zip(A8_LANES, lanes, batch):
+            one, rows, _, _ = _greedy_run(roll, lane, A8_LANE_NEW)
+            diffs.append(_near_tie_at(b_tok, one, rows, f"lane of {n}"))
+        log(f"a8 (3) generate_batch, {len(lanes)} rolling lanes of "
+            f"{list(A8_LANES)} tokens, {A8_LANE_NEW} new: first differing "
+            f"token per lane {diffs} (None: equal)")
+        out["batch"] = {"first_difference": diffs}
+        t3 = time.perf_counter()
+
+        # (4) int8 KV: the rolling cache against the plain int8 cache.
+        cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+        roll8 = GenerationEngine(model, tok, cfg8)
+        plain8 = PlainCacheEngine(model, tok, dataclasses.replace(cfg8))
+        b5i = rpa.ragged_paged_attention.launches_int8
+        q_tok, q_rows, _, q_caches = _greedy_run(plain8, prompt,
+                                                 A8_INT8_NEW)
+        b5_int8 = rpa.ragged_paged_attention.launches_int8 - b5i
+        _, r8_rows, _, r8_caches = _greedy_run(roll8, prompt, A8_INT8_NEW,
+                                               forced=q_tok)
+        err8 = max(float((a - b).abs().max()) / float(b.abs().max())
+                   for a, b in zip(r8_rows, q_rows))
+        codes = r8_caches[0][0][0]
+        log(f"a8 (4) int8 KV: rolling codes {tuple(codes.shape)} "
+            f"{codes.dtype}, logits vs the plain int8 cache max rel err "
+            f"{err8:.3e} (tol {LOGIT_RTOL}); B5-int8 {b5_int8} (want "
+            f"{L * (A8_INT8_NEW - 1)})")
+        if codes.dtype != torch.int8 or codes.shape[1] != C or (
+                err8 > LOGIT_RTOL) or b5_int8 != L * (A8_INT8_NEW - 1):
+            raise AssertionError("the int8 rolling cache is off")
+        rpa_int8_entry["launches"] = (rpa_int8_entry["launches"] or 0) + (
+            b5_int8)
+        rpa_int8_entry["launches_a8"] = b5_int8
+        out["int8"] = {"logit_rel_err": err8, "B5_int8": b5_int8}
+        del q_caches, r8_caches
+        t4 = time.perf_counter()
+
+        # (5) host syncs on the card.
+        caches = plain.init_cache(1, plain.max_context)
+        ids = np.zeros((1, 2048), dtype=np.int64)
+        ids[0, :A8_PROMPT] = prompt
+        plain._prefill_rows(caches, ids, 0, A8_PROMPT)
+    out["syncs"] = _a8_syncs(dev, plain, caches, p_tok[0], A8_PROMPT)
+    del caches, model, roll, plain
+    _release()
+    t5 = time.perf_counter()
+    log(f"  a8 walls: (1) {t1 - t0:.1f} s, (2) {t2 - t1:.1f} s, (3) "
+        f"{t3 - t2:.1f} s, (4) {t4 - t3:.1f} s, (5) {t5 - t4:.1f} s")
+    return out
+
+
 ALL_PHASES = ("serve", "plane", "serve_moe", "train", "train_moe",
               "runtime", "posttrain", "adaptive", "posttrain_moe",
               "train_tuned", "mod", "fleet", "quant", "mesh", "pipe",
-              "groups", "a7")
+              "groups", "a7", "a8")
 PHASES = set(ALL_PHASES)
 
 
@@ -6789,10 +7195,10 @@ def main() -> int:
         entry_int8 = phase_kernels_int8(dev)
         flash_entries = phase_flash_kernels(dev) if not partial or (
             PHASES - {"serve", "plane", "serve_moe", "fleet", "quant",
-                      "a7"}) else []
+                      "a7", "a8"}) else []
         gmm_entries = phase_gmm_kernels(dev) if not partial or (
             PHASES - {"serve", "plane", "train", "runtime",
-                      "posttrain", "fleet", "quant", "a7"}) else []
+                      "posttrain", "fleet", "quant", "a7", "a8"}) else []
         if "serve" in PHASES:  # phase 3, and phase 10 ("plane") after it
             done["serve"] = phase_serve(dev, entry)
             _release()
@@ -6858,6 +7264,10 @@ def main() -> int:
         if "a7" in PHASES:
             done["a7"] = phase_a7(dev, by_kernel)
             shutil.rmtree(RUN_DIR / "a7", ignore_errors=True)
+            _release()
+        if "a8" in PHASES:
+            done["a8"] = phase_a8(dev, by_kernel, entry, entry_int8)
+            shutil.rmtree(RUN_DIR / "a8", ignore_errors=True)
             _release()
         if "fleet" in PHASES:
             done["fleet"] = phase_fleet(dev, entry)

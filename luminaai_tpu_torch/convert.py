@@ -34,6 +34,11 @@ per-leaf min_size quantized only some of wq, wk and wv, the port keeps
 the three blocks apart (a tuple; models/layers.QKVParts). `model_tree`
 gives a model's weights with any QuantizedTensor in its place.
 
+`layernorm_from_flax` / `layernorm_to_flax` map a JAX `LayerNorm`'s
+tree ({scale [H], bias [H]}; no bias under use_bias=False) onto
+models/layers.LayerNorm's state_dict and back. No JAX model uses a
+LayerNorm, so the model maps above have no entry for one.
+
 `init_params` draws the same shapes from a seed with the JAX init's
 standard deviations (init_std, the untied head's too; init_std / sqrt(2)
 for the output projections, experts' included; 0.02 for the MoE router,
@@ -237,6 +242,19 @@ def state_dict_to_flax(
                     out[p + "mod_router/" + name] = sd[
                         q + "mod_router." + name]
     return stack_scanned(out, config) if scanned else out
+
+
+def layernorm_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX LayerNorm's {scale, bias} leaves -> LayerNorm's state_dict
+    (fp32 copies)."""
+    return {name: torch.tensor(np.asarray(tree[name]), dtype=torch.float32)
+            for name in ("scale", "bias") if name in tree}
+
+
+def layernorm_to_flax(module: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """LayerNorm's parameters -> the JAX LayerNorm's tree."""
+    return {name: p.detach().cpu().numpy()
+            for name, p in module.named_parameters()}
 
 
 def _qt(q, scale, axis, shape) -> QuantizedTensor:

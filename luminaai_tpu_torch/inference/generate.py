@@ -12,24 +12,32 @@ prompt is prefilled in chunks of config.prefill_chunk_size rows into a
 fresh per-request cache [1, max_context, Hkv, D] (the JAX
 `_prefill_chunked`, with its re-anchor of a final chunk that would
 overhang the cache; without chunking, one power-of-two bucket), then a
-Python loop decodes one row per step at cache_index [start + i]. Prefill
-rows take the plain paged attention; each decode row goes through the
-ragged decode kernel (B5) on the card, the pages being the cache's
-identity layout. The JAX loop is a lax.while_loop that splits its key
-once per token; here one torch.Generator seeded from the request's seed
-draws once per sampled token, so `generate_stream` yields exactly the
-tokens `generate` returns at the same seed.
+Python loop decodes one row per step at the scalar offset start + i, as
+the JAX engine passes it. Prefill rows take the plain paged attention;
+each decode row goes through the ragged decode kernel (B5) on the card,
+the pages being the cache's identity layout. Under attention_window the
+cache rolls (the JAX layout; models/transformer.py init_cache): C =
+ceil(window / 128) * 128 slots, one bucket prefilled through the banded
+flash forward (B1), decode rows at slot pos % C read through the plain
+slot mask, as JAX leaves that layout to XLA. The JAX loop is a
+lax.while_loop that splits its key once per token; here one
+torch.Generator seeded from the request's seed draws once per sampled
+token, so `generate_stream` yields exactly the tokens `generate` returns
+at the same seed.
 
 Batched (`generate_batch`, the MicroBatcher's path): every prompt gets a
-lane of one cache [B, max_context, Hkv, D]; one bucketed prefill forward
-writes all lanes, then each decode step runs every lane through B5 (the
-JAX vmapped while_loop), a finished lane riding along until the last one
-stops. Speculative (`generate_speculative`, `generate_stream_speculative`):
-greedy decode with prompt-lookup drafts; each round feeds the last
-accepted token and up to k-1 drafted ones as one k-row forward (rows
-written at their positions, attention through the plain paged version,
-as the JAX verify's Sq > 1 goes to its XLA reference) and accepts drafts
-while each is the greedy choice.
+lane of one cache [B, max_context, Hkv, D] (C slots each under a window:
+per-lane rolling caches, `rolling_lanes`, as JAX's vmap of the
+single-request path gives every lane its own); one bucketed prefill
+forward writes all lanes, then each decode step runs every lane through
+B5 (the slot mask on rolling lanes; the JAX vmapped while_loop), a
+finished lane riding along until the last one stops. Speculative
+(`generate_speculative`, `generate_stream_speculative`): greedy decode
+with prompt-lookup drafts; each round feeds the last accepted token and
+up to k-1 drafted ones as one k-row forward (rows written at their
+positions, attention through the plain paged version, as the JAX
+verify's Sq > 1 goes to its XLA reference) and accepts drafts while each
+is the greedy choice.
 
 Step-wise (`StepwiseDecoder`, continuous batching): prefill writes a
 request's rows straight into its pool slot (the JAX decoder prefills a
@@ -248,11 +256,13 @@ class GenerationEngine:
             self.config.quantization_method = quantize
             self.quantization_info = quantize_model(self.model, self.config)
 
-    def init_cache(self, batch: int, rows: int):
+    def init_cache(self, batch: int, rows: int, rolling: bool = True):
         """The model's caches in this engine's kv_cache_dtype (the engine's
-        config decides, as in JAX, not the model's)."""
+        config decides, as in JAX, not the model's); rolling as the
+        model's init_cache (a windowed request's cache holds C slots)."""
         return self.model.init_cache(batch, rows,
-                                     kv_cache_dtype=self.config.kv_cache_dtype)
+                                     kv_cache_dtype=self.config.kv_cache_dtype,
+                                     rolling=rolling)
 
     @property
     def _stop_set(self):
@@ -309,7 +319,7 @@ class GenerationEngine:
             torch.as_tensor(ids, dtype=torch.int64, device=dev),
             positions=torch.as_tensor(positions, device=dev),
             kv_caches=caches,
-            cache_index=torch.tensor([start], device=dev),
+            cache_index=start,
             return_hidden=True,
         )
         last = min(max(length - 1 - start, 0), S - 1)
@@ -373,16 +383,17 @@ class GenerationEngine:
     def _decode_logits(self, caches, token: int, pos: int,
                        backend: Optional[str] = None) -> torch.Tensor:
         """One decode row: `token` at position `pos` written into the
-        cache at cache_index [pos], attending rows 0..pos -> fp32 logits
-        [1, V]. backend: None (the decode kernel on the card) or
-        'plain' (the oracle re-run)."""
+        cache at the scalar offset pos (slot pos % C of a rolling cache),
+        attending rows 0..pos (the band) -> fp32 logits [1, V]. backend:
+        None (the decode kernel on the card; a rolling cache's slot mask
+        is plain) or 'plain' (the oracle re-run)."""
         dev = self.model.device
         self.decode_forwards += 1
         logits, _ = self.model(
             torch.tensor([[token]], device=dev),
             positions=torch.tensor([[pos]], device=dev),
             kv_caches=caches,
-            cache_index=torch.tensor([pos], device=dev),
+            cache_index=pos,
             lane_meta=LaneMeta(backend=backend),
         )
         return logits[:, -1]
@@ -464,8 +475,9 @@ class GenerationEngine:
         """One speculative verify forward: k rows (the last accepted token
         and the drafts, -1 for a missing draft) at positions start.., their
         cache rows written in the same pass; returns the greedy argmax at
-        every fed row [k]. Sq = k > 1 takes the plain paged attention, as
-        the JAX verify's multi-row forward takes its XLA reference."""
+        every fed row [k]. Sq = k > 1 takes the plain paged attention (a
+        rolling cache's slot mask), as the JAX verify's multi-row forward
+        takes its XLA reference."""
         dev = self.model.device
         k = len(ids)
         self.verify_forwards += 1
@@ -473,8 +485,9 @@ class GenerationEngine:
             torch.tensor([ids], dtype=torch.int64, device=dev),
             positions=torch.arange(start, start + k, device=dev)[None],
             kv_caches=caches,
-            cache_index=torch.tensor([start], device=dev),
+            cache_index=start,
             lane_meta=LaneMeta(),
+            multi_row_update=True,
         )
         return torch.argmax(logits[0], dim=-1).cpu().numpy()
 
@@ -517,11 +530,22 @@ class GenerationEngine:
         one k-row forward, accepts drafts while each IS the greedy choice
         given its verified prefix, and takes the model's prediction at the
         divergence as a bonus. timeout_s bounds the loop (checked per
-        round; stopped='timeout'). The port's single-request cache never
-        rolls, so the JAX engine's draft cap under a rolling window cache
-        does not arise."""
+        round; stopped='timeout'). Under a rolling cache (attention_window)
+        a k-row verify needs C - window >= k - 1 slots of slack, or later
+        rows would evict earlier rows' in-band keys: the draft is capped
+        there, and with no slack (window % 128 == 0) the stream is the
+        plain greedy one, its deadline kept (JAX generate.py:570-600)."""
         max_new = int(max_new_tokens or self.config.max_new_tokens)
         k = max(2, int(draft_k))
+        w = self.config.attention_window
+        if w is not None and self.max_context <= self.config.seq_length:
+            slots = min(self.max_context, -(-w // 128) * 128)
+            if slots < self.config.seq_length:  # the cache rolls
+                k = min(k, slots - w + 1)
+                if k < 2:
+                    yield from self._greedy_with_deadline(
+                        prompt_tokens, max_new, seed, timeout_s)
+                    return
         gen_key = (max_new, 0.0, 0, 1.0, 1.0)  # greedy, no penalty
         t0 = time.time()
         # Room for the verify overshoot (up to k-1 cache rows past the
@@ -584,6 +608,33 @@ class GenerationEngine:
             "tokens_per_verify": round(produced / max(verify_calls, 1), 2),
         }
 
+    def _greedy_with_deadline(self, prompt_tokens, max_new: int, seed,
+                              timeout_s: Optional[float]):
+        """The plain greedy stream, ended with stopped='timeout' once
+        timeout_s has passed (checked per token): speculation's fallback
+        where a rolling cache leaves no slack for a verify."""
+        start = time.time()
+        produced = 0
+        src = self.generate_stream(prompt_tokens, max_new_tokens=max_new,
+                                   temperature=0.0, repetition_penalty=1.0,
+                                   seed=seed)
+        for item in src:
+            yield item
+            if isinstance(item, dict):
+                return
+            produced += 1
+            if timeout_s is not None and time.time() - start > timeout_s:
+                src.close()
+                dt = time.time() - start
+                yield {
+                    "tokens_generated": produced,
+                    "seconds": round(dt, 3),
+                    "tokens_per_second": round(produced / max(dt, 1e-9), 1),
+                    "prompt_tokens": len(prompt_tokens),
+                    "stopped": "timeout",
+                }
+                return
+
     # -- batched generation (the MicroBatcher's path) ----------------------
     @torch.inference_mode()
     def generate_batch(
@@ -635,6 +686,7 @@ class GenerationEngine:
             kv_caches=caches,
             cache_index=torch.zeros((B,), dtype=torch.int64, device=dev),
             return_hidden=True,
+            rolling_lanes=True,
         )
         last = torch.as_tensor([n - 1 for n in lengths], device=dev)
         logits = self.model.embedder.decode(
@@ -670,6 +722,7 @@ class GenerationEngine:
                 kv_caches=caches,
                 cache_index=torch.as_tensor(cur, device=dev),
                 lane_meta=LaneMeta(),
+                rolling_lanes=True,
             )
             idx = np.flatnonzero(live)
             sel = torch.as_tensor(idx, device=dev)
@@ -811,7 +864,8 @@ class StepwiseDecoder:
             -(-prefix_cache_pages // pages) if prefix_cache_pages > 0 else 0
         )
         self.total_slots = num_slots + arena_slots
-        caches = engine.init_cache(self.total_slots, pages * page_size)
+        caches = engine.init_cache(self.total_slots, pages * page_size,
+                                   rolling=False)
         # Lane accounting covers the first num_slots rows only; the arena
         # slots are reached through global page-table entries.
         self.pool = PagedKVPool(

@@ -49,6 +49,7 @@ from luminaai_tpu_torch.ops.ragged_paged_attention import (
     NEG_INF,
     LaneMeta,
     cache_rows,
+    dequantize_kv,
     implied_page_size,
     paged_attention,
 )
@@ -78,6 +79,35 @@ class RMSNorm(nn.Module):
         var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
         y = x32 * torch.rsqrt(var + self.eps)
         return (y * self.scale).to(self.dtype)
+
+
+class LayerNorm(nn.Module):
+    """Standard layer norm (the JAX `LayerNorm`): fp32 mean and variance,
+    an fp32 scale and, with use_bias, an fp32 bias; output in the compute
+    dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, use_bias: bool = True,
+                 dtype=torch.bfloat16, device=None, trainable: bool = False):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.scale = nn.Parameter(
+            torch.ones(dim, dtype=torch.float32, device=device),
+            requires_grad=trainable,
+        )
+        self.bias = nn.Parameter(
+            torch.zeros(dim, dtype=torch.float32, device=device),
+            requires_grad=trainable,
+        ) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = torch.mean(x32, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(x32 - mean), dim=-1, keepdim=True)
+        y = (x32 - mean) * torch.rsqrt(var + self.eps) * self.scale
+        if self.bias is not None:
+            y = y + self.bias
+        return y.to(self.dtype)
 
 
 def rope_frequencies(
@@ -188,8 +218,40 @@ def _write_rows(cache, index, fresh: torch.Tensor) -> None:
         cache[index] = fresh.to(cache.dtype)
 
 
+def _scatter_rows(cache, fresh: torch.Tensor, slots: torch.Tensor,
+                  keep: torch.Tensor) -> None:
+    """cache[b, slots[b, s]] = fresh[b, s] for the rows `keep` marks, in
+    place, with no host sync. The JAX layer scatters a dropped row into a
+    dummy row C; a boolean selection here would make the row count a
+    host value. So a dropped row is sent to its lane's last kept row's
+    slot with that row's value (duplicate writes of one value land the
+    same in any order), and a lane with no kept row rewrites its row 0
+    with its own content."""
+    B, S = slots.shape
+    rows = torch.arange(S, device=slots.device).expand(B, S)
+    last = torch.where(keep, rows, -1).amax(dim=1, keepdim=True)
+    has = last >= 0
+    last = last.clamp(min=0)
+    src = torch.where(keep, rows, last)
+    target = torch.where(keep, slots,
+                         torch.where(has, slots.gather(1, last), 0))
+    lanes = torch.arange(B, device=slots.device)[:, None].expand(B, S)
+
+    def put(t, vals):
+        keep_of = has.reshape(B, 1, *([1] * (vals.dim() - 2)))
+        t[lanes, target] = torch.where(keep_of, vals[lanes, src],
+                                       t[:, :1]).to(t.dtype)
+
+    if isinstance(cache, tuple):
+        q8, s = quantize_act(fresh)
+        put(cache[0], q8)
+        put(cache[1], s)
+    else:
+        put(cache, fresh)
+
+
 class GQAttention(nn.Module):
-    """Grouped-query attention with RoPE over a per-lane KV cache.
+    """Grouped-query attention with RoPE, with or without a KV cache.
 
     Parameters: `wqkv` [H, (nq + 2 nkv) * d], the JAX layer's wq/wk/wv
     concatenated once (its fused projection), and `wo` [nq * d, H].
@@ -200,13 +262,22 @@ class GQAttention(nn.Module):
     config.use_flash_attention is set (as the JAX layer decides), else
     through the plain einsum attention (the JAX `_xla_attention`).
 
-    The cache paths are the two per-lane ones the serving slice runs, each
-    selected by a [B] `cache_index` (lanes at their own offsets):
-      S == 1: one decode row per lane at cache_index[b];
-      S > 1:  rows at their absolute `positions`; padding rows (-1) are
-              dropped by a boolean mask (the JAX layer scatters them into a
-              dummy row C; torch would wrap an index of -1).
-    Attention then reads the post-write cache through the ragged dispatch.
+    With a cache, `cache_index` is a scalar offset (a Python int or a
+    0-dim tensor: one request, the JAX engine's form) or a [B] tensor
+    (lanes at their own offsets: the slot pool, or with `rolling_lanes`
+    the batched engine's own per-lane caches). Rows land at their
+    `positions` (offset + row when None); a multi-row write drops rows
+    marked -1. The cache ROLLS, as JAX decides (layers.py:328-332), when
+    the window is set and the cache holds fewer rows than
+    max(seq_length, S) (init_cache shrank it to the window), unless the
+    offsets are per-lane pool offsets (`rolling_lanes` False): the pool
+    never wraps. Then a decode row goes to slot pos % C, a multi-row
+    write keeps each lane's last C live rows and leaves untouched slots
+    as they are, a prefill (S > 1 without multi_row_update) attends its
+    raw rows (the banded no-cache forward: flash where eligible), and
+    decode and a multi-row verify (multi_row_update) read the cache
+    through the slot mask. Otherwise attention reads the post-write
+    cache through the ragged dispatch (the decode kernel for one row).
     """
 
     def __init__(self, config: Config, dtype=torch.bfloat16, device=None,
@@ -248,19 +319,16 @@ class GQAttention(nn.Module):
         *,
         positions: Optional[torch.Tensor] = None,
         kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-        cache_index: Optional[torch.Tensor] = None,
+        cache_index=None,
         lane_meta: Optional[LaneMeta] = None,
+        multi_row_update: bool = False,
+        rolling_lanes: bool = False,
     ):
         cfg = self.config
         B, S, H = x.shape
         n_q, n_kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim()
-        if kv_cache is not None and (
-            cache_index is None or cache_index.ndim != 1
-        ):
-            raise NotImplementedError(
-                "the port's attention runs the per-lane cache paths only "
-                "(a [B] cache_index) and the no-cache forward"
-            )
+        if kv_cache is not None and cache_index is None:
+            raise ValueError("a cache forward needs a cache_index")
         mesh = active_mesh() if kv_cache is None else None
         tg = None
         if mesh is not None and mesh.shape["tensor"] > 1:
@@ -331,32 +399,94 @@ class GQAttention(nn.Module):
         q = apply_rope(q, cos, sin, positions, compute_dtype=rope_ct)
         k = apply_rope(k, cos, sin, positions, compute_dtype=rope_ct)
 
+        per_lane = torch.is_tensor(cache_index) and cache_index.ndim == 1
+        if per_lane:
+            offsets = cache_index
+        elif torch.is_tensor(cache_index):
+            offsets = cache_index.to(x.device).reshape(1).expand(B)
+        else:
+            offsets = torch.full((B,), int(cache_index), device=x.device)
+        w = cfg.attention_window
+        rolling = (w is not None and C < max(cfg.seq_length, S)
+                   and (rolling_lanes or not per_lane))
         lanes = torch.arange(B, device=x.device)
         if S > 1:
-            if positions is None:
+            if per_lane and positions is None:
                 raise ValueError(
                     "per-lane multi-row cache writes need explicit "
-                    "positions (padding rows marked -1)"
-                )
-            live = positions >= 0
-            index = (lanes[:, None].expand(B, S)[live], positions[live])
-            _write_rows(ck, index, k[live])
-            _write_rows(cv, index, v[live])
+                    "positions (padding rows marked -1)")
+            pos = (positions if positions is not None else
+                   offsets[:, None] + torch.arange(S, device=x.device))
+            keep = pos >= 0
+            slots = pos
+            if rolling:
+                # Only the last C live rows of this write can coexist.
+                length = keep.sum(dim=1, keepdim=True)
+                keep = keep & (pos >= length - C)
+                slots = torch.remainder(pos, C)
+            _scatter_rows(ck, k, slots, keep)
+            _scatter_rows(cv, v, slots, keep)
         else:
+            pos = (positions if positions is not None
+                   else offsets[:, None])
             # One decode row per lane. XLA drops an out-of-range scatter
             # row, torch faults on it: the only lanes that can sit past the
             # last row are finished or free ones whose output is discarded,
             # so their write is clamped onto their own last row.
-            index = (lanes, cache_index.clamp(0, C - 1))
+            index = (lanes, torch.remainder(offsets, C) if rolling
+                     else offsets.clamp(0, C - 1))
             _write_rows(ck, index, k[:, 0])
             _write_rows(cv, index, v[:, 0])
 
-        backend = getattr(lane_meta, "backend", None) or "ragged"
-        out = self._ragged_attention(
-            q, ck, cv, lane_meta, cache_index, positions, backend
-        )
+        if rolling and S > 1 and multi_row_update and S - 1 > C - w:
+            # Row j's band must survive rows j+1.. landing in later slots.
+            raise ValueError(
+                f"rolling-cache multi-row update of {S} rows needs cache "
+                f"slack >= {S - 1} (cache {C} slots, window {w}); reduce "
+                "draft_k or use a non-multiple-of-128 window")
+        if rolling and S > 1 and not multi_row_update:
+            # Rolling prefill attends its raw rows (early prompt rows may
+            # have left the cache): the banded no-cache forward.
+            if cfg.use_flash_attention and flash_eligible(
+                S, d, cfg.flash_block_q, cfg.flash_block_kv
+            ):
+                out = flash_attention(
+                    q, k, v.contiguous(), causal=True,
+                    block_q=cfg.flash_block_q, block_kv=cfg.flash_block_kv,
+                    window=w,
+                )
+            else:
+                out = self._xla_attention(q, k, v)
+        elif rolling:
+            out = self._slot_attention(q, ck, cv, pos)
+        else:
+            backend = getattr(lane_meta, "backend", None) or "ragged"
+            out = self._ragged_attention(
+                q, ck, cv, lane_meta, offsets, positions, backend)
         y = project(out.reshape(B, S, n_q * d), self.wo, self.dtype)
         return y, (ck, cv)
+
+    def _slot_attention(self, q, k, v, q_pos):
+        """Attention over a rolling cache of C slots (the JAX
+        `_xla_attention`'s rolling branch, plain PyTorch as JAX leaves it
+        to XLA): slot s holds the freshest position of its residue class,
+        and back = (q_pos - s) mod C admits it where back <= q_pos (a
+        position >= 0: causal) and back < window (the band). q_pos:
+        [B, Sq] absolute positions."""
+        if isinstance(k, tuple):
+            k, v = dequantize_kv(k, q.dtype), dequantize_kv(v, q.dtype)
+        B, Sq, n_q, d = q.shape
+        C, n_kv = k.shape[1], k.shape[2]
+        qg = q.reshape(B, Sq, n_kv, n_q // n_kv, d)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() * (
+            1.0 / math.sqrt(d))
+        qp = q_pos[:, :, None]
+        back = torch.remainder(qp - torch.arange(C, device=q.device), C)
+        mask = (back <= qp) & (back < self.config.attention_window)
+        logits = torch.where(mask[:, None, None], logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+        return out.reshape(B, Sq, n_q, d)
 
     def _xla_attention(self, q, k, v):
         """Plain no-cache attention (the JAX layer's `_xla_attention`

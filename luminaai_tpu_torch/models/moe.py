@@ -117,7 +117,10 @@ def sort_routing(probs: torch.Tensor, top_k: int, capacity: int):
     ar = torch.arange(n, device=probs.device)
     order = torch.argsort(e_flat * n + ar, dim=-1)
     e_sorted = torch.gather(e_flat, 1, order)
-    counts_all = F.one_hot(e_flat, E).sum(dim=1)  # [G, E] before capacity
+    # [G, E] before capacity. A comparison, not F.one_hot, which checks
+    # the ids' range with a host read on the CPU.
+    experts = torch.arange(E, device=probs.device)
+    counts_all = (e_flat[..., None] == experts).sum(dim=1)
     starts = torch.cumsum(counts_all, dim=1) - counts_all
     pos_sorted = ar - torch.gather(starts, 1, e_sorted)
     slot_sorted = torch.where(pos_sorted < C, e_sorted * C + pos_sorted,
@@ -127,7 +130,9 @@ def sort_routing(probs: torch.Tensor, top_k: int, capacity: int):
     keep = slot < E * C
     gate = torch.where(keep, gates, torch.zeros_like(gates))
     dropped = (1.0 - keep.to(probs.dtype)).sum(-1).clamp(0.0, 1.0)
-    counts = torch.minimum(counts_all, torch.tensor(C, device=probs.device))
+    # clamp, not a minimum against torch.tensor(C, device=...): that copy
+    # from pageable host memory makes the host wait for the card.
+    counts = counts_all.clamp(max=C)
     return slot, gate, dropped, counts
 
 
@@ -180,11 +185,12 @@ def top_k_routing(probs: torch.Tensor, top_k: int, capacity: int):
     expert_count = torch.zeros((G, E), dtype=torch.int32,
                                device=probs.device)
     cap = torch.arange(capacity, device=probs.device)
+    experts = torch.arange(E, device=probs.device)  # F.one_hot syncs
     masked = probs
     drops = probs.new_zeros((G, S))
     for _ in range(top_k):
         choice = torch.argmax(masked, dim=-1)  # [G, S]
-        onehot = F.one_hot(choice, E).to(probs.dtype)
+        onehot = (choice[..., None] == experts).to(probs.dtype)
         pos_in_expert = (torch.cumsum(onehot, dim=1) - onehot
                          + expert_count[:, None, :])
         pos = (pos_in_expert * onehot).sum(-1)

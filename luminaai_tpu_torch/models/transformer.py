@@ -10,7 +10,7 @@ model's unscanned one (convert.py maps scanned trees onto it). The aux
 losses and router metrics reduce over layers as the JAX `_reduce_metrics`
 does.
 
-Two forwards, as in the JAX model: over per-lane KV caches (serving; its
+Two forwards, as in the JAX model: over KV caches (serving; its
 callers run it under torch.inference_mode(), and MoD layers run their
 plain SwiGLU there, as the JAX decoder does) and without a cache
 (training and evaluation), where config.gradient_checkpointing applies
@@ -125,7 +125,8 @@ class TransformerBlock(nn.Module):
         return self.ffn(y), {}
 
     def forward(self, x, *, positions=None, kv_cache=None, cache_index=None,
-                lane_meta=None, routing=None, remat: Optional[str] = None):
+                lane_meta=None, routing=None, remat: Optional[str] = None,
+                multi_row_update: bool = False, rolling_lanes: bool = False):
         """-> (x, kv_cache, metrics); `routing` are the MoE layer's
         training-time draws (MoELayer.draw_routing). `remat` names a
         REMAT_POLICIES entry whose checkpoints sit inside the block
@@ -146,6 +147,8 @@ class TransformerBlock(nn.Module):
             kv_cache=kv_cache,
             cache_index=cache_index,
             lane_meta=lane_meta,
+            multi_row_update=multi_row_update,
+            rolling_lanes=rolling_lanes,
         )
         x = x + h
         y, metrics = self.ffn_branch(x, routing, cached=True)
@@ -265,13 +268,15 @@ class LuminaTransformer(nn.Module):
         *,
         positions: Optional[torch.Tensor] = None,
         kv_caches: Optional[List[KVCache]] = None,
-        cache_index: Optional[torch.Tensor] = None,
+        cache_index=None,
         lane_meta: Optional[LaneMeta] = None,
         deterministic: bool = True,
         return_hidden: bool = False,
         generator: Optional[torch.Generator] = None,
         stage=None,
         prefix_embeds: Optional[torch.Tensor] = None,
+        multi_row_update: bool = False,
+        rolling_lanes: bool = False,
     ):
         """input_ids [B, S] -> with kv_caches: (fp32 logits [B, S, V],
         kv_caches), or (final-normed hidden [B, S, H], kv_caches) with
@@ -291,7 +296,11 @@ class LuminaTransformer(nn.Module):
         run over all S + P rows, the prefix rows are routed (and counted
         in the aux losses) like the others, and are stripped after the
         final norm, so the outputs cover the S real tokens (JAX
-        transformer.py:255-336)."""
+        transformer.py:255-336). `cache_index` is a scalar offset (one
+        request) or [B] per-lane offsets; `multi_row_update` marks an S > 1
+        call that writes mid-stream rows into an existing cache (the
+        speculative verify) and `rolling_lanes` per-lane offsets into
+        per-lane rolling caches (models/layers.py GQAttention)."""
         if stage is not None:
             return stage(self)
         if kv_caches is None:
@@ -308,6 +317,8 @@ class LuminaTransformer(nn.Module):
                 kv_cache=cache,
                 cache_index=cache_index,
                 lane_meta=lane_meta,
+                multi_row_update=multi_row_update,
+                rolling_lanes=rolling_lanes,
             )
         x = self.final_norm(x)
         if return_hidden:
@@ -370,16 +381,25 @@ class LuminaTransformer(nn.Module):
         return x, all_metrics
 
     def init_cache(self, batch_size: int, max_len: int,
-                   kv_cache_dtype: Optional[str] = None) -> List[KVCache]:
-        """Preallocated per-layer (k, v) caches [B, max_len, Hkv, D]: the
-        plain position-addressed layout (the JAX init_cache with
-        rolling=False), which is what the slot-paged pool uses. Each side
-        is in the compute dtype, or with kv_cache_dtype 'int8' (None: the
-        model config's; the engine passes its own, as in JAX) a pair of
-        int8 codes (zeros) and fp32 per-row scales [.., 1] (ones)."""
+                   kv_cache_dtype: Optional[str] = None,
+                   rolling: bool = True) -> List[KVCache]:
+        """Preallocated per-layer (k, v) caches [B, C, Hkv, D] (the JAX
+        init_cache). C is max_len, but under attention_window with max_len
+        <= seq_length the cache ROLLS: C = min(max_len, ceil(window / 128)
+        * 128) slots, slot pos % C holding the freshest row of its residue
+        class, so decode memory is O(window). rolling=False keeps the
+        plain position-addressed layout, which the slot-paged pool uses
+        (it never wraps). Each side is in the compute dtype, or with
+        kv_cache_dtype 'int8' (None: the model config's; the engine passes
+        its own, as in JAX) a pair of int8 codes (zeros) and fp32 per-row
+        scales [.., 1] (ones)."""
         cfg = self.config
         choice = kv_cache_dtype or cfg.kv_cache_dtype
-        shape = (batch_size, max_len, cfg.num_kv_heads, cfg.head_dim())
+        rows = max_len
+        w = cfg.attention_window
+        if rolling and w is not None and max_len <= cfg.seq_length:
+            rows = min(max_len, -(-w // 128) * 128)
+        shape = (batch_size, rows, cfg.num_kv_heads, cfg.head_dim())
 
         def side():
             if choice == "int8":

@@ -322,6 +322,18 @@ def reset_launches() -> None:
         fn.launches = 0
 
 
+def last_kernel(kernel: str) -> str:
+    """The CUDA kernel that the last launch of B1, B2 or B3 ("B1", "B2",
+    "B3") in this process took, as its launch site recorded it and as
+    torch.profiler names it (e.g. "flash_bwd_dq_wgmma_kernel<192, false>");
+    "" before the first launch. Loads (and builds) the library."""
+    from luminaai_tpu_torch.ops import _build
+
+    fn = _build.load("flash_attention").lumina_flash_last_kernel
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
+    return fn(("B1", "B2", "B3").index(kernel)).decode()
+
+
 # ---------------------------------------------------------------------------
 # Autograd
 # ---------------------------------------------------------------------------

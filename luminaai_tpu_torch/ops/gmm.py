@@ -54,7 +54,7 @@ def _acc_dtype(*ts: torch.Tensor) -> torch.dtype:
 def _bounds(group_sizes: torch.Tensor, m: int):
     """Host (start, end) row ranges of the groups, clipped to m rows."""
     start = 0
-    for n in group_sizes.tolist():
+    for n in group_sizes.tolist():  # lumina: disable=LX002 -- the plain version's host loop over the groups (CPU path, oracle); the kernels read the sizes on the card
         end = min(m, start + max(0, int(n)))
         yield start, end
         start = end

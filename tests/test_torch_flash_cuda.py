@@ -162,6 +162,48 @@ def test_kernels_match_plain(dev, case):
     assert max(errs.values()) <= REL, errs
 
 
+@pytest.mark.parametrize("case", ["causal_g4_d128", "causal_g3_d64",
+                                  "causal_g2_d192_s1024",
+                                  "causal_g2_d320_s200"])
+def test_last_kernel_names_the_launched_kernel(dev, case):
+    """fa.last_kernel names the kernel family each entry takes at the
+    shape (wgmma up to head_dim 256, B3's hd256 kernel above 128, the
+    slice kernels above 256), and the profiler's name for the same call
+    where the profiler records it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    B, S, Hq, Hkv, D, causal, window, *skv = CASES[case]
+    q, k, v, do, g_lse = _inputs(dev, B, S, Hq, Hkv, D, *skv)
+    args = dict(scale=D ** -0.5, causal=causal, window=window)
+    o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, **args)
+    delta = ((do.float() * o_ref.float()).sum(-1).transpose(1, 2)
+             - g_lse).contiguous()
+    family = {"B1": "flash_fwd_wgmma_kernel<",
+              "B2": "flash_bwd_dq_wgmma_kernel<",
+              "B3": ("flash_bwd_dkv_wgmma_kernel<" if D <= 128
+                     else "flash_bwd_dkv_wgmma_hd256_kernel<")}
+    if D > 256:
+        family = {"B1": "flash_fwd_wide_kernel",
+                  "B2": "flash_bwd_dq_wide_kernel",
+                  "B3": "flash_bwd_dkv_wide_kernel"}
+    for kern, call in (
+            ("B1", lambda: fa.flash_fwd(q, k, v, **args)),
+            ("B2", lambda: fa.flash_bwd_dq(q, k, v, do, lse_ref, delta,
+                                           **args)),
+            ("B3", lambda: fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta,
+                                            **args))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        named = {e.key.replace("(anonymous namespace)::", "").split("(")[0]
+                 .replace("void ", "").strip() for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        got = fa.last_kernel(kern)
+        assert got.startswith(family[kern]), (kern, got)
+        assert not named or named == {got}, (kern, named, got)
+
+
 def test_autograd_function_matches_autograd_through_plain(dev):
     """FlashAttention (kernels, lse cotangent folded into delta) against
     torch autograd through the plain forward, both outputs used."""

@@ -272,6 +272,44 @@ def test_a7_modules_are_scanned(module):
     assert module.replace(".", "/") + ".py" in files
 
 
+# The last JAX modules (A8): the rolling cache's layers and engine, the
+# fault injectors, the static-analysis gate.
+A8_MODULES = (
+    "luminaai_tpu_torch.models.layers",
+    "luminaai_tpu_torch.models.transformer",
+    "luminaai_tpu_torch.inference.generate",
+    "luminaai_tpu_torch.testing",
+    "luminaai_tpu_torch.testing.faults",
+    "luminaai_tpu_torch.analysis",
+    "luminaai_tpu_torch.analysis.astlint",
+    "luminaai_tpu_torch.analysis.trace_audit",
+    "luminaai_tpu_torch.cli",
+)
+
+
+@pytest.mark.parametrize("module", A8_MODULES)
+def test_a8_modules_are_scanned(module):
+    assert module in _modules()
+    files = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    path = module.replace(".", "/")
+    assert f"{path}.py" in files or f"{path}/__init__.py" in files
+
+
+# The port's name for a JAX module where torch has no counterpart of
+# what the JAX one works on (a jaxpr).
+RENAMED = {"analysis/jaxpr_audit.py": "analysis/trace_audit.py"}
+
+
+def test_every_jax_module_has_its_counterpart():
+    jax_pkg = ROOT / "luminaai_tpu"
+    missing = []
+    for p in sorted(jax_pkg.rglob("*.py")):
+        rel = p.relative_to(jax_pkg).as_posix()
+        if not (PACKAGE / RENAMED.get(rel, rel)).is_file():
+            missing.append(rel)
+    assert missing == []
+
+
 def test_the_mesh_entry_points_refuse_what_is_left_for_a6b():
     """Since A6b, pipeline stages and the optimizer's host offload build
     where a train step is built; what JAX cannot pipeline (a layer stack

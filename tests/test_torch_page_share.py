@@ -39,7 +39,7 @@ from luminaai_tpu.inference.generate import GenerationEngine as JEngine
 from luminaai_tpu.models.transformer import LuminaTransformer as JModel
 from luminaai_tpu.serving import page_share as jps
 from luminaai_tpu.serving.server import ChatServer as JChatServer
-from luminaai_tpu.testing.faults import drop_page_pulls, slow_page_pulls
+from luminaai_tpu_torch.testing.faults import drop_page_pulls, slow_page_pulls
 from luminaai_tpu_torch.config import Config as TConfig
 from luminaai_tpu_torch.convert import params_from_flax
 from luminaai_tpu_torch.data.tokenizer import ConversationTokenizer as TTok

@@ -36,7 +36,7 @@ import pytest
 from luminaai_tpu.serving.router import Router as JRouter
 from luminaai_tpu.monitoring.events import FlightRecorder as JRecorder
 from luminaai_tpu.monitoring.telemetry import MetricsRegistry as JRegistry
-from luminaai_tpu.testing.faults import kill_replica, replica_5xx_burst
+from luminaai_tpu_torch.testing.faults import kill_replica, replica_5xx_burst
 from tests.test_router import FakeClock, FakeTransport, SimReplica
 from tests.test_serving import _get, _post, _post_sse
 from luminaai_tpu_torch import cli
