@@ -317,6 +317,27 @@ Phases (any failure raises and exits non-zero):
              the phase's start) exits 0. `--only a8` runs it after the
              build alone.
 
+ 20. vocab   the embedding and LM head cut by vocabulary over the tensor
+             ranks, on virtual ranks (one card holds one NCCL rank), after
+             phase 19. (a) At b300's vocabulary and hidden width (V 50304,
+             H 16384), 1 x 8192 seeded bf16 hidden rows and an fp32 head:
+             ops/fused.py's virtual_vocab_ce_sums over 2 and 4 virtual
+             tensor ranks, forward and backward, against
+             fused_lm_head_ce_sums (the bf16 values carried in fp32 for
+             the gates: loss rel <= 1e-5, d hidden and d head within 1e-4
+             x max|g|); virtual_vocab_lookup torch.equal to the whole
+             lookup (fp32 and bf16 rows); on the path's own dtypes the
+             whole CE's, the 2-rank CE's and one rank's ([V/2, H] slice)
+             forward + backward ms and peak memory above the inputs.
+             (b) Phase 6's flagship widths at MESH_LAYERS layers: the
+             gradients of one batch through the whole CE and through the
+             CE over 2 virtual vocab ranks: loss and grad norm within
+             MESH_RTOL, every parameter's gradient within 2^-5 x max|g|
+             (bf16 gradients), equal non-zero B1-B4 launches and the
+             flash library's last kernels the wgmma ones; then one timed
+             train step of each (the second of two). `--only vocab` runs
+             it after the build and kernel checks.
+
 `--only serve,plane,serve_moe` (development runs) runs the build, the
 kernel checks and the named phases only (`--only a7` and `--only a8`
 skip the kernel checks); its last line then says "partial".
@@ -7147,10 +7168,281 @@ def _a8_card(dev, entries, rpa_entry, rpa_int8_entry, smi) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the embedding and LM head cut by vocabulary, over virtual
+# tensor ranks
+# ---------------------------------------------------------------------------
+# (a) b300's vocabulary and hidden width (the one preset with tensor
+# parallelism: vocab 50304, hidden 16384, tp 2), one micro-batch of 8192
+# rows: (V, H, rows).
+VOCAB_CE = (50304, 16384, 8192)
+VOCAB_RANKS = (2, 4)
+VOCAB_LOSS_RTOL = 1e-5
+VOCAB_GRAD_TOL = 1e-4  # x max|g|, the hidden's and the head's gradients
+# One virtual rank's CE peak over the whole CE's, predicted below this.
+VOCAB_PEAK_PREDICTED = 0.6
+# (b) the flagship step with its loss over this many virtual tensor ranks.
+# Its parameters' gradients come out of bf16 products: the CE's other order
+# of fp32 sums (~1e-7) moves some of them by whole bf16 steps (2^-8 of an
+# element), so each is held to 8 such steps of its largest element.
+VOCAB_FLAGSHIP_RANKS = 2
+VOCAB_STEP_GRAD_TOL = 2.0 ** -5
+
+
+def _timed(fn):
+    """(fn(), host ms around it, ended by a synchronise)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _max_rel(got, want) -> float:
+    """max|got - want| over max|want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+def _vocab_ce_card(dev) -> dict:
+    """Phase 20 (a): the vocab-parallel CE's body (ops/fused.py) over n
+    virtual tensor ranks against the whole fused CE, forward and
+    backward, at b300's vocabulary and hidden width; the vocab-parallel
+    lookup against the whole one; one virtual rank's peak memory against
+    the whole CE's.
+
+    The gates run the seeded bf16 hidden rows and the head's bf16 values
+    carried in fp32: the CE's arithmetic is the bf16 path's (fp32
+    products of bf16 values), and its gradients are not rounded to bf16
+    at the end, a rounding that turns the vocab-parallel sums' other order
+    (~1e-7) into whole bf16 steps of the largest elements. Times and peaks
+    are the path's own: bf16 hidden rows, fp32 head."""
+    import torch
+
+    from luminaai_tpu_torch.ops import fused
+
+    V, H, N = VOCAB_CE
+    g = torch.Generator(device=dev).manual_seed(0)
+    hidden = torch.randn(1, N, H, generator=g, device=dev).to(torch.bfloat16)
+    head = torch.randn(V, H, generator=g, device=dev) * 0.02
+    labels = torch.randint(0, V, (1, N), generator=g, device=dev)
+    weights = (torch.rand(1, N, generator=g, device=dev) > 0.1).float()
+
+    def run(rows, table, n=None):
+        """(loss, d rows, d table, ms, peak bytes above the inputs) of the
+        whole CE (n None) or the CE over n virtual vocab ranks -> the mean
+        NLL plus a z-loss, forward and backward."""
+        h = rows.detach().requires_grad_()
+        w = table.detach().requires_grad_()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        def fwd_bwd():
+            if n is None:
+                s = fused.fused_lm_head_ce_sums(h, w, labels, weights)
+            else:
+                s = fused.virtual_vocab_ce_sums(h, w, labels, weights, n)
+            loss = (s[0] + 1e-4 * s[2]) / s[1].clamp(min=1.0)
+            return (loss.detach(),) + torch.autograd.grad(loss, [h, w])
+
+        (loss, gh, gw), ms = _timed(fwd_bwd)
+        peak = torch.cuda.max_memory_allocated() - base
+        return float(loss), gh, gw, ms, peak
+
+    out = {}
+    rows32, head32 = hidden.float(), head.to(torch.bfloat16).float()
+    whole = run(rows32, head32)
+    for n in VOCAB_RANKS:
+        got = run(rows32, head32, n)
+        errs = {"loss": abs(got[0] - whole[0]) / abs(whole[0]),
+                "d_hidden": _max_rel(got[1], whole[1]),
+                "d_head": _max_rel(got[2], whole[2])}
+        log(f"vocab (a) CE over {n} virtual ranks at V {V}, H {H}, {N} "
+            f"rows (bf16 values in fp32): loss {got[0]:.7f} vs "
+            f"{whole[0]:.7f} (rel {errs['loss']:.2e}, tol "
+            f"{VOCAB_LOSS_RTOL}); d hidden {errs['d_hidden']:.2e}, d head "
+            f"{errs['d_head']:.2e} x max|g| (tol {VOCAB_GRAD_TOL})")
+        if errs["loss"] > VOCAB_LOSS_RTOL or max(
+                errs["d_hidden"], errs["d_head"]) > VOCAB_GRAD_TOL:
+            raise AssertionError(f"the CE over {n} virtual vocab ranks "
+                                 f"disagrees with the whole CE: {errs}")
+        out[f"n{n}"] = errs
+        del got
+    del whole, rows32, head32
+    _release()
+    # The path's dtypes; one rank's work is its [V/2, H] slice with its
+    # own logits and gradients (its collectives' buffers are [rows] and
+    # [rows, 2]).
+    half = head[:V // 2].clone()
+    times = {}
+    for name, table, n in (("whole", head, None), ("n2", head, 2),
+                           ("rank", half, 1)):
+        r = run(hidden, table, n)
+        times[name] = (r[3], r[4])
+        del r
+        _release()
+    ratio = times["rank"][1] / times["whole"][1]
+    log(f"vocab (a) bf16 hidden, fp32 head: forward + backward "
+        f"{times['whole'][0]:.1f} ms whole, {times['n2'][0]:.1f} ms over 2 "
+        f"virtual ranks, {times['rank'][0]:.1f} ms one rank's [{V // 2}, "
+        f"{H}] slice; peak above the inputs {times['rank'][1] / 1e9:.3f} GB "
+        f"one rank vs {times['whole'][1] / 1e9:.3f} GB whole (ratio "
+        f"{ratio:.3f}, predicted <= {VOCAB_PEAK_PREDICTED})")
+    out.update(whole_ms=times["whole"][0], n2_ms=times["n2"][0],
+               rank_ms=times["rank"][0],
+               whole_peak_gb=times["whole"][1] / 1e9,
+               rank_peak_gb=times["rank"][1] / 1e9, peak_ratio=ratio)
+    del half
+    for dtype in (torch.float32, torch.bfloat16):
+        want = head[labels].to(dtype)
+        for n in VOCAB_RANKS:
+            got = fused.virtual_vocab_lookup(head, labels, n, dtype)
+            if not torch.equal(got, want):
+                raise AssertionError(f"the lookup over {n} virtual vocab "
+                                     f"ranks differs from the whole one "
+                                     f"({dtype})")
+    log(f"vocab (a) lookup over {VOCAB_RANKS} virtual ranks equal to the "
+        f"whole lookup (fp32 and bf16 rows, {N} tokens)")
+    return out
+
+
+def _vocab_flagship(dev, kernels: bool = True) -> dict:
+    """Phase 20 (b): one flagship step at MESH_LAYERS layers whose loss goes
+    through the vocab-parallel CE over VOCAB_FLAGSHIP_RANKS virtual ranks,
+    against the same step through the whole CE: loss, grad norm and every
+    parameter's gradient, B1-B4 launches (the wrappers' counters and the
+    flash library's record), then one timed train step of each."""
+    import torch
+
+    from luminaai_tpu_torch import cli
+    from luminaai_tpu_torch.config import Config
+    from luminaai_tpu_torch.convert import init_params
+    from luminaai_tpu_torch.models.transformer import LuminaTransformer
+    from luminaai_tpu_torch.ops import flash_attention as fa
+    from luminaai_tpu_torch.ops import fused
+    from luminaai_tpu_torch.parallel import train_step as ts
+    from luminaai_tpu_torch.training.optimizer import (
+        make_optimizer,
+        make_schedule,
+    )
+
+    cfg = Config(**{**FLAGSHIP, "num_layers": MESH_LAYERS},
+                 **FLAGSHIP_LEVERS, max_steps=3)
+    raw = next(iter(cli._synthetic_batches(cfg)()))
+    batch = {k: torch.as_tensor(v).long().to(dev) for k, v in raw.items()}
+    model = init_params(LuminaTransformer(cfg, device=dev, trainable=True), 0)
+    sched = make_schedule(cfg, 3)
+    tx = make_optimizer(cfg, 3, sched)
+    state = ts.init_train_state(model, tx, 0)
+
+    def virtual_loss(b, generator=None):
+        hidden, aux = model(b["input_ids"], deterministic=False,
+                            return_hidden=True, generator=generator)
+        labels, valid = ts.shift_labels(b)
+        mask, weights = ts._shifted_mask_weights(b, valid)
+        w = mask if weights is None else mask * weights
+        sums = fused.virtual_vocab_ce_sums(
+            hidden, model.embedder.head_weight(), labels, w,
+            VOCAB_FLAGSHIP_RANKS, label_smoothing=cfg.label_smoothing,
+            chunk_size=cfg.loss_chunk_size)
+        loss, metrics = fused.ce_from_sums(*sums,
+                                           z_loss_weight=cfg.z_loss_weight)
+        total = loss + aux.get("aux_loss", 0.0)
+        metrics["loss"] = total.detach()
+        return total, metrics
+
+    losses = {"whole": ts.make_loss_fn(cfg, model), "virtual": virtual_loss}
+    runs = {}
+    for name, loss_fn in losses.items():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        _reset_counts()
+        (grads, metrics), ms = _timed(lambda: ts._accumulate_grads(
+            loss_fn, state.params, batch, gen,
+            cfg.gradient_accumulation_steps))
+        runs[name] = {"grads": grads, "loss": float(metrics["loss"]),
+                      "grad_norm": float(fused.global_norm(grads)),
+                      "launches": _launch_counts(), "grad_ms": ms,
+                      "last": ({k: fa.last_kernel(k)
+                                for k in ("B1", "B2", "B3")}
+                               if kernels else {})}
+    whole, virt = runs["whole"], runs["virtual"]
+    rl = abs(virt["loss"] - whole["loss"]) / abs(whole["loss"])
+    rn = abs(virt["grad_norm"] - whole["grad_norm"]) / whole["grad_norm"]
+    worst = max((_max_rel(g, w), n) for g, w, n in zip(
+        virt["grads"], whole["grads"], state.names))
+    fro = max((float((g.float() - w.float()).norm()
+                     / w.float().norm().clamp(min=1e-30)), n)
+              for g, w, n in zip(virt["grads"], whole["grads"], state.names))
+    want = flash_kernels(cfg.head_dim())
+    log(f"vocab (b) flagship at {MESH_LAYERS} layers, loss over "
+        f"{VOCAB_FLAGSHIP_RANKS} virtual vocab ranks: loss "
+        f"{virt['loss']:.7f} vs {whole['loss']:.7f} (rel {rl:.2e}), "
+        f"grad_norm {virt['grad_norm']:.7f} vs {whole['grad_norm']:.7f} "
+        f"(rel {rn:.2e}; tol {MESH_RTOL}); worst gradient {worst[0]:.2e} x "
+        f"max|g| ({worst[1]}; tol {VOCAB_STEP_GRAD_TOL}), {fro[0]:.2e} "
+        f"of its norm ({fro[1]}); "
+        f"launches "
+        f"{virt['launches']} vs {whole['launches']}; last flash kernels "
+        f"{virt['last']} vs {whole['last']}; forward + backward "
+        f"{virt['grad_ms']:.1f} vs {whole['grad_ms']:.1f} ms")
+    if max(rl, rn) > MESH_RTOL or worst[0] > VOCAB_STEP_GRAD_TOL:
+        raise AssertionError("the flagship step over virtual vocab ranks "
+                             "disagrees with the whole-CE step")
+    if virt["launches"] != whole["launches"] or (
+            kernels and min(whole["launches"].values()) == 0):
+        raise AssertionError("the virtual-vocab step did not launch B1-B4 "
+                             "as the whole-CE step does")
+    for k, name in want.items():
+        if kernels and not (virt["last"][k] == whole["last"][k]
+                            and virt["last"][k].startswith(name)):
+            raise AssertionError(f"{k}: the flash library recorded "
+                                 f"{virt['last'][k]} / {whole['last'][k]}, "
+                                 f"want {name}")
+    whole_launches, virt_launches = whole["launches"], virt["launches"]
+    del runs, whole, virt
+    _release()
+    steps = {}
+    total = {k: a + b for (k, a), b in zip(whole_launches.items(),
+                                           virt_launches.values())}
+    for name, loss_fn in losses.items():
+        step = ts.make_train_step(cfg, model, sched, tx, loss_fn=loss_fn)
+        ms = []
+        for _ in range(2):
+            _reset_counts()
+            (_, m), t = _timed(lambda: step(state, batch))
+            float(m["loss"])
+            ms.append(t)
+            for k, v in _launch_counts().items():
+                total[k] += v
+        steps[name] = ms[-1]
+    log(f"vocab (b) train step (second of two): {steps['virtual']:.1f} ms "
+        f"over {VOCAB_FLAGSHIP_RANKS} virtual vocab ranks vs "
+        f"{steps['whole']:.1f} ms through the whole CE")
+    return {"loss_rel": rl, "grad_norm_rel": rn, "worst_grad": worst[0],
+            "step_ms": steps, "launches": total}
+
+
+def phase_vocab(dev, entries: dict, kernels: bool = True) -> dict:
+    """Phase 20: the vocab-parallel CE and lookup over virtual tensor ranks
+    at b300's widths (a), and a flagship step through the vocab-parallel
+    CE against the whole CE (b)."""
+    smi = _smi()
+    t_phase = time.perf_counter()
+    out = {"ce": _vocab_ce_card(dev)}
+    out["flagship"] = _vocab_flagship(dev, kernels)
+    _add_launches(entries, out["flagship"]["launches"], "launches_vocab")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"vocab: phase wall {out['wall_s']:.1f} s ({smi})")
+    return out
+
+
 ALL_PHASES = ("serve", "plane", "serve_moe", "train", "train_moe",
               "runtime", "posttrain", "adaptive", "posttrain_moe",
               "train_tuned", "mod", "fleet", "quant", "mesh", "pipe",
-              "groups", "a7", "a8")
+              "groups", "a7", "a8", "vocab")
 PHASES = set(ALL_PHASES)
 
 
@@ -7268,6 +7560,9 @@ def main() -> int:
         if "a8" in PHASES:
             done["a8"] = phase_a8(dev, by_kernel, entry, entry_int8)
             shutil.rmtree(RUN_DIR / "a8", ignore_errors=True)
+            _release()
+        if "vocab" in PHASES:
+            done["vocab"] = phase_vocab(dev, by_kernel)
             _release()
         if "fleet" in PHASES:
             done["fleet"] = phase_fleet(dev, entry)

@@ -38,6 +38,7 @@ from luminaai_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_eligible,
 )
+from luminaai_tpu_torch.ops.fused import vocab_parallel_lookup
 from luminaai_tpu_torch.ops.quantized import (
     QuantizedTensor,
     embed_rows,
@@ -548,6 +549,13 @@ class Embedder(nn.Module):
     head use them as they are; a trainable build keeps the real fp32
     values the optimizer updates and casts at each use, as the JAX model
     does.
+
+    Under tensor parallelism the tables are cut by vocabulary
+    (parallel/sharding.py): tensor rank t holds rows [t V/tp, (t+1) V/tp)
+    of each. Under a mesh with such a cut (vocab_group), encode is the
+    vocab-parallel lookup (ops/fused.py), head_weight / head are this
+    rank's slice, and decode gives this rank's [.., V/tp] logits, which
+    only the vocab-parallel CE reads.
     """
 
     def __init__(self, config: Config, dtype=torch.bfloat16, device=None,
@@ -586,26 +594,49 @@ class Embedder(nn.Module):
                 t.copy_(t.to(self.dtype).float())
 
     def head_weight(self) -> torch.Tensor:
-        """The head's fp32 parameter [V, H]: the embedding when tied, else
-        lm_head (what the fused CE takes)."""
+        """The head's fp32 parameter [V, H] (this tensor rank's [V/tp, H]
+        slice under a vocab cut): the embedding when tied, else lm_head
+        (what the fused CE takes)."""
         if self.config.tie_word_embeddings:
             return self.embedding
         return self.lm_head
 
     def head(self) -> torch.Tensor:
-        """The head [V, H]: its compute-dtype values, in fp32."""
+        """The head [V, H] (or this rank's slice): its compute-dtype
+        values, in fp32."""
         if self.trainable:
             return self.head_weight().to(self.dtype).float()
         return self.head_weight()
 
+    def vocab_group(self):
+        """The tensor group the tables are cut over by vocabulary under
+        the active mesh (None: whole tables). A quantized table runs on
+        no mesh, as in the JAX package."""
+        tg = _tensor_group()
+        if tg is None:
+            return None
+        if any(isinstance(t, QuantizedTensor)
+               for t in (self.embedding, self.head_weight())):
+            raise ValueError("a quantized embedding or head cannot run "
+                             "under tensor parallelism")
+        if self.embedding.shape[0] == self.config.vocab_size:
+            return None
+        return tg
+
     def encode(self, tokens: torch.Tensor) -> torch.Tensor:
-        if isinstance(self.embedding, QuantizedTensor):
+        tg = self.vocab_group()
+        if tg is not None:
+            x = vocab_parallel_lookup(self.embedding, tokens, tg, self.dtype)
+        elif isinstance(self.embedding, QuantizedTensor):
             x = embed_rows(self.embedding, tokens, self.dtype)
         else:
             x = self.embedding[tokens].to(self.dtype)
         return x * self.scale if self.scale is not None else x
 
     def decode(self, x: torch.Tensor) -> torch.Tensor:
+        tg = self.vocab_group()
+        if tg is not None:
+            return copy_to(x.float(), tg) @ self.head().t()
         head = self.head_weight()
         if isinstance(head, QuantizedTensor):
             return int8_attend(x, head, torch.float32)

@@ -48,7 +48,8 @@ Under FSDP2 every backward runs with the gradient sync off and one
 reduce-scatter follows the last (torch.distributed.pipelining's
 REDUCE_GRAD). Tensor, expert and sequence parallelism run inside a
 stage as in the one-stage sharded step (their collectives within the
-stage's ranks); the routing draws of every microbatch and layer are
+stage's ranks; stage 0's lookup and the last stage's CE vocab-parallel
+over the tensor group); the routing draws of every microbatch and layer are
 drawn first, in the one-stage step's order.
 """
 
@@ -312,7 +313,8 @@ class _StageWork:
                     b["weights"],
                     label_smoothing=(cfg.label_smoothing if self.train
                                      else 0.0),
-                    chunk_size=cfg.loss_chunk_size)
+                    chunk_size=cfg.loss_chunk_size,
+                    tensor_group=model.embedder.vocab_group())
             return x, aux, sums
 
         with torch.set_grad_enabled(self.train):

@@ -25,8 +25,13 @@ table to its modules:
     slices with the collectives written out, not DTensors: the port's
     projections are raw parameters in fused layouts (wqkv, gate|up),
     which `parallelize_module`'s column split cannot cut by head.
-    'vocab' -> tensor is not applied: the embedding and head stay whole
-    on every tensor rank.
+  - 'vocab' -> tensor: tensor rank t holds rows [t V/tp, (t+1) V/tp) of
+    the embedding (and of the untied lm_head), and the moments built on
+    them; FSDP2 shards dimension 0 of that [V/tp, H] slice where JAX
+    shards 'embed' (the same bytes a rank). The lookup and both CEs run
+    vocab-parallel over the tensor group (models/layers.py Embedder,
+    ops/fused.py). A vocabulary that does not divide over the tensor
+    ranks is refused, as JAX's sharded init refuses it (no padding).
   - 'expert' -> expert: each expert rank holds num_experts / ep experts.
 
   - 'layers' -> pipe: stage p holds layers [p L / P, (p + 1) L / P)
@@ -113,6 +118,7 @@ def param_index(name: str, full_shape, config: Config,
     rules = logical_axis_rules(config)
     tp = shape["tensor"] if _rule(rules, "heads") == "tensor" else 1
     t = coords["tensor"] if tp > 1 else 0
+    vocab_tp = shape["tensor"] if _rule(rules, "vocab") == "tensor" else 1
     ep, e = shape["expert"], coords["expert"]
     kind = name.rsplit(".", 2)
     owner, attr = (kind[-2], kind[-1]) if len(kind) >= 2 else ("", name)
@@ -121,7 +127,11 @@ def param_index(name: str, full_shape, config: Config,
     def span(lo, n):
         return torch.arange(lo, lo + n)
 
-    if owner == "attention" and tp > 1:
+    if owner == "embedder" and attr in ("embedding", "lm_head") and (
+            vocab_tp > 1):
+        rows = full_shape[0] // vocab_tp
+        idx[0] = span(coords["tensor"] * rows, rows)
+    elif owner == "attention" and tp > 1:
         d = config.head_dim()
         nq, nkv = config.num_heads, config.num_kv_heads
         nq_l = nq // tp
@@ -509,6 +519,13 @@ def init_sharded_state(config: Config, mesh: Mesh, tx, seed: int,
     then hold exactly the one-rank model's values."""
     from luminaai_tpu_torch.models.transformer import LuminaTransformer
 
+    tp = mesh.shape["tensor"]
+    if (tp > 1 and _rule(logical_axis_rules(config), "vocab") == "tensor"
+            and config.vocab_size % tp):
+        raise ValueError(
+            f"vocab_size {config.vocab_size} does not divide over "
+            f"tensor_parallel_size {tp}: the embedding and head are cut by "
+            "vocabulary over the tensor ranks")
     if model is not None:
         params = dict(model.named_parameters())
     local_model = LuminaTransformer(config, device="meta", trainable=True)

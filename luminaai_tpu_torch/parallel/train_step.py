@@ -95,17 +95,20 @@ def _shifted_mask_weights(
 def _ce(config: Config, model, model_out, labels, mask, weights,
         z_loss_weight: float = 0.0, label_smoothing: float = 0.0):
     """The fused LM-head CE (no [B, S, V] logits) or CE over full logits,
-    as config.fused_lm_head_ce says."""
+    as config.fused_lm_head_ce says; vocab-parallel over the active
+    mesh's tensor group where the head is cut by vocabulary."""
+    tg = model.embedder.vocab_group()
     if config.fused_lm_head_ce:
         return fused_lm_head_cross_entropy(
             model_out, model.embedder.head_weight(), labels,
             loss_mask=mask, loss_weights=weights,
             z_loss_weight=z_loss_weight, label_smoothing=label_smoothing,
-            chunk_size=config.loss_chunk_size,
+            chunk_size=config.loss_chunk_size, tensor_group=tg,
         )
     return cross_entropy_loss(
         model_out, labels, loss_mask=mask, loss_weights=weights,
         z_loss_weight=z_loss_weight, label_smoothing=label_smoothing,
+        tensor_group=tg,
     )
 
 
