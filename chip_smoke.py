@@ -35,25 +35,28 @@ Phases (any failure raises and exits non-zero):
              logits with the kernel vs the plain version, then concurrent
              POST /v1/generate requests; the kernel must have launched
              exactly decode steps x layers times;
-  4. serve   b1 with its 8 experts (moe_dispatch="gmm", 4.6B parameters
-     MoE     in bf16): first-decode-step logits with B4a vs the plain gmm,
-             a profiled decode step, 8 concurrent requests with B4a
-             launched exactly 2 x 16 x (decode steps + prefill forwards);
-  5. train   the b1 dense widths through the port's Trainer (what `python
-             -m luminaai_tpu_torch train --preset b1 --dense --synthetic`
+  4. serve   b1 with its 8 experts (moe_dispatch="gmm", bf16) at
+     MoE     SERVE_MOE_LAYERS of its 16 layers: first-decode-step logits
+             with B4a vs the plain gmm, a profiled decode step, 8
+             concurrent requests with B4a launched exactly 2 x layers x
+             (decode steps + prefill forwards);
+  5. train   the b1 dense widths at B1_TRAIN_LAYERS of its 16 layers
+             through the port's Trainer (what `python -m
+             luminaai_tpu_torch train --preset b1 --dense --synthetic`
              runs): batch 16 x 2048, accumulation 8, remat per block,
              seeded fp32 weights, TRAIN_STEPS optimizer steps on the
              synthetic batches. The first step's loss and grad norm with
              the kernels vs the plain attention; every loss and grad norm
              finite, the loss falling, and the kernels launched exactly
-             B1 = 2 x 16 x 8 per step (forward and its recompute),
-             B2 = B3 = 16 x 8 per step; step time, tokens/s, model-FLOPs
-             share and the card's busy time of one profiled step;
-  6. train   bench.py's flagship MoE widths (vocab 32768, hidden 1024, 10
-     MoE     layers, 8 experts top-2) with gmm dispatch and bf16 RoPE:
-             TRAIN_STEPS steps through Trainer, the first against the plain
-             gmm (routing noise reseeded identically), exact launches per
-             step B1 20, B2 = B3 10, B4a 60, B4b 20, a falling loss, step
+             B1 = 2 x layers x 8 per step (forward and its recompute),
+             B2 = B3 = layers x 8 per step; step time, tokens/s, model-
+             FLOPs share and the card's busy time of one profiled step;
+  6. train   bench.py's flagship MoE widths (vocab 32768, hidden 1024, 8
+     MoE     experts top-2) at FLAGSHIP_TRAIN_LAYERS of its 10 layers,
+             with gmm dispatch and bf16 RoPE: TRAIN_STEPS steps through
+             Trainer, the first against the plain gmm (routing noise
+             reseeded identically), exact launches per step B1 2 x layers,
+             B2 = B3 layers, B4a 6 and B4b 2 a layer, a falling loss, step
              time, tokens/s, model-FLOPs share (active parameters), peak
              memory and the router metrics.
   7. runtime the training runtime through the port's CLI, in child
@@ -63,9 +66,9 @@ Phases (any failure raises and exits non-zero):
              accumulation): a JSONL text corpus
              written from a seed and packed through a TokenCache with the
              native packer; run A `train --data --packed --steps 6`
-             (exit 0); run B the same, SIGTERM once its log shows step 2
-             (exit 75, emergency checkpoint committed at its step
-             boundary); `resume` of B to step 6 (exit 0). Every step's
+             (exit 0) and beside it run B the same, SIGTERM once its log
+             shows step 2 (exit 75, emergency checkpoint committed at its
+             step boundary); `resume` of B to step 6 (exit 0). Every step's
              packed batch and loss of B equal A's bitwise, and so do the
              final parameters (hashes of both checkpoints); B1 == 8 and
              B2 == B3 == 4 launches per step; the native packer ran;
@@ -97,12 +100,13 @@ Phases (any failure raises and exits non-zero):
              bitwise those of the forced save. Steady and post-
              intervention step times, E over the run, saves and restore,
              the goodput split, the decisions.
-  9. post-   the post-training path through the CLI in runtime children,
-     training from phase 7's run A checkpoint (run before phase 8, with
-             run B deleted first): `data sample` twice and `data blend`
-             (the blend equal to the same blend run in-process);
-             `finetune` (LoRA rank 8, 6 steps, batch 8 x 2048,
-             --merge-out): exact launches per step B1 8, B2 = B3 4 (the
+  9. post-   the post-training path through the CLI from phase 7's run A
+     training checkpoint (run before phase 8, with run B deleted first):
+             in this process `data sample` twice and `data blend`
+             (the blend equal to the same blend through the pipeline);
+             then in one runtime child, in sequence, `finetune` (LoRA
+             rank 8, 6 steps, batch 8 x 2048, --merge-out): exact
+             launches per step B1 8, B2 = B3 4 (the
              remat recompute), the first step's loss and adapter grad norm
              within LOSS_RTOL / GRAD_NORM_RTOL of the plain attention's,
              finite losses, the base parameters bitwise unchanged, the
@@ -139,8 +143,7 @@ Phases (any failure raises and exits non-zero):
              pages), the first alone, then 8 and 7 at once, streamed:
              prefix hits 15 x 12 pages exactly, B5 decode steps x 16, all
              through the global table; the same traffic on the bare
-             server in turns (two rounds, another system prompt in the
-             second) and on the cache-off server (TTFT); SSE equal to
+             server in turns and on the cache-off server (TTFT); SSE equal to
              JSON; a speculative request against greedy (equal up to a
              near-tie); /metrics parsed with the JAX server's serving
              families, /slo, /metrics/history and `top --url`; SIGTERM
@@ -148,20 +151,21 @@ Phases (any failure raises and exits non-zero):
              In process, --no-continuous (MicroBatcher, one batch of 8)
              against the continuous server, up to a near-tie. With
              phase 4's experts: 8 requests through a server with the
-             prefix cache, B4a launched exactly 2 x 16 x (decode steps +
-             prefill forwards). TTFT p50/p95 with and without the cache,
+             prefix cache, B4a launched exactly 2 x layers x (decode steps
+             + prefill forwards). TTFT p50/p95 with and without the cache,
              host ms a decode tick (the step and its bookkeeping) of the
              full and the bare server, tokens/s.
- 11. train_  bench.py's flagship_tuned (phase 6's widths with the
-     tuned   save_attn remat policy and bf16 Adam mu) through Trainer, 6
-             steps: the first against the plain attention and gmm, B1
+ 11. train_  bench.py's flagship_tuned (phase 6's widths and depth with
+     tuned   the save_attn remat policy and bf16 Adam mu) through Trainer,
+             6 steps: the first against the plain attention and gmm, B1
              exactly once a layer a step (phase 6: twice), B2 = B3 once,
              B4a 6 and B4b 2 a MoE layer; step time, peak memory and the
              optimizer's bytes by dtype beside phase 6's; then 3 steps
              with int8 Adam moments.
- 12. mod     `train --preset debug_200m --synthetic` in process (mixture
-             of depths at capacity 0.5), 6 steps: the first against the
-             plain attention, B1 2 x 12 x 4 and B2 = B3 12 x 4 a step,
+ 12. mod     `train --preset debug_200m --synthetic` in process at
+             MOD_TRAIN_LAYERS of its 12 layers (mixture of depths at
+             capacity 0.5), 6 steps: the first against the plain
+             attention, B1 2 x layers x 4 and B2 = B3 layers x 4 a step,
              the kernels the profiler names, mod_compute_ratio 0.5; one
              mod_capacity decision (0.5 -> 0.3) through the
              orchestrator's _execute and the step after it against the
@@ -337,6 +341,25 @@ Phases (any failure raises and exits non-zero):
              flash library's last kernels the wgmma ones; then one timed
              train step of each (the second of two). `--only vocab` runs
              it after the build and kernel checks.
+ 21. bench   the port's benchmark harness, after phase 20, as processes of
+             its own on the card. (a) `bench_torch.py --child
+             ref_debug_moe` (the headline rung: bench.py's debug MoE
+             widths, batch 256 x 256, 20 timed steps; its steady-routing
+             window, counted-cost step and profiled steps cut by
+             BENCH_RUNG_BUDGET): one JSON line; the metric
+             train_tokens_per_sec_per_chip_moe8x2 with a value > 0, a
+             finite loss, extras.config ref_debug_moe and this card's
+             name; B1 = B2 = B3 = 2 layers x 20 steps exactly over the
+             timed window, B4a = B4b = 0 (sort dispatch); the kernels the
+             flash library recorded last in the child the wgmma ones, and
+             the profiler's names, where it recorded any, agreeing. (b)
+             Under `--only bench` only: the ladder through `python -m
+             luminaai_tpu_torch benchmark`, the op table through
+             `benchmark --ops` (its attention suite, B1-B3 against the
+             einsum path at [4, 2048, 16/8, 64]: agreement within its
+             tolerance, the wgmma kernels last), the flagship and
+             flagship_small rungs, `--serve-bench`, `--router-bench` and
+             `--smoke`, each line logged whole.
 
 `--only serve,plane,serve_moe` (development runs) runs the build, the
 kernel checks and the named phases only (`--only a7` and `--only a8`
@@ -360,6 +383,7 @@ import hashlib
 import itertools
 import json
 import math
+import os
 import re
 import shutil
 import signal
@@ -378,6 +402,13 @@ LANES, HQ, HKV, D, PAGE, PAGES = 8, 16, 4, 128, 128, 16
 # Training slice: micro-batch 2 x 2048 tokens at the same heads.
 MICRO, SEQ = 2, 2048
 TRAIN_STEPS = 6
+# Depth of the in-process training phases (5, 6, 11, 12): each Trainer run
+# ends in a checkpoint of its weights and fp32 moments, written and
+# hashed (b1's 16 layers: ~9.7 GB; the flagship's 10: ~9 GB, ~25 s each
+# on an H100 host); the widths stay whole.
+B1_TRAIN_LAYERS = 2        # of b1's 16 (phase 5)
+FLAGSHIP_TRAIN_LAYERS = 2  # of the flagship's 10 (phases 6 and 11)
+MOD_TRAIN_LAYERS = 3       # of debug_200m's 12 (phase 12's training)
 # Flash kernels vs plain versions, bf16 outputs (O, dQ, dK, dV): within
 # 2e-2 x max|plain|. bf16 keeps 8 significant bits; both sides round P
 # and dS to bf16, but the kernel rounds P against a running 64-column
@@ -505,8 +536,14 @@ def _release() -> None:
     torch.cuda.empty_cache()
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """A line of the run's log, stamped with the seconds since the
+    process started (the phases' timeline against the script's limit)."""
+    print(f"[chip_smoke +{time.perf_counter() - _T0:.1f}s] {msg}",
+          flush=True)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -2223,8 +2260,7 @@ def phase_serving_plane(dev, engine, rpa_entry: dict) -> dict:
     watchdog ("bare"), and the full server with the cache off. On the full
     one: readiness, 401, /v1/auth, 429, 503 + Retry-After, a 504 deadline;
     the shared-prefix traffic (launches, hits), against the bare one in
-    turns (full, bare, full, bare; the second round on another system
-    prompt) for the host ms a decode step; SSE against JSON, speculative
+    turns (full, then bare) for the host ms a decode step; SSE against JSON, speculative
     against greedy, /metrics, /slo, /metrics/history and `top`, and
     SIGTERM with 4 requests in flight. The cache-off server takes the
     first round's traffic (TTFT). Then --no-continuous in process."""
@@ -2329,10 +2365,9 @@ def phase_serving_plane(dev, engine, rpa_entry: dict) -> dict:
             other.wait_ready()
         tokens = {"bare": _auth(others["bare"].url),
                   "cache_off": _auth(others["cache_off"].url)}
-        # The full and the bare server in turns, on two system prompts.
+        # The full and the bare server in turns.
         rounds = []
-        for r, (sys_r, turns_r) in enumerate((
-                (system, turns), _plane_texts(seed=1))):
+        for r, (sys_r, turns_r) in enumerate(((system, turns),)):
             pair = {}
             for key, target, tok in (("full", child, token),
                                      ("bare", others["bare"],
@@ -2427,17 +2462,14 @@ def phase_serving_plane(dev, engine, rpa_entry: dict) -> dict:
                 "objectives", {}) or code_h != 200 or not hist.get("series"):
             raise AssertionError(f"/slo {code_slo}, /metrics/history "
                                  f"{code_h}")
-        top = subprocess.run(
-            [sys.executable, "-m", "luminaai_tpu_torch", "top", "--url", url,
-             "--once"], cwd=str(Path(__file__).resolve().parent),
-            capture_output=True, text=True, timeout=120)
-        if top.returncode != 0 or "lumina top" not in top.stdout:
-            raise AssertionError(f"top: {top.returncode} {top.stderr[-500:]}")
+        rc, top = _top_once(url)
+        if rc != 0 or "lumina top" not in top:
+            raise AssertionError(f"top: {rc} {top[-500:]}")
         log(f"/metrics: {len(lines)} samples parsed, all "
             f"{len(SERVING_METRICS)} serving families; /slo "
             f"{sorted(slo['objectives'])}; /metrics/history "
             f"{len(hist['series'])} series; top rendered "
-            f"{len(top.stdout.splitlines())} lines")
+            f"{len(top.splitlines())} lines")
         # Drain: SIGTERM with 4 requests in flight.
         time.sleep(PLANE_BURST / PLANE_RATE)
         pool = ThreadPoolExecutor(4)
@@ -2487,6 +2519,16 @@ def phase_serving_plane(dev, engine, rpa_entry: dict) -> dict:
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"serving plane: phase wall {out['wall_s']:.1f} s ({_smi()})")
     return out
+
+
+def _top_once(url: str, *extra) -> tuple:
+    """(exit code, stdout) of `top --url URL --once` through the CLI's
+    main in this process (a child would pay torch's import for one
+    frame)."""
+    try:
+        return _cli_capture(["top", "--url", url, "--once", *extra])
+    except SystemExit as e:  # a failed fetch
+        return int(e.code or 2), ""
 
 
 def _wait_for(child: "_ServeChild", cond, what: str, timeout=120.0,
@@ -2576,6 +2618,7 @@ def phase_train(dev, entries: list) -> dict:
     from luminaai_tpu_torch.training.trainer import Trainer
 
     cfg = ConfigPresets.get("b1", use_moe=False, max_steps=TRAIN_STEPS,
+                            num_layers=B1_TRAIN_LAYERS,
                             output_dir=str(RUN_DIR / "train_dense"))
     accum = cfg.gradient_accumulation_steps
     t0 = time.perf_counter()
@@ -2923,12 +2966,17 @@ def phase_gmm_kernels(dev) -> list:
     return entries
 
 
+# Phase 4 serves b1 with its experts at half its depth (8 of 16 MoE
+# layers, 2.3B parameters): the decode step's time is per layer.
+SERVE_MOE_LAYERS = 8
+
+
 def phase_serve_moe(dev, rpa_entry: dict, gmm_entries: list) -> dict:
-    """b1 with its 8 experts (moe_dispatch="gmm", seeded bf16 weights)
-    behind the HTTP server: the first decode step's logits against a
-    re-run through the plain gmm, one profiled decode step, then 8
-    concurrent requests with B4a launched exactly 2 x 16 x (decode steps
-    + prefill forwards) times."""
+    """b1 with its 8 experts (moe_dispatch="gmm", seeded bf16 weights) at
+    SERVE_MOE_LAYERS layers behind the HTTP server: the first decode
+    step's logits against a re-run through the plain gmm, one profiled
+    decode step, then 8 concurrent requests with B4a launched exactly 2 x
+    layers x (decode steps + prefill forwards) times."""
     import torch
 
     from luminaai_tpu_torch.config import ConfigPresets
@@ -2937,7 +2985,8 @@ def phase_serve_moe(dev, rpa_entry: dict, gmm_entries: list) -> dict:
     from luminaai_tpu_torch.ops import gmm as tg
     from luminaai_tpu_torch.ops import ragged_paged_attention as rpa
 
-    cfg = ConfigPresets.get("b1", moe_dispatch="gmm")
+    cfg = ConfigPresets.get("b1", moe_dispatch="gmm",
+                            num_layers=SERVE_MOE_LAYERS)
     t0 = time.perf_counter()
     engine = build_engine(cfg, device=dev, seed=0)
     torch.cuda.synchronize()
@@ -3103,7 +3152,8 @@ def phase_train_moe(dev, flash_entries: list, gmm_entries: list) -> dict:
     from luminaai_tpu_torch.parallel import train_step as ts
     from luminaai_tpu_torch.training.trainer import Trainer
 
-    cfg = Config(**FLAGSHIP, **FLAGSHIP_LEVERS, max_steps=TRAIN_STEPS,
+    cfg = Config(**{**FLAGSHIP, "num_layers": FLAGSHIP_TRAIN_LAYERS},
+                 **FLAGSHIP_LEVERS, max_steps=TRAIN_STEPS,
                  output_dir=str(RUN_DIR / "train_moe"))
     accum = cfg.gradient_accumulation_steps
     n_moe = cfg.num_moe_layers()
@@ -3240,6 +3290,17 @@ def _digest_in_background(model) -> dict:
     return out
 
 
+class _Sink:
+    """The record file of the command a runtime child is running."""
+    f = None
+
+    def write(self, text: str) -> None:
+        self.f.write(text)
+
+    def flush(self) -> None:
+        self.f.flush()
+
+
 def runtime_child(argv: list) -> int:
     """Run the port's CLI main on `argv` (after `--`), recording for each
     optimizer step the sha256 of its input_ids, its loss and grad norm and
@@ -3250,23 +3311,30 @@ def runtime_child(argv: list) -> int:
     commands are recorded too (_posttrain_hooks): each LoRA step, with
     --compare the first one also through the plain attention; the
     evaluation; and with --chat-checks the chat engine's kernel-vs-plain
-    first decode step, stream-vs-generate tokens and timings."""
+    first decode step, stream-vs-generate tokens and timings.
+
+    `--then REC ARGV...` after a command runs another in this process
+    once it has exited 0, recorded into REC (the launch counters, the
+    peak memory and the records reset between commands): commands in
+    sequence pay one process's start-up."""
     sep = argv.index("--")
     opts, cli_argv = argv[:sep], argv[sep + 1:]
-    record_path = Path(opts[0])
-    logits_path = Path(opts[opts.index("--logits") + 1]) if (
-        "--logits" in opts) else None
+    commands = [[opts[0]]]  # [record path, *argv] each
+    for a in cli_argv:
+        if a == "--then":
+            commands.append([])
+        else:
+            commands[-1].append(a)
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import numpy as np
     import torch
 
-    from luminaai_tpu_torch import cli, native
     from luminaai_tpu_torch.ops import flash_attention as fa
     from luminaai_tpu_torch.ops import gmm as tg
     from luminaai_tpu_torch.ops import ragged_paged_attention as rpa
     from luminaai_tpu_torch.training import trainer as tr
 
-    out = record_path.open("w")
+    out = _Sink()
     held = {}
     orig_init = tr.Trainer.__init__
 
@@ -3302,6 +3370,32 @@ def runtime_child(argv: list) -> int:
 
     tr.Trainer.__init__ = init
     _posttrain_hooks(out, held, opts, launches)
+    for record, *command in commands:
+        held.clear()
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        with open(record, "w") as out.f:
+            rc = _runtime_command(command, out, held, opts, launches)
+        if rc != 0:
+            break
+    return rc
+
+
+def _runtime_command(cli_argv: list, out, held: dict, opts: list,
+                     launches) -> int:
+    """One command of runtime_child: the CLI's main on cli_argv, then its
+    end record."""
+    import torch
+
+    from luminaai_tpu_torch import cli, native
+    from luminaai_tpu_torch.ops import flash_attention as fa
+    from luminaai_tpu_torch.ops import gmm as tg
+    from luminaai_tpu_torch.ops import ragged_paged_attention as rpa
+
+    logits_path = Path(opts[opts.index("--logits") + 1]) if (
+        "--logits" in opts) else None
     fa.reset_launches()
     tg.reset_launches()
     rpa.ragged_paged_attention.launches = 0
@@ -3537,6 +3631,8 @@ def _run_child(args: list, log_path: Path, timeout: float = 900,
                 proc.kill()
                 proc.wait()
     text = log_path.read_text()
+    log(f"  runtime child {' '.join(args[args.index('--') + 1:][:2])}: exit "
+        f"{rc} in {time.perf_counter() - t0:.1f} s")
     if preempt_after and not sent:
         raise AssertionError("run B never logged step "
                              f"{preempt_after}:\n{text[-3000:]}")
@@ -3596,20 +3692,30 @@ def phase_runtime(dev, rpa_entry: dict, flash_entries: list,
                 str(RUNTIME_STEPS), "--seed", "0", "--output-dir",
                 str(RUN_DIR / out)]
 
+    # Runs A and B side by side on the card (each its own process, output
+    # directory and token cache; the kernels hold no atomics, so a step's
+    # values do not depend on what else runs): A's step times are those
+    # of a shared card.
     runs = {}
-    t0 = time.perf_counter()
-    rc, _ = _run_child([str(RUN_DIR / "a.jsonl"), "--logits",
-                        str(RUN_DIR / "a_logits.pt"), "--", "train",
-                        *cli_args("A")], RUN_DIR / "a.log")
-    runs["A"] = (time.perf_counter() - t0, rc)
-    if rc != 0:
-        raise AssertionError(f"run A exited {rc}: "
+
+    def run_a():
+        t0 = time.perf_counter()
+        rc, _ = _run_child([str(RUN_DIR / "a.jsonl"), "--logits",
+                            str(RUN_DIR / "a_logits.pt"), "--", "train",
+                            *cli_args("A")], RUN_DIR / "a.log")
+        runs["A"] = (time.perf_counter() - t0, rc)
+
+    with ThreadPoolExecutor(1) as pool:
+        run_a_done = pool.submit(run_a)
+        t0 = time.perf_counter()
+        rc, text = _run_child([str(RUN_DIR / "b.jsonl"), "--", "train",
+                               *cli_args("B")], RUN_DIR / "b.log",
+                              preempt_after=PREEMPT_AFTER)
+        runs["B"] = (time.perf_counter() - t0, rc)
+        run_a_done.result()
+    if runs["A"][1] != 0:
+        raise AssertionError(f"run A exited {runs['A'][1]}: "
                              f"{(RUN_DIR / 'a.log').read_text()[-3000:]}")
-    t0 = time.perf_counter()
-    rc, text = _run_child([str(RUN_DIR / "b.jsonl"), "--", "train",
-                           *cli_args("B")], RUN_DIR / "b.log",
-                          preempt_after=PREEMPT_AFTER)
-    runs["B"] = (time.perf_counter() - t0, rc)
     if rc != 75:
         raise AssertionError(f"preempted run B exited {rc}, not 75: "
                              f"{text[-3000:]}")
@@ -3720,8 +3826,8 @@ def phase_runtime(dev, rpa_entry: dict, flash_entries: list,
     def split(g):
         return ", ".join(f"{c} {g[c]:.2f} s" for c in g if g[c] > 0)
 
-    log(f"runtime: run A step (steps 2-{RUNTIME_STEPS}, median) "
-        f"{step_s * 1e3:.1f} ms, {tokens / step_s:.0f} tokens/s; goodput "
+    log(f"runtime: run A step (steps 2-{RUNTIME_STEPS}, median, beside run "
+        f"B) {step_s * 1e3:.1f} ms, {tokens / step_s:.0f} tokens/s; goodput "
         f"of A: {split(gp)}; of the resume: {split(gp_r)}; wall A "
         f"{runs['A'][0]:.1f} s, B {runs['B'][0]:.1f} s, resume "
         f"{runs['resume'][0]:.1f} s")
@@ -3933,8 +4039,9 @@ def phase_posttrain(dev, rpa_entry: dict, flash_entries: list,
                     want: dict = POST_LAUNCHES,
                     eval_b1: int = EVAL_B1_PER_BATCH) -> dict:
     """Phase 9: the post-training path from phase 7's run A checkpoint,
-    every command through the CLI in a runtime child: `data sample` x 2 +
-    `data blend` (the blend equal to the same blend run here), `finetune`
+    every command through the CLI: `data sample` x 2 + `data blend` in
+    this process (the blend equal to the same blend run through the
+    pipeline here), then in one runtime child, in sequence: `finetune`
     (LoRA rank 8, POST_STEPS steps, --merge-out), `evaluate` of the base
     and of the merged checkpoint (the merged one equal to an in-memory
     merge evaluated here), `chat` with the adapter. `want` (the launches
@@ -3959,18 +4066,24 @@ def phase_posttrain(dev, rpa_entry: dict, flash_entries: list,
     post.mkdir(exist_ok=True)
     ckpt_a = RUN_DIR / "A" / "checkpoints"
 
-    # 1. Data: two shards and their blend, through the CLI.
+    # 1. Data: two shards and their blend, through the CLI's main in
+    # this process (host work only: a child's start-up is most of it).
+    def data(what: str, argv: list) -> None:
+        t0 = time.perf_counter()
+        rc = cli.main(["data", *argv])
+        log(f"  {what}: exit {rc} in {time.perf_counter() - t0:.1f} s")
+        if rc != 0:
+            raise AssertionError(f"{what} exited {rc}")
+
     for name, (_, count) in POST_SHARDS.items():
-        _post_child(f"data sample {name}", [
-            str(post / f"data_{name}.jsonl"), "--", "data", "sample",
-            "--out", str(post / name / f"{name}.jsonl"), "--count",
-            str(count)], post / f"data_{name}.log")
+        data(f"data sample {name}", [
+            "sample", "--out", str(post / name / f"{name}.jsonl"),
+            "--count", str(count)])
     blend = post / "blend.jsonl"
     sources = [f"{n}={w}={post / n}/*.jsonl"
                for n, (w, _) in POST_SHARDS.items()]
-    _post_child("data blend", [
-        str(post / "blend.rec.jsonl"), "--", "data", "blend", "--sources",
-        *sources, "--out", str(blend)], post / "blend.log")
+    data("data blend", ["blend", "--sources", *sources, "--out",
+                        str(blend)])
     it = MultiSourcePipeline(
         ConversationTokenizer(), {n: w for n, (w, _) in POST_SHARDS.items()}
     ).iter_blended({n: [str(post / n / f"{n}.jsonl")] for n in POST_SHARDS})
@@ -3982,16 +4095,27 @@ def phase_posttrain(dev, rpa_entry: dict, flash_entries: list,
         f"{ {str(k): n for k, n in it.per_source.items()} }, equal to the "
         "in-process blend")
 
-    # 2. finetune: LoRA on run A's fp32 weights, merged checkpoint out.
+    # 2-4 in one runtime child, in sequence: finetune (LoRA on run A's
+    # fp32 weights, merged checkpoint out), evaluate of the base and of the
+    # merged checkpoint, chat with the adapter (the REPL's one-shot
+    # --prompt).
     ft, merged = post / "ft", post / "merged"
     t0 = time.perf_counter()
-    _post_child("finetune", [
-        str(post / "ft.jsonl"), "--compare", "--", "finetune",
-        "--checkpoint", str(ckpt_a), "--data", str(blend), "--out", str(ft),
-        "--rank", str(POST_RANK), "--steps", str(POST_STEPS),
-        "--batch-size", "8", "--merge-out", str(merged), *dev_args],
-        post / "ft.log")
-    ft_wall = time.perf_counter() - t0
+    evaluate = [
+        arg for name, ckpt in (("base", ckpt_a), ("merged", merged))
+        for arg in ("--then", str(post / f"eval_{name}.jsonl"), "evaluate",
+                    "--checkpoint", str(ckpt), "--data", str(blend),
+                    "--max-batches", str(POST_EVAL_BATCHES), *dev_args)]
+    _post_child("finetune, evaluate x 2, chat", [
+        str(post / "ft.jsonl"), "--compare", "--chat-checks", "--",
+        "finetune", "--checkpoint", str(ckpt_a), "--data", str(blend),
+        "--out", str(ft), "--rank", str(POST_RANK), "--steps",
+        str(POST_STEPS), "--batch-size", "8", "--merge-out", str(merged),
+        *dev_args, *evaluate, "--then", str(post / "chat.jsonl"), "chat",
+        "--checkpoint", str(ckpt_a), "--adapter", str(ft / "adapter.npz"),
+        "--prompt", CHAT_PROMPT, "--temperature", "0", "--max-new-tokens",
+        str(CHAT_NEW_TOKENS), *dev_args], post / "post.log")
+    child_wall = time.perf_counter() - t0
     steps, ft_end = _lora_records(post / "ft.jsonl")
     _check_lora_run(steps, ft_end, POST_STEPS, want, "finetune",
                     compare=True)
@@ -4010,17 +4134,12 @@ def phase_posttrain(dev, rpa_entry: dict, flash_entries: list,
         f"{ft_end['lora_params'] / 1e6:.2f}M adapter params; step (steps "
         f"2-{POST_STEPS}, median) {step_ms:.1f} ms, "
         f"{tokens / step_ms * 1e3:.0f} tokens/s; peak memory {peak:.2f} "
-        f"GB; merged checkpoint verified, {merged_gb:.2f} GB; child wall "
-        f"{ft_wall:.1f} s")
+        f"GB; merged checkpoint verified, {merged_gb:.2f} GB; the child's "
+        f"wall (finetune, evaluate x 2, chat) {child_wall:.1f} s")
 
     # 3. evaluate the base and the merged checkpoint.
     evals = {}
-    for name, ckpt in (("base", ckpt_a), ("merged", merged)):
-        _post_child(f"evaluate {name}", [
-            str(post / f"eval_{name}.jsonl"), "--", "evaluate",
-            "--checkpoint", str(ckpt), "--data", str(blend),
-            "--max-batches", str(POST_EVAL_BATCHES), *dev_args],
-            post / f"eval_{name}.log")
+    for name in ("base", "merged"):
         ev = json.loads((post / f"eval_{name}.jsonl").read_text()
                         .splitlines()[-1])["eval"]
         evals[name] = ev
@@ -4063,12 +4182,7 @@ def phase_posttrain(dev, rpa_entry: dict, flash_entries: list,
         raise AssertionError("the merged checkpoint does not evaluate to "
                              "the in-memory merge")
 
-    # 4. chat with the adapter (the REPL's one-shot --prompt).
-    _post_child("chat", [
-        str(post / "chat.jsonl"), "--chat-checks", "--", "chat",
-        "--checkpoint", str(ckpt_a), "--adapter", str(ft / "adapter.npz"),
-        "--prompt", CHAT_PROMPT, "--temperature", "0", "--max-new-tokens",
-        str(CHAT_NEW_TOKENS), *dev_args], post / "chat.log")
+    # 4. chat with the adapter.
     end = json.loads((post / "chat.jsonl").read_text().splitlines()[-1])
     want_b5 = end["decode_forwards"] * end["num_layers"] if cuda else 0
     c = end["chat"]
@@ -4514,7 +4628,8 @@ TUNED_LEVERS = dict(remat_policy="save_attn", adam_mu_dtype="bf16")
 INT8_STEPS = 3
 HYBRID_STEPS = 3
 # The hybrid MoE+MoD model at debug_200m's widths: experts on every third
-# layer (2, 5, 8, 11), MoD on the others.
+# layer (2, 5, 8, 11 of the preset's 12; layer 2 of MOD_TRAIN_LAYERS), MoD
+# on the others.
 HYBRID = dict(use_moe=True, num_experts=8, moe_top_k=2, moe_dispatch="gmm",
               moe_pattern="every_3rd")
 
@@ -4584,18 +4699,19 @@ def _short_run(hist, steps: int, what: str, falling: bool = True) -> list:
 
 
 def phase_train_tuned(dev, entries: dict, moe_run) -> dict:
-    """Phase 11: bench.py's flagship_tuned (the flagship widths, gmm, bf16
-    RoPE, save_attn, bf16 Adam mu) trained TRAIN_STEPS steps through
-    Trainer; then INT8_STEPS steps with int8 Adam moments.
+    """Phase 11: bench.py's flagship_tuned (the flagship widths at
+    FLAGSHIP_TRAIN_LAYERS layers, gmm, bf16 RoPE, save_attn, bf16 Adam mu)
+    trained TRAIN_STEPS steps through Trainer; then INT8_STEPS steps with
+    int8 Adam moments.
 
     Launches per step (one micro-batch of 16 x 2048): B1 once per layer,
-    10, where phase 6's nothing_saveable re-runs it in the recompute (20):
+    where phase 6's nothing_saveable re-runs it in the recompute (twice):
     save_attn keeps B1's (O, lse) by name, as the JAX policy keeps
-    "flash_out" and "flash_lse". B2 = B3 = 10. The JAX policy keeps the
-    FFN branch's output ("ffn_out") but not its inside, so the backward of
-    each MoE layer recomputes its two expert products: B4a 2 forward + 2
-    recompute + 2 grad_lhs = 6 a layer, 60; B4b 2 a layer, 20 (phase 6's
-    counts)."""
+    "flash_out" and "flash_lse". B2 = B3 = once per layer. The JAX policy
+    keeps the FFN branch's output ("ffn_out") but not its inside, so the
+    backward of each MoE layer recomputes its two expert products: B4a 2
+    forward + 2 recompute + 2 grad_lhs = 6 a layer; B4b 2 a layer (phase
+    6's counts)."""
     import torch
 
     from luminaai_tpu_torch import cli
@@ -4607,7 +4723,8 @@ def phase_train_tuned(dev, entries: dict, moe_run) -> dict:
 
     smi = _smi()
     t_phase = time.perf_counter()
-    cfg = Config(**FLAGSHIP, **FLAGSHIP_LEVERS, **TUNED_LEVERS,
+    flagship = {**FLAGSHIP, "num_layers": FLAGSHIP_TRAIN_LAYERS}
+    cfg = Config(**flagship, **FLAGSHIP_LEVERS, **TUNED_LEVERS,
                  max_steps=TRAIN_STEPS, output_dir=str(RUN_DIR / "tuned"))
     trainer = Trainer(cfg, cli._synthetic_batches(cfg), device=dev, seed=0)
     n_moe, L = cfg.num_moe_layers(), cfg.num_layers
@@ -4655,7 +4772,7 @@ def phase_train_tuned(dev, entries: dict, moe_run) -> dict:
     del trainer, first
     _release()
 
-    cfg8 = Config(**FLAGSHIP, **FLAGSHIP_LEVERS, remat_policy="save_attn",
+    cfg8 = Config(**flagship, **FLAGSHIP_LEVERS, remat_policy="save_attn",
                   adam_state_quantization="int8", max_steps=INT8_STEPS,
                   output_dir=str(RUN_DIR / "tuned_int8"))
     trainer = Trainer(cfg8, cli._synthetic_batches(cfg8), device=dev,
@@ -4689,9 +4806,10 @@ def phase_mod(dev, entries: dict, rpa_entry: dict) -> dict:
     attention; HYBRID_STEPS steps of the hybrid MoE+MoD model at the same
     widths, its first step against the plain attention and gmm; then `serve --preset debug_200m` in process, 8 requests.
 
-    Launches per step (accumulation 4 of 8 x 2048, 12 layers, remat per
-    block): B1 2 x 12 x 4 = 96 (forward + recompute), B2 = B3 = 48; the
-    hybrid's 4 MoE layers add B4a 6 x 4 x 4 = 96 and B4b 2 x 4 x 4 = 32.
+    Launches per step (accumulation 4 of 8 x 2048, MOD_TRAIN_LAYERS = 3
+    layers, remat per block): B1 2 x 3 x 4 = 24 (forward + recompute), B2
+    = B3 = 12; the hybrid's MoE layer (every third: layer 2) adds B4a 6 x
+    1 x 4 = 24 and B4b 2 x 1 x 4 = 8.
     The profiler must name WGMMA_KERNELS (all three on wgmma)."""
     import torch
 
@@ -4705,6 +4823,7 @@ def phase_mod(dev, entries: dict, rpa_entry: dict) -> dict:
     smi = _smi()
     t_phase = time.perf_counter()
     cfg = ConfigPresets.get("debug_200m", max_steps=TRAIN_STEPS,
+                            num_layers=MOD_TRAIN_LAYERS,
                             output_dir=str(RUN_DIR / "mod"))
     accum, L = cfg.gradient_accumulation_steps, cfg.num_layers
     trainer = Trainer(cfg, cli._synthetic_batches(cfg), device=dev, seed=0)
@@ -4784,6 +4903,7 @@ def phase_mod(dev, entries: dict, rpa_entry: dict) -> dict:
     _release()
 
     hcfg = ConfigPresets.get("debug_200m", **HYBRID, max_steps=HYBRID_STEPS,
+                             num_layers=MOD_TRAIN_LAYERS,
                              output_dir=str(RUN_DIR / "hybrid"))
     trainer = Trainer(hcfg, cli._synthetic_batches(hcfg), device=dev, seed=0)
     n_moe = hcfg.num_moe_layers()
@@ -5045,15 +5165,9 @@ def phase_fleet(dev, rpa_entry: dict) -> dict:
         code, _, health = _call(router_url, "/healthz")
         if code != 200 or health.get("status") != "ok":
             raise AssertionError(f"router /healthz: {code} {health}")
-        top = subprocess.run(
-            [sys.executable, "-m", "luminaai_tpu_torch", "top", "--url",
-             router_url, "--once", *dev_args],
-            cwd=str(Path(__file__).resolve().parent), capture_output=True,
-            text=True, timeout=120)
-        if top.returncode != 0 or "fleet — ok (2/2 available" not in (
-                top.stdout):
-            raise AssertionError(f"top over the router: {top.returncode} "
-                                 f"{top.stdout[-800:]} {top.stderr[-800:]}")
+        rc, top = _top_once(router_url, *dev_args)
+        if rc != 0 or "fleet — ok (2/2 available" not in top:
+            raise AssertionError(f"top over the router: {rc} {top[-800:]}")
         names = [x["replica"] for x in fleet["replicas"]]
         log(f"router: /healthz ok, /fleet {names} closed and ok after "
             f"{up_s:.1f}s; top rendered the fleet table")
@@ -6067,8 +6181,8 @@ def phase_mesh(dev, flash_entries: list, gmm_entries: list,
     p6 = moe_run or {}
     log(f"  losses {losses}; sharded step {step_ms:.1f} ms (steps "
         f"2-{MESH_STEPS}, median) vs the unsharded Trainer's second step "
-        f"{plain['step2_ms']:.1f} ms at the same depth (phase 6, 10 "
-        f"layers: {p6.get('step_ms_median', float('nan')):.1f} ms); peak "
+        f"{plain['step2_ms']:.1f} ms at the same depth (phase 6, "
+        f"{FLAGSHIP_TRAIN_LAYERS} layers: {p6.get('step_ms_median', float('nan')):.1f} ms); peak "
         f"memory {rec['peak_gb']:.2f} GB vs {plain['peak_gb']:.2f} GB "
         f"unsharded (phase 6: {p6.get('peak_memory_gb', float('nan')):.2f}"
         f" GB)")
@@ -7439,10 +7553,170 @@ def phase_vocab(dev, entries: dict, kernels: bool = True) -> dict:
     return out
 
 
+# Phase 21 (bench): the headline rung's layers and timed steps, and the
+# seconds each harness child may take.
+BENCH_LAYERS, BENCH_STEPS = 2, 20
+BENCH_CHILD_TIMEOUT = 120
+# The rung child's budget: past 75% of it the steady-routing window stops
+# and past 85% the counted-cost and profiled steps are skipped
+# (bench_torch.py), so (a) keeps the timed window and its checks within
+# ~25 s; (b) runs them all.
+BENCH_RUNG_BUDGET = 14
+# Under --only bench: (label, argv after `python3`, timeout s).
+BENCH_FULL = (
+    ("ladder", ["-m", "luminaai_tpu_torch", "benchmark"], 2400),
+    ("ops", ["-m", "luminaai_tpu_torch", "benchmark", "--ops"], 1200),
+    ("flagship", ["bench_torch.py", "--child", "flagship"], 900),
+    ("flagship_small", ["bench_torch.py", "--child", "flagship_small"], 600),
+    ("serve", ["bench_torch.py", "--serve-bench"], 600),
+    ("router", ["bench_torch.py", "--router-bench"], 600),
+    ("smoke", ["bench_torch.py", "--smoke"], 600),
+)
+
+
+def _json_lines(text: str) -> list:
+    out = []
+    for line in text.splitlines():
+        if line.strip().startswith("{"):
+            try:
+                out.append(json.loads(line))
+            except json.JSONDecodeError:
+                pass
+    return out
+
+
+def _bench_proc(argv: list, env: dict = None) -> subprocess.Popen:
+    repo = Path(__file__).resolve().parent
+    return subprocess.Popen([sys.executable, *argv], cwd=repo,
+                            env={**os.environ, **(env or {})},
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _bench_wait(proc, label: str, timeout: float) -> tuple:
+    """(stdout, stderr) of a harness child; its exit code must be 0."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"bench {label}: no end within {timeout} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"bench {label}: exit {proc.returncode}: "
+                             f"{err[-1500:]}")
+    return out, err
+
+
+def _bench_route(last: dict, profiled: list, label: str) -> None:
+    """The flash kernels a child's library recorded last must be the wgmma
+    ones at head_dim 64; where the child's profiler named flash kernels,
+    each recorded one must be among them (flash_taken's rule)."""
+    for kern, want in flash_kernels(64).items():
+        got = last.get(kern, "")
+        if not got.startswith(want):
+            raise AssertionError(f"bench {label}: {kern} last launched "
+                                 f"{got!r}, want {want}")
+        if profiled and got not in profiled:
+            raise AssertionError(f"bench {label}: the profiler named "
+                                 f"{profiled}, the library recorded {got}")
+
+
+def _bench_ops_check(table: dict, card: str) -> dict:
+    """The attention suite of an op-table line: rows on this card, its
+    agreement check within its tolerance, the wgmma kernels last."""
+    check = table.get("checks", {}).get("attention", {})
+    rows = {r["op"]: r["ms"] for r in table.get("results", [])
+            if r.get("suite", "attention") == "attention"}
+    log(f"bench attention suite: {rows}; agreement {check}; last flash "
+        f"{table.get('flash_last_kernel')}")
+    if (table.get("device") != card or not rows or not check
+            or max(check["max_rel_err"].values()) > check["tolerance"]):
+        raise AssertionError(f"bench: bad op-table line {json.dumps(table)}")
+    _bench_route(table.get("flash_last_kernel", {}), [], "ops attention")
+    return rows
+
+
+def phase_bench(dev, entries: dict, full: bool) -> dict:
+    """Phase 21: bench_torch.py's headline rung as a child on the card (a);
+    under --only bench the whole harness (b), the op table's attention
+    suite checked. Launches are the child's own counters."""
+    import torch
+
+    smi = _smi()
+    card = torch.cuda.get_device_name(0)
+    t_phase = time.perf_counter()
+    rung = _bench_proc(["bench_torch.py", "--child", "ref_debug_moe"],
+                       {"BENCH_CHILD_BUDGET_S": str(BENCH_RUNG_BUDGET)})
+    out_r, _ = _bench_wait(rung, "ref_debug_moe", BENCH_CHILD_TIMEOUT)
+    lines = _json_lines(out_r)
+    if len(lines) != 1:
+        raise AssertionError(f"bench: want one JSON line, got {len(lines)}")
+    res = lines[0]
+    ex = res.get("extras", {})
+    n = BENCH_LAYERS * BENCH_STEPS
+    want = {"B1": n, "B2": n, "B3": n, "B4a": 0, "B4b": 0}
+    log(f"bench (a) ref_debug_moe: {res.get('value')} tokens/s "
+        f"(vs_baseline {res.get('vs_baseline')}), step {ex.get('step_ms')} "
+        f"ms, loss {ex.get('loss')}, mfu {ex.get('mfu')}, compile_s "
+        f"{ex.get('compile_s')}, launches {ex.get('launches')} (want "
+        f"{want}), last flash {ex.get('flash_last_kernel')}, profiled "
+        f"{ex.get('profiled_flash_kernels')}, card {ex.get('card')}")
+    if not (res.get("metric") == "train_tokens_per_sec_per_chip_moe8x2"
+            and res.get("value", 0) > 0
+            and math.isfinite(ex.get("loss", math.nan))
+            and ex.get("config") == "ref_debug_moe"
+            and ex.get("device") == card
+            and str(ex.get("card", "")).startswith(card)
+            and ex.get("steps") == BENCH_STEPS
+            and ex.get("layers") == BENCH_LAYERS):
+        raise AssertionError(f"bench: bad headline line {json.dumps(res)}")
+    if ex.get("launches") != want:
+        raise AssertionError("bench: the rung's timed window did not launch "
+                             "B1-B3 exactly layers x steps times")
+    _bench_route(ex.get("flash_last_kernel", {}),
+                 ex.get("profiled_flash_kernels", []), "ref_debug_moe")
+    _add_launches(entries, ex["launches"], "launches_bench")
+    out = {"ref_debug_moe": {k: ex.get(k) for k in (
+        "step_ms", "mfu", "compile_s", "launches")},
+        "tokens_per_sec": res["value"]}
+    out["wall_a_s"] = time.perf_counter() - t_phase
+    log(f"bench (a): {out['wall_a_s']:.1f} s ({smi})")
+    if full:
+        for label, argv, timeout in BENCH_FULL:
+            t0 = time.perf_counter()
+            proc = _bench_proc(argv)
+            try:
+                stdout, stderr = proc.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                stdout, stderr = proc.communicate()
+            secs = time.perf_counter() - t0
+            for line in stdout.splitlines():
+                log(f"bench (b) {label}: {line}")
+            if proc.returncode != 0:
+                log(f"bench (b) {label}: stderr {stderr[-2000:]}")
+            if proc.returncode != 0 or not _json_lines(stdout):
+                raise AssertionError(f"bench (b) {label}: exit "
+                                     f"{proc.returncode}")
+            log(f"bench (b) {label}: exit 0 in {secs:.1f} s")
+            if label == "ops":
+                out["attention_ms"] = _bench_ops_check(
+                    _json_lines(stdout)[-1], card)
+            if label == "ladder":  # its sidecars, written beside the script
+                for name in ("DENSE_BENCH.json", "REF_TABLE.json"):
+                    path = Path(__file__).resolve().parent / (
+                        "bench_torch_out") / name
+                    log(f"bench (b) {name}: "
+                        + json.dumps(json.loads(path.read_text())))
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"bench: phase wall {out['wall_s']:.1f} s ({smi})")
+    return out
+
+
 ALL_PHASES = ("serve", "plane", "serve_moe", "train", "train_moe",
               "runtime", "posttrain", "adaptive", "posttrain_moe",
               "train_tuned", "mod", "fleet", "quant", "mesh", "pipe",
-              "groups", "a7", "a8", "vocab")
+              "groups", "a7", "a8", "vocab", "bench")
 PHASES = set(ALL_PHASES)
 
 
@@ -7462,6 +7736,31 @@ def main() -> int:
         print("chip_smoke: luminaai_tpu_torch is not beside this script",
               file=sys.stderr)
         return 2
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    RUN_DIR.mkdir()
+    try:
+        return _main(repo)
+    finally:
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
+
+
+def _bytecode_cache() -> None:
+    """Compiled bytecode for this run's processes, under RUN_DIR. Where
+    the interpreter is told to write none (PYTHONDONTWRITEBYTECODE), each
+    child process compiles torch's modules from source again, for `import
+    torch` and for the torch._dynamo import that the first
+    torch.utils.checkpoint call makes (it reads torch._dynamo.config), so
+    every training child pays both. Set before the first import of torch;
+    every child inherits it."""
+    prefix = str(RUN_DIR / "pycache")
+    sys.pycache_prefix = prefix
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+
+
+def _main(repo: Path) -> int:
+    _bytecode_cache()
     import torch
 
     if not torch.cuda.is_available():
@@ -7477,8 +7776,6 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    shutil.rmtree(RUN_DIR, ignore_errors=True)
-    RUN_DIR.mkdir()
     partial = PHASES != set(ALL_PHASES)
     done = {}
     try:
@@ -7563,6 +7860,9 @@ def main() -> int:
             _release()
         if "vocab" in PHASES:
             done["vocab"] = phase_vocab(dev, by_kernel)
+            _release()
+        if "bench" in PHASES:
+            done["bench"] = phase_bench(dev, by_kernel, partial)
             _release()
         if "fleet" in PHASES:
             done["fleet"] = phase_fleet(dev, entry)

@@ -1,6 +1,7 @@
 """Command line of the port: `python -m luminaai_tpu_torch` with the
 subcommands serve, route, top, train, resume, data, finetune, evaluate,
-chat, convert, report, diagnose, events, verify-checkpoint and presets.
+chat, convert, report, diagnose, events, analyze, benchmark,
+verify-checkpoint and presets.
 
   python -m luminaai_tpu_torch train --preset b1 --dense \\
       --data corpus.jsonl --packed --steps 1000 --output-dir runs/b1
@@ -36,6 +37,8 @@ chat, convert, report, diagnose, events, verify-checkpoint and presets.
   python -m luminaai_tpu_torch events --stats runs/b1/checkpoints
   python -m luminaai_tpu_torch data acquire --in oasst_dump.jsonl \\
       --out data/oasst
+  python -m luminaai_tpu_torch benchmark          # bench_torch.py, the card
+  python -m luminaai_tpu_torch benchmark --ops    # bench_ops_torch.py
 
 The presets are mixture-of-experts models, as in the JAX package; --dense
 builds the preset's widths without experts. The model is built on the card
@@ -681,6 +684,11 @@ def _parser() -> argparse.ArgumentParser:
                     help="write current unwaived findings as a baseline")
     an.add_argument("--no-audit", action="store_true",
                     help="skip the dispatch auditors (lint only)")
+
+    b = sub.add_parser("benchmark", help="run the bench harness")
+    b.add_argument("--ops", action="store_true",
+                   help="op-level microbenchmarks instead of train "
+                        "throughput")
 
     ev = sub.add_parser(
         "events",
@@ -2274,8 +2282,24 @@ def analyze(args) -> int:
     return exit_code
 
 
+def benchmark(args) -> int:
+    """Run the port's bench harness (JAX cli.py:433 cmd_benchmark):
+    bench_torch.py, or bench_ops_torch.py with --ops, beside the package,
+    in a subprocess; its exit code is returned (2 when it is missing).
+    Either prints one JSON line, measured on the card."""
+    import subprocess
+
+    root = Path(__file__).resolve().parent.parent
+    bench = root / ("bench_ops_torch.py" if args.ops else "bench_torch.py")
+    if not bench.exists():
+        print(f"benchmark harness not found: {bench}", file=sys.stderr)
+        return 2
+    return subprocess.call([sys.executable, str(bench)])
+
+
 COMMANDS = {
     "analyze": analyze,
+    "benchmark": benchmark,
     "serve": serve,
     "route": route,
     "top": top,

@@ -2,7 +2,10 @@
 
 - Every Python file of luminaai_tpu_torch/ and chip_smoke.py is scanned
   (AST) for imports of jax, flax, orbax or the luminaai_tpu package
-  (luminaai_tpu_torch itself is allowed).
+  (luminaai_tpu_torch itself is allowed); so are the port's bench scripts
+  (bench_torch.py, bench_ops_torch.py, bench_common_torch.py), and
+  neither they nor the package nor chip_smoke.py import the JAX
+  package's harness (bench.py, bench_ops.py, bench_common.py).
 - Importing every module of the port in a fresh interpreter leaves jax
   and luminaai_tpu out of sys.modules.
 - Entry points called without a device mean the card: where CUDA is
@@ -45,23 +48,63 @@ def _forbidden(name: str) -> bool:
     return name.split(".")[0] in FORBIDDEN
 
 
-@pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
-def test_no_jax_or_luminaai_tpu_imports(path):
+def _imported(path) -> list:
+    """Every absolute module name a file imports (import, from-import,
+    importlib.import_module / __import__ of a constant)."""
     tree = ast.parse(path.read_text(), filename=str(path))
-    bad = []
+    names = []
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            bad += [a.name for a in node.names if _forbidden(a.name)]
+            names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            if _forbidden(node.module or ""):
-                bad.append(node.module)
+            names.append(node.module or "")
         elif isinstance(node, ast.Call) and getattr(
             node.func, "attr", getattr(node.func, "id", "")
         ) in ("import_module", "__import__"):
-            bad += [a.value for a in node.args
-                    if isinstance(a, ast.Constant)
-                    and isinstance(a.value, str) and _forbidden(a.value)]
+            names += [a.value for a in node.args
+                      if isinstance(a, ast.Constant)
+                      and isinstance(a.value, str)]
+    return names
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
+def test_no_jax_or_luminaai_tpu_imports(path):
+    bad = [n for n in _imported(path) if _forbidden(n)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+# The port's bench harness at the repo root: held to the package's rule,
+# and, with the package and chip_smoke.py, importing nothing of the JAX
+# package's harness.
+BENCH_SCRIPTS = ("bench_torch.py", "bench_ops_torch.py",
+                 "bench_common_torch.py")
+JAX_HARNESS = ("bench", "bench_ops", "bench_common")
+
+
+@pytest.mark.parametrize(
+    "path", [ROOT / s for s in BENCH_SCRIPTS] + _port_files(),
+    ids=lambda p: p.name)
+def test_no_jax_or_jax_harness_imports(path):
+    bad = [n for n in _imported(path)
+           if _forbidden(n) or n.split(".")[0] in JAX_HARNESS]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_the_bench_scripts_loads_no_jax():
+    mods = [s.removesuffix(".py") for s in BENCH_SCRIPTS]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + JAX_HARNESS!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 # The training runtime's modules (utils, monitoring, native, data,
